@@ -1,0 +1,91 @@
+"""The port stands alone: paddle_tpu_torch and chip_smoke.py import
+neither JAX nor the reference package, and the port's entry points run
+on the card unless the caller asks for the CPU.
+
+The import checks run in a subprocess, because tests/conftest.py has
+already imported JAX and paddle_tpu into this one.
+"""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, 'paddle_tpu_torch')
+FORBIDDEN = ('jax', 'jaxlib', 'paddle_tpu')
+
+
+def _sources():
+    paths = [os.path.join(REPO, 'chip_smoke.py')]
+    for root, _, files in os.walk(PKG):
+        paths.extend(os.path.join(root, f) for f in files
+                     if f.endswith('.py'))
+    return sorted(paths)
+
+
+def _forbidden(module):
+    top = module.split('.')[0]
+    return top in FORBIDDEN
+
+
+def test_import_leaves_jax_and_reference_unloaded():
+    code = (
+        "import sys\n"
+        "import paddle_tpu_torch\n"
+        "import paddle_tpu_torch.inference.decode\n"
+        "import paddle_tpu_torch.models.transformer\n"
+        "import paddle_tpu_torch.ops.kernels.build\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'paddle_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = dict(os.environ)
+    env.pop('PYTHONPATH', None)
+    res = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == 'clean'
+
+
+@pytest.mark.parametrize('path', _sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_source_imports_jax_or_reference(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, "%s:%d imports %s" % (path, node.lineno, bad)
+
+
+def test_entry_points_default_to_the_card():
+    """device=None means CUDA: without a card it raises instead of
+    running on the CPU; device='cpu' is the only way to the CPU."""
+    from paddle_tpu_torch.core.place import default_place
+    from paddle_tpu_torch.inference.decode import DecodeEngine
+    from paddle_tpu_torch.models.transformer import (TransformerConfig,
+                                                     init_params)
+    cfg = TransformerConfig(16, 16, 1, 8, 2)
+    params = init_params(cfg, torch.Generator().manual_seed(0), 'cpu')
+    if torch.cuda.is_available():
+        assert default_place() == torch.device('cuda', 0)
+        eng = DecodeEngine(params, 1, 2, page_size=8, max_streams=2)
+        assert eng.device.type == 'cuda'
+        return
+    for make in (default_place,
+                 lambda: DecodeEngine(params, 1, 2, page_size=8,
+                                      max_streams=2),
+                 lambda: init_params(cfg, torch.Generator())):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            make()
+    eng = DecodeEngine(params, 1, 2, page_size=8, max_streams=2,
+                       device='cpu')
+    assert eng.cache.k.device.type == 'cpu'
