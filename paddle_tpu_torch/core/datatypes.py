@@ -1,13 +1,18 @@
 """Dtype names mapped to torch.
 
 Reference parity: paddle_tpu/core/datatypes.py (paddle/framework/
-data_type.h dtype strings), cut to the names the decode engine uses.
+data_type.h dtype strings), cut to the names the decode engine and the
+transformer's training program use.
 """
 import torch
 
-__all__ = ['convert_dtype', 'as_torch_dtype', 'itemsize']
+__all__ = ['convert_dtype', 'as_torch_dtype', 'itemsize', 'is_float_dtype']
 
 _STR2TORCH = {
+    'bool': torch.bool,
+    'uint8': torch.uint8,
+    'int8': torch.int8,
+    'int16': torch.int16,
     'float16': torch.float16,
     'bfloat16': torch.bfloat16,
     'float32': torch.float32,
@@ -49,3 +54,7 @@ def as_torch_dtype(dtype):
 def itemsize(dtype):
     """Bytes per element."""
     return torch.empty((), dtype=as_torch_dtype(dtype)).element_size()
+
+
+def is_float_dtype(dtype):
+    return as_torch_dtype(dtype).is_floating_point

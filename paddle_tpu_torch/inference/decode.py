@@ -48,8 +48,8 @@ from ..ops.kernels import build as _build
 from ..transpiler.memory_model import page_pool_bytes, prefix_cached_bytes
 
 __all__ = ['DecodeEngine', 'DecodeServer', 'DecodeStream',
-           'params_from_numpy', 'decode_buckets', 'PrefixCache',
-           'PagedKVCache', 'PromptTooLongError']
+           'params_from_numpy', 'extract_params', 'decode_buckets',
+           'PrefixCache', 'PagedKVCache', 'PromptTooLongError']
 
 _server_seq = itertools.count()
 
@@ -67,6 +67,15 @@ def params_from_numpy(np_params, device=None):
     device = resolve_device(device)
     return {n: torch.from_numpy(np.array(a, copy=True)).to(device)
             for n, a in np_params.items()}
+
+
+def extract_params(scope, n_layers):
+    """The transformer's fixed-name ``tr_*`` parameters of a scope
+    (models/transformer.py ``param_names``) as ``{name: tensor}``: the
+    engine serves the weights a training run left there, on the device
+    they lie on."""
+    from ..models.transformer import param_names
+    return {n: scope.get(n) for n in param_names(n_layers)}
 
 
 def decode_buckets(page_size, top):

@@ -1,14 +1,19 @@
-"""Attention ops of the decode path.
+"""Attention ops of the decode and training paths.
 
 Reference parity: paddle_tpu/ops/attention.py.  ``flash_attention`` is
-the op body: CUDA tensors run the hand-written kernel
-(ops/kernels/flash_attention.py), CPU tensors run the dense math
-``_dense_attention``, as the reference runs off the accelerator.  The
+the body of the ``flash_attention`` op, through ops/kernels/
+flash_attention.py: CUDA tensors run the hand-written forward and
+backward kernels, CPU tensors their plain versions (``_plain_forward`` /
+``_plain_backward``), so a CPU run computes exactly what the kernels are
+held to.  ``_dense_attention`` is the reference op's off-accelerator
+math; here it serves build-time shape inference on meta tensors.  The
 paged and chunked-prefill attention are plain PyTorch, because the
 reference computes them outside any Pallas kernel.
 """
 import torch
 
+from ..core.registry import register_op
+from .common import first, out
 from .kernels import flash_attention as _fa
 
 __all__ = ['flash_attention', 'paged_attention_math',
@@ -37,13 +42,14 @@ def _dense_attention(q, k, v, causal, scale):
 
 
 def flash_attention(q, k, v, causal=False, scale=None):
-    """The flash_attention op over [B, T, H, D] (or [B, T, D]) tensors,
-    dispatched by the tensors' device: CUDA launches the kernel, the CPU
-    runs ``_dense_attention``.  The result has q's dtype."""
-    if q.is_cuda:
-        y = _fa.flash_attention(q, k, v, causal=causal, scale=scale)
-    else:
+    """Flash attention over [B, T, H, D] (or [B, T, D]) tensors,
+    dispatched by the tensors' device: CUDA launches the kernels, the CPU
+    runs their plain versions.  The result has q's dtype; it is
+    differentiable either way."""
+    if q.device.type == 'meta':
         y = _dense_attention(q, k, v, causal, scale)
+    else:
+        y = _fa.flash_attention(q, k, v, causal=causal, scale=scale)
     return y.to(q.dtype)
 
 
@@ -103,3 +109,13 @@ def chunked_prefill_attention_math(q, k_pool, v_pool, page_table, pos0,
     probs = torch.softmax(scores, dim=-1)
     o = torch.einsum('cht,thd->chd', probs, v.float())
     return o.to(q.dtype)
+
+
+@register_op('flash_attention')
+def _flash_attention_op(ctx, ins, attrs):
+    # the reference's tile attrs (block_q, block_k, pallas_interpret)
+    # have no meaning here: the kernels' tiles are fixed in their sources
+    return out(flash_attention(first(ins, 'Q'), first(ins, 'K'),
+                               first(ins, 'V'),
+                               causal=attrs.get('causal', False),
+                               scale=attrs.get('scale', None)))

@@ -17,7 +17,8 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ['load', 'BUILD_DIR', 'NVCC_FLAGS', 'builds', 'build_log']
+__all__ = ['load', 'load_all', 'BUILD_DIR', 'NVCC_FLAGS', 'builds',
+           'build_log']
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -46,30 +47,49 @@ def _nvcc():
     return nvcc
 
 
-def load(name):
-    """The ctypes library of ``csrc/<name>.cu``, compiled on first use."""
+def _so_path(name):
+    src = os.path.join(CSRC_DIR, name + '.cu')
+    with open(src, 'rb') as f:
+        digest = hashlib.sha256(
+            f.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return src, os.path.join(BUILD_DIR, 'lib%s-%s.so' % (name, digest))
+
+
+def load_all(names):
+    """{name: ctypes library} of ``csrc/<name>.cu`` for each name; the
+    sources not built yet compile in parallel, one nvcc each."""
     global builds
     with _lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        src = os.path.join(CSRC_DIR, name + '.cu')
-        with open(src, 'rb') as f:
-            digest = hashlib.sha256(
-                f.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = os.path.join(BUILD_DIR, 'lib%s-%s.so' % (name, digest))
-        log = ''
-        if not os.path.exists(so):
+        todo = [n for n in names if n not in _libs]
+        paths = {n: _so_path(n) for n in todo}
+        procs = {}
+        for n in todo:
+            src, so = paths[n]
+            if os.path.exists(so):
+                continue
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = '%s.%d.tmp' % (so, os.getpid())
-            res = subprocess.run([_nvcc()] + NVCC_FLAGS + ['-o', tmp, src],
-                                 capture_output=True, text=True)
-            log = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError("nvcc failed on %s:\n%s" % (src, log))
-            os.replace(tmp, so)   # atomic: a concurrent loader sees all
-        lib = ctypes.CDLL(so)
-        build_log[name] = log
-        builds += 1
-        _libs[name] = lib
-        return lib
+            procs[n] = (tmp, subprocess.Popen(
+                [_nvcc()] + NVCC_FLAGS + ['-o', tmp, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs, failed = {}, []
+        for n, (tmp, proc) in procs.items():
+            logs[n] = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(n)
+            else:
+                os.replace(tmp, paths[n][1])   # atomic for a concurrent loader
+        if failed:
+            raise RuntimeError("nvcc failed on %s:\n%s" % (
+                ', '.join(paths[n][0] for n in failed),
+                '\n'.join(logs[n] for n in failed)))
+        for n in todo:
+            _libs[n] = ctypes.CDLL(paths[n][1])
+            build_log[n] = logs.get(n, '')
+            builds += 1
+        return {n: _libs[n] for n in names}
+
+
+def load(name):
+    """The ctypes library of ``csrc/<name>.cu``, compiled on first use."""
+    return load_all([name])[name]

@@ -71,8 +71,9 @@ def test_chunked_prefill_attention_matches_reference(pos0, c):
 @pytest.mark.parametrize('causal', [True, False])
 @pytest.mark.parametrize('shape', [(2, 9, 3, 8), (2, 9, 8)])
 def test_dense_and_flash_op_match_reference(causal, shape):
-    """The op body on CPU tensors runs ``_dense_attention``, as the
-    reference's op does off the accelerator; no kernel launches."""
+    """``_dense_attention`` matches the reference's off-accelerator op
+    math, and the op body on CPU tensors (the kernels' plain versions)
+    matches it too; no kernel launches."""
     rng = np.random.default_rng(17)
     q, k, v = (rng.standard_normal(shape).astype(np.float32)
                for _ in range(3))

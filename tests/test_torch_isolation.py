@@ -38,6 +38,12 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import paddle_tpu_torch.inference.decode\n"
         "import paddle_tpu_torch.models.transformer\n"
         "import paddle_tpu_torch.ops.kernels.build\n"
+        "import paddle_tpu_torch.ops.kernels.dense_update\n"
+        "import paddle_tpu_torch.ops.kernels.flash_attention\n"
+        "import paddle_tpu_torch.core.executor\n"
+        "import paddle_tpu_torch.core.infer\n"
+        "import paddle_tpu_torch.optimizer\n"
+        "import paddle_tpu_torch.nets\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "assert not bad, bad\n"
@@ -69,6 +75,7 @@ def test_no_source_imports_jax_or_reference(path):
 def test_entry_points_default_to_the_card():
     """device=None means CUDA: without a card it raises instead of
     running on the CPU; device='cpu' is the only way to the CPU."""
+    from paddle_tpu_torch import Executor
     from paddle_tpu_torch.core.place import default_place
     from paddle_tpu_torch.inference.decode import DecodeEngine
     from paddle_tpu_torch.models.transformer import (TransformerConfig,
@@ -79,13 +86,17 @@ def test_entry_points_default_to_the_card():
         assert default_place() == torch.device('cuda', 0)
         eng = DecodeEngine(params, 1, 2, page_size=8, max_streams=2)
         assert eng.device.type == 'cuda'
+        assert Executor().place == torch.device('cuda', 0)
         return
     for make in (default_place,
                  lambda: DecodeEngine(params, 1, 2, page_size=8,
                                       max_streams=2),
-                 lambda: init_params(cfg, torch.Generator())):
+                 lambda: init_params(cfg, torch.Generator()),
+                 Executor,
+                 lambda: Executor(None)):
         with pytest.raises(RuntimeError, match='no CUDA device'):
             make()
     eng = DecodeEngine(params, 1, 2, page_size=8, max_streams=2,
                        device='cpu')
     assert eng.cache.k.device.type == 'cpu'
+    assert Executor('cpu').place == torch.device('cpu')
