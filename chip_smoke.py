@@ -54,8 +54,36 @@ line:
    logits against the port's ``build_logits`` program run by the
    Executor.
 12. profile: a traced training step, device time by kernel and idle share.
-13. a ``{"kernels": [...]}`` line, the card's line, and last
-   ``{"ok": true, "device": {...}}``.
+13. LSTM forward (#7) and backward (#8) vs their plain versions on the
+   card: the LM's training shape (T=128, B=256, H=256), the sentiment
+   net's (T=120, B=32, H=128), no peepholes, a batch that is not a
+   multiple of the kernels' 8-row tile, the cell's cotangent present and
+   absent, and a ragged, reversed batch through the ``lstm`` op (card
+   against CPU, outputs and the grads of Input, Weight and Bias).  The
+   backward's inputs come from the plain forward.  At the LM shape both
+   kernels and their plain versions are timed in device time, and the
+   layer pair fc + lstm without peepholes is timed against
+   ``torch.nn.LSTM`` (cuDNN; a yardstick only, which the port never
+   calls, and not the kernels' function: it has no peepholes).
+14. LM training at full width (benchmarks/bench_lstm_lm.py's float32
+   config: B=256, T=128, V=10000, E=128, H=256, L=2, Adagrad lr 0.1)
+   through the port's layers, optimizer and Executor: a warm-up step and
+   8 timed steps on one seeded batch of Zipf-distributed token ids (the
+   repo's synthetic text) with full lengths, then more steps on it to 24
+   in all (Adagrad at lr 0.1 spikes the loss first); the loss must be
+   finite at every step and the last below the first, and each step must
+   launch #7 and #8 twice each.  Counts are set to 0 just before.
+15. LM parity at B=4 with ragged lengths: one step on the card (kernels)
+   against the same program and state on the CPU (plain versions): the
+   loss, every gradient, and Adagrad's moment and update.
+16. sentiment: ``stacked_lstm_net`` at its widths (emb 128, hid 512, 3
+   layers, the middle one reversed), V=5148, batch 32 with ragged lengths
+   8-120, a warm-up step and 4 timed Adagrad steps; finite losses and 3
+   launches each of #7 and #8 per step.  Counts are set to 0 just before.
+17. profile: a traced LM training step, device time by kernel and idle
+   share.
+18. a ``{"kernels": [...]}`` line (five kernels, each with its launches by
+   path), the card's line, and last ``{"ok": true, "device": {...}}``.
 """
 import json
 import os
@@ -74,12 +102,15 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import paddle_tpu_torch as tfl  # noqa: E402
 from paddle_tpu_torch.inference.decode import (  # noqa: E402
     DecodeEngine, DecodeServer, _forward, extract_params)
+from paddle_tpu_torch.core.registry import get_op_impl  # noqa: E402
+from paddle_tpu_torch.models import rnn_lm, sentiment  # noqa: E402
 from paddle_tpu_torch.models import transformer as ttr  # noqa: E402
 from paddle_tpu_torch.models.transformer import (  # noqa: E402
     TransformerConfig, init_params)
 from paddle_tpu_torch.ops.kernels import build  # noqa: E402
 from paddle_tpu_torch.ops.kernels import dense_update as du  # noqa: E402
 from paddle_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
+from paddle_tpu_torch.ops.kernels import lstm as lk  # noqa: E402
 
 SEED = 20
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s; float32 on
@@ -115,24 +146,52 @@ TOL_TRAIN_LOSS = 1e-3
 TOL_TRAIN_GRAD = 1e-2
 TOL_TRAIN_MOMENT2 = 2e-2
 TOL_TRAIN_UPDATE = 0.25
+# LSTM kernels vs plain versions, float32: h, c, the gates and dx are O(1)
+# and both sides sum a dot product of H or 4H terms in other orders; dW and
+# dpw sum T * B such terms (up to ~1e2 at the LM shape), so their bound is
+# relative to the largest entry
+TOL_LSTM = 1e-4
+TOL_LSTM_PARAM_REL = 1e-5
+# one LM step, card vs CPU: the same bounds and reasons as the transformer
+# step's above; Adagrad's moment after one step is g^2 (twice the
+# gradient's relative gap) and its first update lr * g / (|g| + 1e-6), so
+# gradients near 1e-6 carry their gap into the update and near-zero ones
+# can flip
+TOL_LM_MOMENT = 2e-2
 
-KERNELS = ('flash_attention_fwd', 'flash_attention_bwd', 'dense_update')
+KERNELS = ('flash_attention_fwd', 'flash_attention_bwd', 'dense_update',
+           'lstm_fwd', 'lstm_bwd')
 
 SERVE = dict(L=6, D=512, H=8, V=30000, T=512, page=16, streams=16,
              bucket=256, n_req=24, max_new=16)
 # benchmarks/bench_transformer.py:36-37, the reference's training config
 TRAIN = dict(B=32, T=512, V=30000, L=6, D=512, H=8, lr=1e-3, steps=8,
              parity_B=2)
+# benchmarks/bench_lstm_lm.py:30 and :65-70 (the float32 build) with
+# models/rnn_lm.py:11's widths
+# Adagrad at lr 0.1 spikes the loss before it falls (its first step moves
+# every parameter by about lr): on the H100 the seeded batch's loss rose
+# from 9.21 to 18.6 at step 5, was back below the first at step 11 and near
+# 4.6 by step 20, so the run goes on past the 8 timed steps to 24
+LM = dict(B=256, T=128, V=10000, E=128, H=256, L=2, lr=0.1, steps=8,
+          total_steps=24, parity_B=4)
+# models/sentiment.py:45-46 stacked_lstm_net widths; batch 32, V and the
+# 8-120 lengths of the IMDB set tests/book/test_understand_sentiment.py
+# reads (datasets/imdb.py), at that test's learning rate
+SENT = dict(B=32, T=120, min_len=8, V=5148, emb=128, hid=512, stacked=3,
+            lr=0.002, steps=4)
 
 
 def _zero_counts():
     fa.launches = fa.bwd_launches = du.launches = 0
+    lk.launches = lk.bwd_launches = 0
 
 
 def _counts():
     return dict(flash_attention_fwd=fa.launches,
                 flash_attention_bwd=fa.bwd_launches,
-                dense_update=du.launches)
+                dense_update=du.launches, lstm_fwd=lk.launches,
+                lstm_bwd=lk.bwd_launches)
 
 
 def _call_ms(fn, iters=50):
@@ -704,7 +763,7 @@ def phase_training():
                max_memory_allocated=torch.cuda.max_memory_allocated())
     print("training: %s" % json.dumps(res))
     want = {'flash_attention_fwd': c['L'], 'flash_attention_bwd': c['L'],
-            'dense_update': n_adam}
+            'dense_update': n_adam, 'lstm_fwd': 0, 'lstm_bwd': 0}
     if n_adam != 2 + 12 * c['L'] + 4:
         raise SystemExit("program has %d adam ops" % n_adam)
     if per_step != {k: float(n) for k, n in want.items()}:
@@ -862,6 +921,442 @@ def phase_train_profile(tr):
     return out
 
 
+LSTM_CASES = (
+    # name, T, B, H, peepholes, cotangent of the cells
+    ('lm_T128_B256_H256', 128, 256, 256, True, False),
+    ('sentiment_T120_B32_H128', 120, 32, 128, True, True),
+    ('no_peepholes_T64_B64_H256', 64, 64, 256, False, True),
+    ('B13_T33_H256', 33, 13, 256, True, True),
+)
+LSTM_MAIN = 'lm_T128_B256_H256'   # the LM's two layers run this shape
+
+
+def _max_err(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def _lstm_bounds(t, b, h, with_ct_c):
+    """(fwd, bwd) (bound ms, bound by): inputs read once, outputs written
+    once; the forward's h W and the backward's dh chain and dW, 2 * T*B*H*4H
+    FMAs' worth of float32 operations each."""
+    f = 4
+    prod = 2 * t * b * h * 4 * h
+    fwd_bytes = f * (t * b * 4 * h + 4 * h * h + 3 * h      # x, w, pw
+                     + 2 * t * b * h + t * b * 4 * h)       # h, c, gates
+    bwd_bytes = f * (t * b * 4 * h + 2 * t * b * h          # gates, h, c
+                     + (2 if with_ct_c else 1) * t * b * h  # cotangents
+                     + 4 * h * h + 3 * h                    # w, pw
+                     + t * b * 4 * h + 4 * h * h + 3 * h)   # dx, dw, dpw
+    return _bound(fwd_bytes, prod), _bound(bwd_bytes, 2 * prod)
+
+
+def _lstm_op_case():
+    """A ragged, reversed batch through the ``lstm`` op: the kernel path on
+    the card against the same op on the CPU (plain versions), outputs and
+    the gradients of Input, Weight and Bias."""
+    gen = torch.Generator().manual_seed(SEED + 9)
+    b, t, h = 11, 40, 128
+    ins = {'Input': torch.randn((b, t, 4 * h), generator=gen),
+           'Weight': torch.randn((h, 4 * h), generator=gen) * h ** -0.5,
+           'Bias': torch.randn((1, 7 * h), generator=gen) * 0.3,
+           'XLen': torch.randint(1, t + 1, (b,), generator=gen,
+                                 dtype=torch.int32)}
+    ins['XLen'][0] = t
+    ct = torch.randn((b, t, h), generator=gen)
+    attrs = {'use_peepholes': True, 'is_reverse': True, 'use_pallas': True}
+    res = {}
+    for dev in ('cuda', 'cpu'):
+        staged = {k: [v.to(dev).requires_grad_(k != 'XLen')]
+                  for k, v in ins.items()}
+        outs = get_op_impl('lstm').compute(None, staged, attrs)
+        wrt = [staged[k][0] for k in ('Input', 'Weight', 'Bias')]
+        grads = torch.autograd.grad(
+            (outs['Hidden'][0] * ct.to(dev)).sum(), wrt)
+        res[dev] = [outs['Hidden'][0].detach(), outs['Cell'][0].detach()] \
+            + list(grads)
+    torch.cuda.synchronize()
+    errs = [_max_err(a.cpu(), b_) for a, b_ in zip(res['cuda'], res['cpu'])]
+    tols = [TOL_LSTM] * 3 + [TOL_LSTM_PARAM_REL * max(1.0, float(
+        r.abs().max())) for r in res['cpu'][3:]]
+    finite = all(bool(torch.isfinite(a).all()) for a in res['cuda'])
+    row = dict(case='op_ragged_reversed_B11_T40_H128',
+               errs=dict(zip(('hidden', 'cell', 'd_input', 'd_weight',
+                              'd_bias'), errs)),
+               tols=tols, finite=finite,
+               ok=finite and all(e <= tol for e, tol in zip(errs, tols)))
+    print("lstm op %s" % json.dumps(row))
+    return row
+
+
+def phase_lstm_kernel():
+    """Kernels #7 and #8 against their plain versions on the same inputs;
+    at the LM shape also their times, bounds and the layer-pair
+    yardstick."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 8)
+    rows, timing = [], None
+    for name, t, b, h, peep, with_ct_c in LSTM_CASES:
+        def rnd(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device='cuda') * scale
+        x = rnd(t, b, 4 * h)
+        w = rnd(h, 4 * h, scale=h ** -0.5)
+        pw = rnd(3, h, scale=0.3) if peep else torch.zeros(
+            (3, h), device='cuda')
+        ct_h = rnd(t, b, h)
+        ct_c = rnd(t, b, h) if with_ct_c else None
+        got = lk._lstm_forward(x, w, pw, with_gates=True)
+        ref = lk._plain_lstm_forward(x, w, pw)
+        dgot = lk._lstm_backward(w, pw, *ref, ct_h, ct_c)
+        dref = lk._plain_lstm_backward(w, pw, *ref, ct_h, ct_c)
+        torch.cuda.synchronize()
+        fwd_err = dict(zip(('h', 'c', 'gates'),
+                           (_max_err(a, r) for a, r in zip(got, ref))))
+        bwd_err = dict(zip(('dx', 'dw', 'dpw'),
+                           (_max_err(a, r) for a, r in zip(dgot, dref))))
+        bwd_tol = dict(dx=TOL_LSTM, **{
+            k: TOL_LSTM_PARAM_REL * max(1.0, float(r.abs().max()))
+            for k, r in zip(('dw', 'dpw'), dref[1:])})
+        finite = all(bool(torch.isfinite(a).all())
+                     for a in list(got) + list(dgot))
+        ok = (finite and max(fwd_err.values()) <= TOL_LSTM and
+              all(bwd_err[k] <= bwd_tol[k] for k in bwd_err))
+        row = dict(case=name, T=t, B=b, H=h, peepholes=peep,
+                   ct_c=with_ct_c, fwd_err=fwd_err, fwd_tol=TOL_LSTM,
+                   bwd_err=bwd_err, bwd_tol=bwd_tol, finite=finite, ok=ok)
+        if name == LSTM_MAIN:
+            timing = _lstm_timing(x, w, pw, ref, ct_h, ct_c)
+            row.update(timing)
+        rows.append(row)
+        print("lstm kernels %s" % json.dumps(row))
+    rows.append(_lstm_op_case())
+    bad = [r['case'] for r in rows if not r['ok']]
+    if bad:
+        raise SystemExit("LSTM kernel disagrees with its plain version or "
+                         "is not finite: %s" % bad)
+    return rows, timing
+
+
+def _lstm_timing(x, w, pw, ref, ct_h, ct_c):
+    t, b, four_h = x.shape
+    h = four_h // 4
+    (fb, fby), (bb, bby) = _lstm_bounds(t, b, h, ct_c is not None)
+    out = dict(
+        fwd_ms=_device_ms(lambda: lk._lstm_forward(x, w, pw, True),
+                          iters=5, replays=3),
+        fwd_plain_ms=_device_ms(lambda: lk._plain_lstm_forward(x, w, pw),
+                                iters=2, replays=2),
+        fwd_bound_ms=fb, fwd_bound_by=fby,
+        bwd_ms=_device_ms(lambda: lk._lstm_backward(w, pw, *ref, ct_h,
+                                                    ct_c),
+                          iters=5, replays=3),
+        bwd_plain_ms=_device_ms(lambda: lk._plain_lstm_backward(
+            w, pw, *ref, ct_h, ct_c), iters=2, replays=2),
+        bwd_bound_ms=bb, bwd_bound_by=bby)
+    out['fwd_call_ms'] = _call_ms(lambda: lk._lstm_forward(x, w, pw, True),
+                                  iters=5)
+    out['bwd_call_ms'] = _call_ms(lambda: lk._lstm_backward(
+        w, pw, *ref, ct_h, ct_c), iters=5)
+    out['layer_pair'] = _layer_pair_yardstick(t, b, h)
+    return out
+
+
+def _layer_pair_yardstick(t, b, h):
+    """fc + lstm without peepholes at the LM's second layer (input width
+    H): the port's mul + bias add + kernel #7 (and its backward: #8 plus
+    the fc's products) against ``torch.nn.LSTM`` (cuDNN) computing x W_ih
+    + b + h W_hh with zero initial state, both in device time.  The
+    backward is each side's forward and backward in one graph less its
+    forward."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 10)
+    x = torch.randn((t, b, h), generator=gen, device='cuda')
+    ct = torch.randn((t, b, h), generator=gen, device='cuda')
+    w_ih = (torch.randn((h, 4 * h), generator=gen, device='cuda')
+            * h ** -0.5).requires_grad_(True)
+    bias = torch.zeros((4 * h,), device='cuda', requires_grad=True)
+    w_hh = (torch.randn((h, 4 * h), generator=gen, device='cuda')
+            * h ** -0.5).requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+
+    def port_fwd():
+        with torch.no_grad():
+            g = (torch.matmul(x.reshape(-1, h), w_ih) + bias)
+            return lk.lstm_scan(g.reshape(t, b, 4 * h), w_hh)
+
+    def port_fwd_bwd():
+        g = torch.matmul(xg.reshape(-1, h), w_ih) + bias
+        hs, _ = lk.lstm_scan(g.reshape(t, b, 4 * h), w_hh)
+        return torch.autograd.grad(hs, (xg, w_ih, bias, w_hh), ct)
+
+    cudnn = torch.nn.LSTM(h, h).cuda()
+    params = [xg] + list(cudnn.parameters())
+
+    def cudnn_fwd():
+        with torch.no_grad():
+            return cudnn(x)
+
+    def cudnn_fwd_bwd():
+        hs, _ = cudnn(xg)
+        return torch.autograd.grad(hs, params, ct)
+
+    res = dict(note='fc + lstm without peepholes, T=%d B=%d in=H=%d; '
+               'cuDNN computes no peepholes, so it is not the kernels\' '
+               'function' % (t, b, h))
+    for key, fwd, both in (('port', port_fwd, port_fwd_bwd),
+                           ('cudnn', cudnn_fwd, cudnn_fwd_bwd)):
+        res[key + '_fwd_ms'] = _device_ms(fwd, iters=5, replays=3)
+        res[key + '_bwd_ms'] = _device_ms(both, iters=5, replays=3) \
+            - res[key + '_fwd_ms']
+    return res
+
+
+def _lm_programs():
+    c = LM
+    main, startup = tfl.Program(), tfl.Program()
+    main.random_seed = startup.random_seed = SEED
+    with tfl.program_guard(main, startup):
+        _, _, cost = rnn_lm.build(vocab_size=c['V'], emb_dim=c['E'],
+                                  hidden_dim=c['H'], num_layers=c['L'])
+        tfl.optimizer.AdagradOptimizer(c['lr']).minimize(cost)
+    return main, startup, cost
+
+
+def _zipf_ids(rng, shape, vocab):
+    """Token ids in [1, vocab) with natural text's Zipf frequencies, as the
+    repo's synthetic corpora draw them (datasets/common.py zipf_seq)."""
+    return 1 + (rng.zipf(1.3, size=shape) - 1) % (vocab - 1)
+
+
+def _lm_feed(batch, seed, ragged):
+    """(data, lengths) tuples for src and target, target being src shifted
+    by one step (rnn_lm.build); full lengths, or ragged with row 0 full.
+    Uniform ids, as bench_lstm_lm.py feeds, would leave nothing to learn
+    but memorising them: their loss cannot fall below log V."""
+    c = LM
+    rng = np.random.default_rng(seed)
+    ln = np.full((batch,), c['T'], np.int32)
+    if ragged:
+        ln = rng.integers(1, c['T'] + 1, batch).astype(np.int32)
+        ln[0] = c['T']
+    seq = _zipf_ids(rng, (batch, c['T'] + 1, 1), c['V'])
+    return {'src': (seq[:, :-1], ln), 'target': (seq[:, 1:], ln)}
+
+
+def _train_steps(exe, main, scope, feed, fetch, steps):
+    """1 + steps runs of ``main``; (fetches per run, ms per run)."""
+    outs, ms = [], []
+    for _ in range(1 + steps):
+        t0 = time.perf_counter()
+        outs.append(exe.run(main, feed=feed, fetch_list=fetch, scope=scope))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return outs, ms
+
+
+def phase_lm_training():
+    c = LM
+    main, startup, cost = _lm_programs()
+    n_adagrad = sum(op.type == 'adagrad' for op in main.global_block().ops)
+    exe = tfl.Executor()
+    scope = tfl.Scope()
+    exe.run(startup, scope=scope)
+    n_params = sum(scope.get(p.name).numel() for p in main.all_parameters())
+    feed = _lm_feed(c['B'], SEED + 11, ragged=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    outs, step_ms = _train_steps(exe, main, scope, feed, [cost], c['steps'])
+    outs += _train_steps(exe, main, scope, feed, [cost],
+                         c['total_steps'] - c['steps'] - 2)[0]
+    counts = _counts()
+    losses = [float(o[0][0]) for o in outs]
+    per_step = {k: n / c['total_steps'] for k, n in counts.items()}
+    p50 = float(np.median(step_ms[1:]))
+    res = dict(config='B=%d T=%d V=%d E=%d H=%d L=%d float32 Adagrad lr %g'
+               % (c['B'], c['T'], c['V'], c['E'], c['H'], c['L'], c['lr']),
+               params=n_params, adagrad_ops=n_adagrad, losses=losses,
+               step_ms=step_ms, step_ms_p50=p50,
+               tokens_per_s=c['B'] * c['T'] / (p50 / 1e3),
+               launches=counts, launches_per_step=per_step,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    print("lm training: %s" % json.dumps(res))
+    want = dict(flash_attention_fwd=0, flash_attention_bwd=0,
+                dense_update=0, lstm_fwd=c['L'], lstm_bwd=c['L'])
+    if per_step != {k: float(n) for k, n in want.items()}:
+        raise SystemExit("launches per step %s, want %s" % (per_step, want))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit("LM loss not finite or last not below first: %s"
+                         % losses)
+    return dict(main=main, startup=startup, cost=cost, scope=scope, exe=exe,
+                counts=counts, **res)
+
+
+def phase_lm_parity(lm):
+    """One step at B=4 with ragged lengths on the card (kernels) and on
+    the CPU (plain versions) from the same state: the loss, every
+    gradient, Adagrad's moment and the update p_new - p_old, each
+    norm-relative per parameter.  Any non-finite value fails."""
+    main, cost = lm['main'], lm['cost']
+    card_scope = tfl.Scope()
+    lm['exe'].run(lm['startup'], scope=card_scope)
+    names = [p.name for p in main.all_parameters()]
+    moment = {op.input('Param')[0]: op.input('Moment')[0]
+              for op in main.global_block().ops if op.type == 'adagrad'}
+    if sorted(moment) != sorted(names):
+        raise SystemExit("adagrad ops do not cover the parameters")
+    cpu_scope = tfl.Scope()
+    for v in main.list_vars():
+        if v.persistable and card_scope.has(v.name):
+            cpu_scope.set(v.name, card_scope.get(v.name).to('cpu',
+                                                             copy=True))
+    before = {n: cpu_scope.get_numpy(n).copy() for n in names}
+    feed = _lm_feed(LM['parity_B'], SEED + 12, ragged=True)
+    fetch = [cost.name] + [n + '@GRAD' for n in names]
+    card = lm['exe'].run(main, feed=feed, fetch_list=fetch, scope=card_scope)
+    cpu = tfl.Executor('cpu').run(main, feed=feed, fetch_list=fetch,
+                                  scope=cpu_scope)
+    nonfinite = [n for n, a in zip(fetch, card) if not np.isfinite(a).all()]
+    gaps = {'grad': [], 'moment': [], 'update': []}
+    for n, g_card, g_cpu in zip(names, card[1:], cpu[1:]):
+        gaps['grad'].append((_norm_rel(g_card, g_cpu), n))
+        a = card_scope.get_numpy(moment[n])
+        gaps['moment'].append((_norm_rel(a, cpu_scope.get_numpy(moment[n])),
+                               n))
+        p = card_scope.get_numpy(n)
+        if not (np.isfinite(a).all() and np.isfinite(p).all()):
+            nonfinite.append(n)
+        gaps['update'].append((_norm_rel(p - before[n],
+                                         cpu_scope.get_numpy(n) - before[n]),
+                               n))
+    loss_err = abs(float(card[0][0]) - float(cpu[0][0]))
+    tol = dict(loss=TOL_TRAIN_LOSS, grad=TOL_TRAIN_GRAD,
+               moment=TOL_LM_MOMENT, update=TOL_TRAIN_UPDATE)
+    worst = {k: max(v, key=lambda x: (np.nan_to_num(x[0], nan=np.inf), x[1]))
+             for k, v in gaps.items()}
+    bad = [k for k, (e, _) in worst.items() if not e <= tol[k]]
+    if not loss_err <= TOL_TRAIN_LOSS:
+        bad.append('loss')
+    res = dict(batch=LM['parity_B'], lengths=feed['src'][1].tolist(),
+               loss_card=float(card[0][0]), loss_cpu=float(cpu[0][0]),
+               loss_err=loss_err,
+               norm_rel_err={k: e for k, (e, _) in worst.items()},
+               largest_gaps={k: [dict(param=n, norm_rel=e) for e, n in
+                                 sorted(v, reverse=True)[:3]]
+                             for k, v in gaps.items()},
+               nonfinite=nonfinite, tol=tol)
+    print("lm parity: %s" % json.dumps(res))
+    if nonfinite or bad:
+        raise SystemExit("LM step on the card disagrees with the CPU (%s) "
+                         "or is not finite (%s)" % (bad, nonfinite))
+    return res
+
+
+def phase_sentiment():
+    c = SENT
+    main, startup = tfl.Program(), tfl.Program()
+    main.random_seed = startup.random_seed = SEED
+    with tfl.program_guard(main, startup):
+        data = tfl.layers.data(name='words', shape=[1], dtype='int64',
+                               lod_level=1)
+        label = tfl.layers.data(name='label', shape=[1], dtype='int64')
+        cost, acc, _ = sentiment.stacked_lstm_net(
+            data, label, c['V'], emb_dim=c['emb'], hid_dim=c['hid'],
+            stacked_num=c['stacked'])
+        tfl.optimizer.AdagradOptimizer(c['lr']).minimize(cost)
+    exe = tfl.Executor()
+    scope = tfl.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.default_rng(SEED + 13)
+    ln = rng.integers(c['min_len'], c['T'] + 1, c['B']).astype(np.int32)
+    ln[0] = c['T']
+    feed = {'words': (_zipf_ids(rng, (c['B'], c['T'], 1), c['V']), ln),
+            'label': rng.integers(0, 2, (c['B'], 1))}
+    torch.cuda.synchronize()
+    _zero_counts()
+    outs, step_ms = _train_steps(exe, main, scope, feed, [cost, acc],
+                                 c['steps'])
+    counts = _counts()
+    per_step = {k: n / (1 + c['steps']) for k, n in counts.items()}
+    losses = [float(o[0][0]) for o in outs]
+    res = dict(config='stacked_lstm_net emb %d hid %d (H=%d) %d layers, '
+               'V=%d B=%d T=%d ragged %d-%d, Adagrad lr %g'
+               % (c['emb'], c['hid'], c['hid'] // 4, c['stacked'], c['V'],
+                  c['B'], c['T'], c['min_len'], c['T'], c['lr']),
+               losses=losses, accuracy=[float(o[1][0]) for o in outs],
+               step_ms=step_ms, step_ms_p50=float(np.median(step_ms[1:])),
+               launches=counts, launches_per_step=per_step)
+    print("sentiment training: %s" % json.dumps(res))
+    want = dict(flash_attention_fwd=0, flash_attention_bwd=0,
+                dense_update=0, lstm_fwd=c['stacked'],
+                lstm_bwd=c['stacked'])
+    if per_step != {k: float(n) for k, n in want.items()}:
+        raise SystemExit("launches per step %s, want %s" % (per_step, want))
+    if not all(np.isfinite(losses)):
+        raise SystemExit("sentiment loss not finite: %s" % losses)
+    return dict(counts=counts, **res)
+
+
+def phase_lm_profile(lm):
+    """A traced LM training step, apart from the timed ones."""
+    feed = _lm_feed(LM['B'], SEED + 11, ragged=False)
+
+    def step():
+        lm['exe'].run(lm['main'], feed=feed, fetch_list=[lm['cost']],
+                      scope=lm['scope'])
+    wall, rows = _device_kernels(step)
+    busy = sum(ms for _, ms, _ in rows)
+    top = sorted(rows, key=lambda r: -r[1])[:10]
+
+    def by(*tags):
+        return sum(ms for k, ms, _ in rows if any(t in k for t in tags))
+    out = dict(wall_ms=wall, device_busy_ms=busy if rows else None,
+               idle_share=1.0 - busy / wall if rows else None,
+               kernels=sum(n for *_, n in rows),
+               lstm_fwd_ms=by('lstm_fwd_kernel'),
+               lstm_bwd_ms=by('lstm_bptt_kernel', 'lstm_dw_kernel',
+                              'lstm_bwd_finish_kernel', 'transpose_kernel'),
+               lstm_bptt_ms=by('lstm_bptt_kernel'),
+               lstm_dw_ms=by('lstm_dw_kernel'),
+               gemm_ms=by('gemm'),
+               embedding_bwd_ms=by('indexing_backward'),
+               top=[dict(kernel=k[:80], ms=ms, count=n) for k, ms, n in top])
+    print("lm training profile: %s" % json.dumps(out))
+    return out
+
+
+def _lstm_lines(rows, timing, lm, sent):
+    """The kernels-line entries of #7 and #8."""
+    by_path = {k: dict(lm_training=lm['counts'][k],
+                       sentiment_training=sent['counts'][k])
+               for k in ('lstm_fwd', 'lstm_bwd')}
+    kernel_rows = [r for r in rows if 'fwd_err' in r]
+    pair = timing['layer_pair']
+    common = dict(route='cuda', library_ms=None,
+                  shape='T=128 B=256 H=256 float32 peepholes', cases=rows)
+    fwd = dict(
+        name='lstm_fwd', source='paddle_tpu_torch/csrc/lstm_fwd.cu',
+        replaces='paddle_tpu/ops/pallas/lstm_cell.py:57',
+        launches=sum(by_path['lstm_fwd'].values()),
+        launches_by_path=by_path['lstm_fwd'],
+        max_abs_err=max(max(r['fwd_err'].values()) for r in kernel_rows),
+        ms=timing['fwd_ms'], plain_ms=timing['fwd_plain_ms'],
+        bound_ms=timing['fwd_bound_ms'], bound_by=timing['fwd_bound_by'],
+        call_ms=timing['fwd_call_ms'],
+        layer_pair_yardstick=dict(
+            note=pair['note'], port_ms=pair['port_fwd_ms'],
+            cudnn_ms=pair['cudnn_fwd_ms']), **common)
+    bwd = dict(
+        name='lstm_bwd', source='paddle_tpu_torch/csrc/lstm_bwd.cu',
+        replaces='paddle_tpu/ops/pallas/lstm_cell.py:90',
+        launches=sum(by_path['lstm_bwd'].values()),
+        launches_by_path=by_path['lstm_bwd'],
+        max_abs_err=max(max(r['bwd_err'].values()) for r in kernel_rows),
+        ms=timing['bwd_ms'], plain_ms=timing['bwd_plain_ms'],
+        bound_ms=timing['bwd_bound_ms'], bound_by=timing['bwd_bound_by'],
+        call_ms=timing['bwd_call_ms'],
+        layer_pair_yardstick=dict(
+            note=pair['note'], port_ms=pair['port_bwd_ms'],
+            cudnn_ms=pair['cudnn_bwd_ms']), **common)
+    return [fwd, bwd]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -879,6 +1374,11 @@ def main():
     phase_train_parity(tr)
     phase_train_serve(tr)
     phase_train_profile(tr)
+    lstm_rows, lstm_timing = phase_lstm_kernel()
+    lm = phase_lm_training()
+    phase_lm_parity(lm)
+    sent = phase_sentiment()
+    phase_lm_profile(lm)
     counts = tr['counts']
     main_row = next(r for r in rows if r['case'] == MAIN_CASE)
     fwd = dict(
@@ -907,6 +1407,7 @@ def main():
         source='paddle_tpu_torch/csrc/flash_attention_bwd.cu',
         replaces='paddle_tpu/ops/pallas/flash_attention.py:454',
         launches=counts['flash_attention_bwd'],
+        launches_by_path=dict(training=counts['flash_attention_bwd']),
         max_abs_err=max(r['max_abs_err'] for r in bwd_rows
                         if r['dtype'] == 'float32'),
         ms=bmain['ms'], plain_ms=bmain['plain_ms'],
@@ -919,13 +1420,16 @@ def main():
         name='dense_update', route='cuda',
         source='paddle_tpu_torch/csrc/dense_update.cu',
         replaces='paddle_tpu/ops/pallas/dense_update.py:109',
-        launches=counts['dense_update'], max_abs_err=dense['worst'],
+        launches=counts['dense_update'],
+        launches_by_path=dict(training=counts['dense_update']),
+        max_abs_err=dense['worst'],
         ms=dense['ms'], plain_ms=dense['plain_ms'],
         bound_ms=dense['bound_ms'], bound_by=dense['bound_by'],
         library_ms=dense['library_ms'], call_ms=dense['call_ms'],
         library_call_ms=dense['library_call_ms'], shape=dense['shape'],
         cases=len(dense['cases']))
-    print(json.dumps({'kernels': [fwd, bwd, dense_line]}))
+    print(json.dumps({'kernels': [fwd, bwd, dense_line] + _lstm_lines(
+        lstm_rows, lstm_timing, lm, sent)}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

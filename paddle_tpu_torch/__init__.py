@@ -16,17 +16,25 @@ Ported so far:
   (SGD, Momentum, Adam) and an eager ``Executor`` with a ``Scope``; the
   attention backward runs on the hand-written flash-attention backward
   kernel and every dense optimizer apply on the hand-written dense-update
-  kernel (``ops/kernels/``, ``csrc/``).
+  kernel (``ops/kernels/``, ``csrc/``);
+- the stacked-LSTM language model and the sentiment LSTMs
+  (``models/rnn_lm.py``, ``models/sentiment.py``), trained through the
+  same surface with ragged (LoD) feeds (``LoDTensor``, or a ``(data,
+  lengths)`` tuple) and ``AdagradOptimizer``; every ``lstm`` op's time
+  loop and its backward run on the hand-written LSTM kernels.
 """
 from . import initializer, layers, nets, optimizer  # noqa: F401
 from .core.executor import Executor
+from .core.lod import LoDTensor, create_lod_tensor
 from .core.place import CPUPlace, CUDAPlace
 from .core.program import (Program, default_main_program,
                            default_startup_program, program_guard)
 from .core.scope import Scope, global_scope, scope_guard
+from .optimizer import AdagradOptimizer
 from .param_attr import ParamAttr
 
 __all__ = ['Program', 'program_guard', 'default_main_program',
            'default_startup_program', 'Executor', 'Scope', 'scope_guard',
            'global_scope', 'CPUPlace', 'CUDAPlace', 'ParamAttr', 'layers',
-           'nets', 'optimizer', 'initializer']
+           'nets', 'optimizer', 'initializer', 'LoDTensor',
+           'create_lod_tensor', 'AdagradOptimizer']

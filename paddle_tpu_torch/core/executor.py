@@ -27,8 +27,9 @@ import numpy as np
 import torch
 
 from . import datatypes
+from .lod import LoDTensor
 from .place import resolve_device
-from .program import Program, Variable, default_main_program
+from .program import LEN_SUFFIX, Program, Variable, default_main_program
 from .registry import get_op_impl
 from .scope import global_scope
 
@@ -66,6 +67,27 @@ class ExecutionContext(object):
             [w & 0xFFFFFFFF for w in words]).generate_state(2, np.uint32)
         seed = (int(state[0]) << 31) ^ int(state[1])
         return torch.Generator(device=self.device).manual_seed(seed)
+
+
+_NARROW = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
+           np.dtype(np.uint64): np.uint32}
+
+
+def _feed_columns(name, value, var):
+    """One feed entry as {name: value} plus ``name@LEN`` (int32 lengths)
+    for a ragged feed: a ``LoDTensor``, or a ``(data, lengths)`` tuple fed
+    to a ``lod_level > 0`` variable (reference: executor.py
+    ``_to_feed_arrays``)."""
+    if isinstance(value, LoDTensor):
+        out = {name: value.padded()}
+        if value.is_ragged():
+            out[name + LEN_SUFFIX] = np.asarray(value.lengths(), np.int32)
+        return out
+    if isinstance(value, tuple) and len(value) == 2 and var is not None \
+            and var.lod_level > 0:
+        data, lengths = value
+        return {name: data, name + LEN_SUFFIX: np.asarray(lengths, np.int32)}
+    return {name: value}
 
 
 def _op_role(op):
@@ -177,18 +199,15 @@ class Executor(object):
 
     def _to_device(self, name, value, var):
         """One feed or scope value as a tensor on the executor's device.
-        Host float64 narrows to float32 and a declared float dtype is
-        honoured, as the reference's feed conversion does."""
+        Host 64-bit types narrow to 32 bits and a declared float dtype is
+        honoured, as the reference's feed conversion
+        (``_np_to_device_dtype``) does."""
         if torch.is_tensor(value):
             t = value
         else:
-            if isinstance(value, tuple):
-                raise NotImplementedError(
-                    "ragged (LoD) feed %r is not ported yet: ROADMAP.md "
-                    "Queue 1, the sequence slice" % name)
             arr = np.asarray(value)
-            if arr.dtype == np.float64:
-                arr = arr.astype(np.float32)
+            if arr.dtype in _NARROW:
+                arr = arr.astype(_NARROW[arr.dtype])
             t = torch.from_numpy(np.array(arr, copy=True))
         if var is not None and datatypes.is_float_dtype(var.dtype) and \
                 t.dtype != torch.bool:
@@ -236,7 +255,9 @@ class Executor(object):
                         % (v.name, t.device, self.place))
                 env[v.name] = t
         for name, value in feed.items():
-            env[name] = self._to_device(name, value, block.vars.get(name))
+            for col, v in _feed_columns(name, value,
+                                        block.vars.get(name)).items():
+                env[col] = self._to_device(col, v, block.vars.get(col))
 
         ctx = ExecutionContext(program, block, self.place,
                                self._base_seed(program), self._step)

@@ -22,10 +22,13 @@ __all__ = [
     'Variable', 'Parameter', 'Operator', 'Block', 'Program',
     'default_main_program', 'default_startup_program', 'program_guard',
     'switch_main_program', 'switch_startup_program', 'unique_name',
-    'grad_var_name', 'name_scope', 'reset_unique_name_guard',
+    'grad_var_name', 'name_scope', 'reset_unique_name_guard', 'LEN_SUFFIX',
 ]
 
 GRAD_SUFFIX = '@GRAD'
+# companion int32 [batch] sequence-length vector of a ragged (lod_level > 0)
+# variable: ``x`` is padded [batch, time, ...], ``x@LEN`` its lengths
+LEN_SUFFIX = '@LEN'
 
 
 def grad_var_name(name):

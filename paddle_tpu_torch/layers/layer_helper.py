@@ -9,7 +9,7 @@ activation, and infers output shapes through the op registry
 import copy
 
 from ..core import infer
-from ..core.program import (Variable, default_main_program,
+from ..core.program import (LEN_SUFFIX, Variable, default_main_program,
                             default_startup_program, unique_name)
 from ..param_attr import ParamAttr
 
@@ -168,6 +168,20 @@ class LayerHelper(object):
                     continue
                 v.shape, v.dtype = spec
 
+    def copy_len(self, src, dst):
+        """Give ``dst`` the ``@LEN`` companion of a ragged ``src``: an
+        ``assign`` op copies the lengths vector."""
+        block = self.main_program.current_block()
+        if src.lod_level > 0 and \
+                block.has_var_recursive(src.name + LEN_SUFFIX) and \
+                not block.has_var_recursive(dst.name + LEN_SUFFIX):
+            lv = block.var_recursive(src.name + LEN_SUFFIX)
+            dst_len = block.create_var(
+                name=dst.name + LEN_SUFFIX, shape=lv.shape, dtype=lv.dtype)
+            dst_len.stop_gradient = True
+            self.append_op(type='assign', inputs={'X': [lv]},
+                           outputs={'Out': [dst_len]}, infer_shape=False)
+
     def append_bias_op(self, input_var, dim_start=1, dim_end=None):
         size = list(input_var.shape[dim_start:dim_end])
         bias_attr = self.bias_attr
@@ -184,6 +198,7 @@ class LayerHelper(object):
             inputs={'X': [input_var], 'Y': [b]},
             outputs={'Out': [tmp]},
             attrs={'axis': dim_start})
+        self.copy_len(input_var, tmp)
         return tmp
 
     def append_activation(self, input_var):
@@ -202,4 +217,5 @@ class LayerHelper(object):
             inputs={'X': [input_var]},
             outputs={'Out': [tmp]},
             attrs=act)
+        self.copy_len(input_var, tmp)
         return tmp

@@ -1,5 +1,6 @@
 """Neural-network layers (paddle_tpu/layers/nn.py), cut to the
-transformer's: fc, embedding, layer_norm, split and the fused vocab head.
+transformer's and the LSTM models': fc, embedding, layer_norm, split, the
+fused vocab head, cross_entropy and accuracy.
 Same signatures and the same op attrs as the reference, so a model script
 ports by changing its import.
 """
@@ -8,7 +9,7 @@ from ..ops.common import prod
 from .layer_helper import LayerHelper
 
 __all__ = ['fc', 'embedding', 'layer_norm', 'split',
-           'fused_linear_softmax_ce']
+           'fused_linear_softmax_ce', 'cross_entropy', 'accuracy']
 
 
 def fc(input,
@@ -19,30 +20,43 @@ def fc(input,
        act=None,
        name=None,
        **kwargs):
-    """Fully connected (fluid.layers.fc; operators/mul_op.cc)."""
+    """Fully connected (fluid.layers.fc; operators/mul_op.cc), over one
+    input or several (their products are summed by a ``sum`` op).  A
+    ragged input is padded [B, T, D], so with ``num_flatten_dims=1`` only
+    its features flatten."""
     helper = LayerHelper('fc', **locals())
     dtype = helper.input_dtype()
     # float32 master weights under low-precision activations
     p_dtype = 'float32' if dtype in ('bfloat16', 'float16') else dtype
+    lod = max(v.lod_level for v in helper.multiple_input())
     mul_results = []
     for input_var, param_attr in helper.iter_inputs_and_params():
+        input_shape = input_var.shape
+        flatten = num_flatten_dims
+        if input_var.lod_level > 0 and num_flatten_dims == 1:
+            flatten = len(input_shape) - 1
         w = helper.create_parameter(
-            attr=param_attr,
-            shape=[prod(input_var.shape[num_flatten_dims:]), size],
+            attr=param_attr, shape=[prod(input_shape[flatten:]), size],
             dtype=p_dtype, is_bias=False)
-        tmp = helper.create_tmp_variable(dtype)
+        tmp = helper.create_tmp_variable(dtype, lod_level=input_var.lod_level)
         helper.append_op(
             type='mul',
             inputs={'X': [input_var], 'Y': [w]},
             outputs={'Out': [tmp]},
-            attrs={'x_num_col_dims': num_flatten_dims, 'y_num_col_dims': 1})
+            attrs={'x_num_col_dims': flatten, 'y_num_col_dims': 1})
+        helper.copy_len(input_var, tmp)
         mul_results.append(tmp)
-    if len(mul_results) != 1:
-        raise NotImplementedError(
-            "fc over several inputs needs the `sum` op, not ported yet: "
-            "ROADMAP.md Queue 1")
-    pre_activation = helper.append_bias_op(mul_results[0],
-                                           dim_start=num_flatten_dims)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_tmp_variable(dtype, lod_level=lod)
+        helper.append_op(type='sum', inputs={'X': mul_results},
+                         outputs={'Out': [pre_bias]})
+        if lod > 0:
+            helper.copy_len(mul_results[0], pre_bias)
+    # the bias spans the size dim: the last of a ragged [B, T, size]
+    bias_dim = len(pre_bias.shape) - 1 if lod > 0 else num_flatten_dims
+    pre_activation = helper.append_bias_op(pre_bias, dim_start=bias_dim)
     return helper.append_activation(pre_activation)
 
 
@@ -61,6 +75,7 @@ def embedding(input, size, is_sparse=False, padding_idx=None,
         inputs={'Ids': [input], 'W': [w]},
         outputs={'Out': [tmp]},
         attrs=attrs)
+    helper.copy_len(input, tmp)
     return tmp
 
 
@@ -102,6 +117,8 @@ def fused_linear_softmax_ce(input, label, size, num_flatten_dims=1,
     p_dtype = 'float32' if dtype in ('bfloat16', 'float16') else dtype
     input_shape = input.shape
     flatten = num_flatten_dims
+    if input.lod_level > 0 and num_flatten_dims == 1:
+        flatten = len(input_shape) - 1
     w = helper.create_parameter(
         attr=param_attr, shape=[prod(input_shape[flatten:]), size],
         dtype=p_dtype, is_bias=False)
@@ -136,3 +153,44 @@ def split(input, num_or_sections, dim=-1, **kwargs):
     helper.append_op(type='split', inputs={'X': [input]},
                      outputs={'Out': outs}, attrs=attrs)
     return outs
+
+
+def cross_entropy(input, label, soft_label=False, **kwargs):
+    """-log(input[label]) per row of the probabilities ``input``
+    (operators/cross_entropy_op)."""
+    helper = LayerHelper('cross_entropy', **locals())
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op(
+        type='cross_entropy',
+        inputs={'X': [input], 'Label': [label]},
+        outputs={'Y': [out]},
+        attrs={'soft_label': soft_label})
+    return out
+
+
+def accuracy(input, label, k=1, correct=None, total=None, **kwargs):
+    """Share of rows whose label is among the top ``k`` of ``input``
+    (operators/accuracy_op after a top_k op)."""
+    helper = LayerHelper('accuracy', **locals())
+    topk_out = helper.create_tmp_variable(dtype=input.dtype)
+    topk_indices = helper.create_tmp_variable(dtype='int32',
+                                              stop_gradient=True)
+    helper.append_op(
+        type='top_k',
+        inputs={'X': [input]},
+        outputs={'Out': [topk_out], 'Indices': [topk_indices]},
+        attrs={'k': k})
+    acc_out = helper.create_tmp_variable(dtype='float32',
+                                         stop_gradient=True)
+    if correct is None:
+        correct = helper.create_tmp_variable(dtype='int32',
+                                             stop_gradient=True)
+    if total is None:
+        total = helper.create_tmp_variable(dtype='int32',
+                                           stop_gradient=True)
+    helper.append_op(
+        type='accuracy',
+        inputs={'Indices': [topk_indices], 'Label': [label]},
+        outputs={'Accuracy': [acc_out], 'Correct': [correct],
+                 'Total': [total]})
+    return acc_out

@@ -1,9 +1,9 @@
 """Tensor layers (paddle_tpu/layers/tensor.py), cut to what the
-transformer's programs and the optimizers use."""
+transformer's and the LSTM models' programs and the optimizers use."""
 from .layer_helper import LayerHelper
 
 __all__ = ['create_parameter', 'create_global_var', 'cast', 'fill_constant',
-           'reshape']
+           'reshape', 'concat']
 
 
 def create_parameter(shape, dtype, attr=None, is_bias=False,
@@ -53,3 +53,20 @@ def reshape(x, shape, actual_shape=None, act=None, inplace=False, **kwargs):
                      outputs={'Out': [out]},
                      attrs={'shape': [int(s) for s in shape]})
     return helper.append_activation(out)
+
+
+def concat(input, axis=0, **kwargs):
+    """Concatenate along ``axis``; a feature-axis (last-dim) concat of
+    ragged inputs keeps their lengths."""
+    helper = LayerHelper('concat', **locals())
+    ndim = max(len(v.shape) for v in input)
+    feature_axis = axis == -1 or axis == ndim - 1
+    lod = max(v.lod_level for v in input) if feature_axis else 0
+    out = helper.create_tmp_variable(helper.input_dtype(), lod_level=lod)
+    helper.append_op(type='concat',
+                     inputs={'X': input},
+                     outputs={'Out': [out]},
+                     attrs={'axis': axis})
+    if lod > 0:
+        helper.copy_len(next(v for v in input if v.lod_level > 0), out)
+    return out

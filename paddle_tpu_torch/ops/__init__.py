@@ -1,3 +1,4 @@
 """Ops of the port; importing the package registers every op type."""
 from . import (activations, attention, chunked_ce, embedding,  # noqa: F401
-               math, norm, optim_ops, random, tensor_ops)
+               loss, math, metrics, norm, optim_ops, random, rnn, sequence,
+               tensor_ops)

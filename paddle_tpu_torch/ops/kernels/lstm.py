@@ -1,0 +1,269 @@
+"""Fused LSTM time loop, forward and backward through time: hand-written
+Hopper kernels and their plain PyTorch versions.
+
+Port of paddle_tpu/ops/pallas/lstm_cell.py: the forward (``_lstm_kernel``,
+``_lstm_forward``) and the BPTT backward (``_lstm_bwd_kernel``,
+``_lstm_backward``), joined by a ``torch.autograd.Function`` as the
+reference joins them by ``jax.custom_vjp`` (``_lstm_scan_core``), plus
+``lstm_scan``.  The kernels are CUDA C++ in
+``paddle_tpu_torch/csrc/lstm_fwd.cu`` and ``lstm_bwd.cu``, compiled for
+``sm_90a`` at first use (ops/kernels/build.py) and called through ctypes on
+the tensors' current stream.  Their designs and what bounds them are noted
+in those sources.
+
+The recurrence, time-major: x [T, B, 4H] holds the pre-projected gate
+inputs (bias added), w [H, 4H] the recurrent weight, pw [3, H] the
+peephole weights (w_ic, w_fc, w_oc; zeros without peepholes); the state
+starts at zero; gate order (i, f, cand, o).
+
+Dispatch is by the tensors' device and nothing else: CUDA tensors launch
+the kernels (a failed build or launch raises, as does a shape the kernels
+do not take), CPU tensors take the plain versions ``_plain_lstm_forward``
+and ``_plain_lstm_backward``, eager loops over T that restate the
+reference's ``_scan_reference`` and its BPTT math.  They are what the CPU
+tests and ``chip_smoke.py`` hold the kernels against.  The reference's
+VMEM fit test and batch tiling (``pick_batch_tile``) are not ported: the
+kernels tile the batch by 8 rows themselves and take hidden widths that
+are multiples of 4 (256 and 128 in the LM and the sentiment net); another
+width on a CUDA tensor raises.  Float32 only: bfloat16 inputs come with
+the AMP slice.
+"""
+import ctypes
+
+import torch
+
+__all__ = ['lstm_scan', 'launches', 'bwd_launches']
+
+# kernel launches in this process (plain-version calls excluded); one
+# backward launch is the call that runs the BPTT loop, the dW tiles and
+# their finish
+launches = 0       # forward (#7)
+bwd_launches = 0   # backward (#8)
+
+
+def _lib(name):
+    from . import build
+    lib = build.load(name)
+    fn = getattr(lib, 'paddle_' + name)
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        if name == 'lstm_fwd':
+            fn.argtypes = [p] * 6 + [i, i, i, p]
+        else:
+            fn.argtypes = [p] * 11 + [i, i, i, p]
+            lib.paddle_lstm_bwd_workspace_bytes.argtypes = [i, i, i]
+            lib.paddle_lstm_bwd_workspace_bytes.restype = ctypes.c_int64
+        fn.restype = ctypes.c_int
+        getattr(lib, 'paddle_%s_max_hidden' % name).restype = ctypes.c_int
+        lib.paddle_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.paddle_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(x, w, pw):
+    if x.dim() != 3 or w.dim() != 2 or pw.dim() != 2:
+        raise ValueError("lstm takes x [T, B, 4H], w [H, 4H], pw [3, H]; "
+                         "got %s, %s, %s" % (tuple(x.shape), tuple(w.shape),
+                                             tuple(pw.shape)))
+    t, b, four_h = x.shape
+    h = w.shape[0]
+    if four_h != 4 * h or tuple(w.shape) != (h, 4 * h) or \
+            tuple(pw.shape) != (3, h):
+        raise ValueError("lstm shapes do not match: x %s, w %s, pw %s"
+                         % (tuple(x.shape), tuple(w.shape), tuple(pw.shape)))
+    if t < 1 or b < 1 or h < 1:
+        raise ValueError("empty lstm input %s" % (tuple(x.shape),))
+    for name, v in (('x', x), ('w', w), ('pw', pw)):
+        if v.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "bfloat16 lstm inputs come with the AMP slice: ROADMAP.md "
+                "Queue 1 item 7")
+        if v.dtype != torch.float32:
+            raise TypeError("lstm takes float32; %s is %s" % (name, v.dtype))
+        if v.device != x.device:
+            raise ValueError("lstm inputs lie on %s and %s"
+                             % (x.device, v.device))
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError("lstm runs on cuda or cpu tensors, not %s"
+                         % x.device)
+
+
+def _plain_lstm_forward(x, w, pw):
+    """The forward kernel's function in plain PyTorch: (hs, cs, gates),
+    [T, B, H], [T, B, H], [T, B, 4H] float32, gates being the
+    post-activation (i, f, cand, o).  ``_scan_reference`` of
+    lstm_cell.py as an eager loop over T."""
+    t, b, four_h = x.shape
+    h = four_h // 4
+    h_p = torch.zeros((b, h), dtype=torch.float32, device=x.device)
+    c_p = torch.zeros_like(h_p)
+    hs, cs, gates = [], [], []
+    for s in range(t):
+        g = x[s] + torch.matmul(h_p, w)
+        i = torch.sigmoid(g[:, :h] + c_p * pw[0])
+        f = torch.sigmoid(g[:, h:2 * h] + c_p * pw[1])
+        cand = torch.tanh(g[:, 2 * h:3 * h])
+        c = f * c_p + i * cand
+        o = torch.sigmoid(g[:, 3 * h:] + c * pw[2])
+        h_p = o * torch.tanh(c)
+        c_p = c
+        hs.append(h_p)
+        cs.append(c)
+        gates.append(torch.cat([i, f, cand, o], dim=1))
+    return torch.stack(hs), torch.stack(cs), torch.stack(gates)
+
+
+def _plain_lstm_backward(w, pw, hs, cs, gates, ct_h, ct_c):
+    """The backward kernel's function in plain PyTorch: (dx [T, B, 4H],
+    dw [H, 4H], dpw [3, H]) from the forward's saved state and the
+    cotangents of hs and cs (None means zeros).  The reverse-time loop of
+    ``_lstm_bwd_kernel`` (lstm_cell.py :112-146); h_prev and c_prev are
+    hs and cs shifted by one step with a zero first row (:248-250)."""
+    t, b, four_h = gates.shape
+    h = four_h // 4
+    zrow = torch.zeros((1, b, h), dtype=torch.float32, device=hs.device)
+    h_prev = torch.cat([zrow, hs[:-1]])
+    c_prev = torch.cat([zrow, cs[:-1]])
+    dh_c = torch.zeros((b, h), dtype=torch.float32, device=hs.device)
+    dc_c = torch.zeros_like(dh_c)
+    dw = torch.zeros_like(w)
+    dpw = torch.zeros_like(pw)
+    dx = torch.empty_like(gates)
+    for s in range(t - 1, -1, -1):
+        g = gates[s]
+        i, f = g[:, :h], g[:, h:2 * h]
+        cand, o = g[:, 2 * h:3 * h], g[:, 3 * h:]
+        c_t, c_p = cs[s], c_prev[s]
+        dh = dh_c if ct_h is None else ct_h[s] + dh_c
+        tc = torch.tanh(c_t)
+        dgo = dh * tc * o * (1.0 - o)
+        dc = dc_c if ct_c is None else ct_c[s] + dc_c
+        dc = dc + dh * o * (1.0 - tc * tc) + dgo * pw[2]
+        dgi = dc * cand * i * (1.0 - i)
+        dgf = dc * c_p * f * (1.0 - f)
+        dgc = dc * i * (1.0 - cand * cand)
+        dg = torch.cat([dgi, dgf, dgc, dgo], dim=1)
+        dx[s] = dg
+        dw += torch.matmul(h_prev[s].t(), dg)
+        dpw[0] += (dgi * c_p).sum(dim=0)
+        dpw[1] += (dgf * c_p).sum(dim=0)
+        dpw[2] += (dgo * c_t).sum(dim=0)
+        dh_c = torch.matmul(dg, w.t())
+        dc_c = dc * f + dgi * pw[0] + dgf * pw[1]
+    return dx, dw, dpw
+
+
+def _max_hidden(lib, name):
+    return getattr(lib, 'paddle_%s_max_hidden' % name)()
+
+
+def _launch_check(lib, err, name):
+    if err != 0:
+        raise RuntimeError("%s launch failed: %s"
+                           % (name, lib.paddle_cuda_error_string(err)
+                              .decode()))
+
+
+def _lstm_forward(x, w, pw, with_gates):
+    """(hs, cs, gates or None) of the LSTM over x [T, B, 4H]: the kernel
+    on CUDA tensors, ``_plain_lstm_forward`` on CPU tensors.  The no-grad
+    path skips the gates' write."""
+    _check(x, w, pw)
+    if x.device.type == 'cpu':
+        hs, cs, gates = _plain_lstm_forward(x, w, pw)
+        return hs, cs, gates if with_gates else None
+    global launches
+    t, b, four_h = x.shape
+    h = four_h // 4
+    lib = _lib('lstm_fwd')
+    if h > _max_hidden(lib, 'lstm_fwd') or h % 4:
+        raise ValueError("the forward kernel takes hidden widths that are "
+                         "multiples of 4 up to %d, not %d"
+                         % (_max_hidden(lib, 'lstm_fwd'), h))
+    x, w, pw = x.contiguous(), w.contiguous(), pw.contiguous()
+    hs = torch.empty((t, b, h), dtype=torch.float32, device=x.device)
+    cs = torch.empty_like(hs)
+    gates = torch.empty_like(x) if with_gates else None
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.paddle_lstm_fwd(
+            x.data_ptr(), w.data_ptr(), pw.data_ptr(), hs.data_ptr(),
+            cs.data_ptr(), None if gates is None else gates.data_ptr(),
+            t, b, h, stream)
+    _launch_check(lib, err, 'lstm_fwd')
+    launches += 1
+    return hs, cs, gates
+
+
+def _lstm_backward(w, pw, hs, cs, gates, ct_h, ct_c):
+    """(dx, dw, dpw) of the LSTM from its saved state: the kernel on CUDA
+    tensors, ``_plain_lstm_backward`` on CPU tensors.  ``ct_h`` / ``ct_c``
+    are the cotangents of hs / cs, None for zeros (the LM never reads its
+    cells, so ``ct_c`` is None there and no zero tensor is made)."""
+    t, b, four_h = gates.shape
+    h = four_h // 4
+    _check(gates, w, pw)
+    for name, v in (('hs', hs), ('cs', cs), ('ct_h', ct_h), ('ct_c', ct_c)):
+        if v is not None and (tuple(v.shape) != (t, b, h) or
+                              v.dtype != torch.float32 or
+                              v.device != gates.device):
+            raise ValueError("%s must be a float32 [%d, %d, %d] tensor on %s"
+                             % (name, t, b, h, gates.device))
+    if gates.device.type == 'cpu':
+        return _plain_lstm_backward(w, pw, hs, cs, gates, ct_h, ct_c)
+    global bwd_launches
+    lib = _lib('lstm_bwd')
+    if h > _max_hidden(lib, 'lstm_bwd') or h % 4:
+        raise ValueError("the backward kernel takes hidden widths that are "
+                         "multiples of 4 up to %d, not %d"
+                         % (_max_hidden(lib, 'lstm_bwd'), h))
+    args = [v if v is None else v.contiguous()
+            for v in (gates, hs, cs, ct_h, ct_c, w, pw)]
+    dx = torch.empty((t, b, four_h), dtype=torch.float32,
+                     device=gates.device)
+    dw = torch.empty((h, four_h), dtype=torch.float32, device=gates.device)
+    dpw = torch.empty((3, h), dtype=torch.float32, device=gates.device)
+    ws = torch.empty((lib.paddle_lstm_bwd_workspace_bytes(t, b, h),),
+                     dtype=torch.uint8, device=gates.device)
+    with torch.cuda.device(gates.device):
+        stream = torch.cuda.current_stream(gates.device).cuda_stream
+        err = lib.paddle_lstm_bwd(
+            *[None if v is None else v.data_ptr() for v in args],
+            dx.data_ptr(), dw.data_ptr(), dpw.data_ptr(), ws.data_ptr(),
+            t, b, h, stream)
+    _launch_check(lib, err, 'lstm_bwd')
+    bwd_launches += 1
+    return dx, dw, dpw
+
+
+class _LSTMScan(torch.autograd.Function):
+    """(hs, cs) of the LSTM, differentiable in x, w and pw: the forward
+    saves (w, pw, hs, cs, gates) and the backward replays them in the BPTT
+    kernel (the reference's ``_fwd`` / ``_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, pw):
+        hs, cs, gates = _lstm_forward(x, w, pw, with_gates=True)
+        ctx.save_for_backward(w, pw, hs, cs, gates)
+        ctx.set_materialize_grads(False)
+        return hs, cs
+
+    @staticmethod
+    def backward(ctx, ct_h, ct_c):
+        w, pw, hs, cs, gates = ctx.saved_tensors
+        return _lstm_backward(w, pw, hs, cs, gates, ct_h, ct_c)
+
+
+def lstm_scan(x_tm, w, pw=None):
+    """Fused LSTM over time-major gate inputs x_tm [T, B, 4H] (bias
+    added), recurrent weight w [H, 4H] and optional peephole weights pw
+    [3, H]; zero initial state.  Returns (hs, cs), [T, B, H] each.
+    Differentiable; without gradients the forward skips the gates."""
+    if pw is None:
+        pw = torch.zeros((3, w.shape[0]), dtype=torch.float32,
+                         device=w.device)
+    if torch.is_grad_enabled() and any(
+            v.requires_grad for v in (x_tm, w, pw)):
+        return _LSTMScan.apply(x_tm, w, pw)
+    hs, cs, _ = _lstm_forward(x_tm, w, pw, with_gates=False)
+    return hs, cs

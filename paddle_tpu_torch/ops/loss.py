@@ -1,0 +1,28 @@
+"""Loss ops (paddle_tpu/ops/loss.py), cut to ``cross_entropy``; computed
+in float32."""
+import torch
+
+from ..core.registry import register_op
+from .common import first
+
+
+def _label_idx(label):
+    lab = label.long()
+    if lab.dim() >= 2 and lab.shape[-1] == 1:
+        lab = lab.squeeze(-1)
+    return lab
+
+
+@register_op('cross_entropy')
+def _cross_entropy(ctx, ins, attrs):
+    """-log(p[label] + 1e-12) of probabilities X [N, D] against int labels
+    [N, 1]; with ``soft_label`` the label rows are distributions."""
+    x = first(ins, 'X').float()
+    label = first(ins, 'Label')
+    if attrs.get('soft_label', False):
+        y = -(label.float() * torch.log(x + 1e-12)).sum(dim=-1,
+                                                         keepdim=True)
+    else:
+        p = torch.gather(x, -1, _label_idx(label)[..., None])
+        y = -torch.log(p + 1e-12)
+    return {'Y': [y]}

@@ -1,8 +1,9 @@
-"""Math ops: mul, elementwise_add, scale, mean.
+"""Math ops: mul, elementwise_add, scale, sum, mean, softmax, top_k.
 
 Reference parity: paddle_tpu/ops/math.py (paddle/operators/{mul,
-elementwise_add,scale,mean}_op).  The matmul is ``torch.matmul``: the
-reference leaves it to XLA, outside any Pallas kernel.
+elementwise_add,scale,sum,mean,softmax,top_k}_op).  The matmul is
+``torch.matmul``: the reference leaves it to XLA, outside any Pallas
+kernel.
 """
 import torch
 
@@ -46,11 +47,43 @@ def _scale(ctx, ins, attrs):
     return out((x + bias) * scale)
 
 
+@register_op('sum')
+def _sum(ctx, ins, attrs):
+    xs = ins.get('X', [])
+    acc = xs[0]
+    for x in xs[1:]:
+        acc = acc + x
+    return out(acc)
+
+
 @register_op('mean')
 def _mean(ctx, ins, attrs):
+    """The mean of X; over a ragged X (its lengths in XLen) the mean of the
+    valid steps only, as the reference's LoDTensor holds only those."""
     x = first(ins, 'X')
-    if first(ins, 'XLen') is not None:
-        raise NotImplementedError(
-            "mean over a ragged input (XLen) is not ported yet: ROADMAP.md "
-            "Queue 1, the sequence slice")
-    return out(x.float().mean().to(x.dtype).reshape(1))
+    lengths = first(ins, 'XLen')
+    xf = x.float()
+    if lengths is None:
+        m = xf.mean()
+    else:
+        ln = lengths.reshape(-1).long()
+        mask = torch.arange(x.shape[1], device=x.device)[None, :] < \
+            ln[:, None]
+        mask = mask.reshape(tuple(mask.shape) + (1,) * (x.dim() - 2))
+        # counted in float32, as the reference counts
+        count = ln.float().sum() * float(prod(x.shape[2:]))
+        m = torch.where(mask, xf, torch.zeros_like(xf)).sum() / \
+            torch.clamp(count, min=1.0)
+    return out(m.to(x.dtype).reshape(1))
+
+
+@register_op('softmax')
+def _softmax(ctx, ins, attrs):
+    x = first(ins, 'X')
+    return out(torch.softmax(x.float(), dim=-1).to(x.dtype))
+
+
+@register_op('top_k')
+def _top_k(ctx, ins, attrs):
+    vals, idxs = torch.topk(first(ins, 'X'), attrs.get('k', 1), dim=-1)
+    return {'Out': [vals], 'Indices': [idxs.to(torch.int32)]}

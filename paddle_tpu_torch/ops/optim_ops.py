@@ -1,11 +1,14 @@
-"""Optimizer update ops: the dense branches of sgd, momentum and adam.
+"""Optimizer update ops: the dense branches of sgd, momentum, adam and
+adagrad.
 
 Reference parity: paddle_tpu/ops/optim_ops.py ``_sgd`` :120,
-``_momentum`` :160, ``_adam`` :182 (paddle/operators/{sgd,momentum,
-adam}_op).  Each op applies its rule through ops/kernels/dense_update.py,
-which updates param and moments in place: the kernel on the card, the
-plain version on the CPU.  The outputs are the same tensors as the
-inputs, so the executor's scope keeps its buffers.
+``_momentum`` :160, ``_adam`` :182, ``_adagrad`` :258 (paddle/operators/
+{sgd,momentum,adam,adagrad}_op).  sgd, momentum and adam apply their rule
+through ops/kernels/dense_update.py, which updates param and moments in
+place: the kernel on the card, the plain version on the CPU.  The
+reference has no Pallas rule for dense adagrad, so it stays torch ops, in
+place, in the reference's order of operations.  The outputs are the same
+tensors as the inputs, so the executor's scope keeps its buffers.
 
 Row-sparse (SelectedRows) gradients come with the sparse CTR slice.
 """
@@ -61,3 +64,15 @@ def _adam(ctx, ins, attrs):
         attrs.get('beta1', 0.9), attrs.get('beta2', 0.999),
         attrs.get('epsilon', 1e-8))
     return {'ParamOut': [p], 'Moment1Out': [m], 'Moment2Out': [v]}
+
+
+@register_op('adagrad')
+def _adagrad(ctx, ins, attrs):
+    """moment += g^2; param -= lr * g / (sqrt(moment) + epsilon)."""
+    p = first(ins, 'Param')
+    g = _dense_grad('adagrad', first(ins, 'Grad'))
+    mom = first(ins, 'Moment')
+    eps = attrs.get('epsilon', 1e-6)
+    mom.add_(torch.square(g))
+    p.sub_(_lr(ins) * g / (torch.sqrt(mom) + eps))
+    return {'ParamOut': [p], 'MomentOut': [mom]}

@@ -1,0 +1,66 @@
+"""Sequence (LoD) ops on the padded + lengths representation.
+
+Reference parity: paddle_tpu/ops/sequence.py (paddle/operators/
+sequence_pool_op), cut to ``sequence_pool`` and its ``sequence_first_step``
+/ ``sequence_last_step`` forms.  A ragged batch is a dense [B, T, ...]
+tensor with int32 lengths [B] in slot ``XLen``; the masks come from the
+lengths, and missing lengths mean every row is full.
+"""
+import torch
+
+from ..core.registry import register_op
+from .common import first, out
+
+
+def _lengths(ins, x):
+    ln = first(ins, 'XLen')
+    if ln is None:
+        return torch.full((x.shape[0],), x.shape[1], dtype=torch.long,
+                          device=x.device)
+    return ln.reshape(-1).long()
+
+
+def _pool(x, lengths, ptype):
+    tail = (1,) * (x.dim() - 2)
+    mask = (torch.arange(x.shape[1], device=x.device)[None, :]
+            < lengths[:, None]).reshape(tuple(lengths.shape) + (-1,) + tail)
+    xf = x.float()
+    lf = torch.clamp(lengths.float(), min=1.0).reshape((-1,) + tail)
+    if ptype in ('SUM', 'AVERAGE', 'SQRT'):
+        y = torch.where(mask, xf, torch.zeros_like(xf)).sum(dim=1)
+        if ptype == 'AVERAGE':
+            y = y / lf
+        elif ptype == 'SQRT':
+            y = y / torch.sqrt(lf)
+    elif ptype == 'MAX':
+        y = torch.where(mask, xf, torch.full_like(xf, -float('inf')))
+        y = y.amax(dim=1)
+    elif ptype == 'LAST':
+        idx = torch.clamp(lengths - 1, min=0).reshape((-1, 1) + tail)
+        y = torch.gather(xf, 1, idx.expand((-1, 1) + tuple(x.shape[2:])))
+        y = y.squeeze(1)
+    elif ptype == 'FIRST':
+        y = xf[:, 0]
+    else:
+        raise ValueError("unknown pooltype %r" % ptype)
+    return out(y.to(x.dtype))
+
+
+@register_op('sequence_pool')
+def _sequence_pool(ctx, ins, attrs):
+    """X [B, T, ...] -> [B, ...] over each row's valid steps."""
+    x = first(ins, 'X')
+    ptype = attrs.get('pooltype', attrs.get('pool_type', 'AVERAGE')).upper()
+    return _pool(x, _lengths(ins, x), ptype)
+
+
+@register_op('sequence_first_step')
+def _sequence_first_step(ctx, ins, attrs):
+    x = first(ins, 'X')
+    return _pool(x, _lengths(ins, x), 'FIRST')
+
+
+@register_op('sequence_last_step')
+def _sequence_last_step(ctx, ins, attrs):
+    x = first(ins, 'X')
+    return _pool(x, _lengths(ins, x), 'LAST')

@@ -1,8 +1,10 @@
-"""Tensor-manipulation ops: reshape, split, cast, fill_constant.
+"""Tensor-manipulation ops: reshape, split, concat, cast, assign,
+fill_constant.
 
 Reference parity: paddle_tpu/ops/tensor_ops.py (paddle/operators/
-{reshape,split,cast,fill_constant}_op).  Integer types keep their width:
-torch runs int64 where the reference narrowed it to int32 for the TPU.
+{reshape,split,concat,cast,assign,fill_constant}_op).  Integer types keep
+their width; 64-bit feeds arrive narrowed to 32 bits by the executor, as
+in the reference.
 """
 import torch
 
@@ -37,10 +39,20 @@ def _split(ctx, ins, attrs):
     return {'Out': list(pieces)}
 
 
+@register_op('concat')
+def _concat(ctx, ins, attrs):
+    return out(torch.cat(ins['X'], dim=attrs.get('axis', 0)))
+
+
 @register_op('cast')
 def _cast(ctx, ins, attrs):
     return out(first(ins, 'X').to(datatypes.as_torch_dtype(
         attrs['out_dtype'])))
+
+
+@register_op('assign')
+def _assign(ctx, ins, attrs):
+    return out(first(ins, 'X'))
 
 
 @register_op('fill_constant')

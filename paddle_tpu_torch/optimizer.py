@@ -1,4 +1,4 @@
-"""Optimizers: SGD, Momentum, Adam.
+"""Optimizers: SGD, Momentum, Adam, Adagrad.
 
 Reference parity: paddle_tpu/optimizer.py (fluid optimizer.py).
 ``minimize`` = autodiff (core/backward.py) + one update op per parameter
@@ -14,7 +14,8 @@ from .initializer import ConstantInitializer
 from .layers.layer_helper import LayerHelper
 
 __all__ = ['Optimizer', 'SGDOptimizer', 'MomentumOptimizer',
-           'AdamOptimizer', 'SGD', 'Momentum', 'Adam']
+           'AdamOptimizer', 'AdagradOptimizer', 'SGD', 'Momentum', 'Adam',
+           'Adagrad']
 
 _LATER = ("not ported yet: ROADMAP.md Queue 1, gradient clip and "
           "regularizers")
@@ -168,6 +169,33 @@ class MomentumOptimizer(Optimizer):
             infer_shape=False)
 
 
+class AdagradOptimizer(Optimizer):
+    type = 'adagrad'
+    _moment_acc_str = 'moment'
+
+    def __init__(self, learning_rate, epsilon=1.0e-6, **kwargs):
+        super(AdagradOptimizer, self).__init__(learning_rate, **kwargs)
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        moment_acc = self._get_accumulator(self._moment_acc_str,
+                                           param_and_grad[0])
+        return self.helper.append_op(
+            type='adagrad',
+            inputs={'Param': [param_and_grad[0]],
+                    'Grad': [param_and_grad[1]],
+                    'Moment': [moment_acc],
+                    'LearningRate': [self._create_param_lr(param_and_grad)]},
+            outputs={'ParamOut': [param_and_grad[0]],
+                     'MomentOut': [moment_acc]},
+            attrs={'epsilon': self._epsilon},
+            infer_shape=False)
+
+
 class AdamOptimizer(Optimizer):
     type = 'adam'
     _moment1_acc_str = 'moment1'
@@ -228,3 +256,4 @@ class AdamOptimizer(Optimizer):
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
 Adam = AdamOptimizer
+Adagrad = AdagradOptimizer
