@@ -9,7 +9,7 @@ line:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
    TF32 is switched off for matmuls and cuDNN so float32 means float32.
-2. kernel build: the three kernel libraries from the checkout's sources,
+2. kernel build: the eight kernel libraries from the checkout's sources,
    one nvcc each, all started together; ptxas's register and spill lines.
 3. flash forward vs its plain version on the card at the prefill's
    shapes (BH = 8, D = 64), with the kernel, the plain version and
@@ -82,7 +82,38 @@ line:
    launches each of #7 and #8 per step.  Counts are set to 0 just before.
 17. profile: a traced LM training step, device time by kernel and idle
    share.
-18. a ``{"kernels": [...]}`` line (five kernels, each with its launches by
+18. GRU forward (#9) and backward (#10) vs their plain versions on the
+   card: the seq2seq translator's training shape (T=64, B=512, H=512) with
+   and without h0, a batch that is not a multiple of the kernels' row tile,
+   and two ragged batches through the ``gru`` op (card against CPU): one
+   reversed, one with H0 (dH0 compared).  At the training shape both
+   kernels (8 and 16 batch rows per block) and their plain versions are
+   timed in device time, and the layer pair fc + gru with h0 at the
+   decoder's widths is timed against ``torch.nn.GRU`` (cuDNN; a yardstick
+   only, which the port never calls, and not the kernels' function: it
+   applies the reset gate after the product).
+19. the row-sparse update (#6) vs its plain rules, bitwise, for sgd,
+   adagrad and lazy adam on a 30000 x 256 table with K = 32768 ids: the
+   synthetic text's Zipf ids, the bench's uniform ids, and ids with
+   sentinels, out-of-range and negative ids; rows not touched must stay
+   bitwise unchanged.  Timed: the kernel alone in device time, the id
+   sort, the plain rules and ``torch.optim.SparseAdam`` / ``Adagrad`` on a
+   sparse gradient and ``index_add_`` (yardsticks only).
+20. seq2seq training at full width (benchmarks/bench_seq2seq.py's config:
+   B=512, T=64, V=30000, word_dim 256, H=512, Adam lr 1e-3; float32) on the
+   synthetic WMT14 task, through the port's layers, optimizer and
+   Executor: a warm-up step and 8 timed steps on one seeded batch; the loss
+   must be finite and fall, each step must launch #9, #10, #6 and the dense
+   update 3, 3, 2 and 20 times, and the ``prediction`` branch must be
+   skipped.  Counts are set to 0 just before.
+21. seq2seq parity at B=4 with ragged source and target lengths: one step
+   on the card against the same program and state on the CPU: the loss,
+   every gradient (the embeddings' densified), Adam's moments and update
+   (mt_enc_proj_b, whose gradient is zero but for rounding, by its norm);
+   untouched embedding rows and their moments unchanged bitwise on both.
+22. profile: a traced seq2seq training step, device time by kernel and
+   idle share.
+23. a ``{"kernels": [...]}`` line (eight kernels, each with its launches by
    path), the card's line, and last ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -103,14 +134,18 @@ import paddle_tpu_torch as tfl  # noqa: E402
 from paddle_tpu_torch.inference.decode import (  # noqa: E402
     DecodeEngine, DecodeServer, _forward, extract_params)
 from paddle_tpu_torch.core.registry import get_op_impl  # noqa: E402
+from paddle_tpu_torch.datasets import wmt14  # noqa: E402
 from paddle_tpu_torch.models import rnn_lm, sentiment  # noqa: E402
+from paddle_tpu_torch.models import seq2seq  # noqa: E402
 from paddle_tpu_torch.models import transformer as ttr  # noqa: E402
 from paddle_tpu_torch.models.transformer import (  # noqa: E402
     TransformerConfig, init_params)
 from paddle_tpu_torch.ops.kernels import build  # noqa: E402
 from paddle_tpu_torch.ops.kernels import dense_update as du  # noqa: E402
 from paddle_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
+from paddle_tpu_torch.ops.kernels import gru as gk  # noqa: E402
 from paddle_tpu_torch.ops.kernels import lstm as lk  # noqa: E402
+from paddle_tpu_torch.ops.kernels import table_update as tu  # noqa: E402
 
 SEED = 20
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s; float32 on
@@ -160,7 +195,7 @@ TOL_LSTM_PARAM_REL = 1e-5
 TOL_LM_MOMENT = 2e-2
 
 KERNELS = ('flash_attention_fwd', 'flash_attention_bwd', 'dense_update',
-           'lstm_fwd', 'lstm_bwd')
+           'lstm_fwd', 'lstm_bwd', 'table_update', 'gru_fwd', 'gru_bwd')
 
 SERVE = dict(L=6, D=512, H=8, V=30000, T=512, page=16, streams=16,
              bucket=256, n_req=24, max_new=16)
@@ -180,18 +215,46 @@ LM = dict(B=256, T=128, V=10000, E=128, H=256, L=2, lr=0.1, steps=8,
 # reads (datasets/imdb.py), at that test's learning rate
 SENT = dict(B=32, T=120, min_len=8, V=5148, emb=128, hid=512, stacked=3,
             lr=0.002, steps=4)
+# benchmarks/bench_seq2seq.py:17 and :25-28 (on_tpu's row; word_dim = dim //
+# 2), in float32 (the bench's bfloat16 comes with the AMP slice), on the
+# synthetic WMT14 task at full lengths
+S2S = dict(B=512, T=64, V=30000, word_dim=256, H=512, lr=1e-3, steps=8,
+           parity_B=4)
+# GRU kernels vs plain versions, float32: h, the gates, dx and dh0 are O(1)
+# and both sides sum dot products of H or 3H terms in other orders; dW sums
+# T * B such terms (up to ~1e2 at the training shape), so its bound is
+# relative to its largest entry
+TOL_GRU = 1e-4
+TOL_GRU_PARAM_REL = 1e-5
+# one seq2seq step, card vs CPU: the transformer step's bounds and reasons,
+# except for mt_enc_proj_b.  That bias adds d_t . b to every attention score
+# of target step t, which the softmax over the source steps cancels, so its
+# gradient is zero but for rounding on both sides: a norm-relative gap of
+# two rounding noises says nothing (it read 1.09 on an H100), and Adam
+# turns either noise into steps of about lr.  Its gradient is held instead
+# to a norm below TOL_S2S_ZERO_GRAD times that of its weight's gradient
+# (float32 rounding of the cancelling sums sits near 1e-7 of their terms)
+S2S_ZERO_GRAD = {'mt_enc_proj_b': 'mt_enc_proj_w'}
+TOL_S2S_ZERO_GRAD = 1e-4
 
 
 def _zero_counts():
     fa.launches = fa.bwd_launches = du.launches = 0
     lk.launches = lk.bwd_launches = 0
+    gk.launches = gk.bwd_launches = tu.launches = 0
 
 
 def _counts():
     return dict(flash_attention_fwd=fa.launches,
                 flash_attention_bwd=fa.bwd_launches,
                 dense_update=du.launches, lstm_fwd=lk.launches,
-                lstm_bwd=lk.bwd_launches)
+                lstm_bwd=lk.bwd_launches, table_update=tu.launches,
+                gru_fwd=gk.launches, gru_bwd=gk.bwd_launches)
+
+
+def _want(**nonzero):
+    """Launches per step: 0 for every kernel but those named."""
+    return {k: float(nonzero.get(k, 0)) for k in KERNELS}
 
 
 def _call_ms(fn, iters=50):
@@ -762,11 +825,11 @@ def phase_training():
                launches=counts, launches_per_step=per_step,
                max_memory_allocated=torch.cuda.max_memory_allocated())
     print("training: %s" % json.dumps(res))
-    want = {'flash_attention_fwd': c['L'], 'flash_attention_bwd': c['L'],
-            'dense_update': n_adam, 'lstm_fwd': 0, 'lstm_bwd': 0}
+    want = _want(flash_attention_fwd=c['L'], flash_attention_bwd=c['L'],
+                 dense_update=n_adam)
     if n_adam != 2 + 12 * c['L'] + 4:
         raise SystemExit("program has %d adam ops" % n_adam)
-    if per_step != {k: float(n) for k, n in want.items()}:
+    if per_step != want:
         raise SystemExit("launches per step %s, want %s" % (per_step, want))
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise SystemExit("loss not finite or not falling: %s" % losses)
@@ -1177,9 +1240,8 @@ def phase_lm_training():
                launches=counts, launches_per_step=per_step,
                max_memory_allocated=torch.cuda.max_memory_allocated())
     print("lm training: %s" % json.dumps(res))
-    want = dict(flash_attention_fwd=0, flash_attention_bwd=0,
-                dense_update=0, lstm_fwd=c['L'], lstm_bwd=c['L'])
-    if per_step != {k: float(n) for k, n in want.items()}:
+    want = _want(lstm_fwd=c['L'], lstm_bwd=c['L'])
+    if per_step != want:
         raise SystemExit("launches per step %s, want %s" % (per_step, want))
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise SystemExit("LM loss not finite or last not below first: %s"
@@ -1283,10 +1345,8 @@ def phase_sentiment():
                step_ms=step_ms, step_ms_p50=float(np.median(step_ms[1:])),
                launches=counts, launches_per_step=per_step)
     print("sentiment training: %s" % json.dumps(res))
-    want = dict(flash_attention_fwd=0, flash_attention_bwd=0,
-                dense_update=0, lstm_fwd=c['stacked'],
-                lstm_bwd=c['stacked'])
-    if per_step != {k: float(n) for k, n in want.items()}:
+    want = _want(lstm_fwd=c['stacked'], lstm_bwd=c['stacked'])
+    if per_step != want:
         raise SystemExit("launches per step %s, want %s" % (per_step, want))
     if not all(np.isfinite(losses)):
         raise SystemExit("sentiment loss not finite: %s" % losses)
@@ -1357,6 +1417,567 @@ def _lstm_lines(rows, timing, lm, sent):
     return [fwd, bwd]
 
 
+GRU_CASES = (
+    # name, T, B, H, h0
+    ('train_T64_B512_H512_h0', 64, 512, 512, True),
+    ('train_T64_B512_H512', 64, 512, 512, False),
+    ('B13_T33_H512_h0', 33, 13, 512, True),
+)
+GRU_MAIN = 'train_T64_B512_H512_h0'   # the decoder's shape and its h0
+
+
+def _gru_bounds(t, b, h):
+    """(fwd, bwd) (bound ms, bound by): inputs read once, outputs written
+    once; the forward's two products and the backward's dh chain and dW,
+    2 * T*B*H*3H FMAs' worth of float32 operations each."""
+    f = 4
+    prod = 2 * t * b * h * 3 * h
+    fwd_bytes = f * (t * b * 3 * h + 3 * h * h + b * h     # x, w, h0
+                     + t * b * h + t * b * 3 * h)          # hs, gates
+    bwd_bytes = f * (t * b * 3 * h + t * b * h + b * h     # gates, hs, h0
+                     + t * b * h + 3 * h * h               # ct, w
+                     + t * b * 3 * h + 3 * h * h + b * h)  # dx, dw, dh0
+    return _bound(fwd_bytes, prod), _bound(bwd_bytes, 2 * prod)
+
+
+def _gru_op_case(name, with_h0, rev):
+    """A ragged batch through the ``gru`` op: the kernel path on the card
+    against the same op on the CPU (plain versions), the hidden sequence
+    and the gradients of Input, Weight, Bias (and H0)."""
+    gen = torch.Generator().manual_seed(SEED + 14)
+    b, t, h = 11, 40, 512
+    ins = {'Input': torch.randn((b, t, 3 * h), generator=gen),
+           'Weight': torch.randn((h, 3 * h), generator=gen) * h ** -0.5,
+           'Bias': torch.randn((1, 3 * h), generator=gen) * 0.3,
+           'XLen': torch.randint(1, t + 1, (b,), generator=gen,
+                                 dtype=torch.int32)}
+    ins['XLen'][0] = t
+    if with_h0:
+        ins['H0'] = torch.randn((b, h), generator=gen) * 0.5
+    wrt = [k for k in ('Input', 'Weight', 'Bias', 'H0') if k in ins]
+    ct = torch.randn((b, t, h), generator=gen)
+    attrs = {'is_reverse': rev, 'use_pallas': True}
+    res = {}
+    for dev in ('cuda', 'cpu'):
+        staged = {k: [v.to(dev).requires_grad_(k in wrt)]
+                  for k, v in ins.items()}
+        hid = get_op_impl('gru').compute(None, staged, attrs)['Hidden'][0]
+        grads = torch.autograd.grad((hid * ct.to(dev)).sum(),
+                                    [staged[k][0] for k in wrt])
+        res[dev] = [hid.detach()] + list(grads)
+    torch.cuda.synchronize()
+    errs = [_max_err(a.cpu(), b_) for a, b_ in zip(res['cuda'], res['cpu'])]
+    names = ['hidden'] + ['d_' + k.lower() for k in wrt]
+    tols = [TOL_GRU_PARAM_REL * max(1.0, float(r.abs().max()))
+            if n in ('d_weight', 'd_bias') else TOL_GRU
+            for n, r in zip(names, res['cpu'])]
+    finite = all(bool(torch.isfinite(a).all()) for a in res['cuda'])
+    row = dict(case=name, errs=dict(zip(names, errs)),
+               tols=dict(zip(names, tols)), finite=finite,
+               ok=finite and all(e <= tol for e, tol in zip(errs, tols)))
+    print("gru op %s" % json.dumps(row))
+    return row
+
+
+def phase_gru_kernel():
+    """Kernels #9 and #10 against their plain versions on the same inputs
+    (the backward's come from the plain forward); at the training shape
+    also their times at 8 and 16 rows per block, bounds and the layer-pair
+    yardstick."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 13)
+    rows, timing = [], None
+    for name, t, b, h, with_h0 in GRU_CASES:
+        x = torch.randn((t, b, 3 * h), generator=gen, device='cuda')
+        w = torch.randn((h, 3 * h), generator=gen, device='cuda') * h ** -0.5
+        h0 = (torch.randn((b, h), generator=gen, device='cuda') * 0.5
+              if with_h0 else None)
+        ct = torch.randn((t, b, h), generator=gen, device='cuda')
+        got = gk._gru_forward(x, w, h0, with_gates=True)
+        ref = gk._plain_gru_forward(x, w, h0)
+        dgot = gk._gru_backward(w, h0, *ref, ct)
+        dref = gk._plain_gru_backward(w, h0, *ref, ct)
+        torch.cuda.synchronize()
+        fwd_err = dict(zip(('h', 'gates'),
+                           (_max_err(a, r) for a, r in zip(got, ref))))
+        bwd_err = dict(zip(('dx', 'dw', 'dh0'),
+                           (_max_err(a, r) for a, r in zip(dgot, dref))))
+        bwd_tol = dict(dx=TOL_GRU, dh0=TOL_GRU, dw=TOL_GRU_PARAM_REL * max(
+            1.0, float(dref[1].abs().max())))
+        finite = all(bool(torch.isfinite(a).all())
+                     for a in list(got) + list(dgot))
+        ok = (finite and max(fwd_err.values()) <= TOL_GRU and
+              all(bwd_err[k] <= bwd_tol[k] for k in bwd_err))
+        row = dict(case=name, T=t, B=b, H=h, h0=with_h0, fwd_err=fwd_err,
+                   fwd_tol=TOL_GRU, bwd_err=bwd_err, bwd_tol=bwd_tol,
+                   finite=finite, ok=ok)
+        if name == GRU_MAIN:
+            timing = _gru_timing(x, w, h0, ref, ct)
+            row.update(timing)
+        rows.append(row)
+        print("gru kernels %s" % json.dumps(row))
+    rows.append(_gru_op_case('op_ragged_reversed_B11_T40_H512', False, True))
+    rows.append(_gru_op_case('op_ragged_h0_B11_T40_H512', True, False))
+    bad = [r['case'] for r in rows if not r['ok']]
+    if bad:
+        raise SystemExit("GRU kernel disagrees with its plain version or is "
+                         "not finite: %s" % bad)
+    return rows, timing
+
+
+def _gru_timing(x, w, h0, ref, ct):
+    t, b, three_h = x.shape
+    h = three_h // 3
+    (fb, fby), (bb, bby) = _gru_bounds(t, b, h)
+    out = dict(fwd_bound_ms=fb, fwd_bound_by=fby, bwd_bound_ms=bb,
+               bwd_bound_by=bby, rows_per_block=gk.ROWS_PER_BLOCK)
+    for rows in (8, 16):
+        out['fwd_ms_rows%d' % rows] = _device_ms(
+            lambda: gk._gru_forward(x, w, h0, True, rows=rows), iters=5,
+            replays=3)
+        out['bwd_ms_rows%d' % rows] = _device_ms(
+            lambda: gk._gru_backward(w, h0, *ref, ct, rows=rows), iters=5,
+            replays=3)
+    out['fwd_ms'] = out['fwd_ms_rows%d' % gk.ROWS_PER_BLOCK]
+    out['bwd_ms'] = out['bwd_ms_rows%d' % gk.ROWS_PER_BLOCK]
+    out['fwd_plain_ms'] = _device_ms(lambda: gk._plain_gru_forward(x, w, h0),
+                                     iters=2, replays=2)
+    out['bwd_plain_ms'] = _device_ms(
+        lambda: gk._plain_gru_backward(w, h0, *ref, ct), iters=2, replays=2)
+    out['fwd_call_ms'] = _call_ms(lambda: gk._gru_forward(x, w, h0, True),
+                                  iters=5)
+    out['bwd_call_ms'] = _call_ms(lambda: gk._gru_backward(w, h0, *ref, ct),
+                                  iters=5)
+    out['layer_pair'] = _gru_layer_pair(t, b, h, S2S['word_dim'])
+    return out
+
+
+def _gru_layer_pair(t, b, h, d_in):
+    """fc + gru with h0 at the decoder's widths (input width word_dim): the
+    port's mul + bias add + kernel #9 (and its backward: #10 plus the fc's
+    products) against ``torch.nn.GRU`` (cuDNN) with the same h0, both in
+    device time.  The backward is each side's forward and backward in one
+    graph less its forward."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 15)
+    x = torch.randn((t, b, d_in), generator=gen, device='cuda')
+    h0 = torch.randn((b, h), generator=gen, device='cuda') * 0.5
+    ct = torch.randn((t, b, h), generator=gen, device='cuda')
+    w_ih = (torch.randn((d_in, 3 * h), generator=gen, device='cuda')
+            * d_in ** -0.5).requires_grad_(True)
+    bias = torch.zeros((3 * h,), device='cuda', requires_grad=True)
+    w_hh = (torch.randn((h, 3 * h), generator=gen, device='cuda')
+            * h ** -0.5).requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+    h0g = h0.clone().requires_grad_(True)
+
+    def port_fwd():
+        with torch.no_grad():
+            g = torch.matmul(x.reshape(-1, d_in), w_ih) + bias
+            return gk.gru_scan(g.reshape(t, b, 3 * h), w_hh, h0)
+
+    def port_fwd_bwd():
+        g = torch.matmul(xg.reshape(-1, d_in), w_ih) + bias
+        hs = gk.gru_scan(g.reshape(t, b, 3 * h), w_hh, h0g)
+        return torch.autograd.grad(hs, (xg, w_ih, bias, w_hh, h0g), ct)
+
+    cudnn = torch.nn.GRU(d_in, h).cuda()
+    params = [xg, h0g] + list(cudnn.parameters())
+
+    def cudnn_fwd():
+        with torch.no_grad():
+            return cudnn(x, h0[None])
+
+    def cudnn_fwd_bwd():
+        # the view of h0 is made inside: an autograd node made before the
+        # capture would tie the captured backward to the default stream
+        hs, _ = cudnn(xg, h0g[None])
+        return torch.autograd.grad(hs, params, ct)
+
+    res = dict(note='fc + gru with h0, T=%d B=%d in=%d H=%d; cuDNN GRU, '
+               'reset after the product: not the kernels\' function'
+               % (t, b, d_in, h))
+    for key, fwd, both in (('port', port_fwd, port_fwd_bwd),
+                           ('cudnn', cudnn_fwd, cudnn_fwd_bwd)):
+        res[key + '_fwd_ms'] = _device_ms(fwd, iters=5, replays=3)
+        res[key + '_bwd_ms'] = _device_ms(both, iters=5, replays=3) \
+            - res[key + '_fwd_ms']
+    return res
+
+
+# the state tables each rule updates, as indices into (param, moment1,
+# moment2 or Adagrad's moment): Adagrad's moment is a sum of squares
+SPARSE_RULES = {'sgd': (0,), 'adagrad': (0, 2), 'adam': (0, 1, 2)}
+
+
+def _sparse_ids(dist, rng, k, height):
+    if dist == 'zipf':   # the synthetic WMT14 source ids
+        return 3 + wmt14.zipf_seq(rng, k, height - 3)
+    if dist == 'uniform':   # bench_seq2seq.py's ids
+        return rng.integers(1, height, k)
+    ids = rng.integers(0, height, k)   # duplicates, sentinels, negatives
+    ids[:64] = height
+    ids[64:96] = height + rng.integers(1, 1000, 32)
+    ids[96:224] = -rng.integers(1, height + 1, 128)
+    ids[224:1024] = ids[1024:1824]
+    return rng.permutation(ids)
+
+
+def _sparse_call(rule, tables, rows, vals, lr, plain):
+    if rule == 'sgd':
+        fn = tu.plain_sparse_apply_sgd if plain else tu.sparse_apply_sgd
+        return fn(tables[0], rows, vals, lr)
+    if rule == 'adagrad':
+        fn = (tu.plain_sparse_apply_adagrad if plain
+              else tu.sparse_apply_adagrad)
+        return fn(tables[0], tables[1], rows, vals, lr, 1e-6)
+    fn = tu.plain_sparse_apply_adam if plain else tu.sparse_apply_adam
+    return fn(*tables, rows, vals, lr, 0.9, 0.999, 1e-8)
+
+
+def _sparse_scalars(rule):
+    if rule == 'adagrad':
+        return dict(a=du._f32(1e-6))
+    if rule == 'adam':
+        return dict(a=du._f32(0.9), b=du._f32(0.999), c=du._f32(1e-8),
+                    d=du._f32(1 - 0.9), e=du._f32(1 - 0.999))
+    return {}
+
+
+def _sparse_library(rule, base, rows, vals, height, d):
+    """One PyTorch call computing the rule on a sparse COO gradient with
+    the same rows and values (coalesce included), per back-to-back eager
+    call: SparseAdam (lazy Adam, same bias correction), Adagrad on a
+    sparse gradient, and index_add_ for sgd."""
+    keep = (rows >= 0) & (rows < height)
+    r, v = rows[keep], vals[keep]
+    if rule == 'sgd':
+        p = base[0].clone()
+        u = -0.01 * v
+        return _call_ms(lambda: p.index_add_(0, r, u), iters=10)
+    param = torch.nn.Parameter(base[0].clone())
+    opt = (torch.optim.SparseAdam([param], lr=1e-3) if rule == 'adam'
+           else torch.optim.Adagrad([param], lr=1e-2))
+    grad = torch.sparse_coo_tensor(r[None], v, (height, d))
+
+    def step():
+        param.grad = grad
+        opt.step()
+    return _call_ms(step, iters=10)
+
+
+def phase_sparse_kernel():
+    """Kernel #6 against its plain rules, bitwise, on the same inputs; rows
+    no id touches stay bitwise unchanged.  Times at the Zipf ids (the
+    training path's) and at the bench's uniform ids, keyed by ids, then
+    rule."""
+    height, d, k = S2S['V'], S2S['word_dim'], S2S['B'] * S2S['T']
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 16)
+    rng = np.random.default_rng(SEED + 16)
+    lr = torch.tensor([1e-2], device='cuda')
+    rows_out, timing = [], {}
+    for dist in ('zipf', 'uniform', 'edge'):
+        ids = torch.as_tensor(_sparse_ids(dist, rng, k, height),
+                              device='cuda')
+        vals = torch.randn((k, d), generator=gen, device='cuda')
+        base = [torch.randn((height, d), generator=gen, device='cuda'),
+                torch.randn((height, d), generator=gen, device='cuda') * 0.1,
+                torch.rand((height, d), generator=gen, device='cuda') * 0.1]
+        norm = tu.normalize_rows(ids, height)
+        touched = torch.zeros((height,), dtype=torch.bool, device='cuda')
+        touched[norm[norm < height]] = True
+        n_unique = int(touched.sum())
+        for rule, which in SPARSE_RULES.items():
+            state = [base[i] for i in which]
+            n = len(state)
+            got = [t.clone() for t in state]
+            want = [t.clone() for t in state]
+            _sparse_call(rule, got, ids, vals, lr, plain=False)
+            _sparse_call(rule, want, ids, vals, lr, plain=True)
+            torch.cuda.synchronize()
+            row = dict(
+                ids=dist, rule=rule, K=k, n_unique=n_unique,
+                bitwise=all(torch.equal(a, b) for a, b in zip(got, want)),
+                untouched_unchanged=all(
+                    torch.equal(a[~touched], b[~touched])
+                    for a, b in zip(got, state)),
+                max_abs_err=max(_max_err(a, b) for a, b in zip(got, want)),
+                finite=all(bool(torch.isfinite(a).all()) for a in got))
+            row['ok'] = (row['bitwise'] and row['untouched_unchanged'] and
+                         row['finite'])
+            if dist != 'edge':
+                srows, order = tu.sort_rows(ids, height)
+                tabs = [t.clone() for t in state]
+                code, sc = tu.RULES[rule], _sparse_scalars(rule)
+                row['ms'] = _device_ms(lambda: tu.launch_sorted(
+                    code, tabs, srows, order, vals, lr, **sc))
+                row['sort_ms'] = _device_ms(lambda: tu.sort_rows(ids, height))
+                row['call_ms'] = _call_ms(lambda: _sparse_call(
+                    rule, tabs, ids, vals, lr, plain=False))
+                row['plain_call_ms'] = _call_ms(lambda: _sparse_call(
+                    rule, [t.clone() for t in state], ids, vals, lr,
+                    plain=True), iters=2)
+                row['library_call_ms'] = _sparse_library(rule, state, norm,
+                                                         vals, height, d)
+                # values, sorted ids (int32) and their order (int64) read
+                # once; each touched row of every table read and written
+                # once (the runs are summed in registers)
+                nbytes = k * d * 4 + k * 4 + k * 8 + n_unique * d * 4 * 2 * n
+                row['bound_ms'], row['bound_by'] = _bound(nbytes, 0)
+                timing.setdefault(dist, {})[rule] = row
+            rows_out.append(row)
+            print("sparse kernel %s" % json.dumps(row))
+    bad = [(r['ids'], r['rule']) for r in rows_out if not r['ok']]
+    if bad:
+        raise SystemExit("row-sparse kernel differs from its plain rule or "
+                         "moved an untouched row: %s" % bad)
+    return rows_out, timing
+
+
+def _s2s_programs(fuse=True):
+    c = S2S
+    main, startup = tfl.Program(), tfl.Program()
+    main.random_seed = startup.random_seed = SEED
+    with tfl.program_guard(main, startup):
+        _, _, _, pred, cost = seq2seq.build(
+            dict_size=c['V'], word_dim=c['word_dim'], hidden_dim=c['H'],
+            fuse_vocab_loss=fuse)
+        tfl.optimizer.AdamOptimizer(c['lr']).minimize(cost)
+    return main, startup, pred, cost
+
+
+def phase_s2s_training():
+    c = S2S
+    main, startup, pred, cost = _s2s_programs()
+    n_adam = sum(op.type == 'adam' for op in main.global_block().ops)
+    exe = tfl.Executor()
+    scope = tfl.Scope()
+    exe.run(startup, scope=scope)
+    n_params = sum(scope.get(p.name).numel() for p in main.all_parameters())
+    feed = wmt14.batch(np.random.default_rng(SEED + 17), c['V'],
+                       [c['T']] * c['B'], c['T'])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    outs, step_ms, skipped = [], [], []
+    for _ in range(1 + c['steps']):
+        t0 = time.perf_counter()
+        outs.append(exe.run(main, feed=feed, fetch_list=[cost], scope=scope))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        skipped.append(sorted({t for _, t in exe.skipped_ops}))
+    counts = _counts()
+    losses = [float(o[0][0]) for o in outs]
+    per_step = {k: n / (1 + c['steps']) for k, n in counts.items()}
+    p50 = float(np.median(step_ms[1:]))
+    res = dict(config='B=%d T=%d V=%d word_dim=%d H=%d float32 Adam lr %g, '
+               'synthetic WMT14 (Zipf source ids)'
+               % (c['B'], c['T'], c['V'], c['word_dim'], c['H'], c['lr']),
+               params=n_params, adam_ops=n_adam, losses=losses,
+               step_ms=step_ms, step_ms_p50=p50,
+               target_tokens_per_s=c['B'] * c['T'] / (p50 / 1e3),
+               launches=counts, launches_per_step=per_step,
+               skipped_op_types=skipped[-1],
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    print("seq2seq training: %s" % json.dumps(res))
+    # the two embedding tables' adam ops take #6, the other 20 take #5
+    want = _want(gru_fwd=3, gru_bwd=3, table_update=2,
+                 dense_update=n_adam - 2)
+    if n_adam != 22 or per_step != want:
+        raise SystemExit("launches per step %s, want %s (adam ops %d)"
+                         % (per_step, want, n_adam))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit("seq2seq loss not finite or not falling: %s"
+                         % losses)
+    if any('softmax' not in s for s in skipped):
+        raise SystemExit("the prediction branch ran: skipped %s" % skipped)
+    return dict(main=main, startup=startup, cost=cost, scope=scope, exe=exe,
+                feed=feed, counts=counts, **res)
+
+
+def phase_s2s_parity(s2s):
+    """One step at B=4 with ragged source and target lengths on the card
+    (kernels) and on the CPU (plain versions) from the same state: the
+    loss, every gradient (the embeddings' SelectedRows densified), Adam's
+    moments and the update p_new - p_old, norm-relative per parameter
+    (bounds and reasons as the transformer's parity phase); embedding rows
+    no id touches, and their moments, unchanged bitwise on both sides.
+    Any non-finite value fails."""
+    main, cost = s2s['main'], s2s['cost']
+    card_scope = tfl.Scope()
+    s2s['exe'].run(s2s['startup'], scope=card_scope)
+    names = [p.name for p in main.all_parameters()]
+    adam = {op.input('Param')[0]: (op.input('Moment1')[0],
+                                   op.input('Moment2')[0])
+            for op in main.global_block().ops if op.type == 'adam'}
+    if sorted(adam) != sorted(names):
+        raise SystemExit("adam ops do not cover the parameters")
+    cpu_scope = tfl.Scope()
+    for v in main.list_vars():
+        if v.persistable and card_scope.has(v.name):
+            cpu_scope.set(v.name, card_scope.get(v.name).to('cpu',
+                                                             copy=True))
+    watched = names + [m for n in names for m in adam[n]]
+    before = {n: cpu_scope.get_numpy(n).copy() for n in watched}
+    rng = np.random.default_rng(SEED + 18)
+    lens = rng.integers(2, S2S['T'] + 1, S2S['parity_B'])
+    lens[0] = S2S['T']
+    feed = wmt14.batch(rng, S2S['V'], lens, S2S['T'])
+    fetch = [cost.name] + [n + '@GRAD' for n in names]
+    card = s2s['exe'].run(main, feed=feed, fetch_list=fetch,
+                          scope=card_scope)
+    cpu = tfl.Executor('cpu').run(main, feed=feed, fetch_list=fetch,
+                                  scope=cpu_scope)
+
+    def dense(a):
+        return a.item().to_dense() if a.dtype == object else a
+    card = [dense(a) for a in card]
+    cpu = [dense(a) for a in cpu]
+    nonfinite = [n for n, a in zip(fetch, card) if not np.isfinite(a).all()]
+    gaps = {'grad': [], 'moment1': [], 'moment2': [], 'update': []}
+    grad_of = dict(zip(names, zip(card[1:], cpu[1:])))
+    zero_grads = {}
+    for n, (g_card, g_cpu) in grad_of.items():
+        if n in S2S_ZERO_GRAD:
+            w_card, w_cpu = grad_of[S2S_ZERO_GRAD[n]]
+            zero_grads[n] = dict(
+                card=float(np.linalg.norm(g_card) / np.linalg.norm(w_card)),
+                cpu=float(np.linalg.norm(g_cpu) / np.linalg.norm(w_cpu)))
+        else:
+            gaps['grad'].append((_norm_rel(g_card, g_cpu), n))
+        for key, var in zip(('moment1', 'moment2'), adam[n]):
+            a, b = card_scope.get_numpy(var), cpu_scope.get_numpy(var)
+            if not np.isfinite(a).all():
+                nonfinite.append(var)
+            if n not in S2S_ZERO_GRAD:
+                gaps[key].append((_norm_rel(a, b), n))
+        a, b = card_scope.get_numpy(n), cpu_scope.get_numpy(n)
+        if not np.isfinite(a).all():
+            nonfinite.append(n)
+        if n not in S2S_ZERO_GRAD:
+            gaps['update'].append((_norm_rel(a - before[n], b - before[n]),
+                                   n))
+    moved_untouched = []
+    for table, ids in (('mt_src_emb', 'src_word_id'),
+                       ('mt_trg_emb', 'target_language_word')):
+        touched = np.zeros(S2S['V'], bool)
+        touched[feed[ids][0].ravel()] = True
+        for var in (table,) + adam[table]:
+            for label, sc in (('card', card_scope), ('cpu', cpu_scope)):
+                now = sc.get_numpy(var)
+                if not np.array_equal(now[~touched], before[var][~touched]):
+                    moved_untouched.append((label, var))
+    loss_err = abs(float(card[0][0]) - float(cpu[0][0]))
+    tol = dict(loss=TOL_TRAIN_LOSS, grad=TOL_TRAIN_GRAD,
+               moment1=TOL_TRAIN_GRAD, moment2=TOL_TRAIN_MOMENT2,
+               update=TOL_TRAIN_UPDATE)
+    worst = {k: max(v, key=lambda x: (np.nan_to_num(x[0], nan=np.inf), x[1]))
+             for k, v in gaps.items()}
+    bad = [k for k, (e, _) in worst.items() if not e <= tol[k]]
+    if not loss_err <= TOL_TRAIN_LOSS:
+        bad.append('loss')
+    bad += [n for n, r in zero_grads.items()
+            if not max(r.values()) <= TOL_S2S_ZERO_GRAD]
+    res = dict(batch=S2S['parity_B'],
+               src_lengths=feed['src_word_id'][1].tolist(),
+               trg_lengths=feed['target_language_word'][1].tolist(),
+               loss_card=float(card[0][0]), loss_cpu=float(cpu[0][0]),
+               loss_err=loss_err,
+               norm_rel_err={k: e for k, (e, _) in worst.items()},
+               largest_gaps={k: [dict(param=n, norm_rel=e) for e, n in
+                                 sorted(v, reverse=True)[:3]]
+                             for k, v in gaps.items()},
+               zero_grad_norm_over_weight_grad=zero_grads,
+               untouched_rows_moved=moved_untouched, nonfinite=nonfinite,
+               tol=dict(tol, zero_grad=TOL_S2S_ZERO_GRAD))
+    print("seq2seq parity: %s" % json.dumps(res))
+    if nonfinite or bad or moved_untouched:
+        raise SystemExit("seq2seq step on the card disagrees with the CPU "
+                         "(%s), moved untouched rows (%s) or is not finite "
+                         "(%s)" % (bad, moved_untouched, nonfinite))
+    return res
+
+
+def phase_s2s_profile(s2s):
+    """A traced seq2seq training step, apart from the timed ones."""
+    def step():
+        s2s['exe'].run(s2s['main'], feed=s2s['feed'],
+                       fetch_list=[s2s['cost']], scope=s2s['scope'])
+    wall, rows = _device_kernels(step)
+    busy = sum(ms for _, ms, _ in rows)
+    top = sorted(rows, key=lambda r: -r[1])[:12]
+
+    def by(*tags):
+        return sum(ms for k, ms, _ in rows if any(t in k for t in tags))
+    out = dict(wall_ms=wall, device_busy_ms=busy if rows else None,
+               idle_share=1.0 - busy / wall if rows else None,
+               kernels=sum(n for *_, n in rows),
+               gru_fwd_ms=by('gru_fwd_kernel'),
+               gru_bwd_ms=by('gru_bptt_kernel', 'gru_dw_kernel',
+                             'gru_dw_finish_kernel', 'transpose_kernel'),
+               gru_bptt_ms=by('gru_bptt_kernel'),
+               gru_dw_ms=by('gru_dw_kernel'),
+               table_update_ms=by('rowwise_kernel'),
+               dense_update_ms=by('dense_update_kernel'),
+               gemm_ms=by('gemm', 'Kernel2'),
+               sort_ms=by('Sort', 'sort'),
+               top=[dict(kernel=k[:80], ms=ms, count=n) for k, ms, n in top])
+    print("seq2seq training profile: %s" % json.dumps(out))
+    return out
+
+
+def _s2s_lines(gru_rows, gru_timing, sparse_rows, sparse_timing, s2s):
+    """The kernels-line entries of #9, #10 and #6."""
+    pair = gru_timing['layer_pair']
+    kernel_rows = [r for r in gru_rows if 'fwd_err' in r]
+    by_path = {k: dict(seq2seq_training=s2s['counts'][k])
+               for k in ('gru_fwd', 'gru_bwd', 'table_update')}
+    common = dict(route='cuda', library_ms=None,
+                  shape='T=64 B=512 H=512 float32 with h0', cases=gru_rows)
+    fwd = dict(
+        name='gru_fwd', source='paddle_tpu_torch/csrc/gru_fwd.cu',
+        replaces='paddle_tpu/ops/pallas/lstm_cell.py:332',
+        launches=s2s['counts']['gru_fwd'],
+        launches_by_path=by_path['gru_fwd'],
+        max_abs_err=max(max(r['fwd_err'].values()) for r in kernel_rows),
+        ms=gru_timing['fwd_ms'], plain_ms=gru_timing['fwd_plain_ms'],
+        bound_ms=gru_timing['fwd_bound_ms'],
+        bound_by=gru_timing['fwd_bound_by'],
+        call_ms=gru_timing['fwd_call_ms'],
+        ms_by_rows_per_block={r: gru_timing['fwd_ms_rows%d' % r]
+                              for r in (8, 16)},
+        layer_pair_yardstick=dict(
+            note=pair['note'], port_ms=pair['port_fwd_ms'],
+            cudnn_ms=pair['cudnn_fwd_ms']), **common)
+    bwd = dict(
+        name='gru_bwd', source='paddle_tpu_torch/csrc/gru_bwd.cu',
+        replaces='paddle_tpu/ops/pallas/lstm_cell.py:361',
+        launches=s2s['counts']['gru_bwd'],
+        launches_by_path=by_path['gru_bwd'],
+        max_abs_err=max(max(r['bwd_err'].values()) for r in kernel_rows),
+        ms=gru_timing['bwd_ms'], plain_ms=gru_timing['bwd_plain_ms'],
+        bound_ms=gru_timing['bwd_bound_ms'],
+        bound_by=gru_timing['bwd_bound_by'],
+        call_ms=gru_timing['bwd_call_ms'],
+        ms_by_rows_per_block={r: gru_timing['bwd_ms_rows%d' % r]
+                              for r in (8, 16)},
+        layer_pair_yardstick=dict(
+            note=pair['note'], port_ms=pair['port_bwd_ms'],
+            cudnn_ms=pair['cudnn_bwd_ms']), **common)
+    adam = sparse_timing['zipf']['adam']
+    table = dict(
+        name='table_update', route='cuda',
+        source='paddle_tpu_torch/csrc/table_update.cu',
+        replaces='paddle_tpu/ops/pallas/table_update.py:80',
+        launches=s2s['counts']['table_update'],
+        launches_by_path=by_path['table_update'],
+        max_abs_err=max(r['max_abs_err'] for r in sparse_rows),
+        ms=adam['ms'], plain_ms=adam['plain_call_ms'],
+        bound_ms=adam['bound_ms'], bound_by=adam['bound_by'],
+        library_ms=adam['library_call_ms'], sort_ms=adam['sort_ms'],
+        call_ms=adam['call_ms'], n_unique=adam['n_unique'],
+        shape='lazy adam, table 30000 x 256, K=32768 Zipf ids',
+        by_ids_and_rule=sparse_timing, cases=len(sparse_rows))
+    return [table, fwd, bwd]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1379,6 +2000,11 @@ def main():
     phase_lm_parity(lm)
     sent = phase_sentiment()
     phase_lm_profile(lm)
+    gru_rows, gru_timing = phase_gru_kernel()
+    sparse_rows, sparse_timing = phase_sparse_kernel()
+    s2s = phase_s2s_training()
+    phase_s2s_parity(s2s)
+    phase_s2s_profile(s2s)
     counts = tr['counts']
     main_row = next(r for r in rows if r['case'] == MAIN_CASE)
     fwd = dict(
@@ -1420,8 +2046,10 @@ def main():
         name='dense_update', route='cuda',
         source='paddle_tpu_torch/csrc/dense_update.cu',
         replaces='paddle_tpu/ops/pallas/dense_update.py:109',
-        launches=counts['dense_update'],
-        launches_by_path=dict(training=counts['dense_update']),
+        launches=counts['dense_update'] + s2s['counts']['dense_update'],
+        launches_by_path=dict(
+            training=counts['dense_update'],
+            seq2seq_training=s2s['counts']['dense_update']),
         max_abs_err=dense['worst'],
         ms=dense['ms'], plain_ms=dense['plain_ms'],
         bound_ms=dense['bound_ms'], bound_by=dense['bound_by'],
@@ -1429,7 +2057,8 @@ def main():
         library_call_ms=dense['library_call_ms'], shape=dense['shape'],
         cases=len(dense['cases']))
     print(json.dumps({'kernels': [fwd, bwd, dense_line] + _lstm_lines(
-        lstm_rows, lstm_timing, lm, sent)}))
+        lstm_rows, lstm_timing, lm, sent) + _s2s_lines(
+            gru_rows, gru_timing, sparse_rows, sparse_timing, s2s)}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

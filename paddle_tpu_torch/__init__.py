@@ -21,7 +21,12 @@ Ported so far:
   (``models/rnn_lm.py``, ``models/sentiment.py``), trained through the
   same surface with ragged (LoD) feeds (``LoDTensor``, or a ``(data,
   lengths)`` tuple) and ``AdagradOptimizer``; every ``lstm`` op's time
-  loop and its backward run on the hand-written LSTM kernels.
+  loop and its backward run on the hand-written LSTM kernels;
+- the seq2seq attention translator (``models/seq2seq.py``), trained with
+  ``AdamOptimizer``: its ``is_sparse`` embeddings' gradients are
+  ``SelectedRows`` applied row by row on the hand-written row-sparse
+  update kernel, and every ``gru`` op's time loop and its backward run on
+  the hand-written GRU kernels.
 """
 from . import initializer, layers, nets, optimizer  # noqa: F401
 from .core.executor import Executor
@@ -30,11 +35,13 @@ from .core.place import CPUPlace, CUDAPlace
 from .core.program import (Program, default_main_program,
                            default_startup_program, program_guard)
 from .core.scope import Scope, global_scope, scope_guard
-from .optimizer import AdagradOptimizer
+from .core.selected_rows import SelectedRows
+from .optimizer import AdagradOptimizer, AdamOptimizer
 from .param_attr import ParamAttr
 
 __all__ = ['Program', 'program_guard', 'default_main_program',
            'default_startup_program', 'Executor', 'Scope', 'scope_guard',
            'global_scope', 'CPUPlace', 'CUDAPlace', 'ParamAttr', 'layers',
            'nets', 'optimizer', 'initializer', 'LoDTensor',
-           'create_lod_tensor', 'AdagradOptimizer']
+           'create_lod_tensor', 'AdagradOptimizer', 'AdamOptimizer',
+           'SelectedRows']

@@ -4,8 +4,14 @@ Reference parity: paddle_tpu/core/backward.py (fluid backward.py).  One
 ``autodiff`` op is appended after the loss; the executor interprets it
 with ``torch.autograd.grad`` over the forward ops before it
 (core/executor.py ``_run_autodiff``), so there are no per-op grad ops to
-maintain.  Gradients are dense: the row-sparse (SelectedRows) embedding
-gradient of ``is_sparse`` lookups comes with the sparse CTR slice.
+maintain.
+
+A table read only by ``is_sparse`` lookups takes the row-sparse
+(SelectedRows) path: the autodiff op differentiates with respect to the
+lookups' outputs instead of the table, and a ``sparse_grad_assemble`` op
+per table packs (ids, output gradients) into the table's ``@GRAD``
+SelectedRows (reference lookup_table_op.cc:52 and the optimizers' sparse
+branches): the vocab-height dense gradient never exists.
 """
 from .program import Variable, grad_var_name
 
@@ -23,11 +29,54 @@ def _collect_trainable_params(block, parameter_list=None, no_grad_set=None):
     return [n for n in names if n not in no_grad]
 
 
+def _find_sparse_params(block, param_names):
+    """Params eligible for the SelectedRows path: every op reading the
+    param, in any block, is a global-block ``lookup_table`` with
+    ``is_sparse``, and those lookups share one ``padding_idx``.  A param
+    with a regularizer or gradient clip keeps the dense gradient: those
+    append elementwise ops over the gradient, which must stay a tensor.
+    Returns {param: (height, padding_idx, [(ids, out), ...])}."""
+    readers = {}   # var name -> [ops reading it, any block]
+    global_ops = set()
+    lookups = {}   # table -> (padding_idx set, [(ids, out, op id)])
+    for b in block.program.blocks:
+        for op in b.ops:
+            for n in op.input_arg_names:
+                readers.setdefault(n, []).append(op)
+            if b is block:
+                global_ops.add(id(op))
+            if op.type == 'lookup_table' and op.attrs.get('is_sparse'):
+                pads, pairs = lookups.setdefault(op.inputs['W'][0],
+                                                 (set(), []))
+                pads.add(op.attrs.get('padding_idx', None))
+                pairs.append((op.inputs['Ids'][0], op.outputs['Out'][0],
+                              id(op)))
+    sparse = {}
+    for pn in param_names:
+        if pn not in lookups:
+            continue
+        if any(op.type != 'lookup_table' or not op.attrs.get('is_sparse')
+               for op in readers.get(pn, [])):
+            continue   # also read densely: keep the dense gradient
+        pads, pairs = lookups[pn]
+        if any(oid not in global_ops for _, _, oid in pairs):
+            continue   # a lookup inside a sub-block: dense
+        if len(pads) != 1:
+            continue   # conflicting padding_idx across lookups: dense
+        p = block.var(pn)
+        if getattr(p, 'regularizer', None) is not None or \
+                getattr(p, 'gradient_clip_attr', None) is not None:
+            continue   # regularizer / clip ops need a dense gradient
+        sparse[pn] = (p.shape[0], next(iter(pads)),
+                      [(ids, out) for ids, out, _ in pairs])
+    return sparse
+
+
 def append_backward(loss, parameter_list=None, no_grad_set=None,
                     callbacks=None):
     """Append an ``autodiff`` op producing ``<param>@GRAD`` for every
-    trainable parameter; returns [(param, grad_var)] like fluid's
-    append_backward."""
+    trainable parameter (and a ``sparse_grad_assemble`` op per sparse
+    table); returns [(param, grad_var)] like fluid's append_backward."""
     if not isinstance(loss, Variable):
         raise TypeError("append_backward takes the loss Variable, got %r"
                         % (loss,))
@@ -37,17 +86,12 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
             "ROADMAP.md Queue 1, gradient clip and regularizers")
     program = loss.block.program
     block = program.global_block()
-    for b in program.blocks:
-        for op in b.ops:
-            if op.type == 'lookup_table' and op.attrs.get('is_sparse'):
-                raise NotImplementedError(
-                    "is_sparse embedding gradients (SelectedRows) are not "
-                    "ported yet: ROADMAP.md Queue 1, the sparse CTR slice")
     param_names = _collect_trainable_params(block, parameter_list,
                                             no_grad_set)
-    grad_names = [grad_var_name(n) for n in param_names]
+    sparse = _find_sparse_params(block, param_names)
     params_and_grads = []
-    for pn, gn in zip(param_names, grad_names):
+    for pn in param_names:
+        gn = grad_var_name(pn)
         p = block.var(pn)
         if not block.has_var(gn):
             g = block.create_var(name=gn, shape=p.shape, dtype=p.dtype,
@@ -56,15 +100,39 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
         else:
             g = block.var(gn)
         params_and_grads.append((p, g))
+
+    # autodiff targets: dense params as they are; a sparse table's lookup
+    # outputs in its place (deduplicated, in program order)
+    ad_params = []
+    for pn in param_names:
+        outs = [o for _, o in sparse[pn][2]] if pn in sparse else [pn]
+        ad_params += [n for n in outs if n not in ad_params]
+    ad_grads = [grad_var_name(n) for n in ad_params]
+    for n, gn in zip(ad_params, ad_grads):
+        if not block.has_var(gn):
+            v = block.var(n)
+            g = block.create_var(name=gn, shape=v.shape, dtype=v.dtype,
+                                 persistable=False)
+            g.stop_gradient = True
     block.append_op(
         type='autodiff',
         inputs={'Loss': [loss]},
-        outputs={'Grads': grad_names},
+        outputs={'Grads': ad_grads},
         attrs={
             'loss_name': loss.name,
-            'param_names': param_names,
-            'grad_names': grad_names,
+            'param_names': ad_params,
+            'grad_names': ad_grads,
             'loss_scale': 1.0,
             'op_role': 'backward',
         })
+    for pn, (height, pad, pairs) in sparse.items():
+        attrs = {'height': height, 'op_role': 'backward'}
+        if pad is not None:
+            attrs['padding_idx'] = pad
+        block.append_op(
+            type='sparse_grad_assemble',
+            inputs={'Ids': [ids for ids, _ in pairs],
+                    'OutGrad': [grad_var_name(o) for _, o in pairs]},
+            outputs={'Out': [grad_var_name(pn)]},
+            attrs=attrs)
     return params_and_grads

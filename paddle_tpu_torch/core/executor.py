@@ -18,6 +18,20 @@ their wrappers.
   the reference's buffer donation.
 - Outputs of ``stop_gradient`` variables that are not fed data are
   detached, as the reference wraps them in ``stop_gradient``.
+- A table read only by ``is_sparse`` lookups is differentiated through
+  its lookups' outputs (core/backward.py): inside the gradient pass each
+  such output becomes a leaf right after its op writes it, and keeps that
+  value, as the reference's "frozen" names do.  Its gradient then reaches
+  the optimizer as a ``SelectedRows``; a fetch of one returns it in a 0-d
+  object array with numpy fields, as the reference's ``np.asarray`` of the
+  pytree does.
+- Only the ops that a fetch, the autodiff op's loss or a persistable write
+  needs are run (with every stateful-random op and every op without
+  outputs): the reference traces the block into one XLA program, whose
+  dead-code elimination drops the rest (the seq2seq translator's
+  ``prediction`` branch, a [B, T, vocab] projection and softmax, when only
+  the loss is fetched).  ``Executor.skipped_ops`` names the ops the last
+  run skipped.
 
 Not in this slice (each raises): ``run_steps``, ``compile``, a program
 with more than one ``autodiff`` op, AMP loss scaling and skip-step
@@ -32,8 +46,15 @@ from .place import resolve_device
 from .program import LEN_SUFFIX, Program, Variable, default_main_program
 from .registry import get_op_impl
 from .scope import global_scope
+from .selected_rows import SelectedRows
 
 __all__ = ['Executor', 'ExecutionContext']
+
+# ops whose random draws advance generator state: kept when their outputs
+# are unused, as the reference keeps them
+_STATEFUL_RANDOM = frozenset({'uniform_random', 'gaussian_random',
+                              'truncated_gaussian_random', 'dropout',
+                              'random_crop', 'sampling_id'})
 
 # op attrs of reference features this slice does not bring
 _UNPORTED_ATTRS = {
@@ -121,33 +142,69 @@ def _run_one(op, env, ctx, op_index):
                 var = ctx.block.var_recursive(n)
             except KeyError:
                 var = None
-            if var is not None and var.stop_gradient and not var.is_data:
+            if var is not None and var.stop_gradient and not var.is_data \
+                    and torch.is_tensor(v):
                 v = v.detach()
             env[n] = v
 
 
-def _run_ops(ops, env, ctx):
-    """Interpret ``ops`` in program order.  The first ``autodiff`` op
-    runs the forward-role ops before it inside its gradient pass; they
-    are skipped at top level."""
-    ad_idxs = [i for i, op in enumerate(ops) if op.type == 'autodiff']
+def live_ops(block, fetch_names):
+    """Indices of the ops of ``block`` that a run fetching ``fetch_names``
+    needs: ops writing a persistable, stateful-random ops and ops without
+    outputs, and, backwards, every op writing an input of a needed op (an
+    ``autodiff`` op reads its loss)."""
+    needed = set(fetch_names)
+    live = []
+    for i in range(len(block.ops) - 1, -1, -1):
+        op = block.ops[i]
+        outs = op.output_arg_names
+        keep = (not outs or op.type in _STATEFUL_RANDOM or
+                any(n in needed for n in outs))
+        if not keep:
+            for n in outs:
+                try:
+                    keep = block.var_recursive(n).persistable
+                except KeyError:
+                    keep = False
+                if keep:
+                    break
+        if keep:
+            live.append(i)
+            needed.update(op.input_arg_names)
+    return live[::-1]
+
+
+def _run_ops(ops, env, ctx, live):
+    """Interpret the ops at indices ``live`` in program order.  The first
+    ``autodiff`` op runs the forward-role ops before it inside its
+    gradient pass; they are skipped at top level."""
+    ad_idxs = [i for i in live if ops[i].type == 'autodiff']
     if len(ad_idxs) > 1:
         raise NotImplementedError(
             "programs with more than one autodiff op (multi-loss, GAN) are "
             "not ported yet: ROADMAP.md Queue 1")
     fwd = []
     if ad_idxs:
-        fwd = [(j, ops[j]) for j in range(ad_idxs[0])
-               if _op_role(ops[j]) == 'forward']
+        fwd = [(j, ops[j]) for j in live
+               if j < ad_idxs[0] and _op_role(ops[j]) == 'forward']
     in_fwd = {j for j, _ in fwd}
-    for i, op in enumerate(ops):
+    for i in live:
+        op = ops[i]
         if op.type == 'autodiff':
             _run_autodiff(op, fwd, env, ctx)
         elif i not in in_fwd:
             _run_one(op, env, ctx, i)
 
 
+def _sparse_lookup_outputs(fwd_ops):
+    return {op.outputs['Out'][0] for _, op in fwd_ops
+            if op.type == 'lookup_table' and op.attrs.get('is_sparse')}
+
+
 def _run_autodiff(ad_op, fwd_ops, env, ctx):
+    """Gradients of the loss with respect to ``param_names``: parameters
+    from the environment, and the outputs of ``is_sparse`` lookups, each a
+    leaf from the moment its op writes it (later writes keep the leaf)."""
     param_names = list(ad_op.attrs['param_names'])
     grad_names = list(ad_op.attrs['grad_names'])
     loss_name = ad_op.attrs['loss_name']
@@ -155,32 +212,50 @@ def _run_autodiff(ad_op, fwd_ops, env, ctx):
     written = set()
     for _, op in fwd_ops:
         written.update(op.output_arg_names)
-    missing = [n for n in param_names if n not in env or n in written]
+    frozen = set(param_names) & written
+    missing = [n for n in param_names
+               if (n not in env and n not in written) or
+               (n in frozen and n not in _sparse_lookup_outputs(fwd_ops))]
     if missing:
         raise NotImplementedError(
             "gradients with respect to intermediate variables %s "
-            "(calc_gradient) are not ported yet: ROADMAP.md Queue 1"
+            "(calc_gradient) are not ported yet: ROADMAP.md Queue 1 item 5"
             % missing[:3])
     env2 = dict(env)
-    leaves = []
+    leaves = {}
     with torch.enable_grad():
         for n in param_names:
-            leaf = env[n].detach().requires_grad_(True)
-            env2[n] = leaf
-            leaves.append(leaf)
+            if n not in frozen:
+                leaves[n] = env[n].detach().requires_grad_(True)
+                env2[n] = leaves[n]
         for j, op in fwd_ops:
             _run_one(op, env2, ctx, j)
+            for n in frozen.intersection(op.output_arg_names):
+                if n not in leaves:
+                    leaves[n] = env2[n].detach().requires_grad_(True)
+                env2[n] = leaves[n]
         if loss_name not in env2:
             raise KeyError("autodiff loss %r was never computed"
                            % loss_name)
         loss = env2[loss_name].float().sum() * loss_scale
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        wrt = [leaves[n] for n in param_names]
+        grads = torch.autograd.grad(loss, wrt, allow_unused=True)
     for n in written:
         if n in env2:
             env[n] = env2[n].detach()
-    for leaf, gn, g in zip(leaves, grad_names, grads):
+    for leaf, gn, g in zip(wrt, grad_names, grads):
         env[gn] = (torch.zeros_like(leaf) if g is None
                    else g.to(leaf.dtype)).detach()
+
+
+def _fetched(t, return_numpy):
+    if not return_numpy:
+        return t
+    if isinstance(t, SelectedRows):
+        box = np.empty((), dtype=object)
+        box[()] = t.numpy()
+        return box
+    return t.detach().cpu().numpy()
 
 
 class Executor(object):
@@ -192,6 +267,7 @@ class Executor(object):
             place = place[0]
         self.place = resolve_device(place)
         self._step = 0
+        self.skipped_ops = []
 
     def _base_seed(self, program):
         seed = program.random_seed
@@ -262,8 +338,12 @@ class Executor(object):
         ctx = ExecutionContext(program, block, self.place,
                                self._base_seed(program), self._step)
         self._step += 1
+        live = live_ops(block, fetch_names)
+        alive = set(live)
+        self.skipped_ops = [(i, op.type) for i, op in enumerate(block.ops)
+                            if i not in alive]
         with torch.no_grad():
-            _run_ops(block.ops, env, ctx)
+            _run_ops(block.ops, env, ctx, live)
             written = set()
             for op in block.ops:
                 written.update(op.output_arg_names)
@@ -284,8 +364,7 @@ class Executor(object):
         for n in fetch_names:
             if n not in env:
                 raise KeyError("fetch var %r was never computed" % n)
-            t = env[n]
-            fetches.append(t.detach().cpu().numpy() if return_numpy else t)
+            fetches.append(_fetched(env[n], return_numpy))
         return fetches
 
     def run_steps(self, *args, **kwargs):

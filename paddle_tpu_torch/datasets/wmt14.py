@@ -1,0 +1,53 @@
+"""Synthetic WMT14 translation batches.
+
+The port's copy of the synthetic task of paddle_tpu/datasets/wmt14.py
+(``_translate``) and datasets/common.py (``zipf_seq``): source ids are
+Zipf(1.3)-distributed like natural text, and the "translation" is a
+deterministic token map plus a swap of adjacent pairs, which a seq2seq
+model with attention can learn.  Ids 0, 1, 2 are <s>, <e>, <unk>.
+"""
+import numpy as np
+
+__all__ = ['START_ID', 'END_ID', 'UNK_ID', 'zipf_seq', 'translate',
+           'batch']
+
+START_ID, END_ID, UNK_ID = 0, 1, 2
+
+
+def zipf_seq(rng, length, vocab_size, low=0):
+    """Zipf-distributed token ids in [low, vocab_size)."""
+    ranks = rng.zipf(1.3, size=length)
+    return (low + (ranks - 1) % (vocab_size - low)).astype(np.int64)
+
+
+def translate(src, dict_size):
+    """The target sentence of ``src``: a token map into the target
+    vocabulary, then adjacent pairs swapped."""
+    out = [3 + ((3571 * int(t) + 17) % (dict_size - 3)) for t in src]
+    for i in range(0, len(out) - 1, 2):
+        out[i], out[i + 1] = out[i + 1], out[i]
+    return out
+
+
+def batch(rng, dict_size, src_lens, max_trg_len=None):
+    """One padded feed for seq2seq.build, as the reference's reader yields
+    it: {'src_word_id', 'target_language_word', 'target_language_next_word'},
+    each an (ids [B, T, 1] int64, lengths [B]) tuple.  Row b's source is
+    src_lens[b] Zipf ids; its label is y = translate(source) + [<e>] (cut
+    to ``max_trg_len`` tokens) and its decoder input [<s>] + y[:-1].
+    Padding ids are 0."""
+    rows = []
+    for n in src_lens:
+        s = 3 + zipf_seq(rng, int(n), dict_size - 3)
+        y = (translate(s, dict_size) + [END_ID])[:max_trg_len]
+        rows.append((s, [START_ID] + y[:-1], y))
+
+    def pad(seqs):
+        lens = np.asarray([len(q) for q in seqs], np.int64)
+        ids = np.zeros((len(seqs), int(lens.max()), 1), np.int64)
+        for b, q in enumerate(seqs):
+            ids[b, :len(q), 0] = q
+        return ids, lens
+    return {'src_word_id': pad([r[0] for r in rows]),
+            'target_language_word': pad([r[1] for r in rows]),
+            'target_language_next_word': pad([r[2] for r in rows])}

@@ -1,5 +1,5 @@
-"""Layer library (paddle_tpu/layers), cut to the transformer's and the
-LSTM models' layers."""
+"""Layer library (paddle_tpu/layers), cut to the transformer's, the LSTM
+models' and the seq2seq translator's layers."""
 from .. import ops as _ops  # registers every op type  # noqa: F401
 
 from . import io, nn, ops, sequence, tensor

@@ -1,6 +1,7 @@
 """Neural-network layers (paddle_tpu/layers/nn.py), cut to the
-transformer's and the LSTM models': fc, embedding, layer_norm, split, the
-fused vocab head, cross_entropy and accuracy.
+transformer's, the LSTM models' and the seq2seq translator's: fc,
+embedding, layer_norm, split, matmul, the fused vocab head,
+softmax_with_cross_entropy, cross_entropy and accuracy.
 Same signatures and the same op attrs as the reference, so a model script
 ports by changing its import.
 """
@@ -8,8 +9,9 @@ from ..initializer import ConstantInitializer
 from ..ops.common import prod
 from .layer_helper import LayerHelper
 
-__all__ = ['fc', 'embedding', 'layer_norm', 'split',
-           'fused_linear_softmax_ce', 'cross_entropy', 'accuracy']
+__all__ = ['fc', 'embedding', 'layer_norm', 'split', 'matmul',
+           'fused_linear_softmax_ce', 'softmax_with_cross_entropy',
+           'cross_entropy', 'accuracy']
 
 
 def fc(input,
@@ -136,6 +138,32 @@ def fused_linear_softmax_ce(input, label, size, num_flatten_dims=1,
         attrs={'chunk': int(chunk), 'mode': mode, 'flatten': flatten},
         infer_shape=False)
     loss.shape = tuple(input_shape[:flatten]) + (1,)
+    return loss
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, name=None, **kwargs):
+    """Batched x @ y over the last two axes (operators/matmul_op)."""
+    helper = LayerHelper('matmul', **locals())
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op(
+        type='matmul',
+        inputs={'X': [x], 'Y': [y]},
+        outputs={'Out': [out]},
+        attrs={'transpose_X': transpose_x, 'transpose_Y': transpose_y})
+    return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False, **kwargs):
+    """Softmax and cross entropy over the last axis of ``logits`` in one
+    op; returns the loss."""
+    helper = LayerHelper('softmax_with_cross_entropy', **locals())
+    softmax = helper.create_tmp_variable(logits.dtype)
+    loss = helper.create_tmp_variable(logits.dtype)
+    helper.append_op(
+        type='softmax_with_cross_entropy',
+        inputs={'Logits': [logits], 'Label': [label]},
+        outputs={'Softmax': [softmax], 'Loss': [loss]},
+        attrs={'soft_label': soft_label})
     return loss
 
 

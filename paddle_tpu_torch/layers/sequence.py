@@ -1,11 +1,12 @@
 """Sequence layers over the padded + lengths representation.
 
 Reference parity: paddle_tpu/layers/sequence.py (the sequence_* /
-dynamic_lstm / lstm_unit entries of fluid layers/nn.py), cut to what the
-LSTM models use: ``dynamic_lstm``, ``lstm_unit``, ``sequence_pool``,
-``sequence_first_step``, ``sequence_last_step`` and ``sequence_lengths``.
-The other layers of the reference file raise, naming the ROADMAP item
-that brings them.
+dynamic_lstm / dynamic_gru / lstm_unit / gru_unit entries of fluid
+layers/nn.py), cut to what the recurrent models use: ``dynamic_lstm``,
+``dynamic_gru``, ``lstm_unit``, ``gru_unit``, ``sequence_pool``,
+``sequence_first_step``, ``sequence_last_step``, ``sequence_softmax`` and
+``sequence_lengths``.  The other layers of the reference file raise,
+naming the ROADMAP item that brings them.
 """
 from ..core.program import LEN_SUFFIX
 from ..param_attr import ParamAttr
@@ -93,6 +94,84 @@ def dynamic_lstm(input, size, param_attr=None, bias_attr=None,
     return hidden_out, cell_out
 
 
+def sequence_softmax(x=None, input=None, length_input=None, axis=1,
+                     **kwargs):
+    """Masked softmax over the valid steps.  ``length_input`` (default: x)
+    names the variable whose ``@LEN`` vector defines validity; ``axis`` is
+    the time axis of ``x`` being normalised (axis=2 on [B, Td, Ts] scores
+    is attention over the encoder's steps)."""
+    x = x if x is not None else input
+    helper = LayerHelper('sequence_softmax', **kwargs)
+    out = helper.create_tmp_variable(x.dtype, lod_level=x.lod_level)
+    inputs = {'X': [x]}
+    inputs.update(_len_input(helper, length_input
+                             if length_input is not None else x))
+    helper.append_op(type='sequence_softmax', inputs=inputs,
+                     outputs={'Out': [out]}, attrs={'axis': axis})
+    helper.copy_len(x, out)
+    return out
+
+
+def dynamic_gru(input, size, param_attr=None, bias_attr=None,
+                is_reverse=False, gate_activation='sigmoid',
+                candidate_activation='tanh', h_0=None, dtype='float32',
+                use_pallas=True, **kwargs):
+    """fluid.layers.dynamic_gru: ``input`` is the pre-projected gate
+    sequence [B, T, 3H] (an fc of size 3 * hidden); returns the hidden
+    sequence [B, T, H].  ``h_0`` [B, H] is the optional initial state.
+    ``use_pallas`` (the reference's name) asks for the fused time-loop
+    kernel, taken when the configuration allows (ops/rnn.py)."""
+    helper = LayerHelper('gru', **kwargs)
+    hidden = size
+    w = helper.create_parameter(
+        attr=ParamAttr.to_attr(param_attr), shape=[hidden, 3 * hidden],
+        dtype=dtype, is_bias=False)
+    b = helper.create_parameter(
+        attr=ParamAttr.to_attr(bias_attr), shape=[1, 3 * hidden],
+        dtype=dtype, is_bias=True)
+    hidden_out = helper.create_tmp_variable(dtype, lod_level=1)
+    inputs = {'Input': [input], 'Weight': [w], 'Bias': [b]}
+    if h_0 is not None:
+        inputs['H0'] = [h_0]
+    inputs.update(_len_input(helper, input))
+    helper.append_op(
+        type='gru', inputs=inputs, outputs={'Hidden': [hidden_out]},
+        attrs={'is_reverse': is_reverse,
+               'use_pallas': use_pallas,
+               'gate_activation': gate_activation,
+               'activation': candidate_activation})
+    helper.copy_len(input, hidden_out)
+    return hidden_out
+
+
+def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
+             activation='tanh', gate_activation='sigmoid', **kwargs):
+    """fluid.layers.gru_unit: one GRU step over input [B, 3H] (``size`` is
+    3H) from ``hidden`` [B, H]; returns (hidden, reset hidden prev,
+    gate)."""
+    helper = LayerHelper('gru_unit', **kwargs)
+    dtype = input.dtype
+    size = size // 3
+    w = helper.create_parameter(
+        attr=ParamAttr.to_attr(param_attr), shape=[size, 3 * size],
+        dtype=dtype, is_bias=False)
+    inputs = {'Input': [input], 'HiddenPrev': [hidden], 'Weight': [w]}
+    if bias_attr is not False:
+        inputs['Bias'] = [helper.create_parameter(
+            attr=ParamAttr.to_attr(bias_attr), shape=[1, 3 * size],
+            dtype=dtype, is_bias=True)]
+    gate = helper.create_tmp_variable(dtype)
+    reset_hidden_pre = helper.create_tmp_variable(dtype)
+    updated_hidden = helper.create_tmp_variable(dtype)
+    helper.append_op(
+        type='gru_unit', inputs=inputs,
+        outputs={'Gate': [gate], 'ResetHiddenPrev': [reset_hidden_pre],
+                 'Hidden': [updated_hidden]},
+        attrs={'activation': activation,
+               'gate_activation': gate_activation})
+    return updated_hidden, reset_hidden_pre, gate
+
+
 def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
               param_attr=None, bias_attr=None, **kwargs):
     """fluid.layers.lstm_unit: fc([x_t, h_prev]) -> 4H gates -> one
@@ -125,17 +204,13 @@ def _later(name, item):
 
 
 _OP_LIBRARY = 'item 6 (the rest of the op library)'
-_SEQ2SEQ = 'the seq2seq slice (GRU kernels #9, #10)'
 
 sequence_conv = _later('sequence_conv', _OP_LIBRARY)
-sequence_softmax = _later('sequence_softmax', _OP_LIBRARY)
-sequence_expand = _later('sequence_expand', _SEQ2SEQ)
+sequence_expand = _later('sequence_expand', _OP_LIBRARY)
 sequence_concat = _later('sequence_concat', _OP_LIBRARY)
 sequence_slice = _later('sequence_slice', _OP_LIBRARY)
 sequence_erase = _later('sequence_erase', _OP_LIBRARY)
 lod_reset = _later('lod_reset', _OP_LIBRARY)
-dynamic_gru = _later('dynamic_gru', _SEQ2SEQ)
-gru_unit = _later('gru_unit', _SEQ2SEQ)
 chunk_eval = _later('chunk_eval', _OP_LIBRARY)
 edit_distance = _later('edit_distance', _OP_LIBRARY)
 linear_chain_crf = _later('linear_chain_crf', _OP_LIBRARY)

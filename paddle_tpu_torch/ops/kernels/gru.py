@@ -1,0 +1,274 @@
+"""Fused GRU time loop, forward and backward through time: hand-written
+Hopper kernels and their plain PyTorch versions.
+
+Port of paddle_tpu/ops/pallas/lstm_cell.py's GRU half: the forward
+(``_gru_kernel``, ``_gru_forward``) and the BPTT backward
+(``_gru_bwd_kernel``, ``_gru_backward``), joined by a
+``torch.autograd.Function`` as the reference joins them by
+``jax.custom_vjp`` (``_gru_scan_core``), plus ``gru_scan``.  The kernels
+are CUDA C++ in ``paddle_tpu_torch/csrc/gru_fwd.cu`` and ``gru_bwd.cu``,
+compiled for ``sm_90a`` at first use (ops/kernels/build.py) and called
+through ctypes on the tensors' current stream.  Their designs and what
+bounds them are noted in those sources.
+
+The recurrence, time-major: x [T, B, 3H] holds the pre-projected gate
+inputs (bias added), w [H, 3H] the recurrent weight (``[:, :2H]`` update
+and reset, ``[:, 2H:]`` candidate), h0 [B, H] the initial state (zeros
+when None); the reset gate multiplies h before the candidate's product:
+
+    u, r = sigmoid(x_t[:, :2H] + h W[:, :2H]) split in two
+    c = tanh(x_t[:, 2H:] + (r * h) W[:, 2H:]);  h' = u * h + (1 - u) * c
+
+Dispatch is by the tensors' device and nothing else: CUDA tensors launch
+the kernels (a failed build or launch raises, as does a shape the kernels
+do not take), CPU tensors take the plain versions ``_plain_gru_forward``
+and ``_plain_gru_backward``, eager loops over T that restate the
+reference's ``_gru_scan_reference`` (with h0) and its BPTT math.  They are
+what the CPU tests and ``chip_smoke.py`` hold the kernels against.  The
+reference's VMEM fit test and batch tiling are not ported: the kernels
+tile the batch by ``ROWS_PER_BLOCK`` rows themselves and take hidden
+widths that are multiples of 4 (512 in the seq2seq translator); another
+width on a CUDA tensor raises.  Float32 only: bfloat16 inputs, which
+benchmarks/bench_seq2seq.py builds, come with the AMP slice.
+"""
+import ctypes
+
+import torch
+
+__all__ = ['gru_scan', 'launches', 'bwd_launches', 'ROWS_PER_BLOCK']
+
+# kernel launches in this process (plain-version calls excluded); one
+# backward launch is the call that runs the transpose, the BPTT loop, the
+# dW tiles and their finish
+launches = 0       # forward (#9)
+bwd_launches = 0   # backward (#10)
+
+# batch rows per block of both kernels (8 or 16; gru_fwd.cu says why 8)
+ROWS_PER_BLOCK = 8
+
+
+def _lib(name):
+    from . import build
+    lib = build.load(name)
+    fn = getattr(lib, 'paddle_' + name)
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        if name == 'gru_fwd':
+            fn.argtypes = [p] * 5 + [i, i, i, i, p]
+        else:
+            fn.argtypes = [p] * 9 + [i, i, i, i, p]
+            lib.paddle_gru_bwd_workspace_bytes.argtypes = [i, i, i]
+            lib.paddle_gru_bwd_workspace_bytes.restype = ctypes.c_int64
+        fn.restype = ctypes.c_int
+        mh = getattr(lib, 'paddle_%s_max_hidden' % name)
+        mh.argtypes = [i]
+        mh.restype = ctypes.c_int
+        lib.paddle_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.paddle_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(x, w, h0):
+    if x.dim() != 3 or w.dim() != 2:
+        raise ValueError("gru takes x [T, B, 3H] and w [H, 3H]; got %s, %s"
+                         % (tuple(x.shape), tuple(w.shape)))
+    t, b, three_h = x.shape
+    h = w.shape[0]
+    if three_h != 3 * h or tuple(w.shape) != (h, 3 * h):
+        raise ValueError("gru shapes do not match: x %s, w %s"
+                         % (tuple(x.shape), tuple(w.shape)))
+    if h0 is not None and tuple(h0.shape) != (b, h):
+        raise ValueError("gru h0 must be [%d, %d], got %s"
+                         % (b, h, tuple(h0.shape)))
+    if t < 1 or b < 1 or h < 1:
+        raise ValueError("empty gru input %s" % (tuple(x.shape),))
+    for name, v in (('x', x), ('w', w), ('h0', h0)):
+        if v is None:
+            continue
+        if v.dtype in (torch.bfloat16, torch.float16):
+            raise NotImplementedError(
+                "%s gru inputs (the dtype benchmarks/bench_seq2seq.py "
+                "builds) come with the AMP slice: ROADMAP.md Queue 1 item 7"
+                % str(v.dtype).replace('torch.', ''))
+        if v.dtype != torch.float32:
+            raise TypeError("gru takes float32; %s is %s" % (name, v.dtype))
+        if v.device != x.device:
+            raise ValueError("gru inputs lie on %s and %s"
+                             % (x.device, v.device))
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError("gru runs on cuda or cpu tensors, not %s"
+                         % x.device)
+
+
+def _plain_gru_forward(x, w, h0):
+    """The forward kernel's function in plain PyTorch: (hs [T, B, H], gates
+    [T, B, 3H]) float32, gates being the post-activation (u, r, c).
+    ``_gru_scan_reference`` of lstm_cell.py, from h0, as an eager loop over
+    T."""
+    t, b, three_h = x.shape
+    h = three_h // 3
+    w_rz, w_c = w[:, :2 * h], w[:, 2 * h:]
+    h_p = (torch.zeros((b, h), dtype=torch.float32, device=x.device)
+           if h0 is None else h0)
+    hs, gates = [], []
+    for s in range(t):
+        rz = x[s, :, :2 * h] + torch.matmul(h_p, w_rz)
+        u = torch.sigmoid(rz[:, :h])
+        r = torch.sigmoid(rz[:, h:])
+        c = torch.tanh(x[s, :, 2 * h:] + torch.matmul(r * h_p, w_c))
+        h_p = u * h_p + (1.0 - u) * c
+        hs.append(h_p)
+        gates.append(torch.cat([u, r, c], dim=1))
+    return torch.stack(hs), torch.stack(gates)
+
+
+def _plain_gru_backward(w, h0, hs, gates, ct_h):
+    """The backward kernel's function in plain PyTorch: (dx [T, B, 3H], dw
+    [H, 3H], dh0 [B, H]) from the forward's saved state and the cotangent
+    of hs (None means zeros).  The reverse-time loop of ``_gru_bwd_kernel``
+    (lstm_cell.py :378-413); h_prev is hs shifted by one step with h0
+    (zeros when None) as its first row."""
+    t, b, three_h = gates.shape
+    h = three_h // 3
+    w_rz, w_c = w[:, :2 * h], w[:, 2 * h:]
+    first = (torch.zeros((1, b, h), dtype=torch.float32, device=hs.device)
+             if h0 is None else h0[None])
+    h_prev = torch.cat([first, hs[:-1]])
+    dh_c = torch.zeros((b, h), dtype=torch.float32, device=hs.device)
+    dw = torch.zeros_like(w)
+    dx = torch.empty_like(gates)
+    for s in range(t - 1, -1, -1):
+        u, r, c = gates[s, :, :h], gates[s, :, h:2 * h], gates[s, :, 2 * h:]
+        h_p = h_prev[s]
+        dh = dh_c if ct_h is None else ct_h[s] + dh_c
+        du = dh * (h_p - c)
+        dc = dh * (1.0 - u)
+        dc_pre = dc * (1.0 - c * c)
+        drh = torch.matmul(dc_pre, w_c.t())
+        dr = drh * h_p
+        du_pre = du * u * (1.0 - u)
+        dr_pre = dr * r * (1.0 - r)
+        dg_rz = torch.cat([du_pre, dr_pre], dim=1)
+        dx[s] = torch.cat([dg_rz, dc_pre], dim=1)
+        dw[:, :2 * h] += torch.matmul(h_p.t(), dg_rz)
+        dw[:, 2 * h:] += torch.matmul((r * h_p).t(), dc_pre)
+        dh_c = dh * u + drh * r + torch.matmul(dg_rz, w_rz.t())
+    return dx, dw, dh_c
+
+
+def _launch_check(lib, err, name):
+    if err != 0:
+        raise RuntimeError("%s launch failed: %s"
+                           % (name, lib.paddle_cuda_error_string(err)
+                              .decode()))
+
+
+def _check_width(lib, name, h, rows):
+    top = getattr(lib, 'paddle_%s_max_hidden' % name)(rows)
+    if rows not in (8, 16) or h > top or h % 4:
+        raise ValueError("the %s kernel takes hidden widths that are "
+                         "multiples of 4 up to %d at 8 or 16 rows per block, "
+                         "not H=%d at %d rows" % (name, top, h, rows))
+
+
+def _ptr(v):
+    return None if v is None else v.data_ptr()
+
+
+def _gru_forward(x, w, h0, with_gates, rows=None):
+    """(hs, gates or None) of the GRU over x [T, B, 3H] from h0 (None for
+    zeros): the kernel on CUDA tensors, ``_plain_gru_forward`` on CPU
+    tensors.  The no-grad path skips the gates' write.  ``rows`` overrides
+    ROWS_PER_BLOCK."""
+    _check(x, w, h0)
+    if x.device.type == 'cpu':
+        hs, gates = _plain_gru_forward(x, w, h0)
+        return hs, gates if with_gates else None
+    global launches
+    t, b, three_h = x.shape
+    h = three_h // 3
+    rows = rows or ROWS_PER_BLOCK
+    lib = _lib('gru_fwd')
+    _check_width(lib, 'gru_fwd', h, rows)
+    x, w = x.contiguous(), w.contiguous()
+    h0 = None if h0 is None else h0.contiguous()
+    hs = torch.empty((t, b, h), dtype=torch.float32, device=x.device)
+    gates = torch.empty_like(x) if with_gates else None
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.paddle_gru_fwd(x.data_ptr(), w.data_ptr(), _ptr(h0),
+                                 hs.data_ptr(), _ptr(gates), t, b, h, rows,
+                                 stream)
+    _launch_check(lib, err, 'gru_fwd')
+    launches += 1
+    return hs, gates
+
+
+def _gru_backward(w, h0, hs, gates, ct_h, rows=None):
+    """(dx, dw, dh0) of the GRU from its saved state: the kernel on CUDA
+    tensors, ``_plain_gru_backward`` on CPU tensors.  ``h0`` and ``ct_h``
+    (the cotangent of hs) may be None for zeros; dh0 is computed either
+    way."""
+    t, b, three_h = gates.shape
+    h = three_h // 3
+    _check(gates, w, h0)
+    for name, v in (('hs', hs), ('ct_h', ct_h)):
+        if v is not None and (tuple(v.shape) != (t, b, h) or
+                              v.dtype != torch.float32 or
+                              v.device != gates.device):
+            raise ValueError("%s must be a float32 [%d, %d, %d] tensor on %s"
+                             % (name, t, b, h, gates.device))
+    if gates.device.type == 'cpu':
+        return _plain_gru_backward(w, h0, hs, gates, ct_h)
+    global bwd_launches
+    rows = rows or ROWS_PER_BLOCK
+    lib = _lib('gru_bwd')
+    _check_width(lib, 'gru_bwd', h, rows)
+    args = [None if v is None else v.contiguous()
+            for v in (gates, hs, h0, ct_h, w)]
+    dev = gates.device
+    dx = torch.empty((t, b, three_h), dtype=torch.float32, device=dev)
+    dw = torch.empty((h, three_h), dtype=torch.float32, device=dev)
+    dh0 = torch.empty((b, h), dtype=torch.float32, device=dev)
+    ws = torch.empty((lib.paddle_gru_bwd_workspace_bytes(t, b, h),),
+                     dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.paddle_gru_bwd(
+            *[_ptr(v) for v in args], dx.data_ptr(), dw.data_ptr(),
+            dh0.data_ptr(), ws.data_ptr(), t, b, h, rows, stream)
+    _launch_check(lib, err, 'gru_bwd')
+    bwd_launches += 1
+    return dx, dw, dh0
+
+
+class _GRUScan(torch.autograd.Function):
+    """hs of the GRU, differentiable in x, w and h0: the forward saves (w,
+    h0, hs, gates) and the backward replays them in the BPTT kernel (the
+    reference's ``_gru_fwd`` / ``_gru_bwd``), returning dh0 as well."""
+
+    @staticmethod
+    def forward(ctx, x, w, h0):
+        hs, gates = _gru_forward(x, w, h0, with_gates=True)
+        ctx.save_for_backward(w, h0, hs, gates)
+        ctx.set_materialize_grads(False)
+        return hs
+
+    @staticmethod
+    def backward(ctx, ct_h):
+        w, h0, hs, gates = ctx.saved_tensors
+        dx, dw, dh0 = _gru_backward(w, h0, hs, gates, ct_h)
+        return dx, dw, (dh0 if h0 is not None else None)
+
+
+def gru_scan(x_tm, w, h0=None):
+    """Fused GRU over time-major gate inputs x_tm [T, B, 3H] (bias added)
+    and recurrent weight w [H, 3H]; h0 [B, H] is the initial state (zeros
+    when None; the seq2seq decoder chains its encoder summary in).  Returns
+    hs [T, B, H].  Differentiable; without gradients the forward skips the
+    gates."""
+    if torch.is_grad_enabled() and any(
+            v is not None and v.requires_grad for v in (x_tm, w, h0)):
+        return _GRUScan.apply(x_tm, w, h0)
+    hs, _ = _gru_forward(x_tm, w, h0, with_gates=False)
+    return hs

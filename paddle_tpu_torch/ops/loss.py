@@ -1,5 +1,5 @@
-"""Loss ops (paddle_tpu/ops/loss.py), cut to ``cross_entropy``; computed
-in float32."""
+"""Loss ops (paddle_tpu/ops/loss.py), cut to ``cross_entropy`` and
+``softmax_with_cross_entropy``; computed in float32."""
 import torch
 
 from ..core.registry import register_op
@@ -26,3 +26,18 @@ def _cross_entropy(ctx, ins, attrs):
         p = torch.gather(x, -1, _label_idx(label)[..., None])
         y = -torch.log(p + 1e-12)
     return {'Y': [y]}
+
+
+@register_op('softmax_with_cross_entropy')
+def _softmax_with_ce(ctx, ins, attrs):
+    """-log_softmax(Logits)[label] per row, and the softmax itself
+    (operators/softmax_with_cross_entropy_op); soft labels weigh every
+    class."""
+    logits = first(ins, 'Logits').float()
+    label = first(ins, 'Label')
+    logp = torch.log_softmax(logits, dim=-1)
+    if attrs.get('soft_label', False):
+        loss = -(label.float() * logp).sum(dim=-1, keepdim=True)
+    else:
+        loss = -torch.gather(logp, -1, _label_idx(label)[..., None])
+    return {'Loss': [loss], 'Softmax': [torch.exp(logp)]}

@@ -1,8 +1,9 @@
-"""Math ops: mul, elementwise_add, scale, sum, mean, softmax, top_k.
+"""Math ops: mul, matmul, elementwise_add, scale, sum, mean, softmax,
+top_k.
 
-Reference parity: paddle_tpu/ops/math.py (paddle/operators/{mul,
-elementwise_add,scale,sum,mean,softmax,top_k}_op).  The matmul is
-``torch.matmul``: the reference leaves it to XLA, outside any Pallas
+Reference parity: paddle_tpu/ops/math.py (paddle/operators/{mul,matmul,
+elementwise_add,scale,sum,mean,softmax,top_k}_op).  The products are
+``torch.matmul``: the reference leaves them to XLA, outside any Pallas
 kernel.
 """
 import torch
@@ -23,6 +24,23 @@ def _mul(ctx, ins, attrs):
     x2 = x.reshape(prod(xs[:xnc]), prod(xs[xnc:]))
     y2 = y.reshape(prod(ys[:ync]), prod(ys[ync:])).to(x.dtype)
     return out(torch.matmul(x2, y2).reshape(xs[:xnc] + ys[ync:]))
+
+
+@register_op('matmul')
+def _matmul(ctx, ins, attrs):
+    """Batched X @ Y with ``transpose_X`` / ``transpose_Y`` (the last two
+    axes) and ``alpha`` (operators/matmul_op)."""
+    x = first(ins, 'X')
+    y = first(ins, 'Y')
+    if attrs.get('transpose_X', False) and x.dim() > 1:
+        x = x.transpose(-1, -2)
+    if attrs.get('transpose_Y', False) and y.dim() > 1:
+        y = y.transpose(-1, -2)
+    z = torch.matmul(x, y.to(x.dtype))
+    if x.dim() == 1 and y.dim() == 1:
+        return out(z)
+    alpha = attrs.get('alpha', 1.0)
+    return out(z * alpha if alpha != 1.0 else z)
 
 
 @register_op('elementwise_add')

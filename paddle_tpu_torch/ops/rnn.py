@@ -1,11 +1,12 @@
-"""Recurrent ops: ``lstm`` and ``lstm_unit``.
+"""Recurrent ops: ``lstm``, ``lstm_unit``, ``gru`` and ``gru_unit``.
 
 Reference parity: paddle_tpu/ops/rnn.py (paddle/operators/{lstm,
-lstm_unit}_op).  A ragged batch is padded [B, T, ...] with lengths [B]
-(XLen).  The ``lstm`` op takes one of two paths, chosen by its own attrs
-exactly as the reference chooses (rnn.py :129-134): ``use_pallas`` with
-the default activations and no H0 / C0 runs the fused time loop of
-ops/kernels/lstm.py (the hand-written kernels on CUDA tensors, their plain
+lstm_unit,gru,gru_unit}_op).  A ragged batch is padded [B, T, ...] with
+lengths [B] (XLen).  The ``lstm`` and ``gru`` ops take one of two paths,
+chosen by their own attrs exactly as the reference chooses (rnn.py
+:129-134, :240-244): ``use_pallas`` with the default activations (and, for
+``lstm``, no H0 / C0) runs the fused time loop of ops/kernels/lstm.py or
+ops/kernels/gru.py (the hand-written kernels on CUDA tensors, their plain
 versions on CPU tensors); any other configuration runs the reference's
 scan as an eager loop over T, which in the reference is ``lax.scan``
 computed by XLA, not a Pallas kernel.  The reference's VMEM fit test is
@@ -16,14 +17,15 @@ and gradient: the kernel path runs unmasked over all T (lengths are
 prefixes, so padded steps never reach a valid one), reversing each row's
 valid prefix before it for ``is_reverse`` and zeroing the padded outputs
 after it, which also zeroes their cotangents; the scan path freezes each
-finished row's state.
-
-``gru`` and ``gru_unit`` come with the seq2seq slice.
+finished row's state.  With an initial state (the GRU's H0) the padded
+steps come after the valid ones, so their zero cotangents leave the dh
+chain at zero until the valid steps, and dH0 agrees too.
 """
 import torch
 
 from ..core.registry import register_op
 from .common import first
+from .kernels import gru as gru_kernels
 from .kernels import lstm as lstm_kernels
 
 _ACTS = {
@@ -162,11 +164,104 @@ def _lstm_unit(ctx, ins, attrs):
     return {'C': [c.to(dt)], 'H': [h.to(dt)]}
 
 
-def _gru_later(ctx, ins, attrs):
-    raise NotImplementedError(
-        "GRU ops come with the seq2seq slice (kernels #9 and #10): "
-        "ROADMAP.md Queue 1")
+def _gru_input(op, ins):
+    """The op's Input; low-precision inputs come with the AMP slice."""
+    x = first(ins, 'Input')
+    if x.dtype in (torch.bfloat16, torch.float16):
+        raise NotImplementedError(
+            "%s %s inputs (the dtype benchmarks/bench_seq2seq.py builds) "
+            "come with the AMP slice: ROADMAP.md Queue 1 item 7"
+            % (str(x.dtype).replace('torch.', ''), op))
+    return x
 
 
-register_op('gru')(_gru_later)
-register_op('gru_unit')(_gru_later)
+def _gru_kernel_path(attrs):
+    return (attrs.get('use_pallas') and
+            attrs.get('gate_activation', 'sigmoid') == 'sigmoid' and
+            attrs.get('activation', 'tanh') == 'tanh')
+
+
+@register_op('gru')
+def _gru(ctx, ins, attrs):
+    """Dynamic GRU over a padded batch (operators/gru_op.cc).  Input is the
+    pre-projected gates [B, T, 3H]; Weight [H, 3H] packs the update and
+    reset gates' [H, 2H] and the candidate's [H, H]; Bias [1, 3H] is added
+    to the input; H0 [B, H] is the optional initial state."""
+    x = _gru_input('gru', ins)
+    w = first(ins, 'Weight').float()
+    bias = first(ins, 'Bias')
+    lengths = first(ins, 'XLen')
+    h0 = first(ins, 'H0')
+    b, t, three_h = x.shape
+    h = three_h // 3
+    if x.device.type == 'meta':   # build-time shape inference
+        return {'Hidden': [torch.empty((b, t, h), dtype=x.dtype,
+                                       device=x.device)]}
+    xf = x.float()
+    if bias is not None:
+        xf = xf + bias.float().reshape(1, 1, -1)
+    h0f = None if h0 is None else h0.float()
+    is_reverse = attrs.get('is_reverse', False)
+
+    if _gru_kernel_path(attrs):
+        xin, rev_idx = _maybe_reverse(xf, lengths, is_reverse)
+        hs = gru_kernels.gru_scan(xin.transpose(0, 1).contiguous(), w, h0f)
+        hs, = _unreverse_and_mask([hs.transpose(0, 1)], rev_idx, lengths, t)
+        return {'Hidden': [hs]}
+
+    ln = (torch.full((b,), t, dtype=torch.long, device=x.device)
+          if lengths is None else lengths.reshape(-1).long())
+    gate_act = _ACTS[attrs.get('gate_activation', 'sigmoid')]
+    cand_act = _ACTS[attrs.get('activation', 'tanh')]
+    w_rz, w_c = w[:, :2 * h], w[:, 2 * h:]
+    rev_idx = None
+    if is_reverse:
+        xf, rev_idx = _maybe_reverse(xf, ln, True)
+    h_p = (h0f if h0f is not None
+           else torch.zeros((b, h), dtype=torch.float32, device=x.device))
+    hs = []
+    for s in range(t):
+        rz = xf[:, s, :2 * h] + torch.matmul(h_p, w_rz)
+        u = gate_act(rz[:, :h])
+        r = gate_act(rz[:, h:])
+        c = cand_act(xf[:, s, 2 * h:] + torch.matmul(r * h_p, w_c))
+        h_t = u * h_p + (1.0 - u) * c
+        h_p = torch.where((s < ln)[:, None], h_t, h_p)
+        hs.append(h_p)
+    hs, = _unreverse_and_mask([torch.stack(hs, dim=1)], rev_idx, lengths, t)
+    return {'Hidden': [hs]}
+
+
+# gru_unit's integer activation codes (rnn.py :300-309)
+_GATE_CODES = {0: 'sigmoid', 1: 'sigmoid', 2: 'tanh', 3: 'relu'}
+_CAND_CODES = {0: 'identity', 1: 'sigmoid', 2: 'tanh', 3: 'relu'}
+
+
+def _unit_act(value, codes, default):
+    if isinstance(value, int):
+        return _ACTS[codes.get(value, default)]
+    return _ACTS[value]
+
+
+@register_op('gru_unit')
+def _gru_unit(ctx, ins, attrs):
+    """One GRU step (operators/gru_unit_op): Input [B, 3H] pre-projected
+    gates, HiddenPrev [B, H], Weight [H, 3H], optional Bias [1, 3H] ->
+    Hidden, ResetHiddenPrev (r * h_prev) and Gate (u, r, c)."""
+    x = _gru_input('gru_unit', ins).float()
+    h_p = first(ins, 'HiddenPrev').float()
+    w = first(ins, 'Weight').float()
+    bias = first(ins, 'Bias')
+    h = h_p.shape[1]
+    if bias is not None:
+        x = x + bias.float().reshape(1, -1)
+    gate_act = _unit_act(attrs.get('gate_activation', 0), _GATE_CODES,
+                         'sigmoid')
+    cand_act = _unit_act(attrs.get('activation', 2), _CAND_CODES, 'tanh')
+    rz = x[:, :2 * h] + torch.matmul(h_p, w[:, :2 * h])
+    u = gate_act(rz[:, :h])
+    r = gate_act(rz[:, h:])
+    c = cand_act(x[:, 2 * h:] + torch.matmul(r * h_p, w[:, 2 * h:]))
+    h_t = u * h_p + (1.0 - u) * c
+    return {'Hidden': [h_t], 'ResetHiddenPrev': [r * h_p],
+            'Gate': [torch.cat([u, r, c], dim=1)]}

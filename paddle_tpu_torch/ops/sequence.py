@@ -1,8 +1,9 @@
 """Sequence (LoD) ops on the padded + lengths representation.
 
 Reference parity: paddle_tpu/ops/sequence.py (paddle/operators/
-sequence_pool_op), cut to ``sequence_pool`` and its ``sequence_first_step``
-/ ``sequence_last_step`` forms.  A ragged batch is a dense [B, T, ...]
+sequence_pool_op, sequence_softmax_op), cut to ``sequence_pool``, its
+``sequence_first_step`` / ``sequence_last_step`` forms and
+``sequence_softmax``.  A ragged batch is a dense [B, T, ...]
 tensor with int32 lengths [B] in slot ``XLen``; the masks come from the
 lengths, and missing lengths mean every row is full.
 """
@@ -64,3 +65,29 @@ def _sequence_first_step(ctx, ins, attrs):
 def _sequence_last_step(ctx, ins, attrs):
     x = first(ins, 'X')
     return _pool(x, _lengths(ins, x), 'LAST')
+
+
+@register_op('sequence_softmax')
+def _sequence_softmax(ctx, ins, attrs):
+    """Softmax over the valid steps of each row along ``axis``, the time
+    axis the lengths (XLen) mask: masked entries are -inf before the
+    softmax and 0 after it.  Takes [B, T] or [B, T, 1] (axis 1), and
+    axis=2 on [B, Td, Ts] scores is attention over another sequence's
+    steps."""
+    x = first(ins, 'X')
+    axis = int(attrs.get('axis', 1))
+    squeeze = axis == 1 and x.dim() == 3 and x.shape[-1] == 1
+    xs = x[..., 0] if squeeze else x
+    t = xs.shape[axis]
+    ln = first(ins, 'XLen')
+    ln = (torch.full((xs.shape[0],), t, dtype=torch.long, device=x.device)
+          if ln is None else ln.reshape(-1).long())
+    mshape = [1] * xs.dim()
+    mshape[0], mshape[axis] = xs.shape[0], t
+    mask = (torch.arange(t, device=x.device)[None, :]
+            < ln[:, None]).reshape(mshape)
+    logits = torch.where(mask, xs.float(),
+                         torch.full_like(xs, -float('inf'), dtype=torch.float32))
+    y = torch.softmax(logits, dim=axis)
+    y = torch.where(mask, y, torch.zeros_like(y)).to(x.dtype)
+    return out(y[..., None] if squeeze else y)

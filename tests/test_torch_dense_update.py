@@ -143,7 +143,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_sparse_gradient_raises_naming_the_slice():
+    """Row-sparse gradients came with the seq2seq slice
+    (tests/test_torch_sparse.py); one for a row-sharded table still
+    raises, naming the multi-chip slice."""
     p, _, _, g, lr = (_t(x) for x in _state((4, 6), 5))
-    with pytest.raises(NotImplementedError, match='sparse CTR'):
-        topt._sgd(None, {'Param': [p], 'Grad': [(None, g)],
-                         'LearningRate': [lr]}, {})
+    rows = torch.tensor([0, 2, 2, 3])
+    with pytest.raises(NotImplementedError, match='multi-chip'):
+        topt._sgd(None, {'Param': [p], 'Grad': [(rows, g)],
+                         'LearningRate': [lr]}, {'embed_ways': 2})

@@ -39,11 +39,16 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import paddle_tpu_torch.models.transformer\n"
         "import paddle_tpu_torch.models.rnn_lm\n"
         "import paddle_tpu_torch.models.sentiment\n"
+        "import paddle_tpu_torch.models.seq2seq\n"
+        "import paddle_tpu_torch.datasets.wmt14\n"
         "import paddle_tpu_torch.core.lod\n"
+        "import paddle_tpu_torch.core.selected_rows\n"
         "import paddle_tpu_torch.ops.kernels.build\n"
         "import paddle_tpu_torch.ops.kernels.dense_update\n"
         "import paddle_tpu_torch.ops.kernels.flash_attention\n"
         "import paddle_tpu_torch.ops.kernels.lstm\n"
+        "import paddle_tpu_torch.ops.kernels.gru\n"
+        "import paddle_tpu_torch.ops.kernels.table_update\n"
         "import paddle_tpu_torch.core.executor\n"
         "import paddle_tpu_torch.core.infer\n"
         "import paddle_tpu_torch.optimizer\n"

@@ -45,6 +45,7 @@ from paddle_tpu_torch.core import program as tprog
 from paddle_tpu_torch.core.registry import get_op_impl as tget_op
 from paddle_tpu_torch.core.scope import scope_from_numpy
 from paddle_tpu_torch.models import rnn_lm as trnn
+from paddle_tpu_torch.models import seq2seq as ts2s
 from paddle_tpu_torch.models import sentiment as tsent
 from paddle_tpu_torch.ops.kernels import lstm as tl
 
@@ -274,7 +275,7 @@ def test_adagrad_steps_match_the_reference(model, batches, n_lstm):
 @pytest.mark.parametrize('build,match', [
     (lambda: trnn.build(V, dtype='bfloat16'), 'AMP'),
     (lambda: tsent.build(V, net='conv'), 'sequence_conv'),
-    (lambda: tfl.layers.dynamic_gru(None, 8), 'seq2seq'),
+    (lambda: ts2s.decode(None, V), 'seq2seq'),
 ])
 def test_what_the_slice_does_not_bring_raises(build, match):
     with tfl.program_guard(tfl.Program(), tfl.Program()):
