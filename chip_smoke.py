@@ -9,8 +9,9 @@ line:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
    TF32 is switched off for matmuls and cuDNN so float32 means float32.
-2. kernel build: the eight kernel libraries from the checkout's sources,
-   one nvcc each, all started together; ptxas's register and spill lines.
+2. kernel build: the nine kernel sources of the checkout (ten kernels:
+   #3 and #4 share one), one nvcc each, all started together; ptxas's
+   register and spill lines.
 3. flash forward vs its plain version on the card at the prefill's
    shapes (BH = 8, D = 64), with the kernel, the plain version and
    ``F.scaled_dot_product_attention`` (a yardstick only, which the port
@@ -113,7 +114,30 @@ line:
    untouched embedding rows and their moments unchanged bitwise on both.
 22. profile: a traced seq2seq training step, device time by kernel and
    idle share.
-23. a ``{"kernels": [...]}`` line (eight kernels, each with its launches by
+23. the split backward, #3 (dk, dv) and #4 (dq), vs their plain versions
+   at every case of phase 7, float32 and bfloat16, through their wrappers
+   ``_fa_backward_dkv`` and ``_fa_backward_dq``; #3, #4 and #2 timed at the
+   training shape beside the plain versions (SDPA's backward from phase
+   7).
+24. full length: one layer's attention at 128K context (BH=8, T=131072,
+   D=64, float32, causal; seeded inputs, lse from #1): #1's o and lse,
+   #4's and #2's dq on 64-query slices (the first, one across the middle
+   tile boundary, the last) and #3's and #2's dk, dv on 64-key slices
+   against the plain versions on the same rows, with the slice's offset,
+   against every key or query; the split pair's dq, dk, dv against #2's
+   over the whole length; all norm-relative.  #1, #3, #4 and #2 timed once
+   each after a warm-up, SDPA's forward and backward beside them.
+25. long-context parity: phase 10 again (B=2, T=512) with the fused
+   kernel's cap ``_FUSED_DQ_BYTES`` lowered to 0 (restored after), so the
+   card's step runs #3 and #4 in every layer.
+26. long-context training: the transformer of phase 9 at T=131072, B=1
+   (where the reference's backward takes its split pair), a warm-up and 2
+   timed steps on one seeded batch; the loss must be finite and fall, and
+   each step must launch #1, #3 and #4 6 times each, #2 never, and one
+   dense Adam apply per parameter.  Counts are set to 0 just before.
+27. profile: a traced long-context step, device time by kernel and idle
+   share.
+28. a ``{"kernels": [...]}`` line (ten kernels, each with its launches by
    path), the card's line, and last ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -195,7 +219,12 @@ TOL_LSTM_PARAM_REL = 1e-5
 TOL_LM_MOMENT = 2e-2
 
 KERNELS = ('flash_attention_fwd', 'flash_attention_bwd', 'dense_update',
-           'lstm_fwd', 'lstm_bwd', 'table_update', 'gru_fwd', 'gru_bwd')
+           'lstm_fwd', 'lstm_bwd', 'table_update', 'gru_fwd', 'gru_bwd',
+           'flash_attention_bwd_dkv', 'flash_attention_bwd_dq')
+# the csrc/*.cu sources: #3 (dkv) and #4 (dq) share one
+SOURCES = ('flash_attention_fwd', 'flash_attention_bwd', 'dense_update',
+           'lstm_fwd', 'lstm_bwd', 'table_update', 'gru_fwd', 'gru_bwd',
+           'flash_attention_bwd_split')
 
 SERVE = dict(L=6, D=512, H=8, V=30000, T=512, page=16, streams=16,
              bucket=256, n_req=24, max_new=16)
@@ -220,6 +249,22 @@ SENT = dict(B=32, T=120, min_len=8, V=5148, emb=128, hid=512, stacked=3,
 # synthetic WMT14 task at full lengths
 S2S = dict(B=512, T=64, V=30000, word_dim=256, H=512, lr=1e-3, steps=8,
            parity_B=4)
+# 128K-context training: TRAIN's model at T = 131072, B = 1, where the
+# reference's backward takes its split pair in every layer (a dq
+# accumulator of T * 64 * 4 bytes over flash_attention.py:527's 16 MiB).
+# Full depth: a step took ~22 s on an H100 (PERF.md), under the 60 s that
+# would call for L=2
+LONG = dict(B=1, T=131072, V=30000, L=6, D=512, H=8, lr=1e-3, steps=2)
+# the split pair vs the fused kernel at full length, norm-relative: both
+# float32; dk and dv sum in the same order, dq's tiles add in atomic order
+TOL_SPLIT_VS_FUSED = 1e-5
+# #1, #2, #3 and #4 at full length vs their plain versions on 64-row
+# slices, norm-relative per output: both float32, summing up to 131072
+# terms in other orders (the first key tile's dk and dv sum over every
+# query).  A late row's o and dq average ~1e5 terms and are small, so
+# gaps of a few 1e-7 read as up to 6.6e-6 there on an H100; a wrong index
+# or mask reads O(1).  lse by its largest gap, as in phase 7 (TOL_F32)
+TOL_LONG_VS_PLAIN = 3e-5
 # GRU kernels vs plain versions, float32: h, the gates, dx and dh0 are O(1)
 # and both sides sum dot products of H or 3H terms in other orders; dW sums
 # T * B such terms (up to ~1e2 at the training shape), so its bound is
@@ -240,6 +285,7 @@ TOL_S2S_ZERO_GRAD = 1e-4
 
 def _zero_counts():
     fa.launches = fa.bwd_launches = du.launches = 0
+    fa.dkv_launches = fa.dq_launches = 0
     lk.launches = lk.bwd_launches = 0
     gk.launches = gk.bwd_launches = tu.launches = 0
 
@@ -249,7 +295,9 @@ def _counts():
                 flash_attention_bwd=fa.bwd_launches,
                 dense_update=du.launches, lstm_fwd=lk.launches,
                 lstm_bwd=lk.bwd_launches, table_update=tu.launches,
-                gru_fwd=gk.launches, gru_bwd=gk.bwd_launches)
+                gru_fwd=gk.launches, gru_bwd=gk.bwd_launches,
+                flash_attention_bwd_dkv=fa.dkv_launches,
+                flash_attention_bwd_dq=fa.dq_launches)
 
 
 def _want(**nonzero):
@@ -329,6 +377,18 @@ def _live_pairs(tq, tk, causal, q_offset, k_offset):
     return int(np.clip(qpos - k_offset + 1, 0, tk).sum())
 
 
+def _flash_bounds(bh, tq, tk, d, causal, qo, ko, item):
+    """{kernel: (bytes, flops)} of #1, #2, #3 and #4 on [bh, t, d] inputs
+    of ``item`` bytes: each input read once, each output written once;
+    4, 10, 8 and 6 * d flops per live (q, k) pair."""
+    pairs = bh * _live_pairs(tq, tk, causal, qo, ko)
+    q_, kv_, rows = bh * tq * d * item, bh * tk * d * item, bh * tq * 4
+    return {'fwd': (2 * q_ + 2 * kv_ + rows, 4 * d * pairs),
+            'fused': (3 * q_ + 4 * kv_ + 2 * rows, 10 * d * pairs),
+            'dkv': (2 * q_ + 4 * kv_ + 2 * rows, 8 * d * pairs),
+            'dq': (3 * q_ + 2 * kv_ + 2 * rows, 6 * d * pairs)}
+
+
 def phase_environment():
     print("python %s  torch %s  cuda %s"
           % (sys.version.split()[0], torch.__version__, torch.version.cuda))
@@ -347,10 +407,10 @@ def phase_environment():
 
 def phase_build():
     t0 = time.perf_counter()
-    build.load_all(KERNELS)
+    build.load_all(SOURCES)
     secs = time.perf_counter() - t0
-    print("built %s in %.2f s (parallel nvcc)" % (', '.join(KERNELS), secs))
-    for name in KERNELS:
+    print("built %s in %.2f s (parallel nvcc)" % (', '.join(SOURCES), secs))
+    for name in SOURCES:
         lines = build.build_log[name].splitlines()
         for i, line in enumerate(lines):
             if 'Compiling entry function' in line:
@@ -408,10 +468,8 @@ def phase_kernel():
         for key, fn in fns.items():
             times[key + 'ms'] = _device_ms(fn)
             times[key + 'call_ms'] = _call_ms(fn)
-        item = q.element_size()
-        nbytes = ((2 * bh * tq * d + 2 * bh * tk * d) * item
-                  + bh * tq * 4)
-        flops = 4 * d * bh * _live_pairs(tq, tk, causal, qo, ko)
+        nbytes, flops = _flash_bounds(bh, tq, tk, d, causal, qo, ko,
+                                      q.element_size())['fwd']
         bound_ms, bound_by = _bound(nbytes, flops, dtype)
         rows.append(dict(
             case=name, tq=tq, tk=tk, causal=causal,
@@ -614,7 +672,8 @@ def phase_bwd_kernel():
         if with_dlse:
             di = di - torch.randn((bh, tq), generator=gen, device='cuda')
         di = di.contiguous()
-        got = fa._fa_backward(q, k, v, lse, do, di, causal, scale, qo, ko)
+        got = fa._fa_backward_fused(q, k, v, lse, do, di, causal, scale, qo,
+                                    ko)
         ref = fa._plain_backward(q, k, v, lse, do, di, causal, scale, qo,
                                  ko)
         torch.cuda.synchronize()
@@ -630,8 +689,8 @@ def phase_bwd_kernel():
                    fwd_finite=fwd_finite,
                    ok=finite and err <= tol and fwd_ok)
         if name == BWD_MAIN:
-            fns = {'': lambda: fa._fa_backward(q, k, v, lse, do, di, causal,
-                                               scale, qo, ko),
+            fns = {'': lambda: fa._fa_backward_fused(q, k, v, lse, do, di,
+                                                     causal, scale, qo, ko),
                    'plain_': lambda: fa._plain_backward(
                        q, k, v, lse, do, di, causal, scale, qo, ko)}
             for key, fn in fns.items():
@@ -657,11 +716,10 @@ def phase_bwd_kernel():
             row['library_call_ms'] = _call_ms(
                 lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
                                             retain_graph=True), iters=20)
-            pairs = bh * _live_pairs(tq, tk, causal, qo, ko)
-            item = q.element_size()
-            nbytes = 7 * bh * tq * d * item + 2 * bh * tq * 4
-            row['bytes'], row['flops'] = nbytes, 10 * d * pairs
-            row['bound_ms'], row['bound_by'] = _bound(nbytes, 10 * d * pairs)
+            bounds = _flash_bounds(bh, tq, tk, d, causal, qo, ko,
+                                   q.element_size())
+            row['bytes'], row['flops'] = bounds['fused']
+            row['bound_ms'], row['bound_by'] = _bound(*bounds['fused'])
             # kernel #1 at the training shape
             f = {'ms': lambda: fa._fa_forward(q, k, v, causal, scale),
                  'plain_ms': lambda: fa._plain_forward(q, k, v, causal,
@@ -671,9 +729,8 @@ def phase_bwd_kernel():
                      scale=scale)}
             fwd_train = {key: _device_ms(fn, iters=10, replays=3)
                          for key, fn in f.items()}
-            fbytes = 4 * bh * tq * d * item + bh * tq * 4
             fwd_train['bound_ms'], fwd_train['bound_by'] = _bound(
-                fbytes, 4 * d * pairs)
+                *bounds['fwd'])
             fwd_train['shape'] = 'BH=256 T=512 D=64 float32 causal'
             fwd_train['err_o'], fwd_train['err_lse'] = err_o, err_lse
             del q4, k4, v4, out4
@@ -774,8 +831,7 @@ def phase_dense_kernel():
     return dict(worst=worst, cases=results, **t)
 
 
-def _train_programs():
-    c = TRAIN
+def _train_programs(c=TRAIN):
     main, startup = tfl.Program(), tfl.Program()
     main.random_seed = startup.random_seed = SEED
     with tfl.program_guard(main, startup):
@@ -786,15 +842,18 @@ def _train_programs():
     return main, startup, cost
 
 
-def _train_feed(batch, seed):
+def _train_feed(batch, seed, c=TRAIN):
     src = np.random.default_rng(seed).integers(
-        1, TRAIN['V'], (batch, TRAIN['T'])).astype(np.int64)
+        1, c['V'], (batch, c['T'])).astype(np.int64)
     return {'src': src, 'target': np.roll(src, -1, axis=1)[..., None]}
 
 
-def phase_training():
-    c = TRAIN
-    main, startup, cost = _train_programs()
+def phase_training(c=TRAIN, label='training', seed=SEED + 5,
+                   bwd_kernels=('flash_attention_bwd',)):
+    """The transformer of config ``c`` trained through the port's
+    Executor; each step must launch #1 and each of ``bwd_kernels`` once
+    per layer and the dense update once per parameter."""
+    main, startup, cost = _train_programs(c)
     n_adam = sum(op.type == 'adam' for op in main.global_block().ops)
     exe = tfl.Executor()
     scope = tfl.Scope()
@@ -803,7 +862,8 @@ def phase_training():
     torch.cuda.synchronize()
     startup_s = time.perf_counter() - t0
     n_params = sum(scope.get(p.name).numel() for p in main.all_parameters())
-    feed = _train_feed(c['B'], SEED + 5)
+    feed = _train_feed(c['B'], seed, c)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     losses, step_ms = [], []
@@ -824,9 +884,9 @@ def phase_training():
                tokens_per_s=c['B'] * c['T'] / (p50 / 1e3),
                launches=counts, launches_per_step=per_step,
                max_memory_allocated=torch.cuda.max_memory_allocated())
-    print("training: %s" % json.dumps(res))
-    want = _want(flash_attention_fwd=c['L'], flash_attention_bwd=c['L'],
-                 dense_update=n_adam)
+    print("%s: %s" % (label, json.dumps(res)))
+    want = _want(flash_attention_fwd=c['L'], dense_update=n_adam,
+                 **{k: c['L'] for k in bwd_kernels})
     if n_adam != 2 + 12 * c['L'] + 4:
         raise SystemExit("program has %d adam ops" % n_adam)
     if per_step != want:
@@ -834,7 +894,7 @@ def phase_training():
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise SystemExit("loss not finite or not falling: %s" % losses)
     return dict(main=main, startup=startup, cost=cost, scope=scope,
-                exe=exe, counts=counts, **res)
+                exe=exe, feed=feed, counts=counts, n_adam=n_adam, **res)
 
 
 def _norm_rel(a, b):
@@ -844,11 +904,12 @@ def _norm_rel(a, b):
     return gap / ref if ref > 0 else gap
 
 
-def phase_train_parity(tr):
+def phase_train_parity(tr, label='training parity'):
     """One step at B=2 on the card (kernels) and on the CPU (plain
     versions) from the same state: the loss, every gradient, and every
     parameter's Adam state after the step (both moments and the update
-    p_new - p_old).  Any non-finite value fails."""
+    p_new - p_old).  Any non-finite value fails.  The card step's kernel
+    launches are counted."""
     main, startup, cost = tr['main'], tr['startup'], tr['cost']
     card_scope = tfl.Scope()
     tr['exe'].run(startup, scope=card_scope)
@@ -867,7 +928,9 @@ def phase_train_parity(tr):
     feed = _train_feed(TRAIN['parity_B'], SEED + 6)
     fetch = [cost.name] + [n + '@GRAD' for n in names]
     t0 = time.perf_counter()
+    _zero_counts()
     card = tr['exe'].run(main, feed=feed, fetch_list=fetch, scope=card_scope)
+    counts = _counts()
     cpu = tfl.Executor('cpu').run(main, feed=feed, fetch_list=fetch,
                                   scope=cpu_scope)
     secs = time.perf_counter() - t0
@@ -908,8 +971,8 @@ def phase_train_parity(tr):
                              for k, v in gaps.items()},
                param_err=param_err,
                param_share_differing=moved / total, nonfinite=nonfinite,
-               seconds=secs, tol=tol)
-    print("training parity: %s" % json.dumps(res))
+               seconds=secs, tol=tol, launches=counts)
+    print("%s: %s" % (label, json.dumps(res)))
     if nonfinite or bad:
         raise SystemExit("training step on the card disagrees with the CPU "
                          "(%s) or is not finite (%s)" % (bad, nonfinite))
@@ -960,12 +1023,10 @@ def phase_train_serve(tr):
     return res
 
 
-def phase_train_profile(tr):
+def phase_train_profile(tr, label='training profile'):
     """A traced training step, apart from the timed ones."""
-    feed = _train_feed(TRAIN['B'], SEED + 5)
-
     def step():
-        tr['exe'].run(tr['main'], feed=feed, fetch_list=[tr['cost']],
+        tr['exe'].run(tr['main'], feed=tr['feed'], fetch_list=[tr['cost']],
                       scope=tr['scope'])
     wall, rows = _device_kernels(step)
     busy = sum(ms for _, ms, _ in rows)
@@ -978,9 +1039,12 @@ def phase_train_profile(tr):
                kernels=sum(n for *_, n in rows),
                flash_fwd_ms=by('fa_fwd_kernel'),
                flash_bwd_ms=by('fa_bwd_kernel') + by('fa_bwd_dq_finish'),
+               flash_bwd_dkv_ms=by('fa_bwd_dkv_kernel'),
+               flash_bwd_dq_ms=by('fa_bwd_dq_kernel'),
                dense_update_ms=by('dense_update_kernel'),
+               gemm_ms=by('gemm'),   # cuBLAS and CUTLASS sgemm
                top=[dict(kernel=k[:80], ms=ms, count=n) for k, ms, n in top])
-    print("training profile: %s" % json.dumps(out))
+    print("%s: %s" % (label, json.dumps(out)))
     return out
 
 
@@ -1978,6 +2042,280 @@ def _s2s_lines(gru_rows, gru_timing, sparse_rows, sparse_timing, s2s):
     return [table, fwd, bwd]
 
 
+def phase_split_kernel(bwd_rows):
+    """Kernels #3 and #4 against ``_plain_backward_dkv`` /
+    ``_plain_backward_dq`` at every case of phase 7, through
+    ``_fa_backward_dkv`` / ``_fa_backward_dq``; o and lse from the plain
+    forward.
+    At the training shape, #3, #4 and #2 timed in this call beside the
+    plain versions, SDPA's backward taken from phase 7's row."""
+    d = 64
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 19)
+    rows, timing = [], None
+    for name, bh, tq, tk, causal, dtype, qo, ko, with_dlse in BWD_CASES:
+        def rnd(t):
+            return torch.randn((bh, t, d), generator=gen,
+                               device='cuda').to(dtype)
+        q, k, v, do = rnd(tq), rnd(tk), rnd(tk), rnd(tq)
+        scale = d ** -0.5
+        o, lse = fa._plain_forward(q, k, v, causal, scale, qo, ko)
+        di = (do.float() * o.float()).sum(-1)
+        if with_dlse:
+            di = di - torch.randn((bh, tq), generator=gen, device='cuda')
+        args = (q, k, v, lse, do, di.contiguous(), causal, scale, qo, ko)
+        dk, dv = fa._fa_backward_dkv(*args)
+        dq = fa._fa_backward_dq(*args)
+        ref_dk, ref_dv = fa._plain_backward_dkv(*args)
+        ref_dq = fa._plain_backward_dq(*args)
+        torch.cuda.synchronize()
+        err = dict(dq=_max_err(dq, ref_dq), dk=_max_err(dk, ref_dk),
+                   dv=_max_err(dv, ref_dv))
+        finite = all(bool(torch.isfinite(a).all()) for a in (dq, dk, dv))
+        tol = TOL_BWD_BF16 if dtype == torch.bfloat16 else TOL_BWD_F32
+        row = dict(case=name, bh=bh, tq=tq, tk=tk, causal=causal,
+                   dtype=str(dtype).replace('torch.', ''), q_offset=qo,
+                   k_offset=ko, dlse=with_dlse, err=err, tol=tol,
+                   finite=finite,
+                   ok=finite and max(err.values()) <= tol)
+        if name == BWD_MAIN:
+            fns = {
+                'dkv': lambda: fa._fa_backward_dkv(*args),
+                'dq': lambda: fa._fa_backward_dq(*args),
+                'fused': lambda: fa._fa_backward_fused(*args),
+                'dkv_plain': lambda: fa._plain_backward_dkv(*args),
+                'dq_plain': lambda: fa._plain_backward_dq(*args)}
+            timing = {key + '_ms': _device_ms(fn, iters=10, replays=3)
+                      for key, fn in fns.items()}
+            for key in ('dkv', 'dq'):
+                timing[key + '_call_ms'] = _call_ms(fns[key], iters=20)
+            bounds = _flash_bounds(bh, tq, tk, d, causal, qo, ko, 4)
+            for key in ('dkv', 'dq'):
+                timing[key + '_bound_ms'], timing[key + '_bound_by'] = \
+                    _bound(*bounds[key])
+            timing['library_ms'] = next(
+                r['library_ms'] for r in bwd_rows if r['case'] == BWD_MAIN)
+            timing['library_note'] = ('SDPA backward (phase 7): dq, dk and '
+                                      'dv, the pair\'s function')
+            timing['shape'] = 'BH=256 T=512 D=64 float32 causal'
+            row.update(timing)
+        rows.append(row)
+        print("split kernels %s" % json.dumps(row))
+    bad = [r['case'] for r in rows if not r['ok']]
+    if bad:
+        raise SystemExit("split backward kernels disagree with their plain "
+                         "versions or are not finite: %s" % bad)
+    return rows, timing
+
+
+def _once_ms(fn):
+    """Device ms of one call between CUDA events (after the caller's
+    warm-up): a call that takes seconds needs no graph replay."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def _long_slices(t, n=64):
+    """Row ranges held against the plain versions at full length: the
+    first n, n across the middle (a 64-row tile boundary at 2^16 when t is
+    2^17) and the last n."""
+    mid = t // 2 - n // 2
+    return ((0, n), (mid, mid + n), (t - n, t))
+
+
+def _long_vs_plain(q, k, v, do, o, lse, di, scale, split, fused):
+    """#1's o and lse and #4's and #2's dq on query slices, #3's and #2's
+    dk and dv on key slices, against the plain versions on the same rows:
+    each slice placed by its offset and run against every key (query).
+    The plain backward takes #1's lse, held here too.  Returns each
+    output's norm-relative gaps and largest absolute gap, one per slice."""
+    gaps = {}
+
+    def note(name, got, want):
+        got, want = got.float(), want.float()
+        gaps.setdefault(name, dict(norm_rel=[], max_abs=[]))
+        gaps[name]['norm_rel'].append(float((got - want).norm() /
+                                            want.norm()))
+        gaps[name]['max_abs'].append(_max_err(got, want))
+
+    for a, b in _long_slices(q.shape[1]):
+        rows = slice(a, b)
+        po, plse = fa._plain_forward(q[:, rows], k, v, True, scale, a, 0)
+        note('fwd_o', o[:, rows], po)
+        note('fwd_lse', lse[:, rows], plse)
+        del po, plse
+        pdq = fa._plain_backward_dq(q[:, rows], k, v, lse[:, rows],
+                                    do[:, rows], di[:, rows], True, scale,
+                                    a, 0)
+        note('dq', split[0][:, rows], pdq)
+        note('fused_dq', fused[0][:, rows], pdq)
+        del pdq
+        pdk, pdv = fa._plain_backward_dkv(q, k[:, rows], v[:, rows], lse, do,
+                                          di, True, scale, 0, a)
+        note('dk', split[1][:, rows], pdk)
+        note('dv', split[2][:, rows], pdv)
+        note('fused_dk', fused[1][:, rows], pdk)
+        note('fused_dv', fused[2][:, rows], pdv)
+        del pdk, pdv
+    return gaps
+
+
+def _long_ok(gaps):
+    """Whether every slice's gap is inside TOL_LONG_VS_PLAIN (lse by its
+    largest gap, within TOL_F32); a NaN gap fails."""
+    return all(g <= TOL_F32 if name == 'fwd_lse' else g <= TOL_LONG_VS_PLAIN
+               for name, r in gaps.items()
+               for g in r['max_abs' if name == 'fwd_lse' else 'norm_rel'])
+
+
+def phase_long_kernel():
+    """One layer's attention of the long-context run at full length: #1,
+    #2, #3 and #4 against their plain versions on row slices
+    (``_long_vs_plain``), and the split pair's dq, dk and dv against the
+    fused kernel's over the whole length (norm-relative); #1, #3, #4 and
+    #2 timed once each after a warm-up, and SDPA's forward and backward
+    (efficient-attention backend; forward and backward less forward) as
+    their yardsticks."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    c = LONG
+    bh, t, d = c['H'] * c['B'], c['T'], c['D'] // c['H']
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 21)
+    q, k, v, do = (torch.randn((bh, t, d), generator=gen, device='cuda')
+                   for _ in range(4))
+    scale = d ** -0.5
+    o, lse = fa._fa_forward(q, k, v, True, scale)
+    di = (do * o).sum(-1).contiguous()
+    args = (q, k, v, lse, do, di, True, scale)
+    dk, dv = fa._fa_backward_dkv(*args)
+    split = (fa._fa_backward_dq(*args), dk, dv)
+    fused = fa._fa_backward_fused(*args)
+    torch.cuda.synchronize()
+    gaps = {n: float((a - b).norm() / b.norm())
+            for n, a, b in zip(('dq', 'dk', 'dv'), split, fused)}
+    finite = all(bool(torch.isfinite(a).all())
+                 for a in (o, lse) + split + fused)
+    bitwise_dkv = bool(torch.equal(split[1], fused[1]) and
+                       torch.equal(split[2], fused[2]))
+    vs_plain = _long_vs_plain(q, k, v, do, o, lse, di, scale, split, fused)
+    del split, fused, dk, dv, o
+    ms = dict(fwd=_once_ms(lambda: fa._fa_forward(q, k, v, True, scale)),
+              dkv=_once_ms(lambda: fa._fa_backward_dkv(*args)),
+              dq=_once_ms(lambda: fa._fa_backward_dq(*args)),
+              fused=_once_ms(lambda: fa._fa_backward_fused(*args)))
+    q4, k4, v4 = (x.view(1, bh, t, d).clone().requires_grad_(True)
+                  for x in (q, k, v))
+    do4 = do.view(1, bh, t, d)
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        def sdpa():
+            return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                                  scale=scale)
+
+        def sdpa_fwd_bwd():
+            return torch.autograd.grad(sdpa(), (q4, k4, v4), do4)
+        sdpa_fwd_bwd()
+        lib_fwd = _once_ms(lambda: sdpa().detach())
+        lib_both = _once_ms(sdpa_fwd_bwd)
+    del q4, k4, v4
+    res = dict(shape='BH=%d T=%d D=%d float32 causal' % (bh, t, d),
+               norm_rel_split_vs_fused=gaps, tol=TOL_SPLIT_VS_FUSED,
+               vs_plain=vs_plain, slices=_long_slices(t),
+               tol_vs_plain=TOL_LONG_VS_PLAIN, tol_lse=TOL_F32,
+               dk_dv_bitwise_equal_fused=bitwise_dkv, finite=finite,
+               library_fwd_ms=lib_fwd, library_bwd_ms=lib_both - lib_fwd,
+               library_note='F.scaled_dot_product_attention, efficient-'
+               'attention backend; backward = forward and backward less '
+               'forward')
+    for key, (nbytes, flops) in _flash_bounds(bh, t, t, d, True, 0, 0,
+                                              4).items():
+        res[key] = dict(ms=ms[key], bytes=nbytes, flops=flops)
+        res[key]['bound_ms'], res[key]['bound_by'] = _bound(nbytes, flops)
+    print("long kernels: %s" % json.dumps(res))
+    if not finite or not max(gaps.values()) <= TOL_SPLIT_VS_FUSED:
+        raise SystemExit("split pair disagrees with the fused kernel at "
+                         "full length or is not finite: %s" % gaps)
+    if not _long_ok(vs_plain):
+        raise SystemExit("flash kernels disagree with their plain versions "
+                         "at full length: %s" % vs_plain)
+    return res
+
+
+def phase_long_parity(tr):
+    """Phase 10 with the fused kernel's cap lowered to 0 (restored after),
+    so the card's step takes #3 and #4 in every layer."""
+    saved = fa._FUSED_DQ_BYTES
+    fa._FUSED_DQ_BYTES = 0
+    try:
+        res = phase_train_parity(tr, 'long-context parity')
+    finally:
+        fa._FUSED_DQ_BYTES = saved
+    want = _want(flash_attention_fwd=TRAIN['L'], dense_update=tr['n_adam'],
+                 flash_attention_bwd_dkv=TRAIN['L'],
+                 flash_attention_bwd_dq=TRAIN['L'])
+    if {k: float(n) for k, n in res['launches'].items()} != want:
+        raise SystemExit("long-context parity step launched %s, want %s"
+                         % (res['launches'], want))
+    return res
+
+
+def _long_err(long_k, names):
+    """The largest absolute gap of ``names`` against the plain versions
+    on phase 24's full-length slices, and the largest norm-relative one."""
+    res = long_k['vs_plain']
+    return (max(g for n in names for g in res[n]['max_abs']),
+            max(g for n in names for g in res[n]['norm_rel']))
+
+
+def _split_lines(split_rows, split_timing, long_k, long_tr, parity, tr):
+    """The kernels-line entries of #3 and #4: ``ms`` and ``bound_ms`` at
+    the long-context run's shape; plain, call and training-shape times at
+    the training shape (the plain versions cannot hold [T, T] at T =
+    131072); ``library_ms`` SDPA's backward, which computes the pair's
+    function (dq, dk, dv)."""
+    lines = []
+    for name, key, line in (('flash_attention_bwd_dkv', 'dkv', 364),
+                            ('flash_attention_bwd_dq', 'dq', 413)):
+        grads = ('dk', 'dv') if key == 'dkv' else ('dq',)
+        long_abs, long_rel = _long_err(long_k, grads)
+        lines.append(dict(
+            name=name, route='cuda',
+            source='paddle_tpu_torch/csrc/flash_attention_bwd_split.cu',
+            replaces='paddle_tpu/ops/pallas/flash_attention.py:%d' % line,
+            launches=long_tr['counts'][name],
+            launches_by_path=dict(long_context_training=long_tr['counts'][
+                name], long_context_parity=parity['launches'][name],
+                training=tr['counts'][name]),
+            max_abs_err=max([r['err'][g] for r in split_rows
+                             if r['dtype'] == 'float32' for g in grads]
+                            + [long_abs]),
+            long_context_vs_plain=dict(max_abs_err=long_abs,
+                                       norm_rel=long_rel),
+            norm_rel_vs_fused=max(long_k['norm_rel_split_vs_fused'][g]
+                                  for g in grads),
+            ms=long_k[key]['ms'], bound_ms=long_k[key]['bound_ms'],
+            bound_by=long_k[key]['bound_by'],
+            plain_ms=split_timing[key + '_plain_ms'],
+            library_ms=long_k['library_bwd_ms'],
+            library_note='SDPA backward (efficient attention) at the same '
+            'shape: dq, dk and dv, the pair\'s function',
+            call_ms=split_timing[key + '_call_ms'],
+            shape=long_k['shape'],
+            plain_shape=split_timing['shape'],
+            training_shape=dict(
+                shape=split_timing['shape'], ms=split_timing[key + '_ms'],
+                bound_ms=split_timing[key + '_bound_ms'],
+                bound_by=split_timing[key + '_bound_by'],
+                plain_ms=split_timing[key + '_plain_ms'],
+                call_ms=split_timing[key + '_call_ms'],
+                fused_ms=split_timing['fused_ms'],
+                library_ms=split_timing['library_ms']),
+            cases=split_rows))
+    return lines
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2005,15 +2343,25 @@ def main():
     s2s = phase_s2s_training()
     phase_s2s_parity(s2s)
     phase_s2s_profile(s2s)
+    split_rows, split_timing = phase_split_kernel(bwd_rows)
+    long_k = phase_long_kernel()
+    parity = phase_long_parity(tr)
+    del tr['scope'], lm['scope'], s2s['scope']   # free the card for LONG
+    long_tr = phase_training(LONG, 'long-context training', SEED + 20,
+                             ('flash_attention_bwd_dkv',
+                              'flash_attention_bwd_dq'))
+    phase_train_profile(long_tr, 'long-context training profile')
     counts = tr['counts']
     main_row = next(r for r in rows if r['case'] == MAIN_CASE)
     fwd = dict(
         name='flash_attention_fwd', route='cuda',
         source='paddle_tpu_torch/csrc/flash_attention_fwd.cu',
         replaces='paddle_tpu/ops/pallas/flash_attention.py:56',
-        launches=serve_launches + counts['flash_attention_fwd'],
-        launches_by_path=dict(serving=serve_launches,
-                              training=counts['flash_attention_fwd']),
+        launches=(serve_launches + counts['flash_attention_fwd'] +
+                  long_tr['counts']['flash_attention_fwd']),
+        launches_by_path=dict(
+            serving=serve_launches, training=counts['flash_attention_fwd'],
+            long_context_training=long_tr['counts']['flash_attention_fwd']),
         max_abs_err=max(
             [max(r['err_o'], r['err_lse']) for r in rows
              if r['dtype'] == 'float32']
@@ -2026,7 +2374,16 @@ def main():
         plain_call_ms=main_row['plain_call_ms'],
         library_call_ms=main_row['library_call_ms'],
         shape='BH=8 T=256 D=64 float32 causal', training_shape=fwd_train,
+        long_context_shape=dict(shape=long_k['shape'],
+                                library_ms=long_k['library_fwd_ms'],
+                                **long_k['fwd']),
         cases=rows)
+    fwd_long = _long_err(long_k, ('fwd_o', 'fwd_lse'))
+    fwd['max_abs_err'] = max(fwd['max_abs_err'], fwd_long[0])
+    fwd['long_context_shape']['vs_plain'] = dict(
+        max_abs_err=fwd_long[0],
+        norm_rel=_long_err(long_k, ('fwd_o',))[1])
+    bwd_long = _long_err(long_k, ('fused_dq', 'fused_dk', 'fused_dv'))
     bmain = next(r for r in bwd_rows if r['case'] == BWD_MAIN)
     bwd = dict(
         name='flash_attention_bwd', route='cuda',
@@ -2034,14 +2391,20 @@ def main():
         replaces='paddle_tpu/ops/pallas/flash_attention.py:454',
         launches=counts['flash_attention_bwd'],
         launches_by_path=dict(training=counts['flash_attention_bwd']),
-        max_abs_err=max(r['max_abs_err'] for r in bwd_rows
-                        if r['dtype'] == 'float32'),
+        max_abs_err=max([r['max_abs_err'] for r in bwd_rows
+                         if r['dtype'] == 'float32'] + [bwd_long[0]]),
         ms=bmain['ms'], plain_ms=bmain['plain_ms'],
         bound_ms=bmain['bound_ms'], bound_by=bmain['bound_by'],
         library_ms=bmain['library_ms'], call_ms=bmain['call_ms'],
         plain_call_ms=bmain['plain_call_ms'],
         library_call_ms=bmain['library_call_ms'],
-        shape='BH=256 T=512 D=64 float32 causal', cases=bwd_rows)
+        shape='BH=256 T=512 D=64 float32 causal',
+        long_context_shape=dict(shape=long_k['shape'],
+                                library_ms=long_k['library_bwd_ms'],
+                                vs_plain=dict(max_abs_err=bwd_long[0],
+                                              norm_rel=bwd_long[1]),
+                                **long_k['fused']),
+        cases=bwd_rows)
     dense_line = dict(
         name='dense_update', route='cuda',
         source='paddle_tpu_torch/csrc/dense_update.cu',
@@ -2058,7 +2421,9 @@ def main():
         cases=len(dense['cases']))
     print(json.dumps({'kernels': [fwd, bwd, dense_line] + _lstm_lines(
         lstm_rows, lstm_timing, lm, sent) + _s2s_lines(
-            gru_rows, gru_timing, sparse_rows, sparse_timing, s2s)}))
+            gru_rows, gru_timing, sparse_rows, sparse_timing, s2s)
+        + _split_lines(split_rows, split_timing, long_k, long_tr, parity,
+                       tr)}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

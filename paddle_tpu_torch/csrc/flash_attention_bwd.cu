@@ -37,7 +37,10 @@
 //     offset place both tiles on the global axis for the causal mask; the
 //     ragged edge (rows past T, columns past D) is masked here, not padded
 //     by copies.
-// Tensor cores (wgmma), TMA and a dq pass without atomics are later work.
+// Tensor cores (wgmma) and TMA are later work.  The atomic-free dq is the
+// split pair's (flash_attention_bwd_split.cu), which the port runs where the
+// reference runs its split kernels: past the fused kernel's dq accumulator
+// cap (ops/kernels/flash_attention.py `_split_backward`).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
