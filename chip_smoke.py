@@ -11,7 +11,9 @@ line:
    TF32 is switched off for matmuls and cuDNN so float32 means float32.
 2. kernel build: the nine kernel sources of the checkout (ten kernels:
    #3 and #4 share one), one nvcc each, all started together; ptxas's
-   register and spill lines.
+   register and spill lines; the count of tensor-core instructions (HMMA,
+   HGMMA) in each library's SASS (``cuobjdump -sass``), which must not be
+   0 for #1 and #2.
 3. flash forward vs its plain version on the card at the prefill's
    shapes (BH = 8, D = 64), with the kernel, the plain version and
    ``F.scaled_dot_product_attention`` (a yardstick only, which the port
@@ -98,8 +100,11 @@ line:
    synthetic text's Zipf ids, the bench's uniform ids, and ids with
    sentinels, out-of-range and negative ids; rows not touched must stay
    bitwise unchanged.  Timed: the kernel alone in device time, the id
-   sort, the plain rules and ``torch.optim.SparseAdam`` / ``Adagrad`` on a
-   sparse gradient and ``index_add_`` (yardsticks only).
+   sort, the plain rules, and both the whole call (sort and kernel) and
+   ``torch.optim.SparseAdam`` / ``Adagrad`` on a sparse gradient and
+   ``index_add_`` (yardsticks only, which cannot be captured in a CUDA
+   graph) between CUDA events, per call over back-to-back calls and as
+   the median single call.
 20. seq2seq training at full width (benchmarks/bench_seq2seq.py's config:
    B=512, T=64, V=30000, word_dim 256, H=512, Adam lr 1e-3; float32) on the
    synthetic WMT14 task, through the port's layers, optimizer and
@@ -112,6 +117,14 @@ line:
    every gradient (the embeddings' densified), Adam's moments and update
    (mt_enc_proj_b, whose gradient is zero but for rounding, by its norm);
    untouched embedding rows and their moments unchanged bitwise on both.
+21b. the RNN route: at hidden width 30, which the LSTM and GRU kernels
+   run padded to 32, #7-#10 against their plain versions at width 30
+   and one step of the LM (phase 15) and of the translator (phase 21),
+   card against CPU at those phases' bounds, launching the kernels; past
+   the backward kernels' caps (H = 1140 and 1820) a ragged batch through
+   each op, card against CPU, through the op's eager scan with no LSTM or
+   GRU kernel launched; the route's caps (``max_hidden``, decided without
+   a build) equal to the built libraries' ``paddle_*_max_hidden``.
 22. profile: a traced seq2seq training step, device time by kernel and
    idle share.
 23. the split backward, #3 (dk, dv) and #4 (dq), vs their plain versions
@@ -125,8 +138,10 @@ line:
    tile boundary, the last) and #3's and #2's dk, dv on 64-key slices
    against the plain versions on the same rows, with the slice's offset,
    against every key or query; the split pair's dq, dk, dv against #2's
-   over the whole length; all norm-relative.  #1, #3, #4 and #2 timed once
-   each after a warm-up, SDPA's forward and backward beside them.
+   over the whole length; all norm-relative.  Reported, not gated: both
+   sides' dk, dv of the first key tile against float64 sums.  #1, #3, #4
+   and #2 timed once each after a warm-up, SDPA's forward and backward
+   beside them.
 25. long-context parity: phase 10 again (B=2, T=512) with the fused
    kernel's cap ``_FUSED_DQ_BYTES`` lowered to 0 (restored after), so the
    card's step runs #3 and #4 in every layer.
@@ -138,7 +153,11 @@ line:
 27. profile: a traced long-context step, device time by kernel and idle
    share.
 28. a ``{"kernels": [...]}`` line (ten kernels, each with its launches by
-   path), the card's line, and last ``{"ok": true, "device": {...}}``.
+   path; ``bound_ms`` at the rate of the units a kernel computes on: the
+   tensor cores at 3xTF32 for #1 and #2, with their CUDA-core float32
+   bound beside it as ``cuda_core_bound_ms``; the CUDA cores for the
+   rest, #3 and #4 with their 3xTF32 bound as ``tc_bound_ms``), the
+   card's line, and last ``{"ok": true, "device": {...}}``.
 """
 import json
 import os
@@ -176,6 +195,10 @@ SEED = 20
 # the CUDA cores and bf16 on the tensor cores, FLOP/s
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# float32 at float32 accuracy on the tensor cores: 3xTF32, three TF32
+# products (495 TFLOP/s) for each float32 product, as the flash kernels
+# #1 and #2 compute; the bound a tensor-core design of #1-#4 is held to
+PEAK_3XTF32 = 495e12 / 3
 # kernel vs plain version: both accumulate in float32, in other orders
 TOL_F32 = 1e-4
 # bf16 outputs: both round the same float32 value to bf16; a different
@@ -256,7 +279,8 @@ S2S = dict(B=512, T=64, V=30000, word_dim=256, H=512, lr=1e-3, steps=8,
 # would call for L=2
 LONG = dict(B=1, T=131072, V=30000, L=6, D=512, H=8, lr=1e-3, steps=2)
 # the split pair vs the fused kernel at full length, norm-relative: both
-# float32; dk and dv sum in the same order, dq's tiles add in atomic order
+# float32, in other orders (#2 sums on the tensor cores at 3xTF32 accuracy,
+# the pair on the CUDA cores; #2's dq tiles add in atomic order)
 TOL_SPLIT_VS_FUSED = 1e-5
 # #1, #2, #3 and #4 at full length vs their plain versions on 64-row
 # slices, norm-relative per output: both float32, summing up to 131072
@@ -281,6 +305,12 @@ TOL_GRU_PARAM_REL = 1e-5
 # (float32 rounding of the cancelling sums sits near 1e-7 of their terms)
 S2S_ZERO_GRAD = {'mt_enc_proj_b': 'mt_enc_proj_w'}
 TOL_S2S_ZERO_GRAD = 1e-4
+# the RNN route's cases: a hidden width that is not a multiple of 4, which
+# the kernels run padded to 32, and widths past the LSTM's and the GRU's
+# backward caps (1139 and 1816 at 8 rows a block), which the ops send to
+# their eager scan
+ROUTE_H = 30
+ROUTE_PAST_CAPS = dict(lstm=1140, gru=1820)
 
 
 def _zero_counts():
@@ -362,11 +392,36 @@ def _device_ms(fn, iters=20, replays=5):
     return start.elapsed_time(end) / (replays * iters)
 
 
-def _bound(nbytes, flops, dtype=torch.float32):
+def _bound(nbytes, flops, dtype=torch.float32, peak=None):
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
                                  else 'operations')
+
+
+def _tc_bound(nbytes, flops, dtype=torch.float32):
+    """``_bound`` on the tensor cores: float32 at 3xTF32's rate, bf16 at
+    its own."""
+    return _bound(nbytes, flops, dtype,
+                  PEAK_3XTF32 if dtype == torch.float32 else None)
+
+
+# the flash kernels that compute on the tensor cores (3xTF32): #1 and #2;
+# the split pair (#3 'dkv', #4 'dq') computes on the CUDA cores
+TENSOR_CORE_FLASH = ('fwd', 'fused')
+
+
+def _flash_bound(key, nbytes, flops, dtype=torch.float32):
+    """Flash kernel ``key``'s ``bound_ms`` / ``bound_by`` at the rate of
+    the units it computes on, and its bound on the other units beside it:
+    ``cuda_core_bound_ms`` for #1 and #2, ``tc_bound_ms`` for #3 and #4."""
+    cuda_core = _bound(nbytes, flops, dtype)
+    tc = _tc_bound(nbytes, flops, dtype)
+    if key in TENSOR_CORE_FLASH:
+        return dict(bound_ms=tc[0], bound_by=tc[1],
+                    cuda_core_bound_ms=cuda_core[0])
+    return dict(bound_ms=cuda_core[0], bound_by=cuda_core[1],
+                tc_bound_ms=tc[0])
 
 
 def _live_pairs(tq, tk, causal, q_offset, k_offset):
@@ -422,6 +477,23 @@ def phase_build():
                               if 'spill' in x), '')
                 print("ptxas %s %s | %s | %s" % (name, fn[-60:], regs,
                                                  spill))
+    # tensor-core instructions in each library's SASS: #1 and #2 compute
+    # their products there (3xTF32), the other kernels on the CUDA cores
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()),
+                             'cuobjdump')
+    mma = {}
+    for name in SOURCES:
+        sass = subprocess.run([cuobjdump, '-sass', build.library_path(name)],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        mma[name] = sum(1 for line in sass.splitlines()
+                        if 'HMMA' in line or 'HGMMA' in line)
+    print("tensor-core instructions (HMMA/HGMMA) in the SASS: %s"
+          % json.dumps(mma))
+    if not (mma['flash_attention_fwd'] and mma['flash_attention_bwd']):
+        raise SystemExit("the flash kernels show no tensor-core instruction "
+                         "in their SASS: %s" % mma)
+    return mma
 
 
 KERNEL_CASES = (
@@ -470,21 +542,22 @@ def phase_kernel():
             times[key + 'call_ms'] = _call_ms(fn)
         nbytes, flops = _flash_bounds(bh, tq, tk, d, causal, qo, ko,
                                       q.element_size())['fwd']
-        bound_ms, bound_by = _bound(nbytes, flops, dtype)
         rows.append(dict(
             case=name, tq=tq, tk=tk, causal=causal,
             dtype=str(dtype).replace('torch.', ''), q_offset=qo,
             k_offset=ko, err_o=err_o, err_lse=err_lse, tol_o=tol_o,
-            tol_lse=TOL_F32, bound_ms=bound_ms, bound_by=bound_by,
-            bytes=nbytes, flops=flops, ok=ok, **times))
+            tol_lse=TOL_F32, bytes=nbytes, flops=flops, ok=ok,
+            **_flash_bound('fwd', nbytes, flops, dtype), **times))
         print("kernel %-24s err o %.3g lse %.3g (tol %.3g/%.3g) %s | "
               "device ms: kernel %.4f plain %.4f sdpa %.4f bound %.6f (%s)"
-              " | per call ms: kernel %.4f plain %.4f sdpa %.4f"
+              " cuda-core bound %.6f | per call ms: kernel %.4f plain %.4f "
+              "sdpa %.4f"
               % (name, err_o, err_lse, tol_o, TOL_F32,
                  'ok' if ok else 'FAIL', times['ms'], times['plain_ms'],
                  times['library_ms'], rows[-1]['bound_ms'],
-                 rows[-1]['bound_by'], times['call_ms'],
-                 times['plain_call_ms'], times['library_call_ms']))
+                 rows[-1]['bound_by'], rows[-1]['cuda_core_bound_ms'],
+                 times['call_ms'], times['plain_call_ms'],
+                 times['library_call_ms']))
     bad = [r['case'] for r in rows if not r['ok']]
     if bad:
         raise SystemExit("kernel disagrees with its plain version: %s"
@@ -719,7 +792,7 @@ def phase_bwd_kernel():
             bounds = _flash_bounds(bh, tq, tk, d, causal, qo, ko,
                                    q.element_size())
             row['bytes'], row['flops'] = bounds['fused']
-            row['bound_ms'], row['bound_by'] = _bound(*bounds['fused'])
+            row.update(_flash_bound('fused', *bounds['fused']))
             # kernel #1 at the training shape
             f = {'ms': lambda: fa._fa_forward(q, k, v, causal, scale),
                  'plain_ms': lambda: fa._plain_forward(q, k, v, causal,
@@ -729,8 +802,7 @@ def phase_bwd_kernel():
                      scale=scale)}
             fwd_train = {key: _device_ms(fn, iters=10, replays=3)
                          for key, fn in f.items()}
-            fwd_train['bound_ms'], fwd_train['bound_by'] = _bound(
-                *bounds['fwd'])
+            fwd_train.update(_flash_bound('fwd', *bounds['fwd']))
             fwd_train['shape'] = 'BH=256 T=512 D=64 float32 causal'
             fwd_train['err_o'], fwd_train['err_lse'] = err_o, err_lse
             del q4, k4, v4, out4
@@ -741,10 +813,12 @@ def phase_bwd_kernel():
                  finite, 'ok' if row['ok'] else 'FAIL',
                  '' if 'ms' not in row else
                  " | bwd device ms: kernel %.4f plain %.4f sdpa bwd %.4f "
-                 "bound %.4f (%s) | per call ms: kernel %.4f plain %.4f "
-                 "sdpa bwd %.4f"
+                 "bound %.4f (%s) cuda-core bound %.4f | per call ms: kernel "
+                 "%.4f plain %.4f sdpa bwd %.4f"
                  % (row['ms'], row['plain_ms'], row['library_ms'],
-                    row['bound_ms'], row['bound_by'], row['call_ms'],
+                    row['bound_ms'], row['bound_by'],
+                    row['cuda_core_bound_ms'],
+                    row['call_ms'],
                     row['plain_call_ms'], row['library_call_ms'])))
     print("fwd kernel at the training shape: %s" % json.dumps(fwd_train))
     bad = [r['case'] for r in rows if not r['ok']]
@@ -1077,12 +1151,12 @@ def _lstm_bounds(t, b, h, with_ct_c):
     return _bound(fwd_bytes, prod), _bound(bwd_bytes, 2 * prod)
 
 
-def _lstm_op_case():
-    """A ragged, reversed batch through the ``lstm`` op: the kernel path on
-    the card against the same op on the CPU (plain versions), outputs and
-    the gradients of Input, Weight and Bias."""
+def _lstm_op_case(b=11, t=40, h=128):
+    """A ragged, reversed batch through the ``lstm`` op: the kernel path
+    (the scan past the kernels' caps) on the card against the same op on
+    the CPU (plain versions), outputs and the gradients of Input, Weight
+    and Bias."""
     gen = torch.Generator().manual_seed(SEED + 9)
-    b, t, h = 11, 40, 128
     ins = {'Input': torch.randn((b, t, 4 * h), generator=gen),
            'Weight': torch.randn((h, 4 * h), generator=gen) * h ** -0.5,
            'Bias': torch.randn((1, 7 * h), generator=gen) * 0.3,
@@ -1106,7 +1180,7 @@ def _lstm_op_case():
     tols = [TOL_LSTM] * 3 + [TOL_LSTM_PARAM_REL * max(1.0, float(
         r.abs().max())) for r in res['cpu'][3:]]
     finite = all(bool(torch.isfinite(a).all()) for a in res['cuda'])
-    row = dict(case='op_ragged_reversed_B11_T40_H128',
+    row = dict(case='op_ragged_reversed_B%d_T%d_H%d' % (b, t, h),
                errs=dict(zip(('hidden', 'cell', 'd_input', 'd_weight',
                               'd_bias'), errs)),
                tols=tols, finite=finite,
@@ -1235,13 +1309,13 @@ def _layer_pair_yardstick(t, b, h):
     return res
 
 
-def _lm_programs():
+def _lm_programs(hidden=LM['H']):
     c = LM
     main, startup = tfl.Program(), tfl.Program()
     main.random_seed = startup.random_seed = SEED
     with tfl.program_guard(main, startup):
         _, _, cost = rnn_lm.build(vocab_size=c['V'], emb_dim=c['E'],
-                                  hidden_dim=c['H'], num_layers=c['L'])
+                                  hidden_dim=hidden, num_layers=c['L'])
         tfl.optimizer.AdagradOptimizer(c['lr']).minimize(cost)
     return main, startup, cost
 
@@ -1314,7 +1388,7 @@ def phase_lm_training():
                 counts=counts, **res)
 
 
-def phase_lm_parity(lm):
+def phase_lm_parity(lm, title='lm parity'):
     """One step at B=4 with ragged lengths on the card (kernels) and on
     the CPU (plain versions) from the same state: the loss, every
     gradient, Adagrad's moment and the update p_new - p_old, each
@@ -1367,7 +1441,7 @@ def phase_lm_parity(lm):
                                  sorted(v, reverse=True)[:3]]
                              for k, v in gaps.items()},
                nonfinite=nonfinite, tol=tol)
-    print("lm parity: %s" % json.dumps(res))
+    print("%s: %s" % (title, json.dumps(res)))
     if nonfinite or bad:
         raise SystemExit("LM step on the card disagrees with the CPU (%s) "
                          "or is not finite (%s)" % (bad, nonfinite))
@@ -1504,12 +1578,12 @@ def _gru_bounds(t, b, h):
     return _bound(fwd_bytes, prod), _bound(bwd_bytes, 2 * prod)
 
 
-def _gru_op_case(name, with_h0, rev):
-    """A ragged batch through the ``gru`` op: the kernel path on the card
-    against the same op on the CPU (plain versions), the hidden sequence
-    and the gradients of Input, Weight, Bias (and H0)."""
+def _gru_op_case(name, with_h0, rev, b=11, t=40, h=512):
+    """A ragged batch through the ``gru`` op: the kernel path (the scan
+    past the kernels' caps) on the card against the same op on the CPU
+    (plain versions), the hidden sequence and the gradients of Input,
+    Weight, Bias (and H0)."""
     gen = torch.Generator().manual_seed(SEED + 14)
-    b, t, h = 11, 40, 512
     ins = {'Input': torch.randn((b, t, 3 * h), generator=gen),
            'Weight': torch.randn((h, 3 * h), generator=gen) * h ** -0.5,
            'Bias': torch.randn((1, 3 * h), generator=gen) * 0.3,
@@ -1706,26 +1780,50 @@ def _sparse_scalars(rule):
     return {}
 
 
+def _single_call_ms(fn, iters=10):
+    """Median ms of one call between its own CUDA events, the device idle
+    before it, after 3 warm-up calls."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
 def _sparse_library(rule, base, rows, vals, height, d):
     """One PyTorch call computing the rule on a sparse COO gradient with
-    the same rows and values (coalesce included), per back-to-back eager
-    call: SparseAdam (lazy Adam, same bias correction), Adagrad on a
-    sparse gradient, and index_add_ for sgd."""
+    the same rows and values (coalesce included): SparseAdam (lazy Adam,
+    same bias correction), Adagrad on a sparse gradient, and index_add_
+    for sgd.  It cannot be captured in a CUDA graph (coalescing reads the
+    row count back to the host), so it is timed as #6's calls are, between
+    CUDA events: (ms per call over back-to-back calls, the median ms of
+    single calls)."""
     keep = (rows >= 0) & (rows < height)
     r, v = rows[keep], vals[keep]
     if rule == 'sgd':
         p = base[0].clone()
         u = -0.01 * v
-        return _call_ms(lambda: p.index_add_(0, r, u), iters=10)
-    param = torch.nn.Parameter(base[0].clone())
-    opt = (torch.optim.SparseAdam([param], lr=1e-3) if rule == 'adam'
-           else torch.optim.Adagrad([param], lr=1e-2))
-    grad = torch.sparse_coo_tensor(r[None], v, (height, d))
 
-    def step():
-        param.grad = grad
-        opt.step()
-    return _call_ms(step, iters=10)
+        def step():
+            p.index_add_(0, r, u)
+    else:
+        param = torch.nn.Parameter(base[0].clone())
+        opt = (torch.optim.SparseAdam([param], lr=1e-3) if rule == 'adam'
+               else torch.optim.Adagrad([param], lr=1e-2))
+        grad = torch.sparse_coo_tensor(r[None], v, (height, d))
+
+        def step():
+            param.grad = grad
+            opt.step()
+    return _call_ms(step, iters=10), _single_call_ms(step)
 
 
 def phase_sparse_kernel():
@@ -1779,8 +1877,10 @@ def phase_sparse_kernel():
                 row['plain_call_ms'] = _call_ms(lambda: _sparse_call(
                     rule, [t.clone() for t in state], ids, vals, lr,
                     plain=True), iters=2)
-                row['library_call_ms'] = _sparse_library(rule, state, norm,
-                                                         vals, height, d)
+                row['library_ms'], row['library_single_call_ms'] = \
+                    _sparse_library(rule, state, norm, vals, height, d)
+                row['single_call_ms'] = _single_call_ms(lambda: _sparse_call(
+                    rule, tabs, ids, vals, lr, plain=False))
                 # values, sorted ids (int32) and their order (int64) read
                 # once; each touched row of every table read and written
                 # once (the runs are summed in registers)
@@ -1796,13 +1896,13 @@ def phase_sparse_kernel():
     return rows_out, timing
 
 
-def _s2s_programs(fuse=True):
+def _s2s_programs(fuse=True, hidden=S2S['H']):
     c = S2S
     main, startup = tfl.Program(), tfl.Program()
     main.random_seed = startup.random_seed = SEED
     with tfl.program_guard(main, startup):
         _, _, _, pred, cost = seq2seq.build(
-            dict_size=c['V'], word_dim=c['word_dim'], hidden_dim=c['H'],
+            dict_size=c['V'], word_dim=c['word_dim'], hidden_dim=hidden,
             fuse_vocab_loss=fuse)
         tfl.optimizer.AdamOptimizer(c['lr']).minimize(cost)
     return main, startup, pred, cost
@@ -1856,7 +1956,7 @@ def phase_s2s_training():
                 feed=feed, counts=counts, **res)
 
 
-def phase_s2s_parity(s2s):
+def phase_s2s_parity(s2s, title='seq2seq parity'):
     """One step at B=4 with ragged source and target lengths on the card
     (kernels) and on the CPU (plain versions) from the same state: the
     loss, every gradient (the embeddings' SelectedRows densified), Adam's
@@ -1951,11 +2051,127 @@ def phase_s2s_parity(s2s):
                zero_grad_norm_over_weight_grad=zero_grads,
                untouched_rows_moved=moved_untouched, nonfinite=nonfinite,
                tol=dict(tol, zero_grad=TOL_S2S_ZERO_GRAD))
-    print("seq2seq parity: %s" % json.dumps(res))
+    print("%s: %s" % (title, json.dumps(res)))
     if nonfinite or bad or moved_untouched:
         raise SystemExit("seq2seq step on the card disagrees with the CPU "
                          "(%s), moved untouched rows (%s) or is not finite "
                          "(%s)" % (bad, moved_untouched, nonfinite))
+    return res
+
+
+def _route_scan_case(op, t=33, b=13, h=ROUTE_H):
+    """``lstm_scan`` / ``gru_scan`` at a width that is not a multiple of 4
+    on the card (the kernels, on inputs padded to a multiple of 4) against
+    the plain versions at that width on the same tensors: hs (cs) and the
+    gradients of x, w and pw (h0), at phase 13's and 18's bounds."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 21)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device='cuda')
+                * scale).requires_grad_(True)
+    g = 4 if op == 'lstm' else 3
+    ins = [rnd(t, b, g * h), rnd(h, g * h, scale=h ** -0.5),
+           rnd(3, h, scale=0.3) if op == 'lstm' else rnd(b, h, scale=0.5)]
+    cts = [torch.randn((t, b, h), generator=gen, device='cuda')
+           for _ in range(g - 2)]
+    if op == 'lstm':
+        runs = (lk.lstm_scan(*ins), lk._plain_lstm_forward(*ins)[:2])
+    else:
+        runs = ((gk.gru_scan(*ins),), gk._plain_gru_forward(*ins)[:1])
+    res = []
+    for outs in runs:
+        grads = torch.autograd.grad(
+            sum((o * c).sum() for o, c in zip(outs, cts)), ins)
+        res.append([o.detach() for o in outs] + list(grads))
+    torch.cuda.synchronize()
+    names = (['h', 'c'] if op == 'lstm' else ['h']) + ['dx', 'dw'] + \
+        (['dpw'] if op == 'lstm' else ['dh0'])
+    tol0, rel = ((TOL_LSTM, TOL_LSTM_PARAM_REL) if op == 'lstm'
+                 else (TOL_GRU, TOL_GRU_PARAM_REL))
+    errs = {n: _max_err(a, r) for n, a, r in zip(names, *res)}
+    tols = {n: (rel * max(1.0, float(r.abs().max()))
+                if n in ('dw', 'dpw') else tol0)
+            for n, r in zip(names, res[1])}
+    finite = all(bool(torch.isfinite(a).all()) for a in res[0])
+    return dict(case='%s_scan_T%d_B%d_H%d' % (op, t, b, h), errs=errs,
+                tols=tols, finite=finite,
+                ok=finite and all(errs[n] <= tols[n] for n in names))
+
+
+def phase_rnn_route():
+    """The ``lstm`` and ``gru`` ops' route by hidden width.  At H = 30 (not
+    a multiple of 4, which the kernels run padded to 32): #7-#10 through
+    ``lstm_scan`` / ``gru_scan`` against their plain versions at H = 30,
+    and one step of the LM (phase 15's program, batch, lengths and bounds)
+    and of the translator (phase 21's) on the card against the CPU, each
+    launching the LSTM or the GRU kernels.  Past the backward kernels'
+    caps: a ragged batch through each op, card against CPU, through its
+    eager scan with no RNN kernel launched.  And the route's caps
+    (``max_hidden`` of ops/kernels/lstm.py and gru.py, which
+    ``kernel_takes`` reads without a build) against the built libraries'
+    own."""
+    caps = {}
+    for mod, name, rows in ((lk, 'lstm_fwd', (8,)), (lk, 'lstm_bwd', (8,)),
+                            (gk, 'gru_fwd', (8, 16)),
+                            (gk, 'gru_bwd', (8, 16))):
+        lib_cap = getattr(mod._lib(name), 'paddle_%s_max_hidden' % name)
+        for r in rows:
+            caps['%s_rows%d' % (name, r)] = (
+                mod.max_hidden(name, r), lib_cap(r) if mod is gk
+                else lib_cap())
+    h = ROUTE_H
+    takes = dict(lstm=lk.kernel_takes(h), gru=gk.kernel_takes(h))
+    rnn = ('lstm_fwd', 'lstm_bwd', 'gru_fwd', 'gru_bwd')
+    _zero_counts()
+    scans = [_route_scan_case('lstm'), _route_scan_case('gru')]
+    scan_counts = _counts()
+    main, startup, cost = _lm_programs(hidden=h)
+    _zero_counts()
+    lm = phase_lm_parity(dict(main=main, startup=startup, cost=cost,
+                              exe=tfl.Executor()), 'route: lm parity H=%d' % h)
+    lm_counts = _counts()
+    main, startup, _, cost = _s2s_programs(hidden=h)
+    _zero_counts()
+    s2s = phase_s2s_parity(dict(main=main, startup=startup, cost=cost,
+                                exe=tfl.Executor()),
+                           'route: seq2seq parity H=%d' % h)
+    s2s_counts = _counts()
+    past = ROUTE_PAST_CAPS
+    past_takes = dict(lstm=lk.kernel_takes(past['lstm']),
+                      gru=gk.kernel_takes(past['gru']))
+    _zero_counts()
+    past_rows = [_lstm_op_case(b=5, t=12, h=past['lstm']),
+                 _gru_op_case('op_ragged_h0_B5_T12_H%d' % past['gru'], True,
+                              False, b=5, t=12, h=past['gru'])]
+    past_counts = _counts()
+    launched = dict(
+        scan={k: scan_counts[k] for k in rnn},
+        lm={k: lm_counts[k] for k in rnn},
+        s2s={k: s2s_counts[k] for k in rnn},
+        past_caps={k: past_counts[k] for k in rnn})
+    res = dict(hidden=h, kernel_takes=takes, caps_route_vs_library=caps,
+               scan_vs_plain=scans, rnn_kernel_launches=launched,
+               lm_norm_rel_err=lm['norm_rel_err'],
+               s2s_norm_rel_err=s2s['norm_rel_err'],
+               past_caps=dict(hidden=past, kernel_takes=past_takes,
+                              cases=past_rows))
+    print("rnn route: %s" % json.dumps(res))
+    if any(a != b for a, b in caps.values()):
+        raise SystemExit("the route's caps differ from the libraries': %s"
+                         % caps)
+    bad = [r['case'] for r in scans + past_rows if not r['ok']]
+    if bad:
+        raise SystemExit("RNN route case disagrees or is not finite: %s"
+                         % bad)
+    if not all(takes.values()) or any(past_takes.values()):
+        raise SystemExit("kernel_takes is wrong at H=%d or past the caps: "
+                         "%s" % (h, res))
+    want = dict(scan=rnn, lm=rnn[:2], s2s=rnn[2:], past_caps=())
+    missed = {path: [k for k in rnn if (launched[path][k] > 0)
+                     != (k in names)] for path, names in want.items()}
+    if any(missed.values()):
+        raise SystemExit("RNN kernel launches off the route: %s (counts %s)"
+                         % (missed, launched))
     return res
 
 
@@ -2035,8 +2251,13 @@ def _s2s_lines(gru_rows, gru_timing, sparse_rows, sparse_timing, s2s):
         max_abs_err=max(r['max_abs_err'] for r in sparse_rows),
         ms=adam['ms'], plain_ms=adam['plain_call_ms'],
         bound_ms=adam['bound_ms'], bound_by=adam['bound_by'],
-        library_ms=adam['library_call_ms'], sort_ms=adam['sort_ms'],
-        call_ms=adam['call_ms'], n_unique=adam['n_unique'],
+        library_ms=adam['library_ms'],
+        library_single_call_ms=adam['library_single_call_ms'],
+        library_note='torch.optim.SparseAdam on a COO gradient, coalesce '
+        'included, per call between CUDA events (no graph capture): compare '
+        'with call_ms, #6 with its id sort timed the same way',
+        sort_ms=adam['sort_ms'], call_ms=adam['call_ms'],
+        single_call_ms=adam['single_call_ms'], n_unique=adam['n_unique'],
         shape='lazy adam, table 30000 x 256, K=32768 Zipf ids',
         by_ids_and_rule=sparse_timing, cases=len(sparse_rows))
     return [table, fwd, bwd]
@@ -2090,8 +2311,8 @@ def phase_split_kernel(bwd_rows):
                 timing[key + '_call_ms'] = _call_ms(fns[key], iters=20)
             bounds = _flash_bounds(bh, tq, tk, d, causal, qo, ko, 4)
             for key in ('dkv', 'dq'):
-                timing[key + '_bound_ms'], timing[key + '_bound_by'] = \
-                    _bound(*bounds[key])
+                timing.update((key + '_' + k, v) for k, v in
+                              _flash_bound(key, *bounds[key]).items())
             timing['library_ms'] = next(
                 r['library_ms'] for r in bwd_rows if r['case'] == BWD_MAIN)
             timing['library_note'] = ('SDPA backward (phase 7): dq, dk and '
@@ -2164,6 +2385,23 @@ def _long_vs_plain(q, k, v, do, o, lse, di, scale, split, fused):
     return gaps
 
 
+def _float64_dkv(q, k, v, do, lse, di, scale, a, b):
+    """dk and dv of keys [a, b) against every query (causal, no offsets)
+    in float64 from the float32 inputs, lse and di: the exact sums that
+    phase 24's float32 kernels and plain versions each approach in their
+    own order."""
+    qd, dod = q.double() * scale, do.double()
+    kd, vd = k[:, a:b].double(), v[:, a:b].double()
+    p = torch.exp(torch.einsum('btd,bsd->bts', qd, kd)
+                  - lse.double()[..., None])
+    live = (torch.arange(q.shape[1], device=q.device)[:, None]
+            >= a + torch.arange(b - a, device=q.device)[None, :])
+    p = torch.where(live, p, torch.zeros_like(p))
+    ds = p * (torch.einsum('btd,bsd->bts', dod, vd) - di.double()[..., None])
+    return (torch.einsum('bts,btd->bsd', ds, qd),
+            torch.einsum('bts,btd->bsd', p, dod))
+
+
 def _long_ok(gaps):
     """Whether every slice's gap is inside TOL_LONG_VS_PLAIN (lse by its
     largest gap, within TOL_F32); a NaN gap fails."""
@@ -2201,7 +2439,16 @@ def phase_long_kernel():
     bitwise_dkv = bool(torch.equal(split[1], fused[1]) and
                        torch.equal(split[2], fused[2]))
     vs_plain = _long_vs_plain(q, k, v, do, o, lse, di, scale, split, fused)
-    del split, fused, dk, dv, o
+    # which side of the split-vs-fused gap carries it: both against the
+    # float64 sums on the first key tile, whose dk, dv sum over every query
+    # (reported, not gated)
+    exact = _float64_dkv(q, k, v, do, lse, di, scale, 0, 64)
+    vs_float64 = {
+        '%s_%s' % (side, n): float((got[:, :64].double() - want).norm()
+                                   / want.norm())
+        for side, grads in (('split', split), ('fused', fused))
+        for n, got, want in zip(('dk', 'dv'), grads[1:], exact)}
+    del split, fused, dk, dv, o, exact
     ms = dict(fwd=_once_ms(lambda: fa._fa_forward(q, k, v, True, scale)),
               dkv=_once_ms(lambda: fa._fa_backward_dkv(*args)),
               dq=_once_ms(lambda: fa._fa_backward_dq(*args)),
@@ -2225,6 +2472,7 @@ def phase_long_kernel():
                vs_plain=vs_plain, slices=_long_slices(t),
                tol_vs_plain=TOL_LONG_VS_PLAIN, tol_lse=TOL_F32,
                dk_dv_bitwise_equal_fused=bitwise_dkv, finite=finite,
+               first_key_tile_vs_float64=vs_float64,
                library_fwd_ms=lib_fwd, library_bwd_ms=lib_both - lib_fwd,
                library_note='F.scaled_dot_product_attention, efficient-'
                'attention backend; backward = forward and backward less '
@@ -2232,7 +2480,7 @@ def phase_long_kernel():
     for key, (nbytes, flops) in _flash_bounds(bh, t, t, d, True, 0, 0,
                                               4).items():
         res[key] = dict(ms=ms[key], bytes=nbytes, flops=flops)
-        res[key]['bound_ms'], res[key]['bound_by'] = _bound(nbytes, flops)
+        res[key].update(_flash_bound(key, nbytes, flops))
     print("long kernels: %s" % json.dumps(res))
     if not finite or not max(gaps.values()) <= TOL_SPLIT_VS_FUSED:
         raise SystemExit("split pair disagrees with the fused kernel at "
@@ -2297,6 +2545,7 @@ def _split_lines(split_rows, split_timing, long_k, long_tr, parity, tr):
                                   for g in grads),
             ms=long_k[key]['ms'], bound_ms=long_k[key]['bound_ms'],
             bound_by=long_k[key]['bound_by'],
+            tc_bound_ms=long_k[key]['tc_bound_ms'],
             plain_ms=split_timing[key + '_plain_ms'],
             library_ms=long_k['library_bwd_ms'],
             library_note='SDPA backward (efficient attention) at the same '
@@ -2308,6 +2557,7 @@ def _split_lines(split_rows, split_timing, long_k, long_tr, parity, tr):
                 shape=split_timing['shape'], ms=split_timing[key + '_ms'],
                 bound_ms=split_timing[key + '_bound_ms'],
                 bound_by=split_timing[key + '_bound_by'],
+                tc_bound_ms=split_timing[key + '_tc_bound_ms'],
                 plain_ms=split_timing[key + '_plain_ms'],
                 call_ms=split_timing[key + '_call_ms'],
                 fused_ms=split_timing['fused_ms'],
@@ -2342,6 +2592,7 @@ def main():
     sparse_rows, sparse_timing = phase_sparse_kernel()
     s2s = phase_s2s_training()
     phase_s2s_parity(s2s)
+    phase_rnn_route()
     phase_s2s_profile(s2s)
     split_rows, split_timing = phase_split_kernel(bwd_rows)
     long_k = phase_long_kernel()
@@ -2369,6 +2620,7 @@ def main():
                if r['dtype'] == 'float32']),
         ms=main_row['ms'], plain_ms=main_row['plain_ms'],
         bound_ms=main_row['bound_ms'], bound_by=main_row['bound_by'],
+        cuda_core_bound_ms=main_row['cuda_core_bound_ms'],
         library_ms=main_row['library_ms'],
         call_ms=main_row['call_ms'],
         plain_call_ms=main_row['plain_call_ms'],
@@ -2395,6 +2647,7 @@ def main():
                          if r['dtype'] == 'float32'] + [bwd_long[0]]),
         ms=bmain['ms'], plain_ms=bmain['plain_ms'],
         bound_ms=bmain['bound_ms'], bound_by=bmain['bound_by'],
+        cuda_core_bound_ms=bmain['cuda_core_bound_ms'],
         library_ms=bmain['library_ms'], call_ms=bmain['call_ms'],
         plain_call_ms=bmain['plain_call_ms'],
         library_call_ms=bmain['library_call_ms'],

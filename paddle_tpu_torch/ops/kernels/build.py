@@ -3,7 +3,8 @@
 Each kernel source ``paddle_tpu_torch/csrc/<name>.cu`` exposes a plain C
 interface.  At first use it is compiled by ``nvcc`` for ``sm_90a`` into
 ``build/kernels/lib<name>-<digest>.so`` at the root of the checkout (the
-digest covers the source and the flags, so an edited source builds anew)
+digest covers the source, the ``csrc/`` headers it includes and the flags,
+so an edited source or header builds anew)
 and loaded with ``ctypes``.  Nothing here runs at import: the CPU tests
 import every module of the package, and a CPU host has no ``nvcc``.
 
@@ -13,12 +14,13 @@ path to the kernel.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 
-__all__ = ['load', 'load_all', 'BUILD_DIR', 'NVCC_FLAGS', 'builds',
-           'build_log']
+__all__ = ['load', 'load_all', 'library_path', 'nvcc_path', 'BUILD_DIR',
+           'NVCC_FLAGS', 'builds', 'build_log']
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -29,13 +31,16 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), 'build', 'kernels')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
+# a source's own headers: #include "<file>" in csrc/
+_LOCAL_INCLUDE = re.compile(rb'^#include "([^"]+)"', re.M)
+
 _lock = threading.Lock()
 _libs = {}
 builds = 0          # libraries this process compiled or loaded
 build_log = {}      # name -> nvcc's output (empty when loaded from disk)
 
 
-def _nvcc():
+def nvcc_path():
     nvcc = shutil.which('nvcc')
     if nvcc is None:
         home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
@@ -50,9 +55,14 @@ def _nvcc():
 def _so_path(name):
     src = os.path.join(CSRC_DIR, name + '.cu')
     with open(src, 'rb') as f:
-        digest = hashlib.sha256(
-            f.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, 'lib%s-%s.so' % (name, digest))
+        text = f.read()
+    digest = hashlib.sha256(text)
+    for header in _LOCAL_INCLUDE.findall(text):
+        with open(os.path.join(CSRC_DIR, header.decode()), 'rb') as f:
+            digest.update(f.read())
+    digest.update(' '.join(NVCC_FLAGS).encode())
+    return src, os.path.join(BUILD_DIR, 'lib%s-%s.so' % (
+        name, digest.hexdigest()[:16]))
 
 
 def load_all(names):
@@ -70,7 +80,7 @@ def load_all(names):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = '%s.%d.tmp' % (so, os.getpid())
             procs[n] = (tmp, subprocess.Popen(
-                [_nvcc()] + NVCC_FLAGS + ['-o', tmp, src],
+                [nvcc_path()] + NVCC_FLAGS + ['-o', tmp, src],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         logs, failed = {}, []
         for n, (tmp, proc) in procs.items():
@@ -88,6 +98,11 @@ def load_all(names):
             build_log[n] = logs.get(n, '')
             builds += 1
         return {n: _libs[n] for n in names}
+
+
+def library_path(name):
+    """Where the library of ``csrc/<name>.cu`` is built."""
+    return _so_path(name)[1]
 
 
 def load(name):

@@ -26,16 +26,25 @@ and ``_plain_gru_backward``, eager loops over T that restate the
 reference's ``_gru_scan_reference`` (with h0) and its BPTT math.  They are
 what the CPU tests and ``chip_smoke.py`` hold the kernels against.  The
 reference's VMEM fit test and batch tiling are not ported: the kernels
-tile the batch by ``ROWS_PER_BLOCK`` rows themselves and take hidden
-widths that are multiples of 4 (512 in the seq2seq translator); another
-width on a CUDA tensor raises.  Float32 only: bfloat16 inputs, which
+tile the batch by ``ROWS_PER_BLOCK`` rows themselves and keep one tile's
+state in shared memory, which caps the hidden width (``max_hidden``; 512
+in the seq2seq translator).  They read h as float4, so ``gru_scan`` pads
+another width with zero units up to a multiple of 4 (a zero unit stays
+zero and feeds nothing) and slices them off again; ``kernel_takes`` says
+whether the padded width fits both caps.  A width past them raises on a
+CUDA tensor, and the ``gru`` op (ops/rnn.py) sends it to its eager scan
+instead, as the reference sends a shape its VMEM cannot hold to
+``lax.scan``.  Float32 only: bfloat16 inputs, which
 benchmarks/bench_seq2seq.py builds, come with the AMP slice.
 """
 import ctypes
 
 import torch
 
-__all__ = ['gru_scan', 'launches', 'bwd_launches', 'ROWS_PER_BLOCK']
+from .lstm import pad_units, padded_width
+
+__all__ = ['gru_scan', 'launches', 'bwd_launches', 'ROWS_PER_BLOCK',
+           'max_hidden', 'kernel_takes']
 
 # kernel launches in this process (plain-version calls excluded); one
 # backward launch is the call that runs the transpose, the BPTT loop, the
@@ -45,6 +54,40 @@ bwd_launches = 0   # backward (#10)
 
 # batch rows per block of both kernels (8 or 16; gru_fwd.cu says why 8)
 ROWS_PER_BLOCK = 8
+
+# The kernels' hidden-width caps, as the built libraries report them
+# (``paddle_<name>_max_hidden(rows)``): a block's 232448 bytes of shared
+# memory over the floats one tile of ``rows`` batch rows keeps there per
+# hidden unit, 3 * rows for the forward (h, r * h, u) and 4 * rows for the
+# backward (the carry, dc_pre, [du_pre, dr_pre]).  chip_smoke.py holds
+# them against the libraries.
+_SMEM = 232448
+_FLOATS_PER_UNIT = {'gru_fwd': lambda rows: 3 * rows,
+                    'gru_bwd': lambda rows: 4 * rows}
+
+
+def max_hidden(name, rows=ROWS_PER_BLOCK):
+    """The largest hidden width kernel ``name`` takes at ``rows`` batch
+    rows per block (8 or 16); 0 at another row count."""
+    if rows not in (8, 16):
+        return 0
+    return _SMEM // (_FLOATS_PER_UNIT[name](rows) * 4)
+
+
+def kernel_takes(h):
+    """Whether both kernels take hidden width ``h`` at ROWS_PER_BLOCK
+    batch rows per block once ``gru_scan`` has padded it to a multiple of
+    4; decided without a build."""
+    return 1 <= h and padded_width(h) <= min(
+        max_hidden(n) for n in _FLOATS_PER_UNIT)
+
+
+def _check_width(name, h, rows):
+    if h % 4 or not 1 <= h <= max_hidden(name, rows):
+        raise ValueError("the %s kernel takes hidden widths that are "
+                         "multiples of 4 up to %d at 8 or 16 rows per block, "
+                         "not H=%d at %d rows"
+                         % (name, max_hidden(name, rows), h, rows))
 
 
 def _lib(name):
@@ -60,9 +103,6 @@ def _lib(name):
             lib.paddle_gru_bwd_workspace_bytes.argtypes = [i, i, i]
             lib.paddle_gru_bwd_workspace_bytes.restype = ctypes.c_int64
         fn.restype = ctypes.c_int
-        mh = getattr(lib, 'paddle_%s_max_hidden' % name)
-        mh.argtypes = [i]
-        mh.restype = ctypes.c_int
         lib.paddle_cuda_error_string.argtypes = [ctypes.c_int]
         lib.paddle_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -163,14 +203,6 @@ def _launch_check(lib, err, name):
                               .decode()))
 
 
-def _check_width(lib, name, h, rows):
-    top = getattr(lib, 'paddle_%s_max_hidden' % name)(rows)
-    if rows not in (8, 16) or h > top or h % 4:
-        raise ValueError("the %s kernel takes hidden widths that are "
-                         "multiples of 4 up to %d at 8 or 16 rows per block, "
-                         "not H=%d at %d rows" % (name, top, h, rows))
-
-
 def _ptr(v):
     return None if v is None else v.data_ptr()
 
@@ -188,8 +220,8 @@ def _gru_forward(x, w, h0, with_gates, rows=None):
     t, b, three_h = x.shape
     h = three_h // 3
     rows = rows or ROWS_PER_BLOCK
+    _check_width('gru_fwd', h, rows)
     lib = _lib('gru_fwd')
-    _check_width(lib, 'gru_fwd', h, rows)
     x, w = x.contiguous(), w.contiguous()
     h0 = None if h0 is None else h0.contiguous()
     hs = torch.empty((t, b, h), dtype=torch.float32, device=x.device)
@@ -222,8 +254,8 @@ def _gru_backward(w, h0, hs, gates, ct_h, rows=None):
         return _plain_gru_backward(w, h0, hs, gates, ct_h)
     global bwd_launches
     rows = rows or ROWS_PER_BLOCK
+    _check_width('gru_bwd', h, rows)
     lib = _lib('gru_bwd')
-    _check_width(lib, 'gru_bwd', h, rows)
     args = [None if v is None else v.contiguous()
             for v in (gates, hs, h0, ct_h, w)]
     dev = gates.device
@@ -266,9 +298,16 @@ def gru_scan(x_tm, w, h0=None):
     and recurrent weight w [H, 3H]; h0 [B, H] is the initial state (zeros
     when None; the seq2seq decoder chains its encoder summary in).  Returns
     hs [T, B, H].  Differentiable; without gradients the forward skips the
-    gates."""
+    gates.  A width that is not a multiple of 4 runs padded with zero
+    units."""
+    h = w.shape[0]
+    p = padded_width(h) - h
+    if p:
+        x_tm, w = pad_units(x_tm, 3, p), pad_units(w, 3, p, p)
+        h0 = None if h0 is None else pad_units(h0, 1, p)
     if torch.is_grad_enabled() and any(
             v is not None and v.requires_grad for v in (x_tm, w, h0)):
-        return _GRUScan.apply(x_tm, w, h0)
-    hs, _ = _gru_forward(x_tm, w, h0, with_gates=False)
-    return hs
+        hs = _GRUScan.apply(x_tm, w, h0)
+    else:
+        hs, _ = _gru_forward(x_tm, w, h0, with_gates=False)
+    return hs[..., :h] if p else hs

@@ -23,22 +23,79 @@ and ``_plain_lstm_backward``, eager loops over T that restate the
 reference's ``_scan_reference`` and its BPTT math.  They are what the CPU
 tests and ``chip_smoke.py`` hold the kernels against.  The reference's
 VMEM fit test and batch tiling (``pick_batch_tile``) are not ported: the
-kernels tile the batch by 8 rows themselves and take hidden widths that
-are multiples of 4 (256 and 128 in the LM and the sentiment net); another
-width on a CUDA tensor raises.  Float32 only: bfloat16 inputs come with
-the AMP slice.
+kernels tile the batch by 8 rows themselves and keep one tile's state in
+shared memory, which caps the hidden width (``max_hidden``; 256 and 128
+in the LM and the sentiment net).  They read h as float4, so
+``lstm_scan`` pads another width with zero units up to a multiple of 4
+(a zero unit stays zero and feeds nothing) and slices them off again;
+``kernel_takes`` says whether the padded width fits both caps.  A width
+past them raises on a CUDA tensor, and the ``lstm`` op (ops/rnn.py)
+sends it to its eager scan instead, as the reference sends a shape its
+VMEM cannot hold to ``lax.scan``.  Float32 only: bfloat16 inputs come
+with the AMP slice.
 """
 import ctypes
 
 import torch
 
-__all__ = ['lstm_scan', 'launches', 'bwd_launches']
+__all__ = ['lstm_scan', 'launches', 'bwd_launches', 'ROWS_PER_BLOCK',
+           'max_hidden', 'kernel_takes']
 
 # kernel launches in this process (plain-version calls excluded); one
 # backward launch is the call that runs the BPTT loop, the dW tiles and
 # their finish
 launches = 0       # forward (#7)
 bwd_launches = 0   # backward (#8)
+
+# batch rows per block of both kernels
+ROWS_PER_BLOCK = 8
+
+# The kernels' hidden-width caps, as the built libraries report them
+# (``paddle_<name>_max_hidden``): a block's 232448 bytes of shared memory
+# over the floats one tile of ``rows`` batch rows keeps there per hidden
+# unit, 6 * rows for the forward (h, c, the gate pre-activations) and
+# 6 * rows + 3 for the backward (the carry, one step's dx, the dpw sums).
+# chip_smoke.py holds them against the libraries.
+_SMEM = 232448
+_FLOATS_PER_UNIT = {'lstm_fwd': lambda rows: 6 * rows,
+                    'lstm_bwd': lambda rows: 6 * rows + 3}
+
+
+def max_hidden(name, rows=ROWS_PER_BLOCK):
+    """The largest hidden width kernel ``name`` takes at ``rows`` batch
+    rows per block (8 only); 0 at another row count."""
+    if rows != ROWS_PER_BLOCK:
+        return 0
+    return _SMEM // (_FLOATS_PER_UNIT[name](rows) * 4)
+
+
+def padded_width(h):
+    """h rounded up to a multiple of 4, the width the kernels run."""
+    return -(-h // 4) * 4
+
+
+def pad_units(v, groups, p, rows=0):
+    """v [..., groups * H] with p zero units after each group's H, and
+    ``rows`` zero rows after the first dim's H (the recurrent weight)."""
+    v = v.reshape(v.shape[:-1] + (groups, v.shape[-1] // groups))
+    pad = [0, p] + [0, 0] * (v.dim() - 2) + ([0, rows] if rows else [])
+    v = torch.nn.functional.pad(v, pad)
+    return v.reshape(v.shape[:-2] + (-1,))
+
+
+def kernel_takes(h):
+    """Whether both kernels take hidden width ``h`` at ROWS_PER_BLOCK
+    batch rows per block once ``lstm_scan`` has padded it to a multiple of
+    4; decided without a build."""
+    return 1 <= h and padded_width(h) <= min(
+        max_hidden(n) for n in _FLOATS_PER_UNIT)
+
+
+def _check_width(name, h):
+    if h % 4 or not 1 <= h <= max_hidden(name):
+        raise ValueError("the %s kernel takes hidden widths that are "
+                         "multiples of 4 up to %d, not %d"
+                         % (name, max_hidden(name), h))
 
 
 def _lib(name):
@@ -54,7 +111,6 @@ def _lib(name):
             lib.paddle_lstm_bwd_workspace_bytes.argtypes = [i, i, i]
             lib.paddle_lstm_bwd_workspace_bytes.restype = ctypes.c_int64
         fn.restype = ctypes.c_int
-        getattr(lib, 'paddle_%s_max_hidden' % name).restype = ctypes.c_int
         lib.paddle_cuda_error_string.argtypes = [ctypes.c_int]
         lib.paddle_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -153,10 +209,6 @@ def _plain_lstm_backward(w, pw, hs, cs, gates, ct_h, ct_c):
     return dx, dw, dpw
 
 
-def _max_hidden(lib, name):
-    return getattr(lib, 'paddle_%s_max_hidden' % name)()
-
-
 def _launch_check(lib, err, name):
     if err != 0:
         raise RuntimeError("%s launch failed: %s"
@@ -175,11 +227,8 @@ def _lstm_forward(x, w, pw, with_gates):
     global launches
     t, b, four_h = x.shape
     h = four_h // 4
+    _check_width('lstm_fwd', h)
     lib = _lib('lstm_fwd')
-    if h > _max_hidden(lib, 'lstm_fwd') or h % 4:
-        raise ValueError("the forward kernel takes hidden widths that are "
-                         "multiples of 4 up to %d, not %d"
-                         % (_max_hidden(lib, 'lstm_fwd'), h))
     x, w, pw = x.contiguous(), w.contiguous(), pw.contiguous()
     hs = torch.empty((t, b, h), dtype=torch.float32, device=x.device)
     cs = torch.empty_like(hs)
@@ -212,11 +261,8 @@ def _lstm_backward(w, pw, hs, cs, gates, ct_h, ct_c):
     if gates.device.type == 'cpu':
         return _plain_lstm_backward(w, pw, hs, cs, gates, ct_h, ct_c)
     global bwd_launches
+    _check_width('lstm_bwd', h)
     lib = _lib('lstm_bwd')
-    if h > _max_hidden(lib, 'lstm_bwd') or h % 4:
-        raise ValueError("the backward kernel takes hidden widths that are "
-                         "multiples of 4 up to %d, not %d"
-                         % (_max_hidden(lib, 'lstm_bwd'), h))
     args = [v if v is None else v.contiguous()
             for v in (gates, hs, cs, ct_h, ct_c, w, pw)]
     dx = torch.empty((t, b, four_h), dtype=torch.float32,
@@ -258,12 +304,18 @@ def lstm_scan(x_tm, w, pw=None):
     """Fused LSTM over time-major gate inputs x_tm [T, B, 4H] (bias
     added), recurrent weight w [H, 4H] and optional peephole weights pw
     [3, H]; zero initial state.  Returns (hs, cs), [T, B, H] each.
-    Differentiable; without gradients the forward skips the gates."""
+    Differentiable; without gradients the forward skips the gates.  A
+    width that is not a multiple of 4 runs padded with zero units."""
+    h = w.shape[0]
     if pw is None:
-        pw = torch.zeros((3, w.shape[0]), dtype=torch.float32,
-                         device=w.device)
+        pw = torch.zeros((3, h), dtype=torch.float32, device=w.device)
+    p = padded_width(h) - h
+    if p:
+        x_tm, w, pw = (pad_units(x_tm, 4, p), pad_units(w, 4, p, p),
+                       pad_units(pw, 1, p))
     if torch.is_grad_enabled() and any(
             v.requires_grad for v in (x_tm, w, pw)):
-        return _LSTMScan.apply(x_tm, w, pw)
-    hs, cs, _ = _lstm_forward(x_tm, w, pw, with_gates=False)
-    return hs, cs
+        hs, cs = _LSTMScan.apply(x_tm, w, pw)
+    else:
+        hs, cs, _ = _lstm_forward(x_tm, w, pw, with_gates=False)
+    return (hs[..., :h], cs[..., :h]) if p else (hs, cs)
