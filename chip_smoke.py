@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --long-step   # phase 26 alone, see below
 
 Run from the root of a checkout on a machine with a CUDA card and the
 CUDA toolkit (nvcc).  It drives ``paddle_tpu_torch`` only (no JAX, nothing
@@ -12,8 +13,8 @@ line:
 2. kernel build: the nine kernel sources of the checkout (ten kernels:
    #3 and #4 share one), one nvcc each, all started together; ptxas's
    register and spill lines; the count of tensor-core instructions (HMMA,
-   HGMMA) in each library's SASS (``cuobjdump -sass``), which must not be
-   0 for #1 and #2.
+   HGMMA) in each kernel function's SASS (``cuobjdump -sass``), which must
+   not be 0 in any instance of #1, #2 and #3 and must be 0 in #4's.
 3. flash forward vs its plain version on the card at the prefill's
    shapes (BH = 8, D = 64), with the kernel, the plain version and
    ``F.scaled_dot_product_attention`` (a yardstick only, which the port
@@ -97,14 +98,16 @@ line:
    applies the reset gate after the product).
 19. the row-sparse update (#6) vs its plain rules, bitwise, for sgd,
    adagrad and lazy adam on a 30000 x 256 table with K = 32768 ids: the
-   synthetic text's Zipf ids, the bench's uniform ids, and ids with
-   sentinels, out-of-range and negative ids; rows not touched must stay
-   bitwise unchanged.  Timed: the kernel alone in device time, the id
-   sort, the plain rules, and both the whole call (sort and kernel) and
-   ``torch.optim.SparseAdam`` / ``Adagrad`` on a sparse gradient and
-   ``index_add_`` (yardsticks only, which cannot be captured in a CUDA
-   graph) between CUDA events, per call over back-to-back calls and as
-   the median single call.
+   synthetic text's Zipf ids, the bench's uniform ids, ids with
+   sentinels, out-of-range and negative ids, all K slots on one id, and
+   runs straddling every edge of the kernel's design (at widths 250 and
+   100); rows not touched must stay bitwise unchanged.  Timed: the kernel
+   alone in device time and the whole call (sort and kernel) per call;
+   at the Zipf and uniform ids also the id sort, the plain rules, and
+   the whole call and ``torch.optim.SparseAdam`` / ``Adagrad`` on a
+   sparse gradient and ``index_add_`` (yardsticks only, which cannot be
+   captured in a CUDA graph) between CUDA events, per call over
+   back-to-back calls and as the median single call.
 20. seq2seq training at full width (benchmarks/bench_seq2seq.py's config:
    B=512, T=64, V=30000, word_dim 256, H=512, Adam lr 1e-3; float32) on the
    synthetic WMT14 task, through the port's layers, optimizer and
@@ -128,17 +131,19 @@ line:
 22. profile: a traced seq2seq training step, device time by kernel and
    idle share.
 23. the split backward, #3 (dk, dv) and #4 (dq), vs their plain versions
-   at every case of phase 7, float32 and bfloat16, through their wrappers
-   ``_fa_backward_dkv`` and ``_fa_backward_dq``; #3, #4 and #2 timed at the
-   training shape beside the plain versions (SDPA's backward from phase
-   7).
+   at every case of phase 7 and at head dims 32, 50 and 128, float32 and
+   bfloat16, through their wrappers ``_fa_backward_dkv`` and
+   ``_fa_backward_dq``; #3's dk and dv bitwise equal to #2's at every
+   case; #3, #4 and #2 timed at the training shape beside the plain
+   versions (SDPA's backward from phase 7).
 24. full length: one layer's attention at 128K context (BH=8, T=131072,
    D=64, float32, causal; seeded inputs, lse from #1): #1's o and lse,
    #4's and #2's dq on 64-query slices (the first, one across the middle
    tile boundary, the last) and #3's and #2's dk, dv on 64-key slices
    against the plain versions on the same rows, with the slice's offset,
    against every key or query; the split pair's dq, dk, dv against #2's
-   over the whole length; all norm-relative.  Reported, not gated: both
+   over the whole length, all norm-relative, and #3's dk and dv bitwise
+   equal to #2's.  Reported, not gated: both
    sides' dk, dv of the first key tile against float64 sums.  #1, #3, #4
    and #2 timed once each after a warm-up, SDPA's forward and backward
    beside them.
@@ -154,13 +159,19 @@ line:
    share.
 28. a ``{"kernels": [...]}`` line (ten kernels, each with its launches by
    path; ``bound_ms`` at the rate of the units a kernel computes on: the
-   tensor cores at 3xTF32 for #1 and #2, with their CUDA-core float32
+   tensor cores at 3xTF32 for #1, #2 and #3, with their CUDA-core float32
    bound beside it as ``cuda_core_bound_ms``; the CUDA cores for the
-   rest, #3 and #4 with their 3xTF32 bound as ``tc_bound_ms``), the
-   card's line, and last ``{"ok": true, "device": {...}}``.
+   rest, #4 with its 3xTF32 bound as ``tc_bound_ms``), the card's line,
+   and last ``{"ok": true, "device": {...}}``.
+
+With ``--long-step`` the script runs phase 26 alone, in a process that
+has allocated nothing before the step, and prints its record (step
+times, peak memory): copied into another checkout and run there too in
+the same call, it compares two trees' 128K step on one card.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -197,7 +208,7 @@ HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # float32 at float32 accuracy on the tensor cores: 3xTF32, three TF32
 # products (495 TFLOP/s) for each float32 product, as the flash kernels
-# #1 and #2 compute; the bound a tensor-core design of #1-#4 is held to
+# #1, #2 and #3 compute; the bound a tensor-core design of #1-#4 is held to
 PEAK_3XTF32 = 495e12 / 3
 # kernel vs plain version: both accumulate in float32, in other orders
 TOL_F32 = 1e-4
@@ -275,12 +286,13 @@ S2S = dict(B=512, T=64, V=30000, word_dim=256, H=512, lr=1e-3, steps=8,
 # 128K-context training: TRAIN's model at T = 131072, B = 1, where the
 # reference's backward takes its split pair in every layer (a dq
 # accumulator of T * 64 * 4 bytes over flash_attention.py:527's 16 MiB).
-# Full depth: a step took ~22 s on an H100 (PERF.md), under the 60 s that
+# Full depth: a step took ~13.4 s on an H100 (PERF.md), under the 60 s that
 # would call for L=2
 LONG = dict(B=1, T=131072, V=30000, L=6, D=512, H=8, lr=1e-3, steps=2)
 # the split pair vs the fused kernel at full length, norm-relative: both
-# float32, in other orders (#2 sums on the tensor cores at 3xTF32 accuracy,
-# the pair on the CUDA cores; #2's dq tiles add in atomic order)
+# float32, dq in other orders (#2 sums it on the tensor cores at 3xTF32
+# accuracy in atomic order over k tiles, #4 on the CUDA cores); dk and dv
+# must be bitwise equal (#3 and #2 share their engine)
 TOL_SPLIT_VS_FUSED = 1e-5
 # #1, #2, #3 and #4 at full length vs their plain versions on 64-row
 # slices, norm-relative per output: both float32, summing up to 131072
@@ -406,15 +418,15 @@ def _tc_bound(nbytes, flops, dtype=torch.float32):
                   PEAK_3XTF32 if dtype == torch.float32 else None)
 
 
-# the flash kernels that compute on the tensor cores (3xTF32): #1 and #2;
-# the split pair (#3 'dkv', #4 'dq') computes on the CUDA cores
-TENSOR_CORE_FLASH = ('fwd', 'fused')
+# the flash kernels that compute on the tensor cores (3xTF32): #1, #2 and
+# #3 ('dkv'); #4 ('dq') computes on the CUDA cores
+TENSOR_CORE_FLASH = ('fwd', 'fused', 'dkv')
 
 
 def _flash_bound(key, nbytes, flops, dtype=torch.float32):
     """Flash kernel ``key``'s ``bound_ms`` / ``bound_by`` at the rate of
     the units it computes on, and its bound on the other units beside it:
-    ``cuda_core_bound_ms`` for #1 and #2, ``tc_bound_ms`` for #3 and #4."""
+    ``cuda_core_bound_ms`` for #1, #2 and #3, ``tc_bound_ms`` for #4."""
     cuda_core = _bound(nbytes, flops, dtype)
     tc = _tc_bound(nbytes, flops, dtype)
     if key in TENSOR_CORE_FLASH:
@@ -460,6 +472,13 @@ def phase_environment():
     return card
 
 
+def _short_function(mangled):
+    """A kernel's mangled name cut to its name and template arguments,
+    e.g. 'fa_bwd_dq_kernelIfLi128' (float, 128), for printing."""
+    tail = re.sub(r'^\d+', '', mangled.split('_cu_')[-1][8:])
+    return re.split(r'E+[vPil]', tail)[0]
+
+
 def phase_build():
     t0 = time.perf_counter()
     build.load_all(SOURCES)
@@ -477,8 +496,9 @@ def phase_build():
                               if 'spill' in x), '')
                 print("ptxas %s %s | %s | %s" % (name, fn[-60:], regs,
                                                  spill))
-    # tensor-core instructions in each library's SASS: #1 and #2 compute
-    # their products there (3xTF32), the other kernels on the CUDA cores
+    # tensor-core instructions in each kernel function's SASS: #1, #2 and
+    # #3 compute their products there (3xTF32), the other kernels (#4
+    # among them, beside #3 in one library) on the CUDA cores
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()),
                              'cuobjdump')
     mma = {}
@@ -486,13 +506,34 @@ def phase_build():
         sass = subprocess.run([cuobjdump, '-sass', build.library_path(name)],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
-        mma[name] = sum(1 for line in sass.splitlines()
-                        if 'HMMA' in line or 'HGMMA' in line)
-    print("tensor-core instructions (HMMA/HGMMA) in the SASS: %s"
-          % json.dumps(mma))
-    if not (mma['flash_attention_fwd'] and mma['flash_attention_bwd']):
-        raise SystemExit("the flash kernels show no tensor-core instruction "
-                         "in their SASS: %s" % mma)
+        fn = None
+        for line in sass.splitlines():
+            if 'Function : ' in line:
+                fn = line.split('Function : ')[1].strip()
+                mma.setdefault(name, {})[fn] = 0
+            elif fn and ('HMMA' in line or 'HGMMA' in line):
+                mma[name][fn] += 1
+    by_lib = {name: sum(fns.values()) for name, fns in mma.items()}
+    print("tensor-core instructions (HMMA/HGMMA) in the SASS, by library: "
+          "%s" % json.dumps(by_lib))
+    print("by kernel function: %s" % json.dumps(
+        {name: {_short_function(f): n for f, n in fns.items()}
+         for name, fns in mma.items() if by_lib[name]}))
+
+    def of(lib, kernel):
+        return [n for f, n in mma.get(lib, {}).items() if kernel in f]
+    dkv = of('flash_attention_bwd_split', 'fa_bwd_dkv_kernel')
+    dq = of('flash_attention_bwd_split', 'fa_bwd_dq_kernel')
+    need = dict(flash_attention_fwd=of('flash_attention_fwd',
+                                       'fa_fwd_kernel'),
+                flash_attention_bwd=of('flash_attention_bwd',
+                                       'fa_bwd_kernel'),
+                flash_attention_bwd_dkv=dkv)
+    bad = [k for k, counts in need.items() if not counts or not all(counts)]
+    if bad or not dq or any(dq):
+        raise SystemExit("tensor-core instructions: every instance of #1, "
+                         "#2 and #3 must show some and #4 none; failing %s, "
+                         "#4 %s" % (bad, dq))
     return mma
 
 
@@ -939,6 +980,7 @@ def phase_training(c=TRAIN, label='training', seed=SEED + 5,
     feed = _train_feed(c['B'], seed, c)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    allocated_at_start = torch.cuda.memory_allocated()
     _zero_counts()
     losses, step_ms = [], []
     for i in range(1 + c['steps']):
@@ -957,7 +999,8 @@ def phase_training(c=TRAIN, label='training', seed=SEED + 5,
                losses=losses, step_ms=step_ms, step_ms_p50=p50,
                tokens_per_s=c['B'] * c['T'] / (p50 / 1e3),
                launches=counts, launches_per_step=per_step,
-               max_memory_allocated=torch.cuda.max_memory_allocated())
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               memory_allocated_at_start=allocated_at_start)
     print("%s: %s" % (label, json.dumps(res)))
     want = _want(flash_attention_fwd=c['L'], dense_update=n_adam,
                  **{k: c['L'] for k in bwd_kernels})
@@ -1746,11 +1789,34 @@ def _gru_layer_pair(t, b, h, d_in):
 SPARSE_RULES = {'sgd': (0,), 'adagrad': (0, 2), 'adam': (0, 1, 2)}
 
 
+# run lengths of the 'straddle' ids: each side of every edge of the new
+# kernel's design (csrc/table_update.cu): the short path's 32 slots, the
+# ring's 32-slot batches and 256-slot depth, the 64-slot scan groups (two
+# long runs starting in one group), and a run past all of them
+STRADDLE_RUNS = (1, 2, 31, 32, 33, 34, 40, 63, 64, 65, 95, 96, 97, 127, 128,
+                 129, 255, 256, 257, 258, 511, 512, 513, 1000, 2049, 4097)
+# the straddle case's widths: not a multiple of 4 (4-byte copies, a ragged
+# last 32-column slice) and a multiple of 4 but not of 32 (16-byte copies,
+# a ragged slice)
+STRADDLE_D = (250, 100)
+
+
 def _sparse_ids(dist, rng, k, height):
     if dist == 'zipf':   # the synthetic WMT14 source ids
         return 3 + wmt14.zipf_seq(rng, k, height - 3)
     if dist == 'uniform':   # bench_seq2seq.py's ids
         return rng.integers(1, height, k)
+    if dist == 'single':   # every slot on one id
+        return np.full(k, int(rng.integers(0, height)))
+    if dist.startswith('straddle'):
+        # the lowest ids hold the runs, so that they sort first and in this
+        # order: two long runs that start in the first 64-slot group, then
+        # STRADDLE_RUNS twice, the second time shifted by 5 slots; the rest
+        # uniform on the other ids
+        lens = (33, 34) + STRADDLE_RUNS + (5,) + STRADDLE_RUNS
+        runs = np.repeat(np.arange(len(lens)), lens)
+        rest = rng.integers(len(lens), height, k - len(runs))
+        return rng.permutation(np.concatenate([runs, rest]))
     ids = rng.integers(0, height, k)   # duplicates, sentinels, negatives
     ids[:64] = height
     ids[64:96] = height + rng.integers(1, 1000, 32)
@@ -1828,15 +1894,24 @@ def _sparse_library(rule, base, rows, vals, height, d):
 
 def phase_sparse_kernel():
     """Kernel #6 against its plain rules, bitwise, on the same inputs; rows
-    no id touches stay bitwise unchanged.  Times at the Zipf ids (the
-    training path's) and at the bench's uniform ids, keyed by ids, then
-    rule."""
-    height, d, k = S2S['V'], S2S['word_dim'], S2S['B'] * S2S['T']
+    no id touches stay bitwise unchanged.  Ids: the training path's Zipf
+    ids, the bench's uniform ids, edge ids (sentinels, out-of-range and
+    negative), every slot on one id, and runs straddling every edge of the
+    kernel's design at two widths (``STRADDLE_RUNS``, ``STRADDLE_D``).
+    Times, keyed by ids, then rule: at the Zipf and uniform ids the kernel
+    alone, the id sort, the whole call, the plain rules and the library
+    call; at the one-id and straddling ids the kernel alone and the whole
+    call."""
+    height, k = S2S['V'], S2S['B'] * S2S['T']
     gen = torch.Generator(device='cuda').manual_seed(SEED + 16)
     rng = np.random.default_rng(SEED + 16)
     lr = torch.tensor([1e-2], device='cuda')
     rows_out, timing = [], {}
-    for dist in ('zipf', 'uniform', 'edge'):
+    dists = ['zipf', 'uniform', 'edge', 'single'] + [
+        'straddle_d%d' % d for d in STRADDLE_D]
+    for dist in dists:
+        d = (int(dist.split('_d')[1]) if dist.startswith('straddle')
+             else S2S['word_dim'])
         ids = torch.as_tensor(_sparse_ids(dist, rng, k, height),
                               device='cuda')
         vals = torch.randn((k, d), generator=gen, device='cuda')
@@ -1856,7 +1931,7 @@ def phase_sparse_kernel():
             _sparse_call(rule, want, ids, vals, lr, plain=True)
             torch.cuda.synchronize()
             row = dict(
-                ids=dist, rule=rule, K=k, n_unique=n_unique,
+                ids=dist, rule=rule, K=k, D=d, n_unique=n_unique,
                 bitwise=all(torch.equal(a, b) for a, b in zip(got, want)),
                 untouched_unchanged=all(
                     torch.equal(a[~touched], b[~touched])
@@ -1871,15 +1946,7 @@ def phase_sparse_kernel():
                 code, sc = tu.RULES[rule], _sparse_scalars(rule)
                 row['ms'] = _device_ms(lambda: tu.launch_sorted(
                     code, tabs, srows, order, vals, lr, **sc))
-                row['sort_ms'] = _device_ms(lambda: tu.sort_rows(ids, height))
                 row['call_ms'] = _call_ms(lambda: _sparse_call(
-                    rule, tabs, ids, vals, lr, plain=False))
-                row['plain_call_ms'] = _call_ms(lambda: _sparse_call(
-                    rule, [t.clone() for t in state], ids, vals, lr,
-                    plain=True), iters=2)
-                row['library_ms'], row['library_single_call_ms'] = \
-                    _sparse_library(rule, state, norm, vals, height, d)
-                row['single_call_ms'] = _single_call_ms(lambda: _sparse_call(
                     rule, tabs, ids, vals, lr, plain=False))
                 # values, sorted ids (int32) and their order (int64) read
                 # once; each touched row of every table read and written
@@ -1887,6 +1954,15 @@ def phase_sparse_kernel():
                 nbytes = k * d * 4 + k * 4 + k * 8 + n_unique * d * 4 * 2 * n
                 row['bound_ms'], row['bound_by'] = _bound(nbytes, 0)
                 timing.setdefault(dist, {})[rule] = row
+            if dist in ('zipf', 'uniform'):
+                row['sort_ms'] = _device_ms(lambda: tu.sort_rows(ids, height))
+                row['plain_call_ms'] = _call_ms(lambda: _sparse_call(
+                    rule, [t.clone() for t in state], ids, vals, lr,
+                    plain=True), iters=2)
+                row['library_ms'], row['library_single_call_ms'] = \
+                    _sparse_library(rule, state, norm, vals, height, d)
+                row['single_call_ms'] = _single_call_ms(lambda: _sparse_call(
+                    rule, tabs, ids, vals, lr, plain=False))
             rows_out.append(row)
             print("sparse kernel %s" % json.dumps(row))
     bad = [(r['ids'], r['rule']) for r in rows_out if not r['ok']]
@@ -2194,7 +2270,7 @@ def phase_s2s_profile(s2s):
                              'gru_dw_finish_kernel', 'transpose_kernel'),
                gru_bptt_ms=by('gru_bptt_kernel'),
                gru_dw_ms=by('gru_dw_kernel'),
-               table_update_ms=by('rowwise_kernel'),
+               table_update_ms=by('rowwise_'),
                dense_update_ms=by('dense_update_kernel'),
                gemm_ms=by('gemm', 'Kernel2'),
                sort_ms=by('Sort', 'sort'),
@@ -2263,17 +2339,34 @@ def _s2s_lines(gru_rows, gru_timing, sparse_rows, sparse_timing, s2s):
     return [table, fwd, bwd]
 
 
+# phase 23's cases past phase 7's head dim 64: the kernels' other head-dim
+# tiers (32 and 128) and a head dim that is not a multiple of 4 (#3 and #2
+# load its tiles by the threads, not by cp.async)
+SPLIT_EXTRA_CASES = (
+    # name, bh, tq, tk, causal, dtype, q_offset, k_offset, dlse, d
+    ('d128_ragged_T200', 4, 200, 200, True, torch.float32, 0, 0, True, 128),
+    ('d32_offsets_masked_tiles', 4, 192, 320, True, torch.float32, 0, 128,
+     False, 32),
+    ('d50_noncausal_T130', 4, 130, 130, False, torch.float32, 0, 0, False,
+     50),
+    ('bf16_d128_causal_T256', 4, 256, 256, True, torch.bfloat16, 0, 0,
+     False, 128))
+
+
 def phase_split_kernel(bwd_rows):
     """Kernels #3 and #4 against ``_plain_backward_dkv`` /
-    ``_plain_backward_dq`` at every case of phase 7, through
-    ``_fa_backward_dkv`` / ``_fa_backward_dq``; o and lse from the plain
-    forward.
+    ``_plain_backward_dq`` at every case of phase 7 and at
+    ``SPLIT_EXTRA_CASES``, through ``_fa_backward_dkv`` /
+    ``_fa_backward_dq``; o and lse from the plain forward.  At every case
+    #3's dk and dv must be bitwise equal to #2's (``_fa_backward_fused``):
+    both run the engine of csrc/flash_bwd_dkv.cuh.
     At the training shape, #3, #4 and #2 timed in this call beside the
     plain versions, SDPA's backward taken from phase 7's row."""
-    d = 64
     gen = torch.Generator(device='cuda').manual_seed(SEED + 19)
     rows, timing = [], None
-    for name, bh, tq, tk, causal, dtype, qo, ko, with_dlse in BWD_CASES:
+    for case in tuple(c + (64,) for c in BWD_CASES) + SPLIT_EXTRA_CASES:
+        name, bh, tq, tk, causal, dtype, qo, ko, with_dlse, d = case
+
         def rnd(t):
             return torch.randn((bh, t, d), generator=gen,
                                device='cuda').to(dtype)
@@ -2286,18 +2379,21 @@ def phase_split_kernel(bwd_rows):
         args = (q, k, v, lse, do, di.contiguous(), causal, scale, qo, ko)
         dk, dv = fa._fa_backward_dkv(*args)
         dq = fa._fa_backward_dq(*args)
+        _, fused_dk, fused_dv = fa._fa_backward_fused(*args)
         ref_dk, ref_dv = fa._plain_backward_dkv(*args)
         ref_dq = fa._plain_backward_dq(*args)
         torch.cuda.synchronize()
         err = dict(dq=_max_err(dq, ref_dq), dk=_max_err(dk, ref_dk),
                    dv=_max_err(dv, ref_dv))
         finite = all(bool(torch.isfinite(a).all()) for a in (dq, dk, dv))
+        bitwise = bool(torch.equal(dk, fused_dk) and
+                       torch.equal(dv, fused_dv))
         tol = TOL_BWD_BF16 if dtype == torch.bfloat16 else TOL_BWD_F32
-        row = dict(case=name, bh=bh, tq=tq, tk=tk, causal=causal,
+        row = dict(case=name, bh=bh, tq=tq, tk=tk, d=d, causal=causal,
                    dtype=str(dtype).replace('torch.', ''), q_offset=qo,
                    k_offset=ko, dlse=with_dlse, err=err, tol=tol,
-                   finite=finite,
-                   ok=finite and max(err.values()) <= tol)
+                   finite=finite, dk_dv_bitwise_equal_fused=bitwise,
+                   ok=finite and bitwise and max(err.values()) <= tol)
         if name == BWD_MAIN:
             fns = {
                 'dkv': lambda: fa._fa_backward_dkv(*args),
@@ -2324,7 +2420,7 @@ def phase_split_kernel(bwd_rows):
     bad = [r['case'] for r in rows if not r['ok']]
     if bad:
         raise SystemExit("split backward kernels disagree with their plain "
-                         "versions or are not finite: %s" % bad)
+                         "versions, #3 with #2, or are not finite: %s" % bad)
     return rows, timing
 
 
@@ -2482,9 +2578,11 @@ def phase_long_kernel():
         res[key] = dict(ms=ms[key], bytes=nbytes, flops=flops)
         res[key].update(_flash_bound(key, nbytes, flops))
     print("long kernels: %s" % json.dumps(res))
-    if not finite or not max(gaps.values()) <= TOL_SPLIT_VS_FUSED:
+    if not finite or not max(gaps.values()) <= TOL_SPLIT_VS_FUSED or \
+            not bitwise_dkv:
         raise SystemExit("split pair disagrees with the fused kernel at "
-                         "full length or is not finite: %s" % gaps)
+                         "full length (dk, dv bitwise equal: %s) or is not "
+                         "finite: %s" % (bitwise_dkv, gaps))
     if not _long_ok(vs_plain):
         raise SystemExit("flash kernels disagree with their plain versions "
                          "at full length: %s" % vs_plain)
@@ -2527,6 +2625,9 @@ def _split_lines(split_rows, split_timing, long_k, long_tr, parity, tr):
     for name, key, line in (('flash_attention_bwd_dkv', 'dkv', 364),
                             ('flash_attention_bwd_dq', 'dq', 413)):
         grads = ('dk', 'dv') if key == 'dkv' else ('dq',)
+        # the bound on the units the kernel does not compute on
+        other = ('cuda_core_bound_ms' if key in TENSOR_CORE_FLASH
+                 else 'tc_bound_ms')
         long_abs, long_rel = _long_err(long_k, grads)
         lines.append(dict(
             name=name, route='cuda',
@@ -2545,7 +2646,7 @@ def _split_lines(split_rows, split_timing, long_k, long_tr, parity, tr):
                                   for g in grads),
             ms=long_k[key]['ms'], bound_ms=long_k[key]['bound_ms'],
             bound_by=long_k[key]['bound_by'],
-            tc_bound_ms=long_k[key]['tc_bound_ms'],
+            **{other: long_k[key][other]},
             plain_ms=split_timing[key + '_plain_ms'],
             library_ms=long_k['library_bwd_ms'],
             library_note='SDPA backward (efficient attention) at the same '
@@ -2557,7 +2658,7 @@ def _split_lines(split_rows, split_timing, long_k, long_tr, parity, tr):
                 shape=split_timing['shape'], ms=split_timing[key + '_ms'],
                 bound_ms=split_timing[key + '_bound_ms'],
                 bound_by=split_timing[key + '_bound_by'],
-                tc_bound_ms=split_timing[key + '_tc_bound_ms'],
+                **{other: split_timing[key + '_' + other]},
                 plain_ms=split_timing[key + '_plain_ms'],
                 call_ms=split_timing[key + '_call_ms'],
                 fused_ms=split_timing['fused_ms'],
@@ -2571,6 +2672,10 @@ def main():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     card = phase_environment()
+    if sys.argv[1:] == ['--long-step']:
+        phase_training(LONG, 'long-context training', SEED + 20,
+                       ('flash_attention_bwd_dkv', 'flash_attention_bwd_dq'))
+        return 0
     phase_build()
     rows = phase_kernel()
     eng, params, serve_launches = phase_serving()

@@ -15,35 +15,37 @@
 // The dk/dv kernel does four D-long products per pair (s, dp, dv, dk),
 // 8 * D flops, 35 TFLOP; the dq kernel three (s, dp, dq), 6 * D flops,
 // 26 TFLOP.  Their bytes (q, k, v, do, lse, di in; dk, dv or dq out) are
-// under 2 GB.  So the float32 FMAs on the CUDA cores bound both (0.53 s and
-// 0.39 s at the 67 TFLOP/s peak).  Redoing s and dp in both kernels is the
+// under 2 GB.  So operations bound both: the dk/dv kernel computes on the
+// tensor cores at float32 accuracy (3xTF32: three TF32 products a float32
+// product, 495 / 3 = 165 TFLOP/s, 0.21 s), the dq kernel on the CUDA
+// cores (67 TFLOP/s, 0.39 s).  Redoing s and dp in both kernels is the
 // split's price over the fused kernel (7 products per pair instead of 5),
 // as on the TPU.
 //
 // The design follows the card, not the TPU's block walk.  The TPU kernels
 // carry their accumulators in VMEM across a sequential grid axis; Hopper
 // blocks run in parallel and in no order, so each block owns one output
-// tile and walks the other axis in a loop:
-//   - dk/dv: one block per (bh, 64-row k tile).  It loads its K and V tiles
-//     once and walks the q tiles the causal mask leaves alive.  dk and dv
-//     accumulate in float32 registers and are written once.
-//   - dq: one block per (bh, 64-row q tile).  It loads its q, do, lse and
-//     di once and walks the alive k tiles.  Each k tile's ds @ k is summed
-//     in registers and added to a float32 register accumulator, which is
-//     multiplied by the softmax scale once at the end (the TPU flush).
-//   No atomics and no scratch buffer: both are deterministic.
-//   - 256 threads as a 16 x 16 grid; each thread computes a 4 x 4 tile of
-//     s and dp (queries ty + 16 i, keys tx + 16 j) and a 4 x 4 (D = 64) or
-//     4 x 8 (D = 128) tile of its output, reading float4s from shared
-//     memory: about one 16-byte shared load per eight FMAs, where the fused
-//     kernel's one-row-per-four-threads layout reads one float per FMA.
-//   - Every sum runs in the fused kernel's order (s and dp over the head
-//     columns in order; dk and dv over the queries in order; dq over a
-//     tile's keys in order, then tile by tile), so dk and dv come out
-//     bitwise equal to the fused kernel's and dq differs from it only in
-//     the order its atomics add the tiles.
-//   - q is scaled on its way into shared memory (the forward's
-//     convention), so ds needs no scale and dk = ds^T (scale * q).
+// tile and walks the other axis in a loop.  No atomics and no scratch
+// buffer: both kernels are deterministic.
+//   - dk/dv: one block per (bh, 64-row k tile), the fused backward's dk/dv
+//     engine (flash_bwd_dkv.cuh) without its dq: the block loads its K and
+//     V tiles once and walks the q tiles the causal mask leaves alive, q,
+//     do, lse and di coming by a cp.async ring one tile ahead; s^T, p^T,
+//     dp^T and ds^T stay in the warps' registers as mma.sync m16n8k8 TF32
+//     fragments (3xTF32), and each q tile's dk and dv parts are summed
+//     from zero on the tensor cores, then added in float32.  The same code
+//     computes the fused kernel's dk and dv, so the two are bitwise equal.
+//     Without dq the block keeps no ds^T tile, so two blocks fit an SM at
+//     D <= 64.
+//   - dq: one block per (bh, 64-row q tile), on the CUDA cores.  It loads
+//     its q, do, lse and di once and walks the alive k tiles.  Each k
+//     tile's ds @ k is summed in registers and added to a float32 register
+//     accumulator, which is multiplied by the softmax scale once at the end
+//     (the TPU flush).  256 threads as a 16 x 16 grid; each thread
+//     computes a 4 x 4 tile of s and dp (queries ty + 16 i, keys tx + 16 j)
+//     and a 4 x 4 (D = 64) or 4 x 8 (D = 128) tile of dq, reading float4s
+//     from shared memory.  q is scaled on its way into shared memory (the
+//     forward's convention), so ds needs no scale.
 //   - ds = p * (dp - di).  Masked probabilities are zero by select, never
 //     by multiply: a row that every key masks has lse = -1e30, where
 //     exp(s - lse) is inf and inf * 0 would be NaN.  Offsets place both
@@ -54,18 +56,19 @@
 //   - Causal walks are triangular: block (bh, y) takes the y-th longest
 //     walk, and blocks start in order of y, so the longest walks start
 //     first and the short ones fill the tail.
-// Tensor cores (wgmma) and TMA are later work: float32 products would need
-// 3xTF32 splitting to keep float32 accuracy on them.
+// The dq kernel's move to the tensor cores is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_bwd_dkv.cuh"
+
 namespace {
 
 constexpr int kTile = 64;       // rows of a q tile and of a k tile
 constexpr int kThreads = 256;   // a 16 x 16 grid
-constexpr int kPS = kTile + 4;  // row stride of the p and ds tiles
+constexpr int kPS = kTile + 4;  // row stride of the ds tile
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -156,11 +159,11 @@ __device__ __forceinline__ void scores(const float* qs, const float* dos,
 
 // p = exp(s - lse) where the mask lets (query, key) through, else 0 (by
 // select), and ds = p * (dp - di), for this thread's 4 x 4 pairs of the
-// tiles at q0, k0; written to ps (when given) and dss as [query][key].
+// tiles at q0, k0; ds written to dss as [query][key].
 __device__ __forceinline__ void probs(const float (&s)[4][4],
                                       const float (&dp)[4][4],
                                       const float* lse_s, const float* di_s,
-                                      float* ps, float* dss, int ty, int tx,
+                                      float* dss, int ty, int tx,
                                       int q0, int k0, int tq, int tk,
                                       int causal, int q_offset,
                                       int k_offset) {
@@ -178,7 +181,6 @@ __device__ __forceinline__ void probs(const float (&s)[4][4],
       const bool ok = row_ok && kpos < tk &&
                       (!causal || qpos >= k_offset + kpos);
       const float p = ok ? expf(s[i][j] - lse_r) : 0.f;
-      if (ps != nullptr) ps[r * kPS + kl] = p;
       dss[r * kPS + kl] = p * (dp[i][j] - di_r);
     }
   }
@@ -203,102 +205,21 @@ __device__ __forceinline__ bool alive(int causal, int q0, int k0, int tq,
   return !causal || q_offset + min(q0 + kTile, tq) - 1 >= k_offset + k0;
 }
 
+// dk and dv of (bh, k tile y): the fused backward's engine without dq
 template <typename T, int DPAD>
-__global__ void __launch_bounds__(kThreads, DPAD == 64 ? 2 : 1)
+__global__ void __launch_bounds__(flash_bwd_dkv::kThreads,
+                                  DPAD <= 64 ? 2 : 1)
 fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ di,
                   T* __restrict__ dk, T* __restrict__ dv, int tq, int tk,
-                  int d, int causal, float scale, int q_offset,
-                  int k_offset) {
+                  int d, int causal, float scale, int q_offset, int k_offset,
+                  int use_async) {
   extern __shared__ float4 smem4[];
-  constexpr int S = stride<DPAD>();
-  constexpr int M = DPAD / 64;  // float4 column groups per thread
-  float* ks = reinterpret_cast<float*>(smem4);
-  float* vs = ks + kTile * S;
-  float* qs = vs + kTile * S;
-  float* dos = qs + kTile * S;
-  float* ps = dos + kTile * S;
-  float* dss = ps + kTile * kPS;
-  float* lse_s = dss + kTile * kPS;
-  float* di_s = lse_s + kTile;
-
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kTile;  // y = 0: the longest causal walk
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  const T* qb = q + (int64_t)bh * tq * d;
-  const T* dob = dout + (int64_t)bh * tq * d;
-
-  load_tile<T, DPAD>(ks, k + (int64_t)bh * tk * d, k0, tk, d, 1.f);
-  load_tile<T, DPAD>(vs, v + (int64_t)bh * tk * d, k0, tk, d, 1.f);
-
-  // this thread's outputs: keys ty * 4 + i, columns tx * 4 + 64 m + j
-  float dk_acc[4][4 * M];
-  float dv_acc[4][4 * M];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4 * M; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
-  const int nq = (tq + kTile - 1) / kTile;
-  for (int qt = 0; qt < nq; ++qt) {
-    const int q0 = qt * kTile;
-    if (!alive(causal, q0, k0, tq, q_offset, k_offset)) continue;
-    __syncthreads();  // readers of the previous q tile are done
-    load_tile<T, DPAD>(qs, qb, q0, tq, d, scale);
-    load_tile<T, DPAD>(dos, dob, q0, tq, d, 1.f);
-    load_rows(lse_s, di_s, lse, di, (int64_t)bh * tq, q0, tq);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    scores<DPAD>(qs, dos, ks, vs, ty, tx, s, dp);
-    probs(s, dp, lse_s, di_s, ps, dss, ty, tx, q0, k0, tq, tk, causal,
-          q_offset, k_offset);
-    __syncthreads();
-
-    // dv += p^T do and dk += ds^T (scale q), over the tile's queries in
-    // order
-#pragma unroll 2
-    for (int r = 0; r < kTile; ++r) {
-      const float4 pr = ld4(ps + r * kPS + ty * 4);
-      const float4 dsr = ld4(dss + r * kPS + ty * 4);
-      const float pa[4] = {pr.x, pr.y, pr.z, pr.w};
-      const float da[4] = {dsr.x, dsr.y, dsr.z, dsr.w};
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        const float4 o4 = ld4(dos + r * S + tx * 4 + 64 * m);
-        const float4 q4 = ld4(qs + r * S + tx * 4 + 64 * m);
-        const float ob[4] = {o4.x, o4.y, o4.z, o4.w};
-        const float qb4[4] = {q4.x, q4.y, q4.z, q4.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            dv_acc[i][4 * m + j] += pa[i] * ob[j];
-            dk_acc[i][4 * m + j] += da[i] * qb4[j];
-          }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kr = k0 + ty * 4 + i;
-    if (kr >= tk) continue;
-    T* dkrow = dk + ((int64_t)bh * tk + kr) * d;
-    T* dvrow = dv + ((int64_t)bh * tk + kr) * d;
-#pragma unroll
-    for (int m = 0; m < M; ++m)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx * 4 + 64 * m + j;
-        if (col < d) {
-          store(dkrow + col, dk_acc[i][4 * m + j]);
-          store(dvrow + col, dv_acc[i][4 * m + j]);
-        }
-      }
-  }
+  flash_bwd_dkv::dkv_block<T, DPAD, false>(
+      q, k, v, dout, lse, di, dk, dv, nullptr, tq, tk, d, causal, scale,
+      q_offset, k_offset, use_async, blockIdx.x, blockIdx.y,
+      reinterpret_cast<float*>(smem4));
 }
 
 template <typename T, int DPAD>
@@ -350,8 +271,8 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     float s[4][4], dp[4][4];
     scores<DPAD>(qs, dos, ks, vs, ty, tx, s, dp);
-    probs(s, dp, lse_s, di_s, nullptr, dss, ty, tx, q0, k0, tq, tk, causal,
-          q_offset, k_offset);
+    probs(s, dp, lse_s, di_s, dss, ty, tx, q0, k0, tq, tk, causal, q_offset,
+          k_offset);
     __syncthreads();
 
     // this k tile's ds k, over its keys in order, then into the total
@@ -412,18 +333,21 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        void* dk, void* dv, int bh, int tq, int tk, int d,
                        int causal, float scale, int q_offset, int k_offset,
                        cudaStream_t stream) {
-  constexpr int smem = smem_bytes<DPAD>(4, 2);
+  constexpr int smem = flash_bwd_dkv::smem_bytes<DPAD, false>();
   cudaError_t err = cudaFuncSetAttribute(
       fa_bwd_dkv_kernel<T, DPAD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
+  const int use_async =
+      flash_bwd_dkv::async_tiles<T, DPAD>(q, k, v, dout, d);
   const dim3 grid(bh, (tk + kTile - 1) / kTile);
-  fa_bwd_dkv_kernel<T, DPAD><<<grid, kThreads, smem, stream>>>(
+  fa_bwd_dkv_kernel<T, DPAD><<<grid, flash_bwd_dkv::kThreads, smem,
+                               stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(di),
       static_cast<T*>(dk), static_cast<T*>(dv), tq, tk, d, causal, scale,
-      q_offset, k_offset);
+      q_offset, k_offset, use_async);
   return cudaGetLastError();
 }
 
@@ -445,6 +369,23 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
       static_cast<const float*>(lse), static_cast<const float*>(di),
       static_cast<T*>(dq), tq, tk, d, causal, scale, q_offset, k_offset);
   return cudaGetLastError();
+}
+
+// the fused kernel's head-dim tiers, so that both take the same tile
+template <typename T>
+cudaError_t dispatch_dkv(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* di,
+                         void* dk, void* dv, int bh, int tq, int tk, int d,
+                         int causal, float scale, int q_offset, int k_offset,
+                         cudaStream_t s) {
+  if (d <= 32)
+    return launch_dkv<T, 32>(q, k, v, dout, lse, di, dk, dv, bh, tq, tk, d,
+                             causal, scale, q_offset, k_offset, s);
+  if (d <= 64)
+    return launch_dkv<T, 64>(q, k, v, dout, lse, di, dk, dv, bh, tq, tk, d,
+                             causal, scale, q_offset, k_offset, s);
+  return launch_dkv<T, 128>(q, k, v, dout, lse, di, dk, dv, bh, tq, tk, d,
+                            causal, scale, q_offset, k_offset, s);
 }
 
 bool bad_shape(int bh, int tq, int tk, int d) {
@@ -470,22 +411,13 @@ int paddle_flash_attention_bwd_dkv(const void* q, const void* k,
   if (bad_shape(bh, tq, tk, d))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   if (is_bf16)
-    err = d <= 64 ? launch_dkv<__nv_bfloat16, 64>(
-                        q, k, v, dout, lse, di, dk, dv, bh, tq, tk, d,
-                        causal, scale, q_offset, k_offset, s)
-                  : launch_dkv<__nv_bfloat16, 128>(
-                        q, k, v, dout, lse, di, dk, dv, bh, tq, tk, d,
-                        causal, scale, q_offset, k_offset, s);
-  else
-    err = d <= 64 ? launch_dkv<float, 64>(q, k, v, dout, lse, di, dk, dv,
-                                          bh, tq, tk, d, causal, scale,
-                                          q_offset, k_offset, s)
-                  : launch_dkv<float, 128>(q, k, v, dout, lse, di, dk, dv,
-                                           bh, tq, tk, d, causal, scale,
-                                           q_offset, k_offset, s);
-  return static_cast<int>(err);
+    return static_cast<int>(dispatch_dkv<__nv_bfloat16>(
+        q, k, v, dout, lse, di, dk, dv, bh, tq, tk, d, causal, scale,
+        q_offset, k_offset, s));
+  return static_cast<int>(dispatch_dkv<float>(q, k, v, dout, lse, di, dk,
+                                              dv, bh, tq, tk, d, causal,
+                                              scale, q_offset, k_offset, s));
 }
 
 // As paddle_flash_attention_bwd_dkv; writes dq [bh, tq, d].

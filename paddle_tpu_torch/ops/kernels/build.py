@@ -3,9 +3,9 @@
 Each kernel source ``paddle_tpu_torch/csrc/<name>.cu`` exposes a plain C
 interface.  At first use it is compiled by ``nvcc`` for ``sm_90a`` into
 ``build/kernels/lib<name>-<digest>.so`` at the root of the checkout (the
-digest covers the source, the ``csrc/`` headers it includes and the flags,
-so an edited source or header builds anew)
-and loaded with ``ctypes``.  Nothing here runs at import: the CPU tests
+digest covers the source, the ``csrc/`` headers it includes, directly or
+through another header, and the flags, so an edited source or header
+builds anew) and loaded with ``ctypes``.  Nothing here runs at import: the CPU tests
 import every module of the package, and a CPU host has no ``nvcc``.
 
 A build that fails raises with the compiler's output; there is no other
@@ -54,12 +54,19 @@ def nvcc_path():
 
 def _so_path(name):
     src = os.path.join(CSRC_DIR, name + '.cu')
-    with open(src, 'rb') as f:
-        text = f.read()
-    digest = hashlib.sha256(text)
-    for header in _LOCAL_INCLUDE.findall(text):
-        with open(os.path.join(CSRC_DIR, header.decode()), 'rb') as f:
-            digest.update(f.read())
+    digest = hashlib.sha256()
+    # the source, then each csrc/ header it includes, directly or through
+    # another header, once
+    todo, seen = [name + '.cu'], set()
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        with open(os.path.join(CSRC_DIR, path), 'rb') as f:
+            text = f.read()
+        digest.update(text)
+        todo.extend(h.decode() for h in _LOCAL_INCLUDE.findall(text))
     digest.update(' '.join(NVCC_FLAGS).encode())
     return src, os.path.join(BUILD_DIR, 'lib%s-%s.so' % (
         name, digest.hexdigest()[:16]))

@@ -4,9 +4,11 @@ and its plain PyTorch versions.
 Port of paddle_tpu/ops/pallas/table_update.py (``_rowwise_kernel`` through
 ``_rowwise_call``, rules ``sparse_apply_sgd`` / ``sparse_apply_adagrad`` /
 ``sparse_apply_adam``).  The kernel is CUDA C++ in
-``paddle_tpu_torch/csrc/table_update.cu``: one warp per run of equal ids
-updates that row of every state table in place, so untouched rows are
-never read or written.  Its design and what bounds it are noted in that
+``paddle_tpu_torch/csrc/table_update.cu``: a warp per short run of equal
+ids, and for a long run one warp per 32-column slice with its value rows
+streamed far ahead of the sums, updates that row of every state table in
+place, so untouched rows are never read or written; each column's sum
+runs in slot order.  Its design and what bounds it are noted in that
 source.
 
 Each ``sparse_apply_*`` takes float32 tables [height, D], ids [K] (any

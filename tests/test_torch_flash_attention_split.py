@@ -10,7 +10,8 @@ the reference's.
 On the CPU the port's wrappers take their plain versions, so this pins
 the functions the CUDA kernels are held to on the card (chip_smoke.py).
 Tolerance: 1e-5 absolute on dq, dk, dv (the reference's own split test
-allows rtol 1e-4 on top).  Both sides accumulate in float32 in different
+allows rtol 1e-4 on top); bfloat16 outputs one bfloat16 ulp of the
+largest value.  Both sides accumulate in float32 in different
 orders (the reference walks 32- and 64-row tiles of a padded copy); the
 gradients here are O(1) to O(4), where that reordering costs a few
 float32 ulps.
@@ -102,6 +103,59 @@ def test_split_plain_versions_match_reference_split_kernels(
         assert np.all(got_dq[:, :dead_q].numpy() == 0.0)
         assert np.all(got_dk[:, dead_k:].numpy() == 0.0)
         assert np.all(got_dv[:, dead_k:].numpy() == 0.0)
+
+
+# The cases the card's dk/dv kernel treats apart (csrc/flash_bwd_dkv.cuh):
+# its head-dim tiers 32 and 128 beside 64, a length that is no multiple of
+# its 64-row tiles, offsets that mask whole 64-row tiles (queries 0-127
+# see no key; keys 32 on are seen by no query), and bfloat16 inputs.
+EDGE_CASES = [
+    # name, bh, t, d, dtype, causal, q_offset, k_offset, with a dlse
+    ('d128', 2, 160, 128, np.float32, True, 0, 0, True),
+    ('ragged_T100', 2, 100, 64, np.float32, True, 0, 0, False),
+    ('masked_tiles_d32', 2, 160, 32, np.float32, True, 0, 128, False),
+    ('bf16', 2, 128, 64, jnp.bfloat16, True, 0, 0, False),
+]
+# bfloat16 outputs: both sides round float32 sums taken in other orders to
+# bfloat16, which may land one bfloat16 ulp apart (2^-7 of the largest
+# value)
+TOL_BF16_REL = 2.0 ** -7
+
+
+@pytest.mark.parametrize('name,bh,t,d,dtype,causal,qo,ko,with_dlse',
+                         EDGE_CASES, ids=[c[0] for c in EDGE_CASES])
+def test_split_dkv_plain_version_at_the_kernels_edge_cases(
+        name, bh, t, d, dtype, causal, qo, ko, with_dlse):
+    rng = np.random.default_rng(len(name) + d)
+    q, k, v, do = (jnp.asarray(rng.standard_normal((bh, t, d))
+                               .astype(np.float32), dtype) for _ in range(4))
+    dlse = rng.standard_normal((bh, t)).astype(np.float32)
+    scale = d ** -0.5
+    o, lse = jfa._fa_forward_sliced(q, k, v, causal, scale, 64, 64, True,
+                                    jnp.int32(qo), jnp.int32(ko))
+    res = (q, k, v, jnp.int32(qo), jnp.int32(ko), o, lse)
+    _, dk, dv = jfa._fa_backward_pallas(
+        causal, scale, TILES, res, do,
+        jnp.asarray(dlse) if with_dlse else None, interpret=True,
+        allow_fused=False)
+    f32 = [np.array(x, np.float32) for x in (q, k, v, do, o)]
+    di = (f32[3] * f32[4]).sum(-1) - (dlse if with_dlse else 0.0)
+    tdtype = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
+    args = [torch.from_numpy(x).to(tdtype) for x in f32[:3]] + [
+        torch.from_numpy(np.array(lse)), torch.from_numpy(f32[3]).to(tdtype),
+        torch.from_numpy(di.astype(np.float32))]
+    got = tfa._plain_backward_dkv(*args, causal, scale, qo, ko)
+    for g, w, grad in zip(got, (dk, dv), ('dk', 'dv')):
+        g, w = g.float().numpy(), np.asarray(w, np.float32)
+        assert g.shape == w.shape, grad
+        assert np.all(np.isfinite(g)), grad
+        tol = (TOL_BF16_REL * np.abs(w).max() if dtype == jnp.bfloat16
+               else TOL)
+        assert np.max(np.abs(g - w)) <= tol, (grad, np.max(np.abs(g - w)))
+    if ko >= 128:
+        # dead tiles take no gradient: zeros, not NaN or stale memory
+        assert np.all(got[0][:, t - (ko - qo):].numpy() == 0.0)
+        assert np.all(got[1][:, t - (ko - qo):].numpy() == 0.0)
 
 
 def test_plain_backward_is_the_split_pair_bitwise():

@@ -72,6 +72,15 @@ CASES = {
     'all_sentinel': lambda rng: np.full(6, H, np.int32),
     'heavy_run': lambda rng: np.concatenate(
         [np.full(40, 7), rng.integers(0, H, 9)]).astype(np.int32),
+    # longer than every threshold, batch, scan group and ring depth of the
+    # card's kernel (csrc/table_update.cu: 32, 32, 64 and 256 slots), and
+    # a long run next to it
+    'long_run': lambda rng: rng.permutation(np.concatenate(
+        [np.full(300, 5), np.full(65, 6), rng.integers(0, H, 31)])
+    ).astype(np.int32),
+    # the synthetic text's id shape (datasets/wmt14.py zipf_seq) folded
+    # into the table
+    'zipf': lambda rng: ((rng.zipf(1.3, 400) - 1) % H).astype(np.int32),
 }
 
 
