@@ -14,7 +14,7 @@ line:
    #3 and #4 share one), one nvcc each, all started together; ptxas's
    register and spill lines; the count of tensor-core instructions (HMMA,
    HGMMA) in each kernel function's SASS (``cuobjdump -sass``), which must
-   not be 0 in any instance of #1, #2 and #3 and must be 0 in #4's.
+   not be 0 in any instance of #1, #2, #3 and #4.
 3. flash forward vs its plain version on the card at the prefill's
    shapes (BH = 8, D = 64), with the kernel, the plain version and
    ``F.scaled_dot_product_attention`` (a yardstick only, which the port
@@ -132,7 +132,8 @@ line:
    idle share.
 23. the split backward, #3 (dk, dv) and #4 (dq), vs their plain versions
    at every case of phase 7 and at head dims 32, 50 and 128, float32 and
-   bfloat16, through their wrappers ``_fa_backward_dkv`` and
+   bfloat16, and at lengths that are no multiple of #4's 32-key warp
+   halves, through their wrappers ``_fa_backward_dkv`` and
    ``_fa_backward_dq``; #3's dk and dv bitwise equal to #2's at every
    case; #3, #4 and #2 timed at the training shape beside the plain
    versions (SDPA's backward from phase 7).
@@ -143,10 +144,10 @@ line:
    against the plain versions on the same rows, with the slice's offset,
    against every key or query; the split pair's dq, dk, dv against #2's
    over the whole length, all norm-relative, and #3's dk and dv bitwise
-   equal to #2's.  Reported, not gated: both
-   sides' dk, dv of the first key tile against float64 sums.  #1, #3, #4
-   and #2 timed once each after a warm-up, SDPA's forward and backward
-   beside them.
+   equal to #2's.  Reported, not gated: both sides' dk, dv of the first
+   key tile and dq of the last query tile (each a sum over all 131072
+   queries or keys) against float64 sums.  #1, #3, #4 and #2 timed once
+   each after a warm-up, SDPA's forward and backward beside them.
 25. long-context parity: phase 10 again (B=2, T=512) with the fused
    kernel's cap ``_FUSED_DQ_BYTES`` lowered to 0 (restored after), so the
    card's step runs #3 and #4 in every layer.
@@ -159,10 +160,9 @@ line:
    share.
 28. a ``{"kernels": [...]}`` line (ten kernels, each with its launches by
    path; ``bound_ms`` at the rate of the units a kernel computes on: the
-   tensor cores at 3xTF32 for #1, #2 and #3, with their CUDA-core float32
-   bound beside it as ``cuda_core_bound_ms``; the CUDA cores for the
-   rest, #4 with its 3xTF32 bound as ``tc_bound_ms``), the card's line,
-   and last ``{"ok": true, "device": {...}}``.
+   tensor cores at 3xTF32 for #1-#4, with their CUDA-core float32 bound
+   beside it as ``cuda_core_bound_ms``; the CUDA cores for the rest),
+   the card's line, and last ``{"ok": true, "device": {...}}``.
 
 With ``--long-step`` the script runs phase 26 alone, in a process that
 has allocated nothing before the step, and prints its record (step
@@ -208,7 +208,7 @@ HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # float32 at float32 accuracy on the tensor cores: 3xTF32, three TF32
 # products (495 TFLOP/s) for each float32 product, as the flash kernels
-# #1, #2 and #3 compute; the bound a tensor-core design of #1-#4 is held to
+# #1-#4 compute
 PEAK_3XTF32 = 495e12 / 3
 # kernel vs plain version: both accumulate in float32, in other orders
 TOL_F32 = 1e-4
@@ -286,13 +286,13 @@ S2S = dict(B=512, T=64, V=30000, word_dim=256, H=512, lr=1e-3, steps=8,
 # 128K-context training: TRAIN's model at T = 131072, B = 1, where the
 # reference's backward takes its split pair in every layer (a dq
 # accumulator of T * 64 * 4 bytes over flash_attention.py:527's 16 MiB).
-# Full depth: a step took ~13.4 s on an H100 (PERF.md), under the 60 s that
+# Full depth: a step took ~10.8 s on an H100 (PERF.md), under the 60 s that
 # would call for L=2
 LONG = dict(B=1, T=131072, V=30000, L=6, D=512, H=8, lr=1e-3, steps=2)
 # the split pair vs the fused kernel at full length, norm-relative: both
-# float32, dq in other orders (#2 sums it on the tensor cores at 3xTF32
-# accuracy in atomic order over k tiles, #4 on the CUDA cores); dk and dv
-# must be bitwise equal (#3 and #2 share their engine)
+# float32, dq in other orders (both on the tensor cores at 3xTF32
+# accuracy, #2 in atomic order over k tiles, #4 in its walk's order); dk
+# and dv must be bitwise equal (#3 and #2 share their engine)
 TOL_SPLIT_VS_FUSED = 1e-5
 # #1, #2, #3 and #4 at full length vs their plain versions on 64-row
 # slices, norm-relative per output: both float32, summing up to 131072
@@ -418,22 +418,13 @@ def _tc_bound(nbytes, flops, dtype=torch.float32):
                   PEAK_3XTF32 if dtype == torch.float32 else None)
 
 
-# the flash kernels that compute on the tensor cores (3xTF32): #1, #2 and
-# #3 ('dkv'); #4 ('dq') computes on the CUDA cores
-TENSOR_CORE_FLASH = ('fwd', 'fused', 'dkv')
-
-
-def _flash_bound(key, nbytes, flops, dtype=torch.float32):
-    """Flash kernel ``key``'s ``bound_ms`` / ``bound_by`` at the rate of
-    the units it computes on, and its bound on the other units beside it:
-    ``cuda_core_bound_ms`` for #1, #2 and #3, ``tc_bound_ms`` for #4."""
-    cuda_core = _bound(nbytes, flops, dtype)
+def _flash_bound(nbytes, flops, dtype=torch.float32):
+    """A flash kernel's ``bound_ms`` / ``bound_by`` on the tensor cores,
+    where #1-#4 compute (3xTF32), and its bound on the CUDA cores beside
+    it as ``cuda_core_bound_ms``."""
     tc = _tc_bound(nbytes, flops, dtype)
-    if key in TENSOR_CORE_FLASH:
-        return dict(bound_ms=tc[0], bound_by=tc[1],
-                    cuda_core_bound_ms=cuda_core[0])
-    return dict(bound_ms=cuda_core[0], bound_by=cuda_core[1],
-                tc_bound_ms=tc[0])
+    return dict(bound_ms=tc[0], bound_by=tc[1],
+                cuda_core_bound_ms=_bound(nbytes, flops, dtype)[0])
 
 
 def _live_pairs(tq, tk, causal, q_offset, k_offset):
@@ -496,9 +487,9 @@ def phase_build():
                               if 'spill' in x), '')
                 print("ptxas %s %s | %s | %s" % (name, fn[-60:], regs,
                                                  spill))
-    # tensor-core instructions in each kernel function's SASS: #1, #2 and
-    # #3 compute their products there (3xTF32), the other kernels (#4
-    # among them, beside #3 in one library) on the CUDA cores
+    # tensor-core instructions in each kernel function's SASS: #1-#4
+    # compute their products there (3xTF32), the other kernels on the
+    # CUDA cores
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()),
                              'cuobjdump')
     mma = {}
@@ -522,18 +513,18 @@ def phase_build():
 
     def of(lib, kernel):
         return [n for f, n in mma.get(lib, {}).items() if kernel in f]
-    dkv = of('flash_attention_bwd_split', 'fa_bwd_dkv_kernel')
-    dq = of('flash_attention_bwd_split', 'fa_bwd_dq_kernel')
     need = dict(flash_attention_fwd=of('flash_attention_fwd',
                                        'fa_fwd_kernel'),
                 flash_attention_bwd=of('flash_attention_bwd',
                                        'fa_bwd_kernel'),
-                flash_attention_bwd_dkv=dkv)
+                flash_attention_bwd_dkv=of('flash_attention_bwd_split',
+                                           'fa_bwd_dkv_kernel'),
+                flash_attention_bwd_dq=of('flash_attention_bwd_split',
+                                          'fa_bwd_dq_kernel'))
     bad = [k for k, counts in need.items() if not counts or not all(counts)]
-    if bad or not dq or any(dq):
+    if bad:
         raise SystemExit("tensor-core instructions: every instance of #1, "
-                         "#2 and #3 must show some and #4 none; failing %s, "
-                         "#4 %s" % (bad, dq))
+                         "#2, #3 and #4 must show some; failing %s" % bad)
     return mma
 
 
@@ -588,7 +579,7 @@ def phase_kernel():
             dtype=str(dtype).replace('torch.', ''), q_offset=qo,
             k_offset=ko, err_o=err_o, err_lse=err_lse, tol_o=tol_o,
             tol_lse=TOL_F32, bytes=nbytes, flops=flops, ok=ok,
-            **_flash_bound('fwd', nbytes, flops, dtype), **times))
+            **_flash_bound(nbytes, flops, dtype), **times))
         print("kernel %-24s err o %.3g lse %.3g (tol %.3g/%.3g) %s | "
               "device ms: kernel %.4f plain %.4f sdpa %.4f bound %.6f (%s)"
               " cuda-core bound %.6f | per call ms: kernel %.4f plain %.4f "
@@ -833,7 +824,7 @@ def phase_bwd_kernel():
             bounds = _flash_bounds(bh, tq, tk, d, causal, qo, ko,
                                    q.element_size())
             row['bytes'], row['flops'] = bounds['fused']
-            row.update(_flash_bound('fused', *bounds['fused']))
+            row.update(_flash_bound(*bounds['fused']))
             # kernel #1 at the training shape
             f = {'ms': lambda: fa._fa_forward(q, k, v, causal, scale),
                  'plain_ms': lambda: fa._plain_forward(q, k, v, causal,
@@ -843,7 +834,7 @@ def phase_bwd_kernel():
                      scale=scale)}
             fwd_train = {key: _device_ms(fn, iters=10, replays=3)
                          for key, fn in f.items()}
-            fwd_train.update(_flash_bound('fwd', *bounds['fwd']))
+            fwd_train.update(_flash_bound(*bounds['fwd']))
             fwd_train['shape'] = 'BH=256 T=512 D=64 float32 causal'
             fwd_train['err_o'], fwd_train['err_lse'] = err_o, err_lse
             del q4, k4, v4, out4
@@ -2340,8 +2331,11 @@ def _s2s_lines(gru_rows, gru_timing, sparse_rows, sparse_timing, s2s):
 
 
 # phase 23's cases past phase 7's head dim 64: the kernels' other head-dim
-# tiers (32 and 128) and a head dim that is not a multiple of 4 (#3 and #2
-# load its tiles by the threads, not by cp.async)
+# tiers (32 and 128), a head dim that is not a multiple of 4 (the kernels
+# load its tiles by the threads, not by cp.async), and lengths that are no
+# multiple of 32, whose ragged edge falls in the second of the 32-key
+# halves #4's warps take of a k tile (keys 160-169 of 128-191; the
+# queries at 70-169)
 SPLIT_EXTRA_CASES = (
     # name, bh, tq, tk, causal, dtype, q_offset, k_offset, dlse, d
     ('d128_ragged_T200', 4, 200, 200, True, torch.float32, 0, 0, True, 128),
@@ -2350,7 +2344,9 @@ SPLIT_EXTRA_CASES = (
     ('d50_noncausal_T130', 4, 130, 130, False, torch.float32, 0, 0, False,
      50),
     ('bf16_d128_causal_T256', 4, 256, 256, True, torch.bfloat16, 0, 0,
-     False, 128))
+     False, 128),
+    ('ragged_q100_over_k170', 4, 100, 170, True, torch.float32, 70, 0, True,
+     64))
 
 
 def phase_split_kernel(bwd_rows):
@@ -2408,7 +2404,7 @@ def phase_split_kernel(bwd_rows):
             bounds = _flash_bounds(bh, tq, tk, d, causal, qo, ko, 4)
             for key in ('dkv', 'dq'):
                 timing.update((key + '_' + k, v) for k, v in
-                              _flash_bound(key, *bounds[key]).items())
+                              _flash_bound(*bounds[key]).items())
             timing['library_ms'] = next(
                 r['library_ms'] for r in bwd_rows if r['case'] == BWD_MAIN)
             timing['library_note'] = ('SDPA backward (phase 7): dq, dk and '
@@ -2481,21 +2477,37 @@ def _long_vs_plain(q, k, v, do, o, lse, di, scale, split, fused):
     return gaps
 
 
-def _float64_dkv(q, k, v, do, lse, di, scale, a, b):
-    """dk and dv of keys [a, b) against every query (causal, no offsets)
-    in float64 from the float32 inputs, lse and di: the exact sums that
-    phase 24's float32 kernels and plain versions each approach in their
-    own order."""
-    qd, dod = q.double() * scale, do.double()
-    kd, vd = k[:, a:b].double(), v[:, a:b].double()
+def _float64_probs(q, k, v, do, lse, di, scale, rows, keys):
+    """p and ds of the queries ``rows`` against the keys ``keys`` (slices;
+    causal, no offsets) in float64 from the float32 inputs, lse and di,
+    with the scaled queries and the keys in float64: the exact terms that
+    phase 24's float32 kernels and plain versions each sum in their own
+    order."""
+    qd, kd = q[:, rows].double() * scale, k[:, keys].double()
     p = torch.exp(torch.einsum('btd,bsd->bts', qd, kd)
-                  - lse.double()[..., None])
-    live = (torch.arange(q.shape[1], device=q.device)[:, None]
-            >= a + torch.arange(b - a, device=q.device)[None, :])
-    p = torch.where(live, p, torch.zeros_like(p))
-    ds = p * (torch.einsum('btd,bsd->bts', dod, vd) - di.double()[..., None])
+                  - lse[:, rows].double()[..., None])
+    qpos = torch.arange(q.shape[1], device=q.device)[rows]
+    kpos = torch.arange(k.shape[1], device=q.device)[keys]
+    p = torch.where(qpos[:, None] >= kpos[None, :], p, torch.zeros_like(p))
+    ds = p * (torch.einsum('btd,bsd->bts', do[:, rows].double(),
+                           v[:, keys].double())
+              - di[:, rows].double()[..., None])
+    return qd, kd, p, ds
+
+
+def _float64_dkv(q, k, v, do, lse, di, scale, a, b):
+    """dk and dv of keys [a, b) against every query in float64."""
+    qd, _, p, ds = _float64_probs(q, k, v, do, lse, di, scale, slice(None),
+                                  slice(a, b))
     return (torch.einsum('bts,btd->bsd', ds, qd),
-            torch.einsum('bts,btd->bsd', p, dod))
+            torch.einsum('bts,btd->bsd', p, do.double()))
+
+
+def _float64_dq(q, k, v, do, lse, di, scale, a, b):
+    """dq of queries [a, b) against every key in float64."""
+    _, kd, _, ds = _float64_probs(q, k, v, do, lse, di, scale, slice(a, b),
+                                  slice(None))
+    return torch.einsum('bts,bsd->btd', ds, kd) * scale
 
 
 def _long_ok(gaps):
@@ -2536,7 +2548,8 @@ def phase_long_kernel():
                        torch.equal(split[2], fused[2]))
     vs_plain = _long_vs_plain(q, k, v, do, o, lse, di, scale, split, fused)
     # which side of the split-vs-fused gap carries it: both against the
-    # float64 sums on the first key tile, whose dk, dv sum over every query
+    # float64 sums on the first key tile, whose dk, dv sum over every
+    # query, and on the last query tile, whose dq sums over every key
     # (reported, not gated)
     exact = _float64_dkv(q, k, v, do, lse, di, scale, 0, 64)
     vs_float64 = {
@@ -2544,6 +2557,11 @@ def phase_long_kernel():
                                    / want.norm())
         for side, grads in (('split', split), ('fused', fused))
         for n, got, want in zip(('dk', 'dv'), grads[1:], exact)}
+    exact = _float64_dq(q, k, v, do, lse, di, scale, t - 64, t)
+    dq_vs_float64 = {
+        side: float((grads[0][:, t - 64:].double() - exact).norm()
+                    / exact.norm())
+        for side, grads in (('split', split), ('fused', fused))}
     del split, fused, dk, dv, o, exact
     ms = dict(fwd=_once_ms(lambda: fa._fa_forward(q, k, v, True, scale)),
               dkv=_once_ms(lambda: fa._fa_backward_dkv(*args)),
@@ -2569,6 +2587,7 @@ def phase_long_kernel():
                tol_vs_plain=TOL_LONG_VS_PLAIN, tol_lse=TOL_F32,
                dk_dv_bitwise_equal_fused=bitwise_dkv, finite=finite,
                first_key_tile_vs_float64=vs_float64,
+               last_query_tile_dq_vs_float64=dq_vs_float64,
                library_fwd_ms=lib_fwd, library_bwd_ms=lib_both - lib_fwd,
                library_note='F.scaled_dot_product_attention, efficient-'
                'attention backend; backward = forward and backward less '
@@ -2576,7 +2595,7 @@ def phase_long_kernel():
     for key, (nbytes, flops) in _flash_bounds(bh, t, t, d, True, 0, 0,
                                               4).items():
         res[key] = dict(ms=ms[key], bytes=nbytes, flops=flops)
-        res[key].update(_flash_bound(key, nbytes, flops))
+        res[key].update(_flash_bound(nbytes, flops))
     print("long kernels: %s" % json.dumps(res))
     if not finite or not max(gaps.values()) <= TOL_SPLIT_VS_FUSED or \
             not bitwise_dkv:
@@ -2625,9 +2644,6 @@ def _split_lines(split_rows, split_timing, long_k, long_tr, parity, tr):
     for name, key, line in (('flash_attention_bwd_dkv', 'dkv', 364),
                             ('flash_attention_bwd_dq', 'dq', 413)):
         grads = ('dk', 'dv') if key == 'dkv' else ('dq',)
-        # the bound on the units the kernel does not compute on
-        other = ('cuda_core_bound_ms' if key in TENSOR_CORE_FLASH
-                 else 'tc_bound_ms')
         long_abs, long_rel = _long_err(long_k, grads)
         lines.append(dict(
             name=name, route='cuda',
@@ -2646,7 +2662,7 @@ def _split_lines(split_rows, split_timing, long_k, long_tr, parity, tr):
                                   for g in grads),
             ms=long_k[key]['ms'], bound_ms=long_k[key]['bound_ms'],
             bound_by=long_k[key]['bound_by'],
-            **{other: long_k[key][other]},
+            cuda_core_bound_ms=long_k[key]['cuda_core_bound_ms'],
             plain_ms=split_timing[key + '_plain_ms'],
             library_ms=long_k['library_bwd_ms'],
             library_note='SDPA backward (efficient attention) at the same '
@@ -2658,7 +2674,8 @@ def _split_lines(split_rows, split_timing, long_k, long_tr, parity, tr):
                 shape=split_timing['shape'], ms=split_timing[key + '_ms'],
                 bound_ms=split_timing[key + '_bound_ms'],
                 bound_by=split_timing[key + '_bound_by'],
-                **{other: split_timing[key + '_' + other]},
+                cuda_core_bound_ms=split_timing[
+                    key + '_cuda_core_bound_ms'],
                 plain_ms=split_timing[key + '_plain_ms'],
                 call_ms=split_timing[key + '_call_ms'],
                 fused_ms=split_timing['fused_ms'],

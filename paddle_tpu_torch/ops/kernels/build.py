@@ -19,8 +19,8 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ['load', 'load_all', 'library_path', 'nvcc_path', 'BUILD_DIR',
-           'NVCC_FLAGS', 'builds', 'build_log']
+__all__ = ['load', 'load_all', 'library_path', 'nvcc_path', 'build_variants',
+           'BUILD_DIR', 'NVCC_FLAGS', 'builds', 'build_log']
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -115,3 +115,39 @@ def library_path(name):
 def load(name):
     """The ctypes library of ``csrc/<name>.cu``, compiled on first use."""
     return load_all([name])[name]
+
+
+def build_variants(name, variants):
+    """A design probe's builds of ``csrc/<name>.cu``: for each
+    ``{variant: ((old text, new text), ...)}`` the source with those
+    substitutions, compiled in parallel (one nvcc each) into
+    ``build/kernels/probe/``.  Returns ({variant: ctypes library},
+    {variant: nvcc's output}); raises if a text is not in the source or a
+    build fails."""
+    with open(os.path.join(CSRC_DIR, name + '.cu')) as f:
+        shipped = f.read()
+    out_dir = os.path.join(BUILD_DIR, 'probe')
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for variant, subs in variants.items():
+        src = shipped
+        for old, new in subs:
+            if old not in src:
+                raise RuntimeError("variant %s: %r is not in the source"
+                                   % (variant, old[:60]))
+            src = src.replace(old, new)
+        path = os.path.join(out_dir, '%s_%s.cu' % (name, variant))
+        with open(path, 'w') as f:
+            f.write(src)
+        so = path[:-3] + '.so'
+        procs[variant] = (so, subprocess.Popen(
+            [nvcc_path()] + NVCC_FLAGS + ['-I', CSRC_DIR, '-o', so, path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs, logs = {}, {}
+    for variant, (so, proc) in procs.items():
+        logs[variant] = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed on variant %s:\n%s"
+                               % (variant, logs[variant]))
+        libs[variant] = ctypes.CDLL(so)
+    return libs, logs

@@ -19,7 +19,6 @@ card's name and power limit.
 """
 import ctypes
 import json
-import os
 import subprocess
 
 import numpy as np
@@ -30,7 +29,7 @@ from . import table_update as tu
 from .dense_update import _f32
 from ...datasets import wmt14
 
-__all__ = ['VARIANTS', 'main']
+__all__ = ['VARIANTS', 'device_ms', 'main']
 
 _LOOP = '''  for (int64_t j = 0; j < nb; ++j) {
     cp_async_wait<kStages - 2>();
@@ -89,38 +88,9 @@ VARIANTS = {
 }
 
 
-def _build_variants():
-    """{name: ctypes library} of every variant, compiled in parallel."""
-    with open(os.path.join(build.CSRC_DIR, 'table_update.cu')) as f:
-        shipped = f.read()
-    out_dir = os.path.join(build.BUILD_DIR, 'probe')
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for name, subs in VARIANTS.items():
-        src = shipped
-        for old, new in subs:
-            if old not in src:
-                raise RuntimeError("variant %s: %r is not in the source"
-                                   % (name, old[:60]))
-            src = src.replace(old, new)
-        path = os.path.join(out_dir, 'table_update_%s.cu' % name)
-        with open(path, 'w') as f:
-            f.write(src)
-        so = path[:-3] + '.so'
-        procs[name] = (so, subprocess.Popen(
-            [build.nvcc_path()] + build.NVCC_FLAGS +
-            ['-I', build.CSRC_DIR, '-o', so, path],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed on variant %s:\n%s" % (name, log))
-        libs[name] = ctypes.CDLL(so)
-    return libs
-
-
-def _device_ms(fn, iters=20, replays=5):
+def device_ms(fn, iters=20, replays=5):
+    """Device ms per call of ``fn``: a CUDA graph of ``iters`` calls
+    replayed ``replays`` times between CUDA events."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -163,7 +133,7 @@ def main():
                                     device='cuda') * 0.1,
                         torch.rand((height, d), generator=gen,
                                    device='cuda') * 0.1])
-    libs = _build_variants()
+    libs, _ = build.build_variants('table_update', VARIANTS)
     shipped = build.load('table_update')
     reference = {}
     try:
@@ -179,7 +149,7 @@ def main():
                 res[case + '_bitwise'] = all(
                     torch.equal(a, b) for a, b in zip(got, reference[case]))
                 timed = [t.clone() for t in tables]
-                res[case + '_ms'] = _device_ms(lambda: tu.launch_sorted(
+                res[case + '_ms'] = device_ms(lambda: tu.launch_sorted(
                     tu.RULES['adam'], timed, srows, order, vals, lr,
                     **scalars))
             if name == 'clocked':

@@ -8,7 +8,8 @@ import os
 
 import pytest
 
-from paddle_tpu_torch.ops.kernels import build, table_update_probe
+from paddle_tpu_torch.ops.kernels import build, flash_dq_probe
+from paddle_tpu_torch.ops.kernels import table_update_probe
 
 
 def _tree(root, files):
@@ -82,3 +83,34 @@ def test_probe_variants_apply_to_the_shipped_source(name):
         assert src.count(old) == 1, old[:60]
         src = src.replace(old, new)
     assert name == 'shipped' or 'kIssueWarps' in src
+
+
+@pytest.mark.parametrize('name', sorted(flash_dq_probe.VARIANTS))
+def test_dq_probe_variants_apply_to_the_shipped_source(name):
+    """Every text the dq kernel's probe (ops/kernels/flash_dq_probe.py)
+    substitutes is in csrc/flash_attention_bwd_split.cu once."""
+    with open(os.path.join(build.CSRC_DIR,
+                           'flash_attention_bwd_split.cu')) as f:
+        src = f.read()
+    for old, new in flash_dq_probe.VARIANTS[name]:
+        assert src.count(old) == 1, old[:60]
+        src = src.replace(old, new)
+    assert name != 'base_e' or 'exp2f' not in src
+    assert name != 'diag_one_tf32' or 'mma3(' not in src.split(
+        'fa_bwd_dq_kernel(')[1].split('launch_dkv')[0]
+
+
+def test_dq_probe_reads_ptxas_resources_of_each_instance():
+    log = '\n'.join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116fa_"
+        "bwd_dq_kernelIfLi64EEEvPKT_S3_' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_1",
+        "    80 bytes stack frame, 92 bytes spill stores, 84 bytes spill "
+        "loads",
+        "ptxas info    : Used 128 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117fa_"
+        "bwd_dkv_kernelIfLi64EEEvPKT_S3_' for 'sm_90a'",
+        "ptxas info    : Used 128 registers, used 1 barriers"])
+    assert flash_dq_probe._dq_resources(log) == {
+        'f_64': 'Used 128 registers, used 1 barriers | 80 bytes stack '
+                'frame, 92 bytes spill stores, 84 bytes spill loads'}

@@ -105,10 +105,12 @@ def test_split_plain_versions_match_reference_split_kernels(
         assert np.all(got_dv[:, dead_k:].numpy() == 0.0)
 
 
-# The cases the card's dk/dv kernel treats apart (csrc/flash_bwd_dkv.cuh):
-# its head-dim tiers 32 and 128 beside 64, a length that is no multiple of
-# its 64-row tiles, offsets that mask whole 64-row tiles (queries 0-127
-# see no key; keys 32 on are seen by no query), and bfloat16 inputs.
+# The cases the card's split kernels treat apart (csrc/flash_bwd_dkv.cuh,
+# csrc/flash_attention_bwd_split.cu): their head-dim tiers 32 and 128
+# beside 64, a length that is no multiple of their 64-row tiles nor of the
+# dq kernel's 32-key warp halves, offsets that mask whole 64-row tiles
+# (queries 0-127 see no key; keys 32 on are seen by no query), and
+# bfloat16 inputs.
 EDGE_CASES = [
     # name, bh, t, d, dtype, causal, q_offset, k_offset, with a dlse
     ('d128', 2, 160, 128, np.float32, True, 0, 0, True),
@@ -122,10 +124,9 @@ EDGE_CASES = [
 TOL_BF16_REL = 2.0 ** -7
 
 
-@pytest.mark.parametrize('name,bh,t,d,dtype,causal,qo,ko,with_dlse',
-                         EDGE_CASES, ids=[c[0] for c in EDGE_CASES])
-def test_split_dkv_plain_version_at_the_kernels_edge_cases(
-        name, bh, t, d, dtype, causal, qo, ko, with_dlse):
+def _edge_reference(name, bh, t, d, dtype, causal, qo, ko, with_dlse):
+    """The port's arguments and the reference split Pallas pair's (dq, dk,
+    dv), in interpret mode, on the same seeded inputs."""
     rng = np.random.default_rng(len(name) + d)
     q, k, v, do = (jnp.asarray(rng.standard_normal((bh, t, d))
                                .astype(np.float32), dtype) for _ in range(4))
@@ -134,7 +135,7 @@ def test_split_dkv_plain_version_at_the_kernels_edge_cases(
     o, lse = jfa._fa_forward_sliced(q, k, v, causal, scale, 64, 64, True,
                                     jnp.int32(qo), jnp.int32(ko))
     res = (q, k, v, jnp.int32(qo), jnp.int32(ko), o, lse)
-    _, dk, dv = jfa._fa_backward_pallas(
+    grads = jfa._fa_backward_pallas(
         causal, scale, TILES, res, do,
         jnp.asarray(dlse) if with_dlse else None, interpret=True,
         allow_fused=False)
@@ -143,19 +144,48 @@ def test_split_dkv_plain_version_at_the_kernels_edge_cases(
     tdtype = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
     args = [torch.from_numpy(x).to(tdtype) for x in f32[:3]] + [
         torch.from_numpy(np.array(lse)), torch.from_numpy(f32[3]).to(tdtype),
-        torch.from_numpy(di.astype(np.float32))]
-    got = tfa._plain_backward_dkv(*args, causal, scale, qo, ko)
-    for g, w, grad in zip(got, (dk, dv), ('dk', 'dv')):
+        torch.from_numpy(di.astype(np.float32)), causal, scale, qo, ko]
+    return args, grads
+
+
+def _close_edge(got, want, names, dtype):
+    for g, w, grad in zip(got, want, names):
         g, w = g.float().numpy(), np.asarray(w, np.float32)
         assert g.shape == w.shape, grad
         assert np.all(np.isfinite(g)), grad
         tol = (TOL_BF16_REL * np.abs(w).max() if dtype == jnp.bfloat16
                else TOL)
         assert np.max(np.abs(g - w)) <= tol, (grad, np.max(np.abs(g - w)))
+
+
+@pytest.mark.parametrize('name,bh,t,d,dtype,causal,qo,ko,with_dlse',
+                         EDGE_CASES, ids=[c[0] for c in EDGE_CASES])
+def test_split_dkv_plain_version_at_the_kernels_edge_cases(
+        name, bh, t, d, dtype, causal, qo, ko, with_dlse):
+    args, (_, dk, dv) = _edge_reference(name, bh, t, d, dtype, causal, qo,
+                                        ko, with_dlse)
+    got = tfa._plain_backward_dkv(*args)
+    _close_edge(got, (dk, dv), ('dk', 'dv'), dtype)
     if ko >= 128:
         # dead tiles take no gradient: zeros, not NaN or stale memory
         assert np.all(got[0][:, t - (ko - qo):].numpy() == 0.0)
         assert np.all(got[1][:, t - (ko - qo):].numpy() == 0.0)
+
+
+@pytest.mark.parametrize('name,bh,t,d,dtype,causal,qo,ko,with_dlse',
+                         EDGE_CASES, ids=[c[0] for c in EDGE_CASES])
+def test_split_dq_plain_version_at_the_kernels_edge_cases(
+        name, bh, t, d, dtype, causal, qo, ko, with_dlse):
+    """The dq kernel's function (the card's #4 walks 64-row q tiles, each
+    warp 32 keys of a k tile) against the reference's split dq kernel."""
+    args, (dq, _, _) = _edge_reference(name, bh, t, d, dtype, causal, qo,
+                                       ko, with_dlse)
+    got = tfa._plain_backward_dq(*args)
+    _close_edge([got], (dq,), ('dq',), dtype)
+    if ko >= 128:
+        # queries before the first key see none: zero dq, not NaN (their
+        # lse is -1e30, where exp(s - lse) is inf)
+        assert np.all(got[:, :ko - qo].numpy() == 0.0)
 
 
 def test_plain_backward_is_the_split_pair_bitwise():
