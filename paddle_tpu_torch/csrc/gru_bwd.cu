@@ -20,46 +20,100 @@
 // sum_t (r * h_prev)^T dc_pre over all T * B rows; dh0 is the final carry.
 //
 // Design.  The TPU kernel walks its sequential grid (batch tiles, T) and
-// accumulates dW across every tile in VMEM.  On the card blocks run in no
-// order, so the work is four grid kernels in one call:
-//   1. transpose_kernel: W^T [3H, H] into the workspace, so that the
-//      products below stream it coalesced.
-//   2. gru_bptt_kernel: one block per tile of R batch rows walks
-//      t = T-1..0 with the dh carry in shared memory.  Each step has three
-//      phases split by barriers: (a) the elementwise terms that need no
-//      product (du_pre, dc_pre), one hidden unit per thread for every row,
-//      written to dx and to shared memory; (b) drh = dc_pre W_c^T with
-//      W_c^T streamed from L2 through two register buffers and dc_pre read
-//      from shared memory as float4 broadcasts, then dr_pre and the
-//      carry's elementwise part; (c) the carry's product [du_pre, dr_pre]
-//      W_rz^T.  After t = 0 the carry is dh0.
-//   3. gru_dw_kernel: dW as a tiled product over the T * B rows, 64 x 64
-//      output tiles, the rows split into S contiguous ranges (one partial
-//      dW per range in the workspace) so that enough blocks fill the card;
-//      h_prev is h0 (or zero) for the first B rows and hs[m - B] after, and
-//      the candidate's columns multiply r * h_prev instead.
-//   4. gru_dw_finish_kernel: dW as the sum of its partials in a fixed
-//      order.  No atomics: the result is the same on every run.
+// keeps W, the carry and the dW accumulator in VMEM.  On the card the call
+// is a chain kernel that walks T, then dW as a product over the T * B rows.
+//
+// The chain, by a rule on H decided before any launch (no fallback):
+//   - H <= 512 (gru_cluster::kMaxHidden): `gru_chain_kernel`, one
+//     persistent thread-block cluster of ceil(H / 32) blocks per tile of
+//     16 * mt batch rows, on the engine of gru_cluster.cuh.  W stays in
+//     shared memory for all T steps, split by hidden units (32 a block:
+//     at H = 512, 196,608 bytes of its 232,448).  A step is the JAX
+//     body's three phases with two cluster barriers: (a) du_pre, dc_pre of
+//     the block's own units, dc_pre into its slice; (b) drh = dc_pre W_c^T
+//     over every block's dc_pre slice, then dr_pre and the carry's
+//     elementwise part, [du_pre, dr_pre] into its slices; (c) the carry's
+//     product [du_pre, dr_pre] W_rz^T the same way.  The carry stays in
+//     registers.  Products in 3xTF32 on the tensor cores (flash_tf32.cuh's
+//     split; kChainOnTensorCores, the CUDA-core form being the probe's
+//     comparison).  mt is sized from the clusters the card runs at once
+//     (cudaOccupancyMaxActiveClusters): on an H100 7 clusters of 16, so
+//     B = 512 takes 7 clusters of 80 rows on 112 SMs.
+//   - wider H: no cluster holds W, so `gru_bptt_kernel` (the row-tiled
+//     chain): one block per R = 8 or 16 rows with the carry in shared
+//     memory, W^T (`transpose_kernel` into the workspace) streamed from L2
+//     every step.  Its shared memory caps H at
+//     paddle_gru_bwd_max_hidden(rows).
+//
+// The exchange.  A block reads 80 rows x 3H floats of its peers' slices a
+// step (491 KB at H = 512).  Through DSMEM that is bound by the SM-to-SM
+// network: the exchange alone takes most of the chain's time.  Each block
+// therefore also copies its slices to the workspace (16-byte stores)
+// before the barrier, and its peers read them from L2 (`__ldcg`), where
+// the exchange hides behind the products (kSlicesThroughL2; the numbers
+// are in PERF.md, from ops/kernels/gru_bwd_probe.py).
+//
+// dW: `gru_dw_kernel`, 64 x 128 output tiles on the tensor cores (3xTF32
+// mma.sync m16n8k8), rows of h_prev, r and dx coming through a 3-stage
+// cp.async ring; the candidate's tiles multiply r * h_prev, formed as each
+// fragment is read.  The rows are split into S contiguous ranges, S chosen
+// so that the blocks fill whole waves of the card; with S > 1 each range
+// writes a partial dW to the workspace and `gru_dw_finish_kernel` sums
+// them in index order.  No atomics: two calls agree bitwise.
 //
 // What bounds it on an H100: for the seq2seq translator (T=64, B=512,
-// H=512) the dh chain and dW are 2 * 2 * T*B*H*3H = 103 GFLOP of float32
-// FMAs, 1.54 ms at 67 TFLOP/s, against about 0.16 ms of device-memory
-// traffic.  The chain has the forward's shape (B / R blocks, each
-// re-streaming W^T from L2 every step, serial over T), so it is far above
-// the bound; the dW product is an ordinary shared-memory tiled GEMM.
+// H=512) the chain and dW are 2 * 2 * T*B*H*3H = 103 GFLOP, 0.62 ms at
+// 3xTF32's 165 TFLOP/s (1.54 ms on the CUDA cores), against about 0.16 ms
+// of device-memory traffic.  The chain is serial over T, two cluster
+// barriers a step, and its products run at 16 rows x 32 units a warp,
+// where the 3xTF32 splits and the B fragments' loads sit beside each
+// product; dW's splits and triple products take about 40% of its time
+// (PERF.md §6 has the measured split).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_tf32.cuh"
+#include "gru_cluster.cuh"
+
 namespace {
+
+namespace cg = cooperative_groups;
+namespace gc = gru_cluster;
 
 constexpr int kMaxThreads = 256;
 constexpr int kUnroll = 8;
 constexpr int kMaxSmem = 232448;
-constexpr int kTile = 64;        // dW output tile (both sides)
-constexpr int kDepth = 16;       // rows of T * B per shared-memory stage
-constexpr int kTargetBlocks = 2 * 132;
-constexpr int kMaxSplits = 64;
+
+// the chain's products on the tensor cores (3xTF32) or the CUDA cores;
+// the 3xTF32 splits of the chain and of dW (gru_cluster.cuh split_tf32);
+// peers' slices read from L2 or through DSMEM (gru_cluster.cuh
+// slice_products).  The alternatives are ops/kernels/gru_bwd_probe.py's
+// comparisons.
+constexpr bool kChainOnTensorCores = true;
+constexpr int kChainSplit = 0;
+constexpr int kDwSplit = 0;
+constexpr bool kSlicesThroughL2 = true;
+// slice buffers of the chain: dc_pre, du_pre, dr_pre
+constexpr int kChainSlices = 3;
+
+// dW tiles: kDwBM rows (k) x 128 columns (n) of dW over 8 warps (2 x 4,
+// each kDwBM / 2 x 32: kDwMI m-tiles of 16 by 4 n-tiles of 8), 32 rows of
+// T * B a ring stage; fragment reads fall in distinct banks (row strides
+// = 8 mod 32)
+constexpr int kDwBM = 64;
+constexpr int kDwBN = 128;
+constexpr int kDwBK = 32;
+constexpr int kDwStages = 3;
+constexpr int kDwThreads = 256;
+constexpr int kDwBlocksPerSm = 2;
+constexpr int kDwMI = kDwBM / 32;
+constexpr int kDwLdA = kDwBM + 8;
+constexpr int kDwLdB = kDwBN + 8;
+constexpr int kDwStageFloats = kDwBK * (2 * kDwLdA + kDwLdB);
+constexpr int kDwSmem = kDwStages * kDwStageFloats * (int)sizeof(float);
+constexpr int kMaxSplits = 16;
+constexpr int64_t kMaxPartialBytes = int64_t(64) << 20;
 
 __global__ void transpose_kernel(const float* __restrict__ w,
                                  float* __restrict__ wt, int H) {
@@ -220,76 +274,334 @@ gru_bptt_kernel(const float* __restrict__ gates, const float* __restrict__ hs,
       dh0[(int64_t)b0 * H + i] = dh_s[i];
 }
 
-// One 64 x 64 tile of a partial dW = sum over rows m in this block's range
-// of a[m]^T dx[m], a[m] = h_prev[m] for the update and reset columns
-// (n < 2H) and r[m] * h_prev[m] for the candidate's.  256 threads, 4 x 4
-// outputs each.
-__global__ void __launch_bounds__(256)
+// Step t's inputs of this thread's 8 (row, unit) pairs: pair q = nt2 * 4 +
+// ri * 2 + e is row b[ri], unit j[nt2] + e (the C fragment's element ri *
+// 2 + e of n-tile 2 * half + nt2); zeros for rows past B, units past H
+struct StepIn {
+  float u[8], r[8], c[8], hp[8], ct[8];
+};
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+
+__device__ __forceinline__ void load_step(
+    StepIn& in, const float* __restrict__ gates,
+    const float* __restrict__ hs, const float* __restrict__ h0,
+    const float* __restrict__ ct_h, int t, int B, int H, const int (&b)[2],
+    const int (&j)[2]) {
+  const float2 z = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int nt2 = 0; nt2 < 2; ++nt2)
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      float2 u = z, r = z, c = z, hp = z, ct = z;
+      if (b[ri] < B && j[nt2] < H) {
+        const int64_t m = (int64_t)t * B + b[ri];
+        const float* gm = gates + m * 3 * H + j[nt2];
+        u = ld2(gm);
+        r = ld2(gm + H);
+        c = ld2(gm + 2 * H);
+        if (t > 0)
+          hp = ld2(hs + (m - B) * H + j[nt2]);
+        else if (h0 != nullptr)
+          hp = ld2(h0 + (int64_t)b[ri] * H + j[nt2]);
+        if (ct_h != nullptr) ct = ld2(ct_h + m * H + j[nt2]);
+      }
+      const int q = nt2 * 4 + ri * 2;
+      in.u[q] = u.x; in.u[q + 1] = u.y;
+      in.r[q] = r.x; in.r[q + 1] = r.y;
+      in.c[q] = c.x; in.c[q + 1] = c.y;
+      in.hp[q] = hp.x; in.hp[q + 1] = hp.y;
+      in.ct[q] = ct.x; in.ct[q + 1] = ct.y;
+    }
+}
+
+// The dh chain on one cluster of cs = ceil(H / 32) blocks over batch rows
+// b0 .. b0 + 16 mt - 1 (b0 = 16 mt * cluster index), 64 * mt threads a
+// block (warp = (m-tile, K half)); gru_cluster.cuh has the layout.
+template <bool kTC>
+__global__ void __launch_bounds__(gc::kMaxThreads, 1)
+gru_chain_kernel(const float* __restrict__ gates,
+                 const float* __restrict__ hs, const float* __restrict__ h0,
+                 const float* __restrict__ ct_h, const float* __restrict__ w,
+                 float* __restrict__ dx, float* __restrict__ dh0,
+                 float* __restrict__ slices, int T, int B, int H, int mt) {
+  extern __shared__ __align__(16) float smem[];
+  const int cs = gc::cluster_blocks(H);
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int hpad = gc::kUnits * cs, ldw = gc::w_stride(cs);
+  const int sf = gc::slice_floats(mt);
+  float* w_s = smem;
+  float* dcp_s = w_s + gc::kUnits * ldw;   // dc_pre slice
+  float* dg_s = dcp_s + sf;                // du_pre slice, dr_pre slice
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int mtile = warp >> 1, half = warp & 1;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int b0 = static_cast<int>(blockIdx.x / cs) * 16 * mt;
+  // the cluster's slices in global memory, [rank][dc_pre, du_pre, dr_pre]
+  float* gs = slices + (int64_t)(blockIdx.x / cs) * cs * kChainSlices * sf;
+  float* gs_own = gs + rank * kChainSlices * sf;
+  int row[2], b[2], unit[2], j[2];
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    row[ri] = mtile * 16 + g + 8 * ri;
+    b[ri] = b0 + row[ri];
+  }
+#pragma unroll
+  for (int nt2 = 0; nt2 < 2; ++nt2) {
+    unit[nt2] = (2 * half + nt2) * 8 + 2 * t4;
+    j[nt2] = rank * gc::kUnits + unit[nt2];
+  }
+  const int G = 3 * H;
+  // the pair's scratch in phases (b) and (c): this m-tile's part of a
+  // slice that no peer reads then (du_pre's in (b), dc_pre's in (c))
+  float* red_b = dg_s + mtile * gc::slice_floats(1);
+  float* red_c = dcp_s + mtile * gc::slice_floats(1);
+  // slices of the two products each K half takes: dc_pre's cs, then
+  // [du_pre, dr_pre]'s 2 cs
+  const int sb0 = half ? cs / 2 : 0, sb1 = half ? cs : cs / 2;
+  const int sc0 = half ? cs : 0, sc1 = half ? 2 * cs : cs;
+
+  gc::load_w_slice(w_s, w, H, rank, cs);
+  StepIn in;
+  load_step(in, gates, hs, h0, ct_h, T - 1, B, H, b, j);
+  float carry[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) carry[q] = 0.0f;
+  gc::cluster_sync();   // W in place, every block of the cluster running
+
+  for (int t = T - 1; t >= 0; --t) {
+    // (a) du_pre and dc_pre of the own units; dc_pre into the slice
+    float dh[8], dup[8], dcp[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      dh[q] = in.ct[q] + carry[q];
+      const float u = in.u[q], c = in.c[q];
+      const float du = dh[q] * (in.hp[q] - c);
+      const float dc = dh[q] * (1.0f - u);
+      dcp[q] = dc * (1.0f - c * c);
+      dup[q] = du * u * (1.0f - u);
+      dcp_s[gc::frag_index(row[(q >> 1) & 1], unit[q >> 2] + (q & 1))] =
+          dcp[q];
+    }
+#pragma unroll
+    for (int nt2 = 0; nt2 < 2; ++nt2)
+#pragma unroll
+      for (int ri = 0; ri < 2; ++ri) {
+        if (b[ri] >= B || j[nt2] >= H) continue;
+        const int q = nt2 * 4 + ri * 2;
+        float* o = dx + ((int64_t)t * B + b[ri]) * G + j[nt2];
+        *reinterpret_cast<float2*>(o) = make_float2(dup[q], dup[q + 1]);
+        *reinterpret_cast<float2*>(o + 2 * H) =
+            make_float2(dcp[q], dcp[q + 1]);
+      }
+    if (kSlicesThroughL2) gc::slices_to_global(gs_own, dcp_s, sf);
+    gc::cluster_sync();
+
+    // (b) drh = dc_pre W_c^T; dr_pre, the carry's elementwise part;
+    // [du_pre, dr_pre] into the slices
+    float acc[gc::kNTiles][4], fin[2][4];
+#pragma unroll
+    for (int nt = 0; nt < gc::kNTiles; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[nt][i] = 0.0f;
+    gc::slice_products<kTC, kChainSplit, kSlicesThroughL2>(
+        acc, dcp_s, gs, kChainSlices * sf, 1, mt, mtile, w_s, ldw, 2 * hpad,
+        0, sb0, sb1, lane);
+    gc::pair_reduce(acc, fin, red_b, mtile, half, lane);
+    float drp[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const float drh = fin[q >> 2][q & 3];
+      const float r = in.r[q];
+      drp[q] = drh * in.hp[q] * r * (1.0f - r);
+      carry[q] = dh[q] * in.u[q] + drh * r;
+      const int fi = gc::frag_index(row[(q >> 1) & 1], unit[q >> 2] + (q & 1));
+      dg_s[fi] = dup[q];
+      dg_s[sf + fi] = drp[q];
+    }
+#pragma unroll
+    for (int nt2 = 0; nt2 < 2; ++nt2)
+#pragma unroll
+      for (int ri = 0; ri < 2; ++ri) {
+        if (b[ri] >= B || j[nt2] >= H) continue;
+        const int q = nt2 * 4 + ri * 2;
+        *reinterpret_cast<float2*>(dx + ((int64_t)t * B + b[ri]) * G + H +
+                                   j[nt2]) = make_float2(drp[q], drp[q + 1]);
+      }
+    if (kSlicesThroughL2) gc::slices_to_global(gs_own + sf, dg_s, 2 * sf);
+    gc::cluster_sync();
+
+    // (c) the carry's product [du_pre, dr_pre] W_rz^T; step t-1's inputs
+    // load meanwhile
+    if (t > 0) load_step(in, gates, hs, h0, ct_h, t - 1, B, H, b, j);
+#pragma unroll
+    for (int nt = 0; nt < gc::kNTiles; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[nt][i] = 0.0f;
+    gc::slice_products<kTC, kChainSplit, kSlicesThroughL2>(
+        acc, dg_s, gs + sf, kChainSlices * sf, 2, mt, mtile, w_s, ldw, 0,
+        hpad, sc0, sc1, lane);
+    gc::pair_reduce(acc, fin, red_c, mtile, half, lane);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) carry[q] += fin[q >> 2][q & 3];
+  }
+  if (dh0 != nullptr)
+#pragma unroll
+    for (int nt2 = 0; nt2 < 2; ++nt2)
+#pragma unroll
+      for (int ri = 0; ri < 2; ++ri) {
+        if (b[ri] >= B || j[nt2] >= H) continue;
+        const int q = nt2 * 4 + ri * 2;
+        *reinterpret_cast<float2*>(dh0 + (int64_t)b[ri] * H + j[nt2]) =
+            make_float2(carry[q], carry[q + 1]);
+      }
+  gc::cluster_sync();   // no block leaves while a peer may read its slices
+}
+
+// One 64 x 128 tile of dW (k0.., n0..) summed over rows m of T * B in this
+// block's range: a[m]^T dx[m], a[m] = h_prev[m] for the update and reset
+// columns (tiles blockIdx.x < rz_tiles) and r[m] * h_prev[m] for the
+// candidate's.  h_prev is h0 (zeros when null) for the first B rows and
+// hs[m - B] after.  8 warps, each 32 x 32 of the tile; each ring stage's
+// partial summed from zero and then added in float32.  Writes its range's
+// sum to out + blockIdx.z * H * 3H.
+__global__ void __launch_bounds__(kDwThreads, kDwBlocksPerSm)
 gru_dw_kernel(const float* __restrict__ hs, const float* __restrict__ h0,
               const float* __restrict__ gates, const float* __restrict__ dx,
-              float* __restrict__ dw_part, int64_t M, int64_t chunk, int B,
-              int H) {
-  __shared__ float a_s[kDepth][kTile];    // h_prev rows, columns k
-  __shared__ float ar_s[kDepth][kTile];   // r * h_prev rows, columns k
-  __shared__ float b_s[kDepth][kTile];    // dx rows, columns n
+              float* __restrict__ out, int64_t M, int64_t chunk, int B,
+              int H, int rz_tiles) {
+  extern __shared__ __align__(16) float smem[];
   const int G = 3 * H;
-  const int n0 = blockIdx.x * kTile, k0 = blockIdx.y * kTile;
+  const bool cand = static_cast<int>(blockIdx.x) >= rz_tiles;
+  const int n0 = cand ? 2 * H + (static_cast<int>(blockIdx.x) - rz_tiles) *
+                                    kDwBN
+                      : static_cast<int>(blockIdx.x) * kDwBN;
+  const int n_end = cand ? G : 2 * H;
+  const int k0 = blockIdx.y * kDwBM;
   const int64_t m_begin = blockIdx.z * chunk;
   const int64_t m_end = min(M, m_begin + chunk);
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  bool cand[4];
-#pragma unroll
-  for (int b = 0; b < 4; ++b) cand[b] = n0 + tx * 4 + b >= 2 * H;
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.0f;
+  const int steps = static_cast<int>((m_end - m_begin + kDwBK - 1) / kDwBK);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wk = warp >> 2, wn = warp & 3;
 
-  for (int64_t m0 = m_begin; m0 < m_end; m0 += kDepth) {
+  // stage s: h_prev [kDwBK][kDwLdA], r [kDwBK][kDwLdA], dx [kDwBK][kDwLdB]
+  auto load = [&](int s, int64_t m0) {
+    float* a_s = smem + s * kDwStageFloats;
+    float* r_s = a_s + kDwBK * kDwLdA;
+    float* b_s = r_s + kDwBK * kDwLdA;
 #pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      const int e = tid + l * 256;
-      const int rr = e / kTile, cc = e % kTile;
+    for (int i = 0; i < kDwBK * kDwBM / 4 / kDwThreads; ++i) {
+      const int idx = tid + i * kDwThreads;
+      const int rr = idx / (kDwBM / 4), cc = (idx % (kDwBM / 4)) * 4;
       const int64_t m = m0 + rr;
-      const bool live = m < m_end;
-      const int k = k0 + cc, n = n0 + cc;
-      const float hp = (live && k < H) ? h_prev_at(hs, h0, m, B, H, k) : 0.0f;
-      a_s[rr][cc] = hp;
-      ar_s[rr][cc] = (live && k < H) ? hp * gates[m * G + H + k] : 0.0f;
-      b_s[rr][cc] = (live && n < G) ? dx[m * G + n] : 0.0f;
+      const int k = k0 + cc;
+      const bool live = m < m_end && k < H;
+      const float* src = nullptr;
+      if (live)
+        src = m >= B ? hs + (m - B) * H + k
+                     : (h0 != nullptr ? h0 + m * H + k : nullptr);
+      flash_tf32::cp_async16(a_s + rr * kDwLdA + cc,
+                             src != nullptr ? src : hs, src != nullptr);
+      if (cand)
+        flash_tf32::cp_async16(r_s + rr * kDwLdA + cc,
+                               live ? gates + m * G + H + k : gates, live);
     }
+#pragma unroll
+    for (int i = 0; i < kDwBK * kDwBN / 4 / kDwThreads; ++i) {
+      const int idx = tid + i * kDwThreads;
+      const int rr = idx / (kDwBN / 4), cc = (idx % (kDwBN / 4)) * 4;
+      const int64_t m = m0 + rr;
+      const int n = n0 + cc;
+      const bool live = m < m_end && n < n_end;
+      flash_tf32::cp_async16(b_s + rr * kDwLdB + cc,
+                             live ? dx + m * G + n : dx, live);
+    }
+  };
+
+  float acc[kDwMI][4][4];
+#pragma unroll
+  for (int mi = 0; mi < kDwMI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][ni][i] = 0.0f;
+#pragma unroll
+  for (int s = 0; s < kDwStages - 1; ++s) {
+    if (s < steps) load(s, m_begin + (int64_t)s * kDwBK);
+    flash_tf32::cp_async_commit();
+  }
+  for (int it = 0; it < steps; ++it) {
+    flash_tf32::cp_async_wait<kDwStages - 2>();
     __syncthreads();
+    const int nx = it + kDwStages - 1;
+    if (nx < steps) load(nx % kDwStages, m_begin + (int64_t)nx * kDwBK);
+    flash_tf32::cp_async_commit();
+    const float* a_s = smem + (it % kDwStages) * kDwStageFloats;
+    const float* r_s = a_s + kDwBK * kDwLdA;
+    const float* b_s = r_s + kDwBK * kDwLdA;
+    float part[kDwMI][4][4];
 #pragma unroll
-    for (int d = 0; d < kDepth; ++d) {
-      float av[4], arv[4], bv[4];
+    for (int mi = 0; mi < kDwMI; ++mi)
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        av[a] = a_s[d][ty * 4 + a];
-        arv[a] = ar_s[d][ty * 4 + a];
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) part[mi][ni][i] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < kDwBK / 8; ++kk) {
+      const int r0 = (kk * 8 + t4) * kDwLdA, r1 = r0 + 4 * kDwLdA;
+      uint32_t ab[kDwMI][4], as[kDwMI][4];
+#pragma unroll
+      for (int mi = 0; mi < kDwMI; ++mi) {
+        const int col = wk * (kDwBM / 2) + mi * 16 + g;
+        float a0 = a_s[r0 + col], a1 = a_s[r0 + col + 8];
+        float a2 = a_s[r1 + col], a3 = a_s[r1 + col + 8];
+        if (cand) {
+          a0 *= r_s[r0 + col];
+          a1 *= r_s[r0 + col + 8];
+          a2 *= r_s[r1 + col];
+          a3 *= r_s[r1 + col + 8];
+        }
+        gc::split_tf32<kDwSplit>(a0, ab[mi][0], as[mi][0]);
+        gc::split_tf32<kDwSplit>(a1, ab[mi][1], as[mi][1]);
+        gc::split_tf32<kDwSplit>(a2, ab[mi][2], as[mi][2]);
+        gc::split_tf32<kDwSplit>(a3, ab[mi][3], as[mi][3]);
       }
 #pragma unroll
-      for (int b = 0; b < 4; ++b) bv[b] = b_s[d][tx * 4 + b];
+      for (int ni = 0; ni < 4; ++ni) {
+        const int ncol = wn * 32 + ni * 8 + g;
+        uint32_t bb0, bs0, bb1, bs1;
+        gc::split_tf32<kDwSplit>(b_s[(kk * 8 + t4) * kDwLdB + ncol], bb0,
+                                 bs0);
+        gc::split_tf32<kDwSplit>(b_s[(kk * 8 + t4 + 4) * kDwLdB + ncol], bb1,
+                                 bs1);
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          acc[a][b] = fmaf(cand[b] ? arv[a] : av[a], bv[b], acc[a][b]);
+        for (int mi = 0; mi < kDwMI; ++mi)
+          gc::mma3_split(part[mi][ni], ab[mi], as[mi], bb0, bs0, bb1, bs1);
+      }
     }
-    __syncthreads();
-  }
-  float* out = dw_part + (int64_t)blockIdx.z * H * G;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int k = k0 + ty * 4 + a;
-    if (k >= H) continue;
+    for (int mi = 0; mi < kDwMI; ++mi)
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int n = n0 + tx * 4 + b;
-      if (n < G) out[(int64_t)k * G + n] = acc[a][b];
-    }
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mi][ni][i] += part[mi][ni][i];
   }
+  float* o = out + (int64_t)blockIdx.z * H * G;
+#pragma unroll
+  for (int mi = 0; mi < kDwMI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int k = k0 + wk * (kDwBM / 2) + mi * 16 + g + 8 * hh;
+        const int n = n0 + wn * 32 + ni * 8 + 2 * t4;
+        if (k < H && n < n_end)
+          *reinterpret_cast<float2*>(o + (int64_t)k * G + n) =
+              make_float2(acc[mi][ni][2 * hh], acc[mi][ni][2 * hh + 1]);
+      }
 }
 
 // dw = the sum of the S partials, in index order
@@ -305,27 +617,76 @@ __global__ void gru_dw_finish_kernel(const float* __restrict__ dw_part,
   }
 }
 
+int sm_count() {
+  static int cache[16];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 16) return 132;
+  if (cache[dev] == 0) {
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    cache[dev] = n > 0 ? n : 132;
+  }
+  return cache[dev];
+}
+
 struct Plan {
-  int splits;       // dW row ranges
-  int64_t chunk;    // rows per range
-  int64_t wt_off, dw_off, floats;
+  int rz_tiles, tiles_n, tiles_k;   // dW tiles: columns (rz, then c), rows
+  int splits;                       // dW row ranges
+  int64_t chunk;                    // rows per range
+  int64_t wt_off, dw_off, slices_off, floats;   // workspace (floats)
 };
 
+// dW's row ranges: the S <= kMaxSplits (partials within kMaxPartialBytes)
+// that gives the least waves of blocks per range, fewest ranges on a tie
 Plan plan_for(int T, int B, int H) {
   Plan p;
   const int64_t G = 3 * (int64_t)H, M = (int64_t)T * B;
-  const int64_t tiles = ((G + kTile - 1) / kTile) * ((H + kTile - 1) / kTile);
-  int64_t s = (kTargetBlocks + tiles - 1) / tiles;
-  const int64_t stages = (M + kDepth - 1) / kDepth;
-  if (s > stages) s = stages;
-  if (s > kMaxSplits) s = kMaxSplits;
-  if (s < 1) s = 1;
-  p.chunk = ((stages + s - 1) / s) * kDepth;
+  p.rz_tiles = (2 * H + kDwBN - 1) / kDwBN;
+  p.tiles_n = p.rz_tiles + (H + kDwBN - 1) / kDwBN;
+  p.tiles_k = (H + kDwBM - 1) / kDwBM;
+  const int64_t tiles = (int64_t)p.tiles_n * p.tiles_k;
+  const int64_t slots = (int64_t)kDwBlocksPerSm * sm_count();
+  const int64_t stages = (M + kDwBK - 1) / kDwBK;
+  int64_t best = 1, best_waves = (tiles + slots - 1) / slots;
+  for (int64_t s = 2; s <= kMaxSplits && s <= stages &&
+                      s * G * H * (int64_t)sizeof(float) <= kMaxPartialBytes;
+       ++s) {
+    const int64_t waves = (tiles * s + slots - 1) / slots;
+    if (waves * best < best_waves * s) {
+      best = s;
+      best_waves = waves;
+    }
+  }
+  p.chunk = ((stages + best - 1) / best) * kDwBK;
   p.splits = static_cast<int>((M + p.chunk - 1) / p.chunk);
+  // W^T for the wide chain; the cluster chain's slices in global memory
+  // for every cluster (its batch rows round up by at most an m-tile set)
+  const int cs = gc::cluster_blocks(H);
   p.wt_off = 0;
-  p.dw_off = G * H;
-  p.floats = p.dw_off + (int64_t)p.splits * G * H;
+  p.dw_off = cs == 0 ? G * H : 0;
+  p.slices_off =
+      p.dw_off + (p.splits > 1 ? (int64_t)p.splits * G * H : 0);
+  p.floats = p.slices_off +
+             (int64_t)kChainSlices * gc::kUnits * cs *
+                 (B + 16 * gc::kMaxMTiles);
   return p;
+}
+
+// the cluster chain's launch for (B, H): m-tiles per cluster, clusters
+struct ChainPlan {
+  int cs, mt, active, clusters;
+};
+
+cudaError_t chain_plan(int B, int H, ChainPlan* c) {
+  c->cs = gc::cluster_blocks(H);
+  c->mt = c->active = c->clusters = 0;
+  if (c->cs == 0) return cudaSuccess;
+  const cudaError_t err = gc::active_clusters(
+      gru_chain_kernel<kChainOnTensorCores>, c->cs, kChainSlices, &c->active);
+  if (err != cudaSuccess) return err;
+  c->mt = gc::mtiles_for(B, c->active, c->cs, kChainSlices);
+  c->clusters = (B + 16 * c->mt - 1) / (16 * c->mt);
+  return cudaSuccess;
 }
 
 int threads_for(int H) {
@@ -359,17 +720,43 @@ int launch_bptt(const float* gates, const float* hs, const float* h0,
 
 extern "C" {
 
-// Largest hidden width the BPTT kernel takes at `rows` batch rows per block
-// (8 or 16): its shared memory holds the carry, dc_pre and [du_pre,
-// dr_pre] of one tile, 4 * rows * H floats.  H must also be a multiple of
-// 4.
+// Largest hidden width the call takes at `rows` batch rows per block of
+// the wide path's chain (8 or 16): that chain's shared memory holds the
+// carry, dc_pre and [du_pre, dr_pre] of one tile, 4 * rows * H floats.  H
+// must also be a multiple of 4.  Widths up to 512 take the cluster chain,
+// which holds any of them.
 int paddle_gru_bwd_max_hidden(int rows) {
   if (rows != 8 && rows != 16) return 0;
   return static_cast<int>(kMaxSmem / (rows * 4 * sizeof(float)));
 }
 
-// Bytes of device workspace paddle_gru_bwd needs for (T, B, H): W^T and
-// the partial dW of each row range.
+// Blocks of the cluster whose chain width H takes, ceil(H / 32) for H <=
+// 512; 0 for the wide path.  Decided before any launch, by H alone.
+int paddle_gru_bwd_cluster_size(int H) { return gc::cluster_blocks(H); }
+
+// The launch paddle_gru_bwd makes for (T, B, H) on the current device:
+// out[0] the cluster size (0: the wide path), out[1] batch rows per
+// cluster, out[2] clusters of that size the card runs at once, out[3]
+// clusters launched, out[4] dW row ranges, out[5] dW blocks.  Returns the
+// first CUDA error (0 on success).
+int paddle_gru_bwd_plan(int T, int B, int H, int* out) {
+  if (T < 1 || B < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
+  ChainPlan c;
+  const cudaError_t err = chain_plan(B, H, &c);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Plan p = plan_for(T, B, H);
+  out[0] = c.cs;
+  out[1] = 16 * c.mt;
+  out[2] = c.active;
+  out[3] = c.clusters;
+  out[4] = p.splits;
+  out[5] = p.tiles_n * p.tiles_k * p.splits;
+  return 0;
+}
+
+// Bytes of device workspace paddle_gru_bwd needs for (T, B, H): W^T on the
+// wide path, the partial dW of each row range when there are several, and
+// the cluster chain's exchange slices.
 int64_t paddle_gru_bwd_workspace_bytes(int T, int B, int H) {
   if (T < 1 || B < 1 || H < 1) return 0;
   return plan_for(T, B, H).floats * (int64_t)sizeof(float);
@@ -377,11 +764,13 @@ int64_t paddle_gru_bwd_workspace_bytes(int T, int B, int H) {
 
 // gates [T, B, 3H] (u, r, c after activation), hs [T, B, H] (the forward's
 // outputs), h0 [B, H] (null for zeros), ct_h [T, B, H] (the cotangent of
-// hs; null for zeros), w [H, 3H]: contiguous float32 on the device.  Writes
-// dx [T, B, 3H], dw [H, 3H] and, when `dh0` is not null, dh0 [B, H];
-// `workspace` holds paddle_gru_bwd_workspace_bytes(T, B, H) bytes; `rows`
-// is 8 or 16.  Four launches on `stream` (transpose, BPTT loop, dW tiles,
-// finish); returns the first CUDA error (0 on success); does not
+// hs; null for zeros), w [H, 3H]: contiguous float32 on the device, 16-byte
+// aligned.  Writes dx [T, B, 3H], dw [H, 3H] and, when `dh0` is not null,
+// dh0 [B, H]; `workspace` holds paddle_gru_bwd_workspace_bytes(T, B, H)
+// bytes; `rows` is 8 or 16 (the wide path's rows per block).  Launches on
+// `stream` the chain (the cluster chain for H <= 512; else the transpose
+// and the wide chain), the dW tiles and, with several row ranges, their
+// finish; returns the first CUDA error (0 on success); does not
 // synchronise.
 int paddle_gru_bwd(const void* gates, const void* hs, const void* h0,
                    const void* ct_h, const void* w, void* dx, void* dw,
@@ -393,36 +782,50 @@ int paddle_gru_bwd(const void* gates, const void* hs, const void* h0,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Plan p = plan_for(T, B, H);
   float* ws = static_cast<float*>(workspace);
-  float* wt = ws + p.wt_off;
-  float* dw_part = ws + p.dw_off;
   const int64_t G = 3 * (int64_t)H;
   const float* gf = static_cast<const float*>(gates);
   const float* hsf = static_cast<const float*>(hs);
   const float* h0f = static_cast<const float*>(h0);
+  const float* ctf = static_cast<const float*>(ct_h);
+  const float* wf = static_cast<const float*>(w);
   float* dxf = static_cast<float*>(dx);
+  float* dh0f = static_cast<float*>(dh0);
 
-  transpose_kernel<<<grid_1d(G * H), 256, 0, st>>>(
-      static_cast<const float*>(w), wt, H);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err;
+  if (gc::cluster_blocks(H) > 0) {
+    ChainPlan c;
+    err = chain_plan(B, H, &c);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = gc::launch(gru_chain_kernel<kChainOnTensorCores>, c.cs, c.mt,
+                     c.clusters, kChainSlices, st, gf, hsf, h0f, ctf, wf,
+                     dxf, dh0f, ws + p.slices_off, T, B, H, c.mt);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else {
+    float* wt = ws + p.wt_off;
+    transpose_kernel<<<grid_1d(G * H), 256, 0, st>>>(wf, wt, H);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int e = rows == 8
+        ? launch_bptt<8>(gf, hsf, h0f, ctf, wt, dxf, dh0f, T, B, H, st)
+        : launch_bptt<16>(gf, hsf, h0f, ctf, wt, dxf, dh0f, T, B, H, st);
+    if (e != 0) return e;
+  }
+
+  err = cudaFuncSetAttribute(gru_dw_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kDwSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  const int e = rows == 8
-      ? launch_bptt<8>(gf, hsf, h0f, static_cast<const float*>(ct_h), wt,
-                       dxf, static_cast<float*>(dh0), T, B, H, st)
-      : launch_bptt<16>(gf, hsf, h0f, static_cast<const float*>(ct_h), wt,
-                        dxf, static_cast<float*>(dh0), T, B, H, st);
-  if (e != 0) return e;
-
-  const dim3 grid(static_cast<unsigned>((G + kTile - 1) / kTile),
-                  static_cast<unsigned>((H + kTile - 1) / kTile),
+  float* dw_out = p.splits > 1 ? ws + p.dw_off : static_cast<float*>(dw);
+  const dim3 grid(static_cast<unsigned>(p.tiles_n),
+                  static_cast<unsigned>(p.tiles_k),
                   static_cast<unsigned>(p.splits));
-  gru_dw_kernel<<<grid, 256, 0, st>>>(hsf, h0f, gf, dxf, dw_part,
-                                      (int64_t)T * B, p.chunk, B, H);
+  gru_dw_kernel<<<grid, kDwThreads, kDwSmem, st>>>(
+      hsf, h0f, gf, dxf, dw_out, (int64_t)T * B, p.chunk, B, H, p.rz_tiles);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess || p.splits == 1) return static_cast<int>(err);
 
   gru_dw_finish_kernel<<<grid_1d(G * H), 256, 0, st>>>(
-      dw_part, static_cast<float*>(dw), p.splits, H);
+      ws + p.dw_off, static_cast<float*>(dw), p.splits, H);
   return static_cast<int>(cudaGetLastError());
 }
 

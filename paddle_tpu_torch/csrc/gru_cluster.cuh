@@ -1,0 +1,371 @@
+// The cluster engine of the recurrent kernels: a persistent thread-block
+// cluster that keeps a recurrent weight resident in shared memory, split by
+// hidden units across its blocks, and multiplies the cluster's per-step
+// row vectors against it.  Included by gru_bwd.cu; ops/kernels/build.py
+// rebuilds every library that includes it when it changes.
+//
+// Layout.  A cluster of `cs` blocks owns 16 * mt batch rows (mt m-tiles of
+// 16 rows) and walks the time loop itself.  Block `rank` owns hidden units
+// rank * 32 .. + 31 (kUnits) and keeps the rows of the weight for those
+// units in shared memory, `w_s[32][ldw]`, the columns grouped in parts of
+// H_pad = 32 * cs (one part per gate: units past H are zero).  Each step a
+// block writes its own units' values of a row vector (dc_pre, du_pre, ...)
+// into a "slice", A[16 mt rows][32 units] stored in the order of the
+// mma.sync m16n8k8 A fragment (one float4 per lane per k-step of 8 units),
+// so that a reader takes a whole fragment in one 16-byte load.  A product
+// `acc[row][unit] = sum_n A[row][n] w_s[unit][n]` walks the cluster's
+// slices: slice (peer p, part) covers n in p * 32 .. + 31 of that part.
+// A peer's slice is read from its shared memory through DSMEM or from its
+// copy in global memory (L2; `slice_products`' kL2); the cluster barrier
+// orders both.
+//
+// Warps.  Warp w is (m-tile w / 2, K half w % 2): it computes all 32 own
+// units of its 16 rows over half of the slices, each slice's partial
+// summed from zero (the tensor cores add toward zero) and then added in
+// float32, and the two halves meet in `pair_reduce`.  Each thread then
+// holds the final values of 8 (row, unit) pairs, those of the C fragment of
+// n-tiles 2 * half and 2 * half + 1: the recurrent carry stays in registers.
+// No atomics anywhere: every sum has one fixed order, so two runs agree
+// bitwise.
+//
+// Products on the tensor cores take 3xTF32 (flash_tf32.cuh, float32
+// accuracy; never one plain TF32 product), or on the CUDA cores the same
+// fragments spread over a quad by shuffles (`kTC = false`, the probe's
+// comparison).
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "flash_tf32.cuh"
+
+namespace gru_cluster {
+
+namespace cg = cooperative_groups;
+
+constexpr int kUnits = 32;                 // hidden units a block owns
+constexpr int kNTiles = kUnits / 8;        // mma n-tiles over them
+constexpr int kSliceSteps = kUnits / 8;    // k-steps of 8 in one slice
+constexpr int kMaxBlocks = 16;             // the non-portable cluster size
+constexpr int kMaxMTiles = 5;              // 16-row m-tiles per cluster
+constexpr int kMaxThreads = 64 * kMaxMTiles;
+constexpr int kMaxHidden = kUnits * kMaxBlocks;
+constexpr int kSmemLimit = 232448;
+
+// blocks of the cluster that holds a weight of width H (0: none does)
+__host__ __device__ inline int cluster_blocks(int H) {
+  return H >= 1 && H <= kMaxHidden ? (H + kUnits - 1) / kUnits : 0;
+}
+// row stride of w_s: 3 parts of 32 * cs columns, + 4 so that the eight
+// rows of a B fragment fall in distinct banks (96 cs + 4 = 4 mod 32)
+__host__ __device__ inline int w_stride(int cs) { return 3 * kUnits * cs + 4; }
+__host__ __device__ inline int slice_floats(int mt) {
+  return mt * 16 * kUnits;
+}
+// shared memory of a block: w_s and `slices` slice buffers
+__host__ __device__ inline size_t smem_bytes(int cs, int mt, int slices) {
+  return sizeof(float) *
+         ((size_t)kUnits * w_stride(cs) + (size_t)slices * slice_floats(mt));
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the two warps of one m-tile
+__device__ __forceinline__ void pair_sync(int mt) {
+  asm volatile("bar.sync %0, 64;" ::"r"(1 + mt) : "memory");
+}
+
+// where A[row][unit] (row < 16 mt, unit < 32) sits in a slice: the float
+// `slot` of lane `lane`'s float4 of k-step unit / 8 of m-tile row / 16
+__device__ __forceinline__ int frag_index(int row, int unit) {
+  const int rr = row & 15, cc = unit & 7;
+  const int lane = (rr & 7) * 4 + (cc & 3);
+  const int slot = (rr >> 3) + 2 * (cc >> 2);
+  return (((row >> 4) * kSliceSteps + (unit >> 3)) * 32 + lane) * 4 + slot;
+}
+
+// The block's rows of w [H, 3H] into w_s: row u is unit rank * 32 + u, its
+// part q columns n < H are w[unit][q * H + n]; past H all zero.  Float4
+// loads (H % 4 == 0).
+__device__ inline void load_w_slice(float* w_s, const float* __restrict__ w,
+                                    int H, int rank, int cs) {
+  const int hp = kUnits * cs, ldw = w_stride(cs);
+  const int per_row = 3 * hp / 4;
+  for (int i = threadIdx.x; i < kUnits * per_row; i += blockDim.x) {
+    const int u = i / per_row, col = (i - u * per_row) * 4;
+    const int q = col / hp, n = col - q * hp;
+    const int unit = rank * kUnits + u;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (unit < H && n < H)
+      v = __ldg(reinterpret_cast<const float4*>(
+          w + (int64_t)unit * 3 * H + q * H + n));
+    *reinterpret_cast<float4*>(w_s + u * ldw + col) = v;
+  }
+}
+
+// The 3xTF32 split x = big + small, by kSplit: 0 as flash_tf32::split,
+// both parts rounded to nearest (the terms dropped below 2^-22 of |x|);
+// 1 (the probe's comparison) small passed whole, which the tensor core
+// reads truncated to TF32 (below 2^-21), two operations fewer.
+template <int kSplit>
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  if constexpr (kSplit == 0) {
+    flash_tf32::split(x, big, small);
+  } else {
+    big = flash_tf32::to_tf32(x);
+    small = __float_as_uint(x - __uint_as_float(big));
+  }
+}
+
+// c += a.b with both operands split: the small cross terms, then big.big
+__device__ __forceinline__ void mma3_split(float (&c)[4],
+                                           const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4],
+                                           uint32_t bb0, uint32_t bs0,
+                                           uint32_t bb1, uint32_t bs1) {
+  flash_tf32::mma_tf32(c, as, bb0, bb1);
+  flash_tf32::mma_tf32(c, ab, bs0, bs1);
+  flash_tf32::mma_tf32(c, ab, bb0, bb1);
+}
+
+// part[nt] += A (one k-step fragment a) times w_s columns col .. col + 7
+// of the 32 units, on the tensor cores (3xTF32, split by kSplit) or the
+// CUDA cores
+template <bool kTC, int kSplit>
+__device__ __forceinline__ void kstep(float (&part)[kNTiles][4], float4 a,
+                                      const float* w_s, int ldw, int col,
+                                      int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  if constexpr (kTC) {
+    uint32_t ab[4], as[4];
+    split_tf32<kSplit>(a.x, ab[0], as[0]);
+    split_tf32<kSplit>(a.y, ab[1], as[1]);
+    split_tf32<kSplit>(a.z, ab[2], as[2]);
+    split_tf32<kSplit>(a.w, ab[3], as[3]);
+#pragma unroll
+    for (int nt = 0; nt < kNTiles; ++nt) {
+      const float* wb = w_s + (nt * 8 + g) * ldw + col + t;
+      uint32_t bb0, bs0, bb1, bs1;
+      split_tf32<kSplit>(wb[0], bb0, bs0);
+      split_tf32<kSplit>(wb[4], bb1, bs1);
+      mma3_split(part[nt], ab, as, bb0, bs0, bb1, bs1);
+    }
+  } else {
+    // rows g and g + 8 of the fragment, all 8 k, from the quad
+    float r0[8], r1[8];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int src = (lane & ~3) | q;
+      r0[q] = __shfl_sync(0xffffffffu, a.x, src);
+      r1[q] = __shfl_sync(0xffffffffu, a.y, src);
+      r0[q + 4] = __shfl_sync(0xffffffffu, a.z, src);
+      r1[q + 4] = __shfl_sync(0xffffffffu, a.w, src);
+    }
+#pragma unroll
+    for (int nt = 0; nt < kNTiles; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float4* wp = reinterpret_cast<const float4*>(
+            w_s + (nt * 8 + 2 * t + e) * ldw + col);
+        const float4 w0 = wp[0], w1 = wp[1];
+        const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          part[nt][e] = fmaf(r0[k], wv[k], part[nt][e]);
+          part[nt][2 + e] = fmaf(r1[k], wv[k], part[nt][2 + e]);
+        }
+      }
+  }
+}
+
+// The block's slices (`floats` of them from `s`) into their copy in
+// global memory, `g` (16-byte stores that skip L1; peers read them with
+// __ldcg after the next cluster barrier).  A block barrier first: all
+// warps wrote the slices.
+__device__ __forceinline__ void slices_to_global(float* g, const float* s,
+                                                 int floats) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < floats / 4; i += blockDim.x)
+    __stcg(reinterpret_cast<float4*>(g) + i,
+           reinterpret_cast<const float4*>(s)[i]);
+}
+
+// acc += this warp's share of the product of the cluster's slices with
+// w_s: slices s in [s_begin, s_end), slice s being part s % parts of peer
+// s / parts, against w_s columns col0 + part * part_cols + 32 * peer.  A
+// slice sits at `buf` + part * slice_floats(mt) in the peer's shared
+// memory, read through DSMEM, or, with kL2, at gbuf + peer * gpeer + part
+// * slice_floats(mt) in global memory, read from L2 (the block's own
+// always from its shared memory).  The next slice's fragments load while
+// this one multiplies; each slice's partial is added to acc in slice
+// order.
+template <bool kTC, int kSplit, bool kL2>
+__device__ inline void slice_products(float (&acc)[kNTiles][4],
+                                      const float* buf, const float* gbuf,
+                                      int gpeer, int parts, int mt,
+                                      int mtile, const float* w_s, int ldw,
+                                      int col0, int part_cols, int s_begin,
+                                      int s_end, int lane) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int sf = slice_floats(mt);
+  const int idx = mtile * kSliceSteps * 32 + lane;
+  float4 cur[kSliceSteps], nxt[kSliceSteps];
+  auto load = [&](float4 (&v)[kSliceSteps], int s) {
+    const int peer = s / parts, part = s - peer * parts;
+    if (kL2 && peer != rank) {
+      const float4* src = reinterpret_cast<const float4*>(
+          gbuf + peer * gpeer + part * sf) + idx;
+#pragma unroll
+      for (int ks = 0; ks < kSliceSteps; ++ks) v[ks] = __ldcg(src + ks * 32);
+    } else {
+      const float4* src = reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(const_cast<float*>(buf) + part * sf,
+                                  peer)) + idx;
+#pragma unroll
+      for (int ks = 0; ks < kSliceSteps; ++ks) v[ks] = src[ks * 32];
+    }
+  };
+  if (s_begin < s_end) load(cur, s_begin);
+  for (int s = s_begin; s < s_end; ++s) {
+    if (s + 1 < s_end) load(nxt, s + 1);
+    const int peer = s / parts, part = s - peer * parts;
+    const int col = col0 + part * part_cols + peer * kUnits;
+    float p[kNTiles][4];
+#pragma unroll
+    for (int nt = 0; nt < kNTiles; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[nt][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < kSliceSteps; ++ks)
+      kstep<kTC, kSplit>(p, cur[ks], w_s, ldw, col + ks * 8, lane);
+#pragma unroll
+    for (int nt = 0; nt < kNTiles; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] += p[nt][e];
+    if (s + 1 < s_end)
+#pragma unroll
+      for (int ks = 0; ks < kSliceSteps; ++ks) cur[ks] = nxt[ks];
+  }
+}
+
+// The two K halves of m-tile `mtile` meet: each warp hands the other its
+// partials of the other's n-tiles through `red` (this m-tile's part of a
+// slice buffer that no peer reads at this point: slice_floats(1) floats
+// at frag_index(16 * mtile, 0)) and keeps fin[i] = the sum for n-tile
+// 2 * half + i.  A two-term sum has one value in either order.  The pair
+// syncs again before returning, so the caller may overwrite `red`.
+__device__ __forceinline__ void pair_reduce(const float (&acc)[kNTiles][4],
+                                            float (&fin)[2][4], float* red,
+                                            int mtile, int half, int lane) {
+  float4* mine = reinterpret_cast<float4*>(red) + half * 64;
+  const float4* other = reinterpret_cast<const float4*>(red) +
+                        (half ^ 1) * 64;
+  if (half == 0) {   // hand over n-tiles 2, 3; keep 0, 1
+    mine[lane] = make_float4(acc[2][0], acc[2][1], acc[2][2], acc[2][3]);
+    mine[32 + lane] = make_float4(acc[3][0], acc[3][1], acc[3][2], acc[3][3]);
+  } else {
+    mine[lane] = make_float4(acc[0][0], acc[0][1], acc[0][2], acc[0][3]);
+    mine[32 + lane] = make_float4(acc[1][0], acc[1][1], acc[1][2], acc[1][3]);
+  }
+  pair_sync(mtile);
+  const float4 o0 = other[lane], o1 = other[32 + lane];
+  if (half == 0) {
+    fin[0][0] = acc[0][0] + o0.x; fin[0][1] = acc[0][1] + o0.y;
+    fin[0][2] = acc[0][2] + o0.z; fin[0][3] = acc[0][3] + o0.w;
+    fin[1][0] = acc[1][0] + o1.x; fin[1][1] = acc[1][1] + o1.y;
+    fin[1][2] = acc[1][2] + o1.z; fin[1][3] = acc[1][3] + o1.w;
+  } else {
+    fin[0][0] = acc[2][0] + o0.x; fin[0][1] = acc[2][1] + o0.y;
+    fin[0][2] = acc[2][2] + o0.z; fin[0][3] = acc[2][3] + o0.w;
+    fin[1][0] = acc[3][0] + o1.x; fin[1][1] = acc[3][1] + o1.y;
+    fin[1][2] = acc[3][2] + o1.z; fin[1][3] = acc[3][3] + o1.w;
+  }
+  pair_sync(mtile);
+}
+
+// *n = clusters of `cs` blocks (at mt = kMaxMTiles, the most shared
+// memory a launch takes) that the card runs at once, for `kernel` with
+// `slices` slice buffers; cached per device and cluster size
+template <typename Kernel>
+cudaError_t active_clusters(Kernel kernel, int cs, int slices, int* n) {
+  static int cache[16][kMaxBlocks + 1];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 0 && dev < 16 && cache[dev][cs] > 0) {
+    *n = cache[dev][cs];
+    return cudaSuccess;
+  }
+  const size_t smem = smem_bytes(cs, kMaxMTiles, slices);
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs);
+  cfg.blockDim = dim3(kMaxThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaOccupancyMaxActiveClusters(n, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (*n < 1) return cudaErrorLaunchOutOfResources;
+  if (dev >= 0 && dev < 16) cache[dev][cs] = *n;
+  return cudaSuccess;
+}
+
+// m-tiles per cluster for B rows: enough that one wave of the clusters the
+// card runs at once covers B, at most kMaxMTiles and what shared memory
+// holds
+inline int mtiles_for(int B, int active, int cs, int slices) {
+  const int tiles = (B + 15) / 16;
+  int mt = active > 0 ? (tiles + active - 1) / active : kMaxMTiles;
+  if (mt > kMaxMTiles) mt = kMaxMTiles;
+  if (mt < 1) mt = 1;
+  while (mt > 1 && smem_bytes(cs, mt, slices) > (size_t)kSmemLimit) --mt;
+  return mt;
+}
+
+// launch `kernel` over `clusters` clusters of `cs` blocks of 64 * mt threads
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, int cs, int mt, int clusters, int slices,
+                   cudaStream_t st, Args... args) {
+  const size_t smem = smem_bytes(cs, mt, slices);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(clusters * cs));
+  cfg.blockDim = dim3(static_cast<unsigned>(64 * mt));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace gru_cluster

@@ -117,10 +117,12 @@ def load(name):
     return load_all([name])[name]
 
 
-def build_variants(name, variants):
+def build_variants(name, variants, sources=None):
     """A design probe's builds of ``csrc/<name>.cu``: for each
     ``{variant: ((old text, new text), ...)}`` the source with those
-    substitutions, compiled in parallel (one nvcc each) into
+    substitutions, and for each ``{variant: path}`` of ``sources`` that
+    file as it stands (another checkout's source, its own directory
+    searched for headers), compiled in parallel (one nvcc each) into
     ``build/kernels/probe/``.  Returns ({variant: ctypes library},
     {variant: nvcc's output}); raises if a text is not in the source or a
     build fails."""
@@ -128,7 +130,7 @@ def build_variants(name, variants):
         shipped = f.read()
     out_dir = os.path.join(BUILD_DIR, 'probe')
     os.makedirs(out_dir, exist_ok=True)
-    procs = {}
+    jobs = {}
     for variant, subs in variants.items():
         src = shipped
         for old, new in subs:
@@ -139,9 +141,14 @@ def build_variants(name, variants):
         path = os.path.join(out_dir, '%s_%s.cu' % (name, variant))
         with open(path, 'w') as f:
             f.write(src)
-        so = path[:-3] + '.so'
+        jobs[variant] = (path, CSRC_DIR)
+    for variant, path in (sources or {}).items():
+        jobs[variant] = (path, os.path.dirname(os.path.abspath(path)))
+    procs = {}
+    for variant, (path, include) in jobs.items():
+        so = os.path.join(out_dir, '%s_%s.so' % (name, variant))
         procs[variant] = (so, subprocess.Popen(
-            [nvcc_path()] + NVCC_FLAGS + ['-I', CSRC_DIR, '-o', so, path],
+            [nvcc_path()] + NVCC_FLAGS + ['-I', include, '-o', so, path],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs, logs = {}, {}
     for variant, (so, proc) in procs.items():

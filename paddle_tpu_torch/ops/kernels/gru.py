@@ -25,10 +25,16 @@ do not take), CPU tensors take the plain versions ``_plain_gru_forward``
 and ``_plain_gru_backward``, eager loops over T that restate the
 reference's ``_gru_scan_reference`` (with h0) and its BPTT math.  They are
 what the CPU tests and ``chip_smoke.py`` hold the kernels against.  The
-reference's VMEM fit test and batch tiling are not ported: the kernels
-tile the batch by ``ROWS_PER_BLOCK`` rows themselves and keep one tile's
+reference's VMEM fit test and batch tiling are not ported.  The forward
+tiles the batch by ``ROWS_PER_BLOCK`` rows a block and keeps one tile's
 state in shared memory, which caps the hidden width (``max_hidden``; 512
-in the seq2seq translator).  They read h as float4, so ``gru_scan`` pads
+in the seq2seq translator).  The backward walks T on one of two chains,
+by a rule on the width alone (``bwd_path``, ``cluster_size``; decided
+without a build, as ``kernel_takes`` is): up to 512 units a persistent
+thread-block cluster of ceil(H / 32) blocks keeps W in shared memory
+(csrc/gru_cluster.cuh), wider ones take the row-tiled chain, whose shared
+memory caps the width as the forward's does.  Both then compute dW on the
+tensor cores.  The kernels read h as float4, so ``gru_scan`` pads
 another width with zero units up to a multiple of 4 (a zero unit stays
 zero and feeds nothing) and slices them off again; ``kernel_takes`` says
 whether the padded width fits both caps.  A width past them raises on a
@@ -43,14 +49,16 @@ import torch
 
 from .lstm import pad_units, padded_width
 
-__all__ = ['gru_scan', 'launches', 'bwd_launches', 'ROWS_PER_BLOCK',
-           'max_hidden', 'kernel_takes']
+__all__ = ['gru_scan', 'launches', 'bwd_launches', 'bwd_cluster_launches',
+           'ROWS_PER_BLOCK', 'max_hidden', 'kernel_takes', 'cluster_size',
+           'bwd_path', 'bwd_plan']
 
 # kernel launches in this process (plain-version calls excluded); one
-# backward launch is the call that runs the transpose, the BPTT loop, the
-# dW tiles and their finish
-launches = 0       # forward (#9)
-bwd_launches = 0   # backward (#10)
+# backward launch is the call that runs its chain, the dW tiles and their
+# finish
+launches = 0              # forward (#9)
+bwd_launches = 0          # backward (#10), both paths
+bwd_cluster_launches = 0  # backward on the cluster path
 
 # batch rows per block of both kernels (8 or 16; gru_fwd.cu says why 8)
 ROWS_PER_BLOCK = 8
@@ -80,6 +88,46 @@ def kernel_takes(h):
     4; decided without a build."""
     return 1 <= h and padded_width(h) <= min(
         max_hidden(n) for n in _FLOATS_PER_UNIT)
+
+
+# #10's cluster chain: 32 hidden units a block, at most 16 blocks (the
+# non-portable cluster size), so widths up to 512 (csrc/gru_cluster.cuh
+# kUnits, kMaxBlocks); chip_smoke.py holds the rule against the library's
+CLUSTER_UNITS = 32
+MAX_CLUSTER_BLOCKS = 16
+
+
+def cluster_size(h):
+    """Blocks of the cluster whose chain #10 runs at hidden width ``h``
+    (a multiple of 4): ceil(h / 32) up to 512 units, 0 past them (the wide
+    path).  Decided by the width alone, without a build."""
+    if 1 <= h <= CLUSTER_UNITS * MAX_CLUSTER_BLOCKS:
+        return -(-h // CLUSTER_UNITS)
+    return 0
+
+
+def bwd_path(h):
+    """#10's chain at hidden width ``h``: 'cluster' (W resident in a
+    cluster's shared memory) or 'wide' (the row-tiled chain)."""
+    return 'cluster' if cluster_size(h) else 'wide'
+
+
+def bwd_plan(t, b, h):
+    """#10's launch for (T, B, H) on the current card, as the library
+    plans it: its cluster size (0 on the wide path), batch rows per
+    cluster, the clusters of that size the card runs at once, the clusters
+    launched, dW's row ranges and blocks.  Builds the library."""
+    lib = _lib('gru_bwd')
+    fn = lib.paddle_gru_bwd_plan
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    _launch_check(lib, fn(t, b, h, ctypes.cast(out, ctypes.c_void_p)),
+                  'gru_bwd plan')
+    keys = ('cluster_size', 'rows_per_cluster', 'active_clusters',
+            'clusters', 'dw_splits', 'dw_blocks')
+    return dict(zip(keys, list(out)), path=bwd_path(h))
 
 
 def _check_width(name, h, rows):
@@ -207,6 +255,10 @@ def _ptr(v):
     return None if v is None else v.data_ptr()
 
 
+def _aligned(v):
+    return v if v.data_ptr() % 16 == 0 else v.clone()
+
+
 def _gru_forward(x, w, h0, with_gates, rows=None):
     """(hs, gates or None) of the GRU over x [T, B, 3H] from h0 (None for
     zeros): the kernel on CUDA tensors, ``_plain_gru_forward`` on CPU
@@ -252,11 +304,12 @@ def _gru_backward(w, h0, hs, gates, ct_h, rows=None):
                              % (name, t, b, h, gates.device))
     if gates.device.type == 'cpu':
         return _plain_gru_backward(w, h0, hs, gates, ct_h)
-    global bwd_launches
+    global bwd_launches, bwd_cluster_launches
     rows = rows or ROWS_PER_BLOCK
     _check_width('gru_bwd', h, rows)
     lib = _lib('gru_bwd')
-    args = [None if v is None else v.contiguous()
+    # the kernel reads rows by 16-byte copies: an offset view is copied
+    args = [None if v is None else _aligned(v.contiguous())
             for v in (gates, hs, h0, ct_h, w)]
     dev = gates.device
     dx = torch.empty((t, b, three_h), dtype=torch.float32, device=dev)
@@ -271,6 +324,8 @@ def _gru_backward(w, h0, hs, gates, ct_h, rows=None):
             dh0.data_ptr(), ws.data_ptr(), t, b, h, rows, stream)
     _launch_check(lib, err, 'gru_bwd')
     bwd_launches += 1
+    if cluster_size(h):
+        bwd_cluster_launches += 1
     return dx, dw, dh0
 
 

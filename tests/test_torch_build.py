@@ -1,15 +1,15 @@
 """The kernel build's cache key (paddle_tpu_torch/ops/kernels/build.py): a
 library is named by a digest of its source, every ``csrc/`` header the
 source includes directly or through another header, and the flags, so an
-edit to any of them builds anew; and the row-sparse kernel's design probe
-finds the texts it substitutes in the shipped source.  Nothing is
-compiled here."""
+edit to any of them builds anew; and the design probes (the row-sparse
+kernel's, the dq kernel's, the GRU BPTT kernel's) find the texts they
+substitute in the shipped sources.  Nothing is compiled here."""
 import os
 
 import pytest
 
 from paddle_tpu_torch.ops.kernels import build, flash_dq_probe
-from paddle_tpu_torch.ops.kernels import table_update_probe
+from paddle_tpu_torch.ops.kernels import gru_bwd_probe, table_update_probe
 
 
 def _tree(root, files):
@@ -114,3 +114,62 @@ def test_dq_probe_reads_ptxas_resources_of_each_instance():
     assert flash_dq_probe._dq_resources(log) == {
         'f_64': 'Used 128 registers, used 1 barriers | 80 bytes stack '
                 'frame, 92 bytes spill stores, 84 bytes spill loads'}
+
+
+def _gru_bwd_source():
+    with open(os.path.join(build.CSRC_DIR, 'gru_bwd.cu')) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize('name', sorted(gru_bwd_probe.VARIANTS))
+def test_gru_bwd_probe_variants_apply_to_the_shipped_source(name):
+    """Every text the GRU BPTT kernel's probe
+    (ops/kernels/gru_bwd_probe.py) substitutes is in csrc/gru_bwd.cu once,
+    and each variant changes it."""
+    src = _gru_bwd_source()
+    for old, new in gru_bwd_probe.VARIANTS[name]:
+        assert src.count(old) == 1, old[:60]
+        src = src.replace(old, new)
+    assert (src == _gru_bwd_source()) == (name == 'shipped')
+
+
+@pytest.mark.parametrize('name', sorted(gru_bwd_probe.HEADER_VARIANTS))
+def test_gru_bwd_probe_header_variants_apply(name):
+    """A header variant's texts are in csrc/gru_cluster.cuh, and the
+    source it builds carries the edited header in place of its
+    #include."""
+    src = _gru_bwd_source()
+    assert src.count('#include "gru_cluster.cuh"\n') == 1
+    subs = gru_bwd_probe.header_variant(
+        *gru_bwd_probe.HEADER_VARIANTS[name])
+    for old, new in subs:
+        assert src.count(old) == 1, old[:60]
+        src = src.replace(old, new)
+    assert '#include "gru_cluster.cuh"' not in src
+    assert 'namespace gru_cluster {' in src
+
+
+def test_gru_bwd_source_takes_the_cluster_header():
+    """The digest of gru_bwd follows its cluster engine and, through it,
+    the 3xTF32 helpers."""
+    with open(os.path.join(build.CSRC_DIR, 'gru_cluster.cuh')) as f:
+        assert '#include "flash_tf32.cuh"' in f.read()
+    assert '#include "gru_cluster.cuh"' in _gru_bwd_source()
+
+
+def test_gru_bwd_probe_reads_ptxas_resources_of_each_kernel():
+    log = '\n'.join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116gru_"
+        "chain_kernelILb1EEEvPKfS2_' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_1",
+        "    56 bytes stack frame, 56 bytes spill stores, 56 bytes spill "
+        "loads",
+        "ptxas info    : Used 168 registers, used 16 barriers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113gru_"
+        "dw_kernelEPKfS1_' for 'sm_90a'",
+        "ptxas info    : Used 121 registers, used 1 barriers"])
+    assert gru_bwd_probe.resources(log) == {
+        'gru_chain_kernelILb1E': 'Used 168 registers, used 16 barriers | '
+                                 '56 bytes stack frame, 56 bytes spill '
+                                 'stores, 56 bytes spill loads',
+        'gru_dw_kernel': 'Used 121 registers, used 1 barriers | '}

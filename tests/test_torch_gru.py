@@ -12,6 +12,9 @@ and ``gru_unit`` ops (ops/rnn.py) against the reference's, on the CPU.
   path (plain versions on the CPU) and scan path must agree as well.
 - ``gru_unit`` against the reference op, its integer activation codes
   included; what the wrappers do not take raises.
+- The BPTT kernel's path rule (the cluster chain up to 512 units, the wide
+  chain past it), decided without a build, the kernels' width caps, and
+  the launch counters, which CPU tensors leave at 0.
 
 Sizes stay small (T <= 8, B <= 4, H <= 16): interpret mode unrolls every
 step.  Tolerances, float32 on both sides with other summation orders:
@@ -216,3 +219,48 @@ def test_gru_unit_matches_the_reference_op(attrs, with_bias):
     for slot in ('Hidden', 'ResetHiddenPrev', 'Gate'):
         assert np.abs(got[slot][0].numpy()
                       - np.asarray(want[slot][0])).max() <= TOL_OUT, slot
+
+
+@pytest.mark.parametrize('h, blocks', [(4, 1), (32, 1), (256, 8), (512, 16),
+                                       (516, 0), (1024, 0), (1816, 0)])
+def test_backward_path_rule_by_width(h, blocks):
+    """#10's chain by hidden width: a cluster of ceil(H / 32) blocks holds
+    W up to 512 units (H=32, phase 21b's padded 30, takes one block; the
+    seq2seq width 16, the most a cluster takes); the first width past it
+    and wider ones take the wide chain, up to the backward's cap."""
+    assert tg.cluster_size(h) == blocks
+    assert tg.bwd_path(h) == ('cluster' if blocks else 'wide')
+    assert tg.kernel_takes(h)
+
+
+def test_width_caps_and_route_are_unchanged():
+    """The cluster path adds no width cap: the route still takes every
+    multiple of 4 up to the wide chain's shared-memory cap at 8 rows a
+    block, and sends wider ones to the eager scan."""
+    assert tg.max_hidden('gru_bwd') == tg.max_hidden('gru_bwd', 8) == 1816
+    assert tg.max_hidden('gru_bwd', 16) == 908
+    assert tg.max_hidden('gru_fwd') == 2421
+    assert tg.max_hidden('gru_fwd', 16) == 1210
+    assert tg.max_hidden('gru_bwd', 12) == 0
+    assert tg.ROWS_PER_BLOCK == 8
+    assert tg.kernel_takes(1816) and tg.kernel_takes(1813)
+    assert not tg.kernel_takes(1817) and not tg.kernel_takes(1820)
+    assert tg.CLUSTER_UNITS * tg.MAX_CLUSTER_BLOCKS == 512
+
+
+@pytest.mark.parametrize('h', [8, 40])
+def test_cpu_tensors_leave_the_launch_counters_at_zero(h):
+    """On CPU tensors the wrappers run the plain versions and count no
+    launch, on either of #10's paths' widths."""
+    rng = np.random.default_rng(5)
+    T, B = 3, 2
+    x = torch.tensor(_rand(rng, (T, B, 3 * h)))
+    w = torch.tensor(_rand(rng, (h, 3 * h), 0.5))
+    h0 = torch.tensor(_rand(rng, (B, h), 0.5))
+    before = (tg.launches, tg.bwd_launches, tg.bwd_cluster_launches)
+    hs, gates = tg._gru_forward(x, w, h0, with_gates=True)
+    dx, dw, dh0 = tg._gru_backward(w, h0, hs, gates, torch.ones_like(hs))
+    assert dx.shape == (T, B, 3 * h) and dw.shape == (h, 3 * h)
+    assert dh0.shape == (B, h)
+    assert (tg.launches, tg.bwd_launches, tg.bwd_cluster_launches) == \
+        before == (0, 0, 0)
