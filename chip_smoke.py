@@ -14,8 +14,8 @@ line:
    #3 and #4 share one), one nvcc each, all started together; ptxas's
    register and spill lines; the count of tensor-core instructions (HMMA,
    HGMMA) in each kernel function's SASS (``cuobjdump -sass``), which must
-   not be 0 in any instance of #1, #2, #3 and #4, nor in #10's cluster
-   chain and dW kernels.
+   not be 0 in any instance of #1, #2, #3 and #4, nor in #9's cluster
+   chain, nor in #10's cluster chain and dW kernels.
 3. flash forward vs its plain version on the card at the prefill's
    shapes (BH = 8, D = 64), with the kernel, the plain version and
    ``F.scaled_dot_product_attention`` (a yardstick only, which the port
@@ -89,21 +89,24 @@ line:
    share.
 18. GRU forward (#9) and backward (#10) vs their plain versions on the
    card: the seq2seq translator's training shape (T=64, B=512, H=512) with
-   and without h0, H=256 (#10 on a smaller cluster), H=1024 (#10's wide
-   path: no cluster holds W), a batch that is not a multiple of the
-   kernels' row tile, and two ragged batches through the ``gru`` op (card
-   against CPU): one reversed, one with H0 (dH0 compared).  #10 runs twice
-   on each case's inputs and must agree with itself bitwise; each case
-   prints #10's plan (path, cluster size, batch rows per cluster, the
-   clusters the card runs at once), and #10's path rule (``cluster_size``,
-   decided without a build) must equal the library's at widths 4 to 1816.
-   At the training shape #9 (8 and 16 batch rows per block), #10 and the
-   plain versions are timed in device time, #10's time is split by kernel
-   function (its chain and dW; torch.profiler), #10 is timed on its wide
-   path at H=1024, and the layer pair fc + gru with h0 at the decoder's
-   widths is timed against ``torch.nn.GRU`` (cuDNN; a yardstick only,
-   which the port never calls, and not the kernels' function: it applies
-   the reset gate after the product).
+   and without h0, H=256 (both on a smaller cluster), H=1024 (both
+   kernels' wide path: no cluster holds W), a batch that is not a
+   multiple of 16 rows, and two ragged batches through the ``gru`` op
+   (card against CPU): one reversed, one with H0 (dH0 compared).  #9 runs
+   twice with its gates and once without on each case's inputs: hs and
+   the gates must agree bitwise, and the no-gates call's hs with the
+   gated call's; #10 runs twice and must agree with itself bitwise.  Each
+   case prints both plans (path, cluster size, batch rows per cluster, the
+   clusters the card runs at once); the main case must take both cluster
+   paths and H=1024 both wide paths, and the path rule (``cluster_size``,
+   decided without a build) must equal both libraries' at widths 4 to
+   1816.  At the training shape #9, #10 and the plain versions are timed
+   in device time, #10's time is split by kernel function (its chain and
+   dW; torch.profiler); at H=1024 #9 (8 and 16 batch rows per block) and
+   #10 are timed on their wide paths; and the layer pair fc + gru with h0
+   at the decoder's widths is timed against ``torch.nn.GRU`` (cuDNN; a
+   yardstick only, which the port never calls, and not the kernels'
+   function: it applies the reset gate after the product).
 19. the row-sparse update (#6) vs its plain rules, bitwise, for sgd,
    adagrad and lazy adam on a 30000 x 256 table with K = 32768 ids: the
    synthetic text's Zipf ids, the bench's uniform ids, ids with
@@ -121,9 +124,9 @@ line:
    synthetic WMT14 task, through the port's layers, optimizer and
    Executor: a warm-up step and 8 timed steps on one seeded batch; the loss
    must be finite and fall, each step must launch #9, #10, #6 and the dense
-   update 3, 3, 2 and 20 times, every launch of #10 on its cluster path,
-   and the ``prediction`` branch must be skipped.  Counts are set to 0 just
-   before.
+   update 3, 3, 2 and 20 times, every launch of #9 and #10 on its cluster
+   path, and the ``prediction`` branch must be skipped.  Counts are set to
+   0 just before.
 21. seq2seq parity at B=4 with ragged source and target lengths: one step
    on the card against the same program and state on the CPU: the loss,
    every gradient (the embeddings' densified), Adam's moments and update
@@ -138,7 +141,8 @@ line:
    GRU kernel launched; the route's caps (``max_hidden``, decided without
    a build) equal to the built libraries' ``paddle_*_max_hidden``.
 22. profile: a traced seq2seq training step, device time by kernel and
-   idle share; #10's time split into its chain, dW, dW's finish and the
+   idle share; #9's time by its kernel functions (the cluster chain, the
+   wide path's loop), #10's split into its chain, dW, dW's finish and the
    wide path's transpose.
 23. the split backward, #3 (dk, dv) and #4 (dq), vs their plain versions
    at every case of phase 7 and at head dims 32, 50 and 128, float32 and
@@ -170,9 +174,9 @@ line:
    share.
 28. a ``{"kernels": [...]}`` line (ten kernels, each with its launches by
    path; ``bound_ms`` at the rate of the units a kernel computes on: the
-   tensor cores at 3xTF32 for #1-#4 and #10, with their CUDA-core float32
-   bound beside it as ``cuda_core_bound_ms``; the CUDA cores for the
-   rest),
+   tensor cores at 3xTF32 for #1-#4, #9 and #10, with their CUDA-core
+   float32 bound beside it as ``cuda_core_bound_ms``; the CUDA cores for
+   the rest),
    the card's line, and last ``{"ok": true, "device": {...}}``.
 
 With ``--long-step`` the script runs phase 26 alone, in a process that
@@ -340,7 +344,8 @@ def _zero_counts():
     fa.launches = fa.bwd_launches = du.launches = 0
     fa.dkv_launches = fa.dq_launches = 0
     lk.launches = lk.bwd_launches = 0
-    gk.launches = gk.bwd_launches = gk.bwd_cluster_launches = 0
+    gk.launches = gk.fwd_cluster_launches = 0
+    gk.bwd_launches = gk.bwd_cluster_launches = 0
     tu.launches = 0
 
 
@@ -499,9 +504,9 @@ def phase_build():
                               if 'spill' in x), '')
                 print("ptxas %s %s | %s | %s" % (name, fn[-60:], regs,
                                                  spill))
-    # tensor-core instructions in each kernel function's SASS: #1-#4 and
-    # #10's cluster chain and dW compute their products there (3xTF32),
-    # the other kernels on the CUDA cores
+    # tensor-core instructions in each kernel function's SASS: #1-#4, #9's
+    # cluster chain and #10's cluster chain and dW compute their products
+    # there (3xTF32), the other kernels on the CUDA cores
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()),
                              'cuobjdump')
     mma = {}
@@ -525,7 +530,8 @@ def phase_build():
 
     def of(lib, kernel):
         return [n for f, n in mma.get(lib, {}).items() if kernel in f]
-    need = dict(gru_bwd_chain=of('gru_bwd', 'gru_chain_kernel'),
+    need = dict(gru_fwd_chain=of('gru_fwd', 'gru_fwd_chain_kernel'),
+                gru_bwd_chain=of('gru_bwd', 'gru_chain_kernel'),
                 gru_bwd_dw=of('gru_bwd', 'gru_dw_kernel'),
                 flash_attention_fwd=of('flash_attention_fwd',
                                        'fa_fwd_kernel'),
@@ -538,8 +544,8 @@ def phase_build():
     bad = [k for k, counts in need.items() if not counts or not all(counts)]
     if bad:
         raise SystemExit("tensor-core instructions: every instance of #1, "
-                         "#2, #3, #4 and #10's chain and dW must show some; "
-                         "failing %s" % bad)
+                         "#2, #3, #4, #9's chain and #10's chain and dW "
+                         "must show some; failing %s" % bad)
     return mma
 
 
@@ -1609,15 +1615,19 @@ GRU_CASES = (
     ('train_T64_B512_H512_h0', 64, 512, 512, True),
     ('train_T64_B512_H512', 64, 512, 512, False),
     ('train_T64_B512_H256_h0', 64, 512, 256, True),   # a cluster of 8
-    ('T16_B64_H1024_h0', 16, 64, 1024, True),         # #10's wide path
+    ('T16_B64_H1024_h0', 16, 64, 1024, True),         # the wide paths
     ('B13_T33_H512_h0', 33, 13, 512, True),
 )
 GRU_MAIN = 'train_T64_B512_H512_h0'   # the decoder's shape and its h0
 GRU_WIDE = 'T16_B64_H1024_h0'
-# widths at which #10's path rule (gk.cluster_size) is held against the
-# library's: the smallest, phase 21b's padded 30, H=256, the seq2seq
-# width, the first width past the cluster's hold, the wide case, the cap
+# widths at which #9's and #10's path rule (gk.cluster_size) is held
+# against the libraries': the smallest, phase 21b's padded 30, H=256, the
+# seq2seq width, the first width past the cluster's hold, the wide case,
+# the cap
 GRU_RULE_WIDTHS = (4, 32, 256, 512, 516, 1024, 1816)
+# #9's kernel functions by the path they run
+GRU_FWD_PARTS = (('gru_fwd_chain_kernel', 'cluster'),
+                 ('gru_fwd_kernel', 'wide'))
 # #10's kernel functions by the part of the call they compute
 GRU_BWD_PARTS = (('gru_chain_kernel', 'chain'), ('gru_bptt_kernel', 'chain'),
                  ('gru_dw_finish_kernel', 'finish'), ('gru_dw_kernel', 'dw'),
@@ -1625,13 +1635,12 @@ GRU_BWD_PARTS = (('gru_chain_kernel', 'chain'), ('gru_bptt_kernel', 'chain'),
 
 
 def _gru_bounds(t, b, h):
-    """(fwd, bwd): the forward's (bound ms, bound by) on the CUDA cores,
-    where #9 computes; the backward's ``_flash_bound`` dict on the tensor
-    cores, where #10's chain and dW compute (3xTF32), with its CUDA-core
-    bound and the chain's and dW's own bounds beside it.  Inputs read
-    once, outputs written once; the forward's two products and the
-    backward's dh chain and dW, 2 * T*B*H*3H FMAs' worth of float32
-    operations each."""
+    """(fwd, bwd): ``_flash_bound`` dicts on the tensor cores, where #9's
+    and #10's cluster chains and #10's dW compute (3xTF32), with their
+    CUDA-core bounds beside them, and the backward's chain and dW bounds
+    apart.  Inputs read once, outputs written once; the forward's two
+    products and the backward's dh chain and dW, 2 * T*B*H*3H FMAs' worth
+    of float32 operations each."""
     f = 4
     prod = 2 * t * b * h * 3 * h
     fwd_bytes = f * (t * b * 3 * h + 3 * h * h + b * h     # x, w, h0
@@ -1647,7 +1656,7 @@ def _gru_bounds(t, b, h):
     bwd = _flash_bound(bwd_bytes, 2 * prod)
     bwd['chain_bound_ms'] = _tc_bound(chain_bytes, prod)[0]
     bwd['dw_bound_ms'] = _tc_bound(dw_bytes, prod)[0]
-    return _bound(fwd_bytes, prod), bwd
+    return _flash_bound(fwd_bytes, prod), bwd
 
 
 def _gru_op_case(name, with_h0, rev, b=11, t=40, h=512):
@@ -1704,27 +1713,30 @@ def _gru_bwd_split(fn, calls=5):
 
 
 def _gru_path_rule():
-    """#10's path rule, decided without a build (``gk.cluster_size``),
-    against the library's (``paddle_gru_bwd_cluster_size``)."""
-    lib = gk._lib('gru_bwd')
-    return {h: (gk.cluster_size(h), lib.paddle_gru_bwd_cluster_size(h))
+    """#9's and #10's path rule, decided without a build
+    (``gk.cluster_size``), against the libraries'
+    (``paddle_gru_fwd_cluster_size``, ``paddle_gru_bwd_cluster_size``)."""
+    fwd, bwd = gk._lib('gru_fwd'), gk._lib('gru_bwd')
+    return {h: (gk.cluster_size(h), fwd.paddle_gru_fwd_cluster_size(h),
+                bwd.paddle_gru_bwd_cluster_size(h))
             for h in GRU_RULE_WIDTHS}
 
 
 def phase_gru_kernel():
     """Kernels #9 and #10 against their plain versions on the same inputs
-    (the backward's come from the plain forward), #10 twice (bitwise
-    equal); at the training shape also #9's times at 8 and 16 rows per
-    block, #10's time and its split, both bounds and the layer-pair
-    yardstick; #10 on its wide path timed at GRU_WIDE."""
+    (the backward's come from the plain forward), #9 twice with its gates
+    and once without, #10 twice (bitwise equal); at the training shape
+    also both kernels' times, #10's split, both bounds and the layer-pair
+    yardstick; both on their wide paths timed at GRU_WIDE, #9 at 8 and 16
+    rows per block."""
     gen = torch.Generator(device='cuda').manual_seed(SEED + 13)
     rule = _gru_path_rule()
-    print("gru bwd path rule (route, library) by width: %s"
+    print("gru path rule (route, fwd library, bwd library) by width: %s"
           % json.dumps(rule))
-    if any(a != b for a, b in rule.values()):
-        raise SystemExit("#10's path rule differs from the library's: %s"
-                         % rule)
-    rows, timing, wide_ms = [], None, None
+    if any(len(set(v)) != 1 for v in rule.values()):
+        raise SystemExit("#9's or #10's path rule differs from the "
+                         "library's: %s" % rule)
+    rows, timing, wide = [], None, None
     for name, t, b, h, with_h0 in GRU_CASES:
         x = torch.randn((t, b, 3 * h), generator=gen, device='cuda')
         w = torch.randn((h, 3 * h), generator=gen, device='cuda') * h ** -0.5
@@ -1732,11 +1744,15 @@ def phase_gru_kernel():
               if with_h0 else None)
         ct = torch.randn((t, b, h), generator=gen, device='cuda')
         got = gk._gru_forward(x, w, h0, with_gates=True)
+        fagain = gk._gru_forward(x, w, h0, with_gates=True)
+        bare = gk._gru_forward(x, w, h0, with_gates=False)
         ref = gk._plain_gru_forward(x, w, h0)
         dgot = gk._gru_backward(w, h0, *ref, ct)
         again = gk._gru_backward(w, h0, *ref, ct)
         dref = gk._plain_gru_backward(w, h0, *ref, ct)
         torch.cuda.synchronize()
+        fwd_bitwise = all(torch.equal(a, r) for a, r in zip(got, fagain))
+        no_gates = bare[1] is None and torch.equal(bare[0], got[0])
         bitwise = all(torch.equal(a, r) for a, r in zip(dgot, again))
         fwd_err = dict(zip(('h', 'gates'),
                            (_max_err(a, r) for a, r in zip(got, ref))))
@@ -1746,19 +1762,26 @@ def phase_gru_kernel():
             1.0, float(dref[1].abs().max())))
         finite = all(bool(torch.isfinite(a).all())
                      for a in list(got) + list(dgot))
-        ok = (finite and bitwise and max(fwd_err.values()) <= TOL_GRU and
+        ok = (finite and fwd_bitwise and no_gates and bitwise and
+              max(fwd_err.values()) <= TOL_GRU and
               all(bwd_err[k] <= bwd_tol[k] for k in bwd_err))
         row = dict(case=name, T=t, B=b, H=h, h0=with_h0, fwd_err=fwd_err,
-                   fwd_tol=TOL_GRU, bwd_err=bwd_err, bwd_tol=bwd_tol,
-                   bwd_bitwise_repeat=bitwise, finite=finite, ok=ok,
+                   fwd_tol=TOL_GRU, fwd_bitwise_repeat=fwd_bitwise,
+                   fwd_no_gates_hs_bitwise=no_gates, bwd_err=bwd_err,
+                   bwd_tol=bwd_tol, bwd_bitwise_repeat=bitwise,
+                   finite=finite, ok=ok, fwd_plan=gk.fwd_plan(t, b, h),
                    bwd_plan=gk.bwd_plan(t, b, h))
         if name == GRU_MAIN:
             timing = _gru_timing(x, w, h0, ref, ct)
             row.update(timing)
         if name == GRU_WIDE:
-            wide_ms = _device_ms(lambda: gk._gru_backward(w, h0, *ref, ct),
-                                 iters=5, replays=3)
-            row['bwd_ms'] = wide_ms
+            wide = {'fwd_ms_rows%d' % r: _device_ms(
+                lambda: gk._gru_forward(x, w, h0, True, rows=r), iters=5,
+                replays=3) for r in (8, 16)}
+            wide['bwd_ms'] = _device_ms(
+                lambda: gk._gru_backward(w, h0, *ref, ct), iters=5,
+                replays=3)
+            row.update(wide)
         rows.append(row)
         print("gru kernels %s" % json.dumps(row))
     rows.append(_gru_op_case('op_ragged_reversed_B11_T40_H512', False, True))
@@ -1767,31 +1790,35 @@ def phase_gru_kernel():
     if bad:
         raise SystemExit("GRU kernel disagrees with its plain version, is "
                          "not finite or not deterministic: %s" % bad)
-    paths = {r['case']: r['bwd_plan']['path'] for r in rows
-             if 'bwd_plan' in r}
-    if paths[GRU_MAIN] != 'cluster' or paths[GRU_WIDE] != 'wide':
-        raise SystemExit("#10 took the wrong path: %s" % paths)
-    timing['bwd_ms_by_path'] = dict(cluster=timing['bwd_ms'], wide=wide_ms,
+    paths = {r['case']: (r['fwd_plan']['path'], r['bwd_plan']['path'])
+             for r in rows if 'bwd_plan' in r}
+    if paths[GRU_MAIN] != ('cluster',) * 2 or \
+            paths[GRU_WIDE] != ('wide',) * 2:
+        raise SystemExit("#9 or #10 took the wrong path: %s" % paths)
+    wide_fwd = wide['fwd_ms_rows%d' % gk.ROWS_PER_BLOCK]
+    timing['fwd_ms_by_path'] = dict(cluster=timing['fwd_ms'], wide=wide_fwd,
                                     wide_shape=GRU_WIDE)
-    timing['bwd_path_rule'] = {str(k): v[0] for k, v in rule.items()}
+    timing['fwd_ms_by_rows_per_block'] = dict(
+        {r: wide['fwd_ms_rows%d' % r] for r in (8, 16)}, shape=GRU_WIDE)
+    timing['bwd_ms_by_path'] = dict(cluster=timing['bwd_ms'],
+                                    wide=wide['bwd_ms'], wide_shape=GRU_WIDE)
+    timing['path_rule'] = {str(k): v[0] for k, v in rule.items()}
     return rows, timing
 
 
 def _gru_timing(x, w, h0, ref, ct):
     t, b, three_h = x.shape
     h = three_h // 3
-    (fb, fby), bwd = _gru_bounds(t, b, h)
-    out = dict(fwd_bound_ms=fb, fwd_bound_by=fby, bwd_bound_ms=bwd[
-        'bound_ms'], bwd_bound_by=bwd['bound_by'],
-        bwd_cuda_core_bound_ms=bwd['cuda_core_bound_ms'],
-        bwd_chain_bound_ms=bwd['chain_bound_ms'],
-        bwd_dw_bound_ms=bwd['dw_bound_ms'],
-        rows_per_block=gk.ROWS_PER_BLOCK)
-    for rows in (8, 16):
-        out['fwd_ms_rows%d' % rows] = _device_ms(
-            lambda: gk._gru_forward(x, w, h0, True, rows=rows), iters=5,
-            replays=3)
-    out['fwd_ms'] = out['fwd_ms_rows%d' % gk.ROWS_PER_BLOCK]
+    fwd, bwd = _gru_bounds(t, b, h)
+    out = dict(fwd_bound_ms=fwd['bound_ms'], fwd_bound_by=fwd['bound_by'],
+               fwd_cuda_core_bound_ms=fwd['cuda_core_bound_ms'],
+               bwd_bound_ms=bwd['bound_ms'], bwd_bound_by=bwd['bound_by'],
+               bwd_cuda_core_bound_ms=bwd['cuda_core_bound_ms'],
+               bwd_chain_bound_ms=bwd['chain_bound_ms'],
+               bwd_dw_bound_ms=bwd['dw_bound_ms'],
+               rows_per_block=gk.ROWS_PER_BLOCK)
+    out['fwd_ms'] = _device_ms(lambda: gk._gru_forward(x, w, h0, True),
+                               iters=5, replays=3)
     out['bwd_ms'] = _device_ms(lambda: gk._gru_backward(w, h0, *ref, ct),
                                iters=5, replays=3)
     out['bwd_ms_by_part'] = _gru_bwd_split(
@@ -2080,7 +2107,8 @@ def phase_s2s_training():
         step_ms.append((time.perf_counter() - t0) * 1e3)
         skipped.append(sorted({t for _, t in exe.skipped_ops}))
     counts = _counts()
-    cluster_launches = gk.bwd_cluster_launches
+    cluster_launches = dict(gru_fwd=gk.fwd_cluster_launches,
+                            gru_bwd=gk.bwd_cluster_launches)
     losses = [float(o[0][0]) for o in outs]
     per_step = {k: n / (1 + c['steps']) for k, n in counts.items()}
     p50 = float(np.median(step_ms[1:]))
@@ -2091,7 +2119,7 @@ def phase_s2s_training():
                step_ms=step_ms, step_ms_p50=p50,
                target_tokens_per_s=c['B'] * c['T'] / (p50 / 1e3),
                launches=counts, launches_per_step=per_step,
-               gru_bwd_cluster_launches=cluster_launches,
+               gru_cluster_launches=cluster_launches,
                skipped_op_types=skipped[-1],
                max_memory_allocated=torch.cuda.max_memory_allocated())
     print("seq2seq training: %s" % json.dumps(res))
@@ -2101,9 +2129,11 @@ def phase_s2s_training():
     if n_adam != 22 or per_step != want:
         raise SystemExit("launches per step %s, want %s (adam ops %d)"
                          % (per_step, want, n_adam))
-    if cluster_launches != counts['gru_bwd']:
-        raise SystemExit("#10 launched %d times, %d of them on its cluster "
-                         "path" % (counts['gru_bwd'], cluster_launches))
+    if any(n != counts[k] for k, n in cluster_launches.items()):
+        raise SystemExit("#9 and #10 launched %s times, %s of them on their "
+                         "cluster paths" % ({k: counts[k] for k in
+                                             cluster_launches},
+                                            cluster_launches))
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise SystemExit("seq2seq loss not finite or not falling: %s"
                          % losses)
@@ -2346,7 +2376,10 @@ def phase_s2s_profile(s2s):
     out = dict(wall_ms=wall, device_busy_ms=busy if rows else None,
                idle_share=1.0 - busy / wall if rows else None,
                kernels=sum(n for *_, n in rows),
-               gru_fwd_ms=by('gru_fwd_kernel'),
+               gru_fwd_ms=by(*[k for k, _ in GRU_FWD_PARTS]),
+               gru_fwd_ms_by_path={
+                   path: by(*[k for k, p in GRU_FWD_PARTS if p == path])
+                   for path in ('cluster', 'wide')},
                gru_bwd_ms=by(*[k for k, _ in GRU_BWD_PARTS]),
                gru_bwd_ms_by_part={
                    part: by(*[k for k, p in GRU_BWD_PARTS if p == part])
@@ -2368,32 +2401,37 @@ def _s2s_lines(gru_rows, gru_timing, sparse_rows, sparse_timing, s2s):
                for k in ('gru_fwd', 'gru_bwd', 'table_update')}
     common = dict(route='cuda', library_ms=None,
                   shape='T=64 B=512 H=512 float32 with h0', cases=gru_rows)
+    main_row = next(r for r in gru_rows if r['case'] == GRU_MAIN)
+    headers = ['paddle_tpu_torch/csrc/gru_cluster.cuh',
+               'paddle_tpu_torch/csrc/flash_tf32.cuh']
     fwd = dict(
         name='gru_fwd', source='paddle_tpu_torch/csrc/gru_fwd.cu',
-        replaces='paddle_tpu/ops/pallas/lstm_cell.py:332',
+        headers=headers, replaces='paddle_tpu/ops/pallas/lstm_cell.py:332',
         launches=s2s['counts']['gru_fwd'],
-        launches_by_path=by_path['gru_fwd'],
+        launches_by_path=dict(
+            by_path['gru_fwd'],
+            seq2seq_training_on_cluster_path=s2s[
+                'gru_cluster_launches']['gru_fwd']),
         max_abs_err=max(max(r['fwd_err'].values()) for r in kernel_rows),
         ms=gru_timing['fwd_ms'], plain_ms=gru_timing['fwd_plain_ms'],
         bound_ms=gru_timing['fwd_bound_ms'],
         bound_by=gru_timing['fwd_bound_by'],
+        cuda_core_bound_ms=gru_timing['fwd_cuda_core_bound_ms'],
         call_ms=gru_timing['fwd_call_ms'],
-        ms_by_rows_per_block={r: gru_timing['fwd_ms_rows%d' % r]
-                              for r in (8, 16)},
+        ms_by_path=gru_timing['fwd_ms_by_path'],
+        wide_ms_by_rows_per_block=gru_timing['fwd_ms_by_rows_per_block'],
+        plan=main_row['fwd_plan'], path_rule=gru_timing['path_rule'],
         layer_pair_yardstick=dict(
             note=pair['note'], port_ms=pair['port_fwd_ms'],
             cudnn_ms=pair['cudnn_fwd_ms']), **common)
-    main_row = next(r for r in gru_rows if r['case'] == GRU_MAIN)
     bwd = dict(
         name='gru_bwd', source='paddle_tpu_torch/csrc/gru_bwd.cu',
-        headers=['paddle_tpu_torch/csrc/gru_cluster.cuh',
-                 'paddle_tpu_torch/csrc/flash_tf32.cuh'],
-        replaces='paddle_tpu/ops/pallas/lstm_cell.py:361',
+        headers=headers, replaces='paddle_tpu/ops/pallas/lstm_cell.py:361',
         launches=s2s['counts']['gru_bwd'],
         launches_by_path=dict(
             by_path['gru_bwd'],
             seq2seq_training_on_cluster_path=s2s[
-                'gru_bwd_cluster_launches']),
+                'gru_cluster_launches']['gru_bwd']),
         max_abs_err=max(max(r['bwd_err'].values()) for r in kernel_rows),
         ms=gru_timing['bwd_ms'], plain_ms=gru_timing['bwd_plain_ms'],
         bound_ms=gru_timing['bwd_bound_ms'],
@@ -2404,7 +2442,7 @@ def _s2s_lines(gru_rows, gru_timing, sparse_rows, sparse_timing, s2s):
                               dw=gru_timing['bwd_dw_bound_ms']),
         call_ms=gru_timing['bwd_call_ms'],
         ms_by_path=gru_timing['bwd_ms_by_path'],
-        plan=main_row['bwd_plan'], path_rule=gru_timing['bwd_path_rule'],
+        plan=main_row['bwd_plan'], path_rule=gru_timing['path_rule'],
         layer_pair_yardstick=dict(
             note=pair['note'], port_ms=pair['port_bwd_ms'],
             cudnn_ms=pair['cudnn_bwd_ms']), **common)

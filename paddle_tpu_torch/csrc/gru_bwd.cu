@@ -401,15 +401,15 @@ gru_chain_kernel(const float* __restrict__ gates,
 
     // (b) drh = dc_pre W_c^T; dr_pre, the carry's elementwise part;
     // [du_pre, dr_pre] into the slices
-    float acc[gc::kNTiles][4], fin[2][4];
+    float acc[1][gc::kNTiles][4], fin[2][4];
 #pragma unroll
     for (int nt = 0; nt < gc::kNTiles; ++nt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[nt][i] = 0.0f;
-    gc::slice_products<kTC, kChainSplit, kSlicesThroughL2>(
+      for (int i = 0; i < 4; ++i) acc[0][nt][i] = 0.0f;
+    gc::slice_products<kTC, kChainSplit, kSlicesThroughL2, 1>(
         acc, dcp_s, gs, kChainSlices * sf, 1, mt, mtile, w_s, ldw, 2 * hpad,
-        0, sb0, sb1, lane);
-    gc::pair_reduce(acc, fin, red_b, mtile, half, lane);
+        0, 0, sb0, sb1, lane);
+    gc::pair_reduce(acc[0], fin, red_b, mtile, half, lane);
     float drp[8];
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
@@ -439,11 +439,11 @@ gru_chain_kernel(const float* __restrict__ gates,
 #pragma unroll
     for (int nt = 0; nt < gc::kNTiles; ++nt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[nt][i] = 0.0f;
-    gc::slice_products<kTC, kChainSplit, kSlicesThroughL2>(
+      for (int i = 0; i < 4; ++i) acc[0][nt][i] = 0.0f;
+    gc::slice_products<kTC, kChainSplit, kSlicesThroughL2, 1>(
         acc, dg_s, gs + sf, kChainSlices * sf, 2, mt, mtile, w_s, ldw, 0,
-        hpad, sc0, sc1, lane);
-    gc::pair_reduce(acc, fin, red_c, mtile, half, lane);
+        hpad, 0, sc0, sc1, lane);
+    gc::pair_reduce(acc[0], fin, red_c, mtile, half, lane);
 #pragma unroll
     for (int q = 0; q < 8; ++q) carry[q] += fin[q >> 2][q & 3];
   }

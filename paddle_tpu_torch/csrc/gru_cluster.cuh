@@ -1,23 +1,30 @@
 // The cluster engine of the recurrent kernels: a persistent thread-block
 // cluster that keeps a recurrent weight resident in shared memory, split by
 // hidden units across its blocks, and multiplies the cluster's per-step
-// row vectors against it.  Included by gru_bwd.cu; ops/kernels/build.py
-// rebuilds every library that includes it when it changes.
+// row vectors against it.  Included by gru_fwd.cu and gru_bwd.cu;
+// ops/kernels/build.py rebuilds every library that includes it when it
+// changes.
 //
 // Layout.  A cluster of `cs` blocks owns 16 * mt batch rows (mt m-tiles of
 // 16 rows) and walks the time loop itself.  Block `rank` owns hidden units
-// rank * 32 .. + 31 (kUnits) and keeps the rows of the weight for those
+// rank * 32 .. + 31 (kUnits) and keeps 32 rows of the weight for those
 // units in shared memory, `w_s[32][ldw]`, the columns grouped in parts of
-// H_pad = 32 * cs (one part per gate: units past H are zero).  Each step a
-// block writes its own units' values of a row vector (dc_pre, du_pre, ...)
-// into a "slice", A[16 mt rows][32 units] stored in the order of the
+// H_pad = 32 * cs (one part per gate: units past H are zero).  The
+// backward computes A W^T and keeps W's rows of its units
+// (`load_w_slice`); the forward computes h W and keeps W's columns of its
+// units, transposed into the same layout (`load_w_cols`).  Each step a
+// block writes its own units' values of a row vector (h, r * h, dc_pre,
+// ...) into a "slice", A[16 mt rows][32 units] stored in the order of the
 // mma.sync m16n8k8 A fragment (one float4 per lane per k-step of 8 units),
 // so that a reader takes a whole fragment in one 16-byte load.  A product
-// `acc[row][unit] = sum_n A[row][n] w_s[unit][n]` walks the cluster's
-// slices: slice (peer p, part) covers n in p * 32 .. + 31 of that part.
-// A peer's slice is read from its shared memory through DSMEM or from its
-// copy in global memory (L2; `slice_products`' kL2); the cluster barrier
-// orders both.
+// `acc[g][row][unit] = sum_n A[row][n] w_s[unit][n + g * gcols]` walks the
+// cluster's slices: slice (peer p, part) covers n in p * 32 .. + 31 of that
+// part; each of kGroups column groups (the forward's update and reset
+// columns in gru_fwd.cu's kSharedA form) takes the same A fragments,
+// loaded and split once.  A peer's
+// slice is read from its shared memory through DSMEM or from its copy in
+// global memory (L2; `slice_products`' kL2); the cluster barrier orders
+// both.
 //
 // Warps.  Warp w is (m-tile w / 2, K half w % 2): it computes all 32 own
 // units of its 16 rows over half of the slices, each slice's partial
@@ -30,7 +37,7 @@
 //
 // Products on the tensor cores take 3xTF32 (flash_tf32.cuh, float32
 // accuracy; never one plain TF32 product), or on the CUDA cores the same
-// fragments spread over a quad by shuffles (`kTC = false`, the probe's
+// fragments spread over a quad by shuffles (`kTC = false`, the probes'
 // comparison).
 #pragma once
 
@@ -106,6 +113,30 @@ __device__ inline void load_w_slice(float* w_s, const float* __restrict__ w,
   }
 }
 
+// The block's columns of w [H, 3H] into w_s, transposed: row u is unit
+// rank * 32 + u, its part q columns k < H are w[k][q * H + unit]; past H
+// all zero.  A float4 of w (4 units of row k; H % 4 == 0) goes to 4 rows
+// of w_s: a load made once a call.
+__device__ inline void load_w_cols(float* w_s, const float* __restrict__ w,
+                                   int H, int rank, int cs) {
+  const int hp = kUnits * cs, ldw = w_stride(cs);
+  constexpr int kQuads = kUnits / 4;
+  for (int i = threadIdx.x; i < 3 * hp * kQuads; i += blockDim.x) {
+    const int u4 = i % kQuads, kq = i / kQuads;
+    const int q = kq / hp, k = kq - q * hp;
+    const int unit = rank * kUnits + 4 * u4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (unit < H && k < H)
+      v = __ldg(reinterpret_cast<const float4*>(
+          w + (int64_t)k * 3 * H + q * H + unit));
+    float* d = w_s + 4 * u4 * ldw + q * hp + k;
+    d[0] = v.x;
+    d[ldw] = v.y;
+    d[2 * ldw] = v.z;
+    d[3 * ldw] = v.w;
+  }
+}
+
 // The 3xTF32 split x = big + small, by kSplit: 0 as flash_tf32::split,
 // both parts rounded to nearest (the terms dropped below 2^-22 of |x|);
 // 1 (the probe's comparison) small passed whole, which the tensor core
@@ -132,13 +163,14 @@ __device__ __forceinline__ void mma3_split(float (&c)[4],
   flash_tf32::mma_tf32(c, ab, bb0, bb1);
 }
 
-// part[nt] += A (one k-step fragment a) times w_s columns col .. col + 7
-// of the 32 units, on the tensor cores (3xTF32, split by kSplit) or the
-// CUDA cores
-template <bool kTC, int kSplit>
-__device__ __forceinline__ void kstep(float (&part)[kNTiles][4], float4 a,
-                                      const float* w_s, int ldw, int col,
-                                      int lane) {
+// part[gi][nt] += A (one k-step fragment a) times w_s columns col + gi *
+// gcols .. + 7 of the 32 units, for each of kGroups column groups on the
+// same fragment (split or spread once), on the tensor cores (3xTF32, split
+// by kSplit) or the CUDA cores
+template <bool kTC, int kSplit, int kGroups>
+__device__ __forceinline__ void kstep(float (&part)[kGroups][kNTiles][4],
+                                      float4 a, const float* w_s, int ldw,
+                                      int col, int gcols, int lane) {
   const int g = lane >> 2, t = lane & 3;
   if constexpr (kTC) {
     uint32_t ab[4], as[4];
@@ -147,13 +179,15 @@ __device__ __forceinline__ void kstep(float (&part)[kNTiles][4], float4 a,
     split_tf32<kSplit>(a.z, ab[2], as[2]);
     split_tf32<kSplit>(a.w, ab[3], as[3]);
 #pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-      const float* wb = w_s + (nt * 8 + g) * ldw + col + t;
-      uint32_t bb0, bs0, bb1, bs1;
-      split_tf32<kSplit>(wb[0], bb0, bs0);
-      split_tf32<kSplit>(wb[4], bb1, bs1);
-      mma3_split(part[nt], ab, as, bb0, bs0, bb1, bs1);
-    }
+    for (int gi = 0; gi < kGroups; ++gi)
+#pragma unroll
+      for (int nt = 0; nt < kNTiles; ++nt) {
+        const float* wb = w_s + (nt * 8 + g) * ldw + col + gi * gcols + t;
+        uint32_t bb0, bs0, bb1, bs1;
+        split_tf32<kSplit>(wb[0], bb0, bs0);
+        split_tf32<kSplit>(wb[4], bb1, bs1);
+        mma3_split(part[gi][nt], ab, as, bb0, bs0, bb1, bs1);
+      }
   } else {
     // rows g and g + 8 of the fragment, all 8 k, from the quad
     float r0[8], r1[8];
@@ -166,19 +200,22 @@ __device__ __forceinline__ void kstep(float (&part)[kNTiles][4], float4 a,
       r1[q + 4] = __shfl_sync(0xffffffffu, a.w, src);
     }
 #pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt)
+    for (int gi = 0; gi < kGroups; ++gi)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float4* wp = reinterpret_cast<const float4*>(
-            w_s + (nt * 8 + 2 * t + e) * ldw + col);
-        const float4 w0 = wp[0], w1 = wp[1];
-        const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+      for (int nt = 0; nt < kNTiles; ++nt)
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          part[nt][e] = fmaf(r0[k], wv[k], part[nt][e]);
-          part[nt][2 + e] = fmaf(r1[k], wv[k], part[nt][2 + e]);
+        for (int e = 0; e < 2; ++e) {
+          const float4* wp = reinterpret_cast<const float4*>(
+              w_s + (nt * 8 + 2 * t + e) * ldw + col + gi * gcols);
+          const float4 w0 = wp[0], w1 = wp[1];
+          const float wv[8] = {w0.x, w0.y, w0.z, w0.w,
+                               w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            part[gi][nt][e] = fmaf(r0[k], wv[k], part[gi][nt][e]);
+            part[gi][nt][2 + e] = fmaf(r1[k], wv[k], part[gi][nt][2 + e]);
+          }
         }
-      }
   }
 }
 
@@ -196,20 +233,20 @@ __device__ __forceinline__ void slices_to_global(float* g, const float* s,
 
 // acc += this warp's share of the product of the cluster's slices with
 // w_s: slices s in [s_begin, s_end), slice s being part s % parts of peer
-// s / parts, against w_s columns col0 + part * part_cols + 32 * peer.  A
-// slice sits at `buf` + part * slice_floats(mt) in the peer's shared
-// memory, read through DSMEM, or, with kL2, at gbuf + peer * gpeer + part
-// * slice_floats(mt) in global memory, read from L2 (the block's own
-// always from its shared memory).  The next slice's fragments load while
-// this one multiplies; each slice's partial is added to acc in slice
-// order.
-template <bool kTC, int kSplit, bool kL2>
-__device__ inline void slice_products(float (&acc)[kNTiles][4],
+// s / parts, against w_s columns col0 + part * part_cols + 32 * peer (+ gi
+// * gcols for group gi of kGroups).  A slice sits at `buf` + part *
+// slice_floats(mt) in the peer's shared memory, read through DSMEM, or,
+// with kL2, at gbuf + peer * gpeer + part * slice_floats(mt) in global
+// memory, read from L2 (the block's own always from its shared memory).
+// The next slice's fragments load while this one multiplies; each slice's
+// partial is added to acc in slice order.
+template <bool kTC, int kSplit, bool kL2, int kGroups>
+__device__ inline void slice_products(float (&acc)[kGroups][kNTiles][4],
                                       const float* buf, const float* gbuf,
                                       int gpeer, int parts, int mt,
                                       int mtile, const float* w_s, int ldw,
-                                      int col0, int part_cols, int s_begin,
-                                      int s_end, int lane) {
+                                      int col0, int part_cols, int gcols,
+                                      int s_begin, int s_end, int lane) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int sf = slice_floats(mt);
@@ -235,18 +272,23 @@ __device__ inline void slice_products(float (&acc)[kNTiles][4],
     if (s + 1 < s_end) load(nxt, s + 1);
     const int peer = s / parts, part = s - peer * parts;
     const int col = col0 + part * part_cols + peer * kUnits;
-    float p[kNTiles][4];
+    float p[kGroups][kNTiles][4];
 #pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt)
+    for (int gi = 0; gi < kGroups; ++gi)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) p[nt][e] = 0.0f;
+      for (int nt = 0; nt < kNTiles; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[gi][nt][e] = 0.0f;
 #pragma unroll
     for (int ks = 0; ks < kSliceSteps; ++ks)
-      kstep<kTC, kSplit>(p, cur[ks], w_s, ldw, col + ks * 8, lane);
+      kstep<kTC, kSplit, kGroups>(p, cur[ks], w_s, ldw, col + ks * 8, gcols,
+                                  lane);
 #pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt)
+    for (int gi = 0; gi < kGroups; ++gi)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nt][e] += p[nt][e];
+      for (int nt = 0; nt < kNTiles; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[gi][nt][e] += p[gi][nt][e];
     if (s + 1 < s_end)
 #pragma unroll
       for (int ks = 0; ks < kSliceSteps; ++ks) cur[ks] = nxt[ks];

@@ -25,16 +25,18 @@ do not take), CPU tensors take the plain versions ``_plain_gru_forward``
 and ``_plain_gru_backward``, eager loops over T that restate the
 reference's ``_gru_scan_reference`` (with h0) and its BPTT math.  They are
 what the CPU tests and ``chip_smoke.py`` hold the kernels against.  The
-reference's VMEM fit test and batch tiling are not ported.  The forward
-tiles the batch by ``ROWS_PER_BLOCK`` rows a block and keeps one tile's
-state in shared memory, which caps the hidden width (``max_hidden``; 512
-in the seq2seq translator).  The backward walks T on one of two chains,
-by a rule on the width alone (``bwd_path``, ``cluster_size``; decided
-without a build, as ``kernel_takes`` is): up to 512 units a persistent
-thread-block cluster of ceil(H / 32) blocks keeps W in shared memory
-(csrc/gru_cluster.cuh), wider ones take the row-tiled chain, whose shared
-memory caps the width as the forward's does.  Both then compute dW on the
-tensor cores.  The kernels read h as float4, so ``gru_scan`` pads
+reference's VMEM fit test and batch tiling are not ported.  Both kernels
+walk T on one of two paths, by one rule on the width alone (``fwd_path``,
+``bwd_path``, ``cluster_size``; decided without a build, as
+``kernel_takes`` is): up to 512 units (the seq2seq translator's width) a
+persistent thread-block cluster of ceil(H / 32) blocks keeps W in shared
+memory, split by hidden units, and computes its products on the tensor
+cores (csrc/gru_cluster.cuh: W's columns for the forward's h W, its rows
+for the backward's products with W^T); wider ones take the row-tiled
+kernels, which tile the batch by ``ROWS_PER_BLOCK`` rows a block and keep
+one tile's state in shared memory, which caps the hidden width
+(``max_hidden``).  The backward then computes dW on the tensor cores.
+The kernels read h as float4, so ``gru_scan`` pads
 another width with zero units up to a multiple of 4 (a zero unit stays
 zero and feeds nothing) and slices them off again; ``kernel_takes`` says
 whether the padded width fits both caps.  A width past them raises on a
@@ -49,18 +51,21 @@ import torch
 
 from .lstm import pad_units, padded_width
 
-__all__ = ['gru_scan', 'launches', 'bwd_launches', 'bwd_cluster_launches',
-           'ROWS_PER_BLOCK', 'max_hidden', 'kernel_takes', 'cluster_size',
-           'bwd_path', 'bwd_plan']
+__all__ = ['gru_scan', 'launches', 'fwd_cluster_launches', 'bwd_launches',
+           'bwd_cluster_launches', 'ROWS_PER_BLOCK', 'max_hidden',
+           'kernel_takes', 'cluster_size', 'fwd_path', 'bwd_path',
+           'fwd_plan', 'bwd_plan']
 
 # kernel launches in this process (plain-version calls excluded); one
 # backward launch is the call that runs its chain, the dW tiles and their
 # finish
-launches = 0              # forward (#9)
+launches = 0              # forward (#9), both paths
+fwd_cluster_launches = 0  # forward on the cluster path
 bwd_launches = 0          # backward (#10), both paths
 bwd_cluster_launches = 0  # backward on the cluster path
 
-# batch rows per block of both kernels (8 or 16; gru_fwd.cu says why 8)
+# batch rows per block of both kernels' wide paths (8 or 16; gru_fwd.cu
+# says why 8)
 ROWS_PER_BLOCK = 8
 
 # The kernels' hidden-width caps, as the built libraries report them
@@ -90,17 +95,18 @@ def kernel_takes(h):
         max_hidden(n) for n in _FLOATS_PER_UNIT)
 
 
-# #10's cluster chain: 32 hidden units a block, at most 16 blocks (the
-# non-portable cluster size), so widths up to 512 (csrc/gru_cluster.cuh
-# kUnits, kMaxBlocks); chip_smoke.py holds the rule against the library's
+# the cluster chains of #9 and #10: 32 hidden units a block, at most 16
+# blocks (the non-portable cluster size), so widths up to 512
+# (csrc/gru_cluster.cuh kUnits, kMaxBlocks); chip_smoke.py holds the rule
+# against both libraries'
 CLUSTER_UNITS = 32
 MAX_CLUSTER_BLOCKS = 16
 
 
 def cluster_size(h):
-    """Blocks of the cluster whose chain #10 runs at hidden width ``h``
-    (a multiple of 4): ceil(h / 32) up to 512 units, 0 past them (the wide
-    path).  Decided by the width alone, without a build."""
+    """Blocks of the cluster whose chain #9 and #10 run at hidden width
+    ``h`` (a multiple of 4): ceil(h / 32) up to 512 units, 0 past them
+    (the wide path).  Decided by the width alone, without a build."""
     if 1 <= h <= CLUSTER_UNITS * MAX_CLUSTER_BLOCKS:
         return -(-h // CLUSTER_UNITS)
     return 0
@@ -112,22 +118,43 @@ def bwd_path(h):
     return 'cluster' if cluster_size(h) else 'wide'
 
 
-def bwd_plan(t, b, h):
-    """#10's launch for (T, B, H) on the current card, as the library
-    plans it: its cluster size (0 on the wide path), batch rows per
-    cluster, the clusters of that size the card runs at once, the clusters
-    launched, dW's row ranges and blocks.  Builds the library."""
-    lib = _lib('gru_bwd')
-    fn = lib.paddle_gru_bwd_plan
+def fwd_path(h):
+    """#9's time loop at hidden width ``h``, by #10's rule: 'cluster' (W's
+    columns resident in a cluster's shared memory) or 'wide' (the
+    row-tiled loop)."""
+    return bwd_path(h)
+
+
+def _plan(name, keys, t, b, h):
+    lib = _lib(name)
+    fn = getattr(lib, 'paddle_%s_plan' % name)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * len(keys))()
     _launch_check(lib, fn(t, b, h, ctypes.cast(out, ctypes.c_void_p)),
-                  'gru_bwd plan')
-    keys = ('cluster_size', 'rows_per_cluster', 'active_clusters',
-            'clusters', 'dw_splits', 'dw_blocks')
+                  '%s plan' % name)
     return dict(zip(keys, list(out)), path=bwd_path(h))
+
+
+_CHAIN_PLAN = ('cluster_size', 'rows_per_cluster', 'active_clusters',
+               'clusters')
+
+
+def fwd_plan(t, b, h):
+    """#9's launch for (T, B, H) on the current card, as the library plans
+    it: its cluster size (0 on the wide path), batch rows per cluster, the
+    clusters of that size the card runs at once, the clusters launched.
+    Builds the library."""
+    return _plan('gru_fwd', _CHAIN_PLAN, t, b, h)
+
+
+def bwd_plan(t, b, h):
+    """#10's launch for (T, B, H) on the current card, as the library
+    plans it: #9's keys, then dW's row ranges and blocks.  Builds the
+    library."""
+    return _plan('gru_bwd', _CHAIN_PLAN + ('dw_splits', 'dw_blocks'), t, b,
+                 h)
 
 
 def _check_width(name, h, rows):
@@ -144,13 +171,13 @@ def _lib(name):
     fn = getattr(lib, 'paddle_' + name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        if name == 'gru_fwd':
-            fn.argtypes = [p] * 5 + [i, i, i, i, p]
-        else:
-            fn.argtypes = [p] * 9 + [i, i, i, i, p]
-            lib.paddle_gru_bwd_workspace_bytes.argtypes = [i, i, i]
-            lib.paddle_gru_bwd_workspace_bytes.restype = ctypes.c_int64
+        fn.argtypes = [p] * (6 if name == 'gru_fwd' else 9) + [i, i, i, i, p]
         fn.restype = ctypes.c_int
+        ws = getattr(lib, 'paddle_%s_workspace_bytes' % name)
+        ws.argtypes = [i, i, i]
+        ws.restype = ctypes.c_int64
+        rule = getattr(lib, 'paddle_%s_cluster_size' % name)
+        rule.argtypes, rule.restype = [i], i
         lib.paddle_cuda_error_string.argtypes = [ctypes.c_int]
         lib.paddle_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -263,28 +290,35 @@ def _gru_forward(x, w, h0, with_gates, rows=None):
     """(hs, gates or None) of the GRU over x [T, B, 3H] from h0 (None for
     zeros): the kernel on CUDA tensors, ``_plain_gru_forward`` on CPU
     tensors.  The no-grad path skips the gates' write.  ``rows`` overrides
-    ROWS_PER_BLOCK."""
+    ROWS_PER_BLOCK on the wide path."""
     _check(x, w, h0)
     if x.device.type == 'cpu':
         hs, gates = _plain_gru_forward(x, w, h0)
         return hs, gates if with_gates else None
-    global launches
+    global launches, fwd_cluster_launches
     t, b, three_h = x.shape
     h = three_h // 3
     rows = rows or ROWS_PER_BLOCK
     _check_width('gru_fwd', h, rows)
     lib = _lib('gru_fwd')
-    x, w = x.contiguous(), w.contiguous()
-    h0 = None if h0 is None else h0.contiguous()
-    hs = torch.empty((t, b, h), dtype=torch.float32, device=x.device)
+    # the kernels read rows by 8- and 16-byte loads: an offset view is
+    # copied
+    x, w, h0 = (None if v is None else _aligned(v.contiguous())
+                for v in (x, w, h0))
+    dev = x.device
+    hs = torch.empty((t, b, h), dtype=torch.float32, device=dev)
     gates = torch.empty_like(x) if with_gates else None
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    ws = torch.empty((lib.paddle_gru_fwd_workspace_bytes(t, b, h),),
+                     dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.paddle_gru_fwd(x.data_ptr(), w.data_ptr(), _ptr(h0),
-                                 hs.data_ptr(), _ptr(gates), t, b, h, rows,
-                                 stream)
+                                 hs.data_ptr(), _ptr(gates), ws.data_ptr(),
+                                 t, b, h, rows, stream)
     _launch_check(lib, err, 'gru_fwd')
     launches += 1
+    if cluster_size(h):
+        fwd_cluster_launches += 1
     return hs, gates
 
 

@@ -88,9 +88,9 @@ _LOCAL = (('if (kL2 && peer != rank) {', 'if (false) {'),
           ('cluster.map_shared_rank(const_cast<float*>(buf) + part * sf,\n'
            '                                  peer)',
            '(const_cast<float*>(buf) + part * sf)'))
-_NO_PRODUCTS = ('kstep<kTC, kSplit>(p, cur[ks], w_s, ldw, col + ks * 8, '
-                'lane);',
-                'p[0][0] += cur[ks].x + cur[ks].y + cur[ks].z + cur[ks].w;')
+_NO_PRODUCTS = ('kstep<kTC, kSplit, kGroups>(p, cur[ks], w_s, ldw, '
+                'col + ks * 8, gcols,\n' + ' ' * 34 + 'lane);',
+                'p[0][0][0] += cur[ks].x + cur[ks].y + cur[ks].z + cur[ks].w;')
 HEADER_VARIANTS = {
     # every slice read from the block's own shared memory: no exchange
     'diag_local_slices': ((), _LOCAL),

@@ -2,14 +2,16 @@
 library is named by a digest of its source, every ``csrc/`` header the
 source includes directly or through another header, and the flags, so an
 edit to any of them builds anew; and the design probes (the row-sparse
-kernel's, the dq kernel's, the GRU BPTT kernel's) find the texts they
+kernel's, the dq kernel's, the GRU kernels') find the texts they
 substitute in the shipped sources.  Nothing is compiled here."""
 import os
+import shutil
 
 import pytest
 
 from paddle_tpu_torch.ops.kernels import build, flash_dq_probe
-from paddle_tpu_torch.ops.kernels import gru_bwd_probe, table_update_probe
+from paddle_tpu_torch.ops.kernels import gru_bwd_probe, gru_fwd_probe
+from paddle_tpu_torch.ops.kernels import table_update_probe
 
 
 def _tree(root, files):
@@ -155,6 +157,38 @@ def test_gru_bwd_source_takes_the_cluster_header():
     with open(os.path.join(build.CSRC_DIR, 'gru_cluster.cuh')) as f:
         assert '#include "flash_tf32.cuh"' in f.read()
     assert '#include "gru_cluster.cuh"' in _gru_bwd_source()
+
+
+def _gru_fwd_source():
+    with open(os.path.join(build.CSRC_DIR, 'gru_fwd.cu')) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize('name', sorted(gru_fwd_probe.VARIANTS))
+def test_gru_fwd_probe_variants_apply_to_the_shipped_source(name):
+    """Every text the GRU forward kernel's probe
+    (ops/kernels/gru_fwd_probe.py) substitutes is in csrc/gru_fwd.cu once,
+    and each variant changes it."""
+    src = _gru_fwd_source()
+    for old, new in gru_fwd_probe.VARIANTS[name]:
+        assert src.count(old) == 1, old[:60]
+        src = src.replace(old, new)
+    assert (src == _gru_fwd_source()) == (name == 'shipped')
+
+
+def test_gru_fwd_digest_covers_the_cluster_header(tmp_path, monkeypatch):
+    """gru_fwd's library is named by a digest that follows its cluster
+    engine (csrc/gru_cluster.cuh) and, through it, the 3xTF32 helpers:
+    an edit to either builds the forward anew."""
+    assert '#include "gru_cluster.cuh"' in _gru_fwd_source()
+    for f in ('gru_fwd.cu', 'gru_cluster.cuh', 'flash_tf32.cuh'):
+        shutil.copy(os.path.join(build.CSRC_DIR, f), str(tmp_path))
+    monkeypatch.setattr(build, 'CSRC_DIR', str(tmp_path))
+    for header in ('gru_cluster.cuh', 'flash_tf32.cuh'):
+        before = build.library_path('gru_fwd')
+        with open(os.path.join(str(tmp_path), header), 'a') as f:
+            f.write('// edited\n')
+        assert build.library_path('gru_fwd') != before, header
 
 
 def test_gru_bwd_probe_reads_ptxas_resources_of_each_kernel():

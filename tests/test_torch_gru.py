@@ -12,9 +12,10 @@ and ``gru_unit`` ops (ops/rnn.py) against the reference's, on the CPU.
   path (plain versions on the CPU) and scan path must agree as well.
 - ``gru_unit`` against the reference op, its integer activation codes
   included; what the wrappers do not take raises.
-- The BPTT kernel's path rule (the cluster chain up to 512 units, the wide
-  chain past it), decided without a build, the kernels' width caps, and
-  the launch counters, which CPU tensors leave at 0.
+- The kernels' path rule (the cluster chain up to 512 units, the wide
+  kernels past it; one rule for the forward and the BPTT kernel), decided
+  without a build, the kernels' width caps, and the launch counters,
+  which CPU tensors leave at 0.
 
 Sizes stay small (T <= 8, B <= 4, H <= 16): interpret mode unrolls every
 step.  Tolerances, float32 on both sides with other summation orders:
@@ -248,19 +249,29 @@ def test_width_caps_and_route_are_unchanged():
     assert tg.CLUSTER_UNITS * tg.MAX_CLUSTER_BLOCKS == 512
 
 
+@pytest.mark.parametrize('h', [4, 32, 256, 512, 516, 1024, 1816])
+def test_forward_takes_the_backward_path_rule(h):
+    """#9 takes #10's path at every width of chip_smoke.py's rule check:
+    one cluster rule for both kernels, decided without a build."""
+    assert tg.fwd_path(h) == tg.bwd_path(h)
+    assert tg.fwd_path(h) == ('cluster' if h <= 512 else 'wide')
+
+
 @pytest.mark.parametrize('h', [8, 40])
 def test_cpu_tensors_leave_the_launch_counters_at_zero(h):
     """On CPU tensors the wrappers run the plain versions and count no
-    launch, on either of #10's paths' widths."""
+    launch, on either of #9's and #10's paths' widths."""
     rng = np.random.default_rng(5)
     T, B = 3, 2
     x = torch.tensor(_rand(rng, (T, B, 3 * h)))
     w = torch.tensor(_rand(rng, (h, 3 * h), 0.5))
     h0 = torch.tensor(_rand(rng, (B, h), 0.5))
-    before = (tg.launches, tg.bwd_launches, tg.bwd_cluster_launches)
+    def counts():
+        return (tg.launches, tg.fwd_cluster_launches, tg.bwd_launches,
+                tg.bwd_cluster_launches)
+    before = counts()
     hs, gates = tg._gru_forward(x, w, h0, with_gates=True)
     dx, dw, dh0 = tg._gru_backward(w, h0, hs, gates, torch.ones_like(hs))
     assert dx.shape == (T, B, 3 * h) and dw.shape == (h, 3 * h)
     assert dh0.shape == (B, h)
-    assert (tg.launches, tg.bwd_launches, tg.bwd_cluster_launches) == \
-        before == (0, 0, 0)
+    assert counts() == before == (0, 0, 0, 0)
