@@ -97,23 +97,8 @@ constexpr bool kSlicesThroughL2 = true;
 // slice buffers of the chain: dc_pre, du_pre, dr_pre
 constexpr int kChainSlices = 3;
 
-// dW tiles: kDwBM rows (k) x 128 columns (n) of dW over 8 warps (2 x 4,
-// each kDwBM / 2 x 32: kDwMI m-tiles of 16 by 4 n-tiles of 8), 32 rows of
-// T * B a ring stage; fragment reads fall in distinct banks (row strides
-// = 8 mod 32)
-constexpr int kDwBM = 64;
-constexpr int kDwBN = 128;
-constexpr int kDwBK = 32;
-constexpr int kDwStages = 3;
-constexpr int kDwThreads = 256;
-constexpr int kDwBlocksPerSm = 2;
-constexpr int kDwMI = kDwBM / 32;
-constexpr int kDwLdA = kDwBM + 8;
-constexpr int kDwLdB = kDwBN + 8;
-constexpr int kDwStageFloats = kDwBK * (2 * kDwLdA + kDwLdB);
-constexpr int kDwSmem = kDwStages * kDwStageFloats * (int)sizeof(float);
-constexpr int kMaxSplits = 16;
-constexpr int64_t kMaxPartialBytes = int64_t(64) << 20;
+// W's parts (update, reset, candidate)
+constexpr int kParts = 3;
 
 __global__ void transpose_kernel(const float* __restrict__ w,
                                  float* __restrict__ wt, int H) {
@@ -330,7 +315,7 @@ gru_chain_kernel(const float* __restrict__ gates,
   extern __shared__ __align__(16) float smem[];
   const int cs = gc::cluster_blocks(H);
   const int rank = static_cast<int>(cg::this_cluster().block_rank());
-  const int hpad = gc::kUnits * cs, ldw = gc::w_stride(cs);
+  const int hpad = gc::kUnits * cs, ldw = gc::w_stride<kParts>(cs);
   const int sf = gc::slice_floats(mt);
   float* w_s = smem;
   float* dcp_s = w_s + gc::kUnits * ldw;   // dc_pre slice
@@ -363,7 +348,7 @@ gru_chain_kernel(const float* __restrict__ gates,
   const int sb0 = half ? cs / 2 : 0, sb1 = half ? cs : cs / 2;
   const int sc0 = half ? cs : 0, sc1 = half ? 2 * cs : cs;
 
-  gc::load_w_slice(w_s, w, H, rank, cs);
+  gc::load_w_slice<kParts>(w_s, w, H, rank, cs);
   StepIn in;
   load_step(in, gates, hs, h0, ct_h, T - 1, B, H, b, j);
   float carry[8];
@@ -463,145 +448,15 @@ gru_chain_kernel(const float* __restrict__ gates,
 // One 64 x 128 tile of dW (k0.., n0..) summed over rows m of T * B in this
 // block's range: a[m]^T dx[m], a[m] = h_prev[m] for the update and reset
 // columns (tiles blockIdx.x < rz_tiles) and r[m] * h_prev[m] for the
-// candidate's.  h_prev is h0 (zeros when null) for the first B rows and
-// hs[m - B] after.  8 warps, each 32 x 32 of the tile; each ring stage's
-// partial summed from zero and then added in float32.  Writes its range's
-// sum to out + blockIdx.z * H * 3H.
-__global__ void __launch_bounds__(kDwThreads, kDwBlocksPerSm)
+// candidate's; gru_cluster.cuh dw_tile.  Writes its range's sum to out +
+// blockIdx.z * H * 3H.
+__global__ void __launch_bounds__(gc::kDwThreads, gc::kDwBlocksPerSm)
 gru_dw_kernel(const float* __restrict__ hs, const float* __restrict__ h0,
               const float* __restrict__ gates, const float* __restrict__ dx,
               float* __restrict__ out, int64_t M, int64_t chunk, int B,
               int H, int rz_tiles) {
-  extern __shared__ __align__(16) float smem[];
-  const int G = 3 * H;
-  const bool cand = static_cast<int>(blockIdx.x) >= rz_tiles;
-  const int n0 = cand ? 2 * H + (static_cast<int>(blockIdx.x) - rz_tiles) *
-                                    kDwBN
-                      : static_cast<int>(blockIdx.x) * kDwBN;
-  const int n_end = cand ? G : 2 * H;
-  const int k0 = blockIdx.y * kDwBM;
-  const int64_t m_begin = blockIdx.z * chunk;
-  const int64_t m_end = min(M, m_begin + chunk);
-  const int steps = static_cast<int>((m_end - m_begin + kDwBK - 1) / kDwBK);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wk = warp >> 2, wn = warp & 3;
-
-  // stage s: h_prev [kDwBK][kDwLdA], r [kDwBK][kDwLdA], dx [kDwBK][kDwLdB]
-  auto load = [&](int s, int64_t m0) {
-    float* a_s = smem + s * kDwStageFloats;
-    float* r_s = a_s + kDwBK * kDwLdA;
-    float* b_s = r_s + kDwBK * kDwLdA;
-#pragma unroll
-    for (int i = 0; i < kDwBK * kDwBM / 4 / kDwThreads; ++i) {
-      const int idx = tid + i * kDwThreads;
-      const int rr = idx / (kDwBM / 4), cc = (idx % (kDwBM / 4)) * 4;
-      const int64_t m = m0 + rr;
-      const int k = k0 + cc;
-      const bool live = m < m_end && k < H;
-      const float* src = nullptr;
-      if (live)
-        src = m >= B ? hs + (m - B) * H + k
-                     : (h0 != nullptr ? h0 + m * H + k : nullptr);
-      flash_tf32::cp_async16(a_s + rr * kDwLdA + cc,
-                             src != nullptr ? src : hs, src != nullptr);
-      if (cand)
-        flash_tf32::cp_async16(r_s + rr * kDwLdA + cc,
-                               live ? gates + m * G + H + k : gates, live);
-    }
-#pragma unroll
-    for (int i = 0; i < kDwBK * kDwBN / 4 / kDwThreads; ++i) {
-      const int idx = tid + i * kDwThreads;
-      const int rr = idx / (kDwBN / 4), cc = (idx % (kDwBN / 4)) * 4;
-      const int64_t m = m0 + rr;
-      const int n = n0 + cc;
-      const bool live = m < m_end && n < n_end;
-      flash_tf32::cp_async16(b_s + rr * kDwLdB + cc,
-                             live ? dx + m * G + n : dx, live);
-    }
-  };
-
-  float acc[kDwMI][4][4];
-#pragma unroll
-  for (int mi = 0; mi < kDwMI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mi][ni][i] = 0.0f;
-#pragma unroll
-  for (int s = 0; s < kDwStages - 1; ++s) {
-    if (s < steps) load(s, m_begin + (int64_t)s * kDwBK);
-    flash_tf32::cp_async_commit();
-  }
-  for (int it = 0; it < steps; ++it) {
-    flash_tf32::cp_async_wait<kDwStages - 2>();
-    __syncthreads();
-    const int nx = it + kDwStages - 1;
-    if (nx < steps) load(nx % kDwStages, m_begin + (int64_t)nx * kDwBK);
-    flash_tf32::cp_async_commit();
-    const float* a_s = smem + (it % kDwStages) * kDwStageFloats;
-    const float* r_s = a_s + kDwBK * kDwLdA;
-    const float* b_s = r_s + kDwBK * kDwLdA;
-    float part[kDwMI][4][4];
-#pragma unroll
-    for (int mi = 0; mi < kDwMI; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) part[mi][ni][i] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < kDwBK / 8; ++kk) {
-      const int r0 = (kk * 8 + t4) * kDwLdA, r1 = r0 + 4 * kDwLdA;
-      uint32_t ab[kDwMI][4], as[kDwMI][4];
-#pragma unroll
-      for (int mi = 0; mi < kDwMI; ++mi) {
-        const int col = wk * (kDwBM / 2) + mi * 16 + g;
-        float a0 = a_s[r0 + col], a1 = a_s[r0 + col + 8];
-        float a2 = a_s[r1 + col], a3 = a_s[r1 + col + 8];
-        if (cand) {
-          a0 *= r_s[r0 + col];
-          a1 *= r_s[r0 + col + 8];
-          a2 *= r_s[r1 + col];
-          a3 *= r_s[r1 + col + 8];
-        }
-        gc::split_tf32<kDwSplit>(a0, ab[mi][0], as[mi][0]);
-        gc::split_tf32<kDwSplit>(a1, ab[mi][1], as[mi][1]);
-        gc::split_tf32<kDwSplit>(a2, ab[mi][2], as[mi][2]);
-        gc::split_tf32<kDwSplit>(a3, ab[mi][3], as[mi][3]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int ncol = wn * 32 + ni * 8 + g;
-        uint32_t bb0, bs0, bb1, bs1;
-        gc::split_tf32<kDwSplit>(b_s[(kk * 8 + t4) * kDwLdB + ncol], bb0,
-                                 bs0);
-        gc::split_tf32<kDwSplit>(b_s[(kk * 8 + t4 + 4) * kDwLdB + ncol], bb1,
-                                 bs1);
-#pragma unroll
-        for (int mi = 0; mi < kDwMI; ++mi)
-          gc::mma3_split(part[mi][ni], ab[mi], as[mi], bb0, bs0, bb1, bs1);
-      }
-    }
-#pragma unroll
-    for (int mi = 0; mi < kDwMI; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[mi][ni][i] += part[mi][ni][i];
-  }
-  float* o = out + (int64_t)blockIdx.z * H * G;
-#pragma unroll
-  for (int mi = 0; mi < kDwMI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int k = k0 + wk * (kDwBM / 2) + mi * 16 + g + 8 * hh;
-        const int n = n0 + wn * 32 + ni * 8 + 2 * t4;
-        if (k < H && n < n_end)
-          *reinterpret_cast<float2*>(o + (int64_t)k * G + n) =
-              make_float2(acc[mi][ni][2 * hh], acc[mi][ni][2 * hh + 1]);
-      }
+  gc::dw_tile<kParts, true, kDwSplit>(hs, h0, gates, dx, out, M, chunk, B, H,
+                                      rz_tiles);
 }
 
 // dw = the sum of the S partials, in index order
@@ -617,18 +472,6 @@ __global__ void gru_dw_finish_kernel(const float* __restrict__ dw_part,
   }
 }
 
-int sm_count() {
-  static int cache[16];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 16) return 132;
-  if (cache[dev] == 0) {
-    int n = 0;
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    cache[dev] = n > 0 ? n : 132;
-  }
-  return cache[dev];
-}
-
 struct Plan {
   int rz_tiles, tiles_n, tiles_k;   // dW tiles: columns (rz, then c), rows
   int splits;                       // dW row ranges
@@ -636,29 +479,15 @@ struct Plan {
   int64_t wt_off, dw_off, slices_off, floats;   // workspace (floats)
 };
 
-// dW's row ranges: the S <= kMaxSplits (partials within kMaxPartialBytes)
-// that gives the least waves of blocks per range, fewest ranges on a tie
+// dW's tiles and row ranges (gru_cluster.cuh dw_splits)
 Plan plan_for(int T, int B, int H) {
   Plan p;
   const int64_t G = 3 * (int64_t)H, M = (int64_t)T * B;
-  p.rz_tiles = (2 * H + kDwBN - 1) / kDwBN;
-  p.tiles_n = p.rz_tiles + (H + kDwBN - 1) / kDwBN;
-  p.tiles_k = (H + kDwBM - 1) / kDwBM;
-  const int64_t tiles = (int64_t)p.tiles_n * p.tiles_k;
-  const int64_t slots = (int64_t)kDwBlocksPerSm * sm_count();
-  const int64_t stages = (M + kDwBK - 1) / kDwBK;
-  int64_t best = 1, best_waves = (tiles + slots - 1) / slots;
-  for (int64_t s = 2; s <= kMaxSplits && s <= stages &&
-                      s * G * H * (int64_t)sizeof(float) <= kMaxPartialBytes;
-       ++s) {
-    const int64_t waves = (tiles * s + slots - 1) / slots;
-    if (waves * best < best_waves * s) {
-      best = s;
-      best_waves = waves;
-    }
-  }
-  p.chunk = ((stages + best - 1) / best) * kDwBK;
-  p.splits = static_cast<int>((M + p.chunk - 1) / p.chunk);
+  p.rz_tiles = (2 * H + gc::kDwBN - 1) / gc::kDwBN;
+  p.tiles_n = p.rz_tiles + (H + gc::kDwBN - 1) / gc::kDwBN;
+  p.tiles_k = (H + gc::kDwBM - 1) / gc::kDwBM;
+  p.splits = gc::dw_splits((int64_t)p.tiles_n * p.tiles_k, M, G * H,
+                           &p.chunk);
   // W^T for the wide chain; the cluster chain's slices in global memory
   // for every cluster (its batch rows round up by at most an m-tile set)
   const int cs = gc::cluster_blocks(H);
@@ -681,10 +510,12 @@ cudaError_t chain_plan(int B, int H, ChainPlan* c) {
   c->cs = gc::cluster_blocks(H);
   c->mt = c->active = c->clusters = 0;
   if (c->cs == 0) return cudaSuccess;
-  const cudaError_t err = gc::active_clusters(
-      gru_chain_kernel<kChainOnTensorCores>, c->cs, kChainSlices, &c->active);
+  const cudaError_t err = gc::active_clusters<kParts>(
+      gru_chain_kernel<kChainOnTensorCores>, c->cs, kChainSlices,
+      gc::kPairThreads, gc::kMaxMTiles, &c->active);
   if (err != cudaSuccess) return err;
-  c->mt = gc::mtiles_for(B, c->active, c->cs, kChainSlices);
+  c->mt = gc::mtiles_for<kParts>(B, c->active, c->cs, kChainSlices,
+                                 gc::kMaxMTiles);
   c->clusters = (B + 16 * c->mt - 1) / (16 * c->mt);
   return cudaSuccess;
 }
@@ -796,9 +627,10 @@ int paddle_gru_bwd(const void* gates, const void* hs, const void* h0,
     ChainPlan c;
     err = chain_plan(B, H, &c);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = gc::launch(gru_chain_kernel<kChainOnTensorCores>, c.cs, c.mt,
-                     c.clusters, kChainSlices, st, gf, hsf, h0f, ctf, wf,
-                     dxf, dh0f, ws + p.slices_off, T, B, H, c.mt);
+    err = gc::launch<kParts>(gru_chain_kernel<kChainOnTensorCores>, c.cs,
+                             c.mt, c.clusters, kChainSlices,
+                             gc::kPairThreads, st, gf, hsf, h0f, ctf, wf,
+                             dxf, dh0f, ws + p.slices_off, T, B, H, c.mt);
     if (err != cudaSuccess) return static_cast<int>(err);
   } else {
     float* wt = ws + p.wt_off;
@@ -813,13 +645,13 @@ int paddle_gru_bwd(const void* gates, const void* hs, const void* h0,
 
   err = cudaFuncSetAttribute(gru_dw_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kDwSmem);
+                             gc::dw_smem<true>());
   if (err != cudaSuccess) return static_cast<int>(err);
   float* dw_out = p.splits > 1 ? ws + p.dw_off : static_cast<float*>(dw);
   const dim3 grid(static_cast<unsigned>(p.tiles_n),
                   static_cast<unsigned>(p.tiles_k),
                   static_cast<unsigned>(p.splits));
-  gru_dw_kernel<<<grid, kDwThreads, kDwSmem, st>>>(
+  gru_dw_kernel<<<grid, gc::kDwThreads, gc::dw_smem<true>(), st>>>(
       hsf, h0f, gf, dxf, dw_out, (int64_t)T * B, p.chunk, B, H, p.rz_tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.splits == 1) return static_cast<int>(err);

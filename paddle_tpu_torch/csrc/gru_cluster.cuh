@@ -1,15 +1,16 @@
 // The cluster engine of the recurrent kernels: a persistent thread-block
 // cluster that keeps a recurrent weight resident in shared memory, split by
 // hidden units across its blocks, and multiplies the cluster's per-step
-// row vectors against it.  Included by gru_fwd.cu and gru_bwd.cu;
-// ops/kernels/build.py rebuilds every library that includes it when it
-// changes.
+// row vectors against it; and the tiles of their dW products.  Included by
+// gru_fwd.cu, gru_bwd.cu and lstm_bwd.cu; ops/kernels/build.py rebuilds
+// every library that includes it when it changes.
 //
 // Layout.  A cluster of `cs` blocks owns 16 * mt batch rows (mt m-tiles of
 // 16 rows) and walks the time loop itself.  Block `rank` owns hidden units
 // rank * 32 .. + 31 (kUnits) and keeps 32 rows of the weight for those
-// units in shared memory, `w_s[32][ldw]`, the columns grouped in parts of
-// H_pad = 32 * cs (one part per gate: units past H are zero).  The
+// units in shared memory, `w_s[32][ldw]`, the columns grouped in kParts
+// parts of H_pad = 32 * cs (one part per gate, 3 for the GRU's weight
+// [H, 3H], 4 for the LSTM's [H, 4H]: units past H are zero).  The
 // backward computes A W^T and keeps W's rows of its units
 // (`load_w_slice`); the forward computes h W and keeps W's columns of its
 // units, transposed into the same layout (`load_w_cols`).  Each step a
@@ -26,14 +27,16 @@
 // global memory (L2; `slice_products`' kL2); the cluster barrier orders
 // both.
 //
-// Warps.  Warp w is (m-tile w / 2, K half w % 2): it computes all 32 own
-// units of its 16 rows over half of the slices, each slice's partial
+// Warps.  Each m-tile takes kShares warps, share s computing all 32 own
+// units of its 16 rows over its share of the slices, each slice's partial
 // summed from zero (the tensor cores add toward zero) and then added in
-// float32, and the two halves meet in `pair_reduce`.  Each thread then
-// holds the final values of 8 (row, unit) pairs, those of the C fragment of
-// n-tiles 2 * half and 2 * half + 1: the recurrent carry stays in registers.
-// No atomics anywhere: every sum has one fixed order, so two runs agree
-// bitwise.
+// float32.  The GRU kernels take K halves (warp w is (m-tile w / 2, half
+// w % 2)), which meet in `pair_reduce`; the LSTM's chain takes more shares,
+// which meet in `share_reduce`.  Each thread then holds the final values of
+// 16 / kShares (row, unit) pairs of the C fragment (8 for a K half: those of
+// n-tiles 2 * half and 2 * half + 1): the recurrent carry stays in
+// registers.  No atomics anywhere: every sum has one fixed order, so two
+// runs agree bitwise.
 //
 // Products on the tensor cores take 3xTF32 (flash_tf32.cuh, float32
 // accuracy; never one plain TF32 product), or on the CUDA cores the same
@@ -56,24 +59,40 @@ constexpr int kNTiles = kUnits / 8;        // mma n-tiles over them
 constexpr int kSliceSteps = kUnits / 8;    // k-steps of 8 in one slice
 constexpr int kMaxBlocks = 16;             // the non-portable cluster size
 constexpr int kMaxMTiles = 5;              // 16-row m-tiles per cluster
-constexpr int kMaxThreads = 64 * kMaxMTiles;
+constexpr int kPairThreads = 64;           // an m-tile's two K halves
+constexpr int kMaxThreads = kPairThreads * kMaxMTiles;
 constexpr int kMaxHidden = kUnits * kMaxBlocks;
 constexpr int kSmemLimit = 232448;
 
-// blocks of the cluster that holds a weight of width H (0: none does)
-__host__ __device__ inline int cluster_blocks(int H) {
-  return H >= 1 && H <= kMaxHidden ? (H + kUnits - 1) / kUnits : 0;
+// blocks of the cluster that holds a weight of width H, at most `cap`
+// (0: none does)
+__host__ __device__ inline int cluster_blocks(int H, int cap = kMaxBlocks) {
+  return H >= 1 && H <= kUnits * cap ? (H + kUnits - 1) / kUnits : 0;
 }
-// row stride of w_s: 3 parts of 32 * cs columns, + 4 so that the eight
-// rows of a B fragment fall in distinct banks (96 cs + 4 = 4 mod 32)
-__host__ __device__ inline int w_stride(int cs) { return 3 * kUnits * cs + 4; }
-__host__ __device__ inline int slice_floats(int mt) {
+// row stride of w_s: kParts parts of 32 * cs columns, + 4 so that the
+// eight rows of a B fragment fall in distinct banks (32 kParts cs + 4 = 4
+// mod 32)
+template <int kParts>
+__host__ __device__ constexpr int w_stride(int cs) {
+  return kParts * kUnits * cs + 4;
+}
+__host__ __device__ constexpr int slice_floats(int mt) {
   return mt * 16 * kUnits;
 }
 // shared memory of a block: w_s and `slices` slice buffers
-__host__ __device__ inline size_t smem_bytes(int cs, int mt, int slices) {
-  return sizeof(float) *
-         ((size_t)kUnits * w_stride(cs) + (size_t)slices * slice_floats(mt));
+template <int kParts>
+__host__ __device__ constexpr size_t smem_bytes(int cs, int mt, int slices) {
+  return sizeof(float) * ((size_t)kUnits * w_stride<kParts>(cs) +
+                          (size_t)slices * slice_floats(mt));
+}
+// the most blocks whose W of kParts parts and `slices` slice buffers of one
+// m-tile fit a block's shared memory, at most kMaxBlocks
+template <int kParts>
+__host__ __device__ constexpr int max_blocks(int slices) {
+  int cs = kMaxBlocks;
+  while (cs > 1 && smem_bytes<kParts>(cs, 1, slices) > (size_t)kSmemLimit)
+    --cs;
+  return cs;
 }
 
 __device__ __forceinline__ void cluster_sync() {
@@ -83,6 +102,12 @@ __device__ __forceinline__ void cluster_sync() {
 // the two warps of one m-tile
 __device__ __forceinline__ void pair_sync(int mt) {
   asm volatile("bar.sync %0, 64;" ::"r"(1 + mt) : "memory");
+}
+// the kShares warps of one m-tile
+template <int kShares>
+__device__ __forceinline__ void group_sync(int mt) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + mt), "r"(32 * kShares)
+               : "memory");
 }
 
 // where A[row][unit] (row < 16 mt, unit < 32) sits in a slice: the float
@@ -94,13 +119,14 @@ __device__ __forceinline__ int frag_index(int row, int unit) {
   return (((row >> 4) * kSliceSteps + (unit >> 3)) * 32 + lane) * 4 + slot;
 }
 
-// The block's rows of w [H, 3H] into w_s: row u is unit rank * 32 + u, its
-// part q columns n < H are w[unit][q * H + n]; past H all zero.  Float4
-// loads (H % 4 == 0).
+// The block's rows of w [H, kParts H] into w_s: row u is unit rank * 32 +
+// u, its part q columns n < H are w[unit][q * H + n]; past H all zero.
+// Float4 loads (H % 4 == 0).
+template <int kParts>
 __device__ inline void load_w_slice(float* w_s, const float* __restrict__ w,
                                     int H, int rank, int cs) {
-  const int hp = kUnits * cs, ldw = w_stride(cs);
-  const int per_row = 3 * hp / 4;
+  const int hp = kUnits * cs, ldw = w_stride<kParts>(cs);
+  const int per_row = kParts * hp / 4;
   for (int i = threadIdx.x; i < kUnits * per_row; i += blockDim.x) {
     const int u = i / per_row, col = (i - u * per_row) * 4;
     const int q = col / hp, n = col - q * hp;
@@ -108,27 +134,28 @@ __device__ inline void load_w_slice(float* w_s, const float* __restrict__ w,
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (unit < H && n < H)
       v = __ldg(reinterpret_cast<const float4*>(
-          w + (int64_t)unit * 3 * H + q * H + n));
+          w + (int64_t)unit * kParts * H + q * H + n));
     *reinterpret_cast<float4*>(w_s + u * ldw + col) = v;
   }
 }
 
-// The block's columns of w [H, 3H] into w_s, transposed: row u is unit
-// rank * 32 + u, its part q columns k < H are w[k][q * H + unit]; past H
-// all zero.  A float4 of w (4 units of row k; H % 4 == 0) goes to 4 rows
+// The block's columns of w [H, kParts H] into w_s, transposed: row u is
+// unit rank * 32 + u, its part q columns k < H are w[k][q * H + unit]; past
+// H all zero.  A float4 of w (4 units of row k; H % 4 == 0) goes to 4 rows
 // of w_s: a load made once a call.
+template <int kParts>
 __device__ inline void load_w_cols(float* w_s, const float* __restrict__ w,
                                    int H, int rank, int cs) {
-  const int hp = kUnits * cs, ldw = w_stride(cs);
+  const int hp = kUnits * cs, ldw = w_stride<kParts>(cs);
   constexpr int kQuads = kUnits / 4;
-  for (int i = threadIdx.x; i < 3 * hp * kQuads; i += blockDim.x) {
+  for (int i = threadIdx.x; i < kParts * hp * kQuads; i += blockDim.x) {
     const int u4 = i % kQuads, kq = i / kQuads;
     const int q = kq / hp, k = kq - q * hp;
     const int unit = rank * kUnits + 4 * u4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (unit < H && k < H)
       v = __ldg(reinterpret_cast<const float4*>(
-          w + (int64_t)k * 3 * H + q * H + unit));
+          w + (int64_t)k * kParts * H + q * H + unit));
     float* d = w_s + 4 * u4 * ldw + q * hp + k;
     d[0] = v.x;
     d[ldw] = v.y;
@@ -330,11 +357,65 @@ __device__ __forceinline__ void pair_reduce(const float (&acc)[kNTiles][4],
   pair_sync(mtile);
 }
 
-// *n = clusters of `cs` blocks (at mt = kMaxMTiles, the most shared
-// memory a launch takes) that the card runs at once, for `kernel` with
-// `slices` slice buffers; cached per device and cluster size
-template <typename Kernel>
-cudaError_t active_clusters(Kernel kernel, int cs, int slices, int* n) {
+// The kShares warps of m-tile `mtile` meet: share s writes its partials
+// (4 n-tiles x 4 per lane) into scratch region s, an m-tile region of a
+// slice (slice_floats(1) floats): regions 0-3 at `free_base` + s * sf (a
+// slice buffer nobody reads in this step), 4-7 at `cur_base` + (s - 4) *
+// sf (this m-tile's part of the step's own slices, which with the exchange
+// through L2 only this m-tile's warps read, from shared memory, in
+// slice_products).  With more than 4 shares the group syncs first, so that
+// no share overwrites an own slice that another is still to read.  Each
+// warp then sums its 16 / kShares owned values, acc indices share *
+// (16 / kShares) .. (nt * 4 + e), over the shares in index order into fin.
+// The group syncs again before returning, so the caller may overwrite the
+// regions.
+template <int kShares>
+__device__ __forceinline__ void share_reduce(
+    const float (&acc)[kNTiles][4], float (&fin)[16 / kShares],
+    float* free_base, float* cur_base, int sf, int mtile, int share,
+    int lane) {
+  constexpr int kOwn = 16 / kShares;
+  static_assert(kShares >= 2 && kShares <= 8 && 16 % kShares == 0,
+                "2, 4 or 8 shares");
+  if constexpr (kShares > 4) group_sync<kShares>(mtile);
+  float4* mine = reinterpret_cast<float4*>(
+      (share < 4 ? free_base : cur_base) + (share & 3) * sf);
+#pragma unroll
+  for (int nt = 0; nt < kNTiles; ++nt)
+    mine[nt * 32 + lane] =
+        make_float4(acc[nt][0], acc[nt][1], acc[nt][2], acc[nt][3]);
+  group_sync<kShares>(mtile);
+#pragma unroll
+  for (int s = 0; s < kShares; ++s) {
+    const float* r = (s < 4 ? free_base : cur_base) + (s & 3) * sf;
+#pragma unroll
+    for (int v = 0; v < kOwn; v += 2) {
+      const int idx = share * kOwn + v;
+      const float2 x = *reinterpret_cast<const float2*>(
+          r + ((idx >> 2) * 32 + lane) * 4 + (idx & 3));
+      fin[v] = s == 0 ? x.x : fin[v] + x.x;
+      fin[v + 1] = s == 0 ? x.y : fin[v + 1] + x.y;
+    }
+  }
+  group_sync<kShares>(mtile);
+}
+
+// m-tiles of a cluster: at most max_mt and what shared memory holds
+template <int kParts>
+inline int fit_mtiles(int cs, int slices, int max_mt) {
+  int mt = max_mt;
+  while (mt > 1 && smem_bytes<kParts>(cs, mt, slices) > (size_t)kSmemLimit)
+    --mt;
+  return mt;
+}
+
+// *n = clusters of `cs` blocks (at the most m-tiles a launch takes, up to
+// max_mt, of mtile_threads threads each: the most shared memory and
+// threads) that the card runs at once, for `kernel` with `slices` slice
+// buffers; cached per device and cluster size
+template <int kParts, typename Kernel>
+cudaError_t active_clusters(Kernel kernel, int cs, int slices,
+                            int mtile_threads, int max_mt, int* n) {
   static int cache[16][kMaxBlocks + 1];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -343,7 +424,8 @@ cudaError_t active_clusters(Kernel kernel, int cs, int slices, int* n) {
     *n = cache[dev][cs];
     return cudaSuccess;
   }
-  const size_t smem = smem_bytes(cs, kMaxMTiles, slices);
+  const int mt = fit_mtiles<kParts>(cs, slices, max_mt);
+  const size_t smem = smem_bytes<kParts>(cs, mt, slices);
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
@@ -353,7 +435,7 @@ cudaError_t active_clusters(Kernel kernel, int cs, int slices, int* n) {
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cs);
-  cfg.blockDim = dim3(kMaxThreads);
+  cfg.blockDim = dim3(mtile_threads * mt);
   cfg.dynamicSmemBytes = smem;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -369,23 +451,24 @@ cudaError_t active_clusters(Kernel kernel, int cs, int slices, int* n) {
   return cudaSuccess;
 }
 
-// m-tiles per cluster for B rows: enough that one wave of the clusters the
-// card runs at once covers B, at most kMaxMTiles and what shared memory
-// holds
-inline int mtiles_for(int B, int active, int cs, int slices) {
+// m-tiles per cluster for B rows: enough that one wave of `active`
+// clusters covers B, at most max_mt and what shared memory holds
+template <int kParts>
+inline int mtiles_for(int B, int active, int cs, int slices, int max_mt) {
   const int tiles = (B + 15) / 16;
-  int mt = active > 0 ? (tiles + active - 1) / active : kMaxMTiles;
-  if (mt > kMaxMTiles) mt = kMaxMTiles;
+  int mt = active > 0 ? (tiles + active - 1) / active : max_mt;
+  if (mt > max_mt) mt = max_mt;
   if (mt < 1) mt = 1;
-  while (mt > 1 && smem_bytes(cs, mt, slices) > (size_t)kSmemLimit) --mt;
-  return mt;
+  const int fit = fit_mtiles<kParts>(cs, slices, max_mt);
+  return mt < fit ? mt : fit;
 }
 
-// launch `kernel` over `clusters` clusters of `cs` blocks of 64 * mt threads
-template <typename Kernel, typename... Args>
+// launch `kernel` over `clusters` clusters of `cs` blocks of mtile_threads
+// * mt threads
+template <int kParts, typename Kernel, typename... Args>
 cudaError_t launch(Kernel kernel, int cs, int mt, int clusters, int slices,
-                   cudaStream_t st, Args... args) {
-  const size_t smem = smem_bytes(cs, mt, slices);
+                   int mtile_threads, cudaStream_t st, Args... args) {
+  const size_t smem = smem_bytes<kParts>(cs, mt, slices);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
@@ -395,7 +478,7 @@ cudaError_t launch(Kernel kernel, int cs, int mt, int clusters, int slices,
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(clusters * cs));
-  cfg.blockDim = dim3(static_cast<unsigned>(64 * mt));
+  cfg.blockDim = dim3(static_cast<unsigned>(mtile_threads * mt));
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
@@ -408,6 +491,212 @@ cudaError_t launch(Kernel kernel, int cs, int mt, int clusters, int slices,
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// dW tiles.  dW = sum over the T * B rows m of a[m]^T dx[m], a[m] =
+// h_prev[m] (h0, zeros when null, for the first B rows; hs[m - B] after),
+// as 64 x 128 output tiles on the tensor cores (3xTF32 mma.sync m16n8k8,
+// split by kSplit), the rows of a and dx coming through a 3-stage cp.async
+// ring, 32 rows of T * B a stage.  8 warps, each 32 x 32 of the tile
+// (kDwMI m-tiles of 16 by 4 n-tiles of 8); each stage's partial summed from
+// zero and then added in float32; fragment reads fall in distinct banks
+// (row strides = 8 mod 32).  The rows are split into S contiguous ranges
+// (`dw_splits`), each writing its range's sum.  With kGated (the GRU) the
+// last part's tiles (blockIdx.x >= rz_tiles) multiply r[m] * h_prev[m]
+// instead, r = gates[m][H .. 2H) formed as each fragment is read.
+constexpr int kDwBM = 64;
+constexpr int kDwBN = 128;
+constexpr int kDwBK = 32;
+constexpr int kDwStages = 3;
+constexpr int kDwThreads = 256;
+constexpr int kDwBlocksPerSm = 2;
+constexpr int kDwMI = kDwBM / 32;
+constexpr int kDwLdA = kDwBM + 8;
+constexpr int kDwLdB = kDwBN + 8;
+constexpr int kDwMaxSplits = 16;
+constexpr int64_t kDwMaxPartialBytes = int64_t(64) << 20;
+// a stage: h_prev [kDwBK][kDwLdA], with kGated r [kDwBK][kDwLdA], then dx
+// [kDwBK][kDwLdB]
+template <bool kGated>
+__host__ __device__ constexpr int dw_stage_floats() {
+  return kDwBK * ((kGated ? 2 : 1) * kDwLdA + kDwLdB);
+}
+template <bool kGated>
+__host__ __device__ constexpr int dw_smem() {
+  return kDwStages * dw_stage_floats<kGated>() * (int)sizeof(float);
+}
+
+// One 64 x 128 tile of dW (k0 = blockIdx.y * 64, n0 by blockIdx.x) summed
+// over rows m of T * B in range blockIdx.z (chunk rows a range) into out +
+// blockIdx.z * H * kParts H.
+template <int kParts, bool kGated, int kSplit>
+__device__ __forceinline__ void dw_tile(
+    const float* __restrict__ hs, const float* __restrict__ h0,
+    const float* __restrict__ gates, const float* __restrict__ dx,
+    float* __restrict__ out, int64_t M, int64_t chunk, int B, int H,
+    int rz_tiles) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kStage = dw_stage_floats<kGated>();
+  const int G = kParts * H;
+  const bool cand = kGated && static_cast<int>(blockIdx.x) >= rz_tiles;
+  const int n0 = cand ? (kParts - 1) * H +
+                            (static_cast<int>(blockIdx.x) - rz_tiles) * kDwBN
+                      : static_cast<int>(blockIdx.x) * kDwBN;
+  const int n_end = cand || !kGated ? G : (kParts - 1) * H;
+  const int k0 = blockIdx.y * kDwBM;
+  const int64_t m_begin = blockIdx.z * chunk;
+  const int64_t m_end = min(M, m_begin + chunk);
+  const int steps = static_cast<int>((m_end - m_begin + kDwBK - 1) / kDwBK);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wk = warp >> 2, wn = warp & 3;
+
+  auto load = [&](int s, int64_t m0) {
+    float* a_s = smem + s * kStage;
+    float* r_s = a_s + kDwBK * kDwLdA;
+    float* b_s = a_s + (kGated ? 2 : 1) * kDwBK * kDwLdA;
+#pragma unroll
+    for (int i = 0; i < kDwBK * kDwBM / 4 / kDwThreads; ++i) {
+      const int idx = tid + i * kDwThreads;
+      const int rr = idx / (kDwBM / 4), cc = (idx % (kDwBM / 4)) * 4;
+      const int64_t m = m0 + rr;
+      const int k = k0 + cc;
+      const bool live = m < m_end && k < H;
+      const float* src = nullptr;
+      if (live)
+        src = m >= B ? hs + (m - B) * H + k
+                     : (h0 != nullptr ? h0 + m * H + k : nullptr);
+      flash_tf32::cp_async16(a_s + rr * kDwLdA + cc,
+                             src != nullptr ? src : hs, src != nullptr);
+      if (cand)
+        flash_tf32::cp_async16(r_s + rr * kDwLdA + cc,
+                               live ? gates + m * G + H + k : gates, live);
+    }
+#pragma unroll
+    for (int i = 0; i < kDwBK * kDwBN / 4 / kDwThreads; ++i) {
+      const int idx = tid + i * kDwThreads;
+      const int rr = idx / (kDwBN / 4), cc = (idx % (kDwBN / 4)) * 4;
+      const int64_t m = m0 + rr;
+      const int n = n0 + cc;
+      const bool live = m < m_end && n < n_end;
+      flash_tf32::cp_async16(b_s + rr * kDwLdB + cc,
+                             live ? dx + m * G + n : dx, live);
+    }
+  };
+
+  float acc[kDwMI][4][4];
+#pragma unroll
+  for (int mi = 0; mi < kDwMI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][ni][i] = 0.0f;
+#pragma unroll
+  for (int s = 0; s < kDwStages - 1; ++s) {
+    if (s < steps) load(s, m_begin + (int64_t)s * kDwBK);
+    flash_tf32::cp_async_commit();
+  }
+  for (int it = 0; it < steps; ++it) {
+    flash_tf32::cp_async_wait<kDwStages - 2>();
+    __syncthreads();
+    const int nx = it + kDwStages - 1;
+    if (nx < steps) load(nx % kDwStages, m_begin + (int64_t)nx * kDwBK);
+    flash_tf32::cp_async_commit();
+    const float* a_s = smem + (it % kDwStages) * kStage;
+    const float* r_s = a_s + kDwBK * kDwLdA;
+    const float* b_s = a_s + (kGated ? 2 : 1) * kDwBK * kDwLdA;
+    float part[kDwMI][4][4];
+#pragma unroll
+    for (int mi = 0; mi < kDwMI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) part[mi][ni][i] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < kDwBK / 8; ++kk) {
+      const int r0 = (kk * 8 + t4) * kDwLdA, r1 = r0 + 4 * kDwLdA;
+      uint32_t ab[kDwMI][4], as[kDwMI][4];
+#pragma unroll
+      for (int mi = 0; mi < kDwMI; ++mi) {
+        const int col = wk * (kDwBM / 2) + mi * 16 + g;
+        float a0 = a_s[r0 + col], a1 = a_s[r0 + col + 8];
+        float a2 = a_s[r1 + col], a3 = a_s[r1 + col + 8];
+        if (cand) {
+          a0 *= r_s[r0 + col];
+          a1 *= r_s[r0 + col + 8];
+          a2 *= r_s[r1 + col];
+          a3 *= r_s[r1 + col + 8];
+        }
+        split_tf32<kSplit>(a0, ab[mi][0], as[mi][0]);
+        split_tf32<kSplit>(a1, ab[mi][1], as[mi][1]);
+        split_tf32<kSplit>(a2, ab[mi][2], as[mi][2]);
+        split_tf32<kSplit>(a3, ab[mi][3], as[mi][3]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int ncol = wn * 32 + ni * 8 + g;
+        uint32_t bb0, bs0, bb1, bs1;
+        split_tf32<kSplit>(b_s[(kk * 8 + t4) * kDwLdB + ncol], bb0, bs0);
+        split_tf32<kSplit>(b_s[(kk * 8 + t4 + 4) * kDwLdB + ncol], bb1, bs1);
+#pragma unroll
+        for (int mi = 0; mi < kDwMI; ++mi)
+          mma3_split(part[mi][ni], ab[mi], as[mi], bb0, bs0, bb1, bs1);
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < kDwMI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mi][ni][i] += part[mi][ni][i];
+  }
+  float* o = out + (int64_t)blockIdx.z * H * G;
+#pragma unroll
+  for (int mi = 0; mi < kDwMI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int k = k0 + wk * (kDwBM / 2) + mi * 16 + g + 8 * hh;
+        const int n = n0 + wn * 32 + ni * 8 + 2 * t4;
+        if (k < H && n < n_end)
+          *reinterpret_cast<float2*>(o + (int64_t)k * G + n) =
+              make_float2(acc[mi][ni][2 * hh], acc[mi][ni][2 * hh + 1]);
+      }
+}
+
+// SMs of the current device (132 when it cannot be read)
+inline int sm_count() {
+  static int cache[16];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 16) return 132;
+  if (cache[dev] == 0) {
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    cache[dev] = n > 0 ? n : 132;
+  }
+  return cache[dev];
+}
+
+// dW's row ranges for `tiles` output tiles over M rows, with partials of
+// `gh` floats: the S <= kDwMaxSplits (partials within kDwMaxPartialBytes)
+// that gives the least waves of blocks per range, fewest ranges on a tie.
+// Returns S; *chunk = rows a range.
+inline int dw_splits(int64_t tiles, int64_t M, int64_t gh, int64_t* chunk) {
+  const int64_t slots = (int64_t)kDwBlocksPerSm * sm_count();
+  const int64_t stages = (M + kDwBK - 1) / kDwBK;
+  int64_t best = 1, best_waves = (tiles + slots - 1) / slots;
+  for (int64_t s = 2; s <= kDwMaxSplits && s <= stages &&
+                      s * gh * (int64_t)sizeof(float) <= kDwMaxPartialBytes;
+       ++s) {
+    const int64_t waves = (tiles * s + slots - 1) / slots;
+    if (waves * best < best_waves * s) {
+      best = s;
+      best_waves = waves;
+    }
+  }
+  *chunk = ((stages + best - 1) / best) * kDwBK;
+  return static_cast<int>((M + *chunk - 1) / *chunk);
 }
 
 }  // namespace gru_cluster

@@ -80,6 +80,8 @@ constexpr bool kSharedA = false;
 constexpr bool kPrefetchX = false;
 // slice buffers of the cluster chain: h_{t-1}, r * h_{t-1}
 constexpr int kChainSlices = 2;
+// W's parts (update, reset, candidate)
+constexpr int kParts = 3;
 
 constexpr int kMaxThreads = 256;
 constexpr int kUnroll = 8;       // W rows per register buffer
@@ -276,7 +278,7 @@ gru_fwd_chain_kernel(const float* __restrict__ x, const float* __restrict__ w,
   extern __shared__ __align__(16) float smem[];
   const int cs = gc::cluster_blocks(H);
   const int rank = static_cast<int>(cg::this_cluster().block_rank());
-  const int hpad = gc::kUnits * cs, ldw = gc::w_stride(cs);
+  const int hpad = gc::kUnits * cs, ldw = gc::w_stride<kParts>(cs);
   const int sf = gc::slice_floats(mt);
   float* w_s = smem;
   float* h_s = w_s + gc::kUnits * ldw;   // h_{t-1} slice
@@ -307,7 +309,7 @@ gru_fwd_chain_kernel(const float* __restrict__ x, const float* __restrict__ w,
   // the slices each K half takes in both products
   const int s0 = half ? cs / 2 : 0, s1 = half ? cs : cs / 2;
 
-  gc::load_w_cols(w_s, w, H, rank, cs);
+  gc::load_w_cols<kParts>(w_s, w, H, rank, cs);
   // h_{-1}: h0 (zeros when null) into the carry and the h slice
   float carry[8];
 #pragma unroll
@@ -449,11 +451,12 @@ cudaError_t chain_plan(int B, int H, ChainPlan* c) {
   c->cs = gc::cluster_blocks(H);
   c->mt = c->active = c->clusters = 0;
   if (c->cs == 0) return cudaSuccess;
-  const cudaError_t err = gc::active_clusters(
+  const cudaError_t err = gc::active_clusters<kParts>(
       gru_fwd_chain_kernel<kChainOnTensorCores>, c->cs, kChainSlices,
-      &c->active);
+      gc::kPairThreads, gc::kMaxMTiles, &c->active);
   if (err != cudaSuccess) return err;
-  c->mt = gc::mtiles_for(B, c->active, c->cs, kChainSlices);
+  c->mt = gc::mtiles_for<kParts>(B, c->active, c->cs, kChainSlices,
+                                 gc::kMaxMTiles);
   c->clusters = (B + 16 * c->mt - 1) / (16 * c->mt);
   return cudaSuccess;
 }
@@ -529,9 +532,10 @@ int paddle_gru_fwd(const void* x, const void* w, const void* h0, void* hs,
     ChainPlan c;
     cudaError_t err = chain_plan(B, H, &c);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = gc::launch(gru_fwd_chain_kernel<kChainOnTensorCores>, c.cs, c.mt,
-                     c.clusters, kChainSlices, st, xf, wf, hf, hsf, gf,
-                     static_cast<float*>(workspace), T, B, H, c.mt);
+    err = gc::launch<kParts>(gru_fwd_chain_kernel<kChainOnTensorCores>,
+                             c.cs, c.mt, c.clusters, kChainSlices,
+                             gc::kPairThreads, st, xf, wf, hf, hsf, gf,
+                             static_cast<float*>(workspace), T, B, H, c.mt);
     return static_cast<int>(err);
   }
   return rows == 8 ? launch<8>(xf, wf, hf, hsf, gf, T, B, H, st)

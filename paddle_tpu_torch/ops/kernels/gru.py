@@ -49,7 +49,8 @@ import ctypes
 
 import torch
 
-from .lstm import pad_units, padded_width
+from .lstm import CLUSTER_UNITS, _aligned, cluster_blocks, pad_units, \
+    padded_width
 
 __all__ = ['gru_scan', 'launches', 'fwd_cluster_launches', 'bwd_launches',
            'bwd_cluster_launches', 'ROWS_PER_BLOCK', 'max_hidden',
@@ -95,21 +96,17 @@ def kernel_takes(h):
         max_hidden(n) for n in _FLOATS_PER_UNIT)
 
 
-# the cluster chains of #9 and #10: 32 hidden units a block, at most 16
-# blocks (the non-portable cluster size), so widths up to 512
-# (csrc/gru_cluster.cuh kUnits, kMaxBlocks); chip_smoke.py holds the rule
-# against both libraries'
-CLUSTER_UNITS = 32
+# the cluster chains of #9 and #10: at most 16 blocks (the non-portable
+# cluster size), so widths up to 512 (csrc/gru_cluster.cuh kMaxBlocks);
+# chip_smoke.py holds the rule against both libraries'
 MAX_CLUSTER_BLOCKS = 16
 
 
 def cluster_size(h):
     """Blocks of the cluster whose chain #9 and #10 run at hidden width
-    ``h`` (a multiple of 4): ceil(h / 32) up to 512 units, 0 past them
-    (the wide path).  Decided by the width alone, without a build."""
-    if 1 <= h <= CLUSTER_UNITS * MAX_CLUSTER_BLOCKS:
-        return -(-h // CLUSTER_UNITS)
-    return 0
+    ``h``: ceil(h / 32) up to 512 units, 0 past them (the wide path).
+    Decided by the width alone, without a build."""
+    return cluster_blocks(h, MAX_CLUSTER_BLOCKS)
 
 
 def bwd_path(h):
@@ -280,10 +277,6 @@ def _launch_check(lib, err, name):
 
 def _ptr(v):
     return None if v is None else v.data_ptr()
-
-
-def _aligned(v):
-    return v if v.data_ptr() % 16 == 0 else v.clone()
 
 
 def _gru_forward(x, w, h0, with_gates, rows=None):

@@ -12,7 +12,9 @@ every kernel function printed) and runs each through ``_gru_backward``:
   is no multiple of 16 (B=13 T=33 H=512), at H=32 (a cluster of one
   block) without h0 or the cotangent, and at H=1024 (the wide path);
   dx and dh0 within 1e-4, dW within 1e-5 of its largest entry (phase
-  18's bounds), and two calls bitwise equal;
+  18's bounds), two calls bitwise equal, and whether the outputs equal
+  the shipped variant's bitwise (``bitwise_vs_shipped``: the parent's
+  show whether a change left #10's arithmetic as it was);
 - timed at the seq2seq shape in device time (a CUDA graph of 10 calls
   replayed between CUDA events), and one call's device time split by
   kernel function (torch.profiler over 5 calls): the chain, dW, dW's
@@ -75,11 +77,6 @@ VARIANTS = {
                        'constexpr int kChainSplit = 1;'),),
     'dw_split_1': (('constexpr int kDwSplit = 0;',
                     'constexpr int kDwSplit = 1;'),),
-    # dW with one plain TF32 product of the big parts (not float32
-    # accurate): its time says what the 3xTF32 splits and products cost
-    'diag_dw_one_tf32': (
-        ('gc::mma3_split(part[mi][ni], ab[mi], as[mi], bb0, bs0, bb1, bs1);',
-         'flash_tf32::mma_tf32(part[mi][ni], ab[mi], bb0, bb1);'),),
 }
 # name -> (substitutions of the source, of csrc/gru_cluster.cuh): the
 # header's edited text takes the place of its #include.  Diagnostics of
@@ -92,6 +89,11 @@ _NO_PRODUCTS = ('kstep<kTC, kSplit, kGroups>(p, cur[ks], w_s, ldw, '
                 'col + ks * 8, gcols,\n' + ' ' * 34 + 'lane);',
                 'p[0][0][0] += cur[ks].x + cur[ks].y + cur[ks].z + cur[ks].w;')
 HEADER_VARIANTS = {
+    # dW with one plain TF32 product of the big parts (not float32
+    # accurate): its time says what the 3xTF32 splits and products cost
+    'diag_dw_one_tf32': ((), (
+        ('mma3_split(part[mi][ni], ab[mi], as[mi], bb0, bs0, bb1, bs1);',
+         'flash_tf32::mma_tf32(part[mi][ni], ab[mi], bb0, bb1);'),)),
     # every slice read from the block's own shared memory: no exchange
     'diag_local_slices': ((), _LOCAL),
     # the exchange without products, from L2 and through DSMEM
@@ -155,10 +157,11 @@ def resources(log):
     return out
 
 
-def split_ms(fn, calls=5):
-    """{part: device ms per call} of ``fn`` by kernel function, from
-    torch.profiler over ``calls`` calls after a warm-up: each function's
-    device time over the launches the trace holds."""
+def split_ms(fn, calls=5, parts=PARTS):
+    """{part: device ms per call} of ``fn`` by kernel function (``parts``:
+    (function, part) pairs), from torch.profiler over ``calls`` calls after
+    a warm-up: each function's device time over the launches the trace
+    holds."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -170,7 +173,7 @@ def split_ms(fn, calls=5):
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
-        part = next((p for k, p in PARTS if k in e.key), None)
+        part = next((p for k, p in parts if k in e.key), None)
         if part is not None:
             out[part] = out.get(part, 0.0) + \
                 e.self_device_time_total / 1e3 / max(1, e.count)
@@ -191,7 +194,9 @@ def _inputs(gen, t, b, h, with_h0, with_ct):
     return args, gk._plain_gru_backward(*args)
 
 
-def _check(args, want):
+def _check(args, want, shipped_out=None):
+    """One case's checks and the outputs; ``bitwise_vs_shipped`` holds
+    them against the shipped variant's (``shipped_out``)."""
     got = gk._gru_backward(*args)
     again = gk._gru_backward(*args)
     torch.cuda.synchronize()
@@ -200,9 +205,12 @@ def _check(args, want):
     tols = dict(dx=TOL, dh0=TOL, dw=TOL_PARAM_REL * max(
         1.0, float(want[1].abs().max())))
     bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    same = shipped_out is None or all(
+        torch.equal(a, b) for a, b in zip(got, shipped_out))
     finite = all(bool(torch.isfinite(a).all()) for a in got)
     ok = finite and bitwise and all(errs[k] <= tols[k] for k in errs)
-    return dict(errs=errs, tols=tols, bitwise_repeat=bitwise, ok=ok)
+    return dict(errs=errs, tols=tols, bitwise_repeat=bitwise, ok=ok,
+                bitwise_vs_shipped=same), got
 
 
 def main():
@@ -228,13 +236,15 @@ def main():
     libs, logs = build.build_variants(_SOURCE, variants, sources)
     shipped = build._libs.get(_SOURCE)
     counts = (gk.bwd_launches, gk.bwd_cluster_launches)
+    shipped_outs = {}   # case -> the shipped variant's outputs
     try:
         for name, lib in libs.items():
             build._libs[_SOURCE] = lib
             res = dict(variant=name, ptxas=resources(logs[name]))
             ok = True
             for case, (args, want) in cases:
-                res[case] = _check(args, want)
+                res[case], out = _check(args, want, shipped_outs.get(case))
+                shipped_outs.setdefault(case, out)
                 ok &= res[case]['ok']
             res['ms'] = device_ms(lambda: gk._gru_backward(*main_args),
                                   iters=10, replays=3)

@@ -10,8 +10,10 @@ every kernel function printed) and runs each:
 - against ``_plain_gru_forward`` at chip_smoke.py phase 18's shapes (the
   seq2seq translator's T=64 B=512 H=512 with and without h0, H=256 (a
   cluster of 8), T=16 B=64 H=1024 (the wide path) and B=13 T=33 H=512):
-  hs and the gates within 1e-4, two calls bitwise equal, and the no-gates
-  call's hs bitwise equal to the gated call's;
+  hs and the gates within 1e-4, two calls bitwise equal, the no-gates
+  call's hs bitwise equal to the gated call's, and whether the outputs
+  equal the shipped variant's bitwise (``bitwise_vs_shipped``: the
+  parent's show whether a change left #9's arithmetic as it was);
 - timed at the seq2seq shape with h0 and the gates, in device time (a
   CUDA graph of 10 calls replayed between CUDA events), in ROUNDS rounds
   that time every variant once, in turns whose order reverses every other
@@ -27,7 +29,8 @@ products on one walk that loads and splits each A fragment once
 (``x_prefetched``); and, with ``--parent
 DIR``, ``DIR/paddle_tpu_torch/csrc/gru_fwd.cu`` as it stands
 (``parent``: a checkout of an earlier tree, e.g. the row-tiled loop on
-every width), called through its own C interface, which takes no
+every width), called through the wrapper where its C interface is the
+shipped one, else through the row-tiled kernel's, which takes no
 workspace.  Prints the plain version's time, one JSON line per variant
 (``ok``: every check within its bound), then the card's name and power
 limit.
@@ -113,7 +116,9 @@ def _inputs(gen, t, b, h, with_h0):
     return args, gk._plain_gru_forward(*args)
 
 
-def _check(fwd, args, want):
+def _check(fwd, args, want, shipped_out=None):
+    """One case's checks and the outputs; ``bitwise_vs_shipped`` holds
+    them against the shipped variant's (``shipped_out``)."""
     got = fwd(*args, True)
     again = fwd(*args, True)
     bare = fwd(*args, False)
@@ -121,12 +126,15 @@ def _check(fwd, args, want):
     errs = {k: float((a - r).abs().max())
             for k, a, r in zip(('hs', 'gates'), got, want)}
     bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    same = shipped_out is None or all(
+        torch.equal(a, b) for a, b in zip(got, shipped_out))
     no_gates = bare[1] is None and torch.equal(bare[0], got[0])
     finite = all(bool(torch.isfinite(a).all()) for a in got)
     ok = (finite and bitwise and no_gates and
           all(e <= TOL for e in errs.values()))
     return dict(errs=errs, tol=TOL, bitwise_repeat=bitwise,
-                no_gates_hs_bitwise=no_gates, ok=ok)
+                no_gates_hs_bitwise=no_gates, ok=ok,
+                bitwise_vs_shipped=same), got
 
 
 def main():
@@ -153,19 +161,23 @@ def main():
     def use(name):
         """The forward of variant ``name``, its library put in place."""
         lib = libs[name]
-        if name == 'parent':
+        if name == 'parent' and not hasattr(
+                lib, 'paddle_gru_fwd_workspace_bytes'):
             return lambda x, w, h0, with_gates: _parent_forward(
                 lib, x, w, h0, with_gates)
         build._libs[_SOURCE] = lib
         return gk._gru_forward
     try:
         results = {}
+        shipped_outs = {}   # case -> the shipped variant's outputs
         for name in libs:
             fwd = use(name)
             res = results[name] = dict(variant=name,
                                        ptxas=resources(logs[name]))
             for case, (args, want) in cases:
-                res[case] = _check(fwd, args, want)
+                res[case], out = _check(fwd, args, want,
+                                        shipped_outs.get(case))
+                shipped_outs.setdefault(case, out)
             res['ok'] = all(res[c[0]]['ok'] for c in CASES)
             if name == 'shipped':
                 res['plan'] = {c[0]: gk.fwd_plan(*c[1:4]) for c in CASES}

@@ -23,9 +23,16 @@ and ``_plain_lstm_backward``, eager loops over T that restate the
 reference's ``_scan_reference`` and its BPTT math.  They are what the CPU
 tests and ``chip_smoke.py`` hold the kernels against.  The reference's
 VMEM fit test and batch tiling (``pick_batch_tile``) are not ported: the
-kernels tile the batch by 8 rows themselves and keep one tile's state in
-shared memory, which caps the hidden width (``max_hidden``; 256 and 128
-in the LM and the sentiment net).  They read h as float4, so
+forward and the backward's wide path tile the batch by 8 rows themselves
+and keep one tile's state in shared memory, which caps the hidden width
+(``max_hidden``; 256 and 128 in the LM and the sentiment net).  The
+backward walks T on one of two paths, by one rule on the width alone
+(``bwd_path``, ``cluster_size``; decided without a build, as
+``kernel_takes`` is): up to 416 units a persistent thread-block cluster
+of ceil(H / 32) blocks keeps W's rows in shared memory, split by hidden
+units, and computes the dh chain and dW on the tensor cores
+(csrc/gru_cluster.cuh, the GRU kernels' engine); wider ones take the
+row-tiled chain.  The kernels read h as float4, so
 ``lstm_scan`` pads another width with zero units up to a multiple of 4
 (a zero unit stays zero and feeds nothing) and slices them off again;
 ``kernel_takes`` says whether the padded width fits both caps.  A width
@@ -38,14 +45,16 @@ import ctypes
 
 import torch
 
-__all__ = ['lstm_scan', 'launches', 'bwd_launches', 'ROWS_PER_BLOCK',
-           'max_hidden', 'kernel_takes']
+__all__ = ['lstm_scan', 'launches', 'bwd_launches', 'bwd_cluster_launches',
+           'ROWS_PER_BLOCK', 'max_hidden', 'kernel_takes', 'cluster_size',
+           'bwd_path', 'bwd_plan']
 
 # kernel launches in this process (plain-version calls excluded); one
-# backward launch is the call that runs the BPTT loop, the dW tiles and
-# their finish
-launches = 0       # forward (#7)
-bwd_launches = 0   # backward (#8)
+# backward launch is the call that runs its chain, the dW tiles and their
+# finish
+launches = 0              # forward (#7)
+bwd_launches = 0          # backward (#8), both paths
+bwd_cluster_launches = 0  # backward on the cluster path
 
 # batch rows per block of both kernels
 ROWS_PER_BLOCK = 8
@@ -91,6 +100,53 @@ def kernel_takes(h):
         max_hidden(n) for n in _FLOATS_PER_UNIT)
 
 
+# the cluster engine of the recurrent kernels (csrc/gru_cluster.cuh): 32
+# hidden units a block
+CLUSTER_UNITS = 32
+# #8's cluster chain: as many blocks as W's rows of 32 units (all four
+# gate parts) and two steps' slice buffers leave room for in a block's
+# 232448 bytes of shared memory: 13, so widths up to 416 (csrc/lstm_bwd.cu
+# kChainMaxBlocks); chip_smoke.py holds the rule against the library's
+MAX_CLUSTER_BLOCKS = 13
+
+
+def cluster_blocks(h, max_blocks):
+    """Blocks of the cluster engine's chain at hidden width ``h`` (a
+    multiple of 4) with at most ``max_blocks`` blocks: ceil(h / 32), or 0
+    past 32 * max_blocks units (the wide path); csrc/gru_cluster.cuh
+    cluster_blocks."""
+    if 1 <= h <= CLUSTER_UNITS * max_blocks:
+        return -(-h // CLUSTER_UNITS)
+    return 0
+
+
+def cluster_size(h):
+    """Blocks of the cluster whose chain #8 runs at hidden width ``h``:
+    ceil(h / 32) up to 416 units, 0 past them (the wide path).  Decided by
+    the width alone, without a build."""
+    return cluster_blocks(h, MAX_CLUSTER_BLOCKS)
+
+
+def bwd_path(h):
+    """#8's chain at hidden width ``h``: 'cluster' (W resident in a
+    cluster's shared memory) or 'wide' (the row-tiled chain)."""
+    return 'cluster' if cluster_size(h) else 'wide'
+
+
+def bwd_plan(t, b, h):
+    """#8's launch for (T, B, H) on the current card, as the library plans
+    it: its cluster size (0 on the wide path), batch rows per cluster, the
+    clusters of that size the card runs at once, the clusters launched,
+    dW's row ranges and blocks.  Builds the library."""
+    lib = _lib('lstm_bwd')
+    keys = ('cluster_size', 'rows_per_cluster', 'active_clusters',
+            'clusters', 'dw_splits', 'dw_blocks')
+    out = (ctypes.c_int * len(keys))()
+    _launch_check(lib, lib.paddle_lstm_bwd_plan(
+        t, b, h, ctypes.cast(out, ctypes.c_void_p)), 'lstm_bwd plan')
+    return dict(zip(keys, list(out)), path=bwd_path(h))
+
+
 def _check_width(name, h):
     if h % 4 or not 1 <= h <= max_hidden(name):
         raise ValueError("the %s kernel takes hidden widths that are "
@@ -110,6 +166,10 @@ def _lib(name):
             fn.argtypes = [p] * 11 + [i, i, i, p]
             lib.paddle_lstm_bwd_workspace_bytes.argtypes = [i, i, i]
             lib.paddle_lstm_bwd_workspace_bytes.restype = ctypes.c_int64
+            lib.paddle_lstm_bwd_cluster_size.argtypes = [i]
+            lib.paddle_lstm_bwd_cluster_size.restype = i
+            lib.paddle_lstm_bwd_plan.argtypes = [i, i, i, p]
+            lib.paddle_lstm_bwd_plan.restype = i
         fn.restype = ctypes.c_int
         lib.paddle_cuda_error_string.argtypes = [ctypes.c_int]
         lib.paddle_cuda_error_string.restype = ctypes.c_char_p
@@ -216,6 +276,12 @@ def _launch_check(lib, err, name):
                               .decode()))
 
 
+def _aligned(v):
+    """v, or a copy where it does not start on 16 bytes (the kernels read
+    rows by 8- and 16-byte loads)."""
+    return v if v.data_ptr() % 16 == 0 else v.clone()
+
+
 def _lstm_forward(x, w, pw, with_gates):
     """(hs, cs, gates or None) of the LSTM over x [T, B, 4H]: the kernel
     on CUDA tensors, ``_plain_lstm_forward`` on CPU tensors.  The no-grad
@@ -260,10 +326,10 @@ def _lstm_backward(w, pw, hs, cs, gates, ct_h, ct_c):
                              % (name, t, b, h, gates.device))
     if gates.device.type == 'cpu':
         return _plain_lstm_backward(w, pw, hs, cs, gates, ct_h, ct_c)
-    global bwd_launches
+    global bwd_launches, bwd_cluster_launches
     _check_width('lstm_bwd', h)
     lib = _lib('lstm_bwd')
-    args = [v if v is None else v.contiguous()
+    args = [v if v is None else _aligned(v.contiguous())
             for v in (gates, hs, cs, ct_h, ct_c, w, pw)]
     dx = torch.empty((t, b, four_h), dtype=torch.float32,
                      device=gates.device)
@@ -279,6 +345,8 @@ def _lstm_backward(w, pw, hs, cs, gates, ct_h, ct_c):
             t, b, h, stream)
     _launch_check(lib, err, 'lstm_bwd')
     bwd_launches += 1
+    if cluster_size(h):
+        bwd_cluster_launches += 1
     return dx, dw, dpw
 
 

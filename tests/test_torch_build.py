@@ -2,8 +2,8 @@
 library is named by a digest of its source, every ``csrc/`` header the
 source includes directly or through another header, and the flags, so an
 edit to any of them builds anew; and the design probes (the row-sparse
-kernel's, the dq kernel's, the GRU kernels') find the texts they
-substitute in the shipped sources.  Nothing is compiled here."""
+kernel's, the dq kernel's, the GRU and LSTM BPTT kernels') find the texts
+they substitute in the shipped sources.  Nothing is compiled here."""
 import os
 import shutil
 
@@ -11,7 +11,7 @@ import pytest
 
 from paddle_tpu_torch.ops.kernels import build, flash_dq_probe
 from paddle_tpu_torch.ops.kernels import gru_bwd_probe, gru_fwd_probe
-from paddle_tpu_torch.ops.kernels import table_update_probe
+from paddle_tpu_torch.ops.kernels import lstm_bwd_probe, table_update_probe
 
 
 def _tree(root, files):
@@ -207,3 +207,38 @@ def test_gru_bwd_probe_reads_ptxas_resources_of_each_kernel():
                                  '56 bytes stack frame, 56 bytes spill '
                                  'stores, 56 bytes spill loads',
         'gru_dw_kernel': 'Used 121 registers, used 1 barriers | '}
+
+
+def _lstm_bwd_source():
+    with open(os.path.join(build.CSRC_DIR, 'lstm_bwd.cu')) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize('name', sorted(lstm_bwd_probe.VARIANTS))
+def test_lstm_bwd_probe_variants_apply_to_the_shipped_source(name):
+    """Every knob the LSTM BPTT kernel's probe
+    (ops/kernels/lstm_bwd_probe.py) sets is one constexpr of
+    csrc/lstm_bwd.cu, and a variant leaves the source as it is only where
+    it asks for the shipped settings."""
+    src = _lstm_bwd_source()
+    subs = lstm_bwd_probe.knobs(src, **lstm_bwd_probe.VARIANTS[name])
+    for old, new in subs:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    assert (src == _lstm_bwd_source()) == all(old == new
+                                              for old, new in subs)
+    assert name != 'shipped' or not subs
+
+
+@pytest.mark.parametrize('name', lstm_bwd_probe.DIAGNOSTICS)
+def test_lstm_bwd_probe_diagnostics_edit_the_cluster_header(name):
+    """The LSTM probe's diagnostics are the GRU probe's header variants of
+    csrc/gru_cluster.cuh, which lstm_bwd.cu includes once."""
+    src = _lstm_bwd_source()
+    assert src.count('#include "gru_cluster.cuh"\n') == 1
+    source_subs, header_subs = gru_bwd_probe.HEADER_VARIANTS[name]
+    assert source_subs == ()
+    for old, new in gru_bwd_probe.header_variant((), header_subs):
+        assert src.count(old) == 1, old[:60]
+        src = src.replace(old, new)
+    assert 'namespace gru_cluster {' in src

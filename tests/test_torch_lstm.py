@@ -28,6 +28,7 @@ from paddle_tpu.core.registry import get_op_impl as jget_op
 from paddle_tpu.ops.pallas.lstm_cell import lstm_scan as jlstm_scan
 
 from paddle_tpu_torch.core.registry import get_op_impl as tget_op
+from paddle_tpu_torch.ops.kernels import gru as tg
 from paddle_tpu_torch.ops.kernels import lstm as tl
 
 TOL_OUT = 1e-5
@@ -220,3 +221,101 @@ def test_gru_ops_raise_naming_the_seq2seq_slice(op):
            'HiddenPrev': [torch.zeros((2, 8))]}
     with pytest.raises(NotImplementedError, match='bench_seq2seq.*AMP'):
         tget_op(op).compute(None, ins, {'use_pallas': True})
+
+
+@pytest.mark.parametrize('h, blocks', [(4, 1), (32, 1), (128, 4), (256, 8),
+                                       (416, 13), (420, 0), (1024, 0),
+                                       (1136, 0)])
+def test_backward_path_rule_by_width(h, blocks):
+    """#8's chain by hidden width: a cluster of ceil(H / 32) blocks holds
+    W up to 416 units (H=32, phase 21b's padded 30, takes one block; the
+    sentiment net's 128 four, the LM's 256 eight); the first width past it
+    and wider ones take the row-tiled chain, up to the backward's cap."""
+    assert tl.cluster_size(h) == blocks
+    assert tl.bwd_path(h) == ('cluster' if blocks else 'wide')
+    assert tl.kernel_takes(h)
+
+
+def test_cluster_cap_is_what_shared_memory_holds():
+    """416 units: W's rows of 32 units over four gate parts of 32 cs
+    columns (+ 4 floats a row) and two steps' slices of one 16-row m-tile
+    (4 parts of 16 x 32 floats each) fit a block's 232448 bytes at 13
+    blocks, not at 14 (csrc/gru_cluster.cuh smem_bytes, max_blocks)."""
+    def smem(cs):
+        return 4 * (32 * (4 * 32 * cs + 4) + 2 * 4 * 16 * 32)
+    assert smem(13) <= 232448 < smem(14)
+    assert tl.MAX_CLUSTER_BLOCKS == 13
+    assert tl.CLUSTER_UNITS * tl.MAX_CLUSTER_BLOCKS == 416
+
+
+@pytest.mark.parametrize('h, max_blocks, blocks', [
+    (4, 13, 1), (32, 13, 1), (416, 13, 13), (420, 13, 0), (420, 16, 14),
+    (512, 16, 16), (516, 16, 0), (0, 16, 0)])
+def test_cluster_blocks_is_one_rule_for_every_cluster_chain(h, max_blocks,
+                                                            blocks):
+    """#8's rule (13 blocks at most) and #9's and #10's (16) are one
+    helper with two caps: ceil(H / 32) blocks up to 32 units a block times
+    the cap, none past it."""
+    assert tl.cluster_blocks(h, max_blocks) == blocks
+    assert tg.CLUSTER_UNITS is tl.CLUSTER_UNITS
+    assert tl.cluster_size(h) == tl.cluster_blocks(h, tl.MAX_CLUSTER_BLOCKS)
+    assert tg.cluster_size(h) == tl.cluster_blocks(h, tg.MAX_CLUSTER_BLOCKS)
+
+
+def test_width_caps_and_route_are_unchanged():
+    """The cluster path adds no width cap: the route still takes every
+    multiple of 4 up to the backward's row-tiled cap at 8 rows a block,
+    and sends wider ones to the eager scan."""
+    assert tl.max_hidden('lstm_bwd') == tl.max_hidden('lstm_bwd', 8) == 1139
+    assert tl.max_hidden('lstm_fwd') == 1210
+    assert tl.max_hidden('lstm_bwd', 16) == 0
+    assert tl.ROWS_PER_BLOCK == 8
+    assert tl.kernel_takes(1136) and tl.kernel_takes(1133)
+    assert not tl.kernel_takes(1137) and not tl.kernel_takes(1140)
+
+
+@pytest.mark.parametrize('h', [8, 420])
+def test_cpu_tensors_leave_the_launch_counters_at_zero(h):
+    """On CPU tensors the wrappers run the plain versions and count no
+    launch, at a width of either of #8's paths."""
+    rng = np.random.default_rng(6)
+    T, B = 3, 2
+    x = torch.tensor(_rand(rng, (T, B, 4 * h)))
+    w = torch.tensor(_rand(rng, (h, 4 * h), 0.5))
+    pw = torch.tensor(_rand(rng, (3, h), 0.3))
+
+    def counts():
+        return tl.launches, tl.bwd_launches, tl.bwd_cluster_launches
+    before = counts()
+    hs, cs, gates = tl._lstm_forward(x, w, pw, with_gates=True)
+    dx, dw, dpw = tl._lstm_backward(w, pw, hs, cs, gates,
+                                    torch.ones_like(hs), None)
+    assert dx.shape == (T, B, 4 * h) and dw.shape == (h, 4 * h)
+    assert dpw.shape == (3, h)
+    assert counts() == before == (0, 0, 0)
+
+
+@pytest.mark.parametrize('T,B,H,with_ct_c', [(4, 13, 100, True),
+                                             (3, 13, 32, False),
+                                             (5, 3, 100, False)])
+def test_plain_backward_matches_the_reference_backward(T, B, H, with_ct_c):
+    """``_plain_lstm_backward`` against the reference's ``_lstm_backward``
+    (the Pallas BPTT kernel in interpret mode) on the reference forward's
+    saved state, at the cluster path's edge shapes: a width with units
+    past H within a block (100), a batch that is no multiple of 8 or 16
+    rows (13), one block's width (32)."""
+    from paddle_tpu.ops.pallas import lstm_cell
+    rng = np.random.default_rng(T * 1000 + B * 10 + H)
+    x = _rand(rng, (T, B, 4 * H))
+    w = _rand(rng, (H, 4 * H), H ** -0.5)
+    pw = _rand(rng, (3, H), 0.3)
+    ct_h = _rand(rng, (T, B, H))
+    ct_c = _rand(rng, (T, B, H)) if with_ct_c else np.zeros((T, B, H),
+                                                            np.float32)
+    hs, cs, gates = lstm_cell._lstm_forward(x, w, pw, True, True)
+    want = lstm_cell._lstm_backward(w, pw, hs, cs, gates, ct_h, ct_c, True)
+    got = tl._plain_lstm_backward(
+        *(torch.tensor(np.asarray(a)) for a in (w, pw, hs, cs, gates, ct_h)),
+        torch.tensor(ct_c) if with_ct_c else None)
+    for g, r, name in zip(got, want, ('dx', 'dw', 'dpw')):
+        assert np.abs(g.numpy() - np.asarray(r)).max() <= TOL_GRAD, name
