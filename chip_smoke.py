@@ -15,7 +15,8 @@ line:
    register and spill lines; the count of tensor-core instructions (HMMA,
    HGMMA) in each kernel function's SASS (``cuobjdump -sass``), which must
    not be 0 in any instance of #1, #2, #3 and #4, nor in the cluster
-   chains of #8, #9 and #10, nor in #8's and #10's dW kernels.
+   chains of #7, #8, #9 and #10, nor in #8's and #10's dW kernels; #7's
+   cluster chain must not spill.
 3. flash forward vs its plain version on the card at the prefill's
    shapes (BH = 8, D = 64), with the kernel, the plain version and
    ``F.scaled_dot_product_attention`` (a yardstick only, which the port
@@ -68,19 +69,25 @@ line:
    path), the cell's cotangent present and absent, and a ragged, reversed
    batch through the ``lstm`` op (card against CPU, outputs and the grads
    of Input, Weight and Bias).  The backward's inputs come from the plain
-   forward; #8 runs twice and must agree with itself bitwise, and at H=32
-   (T=64, B=512) and the cap (T=32, B=256) 200 and 100 times, each call
-   bitwise equal to the first (a race in the cluster chain's exchange or
-   reduction shows as a call that differs).  Each case prints #8's plan (path, cluster size, batch rows per cluster, the
-   clusters the card runs at once); H=420 must take the wide path and
-   every other case the cluster path, and the path rule
-   (``lk.cluster_size``, decided without a build) must equal the
-   library's at widths 4 to 1136.  At the LM shape both kernels and their
-   plain versions are timed in device time, #8's time is split by kernel
-   function (its chain and dW; torch.profiler), #8 is timed on its wide
-   path at H=420, and the layer pair fc + lstm without peepholes is timed
-   against ``torch.nn.LSTM`` (cuDNN; a yardstick only, which the port
-   never calls, and not the kernels' function: it has no peepholes).
+   forward; #7 runs twice with its gates and once without on each case's
+   inputs: hs, cs and the gates must agree bitwise, and the no-gates
+   call's hs and cs with the gated call's; #8 runs twice and must agree
+   with itself bitwise; and at H=32 (T=64, B=512) and the cap (T=32,
+   B=256) each of #7 and #8 runs 200 and 100 times, each call bitwise
+   equal to the first (a race in a cluster chain's exchange or reduction
+   shows as a call that differs).  Each case prints #7's and #8's plans
+   (path, cluster size, batch rows per cluster, the clusters the card
+   runs at once); H=420 must take both wide paths and every other case
+   both cluster paths, and the path rule (``lk.cluster_size``, decided
+   without a build) must equal both libraries' at widths 4 to 1136.  At
+   the LM shape both kernels and their plain versions are timed in device
+   time, #7 also as first built (the row-tiled loop, its wide path, on
+   every width: lstm_fwd_probe.py's ``row_tiled`` build), #8's time is
+   split by kernel function (its chain and dW; torch.profiler), both are
+   timed on their wide paths at H=420, and the layer pair fc + lstm
+   without peepholes is timed against ``torch.nn.LSTM`` (cuDNN; a
+   yardstick only, which the port never calls, and not the kernels'
+   function: it has no peepholes).
 14. LM training at full width (benchmarks/bench_lstm_lm.py's float32
    config: B=256, T=128, V=10000, E=128, H=256, L=2, Adagrad lr 0.1)
    through the port's layers, optimizer and Executor: a warm-up step and
@@ -88,20 +95,20 @@ line:
    repo's synthetic text) with full lengths, then more steps on it to 24
    in all (Adagrad at lr 0.1 spikes the loss first); the loss must be
    finite at every step and the last below the first, and each step must
-   launch #7 and #8 twice each, every #8 launch on its cluster path.
-   Counts are set to 0 just before.
+   launch #7 and #8 twice each, every launch of either on its cluster
+   path.  Counts are set to 0 just before.
 15. LM parity at B=4 with ragged lengths: one step on the card (kernels)
    against the same program and state on the CPU (plain versions): the
-   loss, every gradient, and Adagrad's moment and update; every #8 launch
-   of the card's step on its cluster path.
+   loss, every gradient, and Adagrad's moment and update; every #7 and
+   #8 launch of the card's step on its cluster path.
 16. sentiment: ``stacked_lstm_net`` at its widths (emb 128, hid 512, 3
    layers, the middle one reversed), V=5148, batch 32 with ragged lengths
    8-120, a warm-up step and 4 timed Adagrad steps; finite losses and 3
-   launches each of #7 and #8 per step, every #8 launch on its cluster
-   path.  Counts are set to 0 just before.
+   launches each of #7 and #8 per step, every launch of either on its
+   cluster path.  Counts are set to 0 just before.
 17. profile: a traced LM training step, device time by kernel and idle
-   share; #8's split into its chain, dW, the finish and the wide path's
-   transpose.
+   share; #7's time (both its kernel functions); #8's split into its
+   chain, dW, the finish and the wide path's transpose.
 18. GRU forward (#9) and backward (#10) vs their plain versions on the
    card: the seq2seq translator's training shape (T=64, B=512, H=512) with
    and without h0, H=256 (both on a smaller cluster), H=1024 (both
@@ -189,7 +196,7 @@ line:
    share.
 28. a ``{"kernels": [...]}`` line (ten kernels, each with its launches by
    path; ``bound_ms`` at the rate of the units a kernel computes on: the
-   tensor cores at 3xTF32 for #1-#4 and #8-#10, with their CUDA-core
+   tensor cores at 3xTF32 for #1-#4 and #7-#10, with their CUDA-core
    float32 bound beside it as ``cuda_core_bound_ms``; the CUDA cores for
    the rest),
    the card's line, and last ``{"ok": true, "device": {...}}``.
@@ -358,7 +365,8 @@ ROUTE_PAST_CAPS = dict(lstm=1140, gru=1820)
 def _zero_counts():
     fa.launches = fa.bwd_launches = du.launches = 0
     fa.dkv_launches = fa.dq_launches = 0
-    lk.launches = lk.bwd_launches = lk.bwd_cluster_launches = 0
+    lk.launches = lk.fwd_cluster_launches = 0
+    lk.bwd_launches = lk.bwd_cluster_launches = 0
     gk.launches = gk.fwd_cluster_launches = 0
     gk.bwd_launches = gk.bwd_cluster_launches = 0
     tu.launches = 0
@@ -519,10 +527,14 @@ def phase_build():
                               if 'spill' in x), '')
                 print("ptxas %s %s | %s | %s" % (name, fn[-60:], regs,
                                                  spill))
+                if 'lstm_fwd_chain_kernel' in fn and \
+                        re.search(r'\b[1-9]\d* bytes spill', spill):
+                    raise SystemExit("#7's cluster chain spills: %s"
+                                     % spill)
     # tensor-core instructions in each kernel function's SASS: #1-#4, the
-    # cluster chains of #8, #9 and #10 and the cluster path's dW of #8 and
-    # #10 compute their products there (3xTF32), the other kernels on the
-    # CUDA cores
+    # cluster chains of #7, #8, #9 and #10 and the cluster path's dW of #8
+    # and #10 compute their products there (3xTF32), the other kernels on
+    # the CUDA cores
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()),
                              'cuobjdump')
     mma = {}
@@ -546,7 +558,8 @@ def phase_build():
 
     def of(lib, kernel):
         return [n for f, n in mma.get(lib, {}).items() if kernel in f]
-    need = dict(lstm_bwd_chain=of('lstm_bwd', 'lstm_chain_kernel'),
+    need = dict(lstm_fwd_chain=of('lstm_fwd', 'lstm_fwd_chain_kernel'),
+                lstm_bwd_chain=of('lstm_bwd', 'lstm_chain_kernel'),
                 lstm_bwd_dw=of('lstm_bwd', 'lstm_dw_tc_kernel'),
                 gru_fwd_chain=of('gru_fwd', 'gru_fwd_chain_kernel'),
                 gru_bwd_chain=of('gru_bwd', 'gru_chain_kernel'),
@@ -562,8 +575,9 @@ def phase_build():
     bad = [k for k, counts in need.items() if not counts or not all(counts)]
     if bad:
         raise SystemExit("tensor-core instructions: every instance of #1, "
-                         "#2, #3, #4, #8's, #9's and #10's chains and #8's "
-                         "and #10's dW must show some; failing %s" % bad)
+                         "#2, #3, #4, #7's, #8's, #9's and #10's chains and "
+                         "#8's and #10's dW must show some; failing %s"
+                         % bad)
     return mma
 
 
@@ -1205,26 +1219,29 @@ LSTM_CASES = (
     ('H100_T20_B40', 20, 40, 100, True, True),       # units past H in a block
     ('B13_T33_H128', 33, 13, 128, True, True),
     ('cap_T16_B64_H416', 16, 64, 416, True, True),   # the widest cluster
-    ('wide_T16_B64_H420', 16, 64, 420, True, True),  # #8's wide path
+    ('wide_T16_B64_H420', 16, 64, 420, True, True),  # the wide paths
 )
 LSTM_MAIN = 'lm_T128_B256_H256'   # the LM's two layers run this shape
 LSTM_WIDE = 'wide_T16_B64_H420'
-# #8's cluster chain called many times on one input, every call bitwise
-# equal to the first: H=32 (a cluster of one block, where half the eight K
-# shares have no slice and reach the shares' reduction first) and the cap
-# (H=416, each block's own slices read last), both over many clusters
+# #7's and #8's cluster chains called many times on one input, every call
+# bitwise equal to the first: H=32 (a cluster of one block, where half of
+# #8's eight K shares have no slice and reach the shares' reduction first,
+# and #7's K shares are one slice and none) and the cap (H=416, each
+# block's own slices read last), both over many clusters
 LSTM_REPEAT_CASES = (
     # name, T, B, H, calls
     ('repeat_H32_T64_B512', 64, 512, 32, 200),
     ('repeat_cap_T32_B256_H416', 32, 256, 416, 100),
 )
-# widths at which #8's path rule (lk.cluster_size) is held against the
-# library's: the smallest, phase 21b's padded 30, H=100, the sentiment
-# net's and the LM's widths, the cluster's cap, the first width past it,
-# the wide path up to the cap
+# widths at which #7's and #8's path rule (lk.cluster_size) is held
+# against the libraries': the smallest, phase 21b's padded 30, H=100, the
+# sentiment net's and the LM's widths, the cluster's cap, the first width
+# past it, the wide path up to the cap
 LSTM_RULE_WIDTHS = (4, 32, 100, 128, 256, 416, 420, 1024, 1136)
-# #8's kernel functions by the part of the call they compute (the cluster
-# path's, then the wide path's)
+# #7's kernel functions (the cluster path's, the wide path's); #8's by the
+# part of the call they compute (the cluster path's, then the wide
+# path's)
+LSTM_FWD_KERNELS = ('lstm_fwd_chain_kernel', 'lstm_fwd_kernel')
 LSTM_BWD_PARTS = (('lstm_chain_kernel', 'chain'),
                   ('lstm_bptt_kernel', 'chain'),
                   ('lstm_dw_tc_kernel', 'dw'), ('lstm_dw_kernel', 'dw'),
@@ -1237,12 +1254,11 @@ def _max_err(a, b):
 
 
 def _lstm_bounds(t, b, h, with_ct_c):
-    """(fwd, bwd) bounds: the forward's (bound ms, bound by) on the CUDA
-    cores, where #7 computes; the backward's ``_flash_bound`` dict on the
-    tensor cores, where #8's cluster chain and dW compute (3xTF32), with
-    its CUDA-core bound beside it and the chain's and dW's bounds apart.
-    Inputs read once, outputs written once; the forward's h W and the
-    backward's dh chain and dW, 2 * T*B*H*4H FMAs' worth of float32
+    """(fwd, bwd) bounds, ``_flash_bound`` dicts on the tensor cores, where
+    #7's and #8's cluster chains and #8's dW compute (3xTF32), each with
+    its CUDA-core bound beside it; the backward's chain and dW bounds
+    apart.  Inputs read once, outputs written once; the forward's h W and
+    the backward's dh chain and dW, 2 * T*B*H*4H FMAs' worth of float32
     operations each."""
     f = 4
     prod = 2 * t * b * h * 4 * h
@@ -1261,7 +1277,7 @@ def _lstm_bounds(t, b, h, with_ct_c):
     bwd = _flash_bound(bwd_bytes, 2 * prod)
     bwd['chain_bound_ms'] = _tc_bound(chain_bytes, prod)[0]
     bwd['dw_bound_ms'] = _tc_bound(dw_bytes, prod)[0]
-    return _bound(fwd_bytes, prod), bwd
+    return _flash_bound(fwd_bytes, prod), bwd
 
 
 def _split_by(fn, parts, calls=5):
@@ -1280,10 +1296,12 @@ def _split_by(fn, parts, calls=5):
 
 
 def _lstm_path_rule():
-    """#8's path rule, decided without a build (``lk.cluster_size``),
-    against the library's (``paddle_lstm_bwd_cluster_size``)."""
-    lib = lk._lib('lstm_bwd')
-    return {h: (lk.cluster_size(h), lib.paddle_lstm_bwd_cluster_size(h))
+    """#7's and #8's path rule, decided without a build
+    (``lk.cluster_size``), against the libraries'
+    (``paddle_lstm_fwd_cluster_size``, ``paddle_lstm_bwd_cluster_size``)."""
+    fwd, bwd = lk._lib('lstm_fwd'), lk._lib('lstm_bwd')
+    return {h: (lk.cluster_size(h), fwd.paddle_lstm_fwd_cluster_size(h),
+                bwd.paddle_lstm_bwd_cluster_size(h))
             for h in LSTM_RULE_WIDTHS}
 
 
@@ -1327,17 +1345,18 @@ def _lstm_op_case(b=11, t=40, h=128):
 
 def phase_lstm_kernel():
     """Kernels #7 and #8 against their plain versions on the same inputs,
-    #8 twice (bitwise equal); at the LM shape also their times, #8's split,
-    the bounds and the layer-pair yardstick; #8 on its wide path timed at
-    LSTM_WIDE."""
+    #7 twice with its gates and once without, #8 twice (bitwise equal);
+    at the LM shape also their times, #7's as first built, #8's split,
+    the bounds and the layer-pair yardstick; both on their wide paths
+    timed at LSTM_WIDE."""
     rule = _lstm_path_rule()
-    print("lstm bwd path rule (route, library) by width: %s"
+    print("lstm path rule (route, fwd library, bwd library) by width: %s"
           % json.dumps(rule))
     if any(len(set(v)) != 1 for v in rule.values()):
-        raise SystemExit("#8's path rule differs from the library's: %s"
-                         % rule)
+        raise SystemExit("#7's or #8's path rule differs from the "
+                         "library's: %s" % rule)
     gen = torch.Generator(device='cuda').manual_seed(SEED + 8)
-    rows, timing, wide_ms = [], None, None
+    rows, timing, wide = [], None, None
     for name, t, b, h, peep, with_ct_c in LSTM_CASES:
         def rnd(*shape, scale=1.0):
             return torch.randn(shape, generator=gen, device='cuda') * scale
@@ -1348,11 +1367,16 @@ def phase_lstm_kernel():
         ct_h = rnd(t, b, h)
         ct_c = rnd(t, b, h) if with_ct_c else None
         got = lk._lstm_forward(x, w, pw, with_gates=True)
+        fagain = lk._lstm_forward(x, w, pw, with_gates=True)
+        bare = lk._lstm_forward(x, w, pw, with_gates=False)
         ref = lk._plain_lstm_forward(x, w, pw)
         dgot = lk._lstm_backward(w, pw, *ref, ct_h, ct_c)
         again = lk._lstm_backward(w, pw, *ref, ct_h, ct_c)
         dref = lk._plain_lstm_backward(w, pw, *ref, ct_h, ct_c)
         torch.cuda.synchronize()
+        fwd_bitwise = all(torch.equal(a, r) for a, r in zip(got, fagain))
+        no_gates = bare[2] is None and all(
+            torch.equal(a, r) for a, r in zip(bare[:2], got[:2]))
         bitwise = all(torch.equal(a, r) for a, r in zip(dgot, again))
         fwd_err = dict(zip(('h', 'c', 'gates'),
                            (_max_err(a, r) for a, r in zip(got, ref))))
@@ -1363,35 +1387,46 @@ def phase_lstm_kernel():
             for k, r in zip(('dw', 'dpw'), dref[1:])})
         finite = all(bool(torch.isfinite(a).all())
                      for a in list(got) + list(dgot))
-        ok = (finite and bitwise and max(fwd_err.values()) <= TOL_LSTM and
+        ok = (finite and fwd_bitwise and no_gates and bitwise and
+              max(fwd_err.values()) <= TOL_LSTM and
               all(bwd_err[k] <= bwd_tol[k] for k in bwd_err))
         row = dict(case=name, T=t, B=b, H=h, peepholes=peep,
                    ct_c=with_ct_c, fwd_err=fwd_err, fwd_tol=TOL_LSTM,
-                   bwd_err=bwd_err, bwd_tol=bwd_tol,
-                   bwd_bitwise_repeat=bitwise, finite=finite, ok=ok,
+                   fwd_bitwise_repeat=fwd_bitwise,
+                   fwd_no_gates_bitwise=no_gates, bwd_err=bwd_err,
+                   bwd_tol=bwd_tol, bwd_bitwise_repeat=bitwise,
+                   finite=finite, ok=ok, fwd_plan=lk.fwd_plan(t, b, h),
                    bwd_plan=lk.bwd_plan(t, b, h))
         if name == LSTM_MAIN:
             timing = _lstm_timing(x, w, pw, ref, ct_h, ct_c)
             row.update(timing)
         if name == LSTM_WIDE:
-            wide_ms = row['bwd_ms'] = _device_ms(
-                lambda: lk._lstm_backward(w, pw, *ref, ct_h, ct_c), iters=5,
-                replays=3)
+            wide = dict(
+                fwd_ms=_device_ms(lambda: lk._lstm_forward(x, w, pw, True),
+                                  iters=5, replays=3),
+                bwd_ms=_device_ms(
+                    lambda: lk._lstm_backward(w, pw, *ref, ct_h, ct_c),
+                    iters=5, replays=3))
+            row.update(wide)
         rows.append(row)
         print("lstm kernels %s" % json.dumps(row))
     rows.append(_lstm_op_case())
     rows += [_lstm_repeat_case(gen, *c) for c in LSTM_REPEAT_CASES]
+    rows += [_lstm_fwd_repeat_case(gen, *c) for c in LSTM_REPEAT_CASES]
     bad = [r['case'] for r in rows if not r['ok']]
     if bad:
         raise SystemExit("LSTM kernel disagrees with its plain version, is "
                          "not finite or not deterministic: %s" % bad)
-    paths = {r['case']: r['bwd_plan']['path'] for r in rows
-             if 'bwd_plan' in r}
-    want = {k: 'wide' if k == LSTM_WIDE else 'cluster' for k in paths}
+    paths = {'%s %s' % (k, r['case']): r[k + '_plan']['path']
+             for r in rows for k in ('fwd', 'bwd') if k + '_plan' in r}
+    want = {k: 'wide' if k.endswith(' ' + LSTM_WIDE) else 'cluster'
+            for k in paths}
     if paths != want:
-        raise SystemExit("#8 took the wrong path: %s" % paths)
-    timing['bwd_ms_by_path'] = dict(cluster=timing['bwd_ms'], wide=wide_ms,
-                                    wide_shape=LSTM_WIDE)
+        raise SystemExit("#7 or #8 took the wrong path: %s" % paths)
+    for k in ('fwd', 'bwd'):
+        timing[k + '_ms_by_path'] = dict(cluster=timing[k + '_ms'],
+                                         wide=wide[k + '_ms'],
+                                         wide_shape=LSTM_WIDE)
     timing['path_rule'] = {str(k): v[0] for k, v in rule.items()}
     return rows, timing
 
@@ -1430,19 +1465,68 @@ def _lstm_repeat_case(gen, name, t, b, h, calls):
     return row
 
 
+def _lstm_fwd_repeat_case(gen, name, t, b, h, calls):
+    """#7 ``calls`` times on one seeded input (peepholes, the gates
+    written): the first call within TOL_LSTM of the plain version, and
+    every call bitwise equal to the first, so that a race in the cluster
+    chain's exchange or the gates' meet shows as a call that differs."""
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device='cuda') * scale
+    x, w = rnd(t, b, 4 * h), rnd(h, 4 * h, scale=h ** -0.5)
+    pw = rnd(3, h, scale=0.3)
+    first = lk._lstm_forward(x, w, pw, with_gates=True)
+    ref = lk._plain_lstm_forward(x, w, pw)
+    differing = 0
+    for _ in range(calls - 1):
+        again = lk._lstm_forward(x, w, pw, with_gates=True)
+        differing += not all(torch.equal(a, r) for a, r in zip(first, again))
+    torch.cuda.synchronize()
+    fwd_err = dict(zip(('h', 'c', 'gates'),
+                       (_max_err(a, r) for a, r in zip(first, ref))))
+    finite = all(bool(torch.isfinite(a).all()) for a in first)
+    row = dict(case='fwd_' + name, T=t, B=b, H=h, calls=calls,
+               calls_differing_from_the_first=differing, fwd_err=fwd_err,
+               fwd_tol=TOL_LSTM, finite=finite,
+               ok=finite and differing == 0 and
+               max(fwd_err.values()) <= TOL_LSTM,
+               fwd_plan=lk.fwd_plan(t, b, h))
+    print("lstm fwd repeats %s" % json.dumps(row))
+    return row
+
+
+def _row_tiled_fwd_ms(x, w, pw):
+    """Device ms of #7 as first built, the row-tiled loop that is now its
+    wide path, at x's shape: lstm_fwd_probe.py's ``row_tiled`` build of
+    csrc/lstm_fwd.cu (the cluster rule's cap set to 0), called through the
+    wrapper; the shipped library and the launch counts are put back."""
+    from paddle_tpu_torch.ops.kernels import lstm_fwd_probe
+    lib = lstm_fwd_probe.row_tiled_library()
+    shipped = build._libs['lstm_fwd']
+    counts = (lk.launches, lk.fwd_cluster_launches)
+    try:
+        build._libs['lstm_fwd'] = lib
+        return _device_ms(lambda: lk._lstm_forward(x, w, pw, True),
+                          iters=5, replays=3)
+    finally:
+        build._libs['lstm_fwd'] = shipped
+        lk.launches, lk.fwd_cluster_launches = counts
+
+
 def _lstm_timing(x, w, pw, ref, ct_h, ct_c):
     t, b, four_h = x.shape
     h = four_h // 4
-    (fb, fby), bwd = _lstm_bounds(t, b, h, ct_c is not None)
+    fwd, bwd = _lstm_bounds(t, b, h, ct_c is not None)
 
     def bwd_call():
         return lk._lstm_backward(w, pw, *ref, ct_h, ct_c)
     out = dict(
         fwd_ms=_device_ms(lambda: lk._lstm_forward(x, w, pw, True),
                           iters=5, replays=3),
+        fwd_row_tiled_ms=_row_tiled_fwd_ms(x, w, pw),
         fwd_plain_ms=_device_ms(lambda: lk._plain_lstm_forward(x, w, pw),
                                 iters=2, replays=2),
-        fwd_bound_ms=fb, fwd_bound_by=fby,
+        fwd_bound_ms=fwd['bound_ms'], fwd_bound_by=fwd['bound_by'],
+        fwd_cuda_core_bound_ms=fwd['cuda_core_bound_ms'],
         bwd_ms=_device_ms(bwd_call, iters=5, replays=3),
         bwd_ms_by_part=_split_by(bwd_call, LSTM_BWD_PARTS),
         bwd_plain_ms=_device_ms(lambda: lk._plain_lstm_backward(
@@ -1549,12 +1633,21 @@ def _train_steps(exe, main, scope, feed, fetch, steps):
     return outs, ms
 
 
+def _cluster_counts():
+    """#7's and #8's launches on their cluster paths since the counts were
+    set to 0."""
+    return dict(lstm_fwd=lk.fwd_cluster_launches,
+                lstm_bwd=lk.bwd_cluster_launches)
+
+
 def _all_on_cluster_path(label, counts, cluster):
-    """Fails unless #8 launched and every launch took its cluster path."""
-    if not counts['lstm_bwd'] or cluster != counts['lstm_bwd']:
-        raise SystemExit("%s: #8 launched %d times, %d of them on its "
-                         "cluster path" % (label, counts['lstm_bwd'],
-                                           cluster))
+    """Fails unless #7 and #8 launched and every launch took its cluster
+    path (``cluster``: ``_cluster_counts()`` read with ``counts``)."""
+    for k, n in (('lstm_fwd', '#7'), ('lstm_bwd', '#8')):
+        if not counts[k] or cluster[k] != counts[k]:
+            raise SystemExit("%s: %s launched %d times, %d of them on its "
+                             "cluster path" % (label, n, counts[k],
+                                               cluster[k]))
 
 
 def phase_lm_training():
@@ -1573,7 +1666,7 @@ def phase_lm_training():
     outs += _train_steps(exe, main, scope, feed, [cost],
                          c['total_steps'] - c['steps'] - 2)[0]
     counts = _counts()
-    cluster = lk.bwd_cluster_launches
+    cluster = _cluster_counts()
     losses = [float(o[0][0]) for o in outs]
     per_step = {k: n / c['total_steps'] for k, n in counts.items()}
     p50 = float(np.median(step_ms[1:]))
@@ -1583,7 +1676,7 @@ def phase_lm_training():
                step_ms=step_ms, step_ms_p50=p50,
                tokens_per_s=c['B'] * c['T'] / (p50 / 1e3),
                launches=counts, launches_per_step=per_step,
-               lstm_bwd_cluster_launches=cluster,
+               cluster_launches=cluster,
                max_memory_allocated=torch.cuda.max_memory_allocated())
     print("lm training: %s" % json.dumps(res))
     want = _want(lstm_fwd=c['L'], lstm_bwd=c['L'])
@@ -1620,7 +1713,7 @@ def phase_lm_parity(lm, title='lm parity'):
     fetch = [cost.name] + [n + '@GRAD' for n in names]
     _zero_counts()
     card = lm['exe'].run(main, feed=feed, fetch_list=fetch, scope=card_scope)
-    _all_on_cluster_path(title, _counts(), lk.bwd_cluster_launches)
+    _all_on_cluster_path(title, _counts(), _cluster_counts())
     cpu = tfl.Executor('cpu').run(main, feed=feed, fetch_list=fetch,
                                   scope=cpu_scope)
     nonfinite = [n for n, a in zip(fetch, card) if not np.isfinite(a).all()]
@@ -1684,7 +1777,7 @@ def phase_sentiment():
     outs, step_ms = _train_steps(exe, main, scope, feed, [cost, acc],
                                  c['steps'])
     counts = _counts()
-    cluster = lk.bwd_cluster_launches
+    cluster = _cluster_counts()
     per_step = {k: n / (1 + c['steps']) for k, n in counts.items()}
     losses = [float(o[0][0]) for o in outs]
     res = dict(config='stacked_lstm_net emb %d hid %d (H=%d) %d layers, '
@@ -1694,7 +1787,7 @@ def phase_sentiment():
                losses=losses, accuracy=[float(o[1][0]) for o in outs],
                step_ms=step_ms, step_ms_p50=float(np.median(step_ms[1:])),
                launches=counts, launches_per_step=per_step,
-               lstm_bwd_cluster_launches=cluster)
+               cluster_launches=cluster)
     print("sentiment training: %s" % json.dumps(res))
     want = _want(lstm_fwd=c['stacked'], lstm_bwd=c['stacked'])
     if per_step != want:
@@ -1721,7 +1814,7 @@ def phase_lm_profile(lm):
     out = dict(wall_ms=wall, device_busy_ms=busy if rows else None,
                idle_share=1.0 - busy / wall if rows else None,
                kernels=sum(n for *_, n in rows),
-               lstm_fwd_ms=by('lstm_fwd_kernel'),
+               lstm_fwd_ms=by(*LSTM_FWD_KERNELS),
                lstm_bwd_ms=by(*[k for k, _ in LSTM_BWD_PARTS]),
                lstm_bwd_ms_by_part={
                    part: by(*[k for k, p in LSTM_BWD_PARTS if p == part])
@@ -1736,37 +1829,45 @@ def phase_lm_profile(lm):
 def _lstm_lines(rows, timing, lm, sent):
     """The kernels-line entries of #7 and #8."""
     by_path = {k: dict(lm_training=lm['counts'][k],
-                       sentiment_training=sent['counts'][k])
+                       sentiment_training=sent['counts'][k],
+                       lm_training_on_cluster_path=lm['cluster_launches'][k],
+                       sentiment_training_on_cluster_path=sent[
+                           'cluster_launches'][k])
                for k in ('lstm_fwd', 'lstm_bwd')}
-    kernel_rows = [r for r in rows if 'fwd_err' in r]
     main_row = next(r for r in rows if r['case'] == LSTM_MAIN)
     pair = timing['layer_pair']
     common = dict(route='cuda', library_ms=None,
+                  headers=['paddle_tpu_torch/csrc/gru_cluster.cuh',
+                           'paddle_tpu_torch/csrc/flash_tf32.cuh'],
+                  path_rule=timing['path_rule'],
                   shape='T=128 B=256 H=256 float32 peepholes', cases=rows)
+
+    def launches(k):
+        return by_path[k]['lm_training'] + by_path[k]['sentiment_training']
     fwd = dict(
         name='lstm_fwd', source='paddle_tpu_torch/csrc/lstm_fwd.cu',
         replaces='paddle_tpu/ops/pallas/lstm_cell.py:57',
-        launches=sum(by_path['lstm_fwd'].values()),
-        launches_by_path=by_path['lstm_fwd'],
-        max_abs_err=max(max(r['fwd_err'].values()) for r in kernel_rows),
+        launches=launches('lstm_fwd'), launches_by_path=by_path['lstm_fwd'],
+        max_abs_err=max(max(r['fwd_err'].values()) for r in rows
+                        if 'fwd_err' in r),
         ms=timing['fwd_ms'], plain_ms=timing['fwd_plain_ms'],
         bound_ms=timing['fwd_bound_ms'], bound_by=timing['fwd_bound_by'],
-        call_ms=timing['fwd_call_ms'],
+        cuda_core_bound_ms=timing['fwd_cuda_core_bound_ms'],
+        row_tiled_ms=dict(
+            ms=timing['fwd_row_tiled_ms'],
+            note='the row-tiled loop (now the wide path) at this '
+                 'shape: the kernel this chain replaced'),
+        call_ms=timing['fwd_call_ms'], ms_by_path=timing['fwd_ms_by_path'],
+        plan=main_row['fwd_plan'],
         layer_pair_yardstick=dict(
             note=pair['note'], port_ms=pair['port_fwd_ms'],
             cudnn_ms=pair['cudnn_fwd_ms']), **common)
     bwd = dict(
         name='lstm_bwd', source='paddle_tpu_torch/csrc/lstm_bwd.cu',
-        headers=['paddle_tpu_torch/csrc/gru_cluster.cuh',
-                 'paddle_tpu_torch/csrc/flash_tf32.cuh'],
         replaces='paddle_tpu/ops/pallas/lstm_cell.py:90',
-        launches=sum(by_path['lstm_bwd'].values()),
-        launches_by_path=dict(
-            by_path['lstm_bwd'],
-            lm_training_on_cluster_path=lm['lstm_bwd_cluster_launches'],
-            sentiment_training_on_cluster_path=sent[
-                'lstm_bwd_cluster_launches']),
-        max_abs_err=max(max(r['bwd_err'].values()) for r in kernel_rows),
+        launches=launches('lstm_bwd'), launches_by_path=by_path['lstm_bwd'],
+        max_abs_err=max(max(r['bwd_err'].values()) for r in rows
+                        if 'bwd_err' in r),
         ms=timing['bwd_ms'], plain_ms=timing['bwd_plain_ms'],
         bound_ms=timing['bwd_bound_ms'], bound_by=timing['bwd_bound_by'],
         cuda_core_bound_ms=timing['bwd_cuda_core_bound_ms'],
@@ -1774,7 +1875,7 @@ def _lstm_lines(rows, timing, lm, sent):
         bound_ms_by_part=dict(chain=timing['bwd_chain_bound_ms'],
                               dw=timing['bwd_dw_bound_ms']),
         call_ms=timing['bwd_call_ms'], ms_by_path=timing['bwd_ms_by_path'],
-        plan=main_row['bwd_plan'], path_rule=timing['path_rule'],
+        plan=main_row['bwd_plan'],
         layer_pair_yardstick=dict(
             note=pair['note'], port_ms=pair['port_bwd_ms'],
             cudnn_ms=pair['cudnn_bwd_ms']), **common)

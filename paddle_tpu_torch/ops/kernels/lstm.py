@@ -22,17 +22,18 @@ do not take), CPU tensors take the plain versions ``_plain_lstm_forward``
 and ``_plain_lstm_backward``, eager loops over T that restate the
 reference's ``_scan_reference`` and its BPTT math.  They are what the CPU
 tests and ``chip_smoke.py`` hold the kernels against.  The reference's
-VMEM fit test and batch tiling (``pick_batch_tile``) are not ported: the
-forward and the backward's wide path tile the batch by 8 rows themselves
-and keep one tile's state in shared memory, which caps the hidden width
-(``max_hidden``; 256 and 128 in the LM and the sentiment net).  The
-backward walks T on one of two paths, by one rule on the width alone
-(``bwd_path``, ``cluster_size``; decided without a build, as
-``kernel_takes`` is): up to 416 units a persistent thread-block cluster
-of ceil(H / 32) blocks keeps W's rows in shared memory, split by hidden
-units, and computes the dh chain and dW on the tensor cores
-(csrc/gru_cluster.cuh, the GRU kernels' engine); wider ones take the
-row-tiled chain.  The kernels read h as float4, so
+VMEM fit test and batch tiling (``pick_batch_tile``) are not ported.  Both
+kernels walk T on one of two paths, by one rule on the width alone
+(``fwd_path``, ``bwd_path``, ``cluster_size``; decided without a build,
+as ``kernel_takes`` is): up to 416 units a persistent thread-block
+cluster of ceil(H / 32) blocks keeps W in shared memory, split by hidden
+units, and computes its products on the tensor cores (csrc/gru_cluster.cuh,
+the GRU kernels' engine: W's columns for the forward's h W, its rows for
+the backward's dh chain, whose dW then runs on the tensor cores too);
+wider ones take the row-tiled kernels, which tile the batch by 8 rows a
+block and keep one tile's state in shared memory, which caps the hidden
+width (``max_hidden``; the LM runs 256 units, the sentiment net 128).  The
+kernels read h as float4, so
 ``lstm_scan`` pads another width with zero units up to a multiple of 4
 (a zero unit stays zero and feeds nothing) and slices them off again;
 ``kernel_takes`` says whether the padded width fits both caps.  A width
@@ -45,26 +46,29 @@ import ctypes
 
 import torch
 
-__all__ = ['lstm_scan', 'launches', 'bwd_launches', 'bwd_cluster_launches',
-           'ROWS_PER_BLOCK', 'max_hidden', 'kernel_takes', 'cluster_size',
-           'bwd_path', 'bwd_plan']
+__all__ = ['lstm_scan', 'launches', 'fwd_cluster_launches', 'bwd_launches',
+           'bwd_cluster_launches', 'ROWS_PER_BLOCK', 'max_hidden',
+           'kernel_takes', 'cluster_size', 'fwd_path', 'bwd_path',
+           'fwd_plan', 'bwd_plan']
 
 # kernel launches in this process (plain-version calls excluded); one
 # backward launch is the call that runs its chain, the dW tiles and their
 # finish
-launches = 0              # forward (#7)
+launches = 0              # forward (#7), both paths
+fwd_cluster_launches = 0  # forward on the cluster path
 bwd_launches = 0          # backward (#8), both paths
 bwd_cluster_launches = 0  # backward on the cluster path
 
-# batch rows per block of both kernels
+# batch rows per block of both kernels' wide paths
 ROWS_PER_BLOCK = 8
 
 # The kernels' hidden-width caps, as the built libraries report them
 # (``paddle_<name>_max_hidden``): a block's 232448 bytes of shared memory
-# over the floats one tile of ``rows`` batch rows keeps there per hidden
-# unit, 6 * rows for the forward (h, c, the gate pre-activations) and
-# 6 * rows + 3 for the backward (the carry, one step's dx, the dpw sums).
-# chip_smoke.py holds them against the libraries.
+# over the floats one tile of ``rows`` batch rows of the wide path keeps
+# there per hidden unit, 6 * rows for the forward (h, c, the gate
+# pre-activations) and 6 * rows + 3 for the backward (the carry, one
+# step's dx, the dpw sums).  chip_smoke.py holds them against the
+# libraries.
 _SMEM = 232448
 _FLOATS_PER_UNIT = {'lstm_fwd': lambda rows: 6 * rows,
                     'lstm_bwd': lambda rows: 6 * rows + 3}
@@ -103,10 +107,11 @@ def kernel_takes(h):
 # the cluster engine of the recurrent kernels (csrc/gru_cluster.cuh): 32
 # hidden units a block
 CLUSTER_UNITS = 32
-# #8's cluster chain: as many blocks as W's rows of 32 units (all four
-# gate parts) and two steps' slice buffers leave room for in a block's
-# 232448 bytes of shared memory: 13, so widths up to 416 (csrc/lstm_bwd.cu
-# kChainMaxBlocks); chip_smoke.py holds the rule against the library's
+# #7's and #8's cluster chains: as many blocks as W's 32 units a block (all
+# four gate parts) and two h or dx slice buffers (with the forward's four
+# gate regions) leave room for in a block's 232448 bytes of shared memory:
+# 13, so widths up to 416 (csrc/lstm_fwd.cu and lstm_bwd.cu
+# kChainMaxBlocks); chip_smoke.py holds the rule against both libraries'
 MAX_CLUSTER_BLOCKS = 13
 
 
@@ -121,9 +126,9 @@ def cluster_blocks(h, max_blocks):
 
 
 def cluster_size(h):
-    """Blocks of the cluster whose chain #8 runs at hidden width ``h``:
-    ceil(h / 32) up to 416 units, 0 past them (the wide path).  Decided by
-    the width alone, without a build."""
+    """Blocks of the cluster whose chain #7 and #8 run at hidden width
+    ``h``: ceil(h / 32) up to 416 units, 0 past them (the wide path).
+    Decided by the width alone, without a build."""
     return cluster_blocks(h, MAX_CLUSTER_BLOCKS)
 
 
@@ -133,18 +138,39 @@ def bwd_path(h):
     return 'cluster' if cluster_size(h) else 'wide'
 
 
+def fwd_path(h):
+    """#7's time loop at hidden width ``h``, by #8's rule: 'cluster' (W's
+    columns resident in a cluster's shared memory) or 'wide' (the
+    row-tiled loop)."""
+    return bwd_path(h)
+
+
+def _plan(name, keys, t, b, h):
+    lib = _lib(name)
+    out = (ctypes.c_int * len(keys))()
+    _launch_check(lib, getattr(lib, 'paddle_%s_plan' % name)(
+        t, b, h, ctypes.cast(out, ctypes.c_void_p)), '%s plan' % name)
+    return dict(zip(keys, list(out)), path=bwd_path(h))
+
+
+_CHAIN_PLAN = ('cluster_size', 'rows_per_cluster', 'active_clusters',
+               'clusters')
+
+
+def fwd_plan(t, b, h):
+    """#7's launch for (T, B, H) on the current card, as the library plans
+    it: its cluster size (0 on the wide path), batch rows per cluster, the
+    clusters of that size the card runs at once, the clusters launched.
+    Builds the library."""
+    return _plan('lstm_fwd', _CHAIN_PLAN, t, b, h)
+
+
 def bwd_plan(t, b, h):
     """#8's launch for (T, B, H) on the current card, as the library plans
-    it: its cluster size (0 on the wide path), batch rows per cluster, the
-    clusters of that size the card runs at once, the clusters launched,
-    dW's row ranges and blocks.  Builds the library."""
-    lib = _lib('lstm_bwd')
-    keys = ('cluster_size', 'rows_per_cluster', 'active_clusters',
-            'clusters', 'dw_splits', 'dw_blocks')
-    out = (ctypes.c_int * len(keys))()
-    _launch_check(lib, lib.paddle_lstm_bwd_plan(
-        t, b, h, ctypes.cast(out, ctypes.c_void_p)), 'lstm_bwd plan')
-    return dict(zip(keys, list(out)), path=bwd_path(h))
+    it: #7's keys, then dW's row ranges and blocks.  Builds the
+    library."""
+    return _plan('lstm_bwd', _CHAIN_PLAN + ('dw_splits', 'dw_blocks'), t, b,
+                 h)
 
 
 def _check_width(name, h):
@@ -160,17 +186,14 @@ def _lib(name):
     fn = getattr(lib, 'paddle_' + name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        if name == 'lstm_fwd':
-            fn.argtypes = [p] * 6 + [i, i, i, p]
-        else:
-            fn.argtypes = [p] * 11 + [i, i, i, p]
-            lib.paddle_lstm_bwd_workspace_bytes.argtypes = [i, i, i]
-            lib.paddle_lstm_bwd_workspace_bytes.restype = ctypes.c_int64
-            lib.paddle_lstm_bwd_cluster_size.argtypes = [i]
-            lib.paddle_lstm_bwd_cluster_size.restype = i
-            lib.paddle_lstm_bwd_plan.argtypes = [i, i, i, p]
-            lib.paddle_lstm_bwd_plan.restype = i
+        fn.argtypes = [p] * (7 if name == 'lstm_fwd' else 11) + [i, i, i, p]
         fn.restype = ctypes.c_int
+        ws = getattr(lib, 'paddle_%s_workspace_bytes' % name)
+        ws.argtypes, ws.restype = [i, i, i], ctypes.c_int64
+        rule = getattr(lib, 'paddle_%s_cluster_size' % name)
+        rule.argtypes, rule.restype = [i], i
+        plan = getattr(lib, 'paddle_%s_plan' % name)
+        plan.argtypes, plan.restype = [i, i, i, p], i
         lib.paddle_cuda_error_string.argtypes = [ctypes.c_int]
         lib.paddle_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -290,23 +313,29 @@ def _lstm_forward(x, w, pw, with_gates):
     if x.device.type == 'cpu':
         hs, cs, gates = _plain_lstm_forward(x, w, pw)
         return hs, cs, gates if with_gates else None
-    global launches
+    global launches, fwd_cluster_launches
     t, b, four_h = x.shape
     h = four_h // 4
     _check_width('lstm_fwd', h)
     lib = _lib('lstm_fwd')
-    x, w, pw = x.contiguous(), w.contiguous(), pw.contiguous()
+    # the kernels read rows by 8- and 16-byte loads: an offset view is
+    # copied
+    x, w, pw = (_aligned(v.contiguous()) for v in (x, w, pw))
     hs = torch.empty((t, b, h), dtype=torch.float32, device=x.device)
     cs = torch.empty_like(hs)
     gates = torch.empty_like(x) if with_gates else None
+    ws = torch.empty((lib.paddle_lstm_fwd_workspace_bytes(t, b, h),),
+                     dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.paddle_lstm_fwd(
             x.data_ptr(), w.data_ptr(), pw.data_ptr(), hs.data_ptr(),
             cs.data_ptr(), None if gates is None else gates.data_ptr(),
-            t, b, h, stream)
+            ws.data_ptr(), t, b, h, stream)
     _launch_check(lib, err, 'lstm_fwd')
     launches += 1
+    if cluster_size(h):
+        fwd_cluster_launches += 1
     return hs, cs, gates
 
 

@@ -12,7 +12,10 @@ every kernel function printed) and runs each through ``_lstm_backward``:
   (units past H within a block) at B=13, H=32 (a cluster of one block),
   the cluster's cap (H=416) and the first width past it (H=420, the wide
   path): dx within 1e-4, dW and dpw within 1e-5 of their largest entry
-  (chip_smoke.py phase 13's bounds), and two calls bitwise equal;
+  (chip_smoke.py phase 13's bounds), two calls bitwise equal, and
+  whether the outputs equal the shipped variant's bitwise
+  (``bitwise_vs_shipped``: the parent's show whether a change left #8's
+  arithmetic as it was);
 - timed at the LM's shape in device time (a CUDA graph of 10 calls
   replayed between CUDA events), in ROUNDS rounds that time every variant
   once, in turns whose order reverses every other round (``ms_rounds``;
@@ -55,7 +58,7 @@ from .gru_bwd_probe import HEADER_VARIANTS, header_variant, resources, \
     split_ms
 from .table_update_probe import device_ms
 
-__all__ = ['VARIANTS', 'CASES', 'main']
+__all__ = ['VARIANTS', 'CASES', 'constexpr_subs', 'main']
 
 _SOURCE = 'lstm_bwd'
 # the cluster path's knobs: name -> (its constexpr's type, name)
@@ -65,17 +68,24 @@ _KNOBS = dict(shares=('int', 'kShares'), max_mt=('int', 'kChainMaxMTiles'),
               chain_split=('int', 'kChainSplit'), dw_split=('int', 'kDwSplit'))
 
 
-def knobs(text, **values):
-    """Substitutions of the shipped source ``text`` setting each knob to a
-    value."""
+def constexpr_subs(text, table, values):
+    """Substitutions of the source ``text`` setting each knob of
+    ``values`` (a key of ``table``: key -> (its constexpr's type, name))
+    to its value."""
     subs = []
     for key, value in values.items():
-        kind, name = _KNOBS[key]
-        old = re.search(r'constexpr %s %s = [^;]+;' % (kind, name), text)
+        kind, name = table[key]
+        old = re.search(r'constexpr %s %s =\s[^;]+;' % (kind, name), text)
         new = 'constexpr %s %s = %s;' % (
             kind, name, str(value).lower() if kind == 'bool' else value)
         subs.append((old.group(0), new))
     return tuple(subs)
+
+
+def knobs(text, **values):
+    """Substitutions of the shipped source ``text`` setting each knob to a
+    value."""
+    return constexpr_subs(text, _KNOBS, values)
 
 
 # name -> the knobs it sets on the shipped source
@@ -129,7 +139,9 @@ def _inputs(gen, t, b, h, with_ct_c):
     return args, lk._plain_lstm_backward(*args)
 
 
-def _check(args, want):
+def _check(args, want, shipped_out=None):
+    """One case's checks and the outputs; ``bitwise_vs_shipped`` holds
+    them against the shipped variant's (``shipped_out``)."""
     got = lk._lstm_backward(*args)
     again = lk._lstm_backward(*args)
     torch.cuda.synchronize()
@@ -139,9 +151,12 @@ def _check(args, want):
     tols = dict(dx=TOL, **{k: TOL_PARAM_REL * max(1.0, float(r.abs().max()))
                            for k, r in zip(names[1:], want[1:])})
     bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    same = shipped_out is None or all(
+        torch.equal(a, b) for a, b in zip(got, shipped_out))
     finite = all(bool(torch.isfinite(a).all()) for a in got)
     ok = finite and bitwise and all(errs[k] <= tols[k] for k in errs)
-    return dict(errs=errs, tols=tols, bitwise_repeat=bitwise, ok=ok)
+    return dict(errs=errs, tols=tols, bitwise_repeat=bitwise, ok=ok,
+                bitwise_vs_shipped=same), got
 
 
 def _declare(lib):
@@ -186,6 +201,7 @@ def main():
         return lk._lstm_backward(*main_args)
     try:
         results = {}
+        shipped_outs = {}   # case -> the shipped variant's outputs
         for name, lib in libs.items():
             if name == 'parent':
                 _declare(lib)
@@ -193,7 +209,8 @@ def main():
             res = results[name] = dict(variant=name,
                                        ptxas=resources(logs[name]))
             for case, (args, want) in cases:
-                res[case] = _check(args, want)
+                res[case], out = _check(args, want, shipped_outs.get(case))
+                shipped_outs.setdefault(case, out)
             if not name.startswith('diag_'):
                 res['ok'] = all(res[c[0]]['ok'] for c in CASES)
             if name != 'parent':

@@ -2,8 +2,8 @@
 library is named by a digest of its source, every ``csrc/`` header the
 source includes directly or through another header, and the flags, so an
 edit to any of them builds anew; and the design probes (the row-sparse
-kernel's, the dq kernel's, the GRU and LSTM BPTT kernels') find the texts
-they substitute in the shipped sources.  Nothing is compiled here."""
+kernel's, the dq kernel's, the GRU kernels' and the LSTM kernels') find
+the texts they substitute in the shipped sources.  Nothing is compiled here."""
 import os
 import shutil
 
@@ -11,7 +11,8 @@ import pytest
 
 from paddle_tpu_torch.ops.kernels import build, flash_dq_probe
 from paddle_tpu_torch.ops.kernels import gru_bwd_probe, gru_fwd_probe
-from paddle_tpu_torch.ops.kernels import lstm_bwd_probe, table_update_probe
+from paddle_tpu_torch.ops.kernels import lstm_bwd_probe, lstm_fwd_probe
+from paddle_tpu_torch.ops.kernels import table_update_probe
 
 
 def _tree(root, files):
@@ -242,3 +243,42 @@ def test_lstm_bwd_probe_diagnostics_edit_the_cluster_header(name):
         assert src.count(old) == 1, old[:60]
         src = src.replace(old, new)
     assert 'namespace gru_cluster {' in src
+
+
+def _lstm_fwd_source():
+    with open(os.path.join(build.CSRC_DIR, 'lstm_fwd.cu')) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize('name', sorted(lstm_fwd_probe.VARIANTS))
+def test_lstm_fwd_probe_variants_apply_to_the_shipped_source(name):
+    """Every knob the LSTM forward kernel's probe
+    (ops/kernels/lstm_fwd_probe.py) sets is one constexpr of
+    csrc/lstm_fwd.cu, and a variant leaves the source as it is only where
+    it asks for the shipped settings; ``row_tiled`` sets the cluster
+    rule's cap to 0, which sends every width to the row-tiled loop."""
+    src = _lstm_fwd_source()
+    subs = lstm_fwd_probe.knobs(src, **lstm_fwd_probe.VARIANTS[name])
+    for old, new in subs:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    assert (src == _lstm_fwd_source()) == all(old == new
+                                              for old, new in subs)
+    assert name != 'shipped' or not subs
+    assert name != 'row_tiled' or \
+        'constexpr int kChainMaxBlocks = 0;' in src
+
+
+def test_lstm_fwd_digest_covers_the_cluster_header(tmp_path, monkeypatch):
+    """lstm_fwd's library is named by a digest that follows its cluster
+    engine (csrc/gru_cluster.cuh) and, through it, the 3xTF32 helpers:
+    an edit to either builds the forward anew."""
+    assert _lstm_fwd_source().count('#include "gru_cluster.cuh"\n') == 1
+    for f in ('lstm_fwd.cu', 'gru_cluster.cuh', 'flash_tf32.cuh'):
+        shutil.copy(os.path.join(build.CSRC_DIR, f), str(tmp_path))
+    monkeypatch.setattr(build, 'CSRC_DIR', str(tmp_path))
+    for header in ('gru_cluster.cuh', 'flash_tf32.cuh'):
+        before = build.library_path('lstm_fwd')
+        with open(os.path.join(str(tmp_path), header), 'a') as f:
+            f.write('// edited\n')
+        assert build.library_path('lstm_fwd') != before, header

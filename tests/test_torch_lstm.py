@@ -236,6 +236,35 @@ def test_backward_path_rule_by_width(h, blocks):
     assert tl.kernel_takes(h)
 
 
+@pytest.mark.parametrize('h, blocks', [(4, 1), (32, 1), (128, 4), (256, 8),
+                                       (416, 13), (420, 0), (1024, 0),
+                                       (1136, 0)])
+def test_forward_path_rule_by_width(h, blocks):
+    """#7's time loop by hidden width, by #8's rule: a cluster of ceil(H /
+    32) blocks holds W's columns up to 416 units (the LM's 256 take eight
+    blocks, the sentiment net's 128 four); the first width past it and
+    wider ones take the row-tiled loop, up to its cap."""
+    assert tl.cluster_size(h) == blocks
+    assert tl.fwd_path(h) == tl.bwd_path(h) == ('cluster' if blocks
+                                                 else 'wide')
+    assert tl.padded_width(h) <= tl.max_hidden('lstm_fwd')
+
+
+def test_forward_cluster_cap_is_what_shared_memory_holds():
+    """#7's cluster holds 416 units as #8's does: W's columns of 32 units
+    over four gate parts of 32 cs rows (+ 4 floats a row) and two h slices
+    of one 16-row m-tile (16 x 32 floats each) fit a block's 232448 bytes
+    at 13 blocks, not at 14, and so do they with the four gate regions
+    where the m-tile's pre-activations meet (csrc/lstm_fwd.cu
+    kChainMaxBlocks, gru_cluster.cuh smem_bytes)."""
+    def smem(cs, slices):
+        return 4 * (32 * (4 * 32 * cs + 4) + slices * 16 * 32)
+    for slices in (2, 2 + 4):
+        assert smem(13, slices) <= 232448 < smem(14, slices), slices
+    assert smem(13, 2) == 217600 and smem(14, 2) == 233984
+    assert tl.CLUSTER_UNITS * tl.MAX_CLUSTER_BLOCKS == 416
+
+
 def test_cluster_cap_is_what_shared_memory_holds():
     """416 units: W's rows of 32 units over four gate parts of 32 cs
     columns (+ 4 floats a row) and two steps' slices of one 16-row m-tile
@@ -277,7 +306,7 @@ def test_width_caps_and_route_are_unchanged():
 @pytest.mark.parametrize('h', [8, 420])
 def test_cpu_tensors_leave_the_launch_counters_at_zero(h):
     """On CPU tensors the wrappers run the plain versions and count no
-    launch, at a width of either of #8's paths."""
+    launch, at a width of either of #7's and #8's paths."""
     rng = np.random.default_rng(6)
     T, B = 3, 2
     x = torch.tensor(_rand(rng, (T, B, 4 * h)))
@@ -285,14 +314,15 @@ def test_cpu_tensors_leave_the_launch_counters_at_zero(h):
     pw = torch.tensor(_rand(rng, (3, h), 0.3))
 
     def counts():
-        return tl.launches, tl.bwd_launches, tl.bwd_cluster_launches
+        return (tl.launches, tl.fwd_cluster_launches, tl.bwd_launches,
+                tl.bwd_cluster_launches)
     before = counts()
     hs, cs, gates = tl._lstm_forward(x, w, pw, with_gates=True)
     dx, dw, dpw = tl._lstm_backward(w, pw, hs, cs, gates,
                                     torch.ones_like(hs), None)
     assert dx.shape == (T, B, 4 * h) and dw.shape == (h, 4 * h)
     assert dpw.shape == (3, h)
-    assert counts() == before == (0, 0, 0)
+    assert counts() == before == (0, 0, 0, 0)
 
 
 @pytest.mark.parametrize('T,B,H,with_ct_c', [(4, 13, 100, True),
@@ -319,3 +349,22 @@ def test_plain_backward_matches_the_reference_backward(T, B, H, with_ct_c):
         torch.tensor(ct_c) if with_ct_c else None)
     for g, r, name in zip(got, want, ('dx', 'dw', 'dpw')):
         assert np.abs(g.numpy() - np.asarray(r)).max() <= TOL_GRAD, name
+
+
+@pytest.mark.parametrize('H', [416, 420])
+def test_plain_forward_matches_the_reference_kernel_at_the_cap(H):
+    """``_plain_lstm_forward`` against the reference's ``_lstm_forward``
+    (the Pallas kernel in interpret mode) at the cluster path's cap and
+    the first width past it, where #7 changes path: hs, cs and the
+    post-activation gates that #8 replays."""
+    from paddle_tpu.ops.pallas import lstm_cell
+    rng = np.random.default_rng(H)
+    T, B = 3, 2
+    x = _rand(rng, (T, B, 4 * H))
+    w = _rand(rng, (H, 4 * H), H ** -0.5)
+    pw = _rand(rng, (3, H), 0.3)
+    want = lstm_cell._lstm_forward(x, w, pw, True, True)
+    got = tl._plain_lstm_forward(*(torch.tensor(a) for a in (x, w, pw)))
+    for g, r, name in zip(got, want, ('hs', 'cs', 'gates')):
+        assert g.shape == np.asarray(r).shape, name
+        assert np.abs(g.numpy() - np.asarray(r)).max() <= TOL_OUT, name
