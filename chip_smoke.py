@@ -42,9 +42,14 @@ line:
    forward and backward in one CUDA graph, less its forward; the port
    never calls it).
 8. dense update vs its plain rules, bitwise, at the model's parameter
-   shapes and N = 1,000,003, every rule; timed at 30000 x 512 beside
-   ``torch.optim.Adam(fused=True)`` (a yardstick only), both in device
-   time and per call.
+   shapes and N = 1,000,003, every rule, and the momentum rule with and
+   without Nesterov at ResNet-50's 28 parameter shapes (OIHW filters from
+   64x3x7x7 to 2048x512x1x1, the 1-D biases and BN vectors, the fc);
+   timed at 30000 x 512 beside ``torch.optim.Adam(fused=True)`` (a
+   yardstick only), both in device time and per call, and the momentum
+   rule at ResNet-50's largest filter (512x512x3x3, four sets in turn so
+   each call finds its data cold in L2) beside
+   ``torch.optim.SGD(momentum=0.9, fused=True)`` (a yardstick only).
 9. training at full width (the reference's bench_transformer.py config:
    B=32, T=512, V=30000, L=6, D=512, H=8, float32, Adam lr 1e-3) through
    the port's layers, optimizer and Executor: a warm-up step and 8 timed
@@ -194,7 +199,31 @@ line:
    dense Adam apply per parameter.  Counts are set to 0 just before.
 27. profile: a traced long-context step, device time by kernel and idle
    share.
-28. a ``{"kernels": [...]}`` line (ten kernels, each with its launches by
+28. ResNet-50 training at ``bench.py``'s width (bench.py:165-166,
+   :189-199, :222-224: depth 50, 1000 classes, 224x224, batch 64,
+   Momentum lr 0.1 mu 0.9; here float32 NCHW) through the port's layers,
+   optimizer and ``Executor.run_steps`` on one seeded batch staged on the
+   card: a warm-up step, 8 timed single-step calls (p50, img/s), one
+   8-step call, then steps to 40 in all (lr 0.1 spikes the loss first);
+   the loss must be finite and the last below the first, and each step
+   must launch the dense update 214 times (once per parameter) and no
+   other kernel.  Reported: peak memory, and the float32 flops of the
+   step's convs and fc counted from the program's shapes with their bound
+   at 67 TFLOP/s.  Counts are set to 0 just before.
+29. ResNet-50 parity at B=2, 224x224: one step on the card against the
+   same program and state on the CPU: the loss, every gradient, velocity
+   and update, every BN running statistic (bounds and reasons at
+   ``TOL_RESNET_*``); the lr-0 conv biases by their gradients' norm and
+   an update of 0.
+30. profile: a traced ResNet-50 step, device time by kernel and by group
+   (cuDNN's and cuBLAS's conv and GEMM kernels, matched by name, and the
+   convs' and fc's rate over their time alone; elementwise, reductions,
+   pooling, #5, and the rest as ``other``) and idle share.
+31. the book's MNIST convnet on the card: 20 Adam steps (lr 0.003) on
+   batches of 64 of the synthetic set through ``batch`` and
+   ``DataFeeder``; the loss must fall, and each step must launch the
+   dense update 6 times.  Phases 28-31 take about 10 s on an H100.
+32. a ``{"kernels": [...]}`` line (ten kernels, each with its launches by
    path; ``bound_ms`` at the rate of the units a kernel computes on: the
    tensor cores at 3xTF32 for #1-#4 and #7-#10, with their CUDA-core
    float32 bound beside it as ``cuda_core_bound_ms``; the CUDA cores for
@@ -225,7 +254,9 @@ import paddle_tpu_torch as tfl  # noqa: E402
 from paddle_tpu_torch.inference.decode import (  # noqa: E402
     DecodeEngine, DecodeServer, _forward, extract_params)
 from paddle_tpu_torch.core.registry import get_op_impl  # noqa: E402
+from paddle_tpu_torch.datasets import mnist as mnist_data  # noqa: E402
 from paddle_tpu_torch.datasets import wmt14  # noqa: E402
+from paddle_tpu_torch.models import mnist, resnet  # noqa: E402
 from paddle_tpu_torch.models import rnn_lm, sentiment  # noqa: E402
 from paddle_tpu_torch.models import seq2seq  # noqa: E402
 from paddle_tpu_torch.models import transformer as ttr  # noqa: E402
@@ -360,6 +391,48 @@ TOL_S2S_ZERO_GRAD = 1e-4
 # their eager scan
 ROUTE_H = 30
 ROUTE_PAST_CAPS = dict(lstm=1140, gru=1820)
+# bench.py:165-166 and :189-199 (ResNet-50, 1000 classes, 224x224, batch
+# 64, Momentum lr 0.1 mu 0.9) in float32 NCHW (bench.py's default is
+# bfloat16 NHWC: AMP is a later slice); one batch of default_rng(0)
+# normal images and integer labels staged on the card (bench.py:222-224)
+# and run by run_steps.  lr 0.1 on one repeated batch spikes the loss
+# first (at B=32, 112x112 on the CPU: 7.75 -> 11.35 at step 5, below the
+# first again at step 22), so the run goes on past the timed steps to 40
+RESNET = dict(B=64, hw=224, depth=50, classes=1000, lr=0.1, mu=0.9,
+              steps=8, total_steps=40, parity_B=2)
+# one ResNet-50 step at B=2, card vs CPU.  Each bound sits between what
+# sound steps read and what faulty ones do, by
+# tests/torch_resnet_parity_controls.py on an H100 (three seeds in two
+# processes, then TF32 and three batch-norm faults planted on the card).
+# The forward is well conditioned: the loss reads <= 2.6e-5 sound and
+# 1.7e-2 under TF32 or a forward normalised by the unbiased variance,
+# held to 1e-3; the running statistics after one step (0.9 * init + 0.1
+# * the batch statistics) read <= 1.1e-5 norm-relative per layer sound,
+# 5.1e-3 and 8.8e-3 under those faults, held to 1e-3.  The gradients are
+# not: at the random init the backward through 53 batch norms (each
+# subtracting its batch means of dy and dy * xhat) amplifies float32
+# rounding from the head down, so two float32 implementations of the
+# same step on one CPU already differ by 1.5e-5 norm-relative at the fc,
+# 0.7% at the last conv and 2.7% at worst at B=2, the reference on XLA
+# against the port on torch (tests/torch_resnet_conditioning.py), and
+# the card against the CPU reads 2.2-3.1% at worst.  A batch-norm
+# backward that divides its sums by N - 1 reads 8.2%, one that drops its
+# s2 term 62%, TF32 93%: the gradients are held to 0.05, near the
+# geometric middle of 3.1% and 8.2%.  After one Momentum step the
+# velocity is the gradient and the update -lr times it: the same bound,
+# no amplifier.  The 53 conv biases (lr 0, each before a batch_norm that
+# subtracts its channel's mean) have a gradient that is zero but for
+# rounding on both sides, held instead by its norm against its conv
+# weight's gradient (1e-7 sound, 6.5e-3 with the N - 1 fault), and
+# their update must be 0
+TOL_RESNET_LOSS = 1e-3
+TOL_RESNET_STATS = 1e-3
+TOL_RESNET_GRAD = 0.05
+TOL_RESNET_ZERO_GRAD = 1e-4
+# the book's MNIST convnet on the card: Adam 0.003, batches of 64 of the
+# synthetic set through batch and DataFeeder (tests/book/
+# test_recognize_digits.py)
+MNIST = dict(B=64, steps=20, lr=0.003)
 
 
 def _zero_counts():
@@ -922,6 +995,26 @@ def _model_shapes():
 DENSE_RULES = ('sgd', 'sgd_wd', 'momentum', 'nesterov', 'adam')
 
 
+def _resnet_programs(c=RESNET):
+    main, startup = tfl.Program(), tfl.Program()
+    main.random_seed = startup.random_seed = SEED
+    with tfl.program_guard(main, startup):
+        _, _, _, cost, _ = resnet.build_imagenet(
+            depth=c['depth'], num_classes=c['classes'],
+            image_shape=(3, c['hw'], c['hw']))
+        tfl.optimizer.MomentumOptimizer(learning_rate=c['lr'],
+                                        momentum=c['mu']).minimize(cost)
+    return main, startup, cost
+
+
+def _resnet_shapes():
+    """The distinct parameter shapes of ResNet-50: 4-D OIHW filters from
+    64x3x7x7 to 2048x512x1x1, the 1-D conv biases and BN vectors, the fc's
+    2048 x 1000 and 1000."""
+    main, _, _ = _resnet_programs()
+    return sorted({tuple(p.shape) for p in main.all_parameters()})
+
+
 def _dense_call(rule, p, m, v, g, lr, plain):
     if rule.startswith('sgd'):
         wd = 0.01 if rule == 'sgd_wd' else None
@@ -957,6 +1050,19 @@ def phase_dense_kernel():
             worst = max(worst, max(float((a - b).abs().max())
                                    for a, b in zip(got, want)))
             results.append(dict(shape=list(shape), rule=rule, bitwise=same))
+    for shape in _resnet_shapes():
+        p, m, g = (torch.randn(shape, generator=gen, device='cuda')
+                   for _ in range(3))
+        for rule in ('momentum', 'nesterov'):
+            want = _dense_call(rule, p, m, None, g, lr, plain=True)
+            got = _dense_call(rule, p.clone(), m.clone(), None, g, lr,
+                              plain=False)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            worst = max(worst, max(float((a - b).abs().max())
+                                   for a, b in zip(got, want)))
+            results.append(dict(shape=list(shape), rule=rule,
+                                bitwise=same, model='resnet50'))
     empty = torch.zeros((0,), device='cuda')
     du.dense_apply_sgd(empty, empty, lr)
     bad = [r for r in results if not r['bitwise']]
@@ -986,8 +1092,54 @@ def phase_dense_kernel():
     n = p.numel()
     t['bound_ms'], t['bound_by'] = _bound(28 * n, 10 * n)
     t['shape'] = 'adam %d x %d float32' % shape
+    t['resnet_momentum'] = _momentum_timing(gen, lr)
     print("dense kernel timing: %s" % json.dumps(t))
     return dict(worst=worst, cases=results, **t)
+
+
+def _momentum_timing(gen, lr, copies=4):
+    """The momentum rule at ResNet-50's largest conv filter (512 x 512 x
+    3 x 3), beside ``torch.optim.SGD(momentum=0.9, fused=True)`` (the
+    same rule: v = mu v + g, p -= lr v; a yardstick only).  Each timed
+    call takes the next of ``copies`` sets of (param, velocity, grad),
+    188 MB in all, so that a call finds its 47 MB cold in the 50 MB L2,
+    as a training step's applies do."""
+    shape = (512, 512, 3, 3)
+    sets = [[torch.randn(shape, generator=gen, device='cuda') * 1e-2
+             for _ in range(3)] for _ in range(copies)]
+
+    def cycling(fn):
+        turn = [0]
+
+        def call():
+            fn(*sets[turn[0] % copies])
+            turn[0] += 1
+        return call
+    t = dict(
+        shape='momentum 512 x 512 x 3 x 3 float32, %d copies in turn'
+        % copies,
+        ms=_device_ms(cycling(lambda p, m, g: du.dense_apply_momentum(
+            p, m, g, lr, 0.9))),
+        plain_ms=_device_ms(cycling(lambda p, m, g: du.plain_momentum(
+            p, m, g, lr, 0.9))),
+        call_ms=_call_ms(cycling(lambda p, m, g: du.dense_apply_momentum(
+            p, m, g, lr, 0.9))))
+    opts = []
+    for p, _, g in sets:
+        lib_p = torch.nn.Parameter(p.clone())
+        lib_p.grad = g.clone()
+        opts.append(torch.optim.SGD([lib_p], lr=1e-3, momentum=0.9,
+                                    fused=True))
+    turn = [0]
+
+    def lib_step():
+        opts[turn[0] % copies].step()
+        turn[0] += 1
+    t['library_ms'] = _device_ms(lib_step)
+    n = sets[0][0].numel()
+    # reads p, v, g; writes p, v; 4 flops an element (mu v + g, p - lr v)
+    t['bound_ms'], t['bound_by'] = _bound(20 * n, 4 * n)
+    return t
 
 
 def _train_programs(c=TRAIN):
@@ -3080,6 +3232,331 @@ def _split_lines(split_rows, split_timing, long_k, long_tr, parity, tr):
     return lines
 
 
+def _resnet_feed(batch, seed, c=RESNET):
+    """bench.py:222-224: normal images and integer labels from
+    default_rng(seed), as host arrays."""
+    rng = np.random.default_rng(seed)
+    images = rng.normal(size=(batch, 3, c['hw'], c['hw'])).astype(
+        np.float32)
+    labels = rng.integers(0, c['classes'], size=(batch, 1)).astype(np.int32)
+    return {'img': images, 'label': labels}
+
+
+def _resnet_flops(main, batch):
+    """Float32 flops of one step's convs and fc from the program's
+    shapes: 2 * B * C_out * H_out * W_out * C_in/groups * kh * kw a conv
+    forward (2 * B * K * N the fc), the backward twice that (dx and dW),
+    but for the stem's dx, which the image does not need."""
+    blk = main.global_block()
+    fwd = stem = 0
+    for op in blk.ops:
+        if op.type == 'conv2d':
+            w = blk.var(op.input('Filter')[0]).shape
+            o = blk.var(op.output('Output')[0]).shape
+            f = 2 * batch * o[1] * o[2] * o[3] * w[1] * w[2] * w[3]
+            fwd += f
+            if op.input('Input')[0] == 'img':
+                stem += f
+        elif op.type == 'mul':
+            k, n = blk.var(op.input('Y')[0]).shape
+            fwd += 2 * batch * k * n
+    return dict(forward=fwd, step=3 * fwd - stem)
+
+
+def phase_resnet_training(c=RESNET):
+    """ResNet-50 at bench.py's width trained through run_steps on one
+    batch staged on the card: a warm-up step, 8 timed single-step calls,
+    one 8-step call, then steps to 40 in all; each step must launch the
+    dense update once per parameter (214) and no other kernel."""
+    main, startup, cost = _resnet_programs(c)
+    n_mom = sum(op.type == 'momentum' for op in main.global_block().ops)
+    exe = tfl.Executor()
+    scope = tfl.Scope()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    n_params = sum(scope.get(p.name).numel() for p in main.all_parameters())
+    feed = {k: torch.from_numpy(v).cuda()
+            for k, v in _resnet_feed(c['B'], 0, c).items()}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    allocated_at_start = torch.cuda.memory_allocated()
+
+    def steps(k):
+        t0 = time.perf_counter()
+        out, = exe.run_steps(main, feed=feed, fetch_list=[cost],
+                             scope=scope, repeat=k)
+        return (time.perf_counter() - t0) * 1e3, out.ravel().tolist()
+
+    _zero_counts()
+    warm_ms, losses = steps(1)
+    step_ms = []
+    for _ in range(c['steps']):
+        ms, loss = steps(1)
+        step_ms.append(ms)
+        losses += loss
+    run_ms, loss = steps(c['steps'])
+    losses += loss
+    rest_ms, loss = steps(c['total_steps'] - 1 - 2 * c['steps'])
+    losses += loss
+    counts = _counts()
+    per_step = {k: n / len(losses) for k, n in counts.items()}
+    p50 = float(np.median(step_ms))
+    flops = _resnet_flops(main, c['B'])
+    bound_ms, bound_by = _bound(0, flops['step'])
+    res = dict(
+        config='ResNet-50 B=%d %dx%d NCHW float32 Momentum lr %g mu %g, '
+        'run_steps on one staged batch' % (c['B'], c['hw'], c['hw'],
+                                           c['lr'], c['mu']),
+        params=n_params, momentum_ops=n_mom, startup_s=startup_s,
+        warmup_ms=warm_ms, step_ms=step_ms, step_ms_p50=p50,
+        img_per_s=c['B'] / (p50 / 1e3),
+        run_steps_8_ms_per_step=run_ms / c['steps'],
+        img_per_s_run_steps_8=c['B'] / (run_ms / c['steps'] / 1e3),
+        steps=len(losses), losses=losses, launches=counts,
+        launches_per_step=per_step, conv_fc_tflop=flops['step'] / 1e12,
+        conv_fc_forward_tflop=flops['forward'] / 1e12,
+        conv_fc_bound_ms=bound_ms, conv_fc_bound_by=bound_by,
+        bound_share_of_p50=bound_ms / p50,
+        cudnn_benchmark=torch.backends.cudnn.benchmark,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        memory_allocated_at_start=allocated_at_start)
+    print("resnet50 training: %s" % json.dumps(res))
+    if n_mom != 214:
+        raise SystemExit("program has %d momentum ops, want 214" % n_mom)
+    if per_step != _want(dense_update=n_mom):
+        raise SystemExit("launches per step %s, want 214 dense updates"
+                         % per_step)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit("loss not finite or not falling: %s" % losses)
+    return dict(main=main, startup=startup, cost=cost, scope=scope,
+                exe=exe, feed=feed, counts=counts, **res)
+
+
+def resnet_parity(rn, c=RESNET, seed=SEED + 30):
+    """One ResNet-50 step at B=2 on the card and on the CPU from the same
+    state, on the images of ``seed``: the loss, every gradient, every
+    velocity and update, and the BN running statistics, held to
+    ``TOL_RESNET_*``.  Returns the readings, with the quantities that
+    broke their bound under ``bad`` and the non-finite ones under
+    ``nonfinite``; ``check_resnet_parity`` judges them."""
+    main, cost = rn['main'], rn['cost']
+    card_scope = tfl.Scope()
+    rn['exe'].run(rn['startup'], scope=card_scope)
+    params = [p.name for p in main.all_parameters()]
+    zero = {p.name for p in main.all_parameters()
+            if p.optimize_attr['learning_rate'] == 0.0}
+    velocity = {op.input('Param')[0]: op.input('Velocity')[0]
+                for op in main.global_block().ops if op.type == 'momentum'}
+    stats = [v.name for v in main.list_vars() if v.persistable and
+             v.name.endswith(('.mean', '.var'))]
+    if sorted(velocity) != sorted(params) or len(zero) != 53 or \
+            len(stats) != 106:
+        raise SystemExit("momentum ops, lr-0 biases or BN statistics "
+                         "are not ResNet-50's")
+    cpu_scope = tfl.Scope()
+    for v in main.list_vars():
+        if v.persistable and card_scope.has(v.name):
+            cpu_scope.set(v.name, card_scope.get(v.name).to('cpu',
+                                                             copy=True))
+    before = {n: cpu_scope.get_numpy(n).copy() for n in params}
+    feed = _resnet_feed(c['parity_B'], seed, c)
+    fetch = [cost.name] + [n + '@GRAD' for n in params]
+    t0 = time.perf_counter()
+    _zero_counts()
+    card = rn['exe'].run(main, feed=feed, fetch_list=fetch,
+                         scope=card_scope)
+    counts = _counts()
+    cpu = tfl.Executor('cpu').run(main, feed=feed, fetch_list=fetch,
+                                  scope=cpu_scope)
+    secs = time.perf_counter() - t0
+    grads_card = dict(zip(params, card[1:]))
+    grads_cpu = dict(zip(params, cpu[1:]))
+    nonfinite = [n for n, a in zip(['loss'] + fetch[1:], card)
+                 if not np.isfinite(a).all()]
+    gaps = {'grad': [], 'velocity': [], 'update': [], 'running_stats': []}
+    zero_ratio = []
+    for n in params:
+        v_card = card_scope.get_numpy(velocity[n])
+        v_cpu = cpu_scope.get_numpy(velocity[n])
+        p_card, p_cpu = card_scope.get_numpy(n), cpu_scope.get_numpy(n)
+        for name, a in ((velocity[n], v_card), (n, p_card)):
+            if not np.isfinite(a).all():
+                nonfinite.append(name)
+        if n in zero:
+            w = n[:-len('b_0')] + 'w_0'
+            ref = float(max(np.linalg.norm(grads_card[w]),
+                            np.linalg.norm(grads_cpu[w])))
+            for g in (grads_card[n], grads_cpu[n], v_card, v_cpu):
+                zero_ratio.append((float(np.linalg.norm(g)) / ref, n))
+            if not (np.array_equal(p_card, before[n]) and
+                    np.array_equal(p_cpu, before[n])):
+                zero_ratio.append((np.inf, n + ' moved'))
+            continue
+        gaps['grad'].append((_norm_rel(grads_card[n], grads_cpu[n]), n))
+        gaps['velocity'].append((_norm_rel(v_card, v_cpu), n))
+        gaps['update'].append((_norm_rel(p_card - before[n],
+                                         p_cpu - before[n]), n))
+    for n in stats:
+        a, b = card_scope.get_numpy(n), cpu_scope.get_numpy(n)
+        if not np.isfinite(a).all():
+            nonfinite.append(n)
+        gaps['running_stats'].append((_norm_rel(a, b), n))
+    loss_err = abs(float(card[0][0]) - float(cpu[0][0]))
+    worst = {k: max(v, key=lambda x: (np.nan_to_num(x[0], nan=np.inf), x[1]))
+             for k, v in gaps.items()}
+    worst_zero = max(zero_ratio,
+                     key=lambda x: (np.nan_to_num(x[0], nan=np.inf), x[1]))
+    tol = dict(grad=TOL_RESNET_GRAD, velocity=TOL_RESNET_GRAD,
+               update=TOL_RESNET_GRAD, running_stats=TOL_RESNET_STATS)
+    bad = [k for k, (e, _) in worst.items() if not e <= tol[k]]
+    if not loss_err <= TOL_RESNET_LOSS:
+        bad.append('loss')
+    if not worst_zero[0] <= TOL_RESNET_ZERO_GRAD:
+        bad.append('zero-lr biases')
+    res = dict(batch=c['parity_B'], seed=seed, loss_card=float(card[0][0]),
+               loss_cpu=float(cpu[0][0]), loss_err=loss_err,
+               norm_rel_err={k: e for k, (e, _) in worst.items()},
+               largest_gaps={k: [dict(name=n, norm_rel=e) for e, n in
+                                 sorted(v, reverse=True)[:3]]
+                             for k, v in gaps.items()},
+               zero_lr_bias_grad_ratio=dict(value=worst_zero[0],
+                                            name=worst_zero[1]),
+               nonfinite=nonfinite, seconds=secs,
+               median_norm_rel={k: float(np.median([e for e, _ in v]))
+                                for k, v in gaps.items()},
+               tol=dict(tol, loss=TOL_RESNET_LOSS,
+                        zero_lr_bias_grad_ratio=TOL_RESNET_ZERO_GRAD),
+               launches=counts, bad=bad)
+    print("resnet50 parity: %s" % json.dumps(res))
+    return res
+
+
+def check_resnet_parity(res):
+    """Fails unless every reading of ``resnet_parity`` is finite and within
+    its bound, and the card's step launched the dense update 214 times."""
+    if res['nonfinite'] or res['bad']:
+        raise SystemExit("ResNet-50 step on the card disagrees with the CPU "
+                         "(%s) or is not finite (%s)"
+                         % (res['bad'], res['nonfinite']))
+    if {k: float(n) for k, n in res['launches'].items()} != _want(
+            dense_update=214):
+        raise SystemExit("parity step launched %s" % res['launches'])
+
+
+def phase_resnet_parity(rn, c=RESNET):
+    res = resnet_parity(rn, c)
+    check_resnet_parity(res)
+    return res
+
+
+def phase_resnet_profile(rn):
+    """A traced ResNet-50 step (run_steps, one step), apart from the timed
+    ones: device time by kernel, grouped by name: cuDNN's and cuBLAS's
+    convolution and GEMM kernels, the dense update (#5), the pooling
+    kernels, torch's reductions (the batch norms' statistics and backward
+    sums, the loss), elementwise kernels (the batch norms' passes, bias
+    adds, relus, residual adds, copies, fills), and the rest under
+    ``other``.  The convs' and fc's rate is their flops over the matched
+    conv and GEMM time alone."""
+    def step():
+        rn['exe'].run_steps(rn['main'], feed=rn['feed'],
+                            fetch_list=[rn['cost']], scope=rn['scope'],
+                            repeat=1)
+    wall, rows = _device_kernels(step)
+    busy = sum(ms for _, ms, _ in rows)
+    groups = {'conv_and_gemm': 0.0, 'dense_update': 0.0, 'pooling': 0.0,
+              'reduction': 0.0, 'elementwise': 0.0, 'other': 0.0}
+    other = []
+    for k, ms, n in rows:
+        if 'dense_update_kernel' in k:
+            groups['dense_update'] += ms
+        elif 'pool' in k:
+            groups['pooling'] += ms
+        elif re.search(r'xmma|gemm|cudnn|wgrad|dgrad|fprop|cutlass|convolve',
+                       k):
+            groups['conv_and_gemm'] += ms
+        elif 'reduce_kernel' in k:
+            groups['reduction'] += ms
+        elif 'elementwise' in k or 'CatArray' in k or 'fill' in k.lower() \
+                or 'copy' in k.lower():
+            groups['elementwise'] += ms
+        else:
+            groups['other'] += ms
+            other.append((k, ms, n))
+    top = sorted(rows, key=lambda r: -r[1])[:15]
+    out = dict(wall_ms=wall, device_busy_ms=busy if rows else None,
+               idle_share=1.0 - busy / wall if rows else None,
+               kernels=sum(n for *_, n in rows), by_group_ms=groups,
+               conv_fc_tflop_per_s=(rn['conv_fc_tflop'] /
+                                    (groups['conv_and_gemm'] / 1e3)
+                                    if groups['conv_and_gemm'] else None),
+               dense_update_launches=sum(
+                   n for k, _, n in rows if 'dense_update_kernel' in k),
+               other=[dict(kernel=k[:100], ms=ms, count=n) for k, ms, n in
+                      sorted(other, key=lambda r: -r[1])[:8]],
+               top=[dict(kernel=k[:100], ms=ms, count=n)
+                    for k, ms, n in top])
+    print("resnet50 profile: %s" % json.dumps(out))
+    return out
+
+
+def phase_mnist_training(c=MNIST):
+    """The book's MNIST convnet on the card: Adam through ``batch`` and
+    ``DataFeeder`` on the synthetic set; the loss must be finite and fall,
+    and each step must launch the dense update once per parameter."""
+    main, startup = tfl.Program(), tfl.Program()
+    main.random_seed = startup.random_seed = SEED
+    with tfl.program_guard(main, startup):
+        img, label, _, avg_cost, acc = mnist.build('conv')
+        tfl.optimizer.AdamOptimizer(learning_rate=c['lr']).minimize(
+            avg_cost)
+    n_adam = sum(op.type == 'adam' for op in main.global_block().ops)
+    exe = tfl.Executor()
+    scope = tfl.Scope()
+    exe.run(startup, scope=scope)
+    feeder = tfl.DataFeeder(feed_list=[img, label], place=exe.place,
+                            program=main)
+    reader = tfl.batch(tfl.reader.firstn(mnist_data.train(),
+                                         c['B'] * c['steps']), c['B'])
+    losses, accs = [], []
+    t0 = time.perf_counter()
+    _zero_counts()
+    for data in reader():
+        loss, a = exe.run(main, feed=feeder.feed(data),
+                          fetch_list=[avg_cost, acc], scope=scope)
+        losses.append(float(loss[0]))
+        accs.append(float(a[0]))
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    per_step = {k: n / len(losses) for k, n in counts.items()}
+    res = dict(config='MNIST convnet, Adam lr %g, batch %d, synthetic set'
+               % (c['lr'], c['B']), steps=len(losses), losses=losses,
+               accuracy=accs, seconds=secs, adam_ops=n_adam,
+               launches=counts)
+    print("mnist training: %s" % json.dumps(res))
+    if n_adam != 6 or per_step != _want(dense_update=n_adam):
+        raise SystemExit("mnist launches per step %s" % per_step)
+    if not all(np.isfinite(losses)) or \
+            not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise SystemExit("mnist loss not finite or not falling: %s"
+                         % losses)
+    return res
+
+
+def _image_phases():
+    """Phases 28-31, timed together."""
+    t0 = time.perf_counter()
+    rn = phase_resnet_training()
+    phase_resnet_parity(rn)
+    phase_resnet_profile(rn)
+    mn = phase_mnist_training()
+    print("phases 28-31 (ResNet-50, MNIST): %.1f s"
+          % (time.perf_counter() - t0))
+    return rn, mn
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3120,6 +3597,9 @@ def main():
                              ('flash_attention_bwd_dkv',
                               'flash_attention_bwd_dq'))
     phase_train_profile(long_tr, 'long-context training profile')
+    del long_tr['scope'], long_tr['exe']   # free the card for ResNet-50
+    torch.cuda.empty_cache()
+    rn, mn = _image_phases()
     counts = tr['counts']
     main_row = next(r for r in rows if r['case'] == MAIN_CASE)
     fwd = dict(
@@ -3180,15 +3660,20 @@ def main():
         name='dense_update', route='cuda',
         source='paddle_tpu_torch/csrc/dense_update.cu',
         replaces='paddle_tpu/ops/pallas/dense_update.py:109',
-        launches=counts['dense_update'] + s2s['counts']['dense_update'],
+        launches=(counts['dense_update'] + s2s['counts']['dense_update'] +
+                  rn['counts']['dense_update'] +
+                  mn['launches']['dense_update']),
         launches_by_path=dict(
             training=counts['dense_update'],
-            seq2seq_training=s2s['counts']['dense_update']),
+            seq2seq_training=s2s['counts']['dense_update'],
+            resnet50_training=rn['counts']['dense_update'],
+            mnist_training=mn['launches']['dense_update']),
         max_abs_err=dense['worst'],
         ms=dense['ms'], plain_ms=dense['plain_ms'],
         bound_ms=dense['bound_ms'], bound_by=dense['bound_by'],
         library_ms=dense['library_ms'], call_ms=dense['call_ms'],
         library_call_ms=dense['library_call_ms'], shape=dense['shape'],
+        resnet_momentum=dense['resnet_momentum'],
         cases=len(dense['cases']))
     print(json.dumps({'kernels': [fwd, bwd, dense_line] + _lstm_lines(
         lstm_rows, lstm_timing, lm, sent) + _s2s_lines(

@@ -26,9 +26,20 @@ Ported so far:
   ``AdamOptimizer``: its ``is_sparse`` embeddings' gradients are
   ``SelectedRows`` applied row by row on the hand-written row-sparse
   update kernel, and every ``gru`` op's time loop and its backward run on
-  the hand-written GRU kernels.
+  the hand-written GRU kernels;
+- the image models: ResNet (``models/resnet.py``: ``build_imagenet`` at
+  depth 50, ``bench.py``'s program, and the book's ``resnet_cifar10``)
+  and the MNIST nets (``models/mnist.py``), with ``conv2d``, ``pool2d``
+  and ``batch_norm`` (its two-pass statistics and hand-written backward
+  in one ``torch.autograd.Function``), Normal initializers, trained with
+  ``MomentumOptimizer`` or ``AdamOptimizer`` (every dense apply on the
+  hand-written dense-update kernel) through ``Executor.run`` or
+  ``Executor.run_steps``, and fed through ``DataFeeder``, ``batch``, the
+  ``reader`` decorators and the synthetic ``datasets.mnist`` /
+  ``datasets.cifar``.
 """
-from . import initializer, layers, nets, optimizer  # noqa: F401
+from . import datasets, initializer, layers, nets, optimizer  # noqa: F401
+from . import reader
 from .core.executor import Executor
 from .core.lod import LoDTensor, create_lod_tensor
 from .core.place import CPUPlace, CUDAPlace
@@ -36,12 +47,16 @@ from .core.program import (Program, default_main_program,
                            default_startup_program, program_guard)
 from .core.scope import Scope, global_scope, scope_guard
 from .core.selected_rows import SelectedRows
-from .optimizer import AdagradOptimizer, AdamOptimizer
+from .data_feeder import DataFeeder
+from .optimizer import (AdagradOptimizer, AdamOptimizer, MomentumOptimizer,
+                        SGDOptimizer)
 from .param_attr import ParamAttr
+from .reader.minibatch import batch
 
 __all__ = ['Program', 'program_guard', 'default_main_program',
            'default_startup_program', 'Executor', 'Scope', 'scope_guard',
            'global_scope', 'CPUPlace', 'CUDAPlace', 'ParamAttr', 'layers',
            'nets', 'optimizer', 'initializer', 'LoDTensor',
            'create_lod_tensor', 'AdagradOptimizer', 'AdamOptimizer',
-           'SelectedRows']
+           'MomentumOptimizer', 'SGDOptimizer', 'SelectedRows', 'DataFeeder',
+           'batch', 'reader', 'datasets']

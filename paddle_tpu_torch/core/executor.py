@@ -33,9 +33,12 @@ their wrappers.
   the loss is fetched).  ``Executor.skipped_ops`` names the ops the last
   run skipped.
 
-Not in this slice (each raises): ``run_steps``, ``compile``, a program
-with more than one ``autodiff`` op, AMP loss scaling and skip-step
-gates, overlap buckets, remat, meshes.
+- ``run_steps`` runs K steps as a host loop over the same step, every
+  feed staged on the device first; fetches come back stacked [K, ...].
+
+Not in this slice (each raises): ``compile``, a program with more than
+one ``autodiff`` op, AMP loss scaling and skip-step gates, overlap
+buckets, remat, meshes.
 """
 import numpy as np
 import torch
@@ -266,7 +269,7 @@ class Executor(object):
         if isinstance(place, (list, tuple)):
             place = place[0]
         self.place = resolve_device(place)
-        self._step = 0
+        self._step_count = 0
         self.skipped_ops = []
 
     def _base_seed(self, program):
@@ -290,9 +293,7 @@ class Executor(object):
             t = t.to(datatypes.as_torch_dtype(var.dtype))
         return t.to(self.place)
 
-    def run(self, program=None, feed=None, fetch_list=None,
-            feed_var_name='feed', fetch_var_name='fetch', scope=None,
-            return_numpy=True, use_program_cache=True):
+    def _resolve(self, program, scope, fetch_list):
         if program is None:
             program = default_main_program()
         if not isinstance(program, Program):
@@ -300,27 +301,39 @@ class Executor(object):
                             % type(program))
         if scope is None:
             scope = global_scope()
-        feed = feed or {}
-        fetch_names = [f.name if isinstance(f, Variable) else str(f)
-                       for f in (fetch_list or [])]
-        block = program.global_block()
         if len(program.blocks) > 1:
             raise NotImplementedError(
                 "programs with sub-blocks (control flow) are not ported "
                 "yet: ROADMAP.md Queue 1")
+        fetch_names = [f.name if isinstance(f, Variable) else str(f)
+                       for f in (fetch_list or [])]
+        return program, scope, fetch_names
 
+    def _stage_feed(self, block, feed):
+        """A feed dict as {column: tensor on the executor's device}."""
+        staged = {}
+        for name, value in feed.items():
+            for col, v in _feed_columns(name, value,
+                                        block.vars.get(name)).items():
+                staged[col] = self._to_device(col, v, block.vars.get(col))
+        return staged
+
+    def _step(self, program, scope, staged, fetch_names):
+        """One run of the block on a staged feed; returns the fetched
+        tensors."""
+        block = program.global_block()
         known = set(block.vars)
         for op in block.ops:
             known.update(op.output_arg_names)
         for n in fetch_names:
-            if n not in known and n not in feed:
+            if n not in known and n not in staged:
                 raise KeyError(
                     "fetch var %r is not produced by any op in the program "
                     "and is not fed" % n)
 
         env = {}
         for v in program.list_vars():
-            if v.persistable and v.name not in feed and scope.has(v.name):
+            if v.persistable and v.name not in staged and scope.has(v.name):
                 t = scope.get(v.name)
                 if not torch.is_tensor(t):
                     t = self._to_device(v.name, t, v)
@@ -330,14 +343,11 @@ class Executor(object):
                         "scope value %r lies on %s, the executor runs on %s"
                         % (v.name, t.device, self.place))
                 env[v.name] = t
-        for name, value in feed.items():
-            for col, v in _feed_columns(name, value,
-                                        block.vars.get(name)).items():
-                env[col] = self._to_device(col, v, block.vars.get(col))
+        env.update(staged)
 
         ctx = ExecutionContext(program, block, self.place,
-                               self._base_seed(program), self._step)
-        self._step += 1
+                               self._base_seed(program), self._step_count)
+        self._step_count += 1
         live = live_ops(block, fetch_names)
         alive = set(live)
         self.skipped_ops = [(i, op.type) for i, op in enumerate(block.ops)
@@ -364,15 +374,69 @@ class Executor(object):
         for n in fetch_names:
             if n not in env:
                 raise KeyError("fetch var %r was never computed" % n)
-            fetches.append(_fetched(env[n], return_numpy))
+            fetches.append(env[n])
         return fetches
 
-    def run_steps(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Executor.run_steps (K steps as one compiled loop) is not "
-            "ported yet: ROADMAP.md Queue 1; call run() per step")
+    def run(self, program=None, feed=None, fetch_list=None,
+            feed_var_name='feed', fetch_var_name='fetch', scope=None,
+            return_numpy=True, use_program_cache=True):
+        program, scope, fetch_names = self._resolve(program, scope,
+                                                    fetch_list)
+        staged = self._stage_feed(program.global_block(), feed or {})
+        return [_fetched(t, return_numpy) for t in
+                self._step(program, scope, staged, fetch_names)]
+
+    def run_steps(self, program=None, feed=None, fetch_list=None,
+                  scope=None, repeat=None, return_numpy=True):
+        """K training steps (reference ``Executor.run_steps``): ``feed``
+        is a list of K feed dicts, or one feed dict with ``repeat=K``
+        (one batch, staged once, for every step).  Every feed is staged
+        on the device before the first step; the steps then run as K
+        calls of ``run`` would, with the same per-step generators.
+        Returns one [K, ...]-stacked array (a tensor with
+        ``return_numpy=False``) per fetch.
+
+        The reference scans the K steps in one compiled loop; here they
+        are a host loop over the eager step."""
+        program, scope, fetch_names = self._resolve(program, scope,
+                                                    fetch_list)
+        if isinstance(feed, dict):
+            if not repeat:
+                raise ValueError("run_steps with a single feed dict "
+                                 "needs repeat=K")
+            feeds, k = [feed], int(repeat)
+        else:
+            if repeat:
+                raise ValueError("repeat= only combines with a single "
+                                 "feed dict")
+            feeds = list(feed or [])
+            k = len(feeds)
+            if k == 0:
+                return []
+        names0 = set(feeds[0])
+        for i, f in enumerate(feeds[1:], start=1):
+            if set(f) != names0:
+                raise ValueError(
+                    "run_steps feeds must use one key set across steps; "
+                    "step %d has %s, step 0 %s"
+                    % (i, sorted(f), sorted(names0)))
+        block = program.global_block()
+        staged = [self._stage_feed(block, f) for f in feeds]
+        per_step = []
+        for i in range(k):
+            outs = self._step(program, scope, staged[i % len(staged)],
+                              fetch_names)
+            for n, t in zip(fetch_names, outs):
+                if not torch.is_tensor(t):
+                    raise TypeError(
+                        "run_steps stacks dense fetches; %r is a %s"
+                        % (n, type(t).__name__))
+            # a fetched persistable is updated in place by later steps
+            per_step.append([t.detach().clone() for t in outs])
+        stacked = [torch.stack(ts) for ts in zip(*per_step)]
+        return [_fetched(t, return_numpy) for t in stacked]
 
     def compile(self, *args, **kwargs):
         raise NotImplementedError(
             "Executor.compile (ahead-of-time plans) is not ported yet: "
-            "ROADMAP.md Queue 1")
+            "ROADMAP.md Queue 1 item 5")

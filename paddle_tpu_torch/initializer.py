@@ -1,4 +1,4 @@
-"""Parameter initializers: Constant, Uniform, Xavier.
+"""Parameter initializers: Constant, Uniform, Normal, Xavier.
 
 Reference parity: paddle_tpu/initializer.py (fluid initializer.py).
 Each appends its init op for the variable to the startup program block,
@@ -7,8 +7,9 @@ program.
 """
 import numpy as np
 
-__all__ = ['Initializer', 'Constant', 'Uniform', 'Xavier',
-           'ConstantInitializer', 'UniformInitializer', 'XavierInitializer']
+__all__ = ['Initializer', 'Constant', 'Uniform', 'Normal', 'Xavier',
+           'ConstantInitializer', 'UniformInitializer', 'NormalInitializer',
+           'XavierInitializer']
 
 
 class Initializer(object):
@@ -49,15 +50,21 @@ class UniformInitializer(Initializer):
                    'min': self.low, 'max': self.high, 'seed': self.seed})
 
 
-class XavierInitializer(Initializer):
-    """Uniform Xavier only; the normal form needs ``gaussian_random``,
-    which comes with a later slice."""
+class NormalInitializer(Initializer):
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.loc, self.scale, self.seed = loc, scale, seed
 
+    def __call__(self, var, block):
+        return block.append_op(
+            type='gaussian_random',
+            outputs={'Out': [var.name]},
+            attrs={'shape': list(var.shape), 'dtype': var.dtype,
+                   'mean': self.loc, 'std': self.scale, 'seed': self.seed})
+
+
+class XavierInitializer(Initializer):
     def __init__(self, uniform=True, fan_in=None, fan_out=None, seed=0):
-        if not uniform:
-            raise NotImplementedError(
-                "XavierInitializer(uniform=False) needs gaussian_random, "
-                "not ported yet: ROADMAP.md Queue 1")
+        self.uniform = uniform
         self.fan_in = fan_in
         self.fan_out = fan_out
         self.seed = seed
@@ -66,10 +73,14 @@ class XavierInitializer(Initializer):
         fi, fo = self._fans(var)
         fi = self.fan_in if self.fan_in is not None else fi
         fo = self.fan_out if self.fan_out is not None else fo
-        limit = float(np.sqrt(6.0 / (fi + fo)))
-        return UniformInitializer(-limit, limit, self.seed)(var, block)
+        if self.uniform:
+            limit = float(np.sqrt(6.0 / (fi + fo)))
+            return UniformInitializer(-limit, limit, self.seed)(var, block)
+        std = float(np.sqrt(2.0 / (fi + fo)))
+        return NormalInitializer(0.0, std, self.seed)(var, block)
 
 
 Constant = ConstantInitializer
 Uniform = UniformInitializer
+Normal = NormalInitializer
 Xavier = XavierInitializer

@@ -1,17 +1,19 @@
 """Neural-network layers (paddle_tpu/layers/nn.py), cut to the
-transformer's, the LSTM models' and the seq2seq translator's: fc,
-embedding, layer_norm, split, matmul, the fused vocab head,
-softmax_with_cross_entropy, cross_entropy and accuracy.
+transformer's, the LSTM models', the seq2seq translator's and the image
+models': fc, embedding, conv2d, pool2d, batch_norm, layer_norm, split,
+matmul, pad, the fused vocab head, softmax_with_cross_entropy,
+cross_entropy and accuracy.
 Same signatures and the same op attrs as the reference, so a model script
 ports by changing its import.
 """
-from ..initializer import ConstantInitializer
+from ..initializer import ConstantInitializer, NormalInitializer
 from ..ops.common import prod
+from ..ops.conv import pair
 from .layer_helper import LayerHelper
 
-__all__ = ['fc', 'embedding', 'layer_norm', 'split', 'matmul',
-           'fused_linear_softmax_ce', 'softmax_with_cross_entropy',
-           'cross_entropy', 'accuracy']
+__all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
+           'split', 'matmul', 'pad', 'fused_linear_softmax_ce',
+           'softmax_with_cross_entropy', 'cross_entropy', 'accuracy']
 
 
 def fc(input,
@@ -79,6 +81,114 @@ def embedding(input, size, is_sparse=False, padding_idx=None,
         attrs=attrs)
     helper.copy_len(input, tmp)
     return tmp
+
+
+def conv2d(input,
+           num_filters,
+           filter_size,
+           stride=None,
+           padding=None,
+           groups=None,
+           param_attr=None,
+           bias_attr=None,
+           use_cudnn=True,
+           act=None,
+           name=None,
+           data_format='NCHW',
+           dtype=None,
+           **kwargs):
+    """fluid.layers.conv2d (operators/conv_op): an OIHW filter drawn from
+    N(0, 2 / (kh * kw * C_in)), a bias over the channel axis, then
+    ``act``.  ``bias_attr=False`` still makes a bias, as in the reference:
+    ``ParamAttr.to_attr`` reads False as the int 0, a learning rate of 0.0
+    (param_attr.py)."""
+    helper = LayerHelper('conv2d', **locals())
+    dtype = dtype or helper.input_dtype()
+    stride = pair(stride or [1, 1])
+    padding = pair(padding or [0, 0])
+    filter_size = pair(filter_size)
+    c_axis = 1 if data_format == 'NCHW' else 3
+    num_channels = input.shape[c_axis]
+    groups = groups or 1
+    filter_shape = [num_filters, num_channels // groups] + filter_size
+    std = (2.0 / (filter_size[0] * filter_size[1] * num_channels)) ** 0.5
+    # float32 master weights for low-precision activations
+    p_dtype = 'float32' if dtype in ('bfloat16', 'float16') else dtype
+    w = helper.create_parameter(
+        attr=helper.param_attr, shape=filter_shape, dtype=p_dtype,
+        default_initializer=NormalInitializer(0.0, std))
+    pre_bias = helper.create_tmp_variable(dtype)
+    helper.append_op(
+        type='conv2d',
+        inputs={'Input': [input], 'Filter': [w]},
+        outputs={'Output': [pre_bias]},
+        attrs={'strides': stride, 'paddings': padding, 'groups': groups,
+               'dilations': [1, 1], 'data_format': data_format})
+    pre_act = helper.append_bias_op(
+        pre_bias, dim_start=c_axis, dim_end=c_axis + 1)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type='max', pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, data_format='NCHW', **kwargs):
+    """fluid.layers.pool2d (operators/pool_op): max or avg."""
+    if pool_type not in ["max", "avg"]:
+        raise ValueError("Unknown pool_type: %r" % pool_type)
+    helper = LayerHelper('pool2d', **locals())
+    tmp = helper.create_tmp_variable(helper.input_dtype())
+    helper.append_op(
+        type='pool2d',
+        inputs={'X': [input]},
+        outputs={'Out': [tmp]},
+        attrs={'pooling_type': pool_type, 'ksize': pair(pool_size),
+               'global_pooling': global_pooling,
+               'strides': pair(pool_stride),
+               'paddings': pair(pool_padding),
+               'data_format': data_format})
+    return tmp
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-05,
+               param_attr=None, bias_attr=None, data_layout='NCHW',
+               name=None, moving_mean_name=None, moving_variance_name=None,
+               **kwargs):
+    """fluid.layers.batch_norm (operators/batch_norm_op): float32 scale,
+    bias and statistics; the running mean and variance are persistable
+    globals (initialised to 0 and 1) that the op writes in place of its
+    inputs (``MeanOut`` / ``VarianceOut``)."""
+    helper = LayerHelper('batch_norm', **locals())
+    dtype = helper.input_dtype()
+    c_axis = 1 if data_layout == 'NCHW' else -1
+    param_shape = [input.shape[c_axis]]
+    scale = helper.create_parameter(
+        attr=helper.param_attr, shape=param_shape, dtype='float32',
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(
+        attr=helper.bias_attr, shape=param_shape, dtype='float32',
+        is_bias=True)
+    mean = helper.create_global_variable(
+        name=moving_mean_name or helper.name + '.mean',
+        persistable=True, shape=param_shape, dtype='float32')
+    helper.set_variable_initializer(mean, ConstantInitializer(0.0))
+    variance = helper.create_global_variable(
+        name=moving_variance_name or helper.name + '.var',
+        persistable=True, shape=param_shape, dtype='float32')
+    helper.set_variable_initializer(variance, ConstantInitializer(1.0))
+    saved_mean = helper.create_tmp_variable('float32', stop_gradient=True)
+    saved_variance = helper.create_tmp_variable('float32',
+                                                stop_gradient=True)
+    batch_norm_out = helper.create_tmp_variable(dtype)
+    helper.append_op(
+        type='batch_norm',
+        inputs={'X': [input], 'Scale': [scale], 'Bias': [bias],
+                'Mean': [mean], 'Variance': [variance]},
+        outputs={'Y': [batch_norm_out], 'MeanOut': [mean],
+                 'VarianceOut': [variance], 'SavedMean': [saved_mean],
+                 'SavedVariance': [saved_variance]},
+        attrs={'momentum': momentum, 'epsilon': epsilon, 'is_test': is_test,
+               'data_layout': data_layout})
+    return helper.append_activation(batch_norm_out)
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
@@ -181,6 +291,16 @@ def split(input, num_or_sections, dim=-1, **kwargs):
     helper.append_op(type='split', inputs={'X': [input]},
                      outputs={'Out': outs}, attrs=attrs)
     return outs
+
+
+def pad(x, paddings, pad_value=0.0, name=None, **kwargs):
+    """Constant padding; ``paddings`` holds (before, after) per dim."""
+    helper = LayerHelper('pad', **locals())
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op(
+        type='pad', inputs={'X': [x]}, outputs={'Out': [out]},
+        attrs={'paddings': list(paddings), 'pad_value': float(pad_value)})
+    return out
 
 
 def cross_entropy(input, label, soft_label=False, **kwargs):

@@ -1,9 +1,10 @@
 """Tensor layers (paddle_tpu/layers/tensor.py), cut to what the
-transformer's and the LSTM models' programs and the optimizers use."""
+transformer's, the LSTM models' and the image models' programs and the
+optimizers use."""
 from .layer_helper import LayerHelper
 
 __all__ = ['create_parameter', 'create_global_var', 'cast', 'fill_constant',
-           'reshape', 'concat']
+           'reshape', 'transpose', 'concat']
 
 
 def create_parameter(shape, dtype, attr=None, is_bias=False,
@@ -53,6 +54,15 @@ def reshape(x, shape, actual_shape=None, act=None, inplace=False, **kwargs):
                      outputs={'Out': [out]},
                      attrs={'shape': [int(s) for s in shape]})
     return helper.append_activation(out)
+
+
+def transpose(x, perm, **kwargs):
+    helper = LayerHelper('transpose', **locals())
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op(type='transpose', inputs={'X': [x]},
+                     outputs={'Out': [out]},
+                     attrs={'axis': [int(p) for p in perm]})
+    return out
 
 
 def concat(input, axis=0, **kwargs):

@@ -1,8 +1,21 @@
-"""Composite networks (paddle_tpu/nets.py), cut to the flash path of
+"""Composite networks (paddle_tpu/nets.py), cut to
+``simple_img_conv_pool`` and the flash path of
 ``scaled_dot_product_attention``."""
 from . import layers
 
-__all__ = ['scaled_dot_product_attention']
+__all__ = ['simple_img_conv_pool', 'scaled_dot_product_attention']
+
+
+def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
+                         pool_stride, act, param_attr=None,
+                         pool_type='max', data_format='NCHW'):
+    """conv2d (with ``act``) then pool2d."""
+    conv_out = layers.conv2d(
+        input=input, num_filters=num_filters, filter_size=filter_size,
+        param_attr=param_attr, act=act, data_format=data_format)
+    return layers.pool2d(
+        input=conv_out, pool_size=pool_size, pool_type=pool_type,
+        pool_stride=pool_stride, data_format=data_format)
 
 
 def scaled_dot_product_attention(queries, keys, values,

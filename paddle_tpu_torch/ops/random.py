@@ -1,9 +1,11 @@
-"""Random ops (paddle_tpu/ops/random.py), cut to ``uniform_random``.
+"""Random ops (paddle_tpu/ops/random.py), cut to ``uniform_random`` and
+``gaussian_random``.
 
 Each op draws from a ``torch.Generator`` the executor seeds from
 (program seed, step, block, op position), with a nonzero ``seed`` attr
 folded in, as the reference keys its per-op PRNG.  The numbers are not
-JAX's: tests carry the reference's initial values across instead.
+JAX's (Philox against Threefry): tests carry the reference's initial
+values across, and hold the draws to the reference by distribution only.
 """
 import torch
 
@@ -20,3 +22,14 @@ def _uniform_random(ctx, ins, attrs):
                    device=ctx.device,
                    generator=ctx.generator(attrs.get('seed', 0)))
     return out((u * (hi - lo) + lo).to(dtype))
+
+
+@register_op('gaussian_random', stateful_rng=True)
+def _gaussian_random(ctx, ins, attrs):
+    """Normal draws, mean ``mean`` and deviation ``std``, drawn in float32
+    and cast, as the reference's ``_gaussian_random``."""
+    dtype = datatypes.as_torch_dtype(attrs.get('dtype', 'float32'))
+    g = torch.randn(tuple(attrs['shape']), dtype=torch.float32,
+                    device=ctx.device,
+                    generator=ctx.generator(attrs.get('seed', 0)))
+    return out((g * attrs.get('std', 1.0) + attrs.get('mean', 0.0)).to(dtype))

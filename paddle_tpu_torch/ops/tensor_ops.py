@@ -1,12 +1,13 @@
-"""Tensor-manipulation ops: reshape, split, concat, cast, assign,
-fill_constant.
+"""Tensor-manipulation ops: reshape, transpose, split, concat, pad, cast,
+assign, fill_constant.
 
 Reference parity: paddle_tpu/ops/tensor_ops.py (paddle/operators/
-{reshape,split,concat,cast,assign,fill_constant}_op).  Integer types keep
-their width; 64-bit feeds arrive narrowed to 32 bits by the executor, as
-in the reference.
+{reshape,transpose,split,concat,pad,cast,assign,fill_constant}_op).
+Integer types keep their width; 64-bit feeds arrive narrowed to 32 bits
+by the executor, as in the reference.
 """
 import torch
+import torch.nn.functional as F
 
 from ..core import datatypes
 from ..core.registry import register_op
@@ -22,6 +23,11 @@ def _reshape(ctx, ins, attrs):
         if d == 0:
             shape[i] = x.shape[i]
     return out(x.reshape(shape))
+
+
+@register_op('transpose')
+def _transpose(ctx, ins, attrs):
+    return out(first(ins, 'X').permute(*attrs['axis']))
 
 
 @register_op('split')
@@ -42,6 +48,18 @@ def _split(ctx, ins, attrs):
 @register_op('concat')
 def _concat(ctx, ins, attrs):
     return out(torch.cat(ins['X'], dim=attrs.get('axis', 0)))
+
+
+@register_op('pad')
+def _pad(ctx, ins, attrs):
+    """Constant padding; ``paddings`` holds (before, after) for each dim
+    in order, as the reference's ``jnp.pad`` takes them."""
+    x = first(ins, 'X')
+    p = attrs['paddings']
+    widths = []
+    for d in reversed(range(x.dim())):   # F.pad starts at the last dim
+        widths += [p[2 * d], p[2 * d + 1]]
+    return out(F.pad(x, widths, value=attrs.get('pad_value', 0.0)))
 
 
 @register_op('cast')

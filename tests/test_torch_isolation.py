@@ -41,6 +41,14 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import paddle_tpu_torch.models.sentiment\n"
         "import paddle_tpu_torch.models.seq2seq\n"
         "import paddle_tpu_torch.datasets.wmt14\n"
+        "import paddle_tpu_torch.datasets.mnist\n"
+        "import paddle_tpu_torch.datasets.cifar\n"
+        "import paddle_tpu_torch.models.resnet\n"
+        "import paddle_tpu_torch.models.mnist\n"
+        "import paddle_tpu_torch.data_feeder\n"
+        "import paddle_tpu_torch.reader.decorator\n"
+        "import paddle_tpu_torch.ops.conv\n"
+        "import paddle_tpu_torch.ops.pool\n"
         "import paddle_tpu_torch.core.lod\n"
         "import paddle_tpu_torch.core.selected_rows\n"
         "import paddle_tpu_torch.ops.kernels.build\n"

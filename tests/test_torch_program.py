@@ -123,4 +123,4 @@ def test_meta_inference_keeps_the_batch_dim(op_type, specs, attrs, slots,
 
 def test_unported_op_raises_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tinfer.infer_outputs('conv2d', {}, {}, ['Output'])
+        tinfer.infer_outputs('conv3d', {}, {}, ['Output'])

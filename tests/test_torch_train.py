@@ -164,7 +164,7 @@ def test_port_startup_and_steps_on_its_own_program():
 def test_executor_raises_for_what_this_slice_does_not_bring():
     exe = tfl.Executor(tfl.CPUPlace())
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        exe.run_steps()
+        exe.compile()
     main = tfl.Program()
     with tfl.program_guard(main, tfl.Program()):
         x = tfl.layers.data(name='x', shape=[4], dtype='float32')
