@@ -44,12 +44,14 @@ line:
 8. dense update vs its plain rules, bitwise, at the model's parameter
    shapes and N = 1,000,003, every rule, and the momentum rule with and
    without Nesterov at ResNet-50's 28 parameter shapes (OIHW filters from
-   64x3x7x7 to 2048x512x1x1, the 1-D biases and BN vectors, the fc);
-   timed at 30000 x 512 beside ``torch.optim.Adam(fused=True)`` (a
-   yardstick only), both in device time and per call, and the momentum
-   rule at ResNet-50's largest filter (512x512x3x3, four sets in turn so
-   each call finds its data cold in L2) beside
-   ``torch.optim.SGD(momentum=0.9, fused=True)`` (a yardstick only).
+   64x3x7x7 to 2048x512x1x1, the 1-D biases and BN vectors, the fc) and
+   VGG-16's 17 (its filters, fc1's 25088 x 4096, the biases); timed at
+   30000 x 512 beside ``torch.optim.Adam(fused=True)`` (a yardstick
+   only), both in device time and per call, and the momentum rule at
+   ResNet-50's largest filter (512x512x3x3, four sets in turn so each
+   call finds its data cold in L2) and at VGG-16's fc1 (1.23 GB a call)
+   beside ``torch.optim.SGD(momentum=0.9, fused=True)`` (a yardstick
+   only).
 9. training at full width (the reference's bench_transformer.py config:
    B=32, T=512, V=30000, L=6, D=512, H=8, float32, Adam lr 1e-3) through
    the port's layers, optimizer and Executor: a warm-up step and 8 timed
@@ -223,7 +225,41 @@ line:
    batches of 64 of the synthetic set through ``batch`` and
    ``DataFeeder``; the loss must fall, and each step must launch the
    dense update 6 times.  Phases 28-31 take about 10 s on an H100.
-32. a ``{"kernels": [...]}`` line (ten kernels, each with its launches by
+32. VGG-16 training at ``benchmarks/bench_vgg.py``'s float32 row
+   (:35-36, :40-66, :85-89: vgg_imagenet depth 16, 1000 classes,
+   224x224 NHWC, batch 128, Momentum lr 0.01 mu 0.9), uncut, through
+   ``Executor.run_steps`` on one seeded batch staged on the card: a
+   warm-up step, 8 timed single-step calls (p50, img/s), one 8-step call,
+   then steps to 24 in all; every loss finite, the mean of the last 4
+   below the mean of the first 4 (dropout 0.5 makes single losses
+   noisy), and each step must launch the dense update 32 times (once per
+   parameter) and no other kernel.  Reported as in phase 28.
+33. VGG-16 parity at B=2, 224x224: one step on the card against the same
+   program and state on the CPU, at phase 10's bounds (the loss, every
+   gradient, velocity and update); the card step's dropout masks are
+   fetched and handed to the CPU step, whose dropout op is replaced for
+   this phase only.  Then the dropout op alone on the card at p = 0.3,
+   0.4 and 0.5: the keep rate within 5 binomial deviations on 2^24
+   draws, Out == X * Mask bitwise, a replay of one (step, op) drawing
+   the same mask, ``is_test`` giving X * (1 - p) bitwise.
+34. profile: a traced VGG-16 step, grouped as phase 30.
+35. the book's VGG (``vgg16_bn_drop``, Adam 0.001) on the synthetic
+   CIFAR-10 at batch 128 through ``batch`` and ``DataFeeder``, 3 epochs
+   of 32 batches: each step must launch the dense update 60 times, the
+   last epoch's mean loss must be below the first's, and its
+   ``clone(for_test=True)`` program on the card must give the CPU's cost
+   from the trained state; the clone's cost after each epoch is reported
+   (at this batch it rises after the first epoch, in the reference too:
+   ``BOOK_VGG``).
+36. the training recipes, card against CPU at a small width (a 64 ->
+   128 -> 1 net, batch 32): SGD with L2Decay (folded into the sgd op's
+   weight decay: every dense update launch is that arm, and the first
+   update equals the plain rule's bitwise), L1Decay (woven), the three
+   gradient clips, an error clip, and each of the seven decay schedules
+   driving Momentum for 12 steps, the card's rate equal to its closed
+   form; each recipe's dense update launches counted.  Phases 32-36 take
+   about 20 s on an H100.
+37. a ``{"kernels": [...]}`` line (ten kernels, each with its launches by
    path; ``bound_ms`` at the rate of the units a kernel computes on: the
    tensor cores at 3xTF32 for #1-#4 and #7-#10, with their CUDA-core
    float32 bound beside it as ``cuda_core_bound_ms``; the CUDA cores for
@@ -253,10 +289,13 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import paddle_tpu_torch as tfl  # noqa: E402
 from paddle_tpu_torch.inference.decode import (  # noqa: E402
     DecodeEngine, DecodeServer, _forward, extract_params)
+from paddle_tpu_torch import learning_rate_decay as lrd  # noqa: E402
+from paddle_tpu_torch.core.executor import ExecutionContext  # noqa: E402
 from paddle_tpu_torch.core.registry import get_op_impl  # noqa: E402
+from paddle_tpu_torch.datasets import cifar as cifar_data  # noqa: E402
 from paddle_tpu_torch.datasets import mnist as mnist_data  # noqa: E402
 from paddle_tpu_torch.datasets import wmt14  # noqa: E402
-from paddle_tpu_torch.models import mnist, resnet  # noqa: E402
+from paddle_tpu_torch.models import mnist, resnet, vgg  # noqa: E402
 from paddle_tpu_torch.models import rnn_lm, sentiment  # noqa: E402
 from paddle_tpu_torch.models import seq2seq  # noqa: E402
 from paddle_tpu_torch.models import transformer as ttr  # noqa: E402
@@ -433,6 +472,45 @@ TOL_RESNET_ZERO_GRAD = 1e-4
 # synthetic set through batch and DataFeeder (tests/book/
 # test_recognize_digits.py)
 MNIST = dict(B=64, steps=20, lr=0.003)
+# benchmarks/bench_vgg.py's float32 row (:85-89, build(cast_bf16=False),
+# the reference's "true f32 baseline"), uncut: vgg_imagenet depth 16, 1000
+# classes, 224x224x3 NHWC, batch 128, Momentum lr 0.01 mu 0.9 (:35-36,
+# :40-58); one batch of default_rng(0) normal images and integer labels
+# (:60-66) staged on the card and run by run_steps.  Dropout 0.5 after
+# both 4096-wide fcs makes single losses noisy, so the loss check compares
+# the mean of the first 4 steps with the mean of the last 4 of 24
+# (tests/torch_vgg_probe.py loss: the same program on the CPU over 24
+# steps fell from 6.56 to 4.87 at B=32 64x64 and from 6.91 to 5.23 at
+# B=128 32x32; at B=4 224x224 every relu died at step 3, in the reference
+# too, a batch 32 times smaller scaling each step's logit moves; on an
+# H100 at B=128 224x224 it fell from 7.02 to 5.81; PERF.md section 6)
+VGG = dict(B=128, hw=224, depth=16, classes=1000, lr=0.01, mu=0.9,
+           layout='NHWC', steps=8, total_steps=24, parity_B=2)
+# the book's VGG (tests/book/test_image_classification.py's vgg16_bn_drop,
+# Adam 0.001) at the book's batch 128 on the synthetic CIFAR-10's 4096
+# samples, 3 epochs.  That test asks its test clone's cost (dropout off,
+# batch norm on the running statistics) to fall, at batch 32 over 24
+# steps; at batch 128 it rises in the reference too (paddle_tpu on the
+# CPU: 2.3026 -> 2.3109 -> 2.4480 -> 4.0561 after each epoch; dropout
+# ahead of each batch norm trains the running variance on masked inputs,
+# which the test clone does not see; PERF.md section 6).  So here the
+# training loss must fall (the mean of the last epoch below the first's)
+# and the card's test clone must give the CPU's cost on the trained state
+# (``eval_batches`` of them, to TOL_TRAIN_LOSS); the clone's cost after
+# each epoch is reported
+BOOK_VGG = dict(B=128, batches=32, epochs=3, lr=0.001, eval_batches=4)
+# the dropout op on the card: a keep rate within 5 binomial deviations of
+# 1 - p on 2^24 draws
+DROPOUT = dict(n=1 << 24, probs=(0.3, 0.4, 0.5), sigmas=5.0)
+# the training recipes, card against CPU: a two-layer net (D -> H relu
+# -> 1, square error) at batch B; 3 steps each, 12 under a decay
+# schedule (tests/test_lr_decay.py's length).  The bounds are phase 10's
+# (the loss at TOL_TRAIN_LOSS, parameters norm-relative at
+# TOL_TRAIN_GRAD); a scheduled rate must equal its closed form to
+# TOL_LR (the reference test's 1e-5: float32 pow, exp and division of
+# one element)
+RECIPE = dict(B=32, D=64, H=128, steps=3, decay_steps=12, lr=0.1)
+TOL_LR = 1e-5
 
 
 def _zero_counts():
@@ -478,8 +556,9 @@ def _call_ms(fn, iters=50):
 
 def _device_kernels(fn):
     """Run ``fn`` once under torch.profiler; returns (wall ms,
-    [(kernel name, device ms, count)]) for every CUDA kernel, copy and
-    fill it ran."""
+    [(kernel name, device ms, count)] for every CUDA kernel, copy and fill
+    it ran, device busy ms: the time at least one of them ran, so kernels
+    that overlap, as cuDNN's on its own streams do, count once)."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -489,7 +568,15 @@ def _device_kernels(fn):
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
-    return wall, rows
+    busy, end = 0.0, None
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA):
+        if end is None or a >= end:
+            busy, end = busy + (b - a), b
+        elif b > end:
+            busy, end = busy + (b - end), b
+    return wall, rows, busy / 1e3
 
 
 def _device_ms(fn, iters=20, replays=5):
@@ -845,8 +932,7 @@ def phase_profile(eng):
                                                           zeros))):
         fn()
         torch.cuda.synchronize()
-        wall, rows = _device_kernels(fn)
-        busy = sum(ms for _, ms, _ in rows)
+        wall, rows, busy = _device_kernels(fn)
         top = sorted(rows, key=lambda r: -r[1])[:6]
         # an empty trace is a missing measurement, not an idle device
         out[name] = dict(
@@ -1007,11 +1093,30 @@ def _resnet_programs(c=RESNET):
     return main, startup, cost
 
 
-def _resnet_shapes():
-    """The distinct parameter shapes of ResNet-50: 4-D OIHW filters from
-    64x3x7x7 to 2048x512x1x1, the 1-D conv biases and BN vectors, the fc's
-    2048 x 1000 and 1000."""
-    main, _, _ = _resnet_programs()
+def _vgg_programs(c=VGG):
+    """bench_vgg.py's build(cast_bf16=False): vgg_imagenet NHWC, the mean
+    cross entropy, Momentum."""
+    main, startup = tfl.Program(), tfl.Program()
+    main.random_seed = startup.random_seed = SEED
+    with tfl.program_guard(main, startup):
+        img = tfl.layers.data(name='img', shape=[c['hw'], c['hw'], 3],
+                              dtype='float32')
+        label = tfl.layers.data(name='label', shape=[1], dtype='int64')
+        pred = vgg.vgg_imagenet(img, num_classes=c['classes'],
+                                depth=c['depth'], layout=c['layout'])
+        cost = tfl.layers.mean(x=tfl.layers.cross_entropy(input=pred,
+                                                          label=label))
+        tfl.optimizer.MomentumOptimizer(c['lr'], c['mu']).minimize(cost)
+    return main, startup, cost
+
+
+def _param_shapes(programs):
+    """The distinct parameter shapes of a model: ResNet-50's 28 (4-D OIHW
+    filters from 64x3x7x7 to 2048x512x1x1, the 1-D conv biases and BN
+    vectors, the fc's 2048 x 1000 and 1000); VGG-16's 21 (its 13 filters
+    from 64x3x3x3 to 512x512x3x3, fc1's 25088 x 4096, fc2's 4096 x 4096,
+    the head's 4096 x 1000, the biases)."""
+    main, _, _ = programs()
     return sorted({tuple(p.shape) for p in main.all_parameters()})
 
 
@@ -1050,19 +1155,22 @@ def phase_dense_kernel():
             worst = max(worst, max(float((a - b).abs().max())
                                    for a, b in zip(got, want)))
             results.append(dict(shape=list(shape), rule=rule, bitwise=same))
-    for shape in _resnet_shapes():
-        p, m, g = (torch.randn(shape, generator=gen, device='cuda')
-                   for _ in range(3))
-        for rule in ('momentum', 'nesterov'):
-            want = _dense_call(rule, p, m, None, g, lr, plain=True)
-            got = _dense_call(rule, p.clone(), m.clone(), None, g, lr,
-                              plain=False)
-            torch.cuda.synchronize()
-            same = all(torch.equal(a, b) for a, b in zip(got, want))
-            worst = max(worst, max(float((a - b).abs().max())
-                                   for a, b in zip(got, want)))
-            results.append(dict(shape=list(shape), rule=rule,
-                                bitwise=same, model='resnet50'))
+    for model, programs in (('resnet50', _resnet_programs),
+                            ('vgg16', _vgg_programs)):
+        for shape in _param_shapes(programs):
+            p, m, g = (torch.randn(shape, generator=gen, device='cuda')
+                       for _ in range(3))
+            for rule in ('momentum', 'nesterov'):
+                want = _dense_call(rule, p, m, None, g, lr, plain=True)
+                got = _dense_call(rule, p.clone(), m.clone(), None, g, lr,
+                                  plain=False)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(got, want))
+                worst = max(worst, max(float((a - b).abs().max())
+                                       for a, b in zip(got, want)))
+                results.append(dict(shape=list(shape), rule=rule,
+                                    bitwise=same, model=model))
+            del p, m, g, want, got
     empty = torch.zeros((0,), device='cuda')
     du.dense_apply_sgd(empty, empty, lr)
     bad = [r for r in results if not r['bitwise']]
@@ -1093,18 +1201,20 @@ def phase_dense_kernel():
     t['bound_ms'], t['bound_by'] = _bound(28 * n, 10 * n)
     t['shape'] = 'adam %d x %d float32' % shape
     t['resnet_momentum'] = _momentum_timing(gen, lr)
+    # fc1 of VGG-16 (25088 x 4096): 1.23 GB a call, cold in L2 by itself
+    t['vgg_fc1_momentum'] = _momentum_timing(gen, lr, (25088, 4096), 1)
     print("dense kernel timing: %s" % json.dumps(t))
     return dict(worst=worst, cases=results, **t)
 
 
-def _momentum_timing(gen, lr, copies=4):
-    """The momentum rule at ResNet-50's largest conv filter (512 x 512 x
-    3 x 3), beside ``torch.optim.SGD(momentum=0.9, fused=True)`` (the
-    same rule: v = mu v + g, p -= lr v; a yardstick only).  Each timed
-    call takes the next of ``copies`` sets of (param, velocity, grad),
-    188 MB in all, so that a call finds its 47 MB cold in the 50 MB L2,
-    as a training step's applies do."""
-    shape = (512, 512, 3, 3)
+def _momentum_timing(gen, lr, shape=(512, 512, 3, 3), copies=4):
+    """The momentum rule at ``shape`` (ResNet-50's largest conv filter,
+    512 x 512 x 3 x 3, by default), beside ``torch.optim.SGD(momentum=0.9,
+    fused=True)`` (the same rule: v = mu v + g, p -= lr v; a yardstick
+    only).  Each timed call takes the next of ``copies`` sets of (param,
+    velocity, grad) (four of ResNet-50's filter, 188 MB in all), so that
+    a call finds its data cold in the 50 MB L2, as a training step's
+    applies do."""
     sets = [[torch.randn(shape, generator=gen, device='cuda') * 1e-2
              for _ in range(3)] for _ in range(copies)]
 
@@ -1116,8 +1226,8 @@ def _momentum_timing(gen, lr, copies=4):
             turn[0] += 1
         return call
     t = dict(
-        shape='momentum 512 x 512 x 3 x 3 float32, %d copies in turn'
-        % copies,
+        shape='momentum %s float32, %d copies in turn'
+        % (' x '.join(map(str, shape)), copies),
         ms=_device_ms(cycling(lambda p, m, g: du.dense_apply_momentum(
             p, m, g, lr, 0.9))),
         plain_ms=_device_ms(cycling(lambda p, m, g: du.plain_momentum(
@@ -1341,8 +1451,7 @@ def phase_train_profile(tr, label='training profile'):
     def step():
         tr['exe'].run(tr['main'], feed=tr['feed'], fetch_list=[tr['cost']],
                       scope=tr['scope'])
-    wall, rows = _device_kernels(step)
-    busy = sum(ms for _, ms, _ in rows)
+    wall, rows, busy = _device_kernels(step)
     top = sorted(rows, key=lambda r: -r[1])[:10]
 
     def by(tag):
@@ -1438,7 +1547,7 @@ def _split_by(fn, parts, calls=5):
     ``calls`` calls: each function's device time over the launches the
     trace holds."""
     fn()
-    _, rows = _device_kernels(lambda: [fn() for _ in range(calls)])
+    _, rows, _ = _device_kernels(lambda: [fn() for _ in range(calls)])
     out = {}
     for key, ms, n in rows:
         part = next((p for k, p in parts if k in key), None)
@@ -1957,8 +2066,7 @@ def phase_lm_profile(lm):
     def step():
         lm['exe'].run(lm['main'], feed=feed, fetch_list=[lm['cost']],
                       scope=lm['scope'])
-    wall, rows = _device_kernels(step)
-    busy = sum(ms for _, ms, _ in rows)
+    wall, rows, busy = _device_kernels(step)
     top = sorted(rows, key=lambda r: -r[1])[:10]
 
     def by(*tags):
@@ -2777,8 +2885,7 @@ def phase_s2s_profile(s2s):
     def step():
         s2s['exe'].run(s2s['main'], feed=s2s['feed'],
                        fetch_list=[s2s['cost']], scope=s2s['scope'])
-    wall, rows = _device_kernels(step)
-    busy = sum(ms for _, ms, _ in rows)
+    wall, rows, busy = _device_kernels(step)
     top = sorted(rows, key=lambda r: -r[1])[:12]
 
     def by(*tags):
@@ -3232,21 +3339,23 @@ def _split_lines(split_rows, split_timing, long_k, long_tr, parity, tr):
     return lines
 
 
-def _resnet_feed(batch, seed, c=RESNET):
-    """bench.py:222-224: normal images and integer labels from
-    default_rng(seed), as host arrays."""
+def _image_feed(batch, seed, c=RESNET):
+    """bench.py:222-224 and bench_vgg.py:60-66: normal images and integer
+    labels from default_rng(seed), as host arrays, in ``c``'s layout."""
     rng = np.random.default_rng(seed)
-    images = rng.normal(size=(batch, 3, c['hw'], c['hw'])).astype(
-        np.float32)
+    hw = c['hw']
+    shape = (batch, hw, hw, 3) if c.get('layout') == 'NHWC' else \
+        (batch, 3, hw, hw)
+    images = rng.normal(size=shape).astype(np.float32)
     labels = rng.integers(0, c['classes'], size=(batch, 1)).astype(np.int32)
     return {'img': images, 'label': labels}
 
 
-def _resnet_flops(main, batch):
-    """Float32 flops of one step's convs and fc from the program's
+def _conv_fc_flops(main, batch):
+    """Float32 flops of one step's convs and fcs from the program's
     shapes: 2 * B * C_out * H_out * W_out * C_in/groups * kh * kw a conv
-    forward (2 * B * K * N the fc), the backward twice that (dx and dW),
-    but for the stem's dx, which the image does not need."""
+    forward (2 * B * K * N an fc), the backward twice that (dx and dW),
+    but for the first conv's dx, which the image does not need."""
     blk = main.global_block()
     fwd = stem = 0
     for op in blk.ops:
@@ -3263,13 +3372,15 @@ def _resnet_flops(main, batch):
     return dict(forward=fwd, step=3 * fwd - stem)
 
 
-def phase_resnet_training(c=RESNET):
-    """ResNet-50 at bench.py's width trained through run_steps on one
-    batch staged on the card: a warm-up step, 8 timed single-step calls,
-    one 8-step call, then steps to 40 in all; each step must launch the
-    dense update once per parameter (214) and no other kernel."""
-    main, startup, cost = _resnet_programs(c)
-    n_mom = sum(op.type == 'momentum' for op in main.global_block().ops)
+def _image_training(c, programs, config):
+    """Train ``programs()`` at ``c``'s batch through run_steps on one batch
+    staged on the card: a warm-up step, ``c['steps']`` timed single-step
+    calls, one ``c['steps']``-step call, then steps to ``total_steps`` in
+    all.  Returns the readings, the program, executor and scope; the
+    phases judge them."""
+    main, startup, cost = programs(c)
+    n_apply = sum(op.type in ('momentum', 'adam', 'sgd')
+                  for op in main.global_block().ops)
     exe = tfl.Executor()
     scope = tfl.Scope()
     t0 = time.perf_counter()
@@ -3278,7 +3389,7 @@ def phase_resnet_training(c=RESNET):
     startup_s = time.perf_counter() - t0
     n_params = sum(scope.get(p.name).numel() for p in main.all_parameters())
     feed = {k: torch.from_numpy(v).cuda()
-            for k, v in _resnet_feed(c['B'], 0, c).items()}
+            for k, v in _image_feed(c['B'], 0, c).items()}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     allocated_at_start = torch.cuda.memory_allocated()
@@ -3301,37 +3412,84 @@ def phase_resnet_training(c=RESNET):
     rest_ms, loss = steps(c['total_steps'] - 1 - 2 * c['steps'])
     losses += loss
     counts = _counts()
-    per_step = {k: n / len(losses) for k, n in counts.items()}
     p50 = float(np.median(step_ms))
-    flops = _resnet_flops(main, c['B'])
+    flops = _conv_fc_flops(main, c['B'])
     bound_ms, bound_by = _bound(0, flops['step'])
     res = dict(
-        config='ResNet-50 B=%d %dx%d NCHW float32 Momentum lr %g mu %g, '
-        'run_steps on one staged batch' % (c['B'], c['hw'], c['hw'],
-                                           c['lr'], c['mu']),
-        params=n_params, momentum_ops=n_mom, startup_s=startup_s,
-        warmup_ms=warm_ms, step_ms=step_ms, step_ms_p50=p50,
-        img_per_s=c['B'] / (p50 / 1e3),
+        config=config, params=n_params, apply_ops=n_apply,
+        startup_s=startup_s, warmup_ms=warm_ms, step_ms=step_ms,
+        step_ms_p50=p50, img_per_s=c['B'] / (p50 / 1e3),
         run_steps_8_ms_per_step=run_ms / c['steps'],
         img_per_s_run_steps_8=c['B'] / (run_ms / c['steps'] / 1e3),
         steps=len(losses), losses=losses, launches=counts,
-        launches_per_step=per_step, conv_fc_tflop=flops['step'] / 1e12,
+        launches_per_step={k: n / len(losses) for k, n in counts.items()},
+        conv_fc_tflop=flops['step'] / 1e12,
         conv_fc_forward_tflop=flops['forward'] / 1e12,
         conv_fc_bound_ms=bound_ms, conv_fc_bound_by=bound_by,
         bound_share_of_p50=bound_ms / p50,
         cudnn_benchmark=torch.backends.cudnn.benchmark,
         max_memory_allocated=torch.cuda.max_memory_allocated(),
         memory_allocated_at_start=allocated_at_start)
-    print("resnet50 training: %s" % json.dumps(res))
-    if n_mom != 214:
-        raise SystemExit("program has %d momentum ops, want 214" % n_mom)
-    if per_step != _want(dense_update=n_mom):
-        raise SystemExit("launches per step %s, want 214 dense updates"
-                         % per_step)
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise SystemExit("loss not finite or not falling: %s" % losses)
     return dict(main=main, startup=startup, cost=cost, scope=scope,
                 exe=exe, feed=feed, counts=counts, **res)
+
+
+def _printable(res):
+    return {k: v for k, v in res.items()
+            if k not in ('main', 'startup', 'cost', 'scope', 'exe', 'feed',
+                         'counts')}
+
+
+def phase_resnet_training(c=RESNET):
+    """ResNet-50 at bench.py's width trained through run_steps on one
+    batch staged on the card (``_image_training``, 40 steps); each step
+    must launch the dense update once per parameter (214) and no other
+    kernel, and the last loss must be below the first."""
+    rn = _image_training(
+        c, _resnet_programs,
+        'ResNet-50 B=%d %dx%d NCHW float32 Momentum lr %g mu %g, '
+        'run_steps on one staged batch' % (c['B'], c['hw'], c['hw'],
+                                           c['lr'], c['mu']))
+    print("resnet50 training: %s" % json.dumps(_printable(rn)))
+    losses = rn['losses']
+    if rn['apply_ops'] != 214:
+        raise SystemExit("program has %d momentum ops, want 214"
+                         % rn['apply_ops'])
+    if rn['launches_per_step'] != _want(dense_update=214):
+        raise SystemExit("launches per step %s, want 214 dense updates"
+                         % rn['launches_per_step'])
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit("loss not finite or not falling: %s" % losses)
+    return rn
+
+
+def phase_vgg_training(c=VGG):
+    """VGG-16 at bench_vgg.py's float32 row trained through run_steps on
+    one batch staged on the card (``_image_training``, 24 steps); each
+    step must launch the dense update once per parameter (32: 16 weights,
+    16 biases) and no other kernel; every loss finite, the mean of the
+    last 4 below the mean of the first 4 (dropout makes single losses
+    noisy)."""
+    vg = _image_training(
+        c, _vgg_programs,
+        'VGG-16 B=%d %dx%d NHWC float32 Momentum lr %g mu %g, run_steps '
+        'on one staged batch' % (c['B'], c['hw'], c['hw'], c['lr'],
+                                 c['mu']))
+    n_params = len(vg['main'].all_parameters())
+    vg['first4_mean'] = float(np.mean(vg['losses'][:4]))
+    vg['last4_mean'] = float(np.mean(vg['losses'][-4:]))
+    print("vgg16 training: %s" % json.dumps(_printable(vg)))
+    if n_params != 32 or vg['apply_ops'] != n_params:
+        raise SystemExit("VGG-16 has %d parameters and %d momentum ops, "
+                         "want 32 each" % (n_params, vg['apply_ops']))
+    if vg['launches_per_step'] != _want(dense_update=n_params):
+        raise SystemExit("launches per step %s, want 32 dense updates"
+                         % vg['launches_per_step'])
+    if not all(np.isfinite(vg['losses'])) or \
+            not vg['last4_mean'] < vg['first4_mean']:
+        raise SystemExit("VGG-16 loss not finite or not falling: %s"
+                         % vg['losses'])
+    return vg
 
 
 def resnet_parity(rn, c=RESNET, seed=SEED + 30):
@@ -3361,7 +3519,7 @@ def resnet_parity(rn, c=RESNET, seed=SEED + 30):
             cpu_scope.set(v.name, card_scope.get(v.name).to('cpu',
                                                              copy=True))
     before = {n: cpu_scope.get_numpy(n).copy() for n in params}
-    feed = _resnet_feed(c['parity_B'], seed, c)
+    feed = _image_feed(c['parity_B'], seed, c)
     fetch = [cost.name] + [n + '@GRAD' for n in params]
     t0 = time.perf_counter()
     _zero_counts()
@@ -3451,21 +3609,21 @@ def phase_resnet_parity(rn, c=RESNET):
     return res
 
 
-def phase_resnet_profile(rn):
-    """A traced ResNet-50 step (run_steps, one step), apart from the timed
-    ones: device time by kernel, grouped by name: cuDNN's and cuBLAS's
-    convolution and GEMM kernels, the dense update (#5), the pooling
-    kernels, torch's reductions (the batch norms' statistics and backward
-    sums, the loss), elementwise kernels (the batch norms' passes, bias
-    adds, relus, residual adds, copies, fills), and the rest under
-    ``other``.  The convs' and fc's rate is their flops over the matched
-    conv and GEMM time alone."""
+def phase_image_profile(rn, label='resnet50 profile'):
+    """A traced step of an image model (run_steps, one step), apart from
+    the timed ones: device time by kernel, grouped by name: cuDNN's and
+    cuBLAS's convolution and GEMM kernels, the dense update (#5), the
+    pooling kernels, torch's reductions (the batch norms' statistics and
+    backward sums, the loss), elementwise kernels (the batch norms'
+    passes, bias adds, relus, residual adds, dropout's masks and
+    products, copies, fills), and the rest under ``other``.  The convs'
+    and fcs' rate is their flops over the matched conv and GEMM time
+    alone."""
     def step():
         rn['exe'].run_steps(rn['main'], feed=rn['feed'],
                             fetch_list=[rn['cost']], scope=rn['scope'],
                             repeat=1)
-    wall, rows = _device_kernels(step)
-    busy = sum(ms for _, ms, _ in rows)
+    wall, rows, busy = _device_kernels(step)
     groups = {'conv_and_gemm': 0.0, 'dense_update': 0.0, 'pooling': 0.0,
               'reduction': 0.0, 'elementwise': 0.0, 'other': 0.0}
     other = []
@@ -3474,8 +3632,8 @@ def phase_resnet_profile(rn):
             groups['dense_update'] += ms
         elif 'pool' in k:
             groups['pooling'] += ms
-        elif re.search(r'xmma|gemm|cudnn|wgrad|dgrad|fprop|cutlass|convolve',
-                       k):
+        elif re.search(r'xmma|gemm|cudnn|wgrad|dgrad|fprop|cutlass|convolve'
+                       r'|fft|complex|flip_filter', k):
             groups['conv_and_gemm'] += ms
         elif 'reduce_kernel' in k:
             groups['reduction'] += ms
@@ -3488,6 +3646,7 @@ def phase_resnet_profile(rn):
     top = sorted(rows, key=lambda r: -r[1])[:15]
     out = dict(wall_ms=wall, device_busy_ms=busy if rows else None,
                idle_share=1.0 - busy / wall if rows else None,
+               kernel_ms_sum=sum(ms for _, ms, _ in rows),
                kernels=sum(n for *_, n in rows), by_group_ms=groups,
                conv_fc_tflop_per_s=(rn['conv_fc_tflop'] /
                                     (groups['conv_and_gemm'] / 1e3)
@@ -3498,7 +3657,7 @@ def phase_resnet_profile(rn):
                       sorted(other, key=lambda r: -r[1])[:8]],
                top=[dict(kernel=k[:100], ms=ms, count=n)
                     for k, ms, n in top])
-    print("resnet50 profile: %s" % json.dumps(out))
+    print("%s: %s" % (label, json.dumps(out)))
     return out
 
 
@@ -3545,16 +3704,433 @@ def phase_mnist_training(c=MNIST):
     return res
 
 
+def _dropout_masks(main):
+    """{op position: Mask name} of a program's dropout ops."""
+    return {i: op.output('Mask')[0]
+            for i, op in enumerate(main.global_block().ops)
+            if op.type == 'dropout'}
+
+
+def phase_vgg_parity(vg, c=VGG, seed=SEED + 40):
+    """One VGG-16 step at B=2, 224x224, on the card and on the CPU from the
+    same state: the loss, every gradient, velocity and update, held to
+    phase 10's bounds.  The two devices' generators draw different masks,
+    so the card step's ``Mask`` outputs are fetched and the CPU step's
+    dropout op is replaced, for this phase only, by one that applies
+    them."""
+    main, cost = vg['main'], vg['cost']
+    card_scope = tfl.Scope()
+    vg['exe'].run(vg['startup'], scope=card_scope)
+    params = [p.name for p in main.all_parameters()]
+    velocity = {op.input('Param')[0]: op.input('Velocity')[0]
+                for op in main.global_block().ops if op.type == 'momentum'}
+    cpu_scope = tfl.Scope()
+    for v in main.list_vars():
+        if v.persistable and card_scope.has(v.name):
+            cpu_scope.set(v.name, card_scope.get(v.name).to('cpu',
+                                                             copy=True))
+    before = {n: cpu_scope.get_numpy(n).copy() for n in params}
+    feed = _image_feed(c['parity_B'], seed, c)
+    fetch = [cost.name] + [n + '@GRAD' for n in params]
+    masks = _dropout_masks(main)
+    t0 = time.perf_counter()
+    _zero_counts()
+    card = vg['exe'].run(main, feed=feed,
+                         fetch_list=fetch + list(masks.values()),
+                         scope=card_scope)
+    counts = _counts()
+    drawn = {i: torch.from_numpy(m) for i, m in
+             zip(masks, card[len(fetch):])}
+    impl = get_op_impl('dropout')
+    plain = impl.compute
+
+    def replay(ctx, ins, attrs):
+        x = ins['X'][0]
+        m = drawn[ctx.op_index].to(x.device, x.dtype)
+        return {'Out': [x * m], 'Mask': [m]}
+
+    impl.compute = replay
+    try:
+        cpu = tfl.Executor('cpu').run(main, feed=feed, fetch_list=fetch,
+                                      scope=cpu_scope)
+    finally:
+        impl.compute = plain
+    secs = time.perf_counter() - t0
+    nonfinite = [n for n, a in zip(['loss'] + fetch[1:], card)
+                 if not np.isfinite(a).all()]
+    gaps = {'grad': [], 'velocity': [], 'update': []}
+    for n, g_card, g_cpu in zip(params, card[1:], cpu[1:]):
+        v_card = card_scope.get_numpy(velocity[n])
+        p_card = card_scope.get_numpy(n)
+        for name, a in ((velocity[n], v_card), (n, p_card)):
+            if not np.isfinite(a).all():
+                nonfinite.append(name)
+        gaps['grad'].append((_norm_rel(g_card, g_cpu), n))
+        gaps['velocity'].append((_norm_rel(
+            v_card, cpu_scope.get_numpy(velocity[n])), n))
+        gaps['update'].append((_norm_rel(
+            p_card - before[n], cpu_scope.get_numpy(n) - before[n]), n))
+    loss_err = abs(float(card[0][0]) - float(cpu[0][0]))
+    worst = {k: max(v, key=lambda x: (np.nan_to_num(x[0], nan=np.inf), x[1]))
+             for k, v in gaps.items()}
+    bad = [k for k, (e, _) in worst.items() if not e <= TOL_TRAIN_GRAD]
+    if not loss_err <= TOL_TRAIN_LOSS:
+        bad.append('loss')
+    res = dict(batch=c['parity_B'], seed=seed, loss_card=float(card[0][0]),
+               loss_cpu=float(cpu[0][0]), loss_err=loss_err,
+               norm_rel_err={k: e for k, (e, _) in worst.items()},
+               median_norm_rel={k: float(np.median([e for e, _ in v]))
+                                for k, v in gaps.items()},
+               largest_gaps={k: [dict(name=n, norm_rel=e) for e, n in
+                                 sorted(v, reverse=True)[:3]]
+                             for k, v in gaps.items()},
+               masks={masks[i]: float(m.float().mean())
+                      for i, m in drawn.items()},
+               nonfinite=nonfinite, seconds=secs, launches=counts,
+               tol=dict(loss=TOL_TRAIN_LOSS, grad=TOL_TRAIN_GRAD,
+                        velocity=TOL_TRAIN_GRAD, update=TOL_TRAIN_GRAD),
+               bad=bad)
+    print("vgg16 parity: %s" % json.dumps(res))
+    if nonfinite or bad:
+        raise SystemExit("VGG-16 step on the card disagrees with the CPU "
+                         "(%s) or is not finite (%s)" % (bad, nonfinite))
+    if {k: float(n) for k, n in counts.items()} != _want(
+            dense_update=len(params)):
+        raise SystemExit("VGG-16 parity step launched %s" % counts)
+    return res
+
+
+def phase_dropout_op(c=DROPOUT):
+    """The dropout op alone on the card: at each p the keep rate within
+    ``sigmas`` binomial deviations of 1 - p, Out == X * Mask bitwise and
+    Mask 0 or 1, a replay of the same (step, op) drawing the same mask
+    bitwise and the next step another; ``is_test`` gives X * (1 - p)
+    bitwise and a Mask of ones."""
+    compute = get_op_impl('dropout').compute
+    prog = tfl.Program()
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 41)
+    x = torch.randn(c['n'], generator=gen, device='cuda')
+    rows, bad = [], []
+
+    def run(p, step, is_test=False):
+        ctx = ExecutionContext(prog, prog.global_block(),
+                               torch.device('cuda'), SEED, step)
+        ctx.op_index = 7
+        outs = compute(ctx, {'X': [x]}, {'dropout_prob': p,
+                                         'is_test': is_test, 'seed': 0})
+        return outs['Out'][0], outs['Mask'][0]
+
+    for p in c['probs']:
+        out, mask = run(p, 0)
+        keep = float(mask.mean())
+        sigma = (p * (1 - p) / c['n']) ** 0.5
+        row = dict(p=p, keep_rate=keep, deviations=(keep - (1 - p)) / sigma,
+                   out_is_x_times_mask=bool(torch.equal(out, x * mask)),
+                   mask_binary=bool(((mask == 0) | (mask == 1)).all()),
+                   replay_same=bool(torch.equal(mask, run(p, 0)[1])),
+                   next_step_other=not torch.equal(mask, run(p, 1)[1]))
+        t_out, t_mask = run(p, 0, is_test=True)
+        row['is_test_bitwise'] = bool(torch.equal(t_out, x * (1.0 - p)) and
+                                      bool((t_mask == 1).all()))
+        rows.append(row)
+        if abs(row['deviations']) > c['sigmas'] or not all(
+                v for k, v in row.items() if isinstance(v, bool)):
+            bad.append(p)
+    print("dropout op: %s" % json.dumps(rows))
+    if bad:
+        raise SystemExit("dropout op on the card is wrong at p = %s" % bad)
+    return rows
+
+
+def book_vgg(c=BOOK_VGG, place=None):
+    """The book's VGG (vgg16_bn_drop, Adam) on the synthetic CIFAR-10
+    through ``batch`` and ``DataFeeder`` on ``place`` (None: the card):
+    the cost of its ``clone(for_test=True)`` program (dropout off, batch
+    norm on the running statistics) over the training batches before
+    training and after each epoch, the training losses, the dense
+    update's launches over the training, and what a caller needs to run
+    the test clone again (executor, scope, feeder, batches)."""
+    main, startup = tfl.Program(), tfl.Program()
+    main.random_seed = startup.random_seed = SEED
+    with tfl.program_guard(main, startup):
+        images = tfl.layers.data(name='pixel', shape=[3, 32, 32],
+                                 dtype='float32')
+        label = tfl.layers.data(name='label', shape=[1], dtype='int64')
+        predict = vgg.vgg16_bn_drop(images)
+        avg_cost = tfl.layers.mean(
+            x=tfl.layers.cross_entropy(input=predict, label=label))
+        test_prog = main.clone(for_test=True)
+        tfl.optimizer.AdamOptimizer(learning_rate=c['lr']).minimize(
+            avg_cost)
+    n_adam = sum(op.type == 'adam' for op in main.global_block().ops)
+    exe, scope = tfl.Executor(place), tfl.Scope()
+    exe.run(startup, scope=scope)
+    feeder = tfl.DataFeeder(feed_list=[images, label], place=exe.place,
+                            program=main)
+    batches = list(tfl.batch(tfl.reader.firstn(
+        cifar_data.train10(), c['B'] * c['batches']), c['B'],
+        drop_last=True)())
+
+    def eval_cost():
+        return float(np.mean([
+            exe.run(test_prog, feed=feeder.feed(b), fetch_list=[avg_cost],
+                    scope=scope)[0][0] for b in batches]))
+
+    t0 = time.perf_counter()
+    evals, losses = [eval_cost()], []
+    _zero_counts()
+    for _ in range(c['epochs']):
+        losses += [float(exe.run(main, feed=feeder.feed(b),
+                                 fetch_list=[avg_cost], scope=scope)[0][0])
+                   for b in batches]
+        evals.append(eval_cost())   # the test clone launches no kernel
+    return dict(config='vgg16_bn_drop, Adam lr %g, batch %d, synthetic '
+                'CIFAR-10, %d batches x %d epochs' % (
+                    c['lr'], c['B'], c['batches'], c['epochs']),
+                adam_ops=n_adam, losses=losses, eval_costs=evals,
+                launches=_counts(), seconds=time.perf_counter() - t0,
+                persistables=[v.name for v in main.list_vars()
+                              if v.persistable and scope.has(v.name)],
+                scope=scope, exe=exe, test=test_prog, feeder=feeder,
+                cost=avg_cost, batches=batches)
+
+
+def phase_book_vgg(c=BOOK_VGG):
+    """The book's VGG on the card (``book_vgg``): each step must launch
+    the dense update once per parameter (60), every training loss must be
+    finite and the last epoch's mean below the first's, and the test
+    clone on the card must give the CPU's cost from the trained state on
+    ``eval_batches`` batches."""
+    res = book_vgg(c)
+    steps = len(res['losses'])
+    per_step = {k: n / steps for k, n in res['launches'].items()}
+    epochs = np.array(res['losses']).reshape(c['epochs'], -1).mean(axis=1)
+    res['epoch_mean_losses'] = epochs.tolist()
+    cpu_scope = tfl.Scope()
+    for n in res['persistables']:
+        cpu_scope.set(n, res['scope'].get(n).to('cpu', copy=True))
+    gaps = []
+    cpu_exe = tfl.Executor('cpu')
+    for b in res['batches'][:c['eval_batches']]:
+        card, = res['exe'].run(res['test'], feed=res['feeder'].feed(b),
+                               fetch_list=[res['cost']], scope=res['scope'])
+        cpu, = cpu_exe.run(res['test'], feed=res['feeder'].feed(b),
+                           fetch_list=[res['cost']], scope=cpu_scope)
+        gaps.append(abs(float(card[0]) - float(cpu[0])))
+    res['test_clone_card_vs_cpu'] = max(gaps)
+    print("book vgg training: %s" % json.dumps(
+        {k: v for k, v in res.items() if k not in (
+            'persistables', 'scope', 'exe', 'test', 'feeder', 'cost',
+            'batches')}))
+    if res['adam_ops'] != 60 or per_step != _want(
+            dense_update=res['adam_ops']):
+        raise SystemExit("book VGG launches per step %s" % per_step)
+    if not all(np.isfinite(res['losses'])) or not epochs[-1] < epochs[0]:
+        raise SystemExit("book VGG loss not finite or not falling: %s"
+                         % epochs.tolist())
+    if not res['test_clone_card_vs_cpu'] <= TOL_TRAIN_LOSS:
+        raise SystemExit("book VGG test clone on the card disagrees with "
+                         "the CPU: %g" % res['test_clone_card_vs_cpu'])
+    return res
+
+
+def _lr_closed_form(name, step, base=1.0, decay_steps=5, rate=0.5):
+    """The rate of ``_RECIPE_SCHEDULES[name]`` at ``step`` (from 1), as
+    tests/test_lr_decay.py writes it."""
+    d = step / decay_steps
+    if name == 'exponential':
+        return base * rate ** d
+    if name == 'exponential_staircase':
+        return base * rate ** np.floor(d)
+    if name == 'natural_exp':
+        return base * np.exp(-rate * d)
+    if name == 'inverse_time':
+        return base / (1 + rate * d)
+    if name in ('polynomial', 'polynomial_cycle'):
+        frac = (step / (max(1.0, np.ceil(d)) * decay_steps)
+                if name == 'polynomial_cycle'
+                else min(step, decay_steps) / decay_steps)
+        return (base - 0.1) * (1 - frac) ** 2.0 + 0.1
+    return 1.0 if step < 3 else 0.5 if step < 7 else 0.1
+
+
+# tests/test_lr_decay.py's schedules: base 1.0, 5 decay steps, rate 0.5;
+# polynomial to 0.1 at power 2; piecewise 1.0 / 0.5 / 0.1 at 3 and 7
+_RECIPE_SCHEDULES = {
+    'exponential': lambda: lrd.exponential_decay(1.0, 5, 0.5),
+    'exponential_staircase': lambda: lrd.exponential_decay(1.0, 5, 0.5,
+                                                           True),
+    'natural_exp': lambda: lrd.natural_exp_decay(1.0, 5, 0.5),
+    'inverse_time': lambda: lrd.inverse_time_decay(1.0, 5, 0.5),
+    'polynomial': lambda: lrd.polynomial_decay(1.0, 5, 0.1, 2.0),
+    'polynomial_cycle': lambda: lrd.polynomial_decay(1.0, 5, 0.1, 2.0,
+                                                     True),
+    'piecewise': lambda: lrd.piecewise_decay([3, 7], [1.0, 0.5, 0.1]),
+}
+
+
+def _recipe_programs(kind, c=RECIPE):
+    """A two-layer net (D -> H relu -> 1, mean square error) under one
+    training recipe: 'sgd_l2' (SGD, L2Decay: folded into the sgd op's
+    weight_decay), 'sgd_l1' (SGD, L1Decay: woven), 'clip_value',
+    'clip_norm', 'clip_global_norm' (Momentum under a gradient clip),
+    'error_clip' (SGD, an ErrorClipByValue on the hidden activation), or
+    a decay schedule of ``_RECIPE_SCHEDULES`` driving Momentum (its rate
+    scaled by lr).  Returns (main, startup, loss, rate or None)."""
+    main, startup = tfl.Program(), tfl.Program()
+    main.random_seed = startup.random_seed = SEED
+    rate = None
+    with tfl.program_guard(main, startup):
+        x = tfl.layers.data(name='x', shape=[c['D']], dtype='float32')
+        y = tfl.layers.data(name='y', shape=[1], dtype='float32')
+        h = tfl.layers.fc(input=x, size=c['H'], act='relu')
+        loss = tfl.layers.mean(x=tfl.layers.square_error_cost(
+            input=tfl.layers.fc(input=h, size=1), label=y))
+        clips = {'clip_value': lambda: tfl.clip.GradientClipByValue(0.01),
+                 'clip_norm': lambda: tfl.clip.GradientClipByNorm(0.05),
+                 'clip_global_norm':
+                 lambda: tfl.clip.GradientClipByGlobalNorm(0.1)}
+        if kind in _RECIPE_SCHEDULES:
+            rate = _RECIPE_SCHEDULES[kind]()
+            opt = tfl.optimizer.MomentumOptimizer(
+                tfl.layers.scale(rate, scale=c['lr']), 0.9)
+        elif kind in clips:
+            tfl.clip.set_gradient_clip(clips[kind]())
+            opt = tfl.optimizer.MomentumOptimizer(c['lr'], 0.9)
+        else:
+            reg = {'sgd_l2': tfl.regularizer.L2Decay(1e-2),
+                   'sgd_l1': tfl.regularizer.L1Decay(1e-3)}.get(kind)
+            if kind == 'error_clip':
+                h.error_clip = tfl.clip.ErrorClipByValue(1e-3)
+            opt = tfl.optimizer.SGDOptimizer(c['lr'], regularization=reg)
+        try:
+            opt.minimize(loss)
+        finally:
+            tfl.clip.set_gradient_clip(None)
+    return main, startup, loss, rate
+
+
+def _recipe_case(kind, c=RECIPE):
+    """One recipe on the card and on the CPU from the same state over its
+    steps: the loss each step and every parameter after, held to phase
+    10's bounds; the card's launches; under a schedule, the card's rate
+    each step against its closed form; under 'sgd_l2', each #5 launch is
+    the sgd rule's weight-decay arm, and the first step's update equals
+    the plain rule's on the card's own gradient bitwise."""
+    main, startup, loss, rate = _recipe_programs(kind, c)
+    ops = main.global_block().ops
+    params = [p.name for p in main.all_parameters()]
+    exe, card_scope = tfl.Executor(), tfl.Scope()
+    exe.run(startup, scope=card_scope)
+    cpu_scope = tfl.Scope()
+    for v in main.list_vars():
+        if v.persistable and card_scope.has(v.name):
+            cpu_scope.set(v.name, card_scope.get(v.name).to('cpu',
+                                                             copy=True))
+    rng = np.random.default_rng(SEED + 50)
+    steps = c['decay_steps'] if rate is not None else c['steps']
+    feeds = [{'x': rng.standard_normal((c['B'], c['D'])).astype(np.float32),
+              'y': (3.0 * rng.standard_normal((c['B'], 1))).astype(
+                  np.float32)} for _ in range(steps)]
+    fetch = [loss.name] + ([rate.name] if rate is not None else [])
+    cpu_exe = tfl.Executor('cpu')
+    res = dict(kind=kind, steps=steps, loss_err=0.0, rate_err=0.0)
+    ok = True
+    _zero_counts()
+    for i, feed in enumerate(feeds):
+        if kind == 'sgd_l2' and i == 0:
+            w0 = card_scope.get(params[0]).clone()
+            lr = card_scope.get(next(
+                op.input('LearningRate')[0] for op in ops
+                if op.type == 'sgd'))
+            card = exe.run(main, feed=feed, fetch_list=fetch + [
+                params[0] + '@GRAD'], scope=card_scope,
+                return_numpy=False)
+            wd = next(op.attrs['weight_decay'] for op in ops
+                      if op.type == 'sgd' and
+                      op.input('Param')[0] == params[0])
+            want = du.plain_sgd(w0, card[-1], lr, wd)
+            res['fold_bitwise'] = bool(torch.equal(
+                card_scope.get(params[0]), want))
+            ok &= res['fold_bitwise']
+            card = [t.cpu().numpy() for t in card[:len(fetch)]]
+        else:
+            card = exe.run(main, feed=feed, fetch_list=fetch,
+                           scope=card_scope)
+        cpu = cpu_exe.run(main, feed=feed, fetch_list=fetch,
+                          scope=cpu_scope)
+        res['loss_err'] = max(res['loss_err'],
+                              abs(float(card[0][0]) - float(cpu[0][0])))
+        if rate is not None:
+            want = _lr_closed_form(kind, i + 1)
+            res['rate_err'] = max(res['rate_err'],
+                                  abs(float(card[1][0]) - want) / want,
+                                  abs(float(cpu[1][0]) - want) / want)
+    counts = _counts()
+    res['param_norm_rel'] = max(_norm_rel(card_scope.get_numpy(n),
+                                          cpu_scope.get_numpy(n))
+                                for n in params)
+    res['launches'] = counts['dense_update']
+    res['other_launches'] = sum(v for k, v in counts.items()
+                                if k != 'dense_update')
+    sgd_wd = [op for op in ops if op.type == 'sgd' and
+              op.attrs.get('weight_decay')]
+    res['sgd_weight_decay_ops'] = len(sgd_wd)
+    res['woven_sums'] = sum(op.type == 'sum' for op in ops)
+    ok &= (res['loss_err'] <= TOL_TRAIN_LOSS and
+           res['param_norm_rel'] <= TOL_TRAIN_GRAD and
+           res['rate_err'] <= TOL_LR and
+           res['launches'] == len(params) * steps and
+           res['other_launches'] == 0)
+    if kind == 'sgd_l2':
+        ok &= len(sgd_wd) == len(params) and res['woven_sums'] == 0
+    elif kind == 'sgd_l1':
+        ok &= not sgd_wd and res['woven_sums'] == len(params)
+    res['ok'] = bool(ok)
+    return res
+
+
+def phase_recipes():
+    """The training recipes on the card against the CPU at a small width
+    (``_recipe_case``): SGD with L2Decay (the fold: #5's sgd rule with its
+    weight-decay arm, counted, and checked against the plain rule
+    bitwise), L1Decay (woven), each of the three gradient clips and an
+    error clip, and each decay schedule driving Momentum over 12 steps."""
+    t0 = time.perf_counter()
+    rows = [_recipe_case(kind) for kind in
+            ['sgd_l2', 'sgd_l1', 'clip_value', 'clip_norm',
+             'clip_global_norm', 'error_clip'] + list(_RECIPE_SCHEDULES)]
+    res = dict(cases=rows, seconds=time.perf_counter() - t0,
+               sgd_weight_decay_launches=rows[0]['launches'],
+               launches=sum(r['launches'] for r in rows))
+    print("training recipes: %s" % json.dumps(res))
+    bad = [r['kind'] for r in rows if not r['ok']]
+    if bad:
+        raise SystemExit("training recipes fail on the card: %s" % bad)
+    return res
+
+
 def _image_phases():
-    """Phases 28-31, timed together."""
+    """Phases 28-36, timed together."""
     t0 = time.perf_counter()
     rn = phase_resnet_training()
     phase_resnet_parity(rn)
-    phase_resnet_profile(rn)
+    phase_image_profile(rn)
     mn = phase_mnist_training()
-    print("phases 28-31 (ResNet-50, MNIST): %.1f s"
-          % (time.perf_counter() - t0))
-    return rn, mn
+    del rn['scope'], rn['feed']
+    t1 = time.perf_counter()
+    vg = phase_vgg_training()
+    phase_vgg_parity(vg)
+    phase_dropout_op()
+    phase_image_profile(vg, 'vgg16 profile')
+    del vg['scope'], vg['feed']
+    torch.cuda.empty_cache()
+    book = phase_book_vgg()
+    recipes = phase_recipes()
+    t2 = time.perf_counter()
+    print("phases 28-31 (ResNet-50, MNIST): %.1f s; phases 32-36 (VGG-16, "
+          "the book's VGG, the recipes): %.1f s" % (t1 - t0, t2 - t1))
+    return rn, mn, vg, book, recipes
 
 
 def main():
@@ -3599,7 +4175,7 @@ def main():
     phase_train_profile(long_tr, 'long-context training profile')
     del long_tr['scope'], long_tr['exe']   # free the card for ResNet-50
     torch.cuda.empty_cache()
-    rn, mn = _image_phases()
+    rn, mn, vg, book, recipes = _image_phases()
     counts = tr['counts']
     main_row = next(r for r in rows if r['case'] == MAIN_CASE)
     fwd = dict(
@@ -3662,18 +4238,25 @@ def main():
         replaces='paddle_tpu/ops/pallas/dense_update.py:109',
         launches=(counts['dense_update'] + s2s['counts']['dense_update'] +
                   rn['counts']['dense_update'] +
-                  mn['launches']['dense_update']),
+                  mn['launches']['dense_update'] +
+                  vg['counts']['dense_update'] +
+                  book['launches']['dense_update'] + recipes['launches']),
         launches_by_path=dict(
             training=counts['dense_update'],
             seq2seq_training=s2s['counts']['dense_update'],
             resnet50_training=rn['counts']['dense_update'],
-            mnist_training=mn['launches']['dense_update']),
+            mnist_training=mn['launches']['dense_update'],
+            vgg16_training=vg['counts']['dense_update'],
+            book_vgg_training=book['launches']['dense_update'],
+            training_recipes=recipes['launches'],
+            sgd_weight_decay=recipes['sgd_weight_decay_launches']),
         max_abs_err=dense['worst'],
         ms=dense['ms'], plain_ms=dense['plain_ms'],
         bound_ms=dense['bound_ms'], bound_by=dense['bound_by'],
         library_ms=dense['library_ms'], call_ms=dense['call_ms'],
         library_call_ms=dense['library_call_ms'], shape=dense['shape'],
         resnet_momentum=dense['resnet_momentum'],
+        vgg_fc1_momentum=dense['vgg_fc1_momentum'],
         cases=len(dense['cases']))
     print(json.dumps({'kernels': [fwd, bwd, dense_line] + _lstm_lines(
         lstm_rows, lstm_timing, lm, sent) + _s2s_lines(

@@ -36,10 +36,20 @@ Ported so far:
   hand-written dense-update kernel) through ``Executor.run`` or
   ``Executor.run_steps``, and fed through ``DataFeeder``, ``batch``, the
   ``reader`` decorators and the synthetic ``datasets.mnist`` /
-  ``datasets.cifar``.
+  ``datasets.cifar``;
+- VGG (``models/vgg.py``: ``vgg_imagenet`` at depth 16 or 19, the
+  program ``benchmarks/bench_vgg.py`` trains, and the book's
+  ``vgg16_bn_drop``) with ``nets.img_conv_group`` and fluid's
+  non-inverted ``dropout``;
+- the rest of ``optimizer.minimize``'s pipeline: ``regularizer``
+  (``L1Decay``, ``L2Decay``; SGD folds a dense L2 decay into the
+  dense-update kernel's ``weight_decay`` arm), ``clip`` (gradient clip by
+  value, by norm and by global norm; ``ErrorClipByValue`` in the
+  gradient pass), ``learning_rate_decay`` (five schedules on a step
+  counter on the card) and ``global_step``.
 """
 from . import datasets, initializer, layers, nets, optimizer  # noqa: F401
-from . import reader
+from . import clip, learning_rate_decay, reader, regularizer  # noqa: F401
 from .core.executor import Executor
 from .core.lod import LoDTensor, create_lod_tensor
 from .core.place import CPUPlace, CUDAPlace
@@ -59,4 +69,5 @@ __all__ = ['Program', 'program_guard', 'default_main_program',
            'nets', 'optimizer', 'initializer', 'LoDTensor',
            'create_lod_tensor', 'AdagradOptimizer', 'AdamOptimizer',
            'MomentumOptimizer', 'SGDOptimizer', 'SelectedRows', 'DataFeeder',
-           'batch', 'reader', 'datasets']
+           'batch', 'reader', 'datasets', 'clip', 'regularizer',
+           'learning_rate_decay']

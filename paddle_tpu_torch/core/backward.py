@@ -33,9 +33,11 @@ def _find_sparse_params(block, param_names):
     """Params eligible for the SelectedRows path: every op reading the
     param, in any block, is a global-block ``lookup_table`` with
     ``is_sparse``, and those lookups share one ``padding_idx``.  A param
-    with a regularizer or gradient clip keeps the dense gradient: those
-    append elementwise ops over the gradient, which must stay a tensor.
-    Returns {param: (height, padding_idx, [(ids, out), ...])}."""
+    with a regularizer or gradient clip, or in a program with a global
+    gradient clip, keeps the dense gradient: those append elementwise ops
+    over the gradient, which must stay a tensor.  Returns {param:
+    (height, padding_idx, [(ids, out), ...])}."""
+    from ..clip import current_gradient_clip
     readers = {}   # var name -> [ops reading it, any block]
     global_ops = set()
     lookups = {}   # table -> (padding_idx set, [(ids, out, op id)])
@@ -65,7 +67,8 @@ def _find_sparse_params(block, param_names):
             continue   # conflicting padding_idx across lookups: dense
         p = block.var(pn)
         if getattr(p, 'regularizer', None) is not None or \
-                getattr(p, 'gradient_clip_attr', None) is not None:
+                getattr(p, 'gradient_clip_attr', None) is not None or \
+                current_gradient_clip() is not None:
             continue   # regularizer / clip ops need a dense gradient
         sparse[pn] = (p.shape[0], next(iter(pads)),
                       [(ids, out) for ids, out, _ in pairs])
@@ -76,14 +79,17 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
                     callbacks=None):
     """Append an ``autodiff`` op producing ``<param>@GRAD`` for every
     trainable parameter (and a ``sparse_grad_assemble`` op per sparse
-    table); returns [(param, grad_var)] like fluid's append_backward."""
+    table); returns [(param, grad_var)] like fluid's append_backward.
+
+    fluid's ``error_clip_callback`` weaves clip ops into the grad-op
+    chain; here a variable's ``error_clip`` is read by the executor,
+    which clips the cotangent reaching it inside the gradient pass
+    (core/executor.py ``_ClipCotangent``), so that callback adds nothing.
+    Any other callback is called once per (param, grad), in the backward
+    role."""
     if not isinstance(loss, Variable):
         raise TypeError("append_backward takes the loss Variable, got %r"
                         % (loss,))
-    if callbacks:
-        raise NotImplementedError(
-            "append_backward callbacks (error clip) are not ported yet: "
-            "ROADMAP.md Queue 1, gradient clip and regularizers")
     program = loss.block.program
     block = program.global_block()
     param_names = _collect_trainable_params(block, parameter_list,
@@ -135,4 +141,13 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
                     'OutGrad': [grad_var_name(o) for _, o in pairs]},
             outputs={'Out': [grad_var_name(pn)]},
             attrs=attrs)
+    if callbacks:
+        from ..clip import error_clip_callback
+        for cb in (callbacks if isinstance(callbacks, (list, tuple))
+                   else [callbacks]):
+            if cb is error_clip_callback:
+                continue
+            with program.op_role_guard('backward'):
+                for p, g in params_and_grads:
+                    cb(block, {'param': p, 'grad': g})
     return params_and_grads

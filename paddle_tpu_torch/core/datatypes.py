@@ -58,3 +58,8 @@ def itemsize(dtype):
 
 def is_float_dtype(dtype):
     return as_torch_dtype(dtype).is_floating_point
+
+
+def is_low_precision(dtype):
+    """True for the 16-bit float dtypes."""
+    return convert_dtype(dtype) in ('float16', 'bfloat16')

@@ -18,6 +18,11 @@ their wrappers.
   the reference's buffer donation.
 - Outputs of ``stop_gradient`` variables that are not fed data are
   detached, as the reference wraps them in ``stop_gradient``.
+- A variable with an ``error_clip`` (clip.py ``ErrorClipByValue``) passes
+  through ``_ClipCotangent`` inside the gradient pass: identity forward,
+  its cotangent clipped backward, at the op output that writes it or, for
+  a differentiated parameter, at its leaf (the reference's
+  ``_clip_cotangent``).
 - A table read only by ``is_sparse`` lookups is differentiated through
   its lookups' outputs (core/backward.py): inside the gradient pass each
   such output becomes a leaf right after its op writes it, and keeps that
@@ -118,6 +123,29 @@ def _op_role(op):
     return op.attrs.get('op_role', 'forward')
 
 
+class _ClipCotangent(torch.autograd.Function):
+    """Identity whose backward clamps the incoming gradient to [lo, hi]:
+    fluid's ErrorClipByValue riding the VJP of the variable it guards."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.lo, ctx.hi = lo, hi
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.clamp(g, ctx.lo, ctx.hi), None, None
+
+
+def _error_clipped(var, v):
+    """``v`` through ``_ClipCotangent`` if ``var`` has an error clip and
+    ``v`` is in a gradient pass; else ``v``."""
+    ec = getattr(var, 'error_clip', None)
+    if ec is None or not torch.is_tensor(v) or not v.requires_grad:
+        return v
+    return _ClipCotangent.apply(v, float(ec.min), float(ec.max))
+
+
 def _run_one(op, env, ctx, op_index):
     impl = get_op_impl(op.type)
     for attr, slice_name in _UNPORTED_ATTRS.items():
@@ -148,7 +176,7 @@ def _run_one(op, env, ctx, op_index):
             if var is not None and var.stop_gradient and not var.is_data \
                     and torch.is_tensor(v):
                 v = v.detach()
-            env[n] = v
+            env[n] = _error_clipped(var, v)
 
 
 def live_ops(block, fetch_names):
@@ -230,7 +258,7 @@ def _run_autodiff(ad_op, fwd_ops, env, ctx):
         for n in param_names:
             if n not in frozen:
                 leaves[n] = env[n].detach().requires_grad_(True)
-                env2[n] = leaves[n]
+                env2[n] = _error_clipped(ctx.block.vars.get(n), leaves[n])
         for j, op in fwd_ops:
             _run_one(op, env2, ctx, j)
             for n in frozen.intersection(op.output_arg_names):

@@ -1,13 +1,15 @@
 """Layer library (paddle_tpu/layers), cut to the transformer's, the LSTM
-models', the seq2seq translator's and the image models' layers."""
+models', the seq2seq translator's and the image models' layers, and what
+gradient clip, the regularizers and the learning-rate schedules build."""
 from .. import ops as _ops  # registers every op type  # noqa: F401
 
-from . import io, nn, ops, sequence, tensor
+from . import control_flow, io, nn, ops, sequence, tensor
+from .control_flow import *  # noqa: F401,F403
 from .io import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403
 from .sequence import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403
 
-__all__ = (io.__all__ + nn.__all__ + ops.__all__ + sequence.__all__ +
-           tensor.__all__)
+__all__ = (control_flow.__all__ + io.__all__ + nn.__all__ + ops.__all__ +
+           sequence.__all__ + tensor.__all__)

@@ -1,8 +1,9 @@
 """Neural-network layers (paddle_tpu/layers/nn.py), cut to the
 transformer's, the LSTM models', the seq2seq translator's and the image
-models': fc, embedding, conv2d, pool2d, batch_norm, layer_norm, split,
-matmul, pad, the fused vocab head, softmax_with_cross_entropy,
-cross_entropy and accuracy.
+models': fc, embedding, conv2d, pool2d, batch_norm, layer_norm, dropout,
+split, matmul, pad, the fused vocab head, softmax_with_cross_entropy,
+cross_entropy, square_error_cost, accuracy and the reductions
+(reduce_{sum,mean,max,min,prod}).
 Same signatures and the same op attrs as the reference, so a model script
 ports by changing its import.
 """
@@ -12,8 +13,10 @@ from ..ops.conv import pair
 from .layer_helper import LayerHelper
 
 __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
-           'split', 'matmul', 'pad', 'fused_linear_softmax_ce',
-           'softmax_with_cross_entropy', 'cross_entropy', 'accuracy']
+           'dropout', 'split', 'matmul', 'pad', 'fused_linear_softmax_ce',
+           'softmax_with_cross_entropy', 'cross_entropy',
+           'square_error_cost', 'accuracy', 'reduce_sum', 'reduce_mean',
+           'reduce_max', 'reduce_min', 'reduce_prod']
 
 
 def fc(input,
@@ -218,6 +221,21 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
     return helper.append_activation(out)
 
 
+def dropout(x, dropout_prob, is_test=False, seed=0, **kwargs):
+    """fluid.layers.dropout (operators/dropout_op): Out and the Mask it
+    drew; non-inverted, as the reference (ops/random.py)."""
+    helper = LayerHelper('dropout', **locals())
+    out = helper.create_tmp_variable(x.dtype)
+    mask = helper.create_tmp_variable(x.dtype, stop_gradient=True)
+    helper.append_op(
+        type='dropout',
+        inputs={'X': [x]},
+        outputs={'Out': [out], 'Mask': [mask]},
+        attrs={'dropout_prob': dropout_prob, 'is_test': is_test,
+               'seed': seed})
+    return out
+
+
 def fused_linear_softmax_ce(input, label, size, num_flatten_dims=1,
                             param_attr=None, bias_attr=None, chunk=4096,
                             mode='auto', **kwargs):
@@ -342,3 +360,37 @@ def accuracy(input, label, k=1, correct=None, total=None, **kwargs):
         outputs={'Accuracy': [acc_out], 'Correct': [correct],
                  'Total': [total]})
     return acc_out
+
+
+def square_error_cost(input, label, **kwargs):
+    """(input - label)^2 elementwise (operators/squared_l2_distance_op)."""
+    helper = LayerHelper('square_error_cost', **locals())
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op(
+        type='square_error_cost',
+        inputs={'X': [input], 'Y': [label]},
+        outputs={'Out': [out]})
+    return out
+
+
+def _reduce_layer(op_name):
+    def _layer(input, dim=None, keep_dim=False, name=None, **kwargs):
+        helper = LayerHelper(op_name, **locals())
+        out = helper.create_tmp_variable(input.dtype)
+        helper.append_op(
+            type=op_name,
+            inputs={'X': [input]},
+            outputs={'Out': [out]},
+            attrs={'dim': dim, 'keep_dim': keep_dim,
+                   'reduce_all': dim is None})
+        return out
+
+    _layer.__name__ = op_name
+    return _layer
+
+
+reduce_sum = _reduce_layer('reduce_sum')
+reduce_mean = _reduce_layer('reduce_mean')
+reduce_max = _reduce_layer('reduce_max')
+reduce_min = _reduce_layer('reduce_min')
+reduce_prod = _reduce_layer('reduce_prod')

@@ -1,14 +1,23 @@
-"""Plain one-op layers (paddle_tpu/layers/ops.py), cut to relu, softmax,
-mean, elementwise_add and scale."""
+"""Plain one-op layers (paddle_tpu/layers/ops.py), cut to the unary
+layers relu, softmax, mean, exp, sqrt, floor, ceil, square, sign and
+pow, the binary ones mul and elementwise_{add,sub,mul,div,max,min,pow},
+and scale, clip and clip_by_norm."""
 from .layer_helper import LayerHelper
 
-__all__ = ['relu', 'softmax', 'mean', 'elementwise_add', 'scale']
+__unary__ = ['relu', 'softmax', 'mean', 'exp', 'sqrt', 'floor', 'ceil',
+             'square', 'sign', 'pow']
+
+__binary__ = ['mul', 'elementwise_add', 'elementwise_div',
+              'elementwise_sub', 'elementwise_mul', 'elementwise_max',
+              'elementwise_min', 'elementwise_pow']
+
+__all__ = __unary__ + __binary__ + ['scale', 'clip', 'clip_by_norm']
 
 
 def _unary(op_type, reduction=False):
     """An elementwise layer keeps a ragged input's lod and ``@LEN``; a
     reduction (mean) takes the lengths, to average the real elements
-    only."""
+    only.  Op attrs (pow's ``factor``) come in ``attrs=``."""
     def _layer(x=None, **kwargs):
         if x is None:
             x = kwargs.pop('input', None) or kwargs.pop('X')
@@ -30,26 +39,37 @@ def _unary(op_type, reduction=False):
     return _layer
 
 
-relu = _unary('relu')
-softmax = _unary('softmax')
-mean = _unary('mean', reduction=True)
+def _binary(op_type):
+    """X op Y with Y broadcast from ``axis``, then ``act``; ``mul`` takes
+    its flattening attrs instead (``x_num_col_dims``, ``y_num_col_dims``)."""
+    def _layer(x=None, y=None, axis=-1, act=None, **kwargs):
+        if x is None:
+            x = kwargs.pop('X')
+        if y is None:
+            y = kwargs.pop('Y')
+        helper = LayerHelper(op_type, **kwargs)
+        out = helper.create_tmp_variable(dtype=x.dtype)
+        attrs = {'axis': axis}
+        attrs.update(kwargs.get('attrs', {}))
+        if op_type == 'mul':
+            attrs = {'x_num_col_dims': kwargs.get('x_num_col_dims', 1),
+                     'y_num_col_dims': kwargs.get('y_num_col_dims', 1)}
+        helper.append_op(type=op_type, inputs={'X': [x], 'Y': [y]},
+                         outputs={'Out': [out]}, attrs=attrs)
+        if act is not None:
+            helper.kwargs['act'] = act
+            return helper.append_activation(out)
+        return out
+
+    _layer.__name__ = op_type
+    return _layer
 
 
-def elementwise_add(x=None, y=None, axis=-1, act=None, **kwargs):
-    if x is None:
-        x = kwargs.pop('X')
-    if y is None:
-        y = kwargs.pop('Y')
-    helper = LayerHelper('elementwise_add', **kwargs)
-    out = helper.create_tmp_variable(dtype=x.dtype)
-    attrs = {'axis': axis}
-    attrs.update(kwargs.get('attrs', {}))
-    helper.append_op(type='elementwise_add', inputs={'X': [x], 'Y': [y]},
-                     outputs={'Out': [out]}, attrs=attrs)
-    if act is not None:
-        helper.kwargs['act'] = act
-        return helper.append_activation(out)
-    return out
+for _op in __unary__:
+    globals()[_op] = _unary(_op, reduction=_op == 'mean')
+
+for _op in __binary__:
+    globals()[_op] = _binary(_op)
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, **kwargs):
@@ -59,4 +79,22 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, **kwargs):
                      outputs={'Out': [out]},
                      attrs={'scale': float(scale), 'bias': float(bias),
                             'bias_after_scale': bias_after_scale})
+    return out
+
+
+def clip(x, min, max, **kwargs):
+    helper = LayerHelper('clip', **kwargs)
+    out = helper.create_tmp_variable(dtype=x.dtype)
+    helper.append_op(type='clip', inputs={'X': [x]},
+                     outputs={'Out': [out]},
+                     attrs={'min': float(min), 'max': float(max)})
+    return out
+
+
+def clip_by_norm(x, max_norm, **kwargs):
+    helper = LayerHelper('clip_by_norm', **kwargs)
+    out = helper.create_tmp_variable(dtype=x.dtype)
+    helper.append_op(type='clip_by_norm', inputs={'X': [x]},
+                     outputs={'Out': [out]},
+                     attrs={'max_norm': float(max_norm)})
     return out

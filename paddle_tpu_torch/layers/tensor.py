@@ -1,10 +1,11 @@
 """Tensor layers (paddle_tpu/layers/tensor.py), cut to what the
-transformer's, the LSTM models' and the image models' programs and the
-optimizers use."""
+transformer's, the LSTM models' and the image models' programs, the
+optimizers, gradient clip and the learning-rate schedules use."""
 from .layer_helper import LayerHelper
 
 __all__ = ['create_parameter', 'create_global_var', 'cast', 'fill_constant',
-           'reshape', 'transpose', 'concat']
+           'reshape', 'transpose', 'concat', 'sums', 'select', 'less_than',
+           'equal']
 
 
 def create_parameter(shape, dtype, attr=None, is_bias=False,
@@ -80,3 +81,45 @@ def concat(input, axis=0, **kwargs):
     if lod > 0:
         helper.copy_len(next(v for v in input if v.lod_level > 0), out)
     return out
+
+
+def sums(input, out=None, **kwargs):
+    """The elementwise sum of the variables ``input`` (one ``sum`` op)."""
+    helper = LayerHelper('sum', **locals())
+    if out is None:
+        lod = max(v.lod_level for v in input)
+        out = helper.create_tmp_variable(helper.input_dtype(),
+                                         lod_level=lod)
+        if lod > 0:
+            helper.copy_len(next(v for v in input if v.lod_level > 0), out)
+    helper.append_op(type='sum', inputs={'X': input},
+                     outputs={'Out': [out]})
+    return out
+
+
+def select(condition, x, y, **kwargs):
+    """Elementwise ``x`` where ``condition`` holds, else ``y``."""
+    helper = LayerHelper('select', **kwargs)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op(
+        type='select',
+        inputs={'Condition': [condition], 'X': [x], 'Y': [y]},
+        outputs={'Out': [out]})
+    return out
+
+
+def _compare_layer(op_type):
+    def _layer(x, y, cond=None, **kwargs):
+        helper = LayerHelper(op_type, **kwargs)
+        if cond is None:
+            cond = helper.create_tmp_variable('bool', stop_gradient=True)
+        helper.append_op(type=op_type, inputs={'X': [x], 'Y': [y]},
+                         outputs={'Out': [cond]})
+        return cond
+
+    _layer.__name__ = op_type
+    return _layer
+
+
+less_than = _compare_layer('less_than')
+equal = _compare_layer('equal')

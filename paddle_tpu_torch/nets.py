@@ -1,9 +1,10 @@
 """Composite networks (paddle_tpu/nets.py), cut to
-``simple_img_conv_pool`` and the flash path of
+``simple_img_conv_pool``, ``img_conv_group`` and the flash path of
 ``scaled_dot_product_attention``."""
 from . import layers
 
-__all__ = ['simple_img_conv_pool', 'scaled_dot_product_attention']
+__all__ = ['simple_img_conv_pool', 'img_conv_group',
+           'scaled_dot_product_attention']
 
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
@@ -16,6 +17,49 @@ def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
     return layers.pool2d(
         input=conv_out, pool_size=pool_size, pool_type=pool_type,
         pool_stride=pool_stride, data_format=data_format)
+
+
+def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
+                   conv_filter_size=3, conv_act=None, param_attr=None,
+                   conv_with_batchnorm=False, conv_batchnorm_drop_rate=0.0,
+                   pool_stride=1, pool_type='max', data_format='NCHW'):
+    """A stack of convs, one per entry of ``conv_num_filter`` (each with
+    ``conv_act``, or followed by ``batch_norm`` with it and a dropout of
+    its drop rate when ``conv_with_batchnorm``), then one pool2d.  Each
+    per-conv argument is one value for all or a list of one per conv."""
+    if not isinstance(conv_num_filter, (list, tuple)):
+        raise TypeError("conv_num_filter must be a list of filter counts")
+    n = len(conv_num_filter)
+
+    def _to_list(obj):
+        if isinstance(obj, (list, tuple)):
+            if len(obj) != n:
+                raise ValueError("%d values for %d convs" % (len(obj), n))
+            return list(obj)
+        return [obj] * n
+
+    conv_padding = _to_list(conv_padding)
+    conv_filter_size = _to_list(conv_filter_size)
+    param_attr = _to_list(param_attr)
+    conv_with_batchnorm = _to_list(conv_with_batchnorm)
+    conv_batchnorm_drop_rate = _to_list(conv_batchnorm_drop_rate)
+    tmp = input
+    for i in range(n):
+        tmp = layers.conv2d(
+            input=tmp, num_filters=conv_num_filter[i],
+            filter_size=conv_filter_size[i], padding=conv_padding[i],
+            param_attr=param_attr[i],
+            act=None if conv_with_batchnorm[i] else conv_act,
+            data_format=data_format)
+        if conv_with_batchnorm[i]:
+            tmp = layers.batch_norm(input=tmp, act=conv_act,
+                                    data_layout=data_format)
+            drop_rate = conv_batchnorm_drop_rate[i]
+            if abs(drop_rate) > 1e-5:
+                tmp = layers.dropout(x=tmp, dropout_prob=drop_rate)
+    return layers.pool2d(input=tmp, pool_size=pool_size,
+                         pool_type=pool_type, pool_stride=pool_stride,
+                         data_format=data_format)
 
 
 def scaled_dot_product_attention(queries, keys, values,

@@ -1,5 +1,6 @@
-"""Loss ops (paddle_tpu/ops/loss.py), cut to ``cross_entropy`` and
-``softmax_with_cross_entropy``; computed in float32."""
+"""Loss ops (paddle_tpu/ops/loss.py), cut to ``cross_entropy``,
+``softmax_with_cross_entropy`` and ``square_error_cost``; computed in
+float32."""
 import torch
 
 from ..core.registry import register_op
@@ -41,3 +42,10 @@ def _softmax_with_ce(ctx, ins, attrs):
     else:
         loss = -torch.gather(logp, -1, _label_idx(label)[..., None])
     return {'Loss': [loss], 'Softmax': [torch.exp(logp)]}
+
+
+@register_op('square_error_cost')
+def _square_error_cost(ctx, ins, attrs):
+    """(X - Y)^2 elementwise (operators/squared_l2_distance_op)."""
+    x = first(ins, 'X').float()
+    return {'Out': [torch.square(x - first(ins, 'Y').float())]}

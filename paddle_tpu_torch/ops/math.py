@@ -1,10 +1,11 @@
-"""Math ops: mul, matmul, elementwise_add, scale, sum, mean, softmax,
-top_k.
+"""Math ops: mul, matmul, the elementwise family (add, sub, mul, div,
+pow, max, min), scale, sum, mean, clip, clip_by_norm, the reductions
+(sum, mean, max, min, prod), softmax, top_k.
 
 Reference parity: paddle_tpu/ops/math.py (paddle/operators/{mul,matmul,
-elementwise_add,scale,sum,mean,softmax,top_k}_op).  The products are
-``torch.matmul``: the reference leaves them to XLA, outside any Pallas
-kernel.
+elementwise_*,scale,sum,mean,clip,clip_by_norm,reduce,softmax,top_k}_op).
+The products are ``torch.matmul``: the reference leaves them to XLA,
+outside any Pallas kernel.
 """
 import torch
 
@@ -43,16 +44,28 @@ def _matmul(ctx, ins, attrs):
     return out(z * alpha if alpha != 1.0 else z)
 
 
-@register_op('elementwise_add')
-def _elementwise_add(ctx, ins, attrs):
-    x = first(ins, 'X')
-    y = bcast_axis(x, first(ins, 'Y'), attrs.get('axis', -1))
-    if y.dtype != x.dtype and x.dtype.is_floating_point and \
-            y.dtype.is_floating_point:
-        # float32 master params meeting low-precision activations stay
-        # in the activation dtype
-        y = y.to(x.dtype)
-    return out(x + y)
+def _elementwise(name, fn):
+    """One ``elementwise_<name>`` op: Y broadcast into X from ``axis``
+    (fluid's rule, ``bcast_axis``); a float Y of another width takes X's,
+    so float32 master params meeting low-precision activations stay in
+    the activation dtype."""
+    @register_op('elementwise_' + name)
+    def _impl(ctx, ins, attrs):
+        x = first(ins, 'X')
+        y = bcast_axis(x, first(ins, 'Y'), attrs.get('axis', -1))
+        if y.dtype != x.dtype and x.dtype.is_floating_point and \
+                y.dtype.is_floating_point:
+            y = y.to(x.dtype)
+        return out(fn(x, y))
+
+    return _impl
+
+
+for _name, _fn in (('add', torch.add), ('sub', torch.sub),
+                   ('mul', torch.mul), ('div', torch.div),
+                   ('pow', torch.pow), ('max', torch.maximum),
+                   ('min', torch.minimum)):
+    _elementwise(_name, _fn)
 
 
 @register_op('scale')
@@ -93,6 +106,65 @@ def _mean(ctx, ins, attrs):
         m = torch.where(mask, xf, torch.zeros_like(xf)).sum() / \
             torch.clamp(count, min=1.0)
     return out(m.to(x.dtype).reshape(1))
+
+
+@register_op('clip')
+def _clip(ctx, ins, attrs):
+    return out(torch.clamp(first(ins, 'X'), attrs['min'], attrs['max']))
+
+
+@register_op('clip_by_norm')
+def _clip_by_norm(ctx, ins, attrs):
+    """X scaled to an L2 norm of at most ``max_norm``; the norm is taken
+    in float32 and floored at 1e-12, and stays on the device."""
+    x = first(ins, 'X')
+    max_norm = attrs['max_norm']
+    xf = x.float()
+    norm = torch.sqrt(torch.sum(torch.square(xf)))
+    scale = torch.where(norm > max_norm,
+                        max_norm / torch.clamp(norm, min=1e-12),
+                        torch.ones_like(norm))
+    return out((xf * scale).to(x.dtype))
+
+
+def _prod_axes(x, axes, keepdim):
+    # torch.prod takes one dim: the last first, so the others keep their
+    # index when keepdim is False
+    for a in sorted(axes, reverse=True):
+        x = torch.prod(x, dim=a, keepdim=keepdim, dtype=x.dtype)
+    return x
+
+
+_REDUCERS = {
+    'sum': lambda x, a, k: torch.sum(x, dim=a, keepdim=k, dtype=x.dtype),
+    'mean': lambda x, a, k: torch.mean(x, dim=a, keepdim=k),
+    'max': lambda x, a, k: torch.amax(x, dim=a, keepdim=k),
+    'min': lambda x, a, k: torch.amin(x, dim=a, keepdim=k),
+    'prod': _prod_axes,
+}
+
+
+def _reduce(name, fn):
+    """``reduce_<name>`` over ``dim`` (an axis or a list of them), or
+    over every axis with ``reduce_all``; a 0-d result becomes [1], and
+    integer inputs keep their width, as in the reference."""
+    @register_op('reduce_' + name)
+    def _impl(ctx, ins, attrs):
+        x = first(ins, 'X')
+        dim = attrs.get('dim', None)
+        if attrs.get('reduce_all', dim is None):
+            axes = tuple(range(x.dim()))
+        else:
+            dims = dim if isinstance(dim, (list, tuple)) else (dim,)
+            axes = tuple(int(d) % x.dim() for d in dims)
+        r = fn(x, axes, attrs.get('keep_dim', False))
+        return out(r.reshape(1) if r.dim() == 0 else r)
+
+    return _impl
+
+
+for _name, _fn in _REDUCERS.items():
+    _reduce(_name, _fn)
 
 
 @register_op('softmax')

@@ -1,5 +1,5 @@
-"""Random ops (paddle_tpu/ops/random.py), cut to ``uniform_random`` and
-``gaussian_random``.
+"""Random ops (paddle_tpu/ops/random.py), cut to ``uniform_random``,
+``gaussian_random`` and ``dropout``.
 
 Each op draws from a ``torch.Generator`` the executor seeds from
 (program seed, step, block, op position), with a nonzero ``seed`` attr
@@ -11,7 +11,7 @@ import torch
 
 from ..core import datatypes
 from ..core.registry import register_op
-from .common import out
+from .common import first, out
 
 
 @register_op('uniform_random', stateful_rng=True)
@@ -33,3 +33,22 @@ def _gaussian_random(ctx, ins, attrs):
                     device=ctx.device,
                     generator=ctx.generator(attrs.get('seed', 0)))
     return out((g * attrs.get('std', 1.0) + attrs.get('mean', 0.0)).to(dtype))
+
+
+@register_op('dropout', stateful_rng=True)
+def _dropout(ctx, ins, attrs):
+    """Fluid's non-inverted dropout (dropout_op.h), as the reference keeps
+    it: in training Out = X * Mask with Mask ~ Bernoulli(1 - p) and no
+    1 / (1 - p) rescale; with ``is_test`` Out = X * (1 - p); with p = 0
+    Out = X.  Both of the last two write a Mask of ones."""
+    x = first(ins, 'X')
+    p = attrs.get('dropout_prob', 0.5)
+    if p == 0.0:
+        return {'Out': [x], 'Mask': [torch.ones_like(x)]}
+    if attrs.get('is_test', False):
+        return {'Out': [(x * (1.0 - p)).to(x.dtype)],
+                'Mask': [torch.ones_like(x)]}
+    u = torch.rand(tuple(x.shape), dtype=torch.float32, device=ctx.device,
+                   generator=ctx.generator(attrs.get('seed', 0)))
+    mask = (u < 1.0 - p).to(x.dtype)
+    return {'Out': [x * mask], 'Mask': [mask]}

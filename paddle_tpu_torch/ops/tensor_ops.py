@@ -1,8 +1,9 @@
 """Tensor-manipulation ops: reshape, transpose, split, concat, pad, cast,
-assign, fill_constant.
+assign, fill_constant, increment, the comparisons and select.
 
 Reference parity: paddle_tpu/ops/tensor_ops.py (paddle/operators/
-{reshape,transpose,split,concat,pad,cast,assign,fill_constant}_op).
+{reshape,transpose,split,concat,pad,cast,assign,fill_constant,increment,
+compare,select}_op).
 Integer types keep their width; 64-bit feeds arrive narrowed to 32 bits
 by the executor, as in the reference.
 """
@@ -78,3 +79,34 @@ def _fill_constant(ctx, ins, attrs):
     dtype = datatypes.as_torch_dtype(attrs.get('dtype', 'float32'))
     return out(torch.full(tuple(attrs['shape']), attrs['value'], dtype=dtype,
                           device=ctx.device))
+
+
+@register_op('increment')
+def _increment(ctx, ins, attrs):
+    """X + step in X's dtype; a Python scalar operand, so a step counter
+    on the card adds no host-to-device copy."""
+    x = first(ins, 'X')
+    step = attrs.get('step', 1.0)
+    return out(x + (float(step) if x.dtype.is_floating_point
+                    else int(step)))
+
+
+def _compare(name, fn):
+    @register_op(name)
+    def _impl(ctx, ins, attrs):
+        return out(fn(first(ins, 'X'), first(ins, 'Y')))
+
+    return _impl
+
+
+for _name, _fn in (('less_than', torch.lt), ('less_equal', torch.le),
+                   ('greater_than', torch.gt), ('greater_equal', torch.ge),
+                   ('equal', torch.eq), ('not_equal', torch.ne)):
+    _compare(_name, _fn)
+
+
+@register_op('select')
+def _select(ctx, ins, attrs):
+    """Elementwise where(Condition, X, Y)."""
+    cond = first(ins, 'Condition')
+    return out(torch.where(cond.bool(), first(ins, 'X'), first(ins, 'Y')))

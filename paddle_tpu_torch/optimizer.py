@@ -1,24 +1,26 @@
 """Optimizers: SGD, Momentum, Adam, Adagrad.
 
 Reference parity: paddle_tpu/optimizer.py (fluid optimizer.py).
-``minimize`` = autodiff (core/backward.py) + one update op per parameter
-+ Adam's beta-pow ``scale`` ops, with the reference's op attrs, variable
-names and startup ops.  Regularization and gradient clip raise: they come
-with a later slice.
+``minimize`` = autodiff (core/backward.py), then gradient clip (clip.py)
+and the regularizers (regularizer.py) in the backward role, then one
+update op per parameter, Adam's beta-pow ``scale`` ops and the
+``global_step`` increment, with the reference's op attrs, variable names
+and startup ops.  SGD folds a dense float32 gradient's L2 decay into its
+``sgd`` op (``weight_decay``, which the dense-update kernel applies).
 """
 from collections import defaultdict
 
+from .clip import append_gradient_clip_ops
+from .core import datatypes
 from .core.backward import append_backward
 from .core.program import Variable, default_startup_program, unique_name
 from .initializer import ConstantInitializer
 from .layers.layer_helper import LayerHelper
+from .regularizer import L2DecayRegularizer, append_regularization_ops
 
 __all__ = ['Optimizer', 'SGDOptimizer', 'MomentumOptimizer',
            'AdamOptimizer', 'AdagradOptimizer', 'SGD', 'Momentum', 'Adam',
            'Adagrad']
-
-_LATER = ("not ported yet: ROADMAP.md Queue 1, gradient clip and "
-          "regularizers")
 
 
 class Optimizer(object):
@@ -30,12 +32,8 @@ class Optimizer(object):
     def __init__(self, learning_rate, global_step=None, regularization=None):
         if not isinstance(learning_rate, (float, Variable)):
             raise TypeError("learning rate should be float or Variable")
-        if regularization is not None:
-            raise NotImplementedError("optimizer regularization is " + _LATER)
-        if global_step is not None:
-            raise NotImplementedError(
-                "global_step needs the `increment` op, not ported yet: "
-                "ROADMAP.md Queue 1")
+        self._global_step = global_step
+        self.regularization = regularization
         self._learning_rate = learning_rate
         self._learning_rate_map = {}
         self._accumulators = defaultdict(dict)
@@ -85,6 +83,14 @@ class Optimizer(object):
     def _finish_update(self, block):
         pass
 
+    def _increment_global_step(self, block):
+        if self._global_step is None:
+            return
+        self.helper.append_op(
+            type='increment', inputs={'X': [self._global_step]},
+            outputs={'Out': [self._global_step]}, attrs={'step': 1.0},
+            infer_shape=False)
+
     def create_optimization_pass(self, parameters_and_grads, loss,
                                  startup_program=None):
         program = loss.block.program
@@ -105,21 +111,25 @@ class Optimizer(object):
                     optimize_ops.append(
                         self._append_optimize_op(block, param_and_grad))
             self._finish_update(block)
+            self._increment_global_step(block)
         return optimize_ops
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
-        for p in loss.block.program.all_parameters():
-            if getattr(p, 'regularizer', None) is not None:
-                raise NotImplementedError(
-                    "parameter regularizer on %r is %s" % (p.name, _LATER))
-            if getattr(p, 'gradient_clip_attr', None) is not None:
-                raise NotImplementedError(
-                    "gradient clip on %r is %s" % (p.name, _LATER))
         params_grads = append_backward(loss, parameter_list, no_grad_set)
+        # clip and regularizer ops transform the gradients after the
+        # autodiff op: backward role, run at top level
+        with loss.block.program.op_role_guard('backward'):
+            params_grads = append_gradient_clip_ops(params_grads)
+            params_grads = self._apply_regularization(params_grads)
         optimize_ops = self.create_optimization_pass(
             params_grads, loss, startup_program)
         return optimize_ops, params_grads
+
+    def _apply_regularization(self, params_grads):
+        """Weave each parameter's regularizer (or ``regularization``)
+        into its gradient; SGD overrides this to fold L2 into its op."""
+        return append_regularization_ops(params_grads, self.regularization)
 
     def _append_optimize_op(self, block, param_and_grad):
         raise NotImplementedError
@@ -128,14 +138,51 @@ class Optimizer(object):
 class SGDOptimizer(Optimizer):
     type = 'sgd'
 
+    def _apply_regularization(self, params_grads):
+        """Fold L2 decay into the ``sgd`` op (its ``weight_decay`` attr:
+        p - lr * (g + wd * p), the expression the weave builds, in one
+        pass on the dense-update kernel) for a dense gradient of a
+        parameter of float32 or wider.  Everything else keeps the weave:
+        a SelectedRows gradient (its row-wise apply never reaches the
+        rows the decay must shrink), a low-precision parameter (whose
+        woven terms round in its dtype), L1, and per-parameter
+        regularizers other than L2."""
+        self._fused_decay = {}
+        sparse_grads = set()
+        gblock = next((g.block for _, g in params_grads if g is not None),
+                      None)
+        if gblock is not None:
+            for op in gblock.ops:
+                if op.type == 'sparse_grad_assemble':
+                    sparse_grads.update(op.output_arg_names)
+        weave = []
+        for p, g in params_grads:
+            reg = getattr(p, 'regularizer', None)
+            if reg is None:
+                reg = self.regularization
+            if (g is not None and isinstance(reg, L2DecayRegularizer) and
+                    reg._regularization_coeff and
+                    g.name not in sparse_grads and
+                    not datatypes.is_low_precision(p.dtype)):
+                self._fused_decay[p.name] = float(reg._regularization_coeff)
+            else:
+                weave.append((p, g))
+        woven = iter(append_regularization_ops(weave, self.regularization))
+        return [(p, g) if p.name in self._fused_decay else next(woven)
+                for p, g in params_grads]
+
     def _append_optimize_op(self, block, param_and_grad):
+        attrs = {}
+        wd = getattr(self, '_fused_decay', {}).get(param_and_grad[0].name)
+        if wd:
+            attrs['weight_decay'] = wd
         return self.helper.append_op(
             type='sgd',
             inputs={'Param': [param_and_grad[0]],
                     'Grad': [param_and_grad[1]],
                     'LearningRate': [self._create_param_lr(param_and_grad)]},
             outputs={'ParamOut': [param_and_grad[0]]},
-            attrs={},
+            attrs=attrs,
             infer_shape=False)
 
 
