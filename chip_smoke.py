@@ -141,13 +141,19 @@ line:
    synthetic text's Zipf ids, the bench's uniform ids, ids with
    sentinels, out-of-range and negative ids, all K slots on one id, and
    runs straddling every edge of the kernel's design (at widths 250 and
-   100); rows not touched must stay bitwise unchanged.  Timed: the kernel
+   100); then at widths 1, 8, 16 and 32 (DeepFM's 1- and 16-column
+   tables among them) on uniform and Zipf ids over 1,000,003 rows (K =
+   32768), on a 2-row table (the recommender's gender table: two runs of
+   ~K/2), and on a 2074-row table read by four lookups, its SelectedRows
+   assembled by the ``sparse_grad_assemble`` op; rows not touched must
+   stay bitwise unchanged.  Timed: the kernel
    alone in device time and the whole call (sort and kernel) per call;
    at the Zipf and uniform ids also the id sort, the plain rules, and
    the whole call and ``torch.optim.SparseAdam`` / ``Adagrad`` on a
    sparse gradient and ``index_add_`` (yardsticks only, which cannot be
    captured in a CUDA graph) between CUDA events, per call over
-   back-to-back calls and as the median single call.
+   back-to-back calls and as the median single call; at DeepFM's tables
+   (uniform ids, D=16 and D=1) the same for Adagrad alone.
 20. seq2seq training at full width (benchmarks/bench_seq2seq.py's config:
    B=512, T=64, V=30000, word_dim 256, H=512, Adam lr 1e-3; float32) on the
    synthetic WMT14 task, through the port's layers, optimizer and
@@ -259,7 +265,38 @@ line:
    driving Momentum for 12 steps, the card's rate equal to its closed
    form; each recipe's dense update launches counted.  Phases 32-36 take
    about 20 s on an H100.
-37. a ``{"kernels": [...]}`` line (ten kernels, each with its launches by
+   Phase 33 runs twice more: under ``torch.backends.cudnn.deterministic``
+   and with cuDNN off (``phase_vgg_parity_controls``).
+37. DeepFM at ``benchmarks/bench_ctr.py``'s Criteo-class width (:318-330,
+   :47-78; B=32768, 26 slots of 1,000,003-row tables, embed 16, hidden
+   (128, 128), 13 dense features, Adagrad 0.01), uncut, through
+   ``Executor.run_steps`` on one batch of default_rng(0) ids staged on
+   the card: a warm-up step, 8 timed single-step calls (p50,
+   examples/s), one 8-step call, then steps to 24; every loss finite,
+   the last 4's mean below the first 4's, and each step must launch #6
+   52 times (once per table) and no other kernel.  Reported: peak memory
+   beside the tables' and moments' bytes.
+38. profile: a traced DeepFM step, device time by group (#6, the id
+   sorts, GEMMs, reductions, elementwise, the rest), idle share and #6's
+   share of busy time.
+39. DeepFM parity at B=256 with 100,003-row tables: one step on the card
+   against the same program, state and feed on the CPU: the loss, every
+   dense gradient, the tables' touched rows and Adagrad moments after
+   the step (``TOL_CTR_ROWS``), untouched rows bitwise unchanged.
+40. the table-height sweep of ``bench_ctr.py``:348-398 (B=16384, 8
+   slots, embed 8; 100,003, 1,000,003 and 10,000,019 rows): step p50 and
+   the peak less the tables' and moments' bytes at each height, which
+   must not grow by more than ``CTR_SWEEP_FLAT``: no dense [height, D]
+   gradient exists.
+41. the book's CTR-family tests on the card through ``batch`` and
+   ``DataFeeder`` with their gates: test_ctr's two archs (Adam 0.003),
+   test_word2vec (SGD 0.1; one SelectedRows of four lookups) and
+   test_recommender_system (SGD 0.2, ``reader.firstn``); each step must
+   launch #6 once per row-sparse table and #5 once per dense parameter.
+42. ``calc_gradient`` card vs CPU: with respect to the fed input of an
+   fc net and with respect to an intermediate (``TOL_CALC_GRAD``).
+   Phases 37-42 take about 40 s on an H100.
+43. a ``{"kernels": [...]}`` line (ten kernels, each with its launches by
    path; ``bound_ms`` at the rate of the units a kernel computes on: the
    tensor cores at 3xTF32 for #1-#4 and #7-#10, with their CUDA-core
    float32 bound beside it as ``cuda_core_bound_ms``; the CUDA cores for
@@ -295,6 +332,9 @@ from paddle_tpu_torch.core.registry import get_op_impl  # noqa: E402
 from paddle_tpu_torch.datasets import cifar as cifar_data  # noqa: E402
 from paddle_tpu_torch.datasets import mnist as mnist_data  # noqa: E402
 from paddle_tpu_torch.datasets import wmt14  # noqa: E402
+from paddle_tpu_torch.datasets import common as data_common  # noqa: E402
+from paddle_tpu_torch.datasets import imikolov, movielens  # noqa: E402
+from paddle_tpu_torch.models import ctr, recommender, word2vec  # noqa: E402
 from paddle_tpu_torch.models import mnist, resnet, vgg  # noqa: E402
 from paddle_tpu_torch.models import rnn_lm, sentiment  # noqa: E402
 from paddle_tpu_torch.models import seq2seq  # noqa: E402
@@ -2420,15 +2460,44 @@ STRADDLE_RUNS = (1, 2, 31, 32, 33, 34, 40, 63, 64, 65, 95, 96, 97, 127, 128,
 # last 32-column slice) and a multiple of 4 but not of 32 (16-byte copies,
 # a ragged slice)
 STRADDLE_D = (250, 100)
+# phase 19's cases at the CTR family's widths (DeepFM's 1- and 16-column
+# tables, 8, and the recommender's 32) on DeepFM's uniform ids over its
+# 1,000,003 rows, on Zipf ids over them, on the recommender's 2-row
+# gender table (every slot on one of two ids: two runs of ~K/2), and on
+# word2vec's shared table (dict 2074) read by four lookups, its
+# SelectedRows assembled by the sparse_grad_assemble op from four (ids,
+# gradient) pairs
+NARROW_D = (1, 8, 16, 32)
+NARROW_IDS = dict(uniform=(1000003, 32768), zipf=(1000003, 32768),
+                  gender=(2, 4096), shared=(2074, 4 * 8192))
+
+
+def _sparse_inputs(dist, rng, gen, k, height, d):
+    """(ids, values) of one case of phase 19; the shared table's come from
+    the sparse_grad_assemble op over four lookups' ids and output
+    gradients."""
+    if dist == 'shared':
+        parts = [torch.as_tensor(data_common.zipf_seq(rng, k // 4, height)
+                                 .reshape(-1, 1), device='cuda')
+                 for _ in range(4)]
+        grads = [torch.randn((k // 4, 1, d), generator=gen, device='cuda')
+                 for _ in range(4)]
+        sr = get_op_impl('sparse_grad_assemble').compute(
+            None, {'Ids': parts, 'OutGrad': grads}, {'height': height})
+        return sr['Out'][0].rows, sr['Out'][0].values
+    ids = torch.as_tensor(_sparse_ids(dist, rng, k, height), device='cuda')
+    return ids, torch.randn((k, d), generator=gen, device='cuda')
 
 
 def _sparse_ids(dist, rng, k, height):
     if dist == 'zipf':   # the synthetic WMT14 source ids
         return 3 + wmt14.zipf_seq(rng, k, height - 3)
-    if dist == 'uniform':   # bench_seq2seq.py's ids
+    if dist == 'uniform':   # bench_seq2seq.py's and bench_ctr.py's ids
         return rng.integers(1, height, k)
     if dist == 'single':   # every slot on one id
         return np.full(k, int(rng.integers(0, height)))
+    if dist == 'gender':   # the recommender's 2-row table
+        return rng.integers(0, height, k)
     if dist.startswith('straddle'):
         # the lowest ids hold the runs, so that they sort first and in this
         # order: two long runs that start in the first 64-slot group, then
@@ -2513,29 +2582,44 @@ def _sparse_library(rule, base, rows, vals, height, d):
     return _call_ms(step, iters=10), _single_call_ms(step)
 
 
+def _sparse_cases():
+    """(label, ids, height, K, D, timed rules, full timing) of phase 19:
+    seq2seq's table at its ids, the straddling ids at their widths, and
+    the CTR family's widths (``NARROW_D``) at its ids (``NARROW_IDS``),
+    timed at DeepFM's tables (uniform ids, Adagrad, D=16 and D=1)."""
+    s2s = (S2S['V'], S2S['B'] * S2S['T'])
+    rules = tuple(SPARSE_RULES)
+    cases = [(dist, dist) + s2s + (S2S['word_dim'],
+                                   () if dist == 'edge' else rules,
+                                   dist in ('zipf', 'uniform'))
+             for dist in ('zipf', 'uniform', 'edge', 'single')]
+    cases += [('straddle_d%d' % d, 'straddle') + s2s + (d, rules, False)
+              for d in STRADDLE_D]
+    for d in NARROW_D:
+        for dist, (height, k) in NARROW_IDS.items():
+            timed = dist == 'uniform' and d in (1, 16)
+            cases.append(('ctr_%s_d%d' % (dist, d), dist, height, k, d,
+                          ('adagrad',) if timed else (), timed))
+    return cases
+
+
 def phase_sparse_kernel():
     """Kernel #6 against its plain rules, bitwise, on the same inputs; rows
     no id touches stay bitwise unchanged.  Ids: the training path's Zipf
     ids, the bench's uniform ids, edge ids (sentinels, out-of-range and
     negative), every slot on one id, and runs straddling every edge of the
-    kernel's design at two widths (``STRADDLE_RUNS``, ``STRADDLE_D``).
-    Times, keyed by ids, then rule: at the Zipf and uniform ids the kernel
-    alone, the id sort, the whole call, the plain rules and the library
-    call; at the one-id and straddling ids the kernel alone and the whole
-    call."""
-    height, k = S2S['V'], S2S['B'] * S2S['T']
+    kernel's design at two widths (``STRADDLE_RUNS``, ``STRADDLE_D``); and
+    at the CTR family's widths, its uniform and Zipf ids, its 2-row table
+    and its shared table (``_sparse_cases``).  Times, keyed by case, then
+    rule: the kernel alone and the whole call, and where the timing is
+    full the id sort, the plain rules and the library call too."""
     gen = torch.Generator(device='cuda').manual_seed(SEED + 16)
     rng = np.random.default_rng(SEED + 16)
     lr = torch.tensor([1e-2], device='cuda')
     rows_out, timing = [], {}
-    dists = ['zipf', 'uniform', 'edge', 'single'] + [
-        'straddle_d%d' % d for d in STRADDLE_D]
-    for dist in dists:
-        d = (int(dist.split('_d')[1]) if dist.startswith('straddle')
-             else S2S['word_dim'])
-        ids = torch.as_tensor(_sparse_ids(dist, rng, k, height),
-                              device='cuda')
-        vals = torch.randn((k, d), generator=gen, device='cuda')
+    for label, dist, height, k, d, timed, full in _sparse_cases():
+        ids, vals = _sparse_inputs(dist, rng, gen, k, height, d)
+        k = int(ids.numel())
         base = [torch.randn((height, d), generator=gen, device='cuda'),
                 torch.randn((height, d), generator=gen, device='cuda') * 0.1,
                 torch.rand((height, d), generator=gen, device='cuda') * 0.1]
@@ -2552,7 +2636,8 @@ def phase_sparse_kernel():
             _sparse_call(rule, want, ids, vals, lr, plain=True)
             torch.cuda.synchronize()
             row = dict(
-                ids=dist, rule=rule, K=k, D=d, n_unique=n_unique,
+                ids=label, rule=rule, K=k, D=d, height=height,
+                n_unique=n_unique,
                 bitwise=all(torch.equal(a, b) for a, b in zip(got, want)),
                 untouched_unchanged=all(
                     torch.equal(a[~touched], b[~touched])
@@ -2561,7 +2646,7 @@ def phase_sparse_kernel():
                 finite=all(bool(torch.isfinite(a).all()) for a in got))
             row['ok'] = (row['bitwise'] and row['untouched_unchanged'] and
                          row['finite'])
-            if dist != 'edge':
+            if rule in timed:
                 srows, order = tu.sort_rows(ids, height)
                 tabs = [t.clone() for t in state]
                 code, sc = tu.RULES[rule], _sparse_scalars(rule)
@@ -2574,8 +2659,8 @@ def phase_sparse_kernel():
                 # once (the runs are summed in registers)
                 nbytes = k * d * 4 + k * 4 + k * 8 + n_unique * d * 4 * 2 * n
                 row['bound_ms'], row['bound_by'] = _bound(nbytes, 0)
-                timing.setdefault(dist, {})[rule] = row
-            if dist in ('zipf', 'uniform'):
+                timing.setdefault(label, {})[rule] = row
+            if rule in timed and full:
                 row['sort_ms'] = _device_ms(lambda: tu.sort_rows(ids, height))
                 row['plain_call_ms'] = _call_ms(lambda: _sparse_call(
                     rule, [t.clone() for t in state], ids, vals, lr,
@@ -3711,13 +3796,14 @@ def _dropout_masks(main):
             if op.type == 'dropout'}
 
 
-def phase_vgg_parity(vg, c=VGG, seed=SEED + 40):
+def phase_vgg_parity(vg, c=VGG, seed=SEED + 40, label='vgg16 parity'):
     """One VGG-16 step at B=2, 224x224, on the card and on the CPU from the
     same state: the loss, every gradient, velocity and update, held to
     phase 10's bounds.  The two devices' generators draw different masks,
     so the card step's ``Mask`` outputs are fetched and the CPU step's
     dropout op is replaced, for this phase only, by one that applies
-    them."""
+    them.  Reported: the relu inputs whose sign differs between the two
+    sides (``relu_flips``, by relu)."""
     main, cost = vg['main'], vg['cost']
     card_scope = tfl.Scope()
     vg['exe'].run(vg['startup'], scope=card_scope)
@@ -3733,14 +3819,18 @@ def phase_vgg_parity(vg, c=VGG, seed=SEED + 40):
     feed = _image_feed(c['parity_B'], seed, c)
     fetch = [cost.name] + [n + '@GRAD' for n in params]
     masks = _dropout_masks(main)
+    # each relu's input: where the two sides' signs differ the relu gates
+    # differently, and every gradient below it moves (PR 15's finding)
+    gates = [op.input('X')[0] for op in main.global_block().ops
+             if op.type == 'relu']
     t0 = time.perf_counter()
     _zero_counts()
     card = vg['exe'].run(main, feed=feed,
-                         fetch_list=fetch + list(masks.values()),
+                         fetch_list=fetch + list(masks.values()) + gates,
                          scope=card_scope)
     counts = _counts()
     drawn = {i: torch.from_numpy(m) for i, m in
-             zip(masks, card[len(fetch):])}
+             zip(masks, card[len(fetch):len(fetch) + len(masks)])}
     impl = get_op_impl('dropout')
     plain = impl.compute
 
@@ -3751,11 +3841,14 @@ def phase_vgg_parity(vg, c=VGG, seed=SEED + 40):
 
     impl.compute = replay
     try:
-        cpu = tfl.Executor('cpu').run(main, feed=feed, fetch_list=fetch,
+        cpu = tfl.Executor('cpu').run(main, feed=feed,
+                                      fetch_list=fetch + gates,
                                       scope=cpu_scope)
     finally:
         impl.compute = plain
     secs = time.perf_counter() - t0
+    flips = [int(((a > 0) != (b > 0)).sum()) for a, b in
+             zip(card[len(fetch) + len(masks):], cpu[len(fetch):])]
     nonfinite = [n for n, a in zip(['loss'] + fetch[1:], card)
                  if not np.isfinite(a).all()]
     gaps = {'grad': [], 'velocity': [], 'update': []}
@@ -3786,11 +3879,13 @@ def phase_vgg_parity(vg, c=VGG, seed=SEED + 40):
                              for k, v in gaps.items()},
                masks={masks[i]: float(m.float().mean())
                       for i, m in drawn.items()},
+               relu_flips=flips, relu_inputs=sum(
+                   int(a.size) for a in cpu[len(fetch):]),
                nonfinite=nonfinite, seconds=secs, launches=counts,
                tol=dict(loss=TOL_TRAIN_LOSS, grad=TOL_TRAIN_GRAD,
                         velocity=TOL_TRAIN_GRAD, update=TOL_TRAIN_GRAD),
                bad=bad)
-    print("vgg16 parity: %s" % json.dumps(res))
+    print("%s: %s" % (label, json.dumps(res)))
     if nonfinite or bad:
         raise SystemExit("VGG-16 step on the card disagrees with the CPU "
                          "(%s) or is not finite (%s)" % (bad, nonfinite))
@@ -3798,6 +3893,28 @@ def phase_vgg_parity(vg, c=VGG, seed=SEED + 40):
             dense_update=len(params)):
         raise SystemExit("VGG-16 parity step launched %s" % counts)
     return res
+
+
+def phase_vgg_parity_controls(vg):
+    """Phase 33's parity step again, once under
+    ``torch.backends.cudnn.deterministic`` and once with cuDNN off (the
+    convs on torch's own CUDA kernels), flags restored after: which of
+    cuDNN's choices the card-vs-CPU gap comes from."""
+    out = {}
+    flags = torch.backends.cudnn
+    for name, attr in (('cudnn_deterministic', 'deterministic'),
+                       ('cudnn_disabled', 'enabled')):
+        old = getattr(flags, attr)
+        setattr(flags, attr, attr == 'deterministic')
+        try:
+            res = phase_vgg_parity(vg, label='vgg16 parity, ' + name)
+        finally:
+            setattr(flags, attr, old)
+        out[name] = dict(norm_rel_err=res['norm_rel_err'],
+                         median_norm_rel=res['median_norm_rel'],
+                         loss_err=res['loss_err'],
+                         relu_flips=res['relu_flips'])
+    return out
 
 
 def phase_dropout_op(c=DROPOUT):
@@ -4110,6 +4227,447 @@ def phase_recipes():
     return res
 
 
+# benchmarks/bench_ctr.py's Criteo-class headline (:318-330, the build of
+# :47-61, the feed of :64-78), uncut: DeepFM, 26 slots of 1,000,003-row
+# tables, embed 16, hidden (128, 128), 13 dense features, batch 32768,
+# Adagrad 0.01; one int32 id a slot a sample from default_rng(0), staged
+# on the card once and run by run_steps.  The labels are random, so the
+# loss falls only as the 1M-row tables learn the repeated batch: the run
+# compares the mean of the last 4 of 24 steps with the first 4's
+CTR = dict(B=32768, slots=26, rows=1000003, embed=16, lr=0.01, steps=8,
+           total_steps=24)
+# one DeepFM step card vs CPU: the bench's layout at B=256 and
+# 100,003-row tables.  The loss at TOL_TRAIN_LOSS and the dense gradients
+# at TOL_TRAIN_GRAD (phase 10's bounds and reasons); the touched table
+# rows and their Adagrad moments after the step at TOL_CTR_ROWS absolute:
+# each row's update is lr * g / (sqrt(g^2) + 1e-6), which is +-lr but
+# where g is within ~1e-6 of 0, and its moment g^2 from a sum of one or a
+# few values computed by the same pooled-sum backward on both sides
+CTR_PARITY = dict(B=256, slots=26, rows=100003, embed=16, lr=0.01)
+TOL_CTR_ROWS = 1e-5
+# benchmarks/bench_ctr.py:348-398's table-height sweep: batch 16384, 8
+# slots, embed 8, three heights; the step's peak less the tables' and
+# their moments' bytes must not grow with the height by more than
+# CTR_SWEEP_FLAT bytes (a dense [height, 8] gradient of the 8 tables at
+# the largest height would add 2.56 GB, of the 1-column ones 0.32 GB)
+CTR_SWEEP = dict(B=16384, slots=8, embed=8, lr=0.01,
+                 heights=(100003, 1000003, 10000019), steps=5)
+CTR_SWEEP_FLAT = 64 << 20
+# the book's CTR tests on the card (tests/book/test_ctr.py,
+# test_word2vec.py, test_recommender_system.py) with their gates
+BOOK_CTR = dict(ctr_gate=0.35, w2v_gate=7.1, rec_gate=4.8)
+# calc_gradient card vs CPU, relative to the largest entry
+TOL_CALC_GRAD = 1e-5
+def _ctr_programs(c, arch='deepfm'):
+    main, startup = tfl.Program(), tfl.Program()
+    main.random_seed = startup.random_seed = SEED
+    with tfl.program_guard(main, startup):
+        _, _, cost, auc = ctr.build(arch, sparse_dim=c['rows'],
+                                    num_slots=c['slots'],
+                                    embed_dim=c['embed'])
+        tfl.optimizer.AdagradOptimizer(c['lr']).minimize(cost)
+    return main, startup, cost, auc
+
+
+def _ctr_feed(batch, rows, slots, seed=0):
+    """bench_ctr.py's _feed_fn: dense normals, int32 labels and one int32
+    id a slot a sample, from default_rng(seed), as tensors on the card
+    (each slot's ids [B, 1, 1] and its ``@LEN`` lengths of 1)."""
+    rng = np.random.default_rng(seed)
+    ln = torch.ones((batch,), dtype=torch.int32, device='cuda')
+    feed = {'dense': rng.normal(size=(batch, ctr.DENSE_DIM)).astype(
+        np.float32), 'label': rng.integers(0, 2, (batch, 1)).astype(np.int32)}
+    feed = {k: torch.from_numpy(v).cuda() for k, v in feed.items()}
+    for i in range(slots):
+        feed['sparse_%d' % i] = torch.from_numpy(rng.integers(
+            0, rows, (batch, 1, 1)).astype(np.int32)).cuda()
+        feed['sparse_%d@LEN' % i] = ln
+    return feed
+
+
+def _table_moments(main):
+    """{table: its Adagrad moment} for the row-sparse tables."""
+    tables = {op.output('Out')[0][:-len('@GRAD')]
+              for op in main.global_block().ops
+              if op.type == 'sparse_grad_assemble'}
+    return {op.input('Param')[0]: op.input('Moment')[0]
+            for op in main.global_block().ops
+            if op.type == 'adagrad' and op.input('Param')[0] in tables}
+
+
+def phase_ctr_training(c=CTR):
+    """DeepFM at bench_ctr.py's Criteo-class width trained through
+    run_steps on one batch staged on the card: a warm-up step, 8 timed
+    single-step calls (p50, examples/s), one 8-step call, then steps to
+    24 in all; every loss finite and the mean of the last 4 below the
+    first 4's; each step must launch #6 once per table (52) and no other
+    kernel (the dense Adagrad is eager torch, as the reference leaves it
+    to XLA)."""
+    main, startup, cost, _ = _ctr_programs(c)
+    moments = _table_moments(main)
+    exe, scope = tfl.Executor(), tfl.Scope()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    table_bytes = sum(scope.get(n).numel() * 4
+                      for kv in moments.items() for n in kv)
+    feed = _ctr_feed(c['B'], c['rows'], c['slots'])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    allocated_at_start = torch.cuda.memory_allocated()
+
+    def steps(k):
+        t0 = time.perf_counter()
+        out, = exe.run_steps(main, feed=feed, fetch_list=[cost],
+                             scope=scope, repeat=k)
+        return (time.perf_counter() - t0) * 1e3, out.ravel().tolist()
+
+    _zero_counts()
+    warm_ms, losses = steps(1)
+    step_ms = []
+    for _ in range(c['steps']):
+        ms, loss = steps(1)
+        step_ms.append(ms)
+        losses += loss
+    run_ms, loss = steps(c['steps'])
+    losses += loss
+    losses += steps(c['total_steps'] - 1 - 2 * c['steps'])[1]
+    counts = _counts()
+    p50 = float(np.median(step_ms))
+    res = dict(
+        config='DeepFM B=%d, %d slots x %d rows x %d, Adagrad lr %g, '
+        'run_steps on one staged batch' % (c['B'], c['slots'], c['rows'],
+                                           c['embed'], c['lr']),
+        tables=len(moments), table_and_moment_bytes=table_bytes,
+        startup_s=startup_s, warmup_ms=warm_ms, step_ms=step_ms,
+        step_ms_p50=p50, examples_per_s=c['B'] / (p50 / 1e3),
+        run_steps_8_ms_per_step=run_ms / c['steps'],
+        examples_per_s_run_steps_8=c['B'] / (run_ms / c['steps'] / 1e3),
+        steps=len(losses), losses=losses,
+        first4_mean=float(np.mean(losses[:4])),
+        last4_mean=float(np.mean(losses[-4:])), launches=counts,
+        launches_per_step={k: n / len(losses) for k, n in counts.items()},
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        memory_allocated_at_start=allocated_at_start)
+    print("deepfm training: %s" % json.dumps(res))
+    if len(moments) != 2 * c['slots']:
+        raise SystemExit("DeepFM has %d row-sparse tables, want %d"
+                         % (len(moments), 2 * c['slots']))
+    if res['launches_per_step'] != _want(table_update=len(moments)):
+        raise SystemExit("DeepFM launches per step %s, want 52 row-sparse "
+                         "updates" % res['launches_per_step'])
+    if not all(np.isfinite(losses)) or \
+            not res['last4_mean'] < res['first4_mean']:
+        raise SystemExit("DeepFM loss not finite or not falling: %s"
+                         % losses)
+    return dict(main=main, cost=cost, scope=scope, exe=exe, feed=feed,
+                counts=counts, **res)
+
+
+def phase_ctr_profile(fm):
+    """A traced DeepFM step: device time by group (#6's row-sparse
+    kernels, the id sorts and the rest of #6's call, the GEMMs,
+    reductions, elementwise kernels, the rest) and the idle share."""
+    def step():
+        fm['exe'].run_steps(fm['main'], feed=fm['feed'],
+                            fetch_list=[fm['cost']], scope=fm['scope'],
+                            repeat=1)
+    wall, rows, busy = _device_kernels(step)
+    groups = {'table_update': 0.0, 'sort': 0.0, 'gemm': 0.0,
+              'reduction': 0.0, 'elementwise': 0.0, 'other': 0.0}
+    for k, ms, n in rows:
+        if 'rowwise_' in k:
+            groups['table_update'] += ms
+        elif re.search(r'[Ss]ort|[Rr]adix|cub', k):
+            groups['sort'] += ms
+        elif re.search(r'gemm|xmma|cutlass', k):
+            groups['gemm'] += ms
+        elif 'reduce_kernel' in k:
+            groups['reduction'] += ms
+        elif 'elementwise' in k or 'CatArray' in k or 'fill' in k.lower() \
+                or 'copy' in k.lower():
+            groups['elementwise'] += ms
+        else:
+            groups['other'] += ms
+    out = dict(wall_ms=wall, device_busy_ms=busy if rows else None,
+               idle_share=1.0 - busy / wall if rows else None,
+               kernel_ms_sum=sum(ms for _, ms, _ in rows),
+               kernels=sum(n for *_, n in rows), by_group_ms=groups,
+               table_update_share_of_busy=(groups['table_update'] / busy
+                                           if rows else None),
+               table_update_launches=sum(
+                   n for k, _, n in rows if 'rowwise_short' in k),
+               top=[dict(kernel=k[:100], ms=ms, count=n) for k, ms, n in
+                    sorted(rows, key=lambda r: -r[1])[:12]])
+    print("deepfm profile: %s" % json.dumps(out))
+    return out
+
+
+def phase_ctr_parity(c=CTR_PARITY, seed=SEED + 50):
+    """One DeepFM step at B=256 on the card and on the CPU from the same
+    state and feed: the loss, every dense gradient, and every table's
+    touched rows and Adagrad moments after the step; rows no id touched
+    stay bitwise unchanged on both sides."""
+    main, startup, cost, _ = _ctr_programs(c)
+    moments = _table_moments(main)
+    exe = tfl.Executor()
+    card_scope = tfl.Scope()
+    exe.run(startup, scope=card_scope)
+    cpu_scope = tfl.Scope()
+    for v in main.list_vars():
+        if v.persistable and card_scope.has(v.name):
+            cpu_scope.set(v.name, card_scope.get(v.name).to('cpu',
+                                                             copy=True))
+    before = {n: cpu_scope.get_numpy(n).copy()
+              for kv in moments.items() for n in kv}
+    dense = [p.name for p in main.all_parameters() if p.name not in moments]
+    fetch = [cost.name] + [n + '@GRAD' for n in dense]
+    feed = {k: v.cpu() for k, v in _ctr_feed(c['B'], c['rows'], c['slots'],
+                                             seed).items()}
+    _zero_counts()
+    card = exe.run(main, feed=feed, fetch_list=fetch, scope=card_scope)
+    counts = _counts()
+    cpu = tfl.Executor('cpu').run(main, feed=feed, fetch_list=fetch,
+                                  scope=cpu_scope)
+    ids = {op.input('W')[0]: feed[op.input('Ids')[0]].numpy().ravel()
+           for op in main.global_block().ops if op.type == 'lookup_table'}
+    grad_gaps = [(_norm_rel(a, b), n) for n, a, b in
+                 zip(dense, card[1:], cpu[1:])]
+    row_err, moved = 0.0, []
+    for table, mom in moments.items():
+        touched = np.zeros(c['rows'], bool)
+        touched[ids[table]] = True
+        for n in (table, mom):
+            a, b = card_scope.get_numpy(n), cpu_scope.get_numpy(n)
+            row_err = max(row_err, float(np.abs(a[touched] -
+                                                b[touched]).max()))
+            if not (np.array_equal(a[~touched], before[n][~touched]) and
+                    np.array_equal(b[~touched], before[n][~touched])):
+                moved.append(n)
+    loss_err = abs(float(card[0][0]) - float(cpu[0][0]))
+    worst = max(grad_gaps)
+    res = dict(batch=c['B'], rows=c['rows'], slots=c['slots'],
+               loss_card=float(card[0][0]), loss_cpu=float(cpu[0][0]),
+               loss_err=loss_err, dense_grad_norm_rel=worst[0],
+               dense_grad_worst=worst[1], touched_rows_max_abs_err=row_err,
+               untouched_moved=moved, launches=counts,
+               tol=dict(loss=TOL_TRAIN_LOSS, grad=TOL_TRAIN_GRAD,
+                        rows=TOL_CTR_ROWS))
+    print("deepfm parity: %s" % json.dumps(res))
+    nonfinite = [n for n, a in zip(['loss'] + dense, card)
+                 if not np.isfinite(a).all()]
+    if nonfinite or moved or not loss_err <= TOL_TRAIN_LOSS or \
+            not worst[0] <= TOL_TRAIN_GRAD or not row_err <= TOL_CTR_ROWS:
+        raise SystemExit("DeepFM step on the card disagrees with the CPU, "
+                         "moved an untouched row or is not finite: %s"
+                         % json.dumps(res))
+    if counts != {k: int(v) for k, v in _want(
+            table_update=len(moments)).items()}:
+        raise SystemExit("DeepFM parity step launched %s" % counts)
+    return res
+
+
+def phase_ctr_sweep(c=CTR_SWEEP):
+    """DeepFM at three table heights (bench_ctr.py's sweep): the step's
+    p50 and its peak memory, less the tables' and moments' bytes, at each
+    height; that figure must stay flat (``CTR_SWEEP_FLAT``): no dense
+    [height, D] gradient is built."""
+    rows = []
+    for h in c['heights']:
+        cc = dict(c, rows=h)
+        main, startup, cost, _ = _ctr_programs(cc)
+        moments = _table_moments(main)
+        exe, scope = tfl.Executor(), tfl.Scope()
+        exe.run(startup, scope=scope)
+        table_bytes = sum(scope.get(n).numel() * 4
+                          for kv in moments.items() for n in kv)
+        feed = _ctr_feed(c['B'], h, c['slots'])
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        at_start = torch.cuda.memory_allocated()
+        ms, losses = [], []
+        for _ in range(1 + c['steps']):
+            t0 = time.perf_counter()
+            out, = exe.run_steps(main, feed=feed, fetch_list=[cost],
+                                 scope=scope, repeat=1)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses += out.ravel().tolist()
+        peak = torch.cuda.max_memory_allocated()
+        rows.append(dict(table_rows=h, step_ms=ms[1:],
+                         step_ms_p50=float(np.median(ms[1:])),
+                         table_and_moment_bytes=table_bytes,
+                         memory_allocated_at_start=at_start,
+                         max_memory_allocated=peak,
+                         peak_less_tables=peak - table_bytes,
+                         losses=losses))
+        del scope, exe, feed
+        torch.cuda.empty_cache()
+    rest = [r['peak_less_tables'] for r in rows]
+    res = dict(config='DeepFM B=%d, %d slots, embed %d, Adagrad' % (
+        c['B'], c['slots'], c['embed']), sweep=rows,
+        peak_less_tables_spread=max(rest) - min(rest))
+    print("deepfm table-height sweep: %s" % json.dumps(res))
+    if not res['peak_less_tables_spread'] <= CTR_SWEEP_FLAT or not all(
+            np.isfinite(r['losses']).all() for r in rows):
+        raise SystemExit("the step's memory beside the tables grows with "
+                         "the table height, or a loss is not finite: %s"
+                         % json.dumps(res))
+    return res
+
+
+def phase_book_ctr(c=BOOK_CTR):
+    """The book's CTR-family tests on the card, through ``batch`` and
+    ``DataFeeder``, with their gates: test_ctr's two archs (Adam 0.003,
+    the first 512 synthetic click samples in batches of 64, 3 epochs:
+    the mean of the last 4 losses below 0.35), test_word2vec (SGD 0.1,
+    imikolov 5-grams in batches of 64, 2 epochs: the last 20's mean below
+    7.1) and test_recommender_system (SGD 0.2, the first 512 MovieLens
+    samples in batches of 64, 4 epochs: the last 4's below 4.8).  Each
+    step must launch #6 once per row-sparse table and #5 once per dense
+    parameter."""
+    out = {}
+    place = tfl.CUDAPlace(0)
+
+    def program(build, opt):
+        main, startup = tfl.Program(), tfl.Program()
+        main.random_seed = startup.random_seed = 7
+        with tfl.program_guard(main, startup):
+            feeds, cost = build()
+            opt().minimize(cost)
+        exe, scope = tfl.Executor(place), tfl.Scope()
+        exe.run(startup, scope=scope)
+        feeder = tfl.DataFeeder(feed_list=feeds, place=place, program=main)
+        n_sparse = sum(op.type == 'sparse_grad_assemble'
+                       for op in main.global_block().ops)
+        n_dense = len(main.all_parameters()) - n_sparse
+        return main, exe, scope, feeder, cost, n_sparse, n_dense
+
+    word_dict = imikolov.build_dict()
+    cases = []
+    for arch in ('wide_and_deep', 'deepfm'):
+        cases.append((arch, lambda a=arch: (lambda r: (r[0], r[2]))(
+            ctr.build(a)), lambda: tfl.optimizer.AdamOptimizer(0.003),
+            tfl.batch(tfl.reader.firstn(ctr.synthetic_reader(), 512), 64,
+                      drop_last=True), 3, 4, c['ctr_gate']))
+    cases.append(('word2vec', lambda: (lambda r: (r[0] + [r[1]], r[3]))(
+        word2vec.build(len(word_dict))),
+        lambda: tfl.optimizer.SGDOptimizer(0.1),
+        tfl.batch(imikolov.train(word_dict, 5), 64, drop_last=True), 2, 20,
+        c['w2v_gate']))
+    cases.append(('recommender', lambda: (lambda r: (r[0], r[2]))(
+        recommender.build()), lambda: tfl.optimizer.SGDOptimizer(0.2),
+        tfl.batch(tfl.reader.firstn(movielens.train(), 512), 64,
+                  drop_last=True), 4, 4, c['rec_gate']))
+    for name, build, opt, reader, epochs, last, gate in cases:
+        main, exe, scope, feeder, cost, n_sparse, n_dense = program(build,
+                                                                    opt)
+        t0 = time.perf_counter()
+        _zero_counts()
+        losses = [float(exe.run(main, feed=feeder.feed(b), fetch_list=[cost],
+                                scope=scope)[0][0])
+                  for _ in range(epochs) for b in reader()]
+        counts = _counts()
+        per_step = {k: n / len(losses) for k, n in counts.items()}
+        res = dict(steps=len(losses), seconds=time.perf_counter() - t0,
+                   first_mean=float(np.mean(losses[:last])),
+                   last_mean=float(np.mean(losses[-last:])), gate=gate,
+                   sparse_tables=n_sparse, dense_params=n_dense,
+                   launches=counts, launches_per_step=per_step)
+        print("book %s on the card: %s" % (name, json.dumps(res)))
+        if not all(np.isfinite(losses)) or not res['last_mean'] < gate:
+            raise SystemExit("book %s misses its gate: %s" % (name, res))
+        if per_step != _want(table_update=n_sparse, dense_update=n_dense):
+            raise SystemExit("book %s launches per step %s" % (name,
+                                                               per_step))
+        out[name] = res
+    return out
+
+
+def _calc_gradient_program(wrt):
+    main, startup = tfl.Program(), tfl.Program()
+    main.random_seed = startup.random_seed = SEED
+    with tfl.program_guard(main, startup):
+        x = tfl.layers.data(name='x', shape=[64], dtype='float32')
+        x.stop_gradient = False
+        h1 = tfl.layers.fc(input=x, size=128, act='tanh')
+        h2 = tfl.layers.fc(input=h1, size=64, act='relu')
+        loss = tfl.layers.mean(x=tfl.layers.square(
+            x=tfl.layers.fc(input=h2, size=8)))
+        grads = tfl.calc_gradient(loss, {'input': x, 'intermediate': h1}[wrt])
+    return main, startup, grads + [h1, loss]
+
+
+def phase_calc_gradient():
+    """calc_gradient on the card against the CPU from one state and input:
+    the gradient with respect to the fed input and with respect to an
+    intermediate (and that intermediate's forward value), within
+    ``TOL_CALC_GRAD`` of the largest entry."""
+    out = {}
+    x = np.random.default_rng(SEED + 52).standard_normal(
+        (256, 64)).astype(np.float32)
+    for wrt in ('input', 'intermediate'):
+        main, startup, fetch = _calc_gradient_program(wrt)
+        card_scope = tfl.Scope()
+        tfl.Executor().run(startup, scope=card_scope)
+        cpu_scope = tfl.Scope()
+        for p in main.all_parameters():
+            cpu_scope.set(p.name, card_scope.get(p.name).to('cpu',
+                                                             copy=True))
+        card = tfl.Executor().run(main, feed={'x': x}, fetch_list=fetch,
+                                  scope=card_scope)
+        cpu = tfl.Executor('cpu').run(main, feed={'x': x}, fetch_list=fetch,
+                                      scope=cpu_scope)
+        errs = [float(np.abs(a - b).max() / np.abs(b).max())
+                for a, b in zip(card, cpu)]
+        out[wrt] = dict(grad_rel_err=errs[0], forward_rel_err=errs[1:],
+                        grad_norm=float(np.linalg.norm(card[0])))
+    print("calc_gradient: %s" % json.dumps(out))
+    bad = [k for k, r in out.items()
+           if not max([r['grad_rel_err']] + r['forward_rel_err'])
+           <= TOL_CALC_GRAD or not r['grad_norm'] > 0]
+    if bad:
+        raise SystemExit("calc_gradient on the card disagrees with the "
+                         "CPU: %s" % bad)
+    return out
+
+
+def _ctr_table_line(table, res, sparse_timing):
+    """#6's kernels-line entry with the CTR family's launches and its
+    times at DeepFM's 16- and 1-column tables (phase 19's)."""
+    paths = dict(deepfm_training=res['fm']['counts']['table_update'],
+                 deepfm_parity=res['parity']['launches']['table_update'],
+                 **{'book_%s_training' % k: r['launches']['table_update']
+                    for k, r in res['book'].items()})
+    table['launches'] += sum(paths.values())
+    table['launches_by_path'].update(paths)
+    table['deepfm_shapes'] = dict(
+        note='sparse Adagrad, uniform ids over 1,000,003 rows, K=32768; '
+        'library: torch.optim.Adagrad on a sparse COO gradient, per call '
+        'between CUDA events as call_ms',
+        **{'D%d' % d: sparse_timing['ctr_uniform_d%d' % d]['adagrad']
+           for d in (16, 1)})
+    table['deepfm_ms_per_step'] = res['fm']['profile']['by_group_ms'][
+        'table_update']
+
+
+def _ctr_phases():
+    """Phases 37-42, timed together."""
+    t0 = time.perf_counter()
+    fm = phase_ctr_training()
+    fm['profile'] = phase_ctr_profile(fm)
+    del fm['scope'], fm['feed'], fm['exe']
+    torch.cuda.empty_cache()
+    parity = phase_ctr_parity()
+    sweep = phase_ctr_sweep()
+    book = phase_book_ctr()
+    calc = phase_calc_gradient()
+    print("phases 37-42 (the CTR family, calc_gradient): %.1f s"
+          % (time.perf_counter() - t0))
+    return dict(fm=fm, parity=parity, sweep=sweep, book=book, calc=calc)
+
+
 def _image_phases():
     """Phases 28-36, timed together."""
     t0 = time.perf_counter()
@@ -4120,7 +4678,8 @@ def _image_phases():
     del rn['scope'], rn['feed']
     t1 = time.perf_counter()
     vg = phase_vgg_training()
-    phase_vgg_parity(vg)
+    vg['parity'] = phase_vgg_parity(vg)
+    vg['parity_controls'] = phase_vgg_parity_controls(vg)
     phase_dropout_op()
     phase_image_profile(vg, 'vgg16 profile')
     del vg['scope'], vg['feed']
@@ -4176,6 +4735,7 @@ def main():
     del long_tr['scope'], long_tr['exe']   # free the card for ResNet-50
     torch.cuda.empty_cache()
     rn, mn, vg, book, recipes = _image_phases()
+    ctr_res = _ctr_phases()
     counts = tr['counts']
     main_row = next(r for r in rows if r['case'] == MAIN_CASE)
     fwd = dict(
@@ -4240,7 +4800,9 @@ def main():
                   rn['counts']['dense_update'] +
                   mn['launches']['dense_update'] +
                   vg['counts']['dense_update'] +
-                  book['launches']['dense_update'] + recipes['launches']),
+                  book['launches']['dense_update'] + recipes['launches'] +
+                  sum(r['launches']['dense_update']
+                      for r in ctr_res['book'].values())),
         launches_by_path=dict(
             training=counts['dense_update'],
             seq2seq_training=s2s['counts']['dense_update'],
@@ -4249,7 +4811,9 @@ def main():
             vgg16_training=vg['counts']['dense_update'],
             book_vgg_training=book['launches']['dense_update'],
             training_recipes=recipes['launches'],
-            sgd_weight_decay=recipes['sgd_weight_decay_launches']),
+            sgd_weight_decay=recipes['sgd_weight_decay_launches'],
+            **{'book_%s_training' % k: r['launches']['dense_update']
+               for k, r in ctr_res['book'].items()}),
         max_abs_err=dense['worst'],
         ms=dense['ms'], plain_ms=dense['plain_ms'],
         bound_ms=dense['bound_ms'], bound_by=dense['bound_by'],
@@ -4258,9 +4822,11 @@ def main():
         resnet_momentum=dense['resnet_momentum'],
         vgg_fc1_momentum=dense['vgg_fc1_momentum'],
         cases=len(dense['cases']))
+    table, gru_fwd, gru_bwd = _s2s_lines(gru_rows, gru_timing, sparse_rows,
+                                         sparse_timing, s2s)
+    _ctr_table_line(table, ctr_res, sparse_timing)
     print(json.dumps({'kernels': [fwd, bwd, dense_line] + _lstm_lines(
-        lstm_rows, lstm_timing, lm, sent) + _s2s_lines(
-            gru_rows, gru_timing, sparse_rows, sparse_timing, s2s)
+        lstm_rows, lstm_timing, lm, sent) + [table, gru_fwd, gru_bwd]
         + _split_lines(split_rows, split_timing, long_k, long_tr, parity,
                        tr)}))
     print(card)

@@ -46,10 +46,22 @@ Ported so far:
   dense-update kernel's ``weight_decay`` arm), ``clip`` (gradient clip by
   value, by norm and by global norm; ``ErrorClipByValue`` in the
   gradient pass), ``learning_rate_decay`` (five schedules on a step
-  counter on the card) and ``global_step``.
+  counter on the card) and ``global_step``;
+- the CTR models (``models/ctr.py``: wide&deep and DeepFM, their tables
+  ``is_sparse``, trained with ``AdagradOptimizer`` or lazy Adam on the
+  row-sparse update kernel), the word2vec N-gram LM and the MovieLens
+  recommender (``models/word2vec.py``, ``models/recommender.py``), with
+  ``sigmoid``, ``auc``, ``cos_sim``, ``sequence_conv`` and
+  ``nets.sequence_conv_pool``, and the synthetic ``datasets.imikolov`` /
+  ``datasets.movielens``;
+- the executor's liveness (each value dropped after its last use) and
+  ``calc_gradient`` (gradients with respect to inputs and
+  intermediates).
 """
 from . import datasets, initializer, layers, nets, optimizer  # noqa: F401
 from . import clip, learning_rate_decay, reader, regularizer  # noqa: F401
+from .core import backward
+from .core.backward import append_backward, calc_gradient
 from .core.executor import Executor
 from .core.lod import LoDTensor, create_lod_tensor
 from .core.place import CPUPlace, CUDAPlace
@@ -70,4 +82,5 @@ __all__ = ['Program', 'program_guard', 'default_main_program',
            'create_lod_tensor', 'AdagradOptimizer', 'AdamOptimizer',
            'MomentumOptimizer', 'SGDOptimizer', 'SelectedRows', 'DataFeeder',
            'batch', 'reader', 'datasets', 'clip', 'regularizer',
-           'learning_rate_decay']
+           'learning_rate_decay', 'backward', 'append_backward',
+           'calc_gradient']

@@ -12,10 +12,13 @@ lookups' outputs instead of the table, and a ``sparse_grad_assemble`` op
 per table packs (ids, output gradients) into the table's ``@GRAD``
 SelectedRows (reference lookup_table_op.cc:52 and the optimizers' sparse
 branches): the vocab-height dense gradient never exists.
+
+``calc_gradient`` appends an autodiff op over any variables, fed inputs
+and intermediates included (fluid's calc_gradient).
 """
 from .program import Variable, grad_var_name
 
-__all__ = ['append_backward']
+__all__ = ['append_backward', 'calc_gradient']
 
 
 def _collect_trainable_params(block, parameter_list=None, no_grad_set=None):
@@ -151,3 +154,41 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
                 for p, g in params_and_grads:
                     cb(block, {'param': p, 'grad': g})
     return params_and_grads
+
+
+def calc_gradient(targets, inputs, target_gradients=None, no_grad_set=None):
+    """Gradients of one target with respect to ``inputs``, any variables
+    (fluid.backward.calc_gradient): an ``autodiff`` op writing
+    ``<input>@GRAD`` for each; returns those variables.  The executor
+    makes a fed input a leaf before the forward ops and an intermediate a
+    leaf from the moment its op writes it."""
+    targets = targets if isinstance(targets, (list, tuple)) else [targets]
+    inputs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
+    if len(targets) != 1:
+        raise ValueError("calc_gradient takes a single target, got %d"
+                         % len(targets))
+    loss = targets[0]
+    block = loss.block.program.global_block()
+    in_names = [v.name if isinstance(v, Variable) else v for v in inputs]
+    grad_names = [grad_var_name(n) for n in in_names]
+    grads = []
+    for n, gn in zip(in_names, grad_names):
+        v = block.var(n)
+        if not block.has_var(gn):
+            g = block.create_var(name=gn, shape=v.shape, dtype=v.dtype)
+            g.stop_gradient = True
+        else:
+            g = block.var(gn)
+        grads.append(g)
+    block.append_op(
+        type='autodiff',
+        inputs={'Loss': [loss]},
+        outputs={'Grads': grad_names},
+        attrs={
+            'loss_name': loss.name,
+            'param_names': in_names,
+            'grad_names': grad_names,
+            'loss_scale': 1.0,
+            'op_role': 'backward',
+        })
+    return grads

@@ -30,6 +30,19 @@ their wrappers.
   the optimizer as a ``SelectedRows``; a fetch of one returns it in a 0-d
   object array with numpy fields, as the reference's ``np.asarray`` of the
   pytree does.
+- Liveness: each value leaves the environment right after the last op
+  that reads or writes it, unless it is fetched or persistable (a name
+  written twice, a counter or an in-place sum, leaves after its last use).
+  Inside the gradient pass each forward value leaves likewise after its
+  last forward reader, so autograd alone decides which activations stay
+  saved for the backward, and only the forward outputs that a later op, a
+  fetch or a persistable reads are published back.  The reference's
+  modelled counterpart is ``analyze_memory``
+  (paddle_tpu/transpiler/memory_model.py); XLA frees buffers by the same
+  rule inside its one program.
+- ``calc_gradient`` (core/backward.py) differentiates with respect to
+  fed inputs and intermediates: an intermediate becomes a leaf from the
+  moment its op writes it, as the sparse lookups' outputs do.
 - Only the ops that a fetch, the autodiff op's loss or a persistable write
   needs are run (with every stateful-random op and every op without
   outputs): the reference traces the block into one XLA program, whose
@@ -41,8 +54,9 @@ their wrappers.
 - ``run_steps`` runs K steps as a host loop over the same step, every
   feed staged on the device first; fetches come back stacked [K, ...].
 
-Not in this slice (each raises): ``compile``, a program with more than
-one ``autodiff`` op, AMP loss scaling and skip-step gates, overlap
+Not in this slice (each raises): ``compile`` (with ``torch.export`` and
+the AOT cache, ROADMAP.md Queue 1 item 8), a program with more than one
+``autodiff`` op, AMP loss scaling and skip-step gates, overlap
 buckets, remat, meshes.
 """
 import numpy as np
@@ -205,53 +219,110 @@ def live_ops(block, fetch_names):
     return live[::-1]
 
 
-def _run_ops(ops, env, ctx, live):
-    """Interpret the ops at indices ``live`` in program order.  The first
-    ``autodiff`` op runs the forward-role ops before it inside its
-    gradient pass; they are skipped at top level."""
-    ad_idxs = [i for i in live if ops[i].type == 'autodiff']
-    if len(ad_idxs) > 1:
-        raise NotImplementedError(
-            "programs with more than one autodiff op (multi-loss, GAN) are "
-            "not ported yet: ROADMAP.md Queue 1")
-    fwd = []
-    if ad_idxs:
-        fwd = [(j, ops[j]) for j in live
-               if j < ad_idxs[0] and _op_role(ops[j]) == 'forward']
-    in_fwd = {j for j, _ in fwd}
-    for i in live:
+def _names(op):
+    return set(op.input_arg_names) | set(op.output_arg_names)
+
+
+def _drops(uses, keep):
+    """For each position of ``uses`` (the names each op reads or writes),
+    the names not in ``keep`` whose last use it is."""
+    last = {}
+    for pos, names in enumerate(uses):
+        for n in names:
+            last[n] = pos
+    drops = [[] for _ in uses]
+    for n, pos in last.items():
+        if n not in keep:
+            drops[pos].append(n)
+    return drops
+
+
+class _StepPlan(object):
+    """How a run of a program's global block for one fetch list goes,
+    worked out from the program alone and kept per program version (the
+    reference keys its compiled plans the same way): the live ops; the
+    top-level sequence, in which the first ``autodiff`` op stands for the
+    forward-role ops before it (its gradient pass runs them); the names to
+    drop after each op of the sequence and of the gradient pass
+    (liveness); and the names that outlive the pass."""
+
+    def __init__(self, program, fetch_names):
+        block = program.global_block()
+        ops = block.ops
+        self.known = set(block.vars)
+        for op in ops:
+            self.known.update(op.output_arg_names)
+        self.live = live_ops(block, fetch_names)
+        alive = set(self.live)
+        self.skipped = [(i, op.type) for i, op in enumerate(ops)
+                        if i not in alive]
+        persistable = [v.name for v in program.list_vars() if v.persistable]
+        self.keep = set(fetch_names) | set(persistable)
+        written = set()
+        for op in ops:
+            written.update(op.output_arg_names)
+        self.write_back = [n for n in persistable if n in written]
+        ad = [i for i in self.live if ops[i].type == 'autodiff']
+        if len(ad) > 1:
+            raise NotImplementedError(
+                "programs with more than one autodiff op (multi-loss, GAN) "
+                "are not ported yet: ROADMAP.md Queue 1")
+        self.fwd = [(j, ops[j]) for j in self.live
+                    if ad and j < ad[0] and _op_role(ops[j]) == 'forward']
+        in_fwd = {j for j, _ in self.fwd}
+        self.seq = [i for i in self.live if i not in in_fwd]
+        uses = [_names(ops[i]) for i in self.seq]
+        if ad:
+            pos = self.seq.index(ad[0])
+            ad_op = ops[ad[0]]
+            for _, op in self.fwd:
+                uses[pos] |= _names(op)
+            uses[pos].update(ad_op.attrs['param_names'])
+            # what outlives the gradient pass: a later op's inputs, the
+            # fetches and the persistables
+            self.needed = set(self.keep)
+            for i in self.seq[pos + 1:]:
+                self.needed.update(ops[i].input_arg_names)
+            self.fwd_written = set()
+            for _, op in self.fwd:
+                self.fwd_written.update(op.output_arg_names)
+            self.fwd_drops = _drops([_names(op) for _, op in self.fwd],
+                                    self.needed | {ad_op.attrs['loss_name']})
+        self.drops = _drops(uses, self.keep)
+
+
+def _run_ops(ops, env, ctx, plan):
+    """Interpret ``plan``'s sequence of ops in program order, dropping each
+    environment entry after its last use."""
+    for pos, i in enumerate(plan.seq):
         op = ops[i]
         if op.type == 'autodiff':
-            _run_autodiff(op, fwd, env, ctx)
-        elif i not in in_fwd:
+            _run_autodiff(op, plan, env, ctx)
+        else:
             _run_one(op, env, ctx, i)
+        for n in plan.drops[pos]:
+            env.pop(n, None)
 
 
-def _sparse_lookup_outputs(fwd_ops):
-    return {op.outputs['Out'][0] for _, op in fwd_ops
-            if op.type == 'lookup_table' and op.attrs.get('is_sparse')}
-
-
-def _run_autodiff(ad_op, fwd_ops, env, ctx):
-    """Gradients of the loss with respect to ``param_names``: parameters
-    from the environment, and the outputs of ``is_sparse`` lookups, each a
-    leaf from the moment its op writes it (later writes keep the leaf)."""
+def _run_autodiff(ad_op, plan, env, ctx):
+    """Gradients of the loss with respect to ``param_names``: values from
+    the environment (parameters, fed inputs), and values written by a
+    forward op (``is_sparse`` lookups' outputs, ``calc_gradient``'s
+    intermediates), each a leaf from the moment its op writes it (later
+    writes keep the leaf).  A forward value leaves the pass's environment
+    after its last forward reader unless a later op, a fetch, a
+    persistable or the loss needs it (``plan.needed``); the forward
+    outputs needed later are published to ``env``, detached."""
     param_names = list(ad_op.attrs['param_names'])
     grad_names = list(ad_op.attrs['grad_names'])
     loss_name = ad_op.attrs['loss_name']
     loss_scale = float(ad_op.attrs.get('loss_scale', 1.0))
-    written = set()
-    for _, op in fwd_ops:
-        written.update(op.output_arg_names)
+    written = plan.fwd_written
     frozen = set(param_names) & written
-    missing = [n for n in param_names
-               if (n not in env and n not in written) or
-               (n in frozen and n not in _sparse_lookup_outputs(fwd_ops))]
+    missing = [n for n in param_names if n not in env and n not in written]
     if missing:
-        raise NotImplementedError(
-            "gradients with respect to intermediate variables %s "
-            "(calc_gradient) are not ported yet: ROADMAP.md Queue 1 item 5"
-            % missing[:3])
+        raise KeyError("autodiff: %s has no value before the gradient pass "
+                       "and no forward op writes it" % missing[:3])
     env2 = dict(env)
     leaves = {}
     with torch.enable_grad():
@@ -259,19 +330,21 @@ def _run_autodiff(ad_op, fwd_ops, env, ctx):
             if n not in frozen:
                 leaves[n] = env[n].detach().requires_grad_(True)
                 env2[n] = _error_clipped(ctx.block.vars.get(n), leaves[n])
-        for j, op in fwd_ops:
+        for (j, op), drops in zip(plan.fwd, plan.fwd_drops):
             _run_one(op, env2, ctx, j)
             for n in frozen.intersection(op.output_arg_names):
                 if n not in leaves:
                     leaves[n] = env2[n].detach().requires_grad_(True)
                 env2[n] = leaves[n]
+            for n in drops:
+                env2.pop(n, None)
         if loss_name not in env2:
             raise KeyError("autodiff loss %r was never computed"
                            % loss_name)
         loss = env2[loss_name].float().sum() * loss_scale
         wrt = [leaves[n] for n in param_names]
         grads = torch.autograd.grad(loss, wrt, allow_unused=True)
-    for n in written:
+    for n in written & plan.needed:
         if n in env2:
             env[n] = env2[n].detach()
     for leaf, gn, g in zip(wrt, grad_names, grads):
@@ -299,6 +372,7 @@ class Executor(object):
         self.place = resolve_device(place)
         self._step_count = 0
         self.skipped_ops = []
+        self._plans = {}   # (program uid, version, fetches) -> _StepPlan
 
     def _base_seed(self, program):
         seed = program.random_seed
@@ -346,15 +420,20 @@ class Executor(object):
                 staged[col] = self._to_device(col, v, block.vars.get(col))
         return staged
 
+    def _plan(self, program, fetch_names):
+        key = (program._uid, program.version, tuple(fetch_names))
+        plan = self._plans.get(key)
+        if plan is None:
+            plan = self._plans[key] = _StepPlan(program, fetch_names)
+        return plan
+
     def _step(self, program, scope, staged, fetch_names):
         """One run of the block on a staged feed; returns the fetched
         tensors."""
         block = program.global_block()
-        known = set(block.vars)
-        for op in block.ops:
-            known.update(op.output_arg_names)
+        plan = self._plan(program, fetch_names)
         for n in fetch_names:
-            if n not in known and n not in staged:
+            if n not in plan.known and n not in staged:
                 raise KeyError(
                     "fetch var %r is not produced by any op in the program "
                     "and is not fed" % n)
@@ -376,28 +455,21 @@ class Executor(object):
         ctx = ExecutionContext(program, block, self.place,
                                self._base_seed(program), self._step_count)
         self._step_count += 1
-        live = live_ops(block, fetch_names)
-        alive = set(live)
-        self.skipped_ops = [(i, op.type) for i, op in enumerate(block.ops)
-                            if i not in alive]
+        self.skipped_ops = list(plan.skipped)
         with torch.no_grad():
-            _run_ops(block.ops, env, ctx, live)
-            written = set()
-            for op in block.ops:
-                written.update(op.output_arg_names)
-            for v in program.list_vars():
-                if not v.persistable or v.name not in written or \
-                        v.name not in env:
+            _run_ops(block.ops, env, ctx, plan)
+            for name in plan.write_back:
+                if name not in env:
                     continue
-                new = env[v.name]
-                old = scope.find_var(v.name)
+                new = env[name]
+                old = scope.find_var(name)
                 if old is new:
                     continue
                 if torch.is_tensor(old) and old.shape == new.shape and \
                         old.dtype == new.dtype and old.device == new.device:
                     old.copy_(new)   # in place: the scope tensor stays
                 else:
-                    scope.set(v.name, new)
+                    scope.set(name, new)
         fetches = []
         for n in fetch_names:
             if n not in env:
@@ -466,5 +538,6 @@ class Executor(object):
 
     def compile(self, *args, **kwargs):
         raise NotImplementedError(
-            "Executor.compile (ahead-of-time plans) is not ported yet: "
-            "ROADMAP.md Queue 1 item 5")
+            "Executor.compile (ahead-of-time plans) is not ported yet: it "
+            "comes with torch.export and the AOT cache, ROADMAP.md Queue 1 "
+            "item 8")

@@ -109,6 +109,16 @@ class Variable(object):
     def program(self):
         return self.block.program
 
+    @property
+    def persistable(self):
+        return self._persistable
+
+    @persistable.setter
+    def persistable(self, value):
+        # the executor's plans keep what outlives a step by this flag
+        self._persistable = value
+        self.block.program._bump_version()
+
     def astype(self, dtype):
         from .. import layers
         return layers.cast(x=self, dtype=dtype)
@@ -184,6 +194,7 @@ class Operator(object):
 
     def set_attr(self, name, val):
         self.attrs[name] = val
+        self.block.program._bump_version()
 
     def __repr__(self):
         return "{%s: (%s) -> (%s)}" % (self.type, dict(self.inputs),
@@ -232,6 +243,7 @@ class Block(object):
 
     def _add_var(self, var):
         self.vars[var.name] = var
+        self.program._bump_version()
 
     def create_var(self, **kwargs):
         return Variable(self, **kwargs)
@@ -278,6 +290,7 @@ class Block(object):
             self.ops.append(op)
         else:
             self.ops.insert(index, op)
+        self.program._bump_version()
         return op
 
     def __repr__(self):
@@ -299,6 +312,10 @@ class Program(object):
         self._current_role = 'forward'
         # process-unique identity, never reused after garbage collection
         self._uid = next(Program._uid_counter)
+        # bumped by every var or op added, every set_attr and every change
+        # of a var's persistable flag, so a plan worked out from an older
+        # program is never reused
+        self._version = 0
 
     @contextlib.contextmanager
     def op_role_guard(self, role):
@@ -309,6 +326,13 @@ class Program(object):
             yield
         finally:
             self._current_role = old
+
+    def _bump_version(self):
+        self._version += 1
+
+    @property
+    def version(self):
+        return self._version
 
     def global_block(self):
         return self.blocks[0]

@@ -1,23 +1,19 @@
 """Synthetic WMT14 translation batches.
 
 The port's copy of the synthetic task of paddle_tpu/datasets/wmt14.py
-(``_translate``) and datasets/common.py (``zipf_seq``): source ids are
+(``_translate``), over ``common.zipf_seq``: source ids are
 Zipf(1.3)-distributed like natural text, and the "translation" is a
 deterministic token map plus a swap of adjacent pairs, which a seq2seq
 model with attention can learn.  Ids 0, 1, 2 are <s>, <e>, <unk>.
 """
 import numpy as np
 
+from .common import zipf_seq
+
 __all__ = ['START_ID', 'END_ID', 'UNK_ID', 'zipf_seq', 'translate',
            'batch']
 
 START_ID, END_ID, UNK_ID = 0, 1, 2
-
-
-def zipf_seq(rng, length, vocab_size, low=0):
-    """Zipf-distributed token ids in [low, vocab_size)."""
-    ranks = rng.zipf(1.3, size=length)
-    return (low + (ranks - 1) % (vocab_size - low)).astype(np.int64)
 
 
 def translate(src, dict_size):

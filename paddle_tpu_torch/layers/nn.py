@@ -2,8 +2,8 @@
 transformer's, the LSTM models', the seq2seq translator's and the image
 models': fc, embedding, conv2d, pool2d, batch_norm, layer_norm, dropout,
 split, matmul, pad, the fused vocab head, softmax_with_cross_entropy,
-cross_entropy, square_error_cost, accuracy and the reductions
-(reduce_{sum,mean,max,min,prod}).
+cross_entropy, square_error_cost, accuracy, auc, cos_sim and the
+reductions (reduce_{sum,mean,max,min,prod}).
 Same signatures and the same op attrs as the reference, so a model script
 ports by changing its import.
 """
@@ -15,8 +15,8 @@ from .layer_helper import LayerHelper
 __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
            'dropout', 'split', 'matmul', 'pad', 'fused_linear_softmax_ce',
            'softmax_with_cross_entropy', 'cross_entropy',
-           'square_error_cost', 'accuracy', 'reduce_sum', 'reduce_mean',
-           'reduce_max', 'reduce_min', 'reduce_prod']
+           'square_error_cost', 'accuracy', 'auc', 'cos_sim', 'reduce_sum',
+           'reduce_mean', 'reduce_max', 'reduce_min', 'reduce_prod']
 
 
 def fc(input,
@@ -360,6 +360,33 @@ def accuracy(input, label, k=1, correct=None, total=None, **kwargs):
         outputs={'Accuracy': [acc_out], 'Correct': [correct],
                  'Total': [total]})
     return acc_out
+
+
+def auc(input, label, curve='ROC', num_thresholds=200, **kwargs):
+    """The batch's AUC of ``input`` (two-column probabilities) against
+    ``label`` (ops/metrics.py ``auc``); not differentiated."""
+    helper = LayerHelper('auc', **locals())
+    out = helper.create_tmp_variable('float32', stop_gradient=True)
+    helper.append_op(
+        type='auc',
+        inputs={'Out': [input], 'Label': [label]},
+        outputs={'AUC': [out]},
+        attrs={'curve': curve, 'num_thresholds': num_thresholds})
+    return out
+
+
+def cos_sim(X, Y, **kwargs):
+    """Row-wise cosine similarity of X and Y [N, 1] (operators/
+    cos_sim_op); also writes the row norms."""
+    helper = LayerHelper('cos_sim', **locals())
+    out = helper.create_tmp_variable(X.dtype)
+    xnorm = helper.create_tmp_variable(X.dtype)
+    ynorm = helper.create_tmp_variable(X.dtype)
+    helper.append_op(
+        type='cos_sim',
+        inputs={'X': [X], 'Y': [Y]},
+        outputs={'Out': [out], 'XNorm': [xnorm], 'YNorm': [ynorm]})
+    return out
 
 
 def square_error_cost(input, label, **kwargs):

@@ -3,10 +3,10 @@
 Reference parity: paddle_tpu/layers/sequence.py (the sequence_* /
 dynamic_lstm / dynamic_gru / lstm_unit / gru_unit entries of fluid
 layers/nn.py), cut to what the recurrent models use: ``dynamic_lstm``,
-``dynamic_gru``, ``lstm_unit``, ``gru_unit``, ``sequence_pool``,
-``sequence_first_step``, ``sequence_last_step``, ``sequence_softmax`` and
-``sequence_lengths``.  The other layers of the reference file raise,
-naming the ROADMAP item that brings them.
+``dynamic_gru``, ``lstm_unit``, ``gru_unit``, ``sequence_conv``,
+``sequence_pool``, ``sequence_first_step``, ``sequence_last_step``,
+``sequence_softmax`` and ``sequence_lengths``.  The other layers of the
+reference file raise, naming the ROADMAP item that brings them.
 """
 from ..core.program import LEN_SUFFIX
 from ..param_attr import ParamAttr
@@ -35,6 +35,34 @@ def sequence_lengths(x, **kwargs):
     helper = LayerHelper('sequence_lengths', **kwargs)
     block = helper.main_program.current_block()
     return block.var_recursive(x.name + LEN_SUFFIX)
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
+                  padding=None, bias_attr=None, param_attr=None, act=None,
+                  **kwargs):
+    """Context-window convolution over each sequence's steps (ops/
+    sequence.py ``sequence_conv``): a Filter [filter_size * D,
+    num_filters] over the centred window, then the bias and ``act``."""
+    helper = LayerHelper('sequence_conv', **kwargs)
+    dtype = input.dtype
+    filter_shape = [filter_size * input.shape[-1], num_filters]
+    w = helper.create_parameter(
+        attr=ParamAttr.to_attr(param_attr), shape=filter_shape, dtype=dtype,
+        is_bias=False)
+    pre_bias = helper.create_tmp_variable(dtype, lod_level=input.lod_level)
+    inputs = {'X': [input], 'Filter': [w]}
+    inputs.update(_len_input(helper, input))
+    helper.append_op(
+        type='sequence_conv', inputs=inputs,
+        outputs={'Out': [pre_bias]},
+        attrs={'contextStride': filter_stride,
+               'contextStart': -int(filter_size // 2),
+               'contextLength': filter_size})
+    helper.copy_len(input, pre_bias)
+    helper.kwargs['bias_attr'] = bias_attr
+    helper.kwargs['act'] = act
+    pre_act = helper.append_bias_op(pre_bias, dim_start=2)
+    return helper.append_activation(pre_act)
 
 
 def sequence_pool(input, pool_type, **kwargs):
@@ -205,7 +233,6 @@ def _later(name, item):
 
 _OP_LIBRARY = 'item 6 (the rest of the op library)'
 
-sequence_conv = _later('sequence_conv', _OP_LIBRARY)
 sequence_expand = _later('sequence_expand', _OP_LIBRARY)
 sequence_concat = _later('sequence_concat', _OP_LIBRARY)
 sequence_slice = _later('sequence_slice', _OP_LIBRARY)

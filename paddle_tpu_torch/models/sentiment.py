@@ -1,11 +1,10 @@
-"""understand_sentiment on IMDB: the dynamic LSTM and the stacked
-bidirectional LSTM.
+"""understand_sentiment on IMDB: the convolution net, the dynamic LSTM
+and the stacked bidirectional LSTM.
 
 Reference parity: paddle_tpu/models/sentiment.py (fluid/tests/book/
-test_understand_sentiment_{dynamic_lstm,lstm}.py).  The convolution net
-needs ``sequence_conv`` and raises.
+test_understand_sentiment_{conv,dynamic_lstm,lstm}.py).
 """
-from .. import layers
+from .. import layers, nets
 
 __all__ = ['convolution_net', 'dynamic_lstm_net', 'stacked_lstm_net',
            'build']
@@ -13,9 +12,21 @@ __all__ = ['convolution_net', 'dynamic_lstm_net', 'stacked_lstm_net',
 
 def convolution_net(data, label, input_dim, class_dim=2, emb_dim=32,
                     hid_dim=32):
-    raise NotImplementedError(
-        "sentiment's convolution_net needs sequence_conv, not ported yet: "
-        "ROADMAP.md Queue 1 item 6 (the rest of the op library)")
+    """Two sequence_conv_pool branches (windows of 3 and 4 steps, tanh,
+    sqrt pooling) over one embedding, then a softmax fc."""
+    emb = layers.embedding(input=data, size=[input_dim, emb_dim])
+    conv_3 = nets.sequence_conv_pool(
+        input=emb, num_filters=hid_dim, filter_size=3, act='tanh',
+        pool_type='sqrt')
+    conv_4 = nets.sequence_conv_pool(
+        input=emb, num_filters=hid_dim, filter_size=4, act='tanh',
+        pool_type='sqrt')
+    prediction = layers.fc(input=[conv_3, conv_4], size=class_dim,
+                           act='softmax')
+    cost = layers.cross_entropy(input=prediction, label=label)
+    avg_cost = layers.mean(x=cost)
+    acc = layers.accuracy(input=prediction, label=label)
+    return avg_cost, acc, prediction
 
 
 def dynamic_lstm_net(data, label, input_dim, class_dim=2, emb_dim=32,
@@ -59,7 +70,7 @@ def stacked_lstm_net(data, label, input_dim, class_dim=2, emb_dim=128,
 
 def build(input_dim, net='conv', class_dim=2):
     """Returns (data, label, avg_cost, acc, prediction); ``net`` is
-    'dynamic_lstm' or 'stacked_lstm' ('conv' raises)."""
+    'conv', 'dynamic_lstm' or 'stacked_lstm'."""
     data = layers.data(name="words", shape=[1], dtype="int64", lod_level=1)
     label = layers.data(name="label", shape=[1], dtype="int64")
     fn = {'conv': convolution_net, 'dynamic_lstm': dynamic_lstm_net,

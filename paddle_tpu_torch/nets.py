@@ -1,9 +1,9 @@
 """Composite networks (paddle_tpu/nets.py), cut to
-``simple_img_conv_pool``, ``img_conv_group`` and the flash path of
-``scaled_dot_product_attention``."""
+``simple_img_conv_pool``, ``img_conv_group``, ``sequence_conv_pool`` and
+the flash path of ``scaled_dot_product_attention``."""
 from . import layers
 
-__all__ = ['simple_img_conv_pool', 'img_conv_group',
+__all__ = ['simple_img_conv_pool', 'img_conv_group', 'sequence_conv_pool',
            'scaled_dot_product_attention']
 
 
@@ -60,6 +60,15 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
     return layers.pool2d(input=tmp, pool_size=pool_size,
                          pool_type=pool_type, pool_stride=pool_stride,
                          data_format=data_format)
+
+
+def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
+                       act='sigmoid', pool_type='max'):
+    """sequence_conv (with ``act``) then sequence_pool."""
+    conv_out = layers.sequence_conv(
+        input=input, num_filters=num_filters, filter_size=filter_size,
+        param_attr=param_attr, act=act)
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type)
 
 
 def scaled_dot_product_attention(queries, keys, values,

@@ -1,6 +1,6 @@
-"""Activation ops (paddle_tpu/ops/activations.py), cut to relu, tanh,
-exp, sqrt, floor, ceil, square, sign and pow (its ``factor`` attr): one
-elementwise function each, which the clip, regularizer and
+"""Activation ops (paddle_tpu/ops/activations.py), cut to relu, sigmoid,
+tanh, exp, sqrt, floor, ceil, square, sign and pow (its ``factor``
+attr): one elementwise function each, which the clip, regularizer and
 learning-rate-decay ops use besides the models."""
 import torch
 
@@ -17,6 +17,7 @@ def _unary(name, fn):
 
 
 _unary('relu', lambda x, a: torch.relu(x))
+_unary('sigmoid', lambda x, a: torch.sigmoid(x))
 _unary('tanh', lambda x, a: torch.tanh(x))
 _unary('exp', lambda x, a: torch.exp(x))
 _unary('sqrt', lambda x, a: torch.sqrt(x))

@@ -1,9 +1,10 @@
 """Math ops: mul, matmul, the elementwise family (add, sub, mul, div,
 pow, max, min), scale, sum, mean, clip, clip_by_norm, the reductions
-(sum, mean, max, min, prod), softmax, top_k.
+(sum, mean, max, min, prod), softmax, top_k, cos_sim.
 
 Reference parity: paddle_tpu/ops/math.py (paddle/operators/{mul,matmul,
-elementwise_*,scale,sum,mean,clip,clip_by_norm,reduce,softmax,top_k}_op).
+elementwise_*,scale,sum,mean,clip,clip_by_norm,reduce,softmax,top_k,
+cos_sim}_op).
 The products are ``torch.matmul``: the reference leaves them to XLA,
 outside any Pallas kernel.
 """
@@ -177,3 +178,18 @@ def _softmax(ctx, ins, attrs):
 def _top_k(ctx, ins, attrs):
     vals, idxs = torch.topk(first(ins, 'X'), attrs.get('k', 1), dim=-1)
     return {'Out': [vals], 'Indices': [idxs.to(torch.int32)]}
+
+
+@register_op('cos_sim')
+def _cos_sim(ctx, ins, attrs):
+    """Row-wise cosine of X [N, D] and Y [N, D] (a one-row Y broadcast to
+    every row of X), with the norms XNorm and YNorm [N, 1]; the
+    denominator carries the reference's 1e-12."""
+    x = first(ins, 'X').float()
+    y = first(ins, 'Y').float()
+    if y.shape[0] == 1 and x.shape[0] != 1:
+        y = y.expand(x.shape)
+    xn = torch.sqrt(torch.square(x).sum(dim=-1, keepdim=True))
+    yn = torch.sqrt(torch.square(y).sum(dim=-1, keepdim=True))
+    o = (x * y).sum(dim=-1, keepdim=True) / (xn * yn + 1e-12)
+    return {'Out': [o], 'XNorm': [xn], 'YNorm': [yn]}

@@ -1,11 +1,11 @@
 """Sequence (LoD) ops on the padded + lengths representation.
 
 Reference parity: paddle_tpu/ops/sequence.py (paddle/operators/
-sequence_pool_op, sequence_softmax_op), cut to ``sequence_pool``, its
-``sequence_first_step`` / ``sequence_last_step`` forms and
-``sequence_softmax``.  A ragged batch is a dense [B, T, ...]
-tensor with int32 lengths [B] in slot ``XLen``; the masks come from the
-lengths, and missing lengths mean every row is full.
+sequence_pool_op, sequence_softmax_op, sequence_conv_op), cut to
+``sequence_pool``, its ``sequence_first_step`` / ``sequence_last_step``
+forms, ``sequence_softmax`` and ``sequence_conv``.  A ragged batch is a
+dense [B, T, ...] tensor with int32 lengths [B] in slot ``XLen``; the
+masks come from the lengths, and missing lengths mean every row is full.
 """
 import torch
 
@@ -91,3 +91,35 @@ def _sequence_softmax(ctx, ins, attrs):
     y = torch.softmax(logits, dim=axis)
     y = torch.where(mask, y, torch.zeros_like(y)).to(x.dtype)
     return out(y[..., None] if squeeze else y)
+
+
+@register_op('sequence_conv')
+def _sequence_conv(ctx, ins, attrs):
+    """Context-window convolution over time (operators/sequence_conv_op):
+    output step t sees steps [t + contextStart, t + contextStart +
+    contextLength) of its row, flattened, times Filter [contextLength * D,
+    M].  Frames before the first step, past the row's length or past T
+    are zeros, and so is the output past the row's length.  The frames are
+    gathered into [B, T, contextLength * D] and multiplied in one
+    ``torch.matmul``, as the reference lowers it to one product."""
+    x = first(ins, 'X')   # [B, T, D]
+    w = first(ins, 'Filter')
+    lengths = _lengths(ins, x)
+    ctx_len = attrs.get('contextLength', attrs.get('context_length', 3))
+    ctx_start = attrs.get('contextStart', attrs.get('context_start',
+                                                    -(ctx_len // 2)))
+    t = x.shape[1]
+    steps = torch.arange(t, device=x.device)
+    mask = (steps[None, :] < lengths[:, None])[..., None]
+    xm = torch.where(mask, x.float(), torch.zeros((), device=x.device))
+    frames = []
+    for k in range(ctx_len):
+        off = ctx_start + k
+        idx = steps + off
+        valid = ((idx >= 0) & (idx < t))[None, :, None] & \
+            (idx[None, :, None] < lengths[:, None, None])
+        frames.append(torch.where(valid, torch.roll(xm, -off, dims=1),
+                                  torch.zeros((), device=x.device)))
+    y = torch.matmul(torch.cat(frames, dim=-1), w.float())
+    y = torch.where(mask, y, torch.zeros((), device=x.device))
+    return out(y.to(x.dtype))

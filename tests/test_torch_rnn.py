@@ -274,7 +274,7 @@ def test_adagrad_steps_match_the_reference(model, batches, n_lstm):
 
 @pytest.mark.parametrize('build,match', [
     (lambda: trnn.build(V, dtype='bfloat16'), 'AMP'),
-    (lambda: tsent.build(V, net='conv'), 'sequence_conv'),
+    (lambda: tfl.layers.sequence_expand(None, None), 'sequence_expand'),
     (lambda: ts2s.decode(None, V), 'seq2seq'),
 ])
 def test_what_the_slice_does_not_bring_raises(build, match):
