@@ -35,7 +35,8 @@ line:
    the device's idle share.
 7. flash forward and backward vs their plain versions: the training
    shape (BH = 256, T = 512, D = 64, float32, causal) and ragged,
-   non-causal, offset, fully-masked-row, dlse and bfloat16 cases; the
+   non-causal, offset, fully-masked-row, dlse, bfloat16 and float16
+   cases (and the training shape on bf16 and f16 q/k/v, timed); the
    backward's inputs (o, lse) come from the plain forward.  Both kernels
    timed at the training shape; the backward's library yardstick is the
    backward of ``F.scaled_dot_product_attention`` in device time (its
@@ -180,9 +181,9 @@ line:
    wide path's loop), #10's split into its chain, dW, dW's finish and the
    wide path's transpose.
 23. the split backward, #3 (dk, dv) and #4 (dq), vs their plain versions
-   at every case of phase 7 and at head dims 32, 50 and 128, float32 and
-   bfloat16, and at lengths that are no multiple of #4's 32-key warp
-   halves, through their wrappers ``_fa_backward_dkv`` and
+   at every case of phase 7 and at head dims 32, 50 and 128, float32,
+   bfloat16 and float16, and at lengths that are no multiple of #4's
+   32-key warp halves, through their wrappers ``_fa_backward_dkv`` and
    ``_fa_backward_dq``; #3's dk and dv bitwise equal to #2's at every
    case; #3, #4 and #2 timed at the training shape beside the plain
    versions (SDPA's backward from phase 7).
@@ -265,8 +266,11 @@ line:
    driving Momentum for 12 steps, the card's rate equal to its closed
    form; each recipe's dense update launches counted.  Phases 32-36 take
    about 20 s on an H100.
-   Phase 33 runs twice more: under ``torch.backends.cudnn.deterministic``
-   and with cuDNN off (``phase_vgg_parity_controls``).
+   Phase 33 runs four more times: with the card's relu signs handed to
+   the CPU step, with its relu signs and max-pool choices handed over
+   (the gap then reads the arithmetic alone: 9.7e-6 on an H100, against
+   0.86% plain), under ``torch.backends.cudnn.deterministic`` and with
+   cuDNN off (``phase_vgg_parity_controls``).
 37. DeepFM at ``benchmarks/bench_ctr.py``'s Criteo-class width (:318-330,
    :47-78; B=32768, 26 slots of 1,000,003-row tables, embed 16, hidden
    (128, 128), 13 dense features, Adagrad 0.01), uncut, through
@@ -296,11 +300,40 @@ line:
 42. ``calc_gradient`` card vs CPU: with respect to the fed input of an
    fc net and with respect to an intermediate (``TOL_CALC_GRAD``).
    Phases 37-42 take about 40 s on an H100.
-43. a ``{"kernels": [...]}`` line (ten kernels, each with its launches by
+44. AMP: ``bench_transformer.py``:67-73's AMP row, TRAIN's float32 build
+   through the pass pipeline under ``amp_guard('bf16')``, trained
+   through ``run_steps`` on one staged batch (a warm-up step, 8 timed
+   single-step calls, one 8-step call, 24 steps in all): the loss finite
+   and falling, each step launching #1 and #2 6 times on bfloat16 q/k/v
+   (``fa.dtype_launches``) and #5 78 times, the parameters float32
+   masters; the pipeline's report (casts, ops lowered, pass wall).
+45. AMP parity at B=2: one bf16 step on the card against the CPU's bf16
+   step from the same state (``TOL_AMP_*``), the CPU's float32 step
+   beside it, and a planted fault (attention's scale 1.25x on the card)
+   that must read above the gradient bound.
+46. profile: a traced bf16 step (GEMMs named nvjet on an H100).
+47. f16 with dynamic loss scaling (``AMP_F16``): 8 clean steps (the
+   scale must double), #1 and #2 on float16 q/k/v; a planted overflow
+   step (the scale set to 2^31) must leave every parameter, moment and
+   counter of the optimizer bitwise as it was, halve the scale and count
+   one skipped step; the next clean step must move every parameter.
+   Then an ``is_sparse`` 30000 x 256 table under lazy Adam in f16: a step
+   whose feed carries inf must launch #6 once with every id swapped to
+   the sentinel and leave the table and its moments bitwise unchanged.
+48. ResNet-50 at ``bench.py``'s default build (bfloat16 activations,
+   NHWC, float32 parameters and batch-norm statistics) as phase 28.
+49. profile: a traced bf16 ResNet-50 step, grouped as phase 30.
+50. seq2seq in ``bench_seq2seq.py``'s bfloat16 build, as phase 20 (the
+   GRU ops compute in float32: #9, #10 3 each, #6 2 a step).
+51. the LSTM LM in ``bench_lstm_lm.py``'s bfloat16 build, as phase 14.
+   Phases 44-51 take about 15 s on an H100.
+52. a ``{"kernels": [...]}`` line (ten kernels, each with its launches by
    path; ``bound_ms`` at the rate of the units a kernel computes on: the
    tensor cores at 3xTF32 for #1-#4 and #7-#10, with their CUDA-core
    float32 bound beside it as ``cuda_core_bound_ms``; the CUDA cores for
-   the rest),
+   the rest; #1 and #2 also at the training shape on bf16 and f16 q/k/v,
+   ``amp_training_shape``, with SDPA on the same inputs and the bounds
+   at the 3xTF32 and the 16-bit tensor-core rates),
    the card's line, and last ``{"ok": true, "device": {...}}``.
 
 With ``--long-step`` the script runs phase 26 alone, in a process that
@@ -327,6 +360,7 @@ import paddle_tpu_torch as tfl  # noqa: E402
 from paddle_tpu_torch.inference.decode import (  # noqa: E402
     DecodeEngine, DecodeServer, _forward, extract_params)
 from paddle_tpu_torch import learning_rate_decay as lrd  # noqa: E402
+from paddle_tpu_torch.core import datatypes, registry  # noqa: E402
 from paddle_tpu_torch.core.executor import ExecutionContext  # noqa: E402
 from paddle_tpu_torch.core.registry import get_op_impl  # noqa: E402
 from paddle_tpu_torch.datasets import cifar as cifar_data  # noqa: E402
@@ -347,12 +381,15 @@ from paddle_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
 from paddle_tpu_torch.ops.kernels import gru as gk  # noqa: E402
 from paddle_tpu_torch.ops.kernels import lstm as lk  # noqa: E402
 from paddle_tpu_torch.ops.kernels import table_update as tu  # noqa: E402
+from paddle_tpu_torch.flags import ENV_PREFIX, FLAGS  # noqa: E402
+from paddle_tpu_torch.transpiler import amp  # noqa: E402
 
 SEED = 20
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s; float32 on
 # the CUDA cores and bf16 on the tensor cores, FLOP/s
 HBM_BPS = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
+              torch.float16: 989e12}
 # float32 at float32 accuracy on the tensor cores: 3xTF32, three TF32
 # products (495 TFLOP/s) for each float32 product, as the flash kernels
 # #1-#4 compute
@@ -362,12 +399,15 @@ TOL_F32 = 1e-4
 # bf16 outputs: both round the same float32 value to bf16; a different
 # last float32 bit can flip one bf16 ulp (2^-7 relative at |o| < 4)
 TOL_BF16_O = 3.2e-2
+# float16 outputs, its counterpart: one float16 ulp at |o| < 8 (2^-8)
+TOL_F16_O = 3.91e-3
 # engine logits, card (kernel, cuBLAS) vs CPU (plain, CPU BLAS), float32
 TOL_PATH = 1e-3
 # backward kernel vs plain version, float32: dq sums by atomics in a
 # run-dependent order; bf16: one bf16 ulp of an O(1) gradient
 TOL_BWD_F32 = 1e-4
 TOL_BWD_BF16 = 3.2e-2
+TOL_BWD_F16 = 3.91e-3
 # one training step, card vs CPU: the loss; each gradient as the norm of
 # the gap over the norm of the CPU's gradient (entry-wise gaps are larger:
 # relu's derivative jumps where the two sides' pre-activations differ in
@@ -553,7 +593,18 @@ RECIPE = dict(B=32, D=64, H=128, steps=3, decay_steps=12, lr=0.1)
 TOL_LR = 1e-5
 
 
+def _tol_o(dtype):
+    return {torch.bfloat16: TOL_BF16_O, torch.float16: TOL_F16_O}.get(
+        dtype, TOL_F32)
+
+
+def _tol_bwd(dtype):
+    return {torch.bfloat16: TOL_BWD_BF16, torch.float16: TOL_BWD_F16}.get(
+        dtype, TOL_BWD_F32)
+
+
 def _zero_counts():
+    fa.dtype_launches.clear()
     fa.launches = fa.bwd_launches = du.launches = 0
     fa.dkv_launches = fa.dq_launches = 0
     lk.launches = lk.fwd_cluster_launches = 0
@@ -789,7 +840,8 @@ KERNEL_CASES = (
        ('ragged_T200', 200, 200, True, torch.float32, 0, 0),
        ('offsets_q128_over_k256', 128, 256, True, torch.float32, 128, 0),
        ('offsets_masked_rows', 128, 128, True, torch.float32, 0, 64),
-       ('bf16_causal_T256', 256, 256, True, torch.bfloat16, 0, 0)])
+       ('bf16_causal_T256', 256, 256, True, torch.bfloat16, 0, 0),
+       ('f16_causal_T256', 256, 256, True, torch.float16, 0, 0)])
 MAIN_CASE = 'causal_T256'   # the top prefill bucket of the serving phase
 
 
@@ -807,7 +859,7 @@ def phase_kernel():
         torch.cuda.synchronize()
         err_o = (o.float() - o_ref.float()).abs().max().item()
         err_lse = (lse - lse_ref).abs().max().item()
-        tol_o = TOL_BF16_O if dtype == torch.bfloat16 else TOL_F32
+        tol_o = _tol_o(dtype)
         ok = err_o <= tol_o and err_lse <= TOL_F32
         q4, k4, v4 = (x.view(1, bh, -1, d) for x in (q, k, v))
         mask = None
@@ -997,8 +1049,45 @@ BWD_CASES = (
     ('offsets_masked_rows_k64', 8, 128, 128, True, torch.float32, 0, 64,
      False),
     ('dlse_causal_T128', 8, 128, 128, True, torch.float32, 0, 0, True),
-    ('bf16_causal_T256', 8, 256, 256, True, torch.bfloat16, 0, 0, False))
+    ('bf16_causal_T256', 8, 256, 256, True, torch.bfloat16, 0, 0, False),
+    ('f16_causal_T256', 8, 256, 256, True, torch.float16, 0, 0, False),
+    # the AMP training step's attention (phases 44-45): bf16 and f16 q/k/v
+    ('train_causal_T512_BH256_bf16', 256, 512, 512, True, torch.bfloat16,
+     0, 0, False),
+    ('train_causal_T512_BH256_f16', 256, 512, 512, True, torch.float16, 0,
+     0, False))
 BWD_MAIN = 'train_causal_T512_BH256'
+
+
+def _flash_16bit_timing(q, k, v, lse, do, di, scale):
+    """#1 and #2 at the training shape on 16-bit q/k/v (the AMP step's
+    attention) in device time, beside SDPA's forward and backward on the
+    same inputs (yardsticks only), with the bounds at the 3xTF32 rate
+    the kernels compute at and at the 16-bit tensor-core rate."""
+    bh, tq, d = q.shape
+    q4, k4, v4 = (x.view(1, bh, -1, d).clone().requires_grad_(True)
+                  for x in (q, k, v))
+    do4 = do.view(1, bh, tq, d)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                              scale=scale)
+    both = _device_ms(lambda: torch.autograd.grad(sdpa(), (q4, k4, v4),
+                                                  do4), iters=10, replays=3)
+    out = dict(
+        fwd_ms=_device_ms(lambda: fa._fa_forward(q, k, v, True, scale),
+                          iters=10, replays=3),
+        ms=_device_ms(lambda: fa._fa_backward_fused(q, k, v, lse, do, di,
+                                                    True, scale),
+                      iters=10, replays=3),
+        library_fwd_ms=_device_ms(sdpa, iters=10, replays=3))
+    out['library_ms'] = both - out['library_fwd_ms']
+    bounds = _flash_bounds(bh, tq, tq, d, True, 0, 0, q.element_size())
+    for key, part in (('fwd_', 'fwd'), ('', 'fused')):
+        out[key + 'bound_3xtf32_ms'] = _bound(*bounds[part],
+                                              peak=PEAK_3XTF32)[0]
+        out[key + 'bound_16bit_tc_ms'] = _bound(*bounds[part], q.dtype)[0]
+    return out
 
 
 def phase_bwd_kernel():
@@ -1023,7 +1112,7 @@ def phase_bwd_kernel():
         # a fully masked row carries lse = -1e30 on both sides: gap 0
         err_lse = float((lse_k - lse).abs().max())
         fwd_finite = bool(torch.isfinite(o_k).all())
-        tol_o = TOL_BF16_O if dtype == torch.bfloat16 else TOL_F32
+        tol_o = _tol_o(dtype)
         fwd_ok = fwd_finite and err_o <= tol_o and err_lse <= TOL_F32
         di = (do.float() * o.float()).sum(-1)
         if with_dlse:
@@ -1037,7 +1126,7 @@ def phase_bwd_kernel():
         err = max(float((a.float() - b.float()).abs().max())
                   for a, b in zip(got, ref))
         finite = all(bool(torch.isfinite(a).all()) for a in got)
-        tol = TOL_BWD_BF16 if dtype == torch.bfloat16 else TOL_BWD_F32
+        tol = _tol_bwd(dtype)
         row = dict(case=name, bh=bh, tq=tq, tk=tk, causal=causal,
                    dtype=str(dtype).replace('torch.', ''), q_offset=qo,
                    k_offset=ko, dlse=with_dlse, max_abs_err=err, tol=tol,
@@ -1090,12 +1179,17 @@ def phase_bwd_kernel():
             fwd_train['shape'] = 'BH=256 T=512 D=64 float32 causal'
             fwd_train['err_o'], fwd_train['err_lse'] = err_o, err_lse
             del q4, k4, v4, out4
+        elif name.startswith('train_'):
+            row.update(_flash_16bit_timing(q, k, v, lse, do, di, scale))
+            print("flash kernels on %s q/k/v at the training shape: %s"
+                  % (row['dtype'], json.dumps(
+                      {k: v for k, v in row.items() if k.endswith('ms')})))
         rows.append(row)
         print("fwd kernel %-26s err o %.3g lse %.3g (tol %.3g/%.3g) finite "
               "%s | bwd kernel err %.3g (tol %.3g) finite %s | %s%s"
               % (name, err_o, err_lse, tol_o, TOL_F32, fwd_finite, err, tol,
                  finite, 'ok' if row['ok'] else 'FAIL',
-                 '' if 'ms' not in row else
+                 '' if 'plain_ms' not in row else
                  " | bwd device ms: kernel %.4f plain %.4f sdpa bwd %.4f "
                  "bound %.4f (%s) cuda-core bound %.4f | per call ms: kernel "
                  "%.4f plain %.4f sdpa bwd %.4f"
@@ -1124,10 +1218,13 @@ DENSE_RULES = ('sgd', 'sgd_wd', 'momentum', 'nesterov', 'adam')
 def _resnet_programs(c=RESNET):
     main, startup = tfl.Program(), tfl.Program()
     main.random_seed = startup.random_seed = SEED
+    layout = c.get('layout', 'NCHW')
     with tfl.program_guard(main, startup):
         _, _, _, cost, _ = resnet.build_imagenet(
             depth=c['depth'], num_classes=c['classes'],
-            image_shape=(3, c['hw'], c['hw']))
+            image_shape=((c['hw'], c['hw'], 3) if layout == 'NHWC'
+                         else (3, c['hw'], c['hw'])),
+            dtype=c.get('dtype', 'float32'), layout=layout)
         tfl.optimizer.MomentumOptimizer(learning_rate=c['lr'],
                                         momentum=c['mu']).minimize(cost)
     return main, startup, cost
@@ -1495,7 +1592,7 @@ def phase_train_profile(tr, label='training profile'):
     top = sorted(rows, key=lambda r: -r[1])[:10]
 
     def by(tag):
-        return sum(ms for k, ms, _ in rows if tag in k)
+        return sum(ms for k, ms, _ in rows if re.search(tag, k))
     out = dict(wall_ms=wall, device_busy_ms=busy if rows else None,
                idle_share=1.0 - busy / wall if rows else None,
                kernels=sum(n for *_, n in rows),
@@ -1504,7 +1601,9 @@ def phase_train_profile(tr, label='training profile'):
                flash_bwd_dkv_ms=by('fa_bwd_dkv_kernel'),
                flash_bwd_dq_ms=by('fa_bwd_dq_kernel'),
                dense_update_ms=by('dense_update_kernel'),
-               gemm_ms=by('gemm'),   # cuBLAS and CUTLASS sgemm
+               # cuBLAS's GEMMs: sgemm and CUTLASS kernels, and the bf16
+               # ones named nvjet on an H100
+               gemm_ms=by('gemm|nvjet|cutlass'),
                top=[dict(kernel=k[:80], ms=ms, count=n) for k, ms, n in top])
     print("%s: %s" % (label, json.dumps(out)))
     return out
@@ -1892,13 +1991,14 @@ def _layer_pair_yardstick(t, b, h):
     return res
 
 
-def _lm_programs(hidden=LM['H']):
+def _lm_programs(hidden=LM['H'], dtype='float32'):
     c = LM
     main, startup = tfl.Program(), tfl.Program()
     main.random_seed = startup.random_seed = SEED
     with tfl.program_guard(main, startup):
         _, _, cost = rnn_lm.build(vocab_size=c['V'], emb_dim=c['E'],
-                                  hidden_dim=hidden, num_layers=c['L'])
+                                  hidden_dim=hidden, num_layers=c['L'],
+                                  dtype=dtype)
         tfl.optimizer.AdagradOptimizer(c['lr']).minimize(cost)
     return main, startup, cost
 
@@ -1951,9 +2051,9 @@ def _all_on_cluster_path(label, counts, cluster):
                                                cluster[k]))
 
 
-def phase_lm_training():
+def phase_lm_training(dtype='float32', label='lm training'):
     c = LM
-    main, startup, cost = _lm_programs()
+    main, startup, cost = _lm_programs(dtype=dtype)
     n_adagrad = sum(op.type == 'adagrad' for op in main.global_block().ops)
     exe = tfl.Executor()
     scope = tfl.Scope()
@@ -1971,19 +2071,20 @@ def phase_lm_training():
     losses = [float(o[0][0]) for o in outs]
     per_step = {k: n / c['total_steps'] for k, n in counts.items()}
     p50 = float(np.median(step_ms[1:]))
-    res = dict(config='B=%d T=%d V=%d E=%d H=%d L=%d float32 Adagrad lr %g'
-               % (c['B'], c['T'], c['V'], c['E'], c['H'], c['L'], c['lr']),
+    res = dict(config='B=%d T=%d V=%d E=%d H=%d L=%d %s Adagrad lr %g'
+               % (c['B'], c['T'], c['V'], c['E'], c['H'], c['L'], dtype,
+                  c['lr']),
                params=n_params, adagrad_ops=n_adagrad, losses=losses,
                step_ms=step_ms, step_ms_p50=p50,
                tokens_per_s=c['B'] * c['T'] / (p50 / 1e3),
                launches=counts, launches_per_step=per_step,
                cluster_launches=cluster,
                max_memory_allocated=torch.cuda.max_memory_allocated())
-    print("lm training: %s" % json.dumps(res))
+    print("%s: %s" % (label, json.dumps(res)))
     want = _want(lstm_fwd=c['L'], lstm_bwd=c['L'])
     if per_step != want:
         raise SystemExit("launches per step %s, want %s" % (per_step, want))
-    _all_on_cluster_path('lm training', counts, cluster)
+    _all_on_cluster_path(label, counts, cluster)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise SystemExit("LM loss not finite or last not below first: %s"
                          % losses)
@@ -2678,21 +2779,21 @@ def phase_sparse_kernel():
     return rows_out, timing
 
 
-def _s2s_programs(fuse=True, hidden=S2S['H']):
+def _s2s_programs(fuse=True, hidden=S2S['H'], dtype='float32'):
     c = S2S
     main, startup = tfl.Program(), tfl.Program()
     main.random_seed = startup.random_seed = SEED
     with tfl.program_guard(main, startup):
         _, _, _, pred, cost = seq2seq.build(
             dict_size=c['V'], word_dim=c['word_dim'], hidden_dim=hidden,
-            fuse_vocab_loss=fuse)
+            fuse_vocab_loss=fuse, dtype=dtype)
         tfl.optimizer.AdamOptimizer(c['lr']).minimize(cost)
     return main, startup, pred, cost
 
 
-def phase_s2s_training():
+def phase_s2s_training(dtype='float32', label='seq2seq training'):
     c = S2S
-    main, startup, pred, cost = _s2s_programs()
+    main, startup, pred, cost = _s2s_programs(dtype=dtype)
     n_adam = sum(op.type == 'adam' for op in main.global_block().ops)
     exe = tfl.Executor()
     scope = tfl.Scope()
@@ -2715,9 +2816,10 @@ def phase_s2s_training():
     losses = [float(o[0][0]) for o in outs]
     per_step = {k: n / (1 + c['steps']) for k, n in counts.items()}
     p50 = float(np.median(step_ms[1:]))
-    res = dict(config='B=%d T=%d V=%d word_dim=%d H=%d float32 Adam lr %g, '
+    res = dict(config='B=%d T=%d V=%d word_dim=%d H=%d %s Adam lr %g, '
                'synthetic WMT14 (Zipf source ids)'
-               % (c['B'], c['T'], c['V'], c['word_dim'], c['H'], c['lr']),
+               % (c['B'], c['T'], c['V'], c['word_dim'], c['H'], dtype,
+                  c['lr']),
                params=n_params, adam_ops=n_adam, losses=losses,
                step_ms=step_ms, step_ms_p50=p50,
                target_tokens_per_s=c['B'] * c['T'] / (p50 / 1e3),
@@ -2725,7 +2827,7 @@ def phase_s2s_training():
                gru_cluster_launches=cluster_launches,
                skipped_op_types=skipped[-1],
                max_memory_allocated=torch.cuda.max_memory_allocated())
-    print("seq2seq training: %s" % json.dumps(res))
+    print("%s: %s" % (label, json.dumps(res)))
     # the two embedding tables' adam ops take #6, the other 20 take #5
     want = _want(gru_fwd=3, gru_bwd=3, table_update=2,
                  dense_update=n_adam - 2)
@@ -3085,6 +3187,8 @@ SPLIT_EXTRA_CASES = (
      50),
     ('bf16_d128_causal_T256', 4, 256, 256, True, torch.bfloat16, 0, 0,
      False, 128),
+    ('f16_d128_causal_T256', 4, 256, 256, True, torch.float16, 0, 0,
+     False, 128),
     ('ragged_q100_over_k170', 4, 100, 170, True, torch.float32, 70, 0, True,
      64))
 
@@ -3124,7 +3228,7 @@ def phase_split_kernel(bwd_rows):
         finite = all(bool(torch.isfinite(a).all()) for a in (dq, dk, dv))
         bitwise = bool(torch.equal(dk, fused_dk) and
                        torch.equal(dv, fused_dv))
-        tol = TOL_BWD_BF16 if dtype == torch.bfloat16 else TOL_BWD_F32
+        tol = _tol_bwd(dtype)
         row = dict(case=name, bh=bh, tq=tq, tk=tk, d=d, causal=causal,
                    dtype=str(dtype).replace('torch.', ''), q_offset=qo,
                    k_offset=ko, dlse=with_dlse, err=err, tol=tol,
@@ -3499,7 +3603,8 @@ def _image_training(c, programs, config):
     counts = _counts()
     p50 = float(np.median(step_ms))
     flops = _conv_fc_flops(main, c['B'])
-    bound_ms, bound_by = _bound(0, flops['step'])
+    bound_ms, bound_by = _bound(0, flops['step'], datatypes.as_torch_dtype(
+        c.get('dtype', 'float32')))
     res = dict(
         config=config, params=n_params, apply_ops=n_apply,
         startup_s=startup_s, warmup_ms=warm_ms, step_ms=step_ms,
@@ -3525,17 +3630,18 @@ def _printable(res):
                          'counts')}
 
 
-def phase_resnet_training(c=RESNET):
+def phase_resnet_training(c=RESNET, label='resnet50 training'):
     """ResNet-50 at bench.py's width trained through run_steps on one
     batch staged on the card (``_image_training``, 40 steps); each step
     must launch the dense update once per parameter (214) and no other
     kernel, and the last loss must be below the first."""
     rn = _image_training(
         c, _resnet_programs,
-        'ResNet-50 B=%d %dx%d NCHW float32 Momentum lr %g mu %g, '
-        'run_steps on one staged batch' % (c['B'], c['hw'], c['hw'],
-                                           c['lr'], c['mu']))
-    print("resnet50 training: %s" % json.dumps(_printable(rn)))
+        'ResNet-50 B=%d %dx%d %s %s Momentum lr %g mu %g, run_steps on '
+        'one staged batch' % (c['B'], c['hw'], c['hw'],
+                              c.get('layout', 'NCHW'),
+                              c.get('dtype', 'float32'), c['lr'], c['mu']))
+    print("%s: %s" % (label, json.dumps(_printable(rn))))
     losses = rn['losses']
     if rn['apply_ops'] != 214:
         raise SystemExit("program has %d momentum ops, want 214"
@@ -3796,14 +3902,21 @@ def _dropout_masks(main):
             if op.type == 'dropout'}
 
 
-def phase_vgg_parity(vg, c=VGG, seed=SEED + 40, label='vgg16 parity'):
+def phase_vgg_parity(vg, c=VGG, seed=SEED + 40, label='vgg16 parity',
+                     handoff=()):
     """One VGG-16 step at B=2, 224x224, on the card and on the CPU from the
     same state: the loss, every gradient, velocity and update, held to
     phase 10's bounds.  The two devices' generators draw different masks,
     so the card step's ``Mask`` outputs are fetched and the CPU step's
     dropout op is replaced, for this phase only, by one that applies
     them.  Reported: the relu inputs whose sign differs between the two
-    sides (``relu_flips``, by relu)."""
+    sides (``relu_flips``, by relu).  ``handoff`` names the gating ops
+    whose card decisions the CPU step takes too: 'relu' gates its input
+    with the card's signs (x * (card's x > 0)); 'pool2d' takes each max
+    from the position the card's max came from (``F.max_pool2d``'s
+    indices on the card's input).  With both, the two sides decide
+    alike wherever their inputs differ by rounding, and the gap left is
+    the arithmetic's alone."""
     main, cost = vg['main'], vg['cost']
     card_scope = tfl.Scope()
     vg['exe'].run(vg['startup'], scope=card_scope)
@@ -3821,34 +3934,71 @@ def phase_vgg_parity(vg, c=VGG, seed=SEED + 40, label='vgg16 parity'):
     masks = _dropout_masks(main)
     # each relu's input: where the two sides' signs differ the relu gates
     # differently, and every gradient below it moves (PR 15's finding)
-    gates = [op.input('X')[0] for op in main.global_block().ops
-             if op.type == 'relu']
+    relus = {i: op.input('X')[0]
+             for i, op in enumerate(main.global_block().ops)
+             if op.type == 'relu'}
+    pools = {i: op for i, op in enumerate(main.global_block().ops)
+             if op.type == 'pool2d'}
+    gates = list(relus.values())
+    pool_ins = [op.input('X')[0] for op in pools.values()]
     t0 = time.perf_counter()
     _zero_counts()
     card = vg['exe'].run(main, feed=feed,
-                         fetch_list=fetch + list(masks.values()) + gates,
-                         scope=card_scope)
+                         fetch_list=fetch + list(masks.values()) + gates
+                         + pool_ins, scope=card_scope)
     counts = _counts()
     drawn = {i: torch.from_numpy(m) for i, m in
              zip(masks, card[len(fetch):len(fetch) + len(masks)])}
+    card_gates = card[len(fetch) + len(masks):][:len(gates)]
+    signs = {i: torch.from_numpy(g > 0) for i, g in zip(relus, card_gates)}
+    argmax = {}
+    for (i, op), x in zip(pools.items(), card[len(fetch) + len(masks)
+                                              + len(gates):]):
+        xn = torch.from_numpy(x)
+        if op.attrs.get('data_format', 'NCHW') == 'NHWC':
+            xn = xn.permute(0, 3, 1, 2)
+        argmax[i] = F.max_pool2d(xn, op.attrs['ksize'], op.attrs['strides'],
+                                 op.attrs['paddings'],
+                                 return_indices=True)[1]
     impl = get_op_impl('dropout')
-    plain = impl.compute
+    relu_impl, pool_impl = get_op_impl('relu'), get_op_impl('pool2d')
+    plain, plain_relu, plain_pool = (impl.compute, relu_impl.compute,
+                                     pool_impl.compute)
 
     def replay(ctx, ins, attrs):
         x = ins['X'][0]
         m = drawn[ctx.op_index].to(x.device, x.dtype)
         return {'Out': [x * m], 'Mask': [m]}
 
+    def card_gated_relu(ctx, ins, attrs):
+        x = ins['X'][0]
+        return {'Out': [x * signs[ctx.op_index].to(x.device, x.dtype)]}
+
+    def card_argmax_pool(ctx, ins, attrs):
+        x, idx = ins['X'][0], argmax[ctx.op_index]
+        nhwc = attrs.get('data_format', 'NCHW') == 'NHWC'
+        xn = x.permute(0, 3, 1, 2) if nhwc else x
+        y = xn.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+        return {'Out': [y.permute(0, 2, 3, 1) if nhwc else y]}
+
     impl.compute = replay
+    if 'relu' in handoff:
+        relu_impl.compute = card_gated_relu
+    if 'pool2d' in handoff:
+        if any(op.attrs.get('pooling_type', 'max') != 'max' or
+               op.attrs.get('global_pooling') for op in pools.values()):
+            raise SystemExit("the pool handoff takes plain max pools")
+        pool_impl.compute = card_argmax_pool
     try:
         cpu = tfl.Executor('cpu').run(main, feed=feed,
                                       fetch_list=fetch + gates,
                                       scope=cpu_scope)
     finally:
-        impl.compute = plain
+        impl.compute, relu_impl.compute, pool_impl.compute = (
+            plain, plain_relu, plain_pool)
     secs = time.perf_counter() - t0
     flips = [int(((a > 0) != (b > 0)).sum()) for a, b in
-             zip(card[len(fetch) + len(masks):], cpu[len(fetch):])]
+             zip(card_gates, cpu[len(fetch):])]
     nonfinite = [n for n, a in zip(['loss'] + fetch[1:], card)
                  if not np.isfinite(a).all()]
     gaps = {'grad': [], 'velocity': [], 'update': []}
@@ -3869,7 +4019,8 @@ def phase_vgg_parity(vg, c=VGG, seed=SEED + 40, label='vgg16 parity'):
     bad = [k for k, (e, _) in worst.items() if not e <= TOL_TRAIN_GRAD]
     if not loss_err <= TOL_TRAIN_LOSS:
         bad.append('loss')
-    res = dict(batch=c['parity_B'], seed=seed, loss_card=float(card[0][0]),
+    res = dict(batch=c['parity_B'], seed=seed, handoff=list(handoff),
+               loss_card=float(card[0][0]),
                loss_cpu=float(cpu[0][0]), loss_err=loss_err,
                norm_rel_err={k: e for k, (e, _) in worst.items()},
                median_norm_rel={k: float(np.median([e for e, _ in v]))
@@ -4652,6 +4803,404 @@ def _ctr_table_line(table, res, sparse_timing):
         'table_update']
 
 
+# benchmarks/bench_transformer.py:67-73's AMP row: the float32 build of
+# TRAIN (B=32, T=512, V=30000, L=6, D=512, H=8, Adam lr 1e-3) through the
+# pass pipeline with amp='bf16', trained through run_steps on one batch
+# staged on the card: a warm-up step, 8 timed single-step calls (p50),
+# one 8-step call, then steps to 24 in all
+AMP_TRAIN = dict(TRAIN, steps=8, total_steps=24)
+# the same model in f16 with dynamic loss scaling: the scale must double
+# after ``incr_every`` clean steps (PADDLE_TPU_TORCH_AMP_INCR_EVERY_N_STEPS,
+# set for the phase) and halve after one overflow (..._DECR_EVERY_N_NAN_OR_
+# INF=1).  The overflow is planted by setting the loss scale to 2^31 (the
+# cap): the fused head's cotangent, scale / (B * T) = 2^17 times
+# (p - onehot), overflows float16 at its cast, so every gradient is
+# non-finite.  The token feeds carry no float a batch could plant an inf
+# through (the reference's test plants 1e38 images into an MLP).
+AMP_F16 = dict(TRAIN, clean_steps=8, incr_every=8, planted_scale=2.0 ** 31)
+# one AMP step at B=2, card against CPU, both running the bf16 program
+# (the CPU's plain versions keep the flash softmax's p in float32 as the
+# kernels do).  bf16's own rounding sets the scale: on an H100 the card's
+# bf16 gradients read 6.6% (worst parameter, norm-relative; median 4.3%)
+# from the CPU's bf16 ones, and the CPU's bf16 step reads 7.1% from its
+# own float32 step; the loss 1.3e-5.  A planted fault, attention's scale
+# 1.25x its 1/sqrt(d) on the card, read 0.299 and must stay above the
+# gradient bound.  The bounds: the loss at phase 10's 1e-3, gradients at
+# 0.1
+TOL_AMP_LOSS = 1e-3
+TOL_AMP_GRAD = 0.1
+AMP_FAULT_SCALE = 1.25
+# bench.py's default build (:172-178, :189-199): ResNet-50 with bfloat16
+# activations, NHWC, batch 64, Momentum 0.1 / 0.9; float32 parameters and
+# batch-norm statistics
+RESNET_BF16 = dict(RESNET, layout='NHWC', dtype='bfloat16')
+
+
+def _amp_feed(c, seed):
+    """The transformer's feed staged on the card (token ids as int32, the
+    executor's narrowing)."""
+    return {k: torch.from_numpy(v.astype(np.int32)).cuda()
+            for k, v in _train_feed(c['B'], seed, c).items()}
+
+
+def _pipeline_summary(report):
+    a = report['amp']
+    return dict(level=report['level'], ops_before=report['ops_before'],
+                ops_after=report['ops_after'],
+                eliminated=report['eliminated'],
+                pass_wall_s=report['pass_wall_s'],
+                verify=report['verify'], amp_mode=a['mode'],
+                ops_lowered=a['ops_lowered'],
+                casts_inserted=a['casts_inserted'],
+                loss_scaling=a['loss_scaling'])
+
+
+def _flash_dtypes(low, layers, steps):
+    """Fails unless every #1 and #2 launch since the counts were set to 0
+    took ``low`` q/k/v, ``layers`` of each a step."""
+    got = dict(fa.dtype_launches)
+    want = {('paddle_flash_attention_fwd', low): layers * steps,
+            ('paddle_flash_attention_bwd', low): layers * steps}
+    if got != want:
+        raise SystemExit("flash launches by dtype %s, want %s" % (got, want))
+    return {'%s %s' % k: n for k, n in got.items()}
+
+
+def phase_amp_training(c=AMP_TRAIN, mode='bf16',
+                       label='transformer bf16 training'):
+    """The transformer's float32 build trained under ``amp_guard(mode)``
+    through run_steps: each step must launch #1 and #2 once per layer on
+    16-bit q/k/v and the dense update once per parameter, on the float32
+    master weights; the loss must be finite and the last below the first.
+    Reported: the pipeline's report, p50, tokens/s, peak memory."""
+    main, startup, cost = _train_programs(c)
+    n_adam = sum(op.type == 'adam' for op in main.global_block().ops)
+    exe = tfl.Executor()
+    scope = tfl.Scope()
+    exe.run(startup, scope=scope)
+    feed = _amp_feed(c, SEED + 5)
+    low = amp.LOW_DTYPE[mode]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def steps(k):
+        t0 = time.perf_counter()
+        out, = exe.run_steps(main, feed=feed, fetch_list=[cost],
+                             scope=scope, repeat=k)
+        return (time.perf_counter() - t0) * 1e3, out.ravel().tolist()
+
+    with amp.amp_guard(mode):
+        _zero_counts()
+        warm_ms, losses = steps(1)
+        step_ms = []
+        for _ in range(c['steps']):
+            ms, loss = steps(1)
+            step_ms.append(ms)
+            losses += loss
+        run_ms, loss = steps(c['steps'])
+        losses += loss
+        losses += steps(c['total_steps'] - 1 - 2 * c['steps'])[1]
+        counts = _counts()
+    by_dtype = _flash_dtypes(low, c['L'], len(losses))
+    per_step = {k: n / len(losses) for k, n in counts.items()}
+    masters = sorted({str(scope.get(p.name).dtype)
+                      for p in main.all_parameters()})
+    p50 = float(np.median(step_ms))
+    res = dict(config='B=%d T=%d V=%d L=%d D=%d H=%d float32 build, AMP %s, '
+               'Adam lr %g, run_steps on one staged batch'
+               % (c['B'], c['T'], c['V'], c['L'], c['D'], c['H'], mode,
+                  c['lr']),
+               pipeline=_pipeline_summary(exe.last_graph_opt_report),
+               warmup_ms=warm_ms, step_ms=step_ms, step_ms_p50=p50,
+               tokens_per_s=c['B'] * c['T'] / (p50 / 1e3),
+               run_steps_8_ms_per_step=run_ms / c['steps'],
+               losses=losses, launches=counts, launches_per_step=per_step,
+               flash_launches_by_dtype=by_dtype, master_dtypes=masters,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    print("%s: %s" % (label, json.dumps(res)))
+    want = _want(flash_attention_fwd=c['L'], flash_attention_bwd=c['L'],
+                 dense_update=n_adam)
+    if n_adam != 78 or per_step != want:
+        raise SystemExit("launches per step %s, want %s" % (per_step, want))
+    if masters != ['torch.float32']:
+        raise SystemExit("master weights are %s" % masters)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit("loss not finite or not falling: %s" % losses)
+    return dict(main=main, startup=startup, cost=cost, scope=scope,
+                exe=exe, feed=feed, counts=counts, n_adam=n_adam, **res)
+
+
+def _amp_step(main, cost, scope, feed, device, mode, names):
+    exe = tfl.Executor(device)
+    with amp.amp_guard(mode):
+        out = exe.run(main, feed=feed, scope=scope,
+                      fetch_list=[cost.name] + [n + '@GRAD' for n in names])
+    return out
+
+
+def phase_amp_parity(tr, mode='bf16', label='transformer bf16 parity'):
+    """One AMP step at B=2 on the card and on the CPU from the same state,
+    both running the rewritten program: the loss and every gradient
+    (norm-relative, at ``TOL_AMP_*``).  Reported beside them: the card's
+    AMP step against the CPU's float32 step, what AMP moves."""
+    main, cost = tr['main'], tr['cost']
+    names = [p.name for p in main.all_parameters()]
+    card_scope = tfl.Scope()
+    tr['exe'].run(tr['startup'], scope=card_scope)
+    state = {v.name: card_scope.get(v.name).to('cpu', copy=True)
+             for v in main.list_vars()
+             if v.persistable and card_scope.has(v.name)}
+
+    def cpu_scope():
+        s = tfl.Scope()
+        for n, t in state.items():
+            s.set(n, t.clone())
+        return s
+    feed = _train_feed(TRAIN['parity_B'], SEED + 6)
+    t0 = time.perf_counter()
+    _zero_counts()
+    card = _amp_step(main, cost, card_scope, feed, None, mode, names)
+    counts = _counts()
+    cpu = _amp_step(main, cost, cpu_scope(), feed, 'cpu', mode, names)
+    cpu32 = _amp_step(main, cost, cpu_scope(), feed, 'cpu', '0', names)
+    secs = time.perf_counter() - t0
+    impl = get_op_impl('flash_attention')
+    plain = impl.compute
+
+    def sharper(ctx, ins, attrs):
+        d = ins['Q'][0].shape[-1]
+        return plain(ctx, ins, dict(attrs, scale=AMP_FAULT_SCALE * (
+            attrs.get('scale') or d ** -0.5)))
+    impl.compute = sharper
+    try:
+        fault_scope = tfl.Scope()
+        for n, t in state.items():
+            fault_scope.set(n, t.to('cuda'))
+        fault = _amp_step(main, cost, fault_scope, feed, None, mode, names)
+    finally:
+        impl.compute = plain
+    fault_gap = max(_norm_rel(a, b) for a, b in zip(fault[1:], cpu[1:]))
+
+    def gaps(other):
+        g = sorted(((_norm_rel(a, b), n) for n, a, b in
+                    zip(names, card[1:], other[1:])), reverse=True)
+        return dict(loss_err=abs(float(card[0][0]) - float(other[0][0])),
+                    grad_norm_rel=g[0][0],
+                    median_grad_norm_rel=float(np.median([e for e, _ in g])),
+                    largest=[dict(param=n, norm_rel=e) for e, n in g[:3]])
+    nonfinite = [n for n, a in zip(['loss'] + names, card)
+                 if not np.isfinite(a).all()]
+    sound, vs_f32 = gaps(cpu), gaps(cpu32)
+    cpu_vs_f32 = sorted((_norm_rel(a, b), n) for n, a, b in
+                        zip(names, cpu[1:], cpu32[1:]))
+    bad = [k for k, tol in (('loss_err', TOL_AMP_LOSS),
+                            ('grad_norm_rel', TOL_AMP_GRAD))
+           if not sound[k] <= tol]
+    res = dict(batch=TRAIN['parity_B'], mode=mode,
+               loss_card=float(card[0][0]), loss_cpu=float(cpu[0][0]),
+               loss_cpu_float32=float(cpu32[0][0]), card_vs_cpu=sound,
+               card_vs_cpu_float32=vs_f32,
+               planted_fault=dict(attention_scale=AMP_FAULT_SCALE,
+                                  grad_norm_rel=fault_gap),
+               cpu_vs_cpu_float32=dict(
+                   grad_norm_rel=cpu_vs_f32[-1][0],
+                   median_grad_norm_rel=float(np.median(
+                       [e for e, _ in cpu_vs_f32]))),
+               tol=dict(loss=TOL_AMP_LOSS, grad=TOL_AMP_GRAD),
+               nonfinite=nonfinite, seconds=secs, launches=counts,
+               flash_launches_by_dtype={'%s %s' % k: n for k, n in
+                                        fa.dtype_launches.items()})
+    print("%s: %s" % (label, json.dumps(res)))
+    if nonfinite or bad:
+        raise SystemExit("AMP step on the card disagrees with the CPU's (%s)"
+                         " or is not finite (%s)" % (bad, nonfinite))
+    if not fault_gap > TOL_AMP_GRAD:
+        raise SystemExit("a planted fault reads %.4g, inside the bound %g"
+                         % (fault_gap, TOL_AMP_GRAD))
+    return res
+
+
+def phase_amp_f16(c=AMP_F16, label='transformer f16 loss scaling'):
+    """The transformer in f16 with dynamic loss scaling: ``clean_steps``
+    steps, after which the scale must have doubled once; then a planted
+    overflow step (``AMP_F16``), which must leave every parameter and
+    Adam moment (every persistable but the scale's counters) bitwise as
+    it was, halve the scale and count one skipped step; then a clean step
+    must move the parameters again.  #1 and #2 must take float16 q/k/v."""
+    env = {ENV_PREFIX + 'AMP_INCR_EVERY_N_STEPS': str(c['incr_every']),
+           ENV_PREFIX + 'AMP_DECR_EVERY_N_NAN_OR_INF': '1'}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        main, startup, cost = _train_programs(c)
+        exe = tfl.Executor()
+        scope = tfl.Scope()
+        exe.run(startup, scope=scope)
+        feed = _amp_feed(c, SEED + 8)
+        init = float(FLAGS.amp_init_loss_scale)
+
+        def state(name):
+            return float(scope.get(name).reshape(-1)[0])
+        with amp.amp_guard('f16'):
+            _zero_counts()
+            first, = exe.run_steps(main, feed=feed, fetch_list=[cost],
+                                   scope=scope, repeat=1)
+            t0 = time.perf_counter()
+            losses, = exe.run_steps(main, feed=feed, fetch_list=[cost],
+                                    scope=scope,
+                                    repeat=c['clean_steps'] - 1)
+            clean_ms = ((time.perf_counter() - t0) * 1e3 /
+                        (c['clean_steps'] - 1))
+            losses = np.concatenate([first, losses])
+            counts = _counts()
+            by_dtype = _flash_dtypes('float16', c['L'], c['clean_steps'])
+            grown = state(amp.LOSS_SCALE_VAR)
+            good = state(amp.GOOD_STEPS_VAR)
+            keep = [v.name for v in main.list_vars()
+                    if v.persistable and scope.has(v.name)]
+            before = {n: scope.get(n).clone() for n in keep}
+            scope.get(amp.LOSS_SCALE_VAR).fill_(c['planted_scale'])
+            bad_loss, = exe.run(main, feed=feed, fetch_list=[cost],
+                                scope=scope)
+            changed = [n for n in keep
+                       if not torch.equal(before[n], scope.get(n))]
+            backed_off = state(amp.LOSS_SCALE_VAR)
+            skipped = state(amp.SKIPPED_STEPS_VAR)
+            scope.get(amp.LOSS_SCALE_VAR).fill_(grown)
+            exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+            moved = sum(not torch.equal(before[p.name], scope.get(p.name))
+                        for p in main.all_parameters())
+        report = exe.last_graph_opt_report
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    losses = losses.ravel().tolist()
+    res = dict(config='TRAIN in f16, dynamic loss scaling (init %g, x2 after '
+               '%d clean steps, /2 after 1 overflow)'
+               % (init, c['incr_every']),
+               pipeline=_pipeline_summary(report), losses=losses,
+               clean_ms_per_step_after_warmup=clean_ms, launches=counts,
+               flash_launches_by_dtype=by_dtype, scale_after_clean=grown,
+               good_steps_after_clean=good,
+               planted_scale=c['planted_scale'],
+               planted_step_loss=float(bad_loss[0]),
+               changed_by_planted_step=changed,
+               scale_after_overflow=backed_off, skipped_steps=skipped,
+               params_moved_by_next_clean_step=moved,
+               params=len(main.all_parameters()))
+    print("%s: %s" % (label, json.dumps(res)))
+    fails = []
+    if not all(np.isfinite(losses)):
+        fails.append('clean losses not finite')
+    if grown != 2 * init or good != 0:
+        fails.append('scale %g (good %g) after %d clean steps, want %g'
+                     % (grown, good, c['clean_steps'], 2 * init))
+    if changed or not keep:
+        fails.append('the overflow step changed %s' % changed[:5])
+    if backed_off != c['planted_scale'] / 2 or skipped != 1:
+        fails.append('scale %g, skipped %g after the overflow'
+                     % (backed_off, skipped))
+    if moved != len(main.all_parameters()):
+        fails.append('%d parameters moved by the next clean step' % moved)
+    if fails:
+        raise SystemExit("f16 loss scaling: %s" % '; '.join(fails))
+    return dict(counts=counts, **res)
+
+
+def phase_amp_f16_sparse(rows=30000, dim=256, k=4096):
+    """The f16 gate on a row-sparse table: an ``is_sparse`` embedding
+    (seq2seq's table width) under lazy Adam, a clean step, then a step
+    whose float feed carries inf (every gradient is non-finite): #6 must
+    launch on that step with every id swapped to the sentinel and leave
+    the table and both moments bitwise as they were, with no copy of the
+    table (the gate swaps the ids, ``core/executor.py _gate``)."""
+    env = {ENV_PREFIX + 'AMP_DECR_EVERY_N_NAN_OR_INF': '1'}
+    old = {n: os.environ.get(n) for n in env}
+    os.environ.update(env)
+    try:
+        main, startup = tfl.Program(), tfl.Program()
+        main.random_seed = startup.random_seed = SEED
+        with tfl.program_guard(main, startup):
+            ids = tfl.layers.data(name='ids', shape=[1], dtype='int64')
+            emb = tfl.layers.embedding(input=ids, size=[rows, dim],
+                                       is_sparse=True)
+            y = tfl.layers.data(name='y', shape=[dim], dtype='float32')
+            cost = tfl.layers.mean(
+                x=tfl.layers.square_error_cost(input=emb, label=y))
+            tfl.optimizer.AdamOptimizer(1e-3).minimize(cost)
+        exe, scope = tfl.Executor(), tfl.Scope()
+        exe.run(startup, scope=scope)
+        rng = np.random.default_rng(SEED)
+        feed = {'ids': rng.integers(0, rows, (k, 1)),
+                'y': rng.normal(size=(k, dim)).astype(np.float32)}
+        state = [v.name for v in main.list_vars()
+                 if v.persistable and scope.has(v.name)]
+        with amp.amp_guard('f16'):
+            exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+            before = {n: scope.get(n).clone() for n in state}
+            _zero_counts()
+            exe.run(main, feed=dict(feed, y=np.full_like(feed['y'],
+                                                          np.inf)),
+                    fetch_list=[cost], scope=scope)
+            counts = _counts()
+            changed = [n for n in state
+                       if not torch.equal(before[n], scope.get(n))]
+            skipped = float(scope.get(amp.SKIPPED_STEPS_VAR)[0])
+    finally:
+        for n, v in old.items():
+            if v is None:
+                os.environ.pop(n, None)
+            else:
+                os.environ[n] = v
+    res = dict(table='%d x %d, K=%d ids, lazy Adam, f16' % (rows, dim, k),
+               launches=counts, changed_by_overflow_step=changed,
+               skipped_steps=skipped, persistables=len(state))
+    print("f16 row-sparse overflow step: %s" % json.dumps(res))
+    if changed or skipped != 1 or counts['table_update'] != 1:
+        raise SystemExit("f16 sparse gate: %s" % res)
+    return res
+
+
+def _add_paths(lines, paths):
+    """Adds each path's launches ({path: _counts()}) to the kernel lines'
+    ``launches`` and ``launches_by_path``."""
+    by_name = {line['name']: line for line in lines}
+    for path, counts in paths.items():
+        for k, n in counts.items():
+            if n:
+                by_name[k]['launches'] += n
+                by_name[k]['launches_by_path'][path] = n
+
+
+def _amp_phases():
+    """Phases 44-51, timed together: the AMP slice."""
+    t0 = time.perf_counter()
+    tr = phase_amp_training()
+    tr['parity'] = phase_amp_parity(tr)
+    with amp.amp_guard('bf16'):
+        tr['profile'] = phase_train_profile(tr, 'transformer bf16 profile')
+    del tr['scope'], tr['feed'], tr['exe']
+    torch.cuda.empty_cache()
+    f16 = phase_amp_f16()
+    f16['sparse'] = phase_amp_f16_sparse()
+    torch.cuda.empty_cache()
+    rn = phase_resnet_training(RESNET_BF16, 'resnet50 bf16 training')
+    rn['profile'] = phase_image_profile(rn, 'resnet50 bf16 profile')
+    del rn['scope'], rn['feed'], rn['exe']
+    torch.cuda.empty_cache()
+    s2s = phase_s2s_training('bfloat16', 'seq2seq bf16 training')
+    del s2s['scope'], s2s['feed'], s2s['exe']
+    lm = phase_lm_training('bfloat16', 'lm bf16 training')
+    del lm['scope'], lm['exe']
+    torch.cuda.empty_cache()
+    print("phases 44-51 (AMP: transformer bf16 and f16, ResNet-50, seq2seq "
+          "and the LM in bfloat16): %.1f s" % (time.perf_counter() - t0))
+    return dict(tr=tr, f16=f16, rn=rn, s2s=s2s, lm=lm)
+
+
 def _ctr_phases():
     """Phases 37-42, timed together."""
     t0 = time.perf_counter()
@@ -4679,6 +5228,11 @@ def _image_phases():
     t1 = time.perf_counter()
     vg = phase_vgg_training()
     vg['parity'] = phase_vgg_parity(vg)
+    vg['parity_relu_handoff'] = phase_vgg_parity(
+        vg, label='vgg16 parity, card relu gates', handoff=('relu',))
+    vg['parity_gates_handoff'] = phase_vgg_parity(
+        vg, label='vgg16 parity, card relu gates and max-pool choices',
+        handoff=('relu', 'pool2d'))
     vg['parity_controls'] = phase_vgg_parity_controls(vg)
     phase_dropout_op()
     phase_image_profile(vg, 'vgg16 profile')
@@ -4736,6 +5290,7 @@ def main():
     torch.cuda.empty_cache()
     rn, mn, vg, book, recipes = _image_phases()
     ctr_res = _ctr_phases()
+    amp_res = _amp_phases()
     counts = tr['counts']
     main_row = next(r for r in rows if r['case'] == MAIN_CASE)
     fwd = dict(
@@ -4825,10 +5380,26 @@ def main():
     table, gru_fwd, gru_bwd = _s2s_lines(gru_rows, gru_timing, sparse_rows,
                                          sparse_timing, s2s)
     _ctr_table_line(table, ctr_res, sparse_timing)
-    print(json.dumps({'kernels': [fwd, bwd, dense_line] + _lstm_lines(
-        lstm_rows, lstm_timing, lm, sent) + [table, gru_fwd, gru_bwd]
-        + _split_lines(split_rows, split_timing, long_k, long_tr, parity,
-                       tr)}))
+    for line in (fwd, bwd):
+        line['amp_training_shape'] = [
+            {k: r[k] for k in ('case', 'dtype', 'fwd_ms', 'ms',
+                               'library_fwd_ms', 'library_ms',
+                               'fwd_bound_3xtf32_ms', 'fwd_bound_16bit_tc_ms',
+                               'bound_3xtf32_ms', 'bound_16bit_tc_ms',
+                               'fwd_err_o', 'max_abs_err')}
+            for r in bwd_rows
+            if r['case'].startswith('train_causal_T512_BH256_')]
+    lines = [fwd, bwd, dense_line] + _lstm_lines(
+        lstm_rows, lstm_timing, lm, sent) + [table, gru_fwd, gru_bwd] + \
+        _split_lines(split_rows, split_timing, long_k, long_tr, parity, tr)
+    _add_paths(lines, {'amp_bf16_training': amp_res['tr']['counts'],
+                       'amp_f16_training': amp_res['f16']['counts'],
+                       'amp_f16_sparse_overflow_step':
+                           amp_res['f16']['sparse']['launches'],
+                       'resnet50_bf16_training': amp_res['rn']['counts'],
+                       'seq2seq_bf16_training': amp_res['s2s']['counts'],
+                       'lm_bf16_training': amp_res['lm']['counts']})
+    print(json.dumps({'kernels': lines}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -56,10 +56,17 @@ Ported so far:
   ``datasets.movielens``;
 - the executor's liveness (each value dropped after its last use) and
   ``calc_gradient`` (gradients with respect to inputs and
-  intermediates).
+  intermediates);
+- the pass pipeline the executor runs once per plan
+  (``transpiler/pass_manager.py``: dead-op elimination, constant folding,
+  CSE, the static verifier) and automatic mixed precision
+  (``transpiler/amp.py``: ``PADDLE_TPU_TORCH_AMP=bf16|f16`` or
+  ``transpiler.amp.amp_guard``; f16 with dynamic loss scaling and
+  skipped overflow steps), with ``memory_optimize`` / ``release_memory``.
 """
 from . import datasets, initializer, layers, nets, optimizer  # noqa: F401
 from . import clip, learning_rate_decay, reader, regularizer  # noqa: F401
+from . import transpiler  # noqa: F401
 from .core import backward
 from .core.backward import append_backward, calc_gradient
 from .core.executor import Executor
@@ -74,6 +81,7 @@ from .optimizer import (AdagradOptimizer, AdamOptimizer, MomentumOptimizer,
                         SGDOptimizer)
 from .param_attr import ParamAttr
 from .reader.minibatch import batch
+from .transpiler import memory_optimize, release_memory
 
 __all__ = ['Program', 'program_guard', 'default_main_program',
            'default_startup_program', 'Executor', 'Scope', 'scope_guard',
@@ -83,4 +91,5 @@ __all__ = ['Program', 'program_guard', 'default_main_program',
            'MomentumOptimizer', 'SGDOptimizer', 'SelectedRows', 'DataFeeder',
            'batch', 'reader', 'datasets', 'clip', 'regularizer',
            'learning_rate_decay', 'backward', 'append_backward',
-           'calc_gradient']
+           'calc_gradient', 'transpiler', 'memory_optimize',
+           'release_memory']

@@ -6,7 +6,8 @@ transformer's training program use.
 """
 import torch
 
-__all__ = ['convert_dtype', 'as_torch_dtype', 'itemsize', 'is_float_dtype']
+__all__ = ['convert_dtype', 'as_torch_dtype', 'itemsize', 'is_float_dtype',
+           'is_low_precision', 'promote_float_dtype']
 
 _STR2TORCH = {
     'bool': torch.bool,
@@ -61,5 +62,25 @@ def is_float_dtype(dtype):
 
 
 def is_low_precision(dtype):
-    """True for the 16-bit float dtypes."""
+    """True for the 16-bit float dtypes AMP lowers compute into."""
     return convert_dtype(dtype) in ('float16', 'bfloat16')
+
+
+# widest-wins float lattice for AMP's grey-op "follow the inputs" rule:
+# f64 > f32 > {bf16, f16}.  bf16 and f16 do not order against each other
+# (8-bit exponent against 10-bit mantissa): mixing them promotes to f32.
+_FLOAT_RANK = {'float64': 3, 'float32': 2, 'bfloat16': 1, 'float16': 1}
+
+
+def promote_float_dtype(a, b):
+    """The dtype a grey (follow-the-inputs) op runs in when fed ``a`` and
+    ``b``: the wider of the two; bf16 + f16 (unordered) promotes to f32."""
+    a = convert_dtype(a)
+    b = convert_dtype(b)
+    ra, rb = _FLOAT_RANK.get(a), _FLOAT_RANK.get(b)
+    if ra is None or rb is None:
+        raise ValueError("promote_float_dtype needs float dtypes, got "
+                         "%r and %r" % (a, b))
+    if ra == rb:
+        return a if a == b else 'float32'
+    return a if ra > rb else b

@@ -53,11 +53,24 @@ their wrappers.
 
 - ``run_steps`` runs K steps as a host loop over the same step, every
   feed staged on the device first; fetches come back stacked [K, ...].
+- The pass pipeline (transpiler/pass_manager.py: dead-op elimination,
+  constant folding, CSE, AMP, the static verifier) runs once per plan,
+  on a copy of the program, and the plan runs the rewritten copy.  Plans
+  are keyed on (program, version, fetches, feeds, the pipeline's
+  ``plan_key``), so a flag flip plans anew and no step pays for the
+  passes.  A pass or the verifier that raises makes the run raise: there
+  is no fallback to the unrewritten program (the reference falls back,
+  executor.py:1335-1340).  ``last_graph_opt_report`` holds the plan's
+  report.
+- AMP f16 gates (``amp_gate_var``): on an overflow step, a gated dense
+  update keeps every output's old value, and a gated ``SelectedRows``
+  gradient has its ids swapped to the ``height`` sentinel, which the
+  row-wise rules skip, so the table is left as it was.  The autodiff op's
+  ``loss_scale_var`` multiplies the loss by the dynamic scale.
 
 Not in this slice (each raises): ``compile`` (with ``torch.export`` and
 the AOT cache, ROADMAP.md Queue 1 item 8), a program with more than one
-``autodiff`` op, AMP loss scaling and skip-step gates, overlap
-buckets, remat, meshes.
+``autodiff`` op, overlap buckets, meshes.
 """
 import numpy as np
 import torch
@@ -80,10 +93,12 @@ _STATEFUL_RANDOM = frozenset({'uniform_random', 'gaussian_random',
 
 # op attrs of reference features this slice does not bring
 _UNPORTED_ATTRS = {
-    'amp_gate_var': 'the AMP slice',
-    'loss_scale_var': 'the AMP slice',
     'overlap_buckets': 'the multi-chip slice',
 }
+
+# sparse optimizers whose row-wise rule skips sentinel ids: an overflow
+# gate swaps the ids and needs no copy of the old state
+_ROWWISE_SPARSE_OPS = frozenset({'sgd', 'adagrad', 'adam'})
 
 
 class ExecutionContext(object):
@@ -160,6 +175,35 @@ def _error_clipped(var, v):
     return _ClipCotangent.apply(v, float(ec.min), float(ec.max))
 
 
+def _gate(op, ins, env):
+    """AMP f16 skip-step (transpiler/amp.py): an optimize-role op stamped
+    with ``amp_gate_var`` leaves the state as it was when this step's
+    gradients were not finite.  SelectedRows gradients get their ids
+    swapped to the ``height`` sentinel (the row-wise rules of #6 and the
+    plain versions skip it, so the table is untouched without a copy of
+    it); every other gated op has its outputs' old values copied first,
+    as the optimizer ops update in place.  Returns (found, olds): the
+    device verdict and {name: old value}, or (None, None) ungated.  The
+    gate is a soft read: a program whose gate var is not yet defined
+    runs ungated, as in the reference."""
+    gate = op.attrs.get('amp_gate_var')
+    if gate is None or gate not in env:
+        return None, None
+    found = env[gate].reshape(()).bool()
+    sparse_gated = False
+    for vals in ins.values():
+        for k, v in enumerate(vals):
+            if isinstance(v, SelectedRows):
+                vals[k] = SelectedRows(
+                    torch.where(found, torch.full_like(v.rows, v.height),
+                                v.rows), v.values, v.height)
+                sparse_gated = True
+    if sparse_gated and op.type in _ROWWISE_SPARSE_OPS:
+        return found, None
+    return found, {n: env[n].clone() for n in op.output_arg_names
+                   if torch.is_tensor(env.get(n))}
+
+
 def _run_one(op, env, ctx, op_index):
     impl = get_op_impl(op.type)
     for attr, slice_name in _UNPORTED_ATTRS.items():
@@ -177,12 +221,15 @@ def _run_one(op, env, ctx, op_index):
                     "startup program, or check op ordering" % (op.type, n))
             vals.append(env[n])
         ins[slot] = vals
+    found, olds = _gate(op, ins, env)
     ctx.op_index = op.attrs.get('op_seq', op_index)
     outs = impl.compute(ctx, ins, op.attrs) or {}
     for slot, names in op.outputs.items():
         for n, v in zip(names, outs.get(slot, [])):
             if v is None:
                 continue
+            if olds is not None and n in olds:
+                v = torch.where(found, olds[n], v)
             try:
                 var = ctx.block.var_recursive(n)
             except KeyError:
@@ -249,9 +296,6 @@ class _StepPlan(object):
     def __init__(self, program, fetch_names):
         block = program.global_block()
         ops = block.ops
-        self.known = set(block.vars)
-        for op in ops:
-            self.known.update(op.output_arg_names)
         self.live = live_ops(block, fetch_names)
         alive = set(self.live)
         self.skipped = [(i, op.type) for i, op in enumerate(ops)
@@ -317,6 +361,9 @@ def _run_autodiff(ad_op, plan, env, ctx):
     grad_names = list(ad_op.attrs['grad_names'])
     loss_name = ad_op.attrs['loss_name']
     loss_scale = float(ad_op.attrs.get('loss_scale', 1.0))
+    # AMP f16: the dynamic loss scale, a persistable var; the
+    # check_finite_and_unscale op after the pass divides it back out
+    ls_var = ad_op.attrs.get('loss_scale_var')
     written = plan.fwd_written
     frozen = set(param_names) & written
     missing = [n for n in param_names if n not in env and n not in written]
@@ -342,6 +389,8 @@ def _run_autodiff(ad_op, plan, env, ctx):
             raise KeyError("autodiff loss %r was never computed"
                            % loss_name)
         loss = env2[loss_name].float().sum() * loss_scale
+        if ls_var is not None and ls_var in env2:
+            loss = loss * env2[ls_var].float().reshape(())
         wrt = [leaves[n] for n in param_names]
         grads = torch.autograd.grad(loss, wrt, allow_unused=True)
     for n in written & plan.needed:
@@ -372,7 +421,9 @@ class Executor(object):
         self.place = resolve_device(place)
         self._step_count = 0
         self.skipped_ops = []
-        self._plans = {}   # (program uid, version, fetches) -> _StepPlan
+        # (program uid, version, fetches, feeds, plan_key) -> _StepPlan
+        self._plans = {}
+        self.last_graph_opt_report = None
 
     def _base_seed(self, program):
         seed = program.random_seed
@@ -420,23 +471,57 @@ class Executor(object):
                 staged[col] = self._to_device(col, v, block.vars.get(col))
         return staged
 
-    def _plan(self, program, fetch_names):
-        key = (program._uid, program.version, tuple(fetch_names))
+    def _plan(self, program, fetch_names, feed_names):
+        """The plan of a run: the pass pipeline's rewrite of ``program``
+        and its ``_StepPlan``, kept per (program, version, fetches, feeds,
+        pass configuration)."""
+        from ..transpiler import pass_manager
+        key = (program._uid, program.version, tuple(fetch_names),
+               tuple(sorted(feed_names)), pass_manager.plan_key(program))
         plan = self._plans.get(key)
         if plan is None:
-            plan = self._plans[key] = _StepPlan(program, fetch_names)
+            known = set(program.global_block().vars)
+            for op in program.global_block().ops:
+                known.update(op.output_arg_names)
+            for n in fetch_names:
+                if n not in known and n not in feed_names:
+                    raise KeyError(
+                        "fetch var %r is not produced by any op in the "
+                        "program and is not fed" % n)
+            prog, report = pass_manager.run_pipeline(
+                program, fetch_names=fetch_names,
+                feed_names=tuple(sorted(feed_names)))
+            plan = _StepPlan(prog, fetch_names)
+            plan.program, plan.report = prog, report
+            ops = prog.global_block().ops
+            # the user's op positions the run leaves out: the pipeline's
+            # dead-op elimination and the plan's own liveness
+            plan.skipped = sorted(report['removed'] + [
+                (ops[i].attrs.get('op_seq', i), t) for i, t in plan.skipped])
+            self._plans[key] = plan
+        # None when nothing rewrote the program (the reference's bypass)
+        self.last_graph_opt_report = (
+            plan.report if plan.report['level'] > 0 or 'amp' in plan.report
+            else None)
         return plan
+
+    def reset_cache(self):
+        """Drop every plan; the next run of each program plans anew."""
+        self._plans.clear()
 
     def _step(self, program, scope, staged, fetch_names):
         """One run of the block on a staged feed; returns the fetched
         tensors."""
+        plan = self._plan(program, fetch_names, staged)
+        program = plan.program
         block = program.global_block()
-        plan = self._plan(program, fetch_names)
-        for n in fetch_names:
-            if n not in plan.known and n not in staged:
-                raise KeyError(
-                    "fetch var %r is not produced by any op in the program "
-                    "and is not fed" % n)
+        amp = plan.report.get('amp')
+        if amp is not None:
+            # the f16 loss-scale state the pass declares: the user runs
+            # no startup program for it
+            for n, v in amp['state_defaults'].items():
+                if not scope.has(n):
+                    scope.set(n, torch.from_numpy(v).to(self.place))
 
         env = {}
         for v in program.list_vars():

@@ -9,12 +9,13 @@ in and -1 again on the way out, as the reference does around
 cannot run on meta tensors; inference is best effort and the caller
 leaves such an op's declared shapes alone.
 """
+import numpy as np
 import torch
 
 from . import datatypes
 from .registry import get_op_impl
 
-__all__ = ['infer_outputs']
+__all__ = ['infer_outputs', 'infer_outputs_cached']
 
 # prime, unlikely to collide with a real dim (the reference's sentinel)
 _BATCH_SENTINEL = 509
@@ -79,3 +80,65 @@ def infer_outputs(op_type, input_specs, attrs, out_slots):
     with torch.no_grad():
         outs = impl.compute(_InferCtx(), ins, attrs)
     return _decode_outs(outs, out_slots, had_unknown)
+
+
+_INFER_CACHE = {}
+_INFER_CACHE_CAP = 65536
+_FAILED = object()
+# attrs that never affect shapes or dtypes: pass bookkeeping, so a
+# build-time inference serves the verifier's post-pass lookup of the op
+_NON_SEMANTIC_ATTRS = frozenset({'op_seq', 'op_role', 'amp_gate_var'})
+
+
+class _Uncacheable(Exception):
+    pass
+
+
+def _hashable(v):
+    if isinstance(v, np.ndarray):
+        return ('nd', str(v.dtype), v.shape, v.tobytes())
+    if isinstance(v, (list, tuple)):
+        return tuple(_hashable(x) for x in v)
+    if isinstance(v, dict):
+        return tuple((k, _hashable(v[k])) for k in sorted(v))
+    if isinstance(v, (str, int, float, bool, bytes, type(None))):
+        return v
+    if isinstance(v, (np.integer, np.floating, np.bool_)):
+        return v.item()
+    raise _Uncacheable(type(v).__name__)
+
+
+def _cache_key(op_type, input_specs, attrs, out_slots):
+    return (op_type,
+            tuple((slot,
+                   tuple(None if s is None else (tuple(s[0]), str(s[1]))
+                         for s in specs))
+                  for slot, specs in sorted(input_specs.items())),
+            tuple((k, _hashable(attrs[k])) for k in sorted(attrs)
+                  if k not in _NON_SEMANTIC_ATTRS),
+            tuple(out_slots))
+
+
+def infer_outputs_cached(op_type, input_specs, attrs, out_slots):
+    """``infer_outputs`` with a process-wide memo, failures included (an
+    op that cannot run on meta tensors is not retried).  Raises what the
+    compute function raises: the caller decides whether that is an
+    error."""
+    try:
+        key = _cache_key(op_type, input_specs, attrs, out_slots)
+    except _Uncacheable:
+        return infer_outputs(op_type, input_specs, attrs, out_slots)
+    hit = _INFER_CACHE.get(key)
+    if hit is _FAILED:
+        raise RuntimeError("op %r does not run on meta tensors" % op_type)
+    if hit is not None:
+        return hit
+    if len(_INFER_CACHE) >= _INFER_CACHE_CAP:
+        _INFER_CACHE.clear()
+    try:
+        result = infer_outputs(op_type, input_specs, attrs, out_slots)
+    except Exception:
+        _INFER_CACHE[key] = _FAILED
+        raise
+    _INFER_CACHE[key] = result
+    return result

@@ -123,8 +123,9 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// q, do: contiguous [bh, tq, d]; k, v: [bh, tk, d]; float32 (is_bf16 = 0)
-// or bfloat16 (is_bf16 = 1), 1 <= d <= 128, bh <= 65535.  lse, di:
+// q, do: contiguous [bh, tq, d]; k, v: [bh, tk, d]; float32 (dtype = 0),
+// bfloat16 (dtype = 1) or float16 (dtype = 2), 1 <= d <= 128,
+// bh <= 65535.  lse, di:
 // float32 [bh, tq].  Writes dq [bh, tq, d] and dk, dv [bh, tk, d] in the
 // input type on `stream`, using dq_acc (float32 [bh, tq, d], any contents)
 // as scratch.  Returns the CUDA error of the launches (0 on success); does
@@ -133,13 +134,17 @@ int paddle_flash_attention_bwd(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* di, void* dq, void* dk, void* dv,
                                void* dq_acc, int bh, int tq, int tk, int d,
-                               int is_bf16, int causal, float scale,
+                               int dtype, int causal, float scale,
                                int q_offset, int k_offset, void* stream) {
   if (bh < 1 || bh > 65535 || tq < 1 || tk < 1 || d < 1 || d > 128)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
+  if (dtype == 1)
     return static_cast<int>(dispatch<__nv_bfloat16>(
+        q, k, v, dout, lse, di, dq, dk, dv, dq_acc, bh, tq, tk, d, causal,
+        scale, q_offset, k_offset, s));
+  if (dtype == 2)
+    return static_cast<int>(dispatch<__half>(
         q, k, v, dout, lse, di, dq, dk, dv, dq_acc, bh, tq, tk, d, causal,
         scale, q_offset, k_offset, s));
   return static_cast<int>(dispatch<float>(q, k, v, dout, lse, di, dq, dk, dv,

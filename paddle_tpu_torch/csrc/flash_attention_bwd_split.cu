@@ -29,7 +29,8 @@
 // buffer: both kernels are deterministic.  Every product runs on the
 // tensor cores, mma.sync m16n8k8 in TF32 with float32 accumulation, at
 // float32 accuracy by the 3xTF32 split (flash_tf32.cuh); plain TF32 is
-// not used, and bfloat16 inputs (exact in TF32) take the same path.
+// not used, and bfloat16 and float16 inputs (exact in TF32) take the same
+// path.
 //   - dk/dv: one block per (bh, 64-row k tile), the fused backward's dk/dv
 //     engine (flash_bwd_dkv.cuh) without its dq: the block loads its K and
 //     V tiles once and walks the q tiles the causal mask leaves alive, q,
@@ -419,22 +420,26 @@ bool bad_shape(int bh, int tq, int tk, int d) {
 
 extern "C" {
 
-// q, do: contiguous [bh, tq, d]; k, v: [bh, tk, d]; float32 (is_bf16 = 0)
-// or bfloat16 (is_bf16 = 1), 1 <= d <= 128, at most 65535 64-row tiles on
-// each axis.  lse, di: float32 [bh, tq].  Writes dk, dv [bh, tk, d] in the
+// q, do: contiguous [bh, tq, d]; k, v: [bh, tk, d]; float32 (dtype = 0),
+// bfloat16 (dtype = 1) or float16 (dtype = 2), 1 <= d <= 128, at most
+// 65535 64-row tiles on each axis.  lse, di: float32 [bh, tq].  Writes dk, dv [bh, tk, d] in the
 // input type on `stream`.  Returns the CUDA error of the launch (0 on
 // success); does not synchronise.
 int paddle_flash_attention_bwd_dkv(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* di, void* dk,
                                    void* dv, int bh, int tq, int tk, int d,
-                                   int is_bf16, int causal, float scale,
+                                   int dtype, int causal, float scale,
                                    int q_offset, int k_offset, void* stream) {
   if (bad_shape(bh, tq, tk, d))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
+  if (dtype == 1)
     return static_cast<int>(dispatch_dkv<__nv_bfloat16>(
+        q, k, v, dout, lse, di, dk, dv, bh, tq, tk, d, causal, scale,
+        q_offset, k_offset, s));
+  if (dtype == 2)
+    return static_cast<int>(dispatch_dkv<__half>(
         q, k, v, dout, lse, di, dk, dv, bh, tq, tk, d, causal, scale,
         q_offset, k_offset, s));
   return static_cast<int>(dispatch_dkv<float>(q, k, v, dout, lse, di, dk,
@@ -446,14 +451,18 @@ int paddle_flash_attention_bwd_dkv(const void* q, const void* k,
 int paddle_flash_attention_bwd_dq(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* di, void* dq,
-                                  int bh, int tq, int tk, int d, int is_bf16,
+                                  int bh, int tq, int tk, int d, int dtype,
                                   int causal, float scale, int q_offset,
                                   int k_offset, void* stream) {
   if (bad_shape(bh, tq, tk, d))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
+  if (dtype == 1)
     return static_cast<int>(dispatch_dq<__nv_bfloat16>(
+        q, k, v, dout, lse, di, dq, bh, tq, tk, d, causal, scale, q_offset,
+        k_offset, s));
+  if (dtype == 2)
+    return static_cast<int>(dispatch_dq<__half>(
         q, k, v, dout, lse, di, dq, bh, tq, tk, d, causal, scale, q_offset,
         k_offset, s));
   return static_cast<int>(dispatch_dq<float>(q, k, v, dout, lse, di, dq, bh,

@@ -34,8 +34,8 @@
 //     tf32(x - big) (x - big is exact in float32), and a.b = a_small.b_big
 //     + a_big.b_small + a_big.b_big; the dropped a_small.b_small is below
 //     2^-22 relative.
-//     Plain TF32 (three decimal digits) is not used.  bfloat16 inputs are
-//     exact in TF32 (small = 0) and take the same path.
+//     Plain TF32 (three decimal digits) is not used.  bfloat16 and
+//     float16 inputs are exact in TF32 (small = 0) and take the same path.
 //   - mma.sync, not wgmma: for .tf32 wgmma needs both operands K-major in
 //     shared memory, but v in p.v is N-major.  mma.sync fragments are read
 //     thread by thread, so any layout serves.  Rows are padded to D + 4
@@ -396,19 +396,23 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// q, k, v: contiguous [bh, tq | tk, d] of float32 (is_bf16 = 0) or
-// bfloat16 (is_bf16 = 1), 1 <= d <= 128, bh <= 65535.  Writes o [bh, tq, d]
+// q, k, v: contiguous [bh, tq | tk, d] of float32 (dtype = 0), bfloat16
+// (dtype = 1) or float16 (dtype = 2), 1 <= d <= 128, bh <= 65535.  Writes o [bh, tq, d]
 // in the input type and lse [bh, tq] in float32 on `stream`.  Returns the
 // CUDA error of the launch (0 on success); does not synchronise.
 int paddle_flash_attention_fwd(const void* q, const void* k, const void* v,
                                void* o, void* lse, int bh, int tq, int tk,
-                               int d, int is_bf16, int causal, float scale,
+                               int d, int dtype, int causal, float scale,
                                int q_offset, int k_offset, void* stream) {
   if (bh < 1 || bh > 65535 || tq < 1 || tk < 1 || d < 1 || d > 128)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
+  if (dtype == 1)
     return static_cast<int>(dispatch<__nv_bfloat16>(
+        q, k, v, o, lse, bh, tq, tk, d, causal, scale, q_offset, k_offset,
+        s));
+  if (dtype == 2)
+    return static_cast<int>(dispatch<__half>(
         q, k, v, o, lse, bh, tq, tk, d, causal, scale, q_offset, k_offset,
         s));
   return static_cast<int>(dispatch<float>(q, k, v, o, lse, bh, tq, tk, d,

@@ -9,10 +9,13 @@
 // whole) and small = tf32(x - big) (x - big is exact in float32), and
 // a.b = a_small.b_big + a_big.b_small + a_big.b_big; the dropped
 // a_small.b_small is below 2^-22 relative.  Plain TF32 (three decimal
-// digits) is never used.  bfloat16 inputs are exact in TF32 (small = 0).
+// digits) is never used.  bfloat16 and float16 inputs are exact in TF32
+// (small = 0): both carry at most TF32's 10-bit mantissa, and float16's
+// exponent range lies inside TF32's.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -22,9 +25,15 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) {
+  return __half2float(x);
+}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ void store(__half* p, float x) {
+  *p = __float2half_rn(x);
 }
 
 // x rounded to TF32, to nearest with ties away from zero, as

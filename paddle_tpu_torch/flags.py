@@ -1,4 +1,5 @@
-"""Env-var configuration (gflags parity), cut to the decode engine's flags.
+"""Env-var configuration (gflags parity), cut to the decode engine's and
+the pass pipeline's flags.
 
 Every flag is ``PADDLE_TPU_TORCH_<NAME>`` in the environment, declared
 with a type and default, and read through the global ``FLAGS``.  The
@@ -61,3 +62,30 @@ FLAGS._define(
     'decode_page_reserve', 2, int,
     'free pages kept in reserve at admission when pages are claimed '
     'incrementally (prefix cache or chunked prefill on)')
+FLAGS._define(
+    'graph_opt_level', 2, int,
+    'pass pipeline run once per executor plan (transpiler/'
+    'pass_manager.py): 0 disables, 1 runs dead-op elimination only, 2 '
+    'adds constant folding and common-subexpression elimination; part of '
+    'the plan key, so a flip takes effect at the next run')
+FLAGS._define(
+    'amp', '0', str,
+    "automatic mixed precision (transpiler/amp.py): '0' off, 'bf16', or "
+    "'f16' (adds dynamic loss scaling); applied per plan after the "
+    'graph-opt passes, with f32 master weights')
+FLAGS._define(
+    'amp_init_loss_scale', 32768.0, float,
+    'f16 mode: initial dynamic loss scale')
+FLAGS._define(
+    'amp_incr_every_n_steps', 1000, int,
+    'f16 mode: double the loss scale after this many consecutive finite '
+    'steps')
+FLAGS._define(
+    'amp_decr_every_n_nan_or_inf', 2, int,
+    'f16 mode: halve the loss scale after this many consecutive '
+    'overflowing steps (each of them skipped)')
+FLAGS._define(
+    'verify_ir', 'boundary', str,
+    'static IR verification of the pass pipeline (transpiler/verify.py): '
+    "'boundary' checks the final program once, 'every_pass' after each "
+    "rewrite pass (naming the pass at fault), 'off' skips it")

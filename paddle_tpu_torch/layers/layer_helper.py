@@ -152,8 +152,8 @@ class LayerHelper(object):
                     specs.append(None)
             input_specs[slot] = specs
         try:
-            outs = infer.infer_outputs(op.type, input_specs, op.attrs,
-                                       list(op.outputs))
+            outs = infer.infer_outputs_cached(op.type, input_specs,
+                                              op.attrs, list(op.outputs))
         except Exception:  # best effort, as the reference's build-time pass
             return
         for slot, names in op.outputs.items():

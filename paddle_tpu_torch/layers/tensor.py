@@ -28,11 +28,13 @@ def create_global_var(shape, value, dtype, persistable=False, name=None,
 
 def cast(x, dtype, **kwargs):
     helper = LayerHelper('cast', **locals())
+    # a dtype change keeps the ragged structure: the lod level and @LEN
     out = helper.create_tmp_variable(dtype, lod_level=x.lod_level)
     helper.append_op(type='cast',
                      inputs={'X': [x]},
                      outputs={'Out': [out]},
                      attrs={'in_dtype': x.dtype, 'out_dtype': dtype})
+    helper.copy_len(x, out)
     return out
 
 

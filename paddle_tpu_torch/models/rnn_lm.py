@@ -19,15 +19,17 @@ def build(vocab_size, emb_dim=128, hidden_dim=256, num_layers=2,
     the fused vocab projection + softmax CE by default, or
     ``cross_entropy(softmax(fc))`` with ``fuse_vocab_loss=False``; the
     vocab head's parameters are named ``lm_out_w`` / ``lm_out_b`` in both.
-    Float32 only: ``dtype='bfloat16'`` comes with the AMP slice."""
-    if dtype != 'float32':
-        raise NotImplementedError(
-            "rnn_lm in %s comes with the AMP slice: ROADMAP.md Queue 1 "
-            "item 7" % dtype)
+    ``dtype='bfloat16'`` / ``'float16'`` casts the embedding's output to
+    the low dtype (bench_lstm_lm.py's build): the projections and the
+    vocab head run in it with float32 master weights, the LSTM ops
+    compute in float32, and unfused logits are cast back to float32
+    before the softmax."""
     src = layers.data(name='src', shape=[1], dtype='int64', lod_level=1)
     target = layers.data(name='target', shape=[1], dtype='int64',
                          lod_level=1)
     x = layers.embedding(input=src, size=[vocab_size, emb_dim])
+    if dtype in ('bfloat16', 'float16'):
+        x = layers.cast(x=x, dtype=dtype)
     for _ in range(num_layers):
         fc = layers.fc(input=x, size=hidden_dim * 4, num_flatten_dims=2)
         x, _ = layers.dynamic_lstm(input=fc, size=hidden_dim * 4)
@@ -41,6 +43,8 @@ def build(vocab_size, emb_dim=128, hidden_dim=256, num_layers=2,
             input=x, size=vocab_size, num_flatten_dims=2, act=None,
             param_attr=ParamAttr(name='lm_out_w'),
             bias_attr=ParamAttr(name='lm_out_b'))
+        if dtype in ('bfloat16', 'float16'):
+            logits = layers.cast(x=logits, dtype='float32')
         probs = layers.softmax(x=logits)
         cost = layers.cross_entropy(input=probs, label=target,
                                     soft_label=False)

@@ -12,7 +12,11 @@ Adam applies lazily to the touched rows (ops/kernels/table_update.py);
 every ``gru`` op runs on the fused GRU kernels (ops/kernels/gru.py).  All
 parameters carry the reference's fixed names (``mt_*``).
 
-Float32 only: ``dtype='bfloat16'`` comes with the AMP slice.  ``decode``
+``dtype='bfloat16'`` / ``'float16'`` casts both embeddings' outputs to
+the low dtype (bench_seq2seq.py's build): the projections run in it with
+float32 master weights, the GRU ops compute in float32 and hand their
+Hidden back in it, and the logits are cast back to float32 before the
+softmax.  ``decode``
 (beam-search generation) needs ``While`` sub-blocks, tensor arrays and
 ``beam_search``, which come with the control-flow ops.
 """
@@ -26,20 +30,14 @@ def _attr(name):
     return ParamAttr(name=name)
 
 
-def _float32_only(dtype):
-    if dtype != 'float32':
-        raise NotImplementedError(
-            "seq2seq in %s comes with the AMP slice: ROADMAP.md Queue 1 "
-            "item 7" % dtype)
-
-
 def encoder(src_word_id, dict_size, word_dim=32, hidden_dim=32,
             dtype='float32'):
     """The bidirectional GRU encoder: [B, Ts, 2H] states."""
-    _float32_only(dtype)
     src_embedding = layers.embedding(
         input=src_word_id, size=[dict_size, word_dim], dtype='float32',
         is_sparse=True, param_attr=_attr('mt_src_emb'))
+    if dtype in ('bfloat16', 'float16'):
+        src_embedding = layers.cast(x=src_embedding, dtype=dtype)
     fc_forward = layers.fc(
         input=src_embedding, size=hidden_dim * 3, num_flatten_dims=2,
         param_attr=_attr('mt_enc_fc_fwd_w'),
@@ -95,6 +93,8 @@ def train_net(src, trg, label, dict_size, word_dim=32, hidden_dim=32,
     trg_embedding = layers.embedding(
         input=trg, size=[dict_size, word_dim], dtype='float32',
         is_sparse=True, param_attr=_attr('mt_trg_emb'))
+    if dtype in ('bfloat16', 'float16'):
+        trg_embedding = layers.cast(x=trg_embedding, dtype=dtype)
     dec_fc = layers.fc(
         input=trg_embedding, size=hidden_dim * 3, num_flatten_dims=2,
         param_attr=_attr('mt_dec_fc_w'), bias_attr=_attr('mt_dec_fc_b'))
@@ -107,6 +107,8 @@ def train_net(src, trg, label, dict_size, word_dim=32, hidden_dim=32,
     logits = layers.fc(
         input=att_h, size=dict_size, num_flatten_dims=2, act=None,
         param_attr=_attr('mt_out_fc_w'), bias_attr=_attr('mt_out_fc_b'))
+    if logits.dtype in ('bfloat16', 'float16'):
+        logits = layers.cast(x=logits, dtype='float32')
     prediction = layers.softmax(x=logits)
     if fuse_vocab_loss:
         cost = layers.fused_linear_softmax_ce(
@@ -124,7 +126,6 @@ def build(dict_size, word_dim=32, hidden_dim=32, dtype='float32',
     """Returns (src, trg, label, prediction, avg_cost): the training
     program's data layers (token-id sequences, lod_level=1) and
     outputs."""
-    _float32_only(dtype)
     src = layers.data(name='src_word_id', shape=[1], dtype='int64',
                       lod_level=1)
     trg = layers.data(name='target_language_word', shape=[1],

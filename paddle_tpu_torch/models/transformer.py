@@ -83,16 +83,14 @@ def _block(x, i, d_model, n_heads, d_ff):
 
 def _trunk(src, vocab_size, seq_len, n_layers, d_model, n_heads, d_ff,
            dtype):
-    if dtype != 'float32':
-        raise NotImplementedError(
-            "low-precision transformer programs need the AMP slice: "
-            "ROADMAP.md Queue 1")
     emb = layers.embedding(input=src, size=[vocab_size, d_model],
                            param_attr=ParamAttr(name='tr_embed'))
     # learned positional table [T, D]; broadcasts over the batch dim
     pos = layers.create_parameter(shape=[seq_len, d_model], dtype='float32',
                                   attr=ParamAttr(name='tr_pos'))
     x = layers.elementwise_add(x=emb, y=pos)
+    if dtype in ('bfloat16', 'float16'):
+        x = layers.cast(x=x, dtype=dtype)
     for i in range(n_layers):
         x = _block(x, i, d_model, n_heads, d_ff)
     return layers.layer_norm(input=x, begin_norm_axis=2,
@@ -136,6 +134,8 @@ def build_logits(vocab_size, seq_len=128, n_layers=2, d_model=128,
     logits = layers.fc(input=x, size=vocab_size, num_flatten_dims=2,
                        param_attr=ParamAttr(name='tr_head_w'),
                        bias_attr=ParamAttr(name='tr_head_b'))
+    if dtype in ('bfloat16', 'float16'):
+        logits = layers.cast(x=logits, dtype='float32')
     return src, logits
 
 

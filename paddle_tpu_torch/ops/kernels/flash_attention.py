@@ -29,22 +29,26 @@ The TPU tile sizes (2048 x 2048 on v5e) and the ones-column l-sum trick
 (which exists for the TPU's 128-lane padding) do not carry over: the
 kernels' 64-row tiles are fixed in their sources.
 """
+import collections
 import ctypes
 
 import torch
 
 __all__ = ['flash_attention', 'attention_with_lse', 'launches',
-           'bwd_launches', 'dkv_launches', 'dq_launches', 'MAX_HEAD_DIM']
+           'bwd_launches', 'dkv_launches', 'dq_launches', 'dtype_launches',
+           'MAX_HEAD_DIM']
 
 _NEG_INF = -1e30
 MAX_HEAD_DIM = 128
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # kernel launches in this process (plain-version calls excluded)
 launches = 0       # forward
 bwd_launches = 0   # fused backward
 dkv_launches = 0   # split backward, dk and dv
 dq_launches = 0    # split backward, dq
+# the same launches by (C entry point, element type): {(fn, 'bfloat16'): n}
+dtype_launches = collections.Counter()
 
 # The reference's cap on its fused backward's dq accumulator (float32
 # [tq_p, d] in TPU VMEM, flash_attention.py:527): past it,
@@ -88,6 +92,7 @@ def _launch(source, fn_name, device, ptrs, bh, tq, tk, d, dtype, causal,
     if err != 0:
         raise RuntimeError("%s launch failed: %s" % (
             fn_name, lib.paddle_cuda_error_string(err).decode()))
+    dtype_launches[(fn_name, str(dtype).replace('torch.', ''))] += 1
 
 
 def _check(q, k, v):
@@ -96,8 +101,8 @@ def _check(q, k, v):
             raise ValueError("flash attention takes [BH, T, D] tensors; %s "
                              "has shape %s" % (name, tuple(x.shape)))
         if x.dtype not in _DTYPES:
-            raise TypeError("flash attention takes float32 or bfloat16; "
-                            "%s is %s" % (name, x.dtype))
+            raise TypeError("flash attention takes float32, bfloat16 or "
+                            "float16; %s is %s" % (name, x.dtype))
         if not x.is_contiguous():
             raise ValueError("flash attention needs contiguous inputs; %s "
                              "is not" % name)

@@ -197,12 +197,8 @@ def _check(x, w, h0):
     for name, v in (('x', x), ('w', w), ('h0', h0)):
         if v is None:
             continue
-        if v.dtype in (torch.bfloat16, torch.float16):
-            raise NotImplementedError(
-                "%s gru inputs (the dtype benchmarks/bench_seq2seq.py "
-                "builds) come with the AMP slice: ROADMAP.md Queue 1 item 7"
-                % str(v.dtype).replace('torch.', ''))
         if v.dtype != torch.float32:
+            # the gru ops cast a 16-bit Input to float32 before the call
             raise TypeError("gru takes float32; %s is %s" % (name, v.dtype))
         if v.device != x.device:
             raise ValueError("gru inputs lie on %s and %s"

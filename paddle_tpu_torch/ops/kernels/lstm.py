@@ -213,11 +213,8 @@ def _check(x, w, pw):
     if t < 1 or b < 1 or h < 1:
         raise ValueError("empty lstm input %s" % (tuple(x.shape),))
     for name, v in (('x', x), ('w', w), ('pw', pw)):
-        if v.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "bfloat16 lstm inputs come with the AMP slice: ROADMAP.md "
-                "Queue 1 item 7")
         if v.dtype != torch.float32:
+            # the lstm op casts a 16-bit Input to float32 before the call
             raise TypeError("lstm takes float32; %s is %s" % (name, v.dtype))
         if v.device != x.device:
             raise ValueError("lstm inputs lie on %s and %s"

@@ -15,7 +15,10 @@ padded to a multiple of 4, within their shared-memory caps), the
 analogue of the reference's VMEM fit test (``_pallas_rnn_fits_vmem``):
 each sends only a width whose state its kernels cannot hold on chip to
 the scan, on every device.  The reference's ``pallas_interpret`` attr is
-ignored.
+ignored.  A bfloat16 or float16 Input (an AMP or low-precision build)
+computes in float32 on both paths, and Hidden (and Cell) come back in
+the Input's dtype, as the reference's ``x.astype(jnp.float32)`` and
+``hs.astype(x.dtype)`` do; the kernels themselves take float32.
 
 The two paths treat padding differently and agree on every valid output
 and gradient: the kernel path runs unmasked over all T (lengths are
@@ -170,17 +173,6 @@ def _lstm_unit(ctx, ins, attrs):
     return {'C': [c.to(dt)], 'H': [h.to(dt)]}
 
 
-def _gru_input(op, ins):
-    """The op's Input; low-precision inputs come with the AMP slice."""
-    x = first(ins, 'Input')
-    if x.dtype in (torch.bfloat16, torch.float16):
-        raise NotImplementedError(
-            "%s %s inputs (the dtype benchmarks/bench_seq2seq.py builds) "
-            "come with the AMP slice: ROADMAP.md Queue 1 item 7"
-            % (str(x.dtype).replace('torch.', ''), op))
-    return x
-
-
 def _gru_kernel_path(attrs, h):
     return bool(attrs.get('use_pallas') and
                 attrs.get('gate_activation', 'sigmoid') == 'sigmoid' and
@@ -194,7 +186,7 @@ def _gru(ctx, ins, attrs):
     pre-projected gates [B, T, 3H]; Weight [H, 3H] packs the update and
     reset gates' [H, 2H] and the candidate's [H, H]; Bias [1, 3H] is added
     to the input; H0 [B, H] is the optional initial state."""
-    x = _gru_input('gru', ins)
+    x = first(ins, 'Input')
     w = first(ins, 'Weight').float()
     bias = first(ins, 'Bias')
     lengths = first(ins, 'XLen')
@@ -214,7 +206,7 @@ def _gru(ctx, ins, attrs):
         xin, rev_idx = _maybe_reverse(xf, lengths, is_reverse)
         hs = gru_kernels.gru_scan(xin.transpose(0, 1).contiguous(), w, h0f)
         hs, = _unreverse_and_mask([hs.transpose(0, 1)], rev_idx, lengths, t)
-        return {'Hidden': [hs]}
+        return {'Hidden': [hs.to(x.dtype)]}
 
     ln = (torch.full((b,), t, dtype=torch.long, device=x.device)
           if lengths is None else lengths.reshape(-1).long())
@@ -236,7 +228,7 @@ def _gru(ctx, ins, attrs):
         h_p = torch.where((s < ln)[:, None], h_t, h_p)
         hs.append(h_p)
     hs, = _unreverse_and_mask([torch.stack(hs, dim=1)], rev_idx, lengths, t)
-    return {'Hidden': [hs]}
+    return {'Hidden': [hs.to(x.dtype)]}
 
 
 # gru_unit's integer activation codes (rnn.py :300-309)
@@ -255,7 +247,8 @@ def _gru_unit(ctx, ins, attrs):
     """One GRU step (operators/gru_unit_op): Input [B, 3H] pre-projected
     gates, HiddenPrev [B, H], Weight [H, 3H], optional Bias [1, 3H] ->
     Hidden, ResetHiddenPrev (r * h_prev) and Gate (u, r, c)."""
-    x = _gru_input('gru_unit', ins).float()
+    dt = first(ins, 'Input').dtype
+    x = first(ins, 'Input').float()
     h_p = first(ins, 'HiddenPrev').float()
     w = first(ins, 'Weight').float()
     bias = first(ins, 'Bias')
@@ -270,5 +263,5 @@ def _gru_unit(ctx, ins, attrs):
     r = gate_act(rz[:, h:])
     c = cand_act(x[:, 2 * h:] + torch.matmul(r * h_p, w[:, 2 * h:]))
     h_t = u * h_p + (1.0 - u) * c
-    return {'Hidden': [h_t], 'ResetHiddenPrev': [r * h_p],
-            'Gate': [torch.cat([u, r, c], dim=1)]}
+    return {'Hidden': [h_t.to(dt)], 'ResetHiddenPrev': [(r * h_p).to(dt)],
+            'Gate': [torch.cat([u, r, c], dim=1).to(dt)]}

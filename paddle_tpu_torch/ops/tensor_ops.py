@@ -1,12 +1,16 @@
 """Tensor-manipulation ops: reshape, transpose, split, concat, pad, cast,
-assign, fill_constant, increment, the comparisons and select.
+assign, assign_value, fill_constant, increment, the comparisons and
+select.
 
 Reference parity: paddle_tpu/ops/tensor_ops.py (paddle/operators/
-{reshape,transpose,split,concat,pad,cast,assign,fill_constant,increment,
-compare,select}_op).
+{reshape,transpose,split,concat,pad,cast,assign,assign_value,
+fill_constant,increment,compare,select}_op).
 Integer types keep their width; 64-bit feeds arrive narrowed to 32 bits
 by the executor, as in the reference.
 """
+import weakref
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -72,6 +76,39 @@ def _cast(ctx, ins, attrs):
 @register_op('assign')
 def _assign(ctx, ins, attrs):
     return out(first(ins, 'X'))
+
+
+# assign_value's device tensors: id(values array) -> (a weakref to the
+# array, {device: tensor}).  The constant-folding pass bakes folded values
+# into the program as this op, and a step on the card then reads them
+# with no host-to-device copy.
+_CONSTANTS = {}
+
+
+def _device_constant(values, attrs, device):
+    key = id(values)
+    entry = _CONSTANTS.get(key)
+    if entry is None or entry[0]() is not values:
+        entry = _CONSTANTS[key] = (weakref.ref(
+            values, lambda _, key=key: _CONSTANTS.pop(key, None)), {})
+    t = entry[1].get(device)
+    if t is None:
+        t = entry[1][device] = _to_tensor(values, attrs, device)
+    return t
+
+
+def _to_tensor(values, attrs, device):
+    dtype = datatypes.as_torch_dtype(attrs.get('dtype', 'float32'))
+    return torch.as_tensor(np.asarray(values), device=device).to(
+        dtype).reshape(tuple(attrs['shape']))
+
+
+@register_op('assign_value')
+def _assign_value(ctx, ins, attrs):
+    values = attrs['values']
+    if isinstance(values, np.ndarray) and ctx.device.type != 'meta':
+        return out(_device_constant(values, attrs, ctx.device))
+    return out(_to_tensor(values, attrs, ctx.device))
 
 
 @register_op('fill_constant')

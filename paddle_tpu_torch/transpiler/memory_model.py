@@ -2,7 +2,8 @@
 
 Reference parity: ``page_pool_bytes`` and ``prefix_cached_bytes`` of
 paddle_tpu/transpiler/memory_model.py.  The liveness model over the
-Program IR waits for the IR slice of the port.
+Program IR comes with the cost model, each as its pass (ROADMAP.md
+Queue 1 item 7).
 """
 from ..core.datatypes import itemsize
 

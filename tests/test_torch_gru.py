@@ -97,7 +97,7 @@ def test_no_grad_forward_matches_and_skips_the_gates():
 def test_wrapper_rejects_what_the_kernels_do_not_take():
     x = torch.zeros((4, 2, 24))
     w = torch.zeros((8, 24))
-    with pytest.raises(NotImplementedError, match='AMP'):
+    with pytest.raises(TypeError, match='takes float32'):
         tg.gru_scan(x.bfloat16(), w)
     with pytest.raises(ValueError, match='do not match'):
         tg.gru_scan(x, torch.zeros((8, 16)))

@@ -87,7 +87,7 @@ def test_no_grad_forward_matches_and_skips_the_gates():
 def test_wrapper_rejects_what_the_kernels_do_not_take():
     x = torch.zeros((4, 2, 32))
     w = torch.zeros((8, 32))
-    with pytest.raises(NotImplementedError, match='AMP'):
+    with pytest.raises(TypeError, match='takes float32'):
         tl.lstm_scan(x.bfloat16(), w)
     with pytest.raises(ValueError, match='do not match'):
         tl.lstm_scan(x, torch.zeros((8, 16)))
@@ -213,14 +213,23 @@ def test_lstm_unit_matches_the_reference_op():
 @pytest.mark.parametrize('op', ['gru', 'gru_unit'])
 def test_gru_ops_raise_naming_the_seq2seq_slice(op):
     """The GRU ops came with the seq2seq slice (tests/test_torch_gru.py
-    holds them against the reference); the bfloat16 build of
-    benchmarks/bench_seq2seq.py still raises, naming the AMP slice."""
-    x = torch.zeros((2, 3, 24) if op == 'gru' else (2, 24),
-                    dtype=torch.bfloat16)
-    ins = {'Input': [x], 'Weight': [torch.zeros((8, 24))],
-           'HiddenPrev': [torch.zeros((2, 8))]}
-    with pytest.raises(NotImplementedError, match='bench_seq2seq.*AMP'):
-        tget_op(op).compute(None, ins, {'use_pallas': True})
+    holds them against the reference).  The bfloat16 build of
+    benchmarks/bench_seq2seq.py, which raised here until the AMP slice,
+    now computes in float32 and hands Hidden back in bfloat16, as the
+    reference's ops do (paddle_tpu/ops/rnn.py:235)."""
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.standard_normal(
+        (2, 3, 24) if op == 'gru' else (2, 24)).astype(np.float32))
+    w = torch.tensor(0.3 * rng.standard_normal((8, 24)).astype(np.float32))
+    hp = torch.tensor(rng.standard_normal((2, 8)).astype(np.float32))
+    low = {'Input': [x.bfloat16()], 'Weight': [w], 'HiddenPrev': [hp]}
+    f32 = {'Input': [x.bfloat16().float()], 'Weight': [w],
+           'HiddenPrev': [hp]}
+    attrs = {'use_pallas': True}
+    got = tget_op(op).compute(None, low, attrs)['Hidden'][0]
+    want = tget_op(op).compute(None, f32, attrs)['Hidden'][0]
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want.bfloat16())
 
 
 @pytest.mark.parametrize('h, blocks', [(4, 1), (32, 1), (128, 4), (256, 8),

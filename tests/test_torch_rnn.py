@@ -273,7 +273,8 @@ def test_adagrad_steps_match_the_reference(model, batches, n_lstm):
 
 
 @pytest.mark.parametrize('build,match', [
-    (lambda: trnn.build(V, dtype='bfloat16'), 'AMP'),
+    (lambda: tfl.memory_optimize(tfl.Program(), level='dots'),
+     'checkpoint'),
     (lambda: tfl.layers.sequence_expand(None, None), 'sequence_expand'),
     (lambda: ts2s.decode(None, V), 'seq2seq'),
 ])

@@ -169,8 +169,8 @@ def test_executor_raises_for_what_this_slice_does_not_bring():
     with tfl.program_guard(main, tfl.Program()):
         x = tfl.layers.data(name='x', shape=[4], dtype='float32')
         y = tfl.layers.mean(x=x)
-    main.global_block().ops[-1].attrs['amp_gate_var'] = 'found_inf'
-    with pytest.raises(NotImplementedError, match='AMP'):
+    main.global_block().ops[-1].attrs['overlap_buckets'] = [['w@GRAD']]
+    with pytest.raises(NotImplementedError, match='multi-chip'):
         exe.run(main, feed={'x': np.zeros((2, 4), np.float32)},
                 fetch_list=[y], scope=tfl.Scope())
     with pytest.raises(KeyError, match='not produced'):
