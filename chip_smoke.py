@@ -327,13 +327,42 @@ line:
    GRU ops compute in float32: #9, #10 3 each, #6 2 a step).
 51. the LSTM LM in ``bench_lstm_lm.py``'s bfloat16 build, as phase 14.
    Phases 44-51 take about 15 s on an H100.
+53. the remat matrix (``REMAT``; ``benchmarks/memory_report.py``:29-62
+   on the port): ``bench.py``'s default ResNet-50 (bf16 NHWC) at B = 64,
+   128, 256 under ``memory_optimize`` levels None, 'dots' and 'full',
+   each cell a warm-up step and 3 timed single-step ``run_steps`` calls:
+   the measured peak (``max_memory_allocated``), the modelled peak and
+   watermark op and the modelled FLOPs a step (``last_step_report``),
+   step p50, img/s, achieved TFLOP/s, #5's launches (214 a step).  At
+   every batch the peak under 'full' must be below None's and under
+   'dots' at most None's; first, one B=64 step under each level from
+   the same state under ``cudnn.deterministic``, the loss and every
+   gradient of 'dots' and 'full' against None's (ResNet-50's bounds,
+   bitwise equality printed).
+54. checkpoint, resume and export (``CKPT``): TRAIN's transformer with a
+   logits head beside its loss, under ``memory_optimize``'s default
+   'dots': 8 steps (#1, #2 6 and #5 78 a step), ``io.save_checkpoint``,
+   4 more; a second uninterrupted run of 12; a fresh scope and executor
+   ``load_checkpoint`` (step 8, every persistable bitwise, on the card)
+   and resume 4 steps, within ``CKPT_DRIFT`` times the two uninterrupted
+   runs' gap (``TOL_CKPT_FLOOR`` below); one step under None and 'full'
+   (#1 6 and 12 times); ``save_inference_model`` / ``load_inference_model``
+   into a fresh scope: a B=4 forward bitwise the test clone's, and the
+   decode server's greedy tokens from the reloaded weights equal to the
+   in-memory ones.
+55. the book's MNIST convnet from record files (``RECORD_MNIST``):
+   ``datasets.common.convert`` writes the synthetic train set in 8
+   files, ``reader.creator.recordio`` reads it back bitwise and feeds
+   ``batch`` and ``DataFeeder``; the book's gate (mean accuracy of the
+   last 10 batches above 0.9 within 3 epochs).
 52. a ``{"kernels": [...]}`` line (ten kernels, each with its launches by
    path; ``bound_ms`` at the rate of the units a kernel computes on: the
    tensor cores at 3xTF32 for #1-#4 and #7-#10, with their CUDA-core
    float32 bound beside it as ``cuda_core_bound_ms``; the CUDA cores for
    the rest; #1 and #2 also at the training shape on bf16 and f16 q/k/v,
    ``amp_training_shape``, with SDPA on the same inputs and the bounds
-   at the 3xTF32 and the 16-bit tensor-core rates),
+   at the 3xTF32 and the 16-bit tensor-core rates; the launches of
+   phases 53-55 in ``launches_by_path``), printed after phase 55, then
    the card's line, and last ``{"ok": true, "device": {...}}``.
 
 With ``--long-step`` the script runs phase 26 alone, in a process that
@@ -344,6 +373,7 @@ the same call, it compares two trees' 128K step on one card.
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -5164,6 +5194,442 @@ def phase_amp_f16_sparse(rows=30000, dim=256, k=4096):
     return res
 
 
+# benchmarks/memory_report.py:29-62's remat matrix on the port: bench.py's
+# default ResNet-50 (RESNET_BF16: bfloat16 NHWC, 224x224, Momentum 0.1 /
+# 0.9) at three batch sizes under memory_optimize's three levels, each
+# cell a warm-up step and ``steps`` timed single-step run_steps calls on
+# one staged batch
+REMAT = dict(RESNET_BF16, batches=(64, 128, 256), steps=3, parity_B=64)
+REMAT_LEVELS = (None, 'dots', 'full')
+# one B=64 step under 'dots' and 'full' against the None step from the
+# same state: the loss at TOL_RESNET_LOSS, each gradient norm-relative at
+# TOL_RESNET_GRAD (the recompute runs the same kernels on the same
+# inputs; under cudnn.deterministic the steps are expected bitwise equal,
+# and whether they are is printed)
+# the transformer's checkpoint -> resume -> export round trip at TRAIN's
+# width (bench_transformer.py:36-37) under memory_optimize's default
+# 'dots': 8 steps, a checkpoint, 4 more; a second uninterrupted run; a
+# resumed run of 4 steps; a forward of the inference model at B=4
+CKPT = dict(TRAIN, save_at=8, resume=4, infer_B=4)
+# the resumed losses against the uninterrupted run's: #2 sums dq with
+# atomicAdd (csrc/flash_bwd_dkv.cuh:106-113, :349-353), so two runs of the
+# same steps from the same state differ in the last bits of dq and drift
+# apart; the bound is CKPT_DRIFT times the largest gap between two
+# uninterrupted runs over the same steps, plus TOL_CKPT_FLOOR (float32
+# noise of an O(10) loss after 4 Adam steps) for a pair of runs that
+# happened to agree
+CKPT_DRIFT = 4.0
+TOL_CKPT_FLOOR = 1e-5
+# the book's MNIST convnet (tests/book/test_recognize_digits.py: Adam
+# 0.003, batch 64, drop_last, up to 3 epochs, the mean of the last 10
+# batches' accuracy above 0.9) fed from record files: the synthetic
+# train set (8192 samples) through datasets.common.convert in chunks of
+# 1024, read back by reader.creator.recordio
+RECORD_MNIST = dict(B=64, lr=0.003, epochs=3, chunk=1024, gate=0.9)
+
+
+def _remat_cell(exe, main, cost, scope, feed, level, steps):
+    """One cell of the remat matrix: ``level`` armed, a warm-up step, then
+    ``steps`` timed single-step calls; the measured peak over those, the
+    modelled peak, watermark and FLOPs of the step report."""
+    tfl.memory_optimize(main, level=level)
+    exe.run_steps(main, feed=feed, fetch_list=[cost], scope=scope, repeat=1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()
+    _zero_counts()
+    step_ms, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        out, = exe.run_steps(main, feed=feed, fetch_list=[cost],
+                             scope=scope, repeat=1)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out.ravel()[0]))
+    counts = _counts()
+    rep = exe.last_step_report
+    mem, comp = rep['memory'], rep['phases']['compute']
+    wm = mem['watermark_op'] or {}
+    p50 = float(np.median(step_ms))
+    return dict(
+        level=level, measured_peak_bytes=torch.cuda.max_memory_allocated(),
+        allocated_at_start=at_start,
+        modeled_peak_bytes=mem['modeled_peak_bytes'],
+        modeled_persistable_bytes=mem['modeled_persistable_bytes'],
+        watermark_op=dict(type=wm.get('type'), index=wm.get('index'),
+                          live_bytes=wm.get('live_bytes')),
+        remat_level=mem['remat_level'],
+        modeled_flops_per_step=comp.get('flops_per_step'),
+        achieved_tflop_per_s=comp.get('flops_per_step', 0) / p50 / 1e9,
+        step_ms=step_ms, step_ms_p50=p50,
+        losses=losses, counts=counts,
+        launches_per_step={k: n / steps for k, n in counts.items() if n})
+
+
+def _remat_parity(exe, main, cost, scope, feed):
+    """One B=64 step under each level from the same state, under
+    cudnn.deterministic: the loss and every gradient of 'dots' and 'full'
+    against None's."""
+    params = [p.name for p in main.all_parameters()]
+    fetch = [cost.name] + [n + '@GRAD' for n in params]
+    state = {v.name: scope.get(v.name).clone() for v in main.list_vars()
+             if v.persistable and scope.has(v.name)}
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for level in REMAT_LEVELS:
+            for n, t in state.items():
+                scope.get(n).copy_(t)
+            tfl.memory_optimize(main, level=level)
+            out[level] = exe.run(main, feed=feed, fetch_list=fetch,
+                                 scope=scope)
+    finally:
+        torch.backends.cudnn.deterministic = old
+        for n, t in state.items():
+            scope.get(n).copy_(t)
+    res = {}
+    for level in ('dots', 'full'):
+        loss_err = abs(float(out[level][0][0]) - float(out[None][0][0]))
+        gaps = [(_norm_rel(a, b), n) for n, a, b in
+                zip(params, out[level][1:], out[None][1:])]
+        worst = max(gaps, key=lambda x: (np.nan_to_num(x[0], nan=np.inf),
+                                         x[1]))
+        res[level] = dict(
+            loss=float(out[level][0][0]), loss_none=float(out[None][0][0]),
+            loss_err=loss_err, grad_norm_rel_worst=worst[0],
+            grad_worst_name=worst[1],
+            bitwise=all(np.array_equal(a, b) for a, b in
+                        zip(out[level], out[None])),
+            finite=all(np.isfinite(a).all() for a in out[level]))
+    return res
+
+
+def phase_remat_matrix(c=REMAT):
+    """Phase 53: the remat matrix.  Gates: at every batch size the measured
+    peak under 'full' below None's and under 'dots' at most None's; #5
+    launched 214 times a step in every cell; at B=64 the 'dots' and 'full'
+    steps within the None step's bounds."""
+    t0 = time.perf_counter()
+    main, startup, cost = _resnet_programs(c)
+    exe = tfl.Executor()
+    scope = tfl.Scope()
+    exe.run(startup, scope=scope)
+    feed64 = {k: torch.from_numpy(v).cuda()
+              for k, v in _image_feed(c['parity_B'], SEED + 60, c).items()}
+    parity = _remat_parity(exe, main, cost, scope, feed64)
+    del feed64
+    rows, paths = [], {}
+    for batch in c['batches']:
+        feed = {k: torch.from_numpy(v).cuda()
+                for k, v in _image_feed(batch, 0, c).items()}
+        for level in REMAT_LEVELS:
+            row = _remat_cell(exe, main, cost, scope, feed, level,
+                              c['steps'])
+            row.update(batch=batch,
+                       img_per_s=batch / (row['step_ms_p50'] / 1e3))
+            paths['resnet50_remat_B%d_%s' % (batch, level)] = \
+                row.pop('counts')
+            rows.append(row)
+        del feed
+        torch.cuda.empty_cache()
+    res = dict(config='ResNet-50 %s %s %dx%d Momentum lr %g mu %g, '
+               'run_steps on one staged batch'
+               % (c['layout'], c['dtype'], c['hw'], c['hw'], c['lr'],
+                  c['mu']), parity=parity, cells=rows,
+               tol=dict(loss=TOL_RESNET_LOSS, grad=TOL_RESNET_GRAD),
+               seconds=time.perf_counter() - t0)
+    print("remat matrix: %s" % json.dumps(res))
+    for row in rows:
+        print("remat B=%d %-4s: measured peak %.3f GB, modelled %.3f GB "
+              "(watermark %s), step p50 %.2f ms, %.1f img/s, modelled "
+              "%.3f TFLOP a step, %.1f TFLOP/s"
+              % (row['batch'], row['level'], row['measured_peak_bytes'] /
+                 1e9, (row['modeled_peak_bytes'] or 0) / 1e9,
+                 row['watermark_op']['type'], row['step_ms_p50'],
+                 row['img_per_s'], row['modeled_flops_per_step'] / 1e12,
+                 row['achieved_tflop_per_s']))
+    peak = {(r['batch'], r['level']): r['measured_peak_bytes']
+            for r in rows}
+    for batch in c['batches']:
+        if not peak[batch, 'full'] < peak[batch, None] or \
+                not peak[batch, 'dots'] <= peak[batch, None]:
+            raise SystemExit("remat at B=%d: peaks None %d, dots %d, full "
+                             "%d" % (batch, peak[batch, None],
+                                     peak[batch, 'dots'],
+                                     peak[batch, 'full']))
+    for level, r in parity.items():
+        if not (r['finite'] and r['loss_err'] <= TOL_RESNET_LOSS and
+                r['grad_norm_rel_worst'] <= TOL_RESNET_GRAD):
+            raise SystemExit("remat step %s disagrees with None's: %s"
+                             % (level, r))
+    for row in rows:
+        if not all(np.isfinite(row['losses'])):
+            raise SystemExit("remat cell B=%d %s: losses %s"
+                             % (row['batch'], row['level'], row['losses']))
+    for row in rows:
+        if row['launches_per_step'] != {'dense_update': 214.0}:
+            raise SystemExit("launches per step in remat cell B=%d %s: %s"
+                             % (row['batch'], row['level'],
+                                row['launches_per_step']))
+    return dict(rows=rows, paths=paths, parity=parity)
+
+
+def _ckpt_programs(c=CKPT):
+    """TRAIN's transformer with a logits head beside its fused loss (the
+    head's ``tr_head_*`` parameters shared, as build_logits shares them),
+    its test clone taken before ``minimize`` (the book idiom), and
+    ``memory_optimize`` at its default level."""
+    main, startup = tfl.Program(), tfl.Program()
+    main.random_seed = startup.random_seed = SEED
+    with tfl.program_guard(main, startup):
+        src, _, cost = ttr.build(vocab_size=c['V'], seq_len=c['T'],
+                                 n_layers=c['L'], d_model=c['D'],
+                                 n_heads=c['H'])
+        head, = [op for op in main.global_block().ops
+                 if op.type == 'fused_linear_softmax_ce']
+        x = main.global_block().var(head.input('X')[0])
+        logits = tfl.layers.fc(
+            input=x, size=c['V'], num_flatten_dims=2,
+            param_attr=tfl.ParamAttr(name='tr_head_w'),
+            bias_attr=tfl.ParamAttr(name='tr_head_b'))
+        test = main.clone(for_test=True)
+        tfl.optimizer.AdamOptimizer(learning_rate=c['lr']).minimize(cost)
+    tfl.memory_optimize(main)
+    return main, startup, cost, logits, test
+
+
+def _fresh_run(startup):
+    exe = tfl.Executor()
+    scope = tfl.Scope()
+    exe.run(startup, scope=scope)
+    return exe, scope
+
+
+def _steps(exe, main, cost, scope, feed, k):
+    t0 = time.perf_counter()
+    out, = exe.run_steps(main, feed=feed, fetch_list=[cost], scope=scope,
+                         repeat=k)
+    return out.ravel().tolist(), (time.perf_counter() - t0) * 1e3 / k
+
+
+def _greedy_tokens(scope, c, prompts):
+    eng = DecodeEngine(extract_params(scope, c['L']), n_layers=c['L'],
+                       n_heads=c['H'], page_size=SERVE['page'],
+                       max_streams=SERVE['streams'],
+                       prefill_bucket=SERVE['bucket'])
+    srv = DecodeServer(eng)
+    streams = [srv.submit(p, max_new_tokens=8) for p in prompts]
+    drained = srv.drain(timeout=300.0)
+    srv.close()
+    if not drained:
+        raise SystemExit("serving the reloaded weights did not drain")
+    return [[int(t) for t in st.result(timeout=1.0)] for st in streams]
+
+
+def phase_checkpoint(c=CKPT):
+    """Phase 54: checkpoint, resume and export of the transformer.  Gates:
+    #1, #2 6 and #5 78 launches a step under 'dots'; load_checkpoint into
+    a fresh scope and executor returns 8 with every persistable bitwise
+    the saved one; the resumed losses within the run-to-run bound; the
+    reloaded inference model's forward bitwise the test clone's, and its
+    served greedy tokens the in-memory weights'."""
+    import tempfile
+    t_phase = time.perf_counter()
+    main, startup, cost, logits, test = _ckpt_programs(c)
+    feed = {k: torch.from_numpy(v).cuda()
+            for k, v in _train_feed(c['B'], SEED + 5, c).items()}
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_ckpt_')
+    d, d2 = os.path.join(tmp, 'ckpt'), os.path.join(tmp, 'model')
+    n_steps = c['save_at'] + c['resume']
+    # run A: 8 steps, the checkpoint, 4 more
+    exe_a, scope_a = _fresh_run(startup)
+    _zero_counts()
+    losses_a, ms_a = _steps(exe_a, main, cost, scope_a, feed, c['save_at'])
+    counts = _counts()
+    per_step = {k: n / c['save_at'] for k, n in counts.items() if n}
+    persist = [v.name for v in main.list_vars() if v.persistable]
+    saved = {n: scope_a.get(n).detach().cpu().clone() for n in persist}
+    t0 = time.perf_counter()
+    tfl.io.save_checkpoint(exe_a, d, main, step=c['save_at'],
+                           scope=scope_a)
+    save_s = time.perf_counter() - t0
+    ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                     for f in os.listdir(d))
+    more, _ = _steps(exe_a, main, cost, scope_a, feed, c['resume'])
+    losses_a += more
+    # run B: 12 steps uninterrupted, for the run-to-run bound
+    exe_b, scope_b = _fresh_run(startup)
+    losses_b, ms_b = _steps(exe_b, main, cost, scope_b, feed, n_steps)
+    # run R: a fresh scope and executor, the checkpoint, 4 steps
+    exe_r, scope_r = tfl.Executor(), tfl.Scope()
+    t0 = time.perf_counter()
+    step = tfl.io.load_checkpoint(exe_r, d, main, scope=scope_r)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    not_bitwise = [n for n in persist if not scope_r.has(n) or not
+                   torch.equal(scope_r.get(n).cpu(), saved[n])]
+    on_card = all(scope_r.get(n).is_cuda for n in persist
+                  if scope_r.has(n))
+    losses_r, _ = _steps(exe_r, main, cost, scope_r, feed, c['resume'])
+    tail = slice(c['save_at'], n_steps)
+    gap_ab = float(np.max(np.abs(np.subtract(losses_a[tail],
+                                             losses_b[tail]))))
+    gap_ra = float(np.max(np.abs(np.subtract(losses_r, losses_a[tail]))))
+    tol_resume = CKPT_DRIFT * gap_ab + TOL_CKPT_FLOOR
+    # #1's launches a step under None and 'full' (one step each, on run
+    # B's state, then the program back at 'dots')
+    by_level = {'dots': per_step.get('flash_attention_fwd', 0.0)}
+    peaks = {}
+    for level in (None, 'full', 'dots'):
+        tfl.memory_optimize(main, level=level)
+        _steps(exe_b, main, cost, scope_b, feed, 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        _, ms = _steps(exe_b, main, cost, scope_b, feed, 1)
+        by_level[level] = _counts()['flash_attention_fwd']
+        peaks[level] = dict(step_ms=ms,
+                            peak_bytes=torch.cuda.max_memory_allocated(),
+                            modeled_peak_bytes=exe_b.last_step_report[
+                                'memory']['modeled_peak_bytes'],
+                            modeled_flops_per_step=exe_b.last_step_report[
+                                'phases']['compute']['flops_per_step'])
+    # the inference model: saved from run A's state, loaded fresh
+    with tfl.scope_guard(scope_a):
+        tfl.io.save_inference_model(d2, ['src'], [logits], exe_a, main)
+    exe_i, scope_i = tfl.Executor(), tfl.Scope()
+    with tfl.scope_guard(scope_i):
+        prog, feeds, fetches = tfl.io.load_inference_model(d2, exe_i)
+    src = _train_feed(c['infer_B'], SEED + 70, c)['src']
+    _zero_counts()
+    got, = exe_i.run(prog, feed={'src': src}, fetch_list=fetches,
+                     scope=scope_i)
+    infer_counts = _counts()
+    want, = exe_a.run(test, feed={'src': src}, fetch_list=[logits],
+                      scope=scope_a)
+    fwd_bitwise = bool(np.array_equal(got, want))
+    prompts = _serving_prompts(np.random.default_rng(SEED + 71), 10,
+                               c['V'])[:6]
+    tokens_mem = _greedy_tokens(scope_a, c, prompts)
+    tokens_disk = _greedy_tokens(scope_i, c, prompts)
+    shutil.rmtree(tmp, ignore_errors=True)
+    res = dict(
+        config='B=%d T=%d V=%d L=%d D=%d H=%d float32 Adam lr %g, '
+        "memory_optimize level 'dots'" % (c['B'], c['T'], c['V'], c['L'],
+                                           c['D'], c['H'], c['lr']),
+        launches_per_step=per_step, step_ms_run_a=ms_a, step_ms_run_b=ms_b,
+        flash_fwd_launches_per_step=by_level, remat_levels=peaks,
+        checkpoint=dict(step=step, persistables=len(persist),
+                        not_bitwise=not_bitwise, on_card=on_card,
+                        bytes=ckpt_bytes, save_s=save_s, load_s=load_s),
+        losses_a=losses_a, losses_b=losses_b, losses_resumed=losses_r,
+        gap_uninterrupted=gap_ab, gap_resumed=gap_ra,
+        tol_resumed=tol_resume,
+        inference=dict(feeds=feeds, ops=len(prog.global_block().ops),
+                       forward_bitwise=fwd_bitwise,
+                       max_abs_diff=float(np.abs(got - want).max()),
+                       launches=infer_counts,
+                       tokens_equal=tokens_mem == tokens_disk,
+                       tokens=tokens_disk),
+        seconds=time.perf_counter() - t_phase)
+    print("checkpoint -> resume -> inference model: %s" % json.dumps(res))
+    if step != c['save_at'] or not_bitwise or not on_card:
+        raise SystemExit("checkpoint restored step %s, not bitwise: %s"
+                         % (step, not_bitwise[:5]))
+    if not all(np.isfinite(losses_a + losses_b + losses_r)) or \
+            not gap_ra <= tol_resume:
+        raise SystemExit("resumed losses %s against %s (bound %g)"
+                         % (losses_r, losses_a[tail], tol_resume))
+    if not fwd_bitwise or tokens_mem != tokens_disk:
+        raise SystemExit("the reloaded inference model disagrees: %s"
+                         % res['inference'])
+    want_steps = {'flash_attention_fwd': float(c['L']),
+                  'flash_attention_bwd': float(c['L']),
+                  'dense_update': float(2 + 12 * c['L'] + 4)}
+    if per_step != want_steps or infer_counts['flash_attention_fwd'] != \
+            c['L']:
+        raise SystemExit("launches per step %s, want %s; inference %s"
+                         % (per_step, want_steps, infer_counts))
+    if by_level[None] != c['L'] or by_level['full'] != 2 * c['L'] or \
+            by_level['dots'] != c['L']:
+        raise SystemExit("launches per step of #1 by level %s" % by_level)
+    return dict(counts=counts, infer_counts=infer_counts, **res)
+
+
+def phase_record_mnist(c=RECORD_MNIST):
+    """Phase 55: the book's MNIST convnet trained from record files:
+    ``datasets.common.convert`` writes the synthetic train set, and
+    ``reader.creator.recordio`` -> ``batch`` -> ``DataFeeder`` feeds the
+    steps.  Gates: the samples read back bitwise the reader's; the book's
+    accuracy gate; #5 once per parameter a step."""
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_rec_')
+    data_common.convert(tmp, mnist_data.train(), c['chunk'], 'mnist')
+    paths = sorted(os.path.join(tmp, f) for f in os.listdir(tmp))
+    back = list(tfl.reader.creator.recordio(paths)())
+    want = list(mnist_data.train()())
+    same = len(back) == len(want) and all(
+        np.array_equal(a[0], b[0]) and a[1] == b[1]
+        for a, b in zip(back, want))
+    main, startup = tfl.Program(), tfl.Program()
+    main.random_seed = startup.random_seed = SEED
+    with tfl.program_guard(main, startup):
+        img, label, _, avg_cost, acc = mnist.build('conv')
+        tfl.optimizer.AdamOptimizer(learning_rate=c['lr']).minimize(
+            avg_cost)
+    n_adam = sum(op.type == 'adam' for op in main.global_block().ops)
+    exe = tfl.Executor()
+    scope = tfl.Scope()
+    exe.run(startup, scope=scope)
+    feeder = tfl.DataFeeder(feed_list=[img, label], place=exe.place,
+                            program=main)
+    reader = tfl.batch(tfl.reader.creator.recordio(paths), c['B'],
+                       drop_last=True)
+    accs, losses = [], []
+    _zero_counts()
+    for _ in range(c['epochs']):
+        for data in reader():
+            loss, a = exe.run(main, feed=feeder.feed(data),
+                              fetch_list=[avg_cost, acc], scope=scope)
+            losses.append(float(loss[0]))
+            accs.append(float(a[0]))
+        if np.mean(accs[-10:]) > c['gate']:
+            break
+    counts = _counts()
+    shutil.rmtree(tmp, ignore_errors=True)
+    res = dict(config='MNIST convnet from %d record files, Adam lr %g, '
+               'batch %d' % (len(paths), c['lr'], c['B']),
+               samples=len(back), read_back_bitwise=same, steps=len(accs),
+               last10_accuracy=float(np.mean(accs[-10:])),
+               first_loss=losses[0], last_loss=losses[-1],
+               launches=counts, seconds=time.perf_counter() - t0)
+    print("mnist from record files: %s" % json.dumps(res))
+    if not same or len(paths) != 8:
+        raise SystemExit("record files did not read back the samples")
+    if not res['last10_accuracy'] > c['gate']:
+        raise SystemExit("mnist from record files: accuracy %.3f"
+                         % res['last10_accuracy'])
+    if {k: n / len(accs) for k, n in counts.items()} != _want(
+            dense_update=n_adam):
+        raise SystemExit("mnist from record files launched %s" % counts)
+    return dict(counts=counts, **res)
+
+
+def _persistence_phases():
+    """Phases 53-55, timed together."""
+    t0 = time.perf_counter()
+    remat = phase_remat_matrix()
+    torch.cuda.empty_cache()
+    ckpt = phase_checkpoint()
+    torch.cuda.empty_cache()
+    rec = phase_record_mnist()
+    print("phases 53-55 (the remat matrix, checkpoint/resume/export, "
+          "record files): %.1f s" % (time.perf_counter() - t0))
+    return dict(remat=remat, ckpt=ckpt, rec=rec)
+
+
 def _add_paths(lines, paths):
     """Adds each path's launches ({path: _counts()}) to the kernel lines'
     ``launches`` and ``launches_by_path``."""
@@ -5291,6 +5757,8 @@ def main():
     rn, mn, vg, book, recipes = _image_phases()
     ctr_res = _ctr_phases()
     amp_res = _amp_phases()
+    torch.cuda.empty_cache()
+    pers = _persistence_phases()
     counts = tr['counts']
     main_row = next(r for r in rows if r['case'] == MAIN_CASE)
     fwd = dict(
@@ -5399,6 +5867,11 @@ def main():
                        'resnet50_bf16_training': amp_res['rn']['counts'],
                        'seq2seq_bf16_training': amp_res['s2s']['counts'],
                        'lm_bf16_training': amp_res['lm']['counts']})
+    _add_paths(lines, dict(
+        pers['remat']['paths'],
+        transformer_checkpoint_training=pers['ckpt']['counts'],
+        transformer_inference_model=pers['ckpt']['infer_counts'],
+        mnist_record_files_training=pers['rec']['counts']))
     print(json.dumps({'kernels': lines}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

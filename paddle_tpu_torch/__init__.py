@@ -62,11 +62,18 @@ Ported so far:
   CSE, the static verifier) and automatic mixed precision
   (``transpiler/amp.py``: ``PADDLE_TPU_TORCH_AMP=bf16|f16`` or
   ``transpiler.amp.amp_guard``; f16 with dynamic loss scaling and
-  skipped overflow steps), with ``memory_optimize`` / ``release_memory``.
+  skipped overflow steps), with ``memory_optimize`` / ``release_memory``;
+- persistence (``io``: variables, checkpoints with resume and rollback,
+  inference models, in the reference's format; record files,
+  ``io_recordio``, ``datasets.common.convert``, ``reader.creator.
+  recordio``), the cost and memory models (``transpiler.cost_model``,
+  ``transpiler.memory_model``, joined with the measured walls in
+  ``Executor.last_step_report``) and rematerialization
+  (``memory_optimize(level='dots' | 'full')``).
 """
 from . import datasets, initializer, layers, nets, optimizer  # noqa: F401
 from . import clip, learning_rate_decay, reader, regularizer  # noqa: F401
-from . import transpiler  # noqa: F401
+from . import io, io_recordio, transpiler  # noqa: F401
 from .core import backward
 from .core.backward import append_backward, calc_gradient
 from .core.executor import Executor
@@ -92,4 +99,4 @@ __all__ = ['Program', 'program_guard', 'default_main_program',
            'batch', 'reader', 'datasets', 'clip', 'regularizer',
            'learning_rate_decay', 'backward', 'append_backward',
            'calc_gradient', 'transpiler', 'memory_optimize',
-           'release_memory']
+           'release_memory', 'io', 'io_recordio']

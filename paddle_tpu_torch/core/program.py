@@ -360,6 +360,42 @@ class Program(object):
                         op.attrs['is_test'] = True
         return p
 
+    def prune(self, targets, feeds=()):
+        """A copy keeping only the ops that compute ``targets`` (names or
+        Variables) from ``feeds``, which count as produced (reference:
+        paddle_tpu/core/program.py ``prune``, paddle/framework/prune.cc):
+        backward reachability over the def-use graph."""
+        target_names = set(t.name if isinstance(t, Variable) else t
+                           for t in _as_list(targets))
+        feed_names = set(f.name if isinstance(f, Variable) else f
+                         for f in _as_list(feeds))
+        p = copy.deepcopy(self)
+        p._uid = next(Program._uid_counter)
+        for block in p.blocks:
+            needed = set(target_names)
+            kept = []
+            for op in reversed(block.ops):
+                out_names = set(op.output_arg_names)
+                if out_names & needed:
+                    kept.append(op)
+                    needed -= out_names
+                    for n in op.input_arg_names:
+                        if n not in feed_names:
+                            needed.add(n)
+                    # a sub-block op depends on everything its block reads
+                    for attr in ('sub_block', 'sub_block_idx'):
+                        if attr in op.attrs:
+                            for sop in p.blocks[op.attrs[attr]].ops:
+                                needed.update(sop.input_arg_names)
+            kept.reverse()
+            block.ops = kept
+        p._bump_version()
+        return p
+
+    def inference_optimize(self):
+        """The inference form of the program: ``clone(for_test=True)``."""
+        return self.clone(for_test=True)
+
     def to_dict(self):
         return dict(
             random_seed=self.random_seed,

@@ -11,8 +11,9 @@ eagerly on the tensors' device; a kernel is reached through its wrapper,
 which dispatches on that device.
 
 ``op_traits`` classifies an op type for the pass pipeline (transpiler/)
-without fetching it for execution: registered, random, and its AMP class
-(white, black or grey, the reference's lists verbatim).
+without fetching it for execution: registered, random, its AMP class
+(white, black or grey, the reference's lists verbatim) and its cost
+class ('mac' or 'bytes', read by transpiler/cost_model.py).
 ``op_signature`` recovers each op's declared-slot contract from its
 compute function's source, as the reference does by AST introspection;
 the IR verifier (transpiler/verify.py) holds every OpDesc to it.
@@ -24,7 +25,7 @@ import textwrap
 
 __all__ = ['OpImpl', 'register_op', 'get_op_impl', 'has_op', 'op_traits',
            'op_signature', 'registered_ops', 'amp_class', 'AMP_WHITE',
-           'AMP_BLACK']
+           'AMP_BLACK', 'COST_MAC', 'cost_class']
 
 _OP_REGISTRY = {}
 
@@ -95,8 +96,25 @@ def amp_class(type):
     return 'grey'
 
 
+# ---------------------------------------------------------------------------
+# Cost classification, read by transpiler/cost_model.py and reported by
+# op_traits().cost.  COST_MAC: ops whose cost is multiply-accumulates on
+# the tensor cores, each with a closed-form MAC formula in
+# cost_model.MAC_FORMULAS.  It is the AMP white set, as the reference
+# sets it: "the products land on the matrix units" is one property, so a
+# matmul-shaped op registered white without a formula fails the coverage
+# sweep instead of costing 0.  Every other op is 'bytes': its cost is the
+# memory it moves (inputs read, outputs written), its FLOPs read 0.
+COST_MAC = frozenset(AMP_WHITE)
+
+
+def cost_class(type):
+    """'mac' | 'bytes' cost class of an op type (see COST_MAC)."""
+    return 'mac' if type in COST_MAC else 'bytes'
+
+
 OpTraits = collections.namedtuple(
-    'OpTraits', ['registered', 'stateful_rng', 'amp'])
+    'OpTraits', ['registered', 'stateful_rng', 'amp', 'cost'])
 
 
 class OpImpl(object):
@@ -132,12 +150,14 @@ def has_op(type):
 
 
 def op_traits(type):
-    """OpTraits(registered, stateful_rng, amp) for an op type; ``amp`` is
-    'white' | 'black' | 'grey' (see AMP_WHITE / AMP_BLACK)."""
+    """OpTraits(registered, stateful_rng, amp, cost) for an op type;
+    ``amp`` is 'white' | 'black' | 'grey' (see AMP_WHITE / AMP_BLACK),
+    ``cost`` 'mac' | 'bytes' (see COST_MAC)."""
     impl = _OP_REGISTRY.get(type)
     if impl is None:
-        return OpTraits(False, False, amp_class(type))
-    return OpTraits(True, impl.stateful_rng, amp_class(type))
+        return OpTraits(False, False, amp_class(type), cost_class(type))
+    return OpTraits(True, impl.stateful_rng, amp_class(type),
+                    cost_class(type))
 
 
 # ---------------------------------------------------------------------------

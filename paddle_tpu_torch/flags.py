@@ -1,5 +1,5 @@
-"""Env-var configuration (gflags parity), cut to the decode engine's and
-the pass pipeline's flags.
+"""Env-var configuration (gflags parity), cut to the decode engine's,
+the pass pipeline's and the step report's flags.
 
 Every flag is ``PADDLE_TPU_TORCH_<NAME>`` in the environment, declared
 with a type and default, and read through the global ``FLAGS``.  The
@@ -89,3 +89,14 @@ FLAGS._define(
     'static IR verification of the pass pipeline (transpiler/verify.py): '
     "'boundary' checks the final program once, 'every_pass' after each "
     "rewrite pass (naming the pass at fault), 'off' skips it")
+FLAGS._define(
+    'peak_tflops', 0.0, float,
+    "the card's peak TFLOP/s for the step's dtype: when > 0, a synced "
+    "Executor.last_step_report gives phases['compute']['mfu'] = achieved "
+    'FLOP/s (the cost model\'s FLOPs over the measured compute wall) over '
+    'this peak.  0 (the default): no mfu; there is no default peak')
+FLAGS._define(
+    'peak_hbm_bytes', 0, int,
+    "the card's memory in bytes: when > 0, last_step_report['memory'] "
+    'adds a headroom block (the modelled and measured peaks as ratios of '
+    'it).  0 (the default) leaves it out')

@@ -1,4 +1,5 @@
-"""memory_optimize / release_memory: arm the pass pipeline for a program.
+"""memory_optimize / release_memory: rematerialization, and the pass
+pipeline armed for a program.
 
 Reference parity: paddle_tpu/transpiler/memory_optimize.py
 (python/paddle/v2/fluid/memory_optimization_transpiler.py).  Both calls
@@ -8,19 +9,42 @@ the names the caller wants left alone (``skip_opt_set``, which roots
 dead-op elimination), attach the donation/liveness report, and bump the
 program's version so the next run plans anew.
 
-The reference's ``memory_optimize`` also arms rematerialization
-(``jax.checkpoint`` over the gradient pass, levels 'full' and 'dots');
-in the port that is ``torch.utils.checkpoint`` and comes with the memory
-model (ROADMAP.md Queue 1 item 7): a level other than None raises
-rather than run without the recomputation it asks for.
+``memory_optimize`` also marks the program for rematerialization: the
+gradient pass recomputes forward activations in the backward instead of
+keeping them (core/executor.py ``_run_autodiff``).  The reference wraps
+its whole forward in ``jax.checkpoint`` and XLA schedules the
+recompute; in eager PyTorch one checkpoint over the whole forward would
+recompute it all at the backward's first step and hold every recomputed
+value, so the port recomputes region by region, through saved-tensor
+hooks of its own over each region (core/executor.py ``_Region``).
+Levels:
+
+- ``'dots'`` (the default, as the reference's): the outputs of the
+  matmul-shaped ops (``registry.COST_MAC``: mul, matmul, conv2d,
+  flash_attention, the RNN ops, ...) are kept; each run of other ops
+  between them is a region, recomputed in the backward.  This is the
+  memory model's definition of 'dots' (transpiler/memory_model.py
+  ``_saved_activations``), so flash attention's output is kept and #1
+  does not launch again.  The reference's ``dots_saveable`` keeps only
+  ``dot_general`` outputs and recomputes its Pallas flash forward.
+- ``'full'``: the forward is cut into regions of consecutive ops, and
+  only the values crossing the cuts are kept; every op, flash attention
+  included, runs again in the backward.  The cuts minimise the values
+  kept at them plus the largest region's recompute, from the declared
+  sizes at the fed batch (core/executor.py ``_full_cuts``).  The memory
+  model's 'full' keeps nothing, an idealisation.
+- ``None``: no rematerialization.
 """
 import logging
 
 from . import passes
 
-__all__ = ['memory_optimize', 'release_memory']
+__all__ = ['memory_optimize', 'release_memory', 'get_remat_policy',
+           'REMAT_LEVELS']
 
 _log = logging.getLogger(__name__)
+
+REMAT_LEVELS = ('full', 'dots')
 
 
 def _arm_pipeline(input_program, skip_opt_set):
@@ -37,21 +61,20 @@ def _arm_pipeline(input_program, skip_opt_set):
 
 
 def memory_optimize(input_program, skip_opt_set=None, print_log=False,
-                    level=None):
-    """Arm the pass pipeline (dead-op elimination and the donation
-    analysis) for ``input_program`` on its next plan.  ``level`` names the
-    reference's rematerialization policy; only None is ported."""
-    if level is not None:
-        raise NotImplementedError(
-            "memory_optimize(level=%r): rematerialization "
-            "(torch.utils.checkpoint) comes with the memory model, "
-            "ROADMAP.md Queue 1 item 7; level=None arms the pass pipeline "
-            "alone" % (level,))
+                    level='dots'):
+    """Mark ``input_program`` for rematerialization at ``level`` ('dots',
+    'full' or None) and arm the pass pipeline (dead-op elimination and
+    the donation analysis) for it on its next plan."""
+    if level is not None and level not in REMAT_LEVELS:
+        raise ValueError("level must be one of %s or None"
+                         % sorted(REMAT_LEVELS))
+    input_program._remat_level = level
     report = _arm_pipeline(input_program, skip_opt_set)
     if print_log:
-        print("memory_optimize: %d block intermediates, %d donatable "
-              "(%.1f KiB statically known), %d die immediately"
-              % (report['intermediates'], len(report['donatable']),
+        print("memory_optimize: remat level = %r; %d block "
+              "intermediates, %d donatable (%.1f KiB statically known), "
+              "%d die immediately"
+              % (level, report['intermediates'], len(report['donatable']),
                  report['bytes_known'] / 1024.0,
                  len(report['short_lived'])))
     return input_program
@@ -68,3 +91,8 @@ def release_memory(input_program, skip_opt_set=None):
         "statically known)", report['intermediates'],
         len(report['donatable']), report['bytes_known'] / 1024.0)
     return input_program
+
+
+def get_remat_policy(program):
+    """The program's rematerialization level: 'dots', 'full' or None."""
+    return getattr(program, '_remat_level', None)

@@ -10,11 +10,13 @@ rewrite pass (``every_pass``) or once at the end (``boundary``, the
 default).  ``plan_key`` is the one plan-cache key component derived from
 that configuration; the executor keys its plans on it.
 
-The port registers the graph-opt passes, AMP and the donation analysis.
-The reference's ``sharding``, ``embed_shard`` and
-``overlap_collectives`` come with the multi-chip slice, ``cost_model``
-and ``memory_model`` with the cost and memory models (ROADMAP.md
-Queue 1); each registers its pass when it lands.
+The port registers the graph-opt passes, AMP, the donation analysis
+and the cost and memory models (analysis passes at orders 95 and 96,
+after every rewrite, on the feed shapes the executor plans with; their
+report is ``report['cost']``, the memory model's under
+``report['cost']['memory']``).  The reference's ``sharding``,
+``embed_shard`` and ``overlap_collectives`` come with the multi-chip
+slice (ROADMAP.md Queue 1 item 10).
 
 Recorded departure: no fallback.  The reference skips a pass that
 raises and reports it (its ``status`` entry); here the error propagates,
@@ -80,9 +82,12 @@ class PassContext(object):
     """Shared state the passes read: fetch/feed sets, caller-pinned
     names, and the protected/no-fold sets (computed once per pipeline)."""
 
-    def __init__(self, fetch_names, feed_names, pinned, amp_mode):
+    def __init__(self, fetch_names, feed_names, pinned, amp_mode,
+                 feed_specs=None):
         self.fetch_names = tuple(fetch_names)
         self.feed_names = tuple(feed_names)
+        # {name: (shape, dtype)} of the fed values, for the analyses
+        self.feed_specs = feed_specs
         self.pinned = set(pinned)
         self.amp_mode = amp_mode
         self.amp_report = None  # set by the amp pass
@@ -167,6 +172,25 @@ def _donation(program, ctx):
         program, ctx.fetch_names, ctx.feed_names)}
 
 
+@register_pass('cost_model', 95, 'cost', kind='analysis',
+               enabled=lambda cfg: cfg.level >= 1)
+def _cost_model(program, ctx):
+    # after graph-opt and AMP: eliminated ops cost nothing and lowered
+    # values count their 16-bit bytes
+    from . import cost_model
+    return {'cost': cost_model.analyze_cost(
+        program, fetch_names=ctx.fetch_names, feed_specs=ctx.feed_specs)}
+
+
+@register_pass('memory_model', 96, 'memory', kind='analysis',
+               enabled=lambda cfg: cfg.level >= 1)
+def _memory_model(program, ctx):
+    # the cost model's program and feed shapes (its inference memo warm)
+    from . import memory_model
+    return {'memory': memory_model.analyze_memory(
+        program, fetch_names=ctx.fetch_names, feed_specs=ctx.feed_specs)}
+
+
 def resolve_level(program=None, level=None):
     """Effective graph-opt level: the flag (re-read per build), floored
     at 1 when memory_optimize()/release_memory() armed the pipeline for
@@ -202,16 +226,17 @@ _FROM_FLAG = object()
 
 def run_pipeline(program, fetch_names=(), feed_names=(), level=None,
                  amp_mode=_FROM_FLAG, verify=_FROM_FLAG,
-                 extra_protected=()):
+                 extra_protected=(), feed_specs=None):
     """Run the registered pass plan over a copy of ``program``.
 
     Returns ``(program_out, report)``; the input program is never
     mutated, and with an empty plan (level 0, AMP off) the original comes
     back untouched.  ``amp_mode`` and ``verify`` default to their flags
     (PADDLE_TPU_TORCH_AMP / PADDLE_TPU_TORCH_VERIFY_IR); pass '0' / 'off'
-    to pin them.  Raises IRVerificationError when the verifier rejects a
-    pass output (every_pass) or the final program (boundary), and
-    whatever a pass raises.
+    to pin them.  ``feed_specs`` ({name: (shape, dtype)}) binds the batch
+    dimension for the cost and memory models.  Raises IRVerificationError
+    when the verifier rejects a pass output (every_pass) or the final
+    program (boundary), and whatever a pass raises.
     """
     from .amp import resolve_mode as amp_resolve
     level = resolve_level(program, level)
@@ -244,7 +269,8 @@ def run_pipeline(program, fetch_names=(), feed_names=(), level=None,
     t0 = time.perf_counter()
     pinned = set(extra_protected) | set(
         getattr(program, '_graph_opt_skip_set', None) or ())
-    ctx = PassContext(fetch_names, feed_names, pinned, amp_mode)
+    ctx = PassContext(fetch_names, feed_names, pinned, amp_mode,
+                      feed_specs=feed_specs)
 
     p = copy.deepcopy(program)
     passes._stamp_op_seq(p.global_block())
@@ -293,9 +319,12 @@ def run_pipeline(program, fetch_names=(), feed_names=(), level=None,
             report['eliminated'][pd.report_key] = \
                 report['eliminated'].get(pd.report_key, 0) + n
         report['removed'].extend(frag.get('removed', ()))
-        for key in ('donation', 'amp'):
+        for key in ('donation', 'amp', 'cost'):
             if frag.get(key) is not None:
                 report[key] = frag[key]
+        if frag.get('memory') is not None:
+            # one 'cost' entry carries the whole static analysis
+            report.setdefault('cost', {})['memory'] = frag['memory']
 
     if graph_opt_ran:
         report['ops_after'] = len(p.global_block().ops)

@@ -400,8 +400,14 @@ def test_memory_optimize_wires_pipeline():
     assert set(rep) == {'intermediates', 'donatable', 'short_lived',
                         'bytes_known'}
     assert main._h in rep['donatable']
-    with pytest.raises(NotImplementedError, match='checkpoint'):
-        tfl.memory_optimize(main, level='dots')
+    # the default level is the reference's 'dots': it arms remat and
+    # bumps the version; an unknown level raises
+    assert main._remat_level == 'dots'
+    version = main.version
+    tfl.memory_optimize(main, level='full')
+    assert main._remat_level == 'full' and main.version > version
+    with pytest.raises(ValueError, match='level must be one of'):
+        tfl.memory_optimize(main, level='everything')
 
 
 def test_release_memory_reports_instead_of_noop():
@@ -453,11 +459,13 @@ def test_registered_passes_surface():
     assert [(p.name, p.order) for p in tpm.registered_passes()] == [
         (p.name, p.order) for p in jpm.registered_passes()
         if p.name in ('dce', 'constant_fold', 'cse', 'dce_sweep', 'amp',
-                      'donation')]
-    assert [p.name for p in tpm.build_plan(1, None)] == ['dce', 'donation']
+                      'donation', 'cost_model', 'memory_model')]
+    assert [p.name for p in tpm.build_plan(1, None)] == [
+        'dce', 'donation', 'cost_model', 'memory_model']
     assert [p.name for p in tpm.build_plan(0, 'bf16')] == ['amp']
     assert [p.name for p in tpm.build_plan(2, 'bf16')] == [
-        'dce', 'constant_fold', 'cse', 'dce_sweep', 'amp', 'donation']
+        'dce', 'constant_fold', 'cse', 'dce_sweep', 'amp', 'donation',
+        'cost_model', 'memory_model']
     assert tpm.build_plan(0, None) == []
 
 

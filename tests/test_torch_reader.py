@@ -165,11 +165,15 @@ def test_errors_surface_in_the_consumer():
                                       order=order)())
 
 
-def test_what_the_slice_does_not_bring_raises():
+def test_what_the_slice_does_not_bring_raises(tmp_path):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         treader.metered(_items(), 'x')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        treader.creator.recordio('x')
+    # recordio reads back what datasets.common.convert wrote
+    from paddle_tpu_torch.datasets import common as tcommon
+    tcommon.convert(str(tmp_path), _items(7), 3, 'items')
+    paths = sorted(str(p) for p in tmp_path.iterdir())
+    assert len(paths) == 3
+    assert list(treader.creator.recordio(paths)()) == list(_items(7)())
     assert list(treader.creator.np_array(np.arange(6).reshape(3, 2))()
                 )[1].tolist() == [2, 3]
 

@@ -430,11 +430,13 @@ def test_per_pass_report_structure(monkeypatch):
             fetch_list=[fetch], scope=tfl.Scope())
     rep = exe.last_graph_opt_report
     assert [e['name'] for e in rep['passes']] == [
-        'dce', 'constant_fold', 'cse', 'dce_sweep', 'donation']
+        'dce', 'constant_fold', 'cse', 'dce_sweep', 'donation',
+        'cost_model', 'memory_model']
     for e in rep['passes']:
         assert e['ops_after'] <= e['ops_before'] and e['wall_s'] >= 0.0
-        assert e['verify'] == ('skipped' if e['name'] == 'donation'
-                               else 'ok')
+        assert e['verify'] == (
+            'skipped' if e['name'] in ('donation', 'cost_model',
+                                       'memory_model') else 'ok')
     assert rep['verify']['mode'] == 'every_pass'
     assert rep['verify']['checks'] == 4
 
