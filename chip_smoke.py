@@ -355,6 +355,28 @@ line:
    files, ``reader.creator.recordio`` reads it back bitwise and feeds
    ``batch`` and ``DataFeeder``; the book's gate (mean accuracy of the
    last 10 batches above 0.9 within 3 epochs).
+56. the beam decode at ``bench_decode.py``:34's width (``DECODE``: B=64
+   sources of length 64, V=30000, word_dim 256, H=512, beam 4, max_len
+   32) in phase 20's scope, run right after phase 22 while that scope is
+   on the card: ``seq2seq.decode``'s While program through
+   ``run_steps(repeat=4)``, 3 timed calls after a warm-up: decode ms
+   p50, generated tokens/s (B * max_len a decode) and the beam-expanded
+   rate, #9's launches per decode (2, gated), peak memory, the host syncs
+   of one decode under ``torch.cuda.set_sync_debug_mode('warn')`` with
+   their sites (reported, not gated), a traced decode (busy, idle share,
+   kernels per tick, kernels by name) and #9 at the decode's shape (T=64
+   B=64 H=512, no h0, no gates) against its plain version.
+57. decode parity: 8 sources of ragged lengths decoded on the card and on
+   the CPU from the same weights; every hypothesis the card returns,
+   rescored teacher-forced by the training program on the CPU
+   (``seq2seq.rescoring_feed``), must have a summed cross entropy of
+   minus its score within ``TOL_RESCORE`` relative; the share of rows
+   whose ids equal the CPU's is reported.
+58. the control-flow book tests on the card with their gates (``BOOK_CF``):
+   machine translation (train, then decode at K=4 and K=1), the MNIST
+   IfElse net, and tests/test_rnn_wrappers.py's cases (StaticRNN,
+   DynamicRNN, ConditionalBlock with a nested While, IfElse).  Phases
+   56-58 take about 11 s on an H100.
 52. a ``{"kernels": [...]}`` line (ten kernels, each with its launches by
    path; ``bound_ms`` at the rate of the units a kernel computes on: the
    tensor cores at 3xTF32 for #1-#4 and #7-#10, with their CUDA-core
@@ -362,7 +384,8 @@ line:
    the rest; #1 and #2 also at the training shape on bf16 and f16 q/k/v,
    ``amp_training_shape``, with SDPA on the same inputs and the bounds
    at the 3xTF32 and the 16-bit tensor-core rates; the launches of
-   phases 53-55 in ``launches_by_path``), printed after phase 55, then
+   phases 53-58 in ``launches_by_path``; #9's time at the decode's shape
+   as ``decode_shape``), printed after phase 55, then
    the card's line, and last ``{"ok": true, "device": {...}}``.
 
 With ``--long-step`` the script runs phase 26 alone, in a process that
@@ -5617,6 +5640,539 @@ def phase_record_mnist(c=RECORD_MNIST):
     return dict(counts=counts, **res)
 
 
+# benchmarks/bench_decode.py:34's on_tpu row, uncut: B=64 sources of
+# length 64 (ids 1..V-1 from default_rng(0), as :52-54), V=30000,
+# word_dim = dim // 2 = 256, H = dim = 512, beam 4, max_len 32; the
+# decode runs in the scope phase 20 trained (the same mt_* parameters at
+# the same widths) through run_steps(repeat=reps), as bench_decode.py
+# drives it (its chain is 50 on a TPU; ``reps`` here), timed over
+# ``rounds`` calls
+DECODE = dict(B=64, T=64, V=S2S['V'], word_dim=S2S['word_dim'], H=S2S['H'],
+              K=4, max_len=32, reps=4, rounds=3, parity_B=8)
+# a card hypothesis rescored on the CPU: the training program's summed
+# cross entropy of its teacher-forced tokens against minus its score,
+# relative.  Both sum up to max_len float32 log-probs; the decode takes
+# log(softmax) where the training program takes the fused log-softmax,
+# ~1e-7 relative a token apart (8.2e-8 measured in the reference on the
+# CPU at V=60, K=3, max_len=6)
+TOL_RESCORE = 1e-4
+# the book's control-flow tests on the card, at their own sizes and
+# gates: tests/book/test_machine_translation.py (dict 1000, 3 epochs of
+# 16 batches of 16, Adam 0.002, the mean of the last 8 sum-pooled costs
+# under 110, then decode at K=4 and K=1 with max_len 8),
+# tests/book/test_mnist_if_else.py (1024 samples, batch 64, 4 epochs,
+# Adam 5e-3, the mean accuracy of the last 10 batches above 0.9) and
+# tests/test_rnn_wrappers.py's cases
+BOOK_CF = dict(mt_dict=1000, mt_samples=256, mt_B=16, mt_epochs=3,
+               mt_lr=0.002, mt_gate=110.0, mt_max_len=8,
+               ie_samples=1024, ie_B=64, ie_epochs=4, ie_lr=5e-3,
+               ie_gate=0.9)
+
+
+def _decode_program(c, beam):
+    """seq2seq's beam decode program at ``c``'s widths: (main, ids,
+    scores)."""
+    main = tfl.Program()
+    with tfl.program_guard(main, tfl.Program()):
+        src = tfl.layers.data(name='src_word_id', shape=[1], dtype='int64',
+                              lod_level=1)
+        ids, scores = seq2seq.decode(
+            src, c['V'], word_dim=c['word_dim'], hidden_dim=c['H'],
+            beam_size=beam, max_len=c['max_len'])
+    return main, ids, scores
+
+
+def _staged_decode_feed(ids, lens):
+    """A decode feed staged on the card: the ids and their ``@LEN``
+    column as device tensors, so a run copies nothing from the host."""
+    return {'src_word_id': torch.from_numpy(ids).cuda(),
+            'src_word_id@LEN': torch.from_numpy(
+                np.asarray(lens, np.int32)).cuda()}
+
+
+def _check_decode_out(ids, scores, b, k, max_len, what):
+    if tuple(ids.shape) != (b, k, max_len) or \
+            tuple(scores.shape) != (b, k):
+        raise SystemExit("%s: ids %s, scores %s" % (what, tuple(ids.shape),
+                                                     tuple(scores.shape)))
+    if not np.isfinite(scores).all() or \
+            not np.all(np.diff(scores, axis=1) <= 1e-5):
+        raise SystemExit("%s: scores not finite or not best-first: %s"
+                         % (what, scores[:2]))
+
+
+def phase_decode(s2s, c=DECODE):
+    """Phase 56: the beam decode at bench_decode.py's width in phase 20's
+    scope.  Decode ms p50 over ``rounds`` run_steps calls of ``reps``
+    decodes (host clock, each call ending in the ids' copy to the host),
+    generated tokens/s (B * max_len a decode) and the beam-expanded rate
+    (x K); #9's launches per decode (2: the encoder's two GRUs; the
+    decoder's gru_unit step is eager torch, as the reference's is XLA);
+    #9's device time at the decode's shape; peak memory; the host syncs of
+    one decode (``set_sync_debug_mode('warn')``: reported, not gated); a
+    traced decode's busy and idle share and its kernels by name."""
+    import traceback
+    import warnings
+    exe, scope = s2s['exe'], s2s['scope']
+    main, ids, scores = _decode_program(c, c['K'])
+    bad = [(p.name, p.shape) for p in main.all_parameters()
+           if not scope.has(p.name) or
+           tuple(scope.get(p.name).shape) != tuple(p.shape)]
+    if bad:
+        raise SystemExit("decode parameters missing from or unlike phase "
+                         "20's scope: %s" % bad)
+    rng = np.random.default_rng(0)
+    src = rng.integers(1, c['V'], (c['B'], c['T'], 1)).astype(np.int32)
+    feed = _staged_decode_feed(src, np.full((c['B'],), c['T']))
+    fetch = [ids, scores]
+
+    def decode_steps():
+        out = exe.run_steps(main, feed=feed, fetch_list=fetch,
+                            scope=scope, repeat=c['reps'],
+                            return_numpy=False)
+        return [o.cpu().numpy() for o in out]
+
+    t0 = time.perf_counter()
+    decode_steps()   # plans the program; the first decodes
+    first_call_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    walls, outs = [], None
+    for _ in range(c['rounds']):
+        t0 = time.perf_counter()
+        outs = decode_steps()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    counts = _counts()
+    n_dec = c['rounds'] * c['reps']
+    per_decode = {k: n / n_dec for k, n in counts.items()}
+    peak = torch.cuda.max_memory_allocated()
+    ms = float(np.median(walls)) / c['reps']
+    tok_s = c['B'] * c['max_len'] / (ms / 1e3)
+    # one decode through run: its wall, and its host syncs
+    t0 = time.perf_counter()
+    single = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    single_ms = (time.perf_counter() - t0) * 1e3
+    sync_sites = {}
+
+    def note_sync(message, *args, **kwargs):
+        # the innermost frame of the port or of this script names the site
+        if 'synchroniz' not in str(message).lower():
+            return
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if 'paddle_tpu_torch' in f.filename or
+                  f.filename.endswith('chip_smoke.py')]
+        f = frames[-1] if frames else traceback.extract_stack()[-2]
+        site = '%s:%d %s' % (os.path.relpath(f.filename), f.lineno, f.line)
+        sync_sites[site] = sync_sites.get(site, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter('always')
+        warnings.showwarning = note_sync
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                          return_numpy=False)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sum(sync_sites.values())
+    out = [o.cpu().numpy() for o in out]
+    for got in (single, out):
+        if not (np.array_equal(got[0], outs[0][-1]) and
+                np.array_equal(got[1], outs[1][-1])):
+            raise SystemExit("two decodes of one feed differ")
+    _check_decode_out(out[0], out[1], c['B'], c['K'], c['max_len'],
+                      'decode')
+
+    def one():
+        exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                return_numpy=False)
+    wall, rows, busy = _device_kernels(one)
+    top = sorted(rows, key=lambda r: -r[1])[:12]
+
+    def by(*tags):
+        return sum(ms_ for k, ms_, _ in rows if any(t in k for t in tags))
+    n_kernels = sum(n for *_, n in rows)
+    profile_ = dict(
+        wall_ms=wall, device_busy_ms=busy if rows else None,
+        idle_share=1.0 - busy / wall if rows else None,
+        kernels=n_kernels, kernels_per_tick=n_kernels / c['max_len'],
+        gru_fwd_ms=by(*[k for k, _ in GRU_FWD_PARTS]),
+        gemm_ms=by('gemm', 'Kernel2'), sort_ms=by('Sort', 'sort'),
+        top=[dict(kernel=k[:80], ms=m, count=n) for k, m, n in top])
+    # #9 at the decode's shape: the encoder's GRUs, no h0, no gates (the
+    # no-grad path), against its plain version
+    t, b, h = c['T'], c['B'], c['H']
+    gen = torch.Generator().manual_seed(SEED + 56)
+    x = torch.randn((t, b, 3 * h), generator=gen).cuda()
+    w = (torch.randn((h, 3 * h), generator=gen) * h ** -0.5).cuda()
+    hs, _ = gk._gru_forward(x, w, None, False)
+    hs_plain, _ = gk._plain_gru_forward(x, w, None)
+    nbytes = 4 * (t * b * 3 * h + 3 * h * h + t * b * h)
+    kernel = dict(
+        shape='T=%d B=%d H=%d float32, no h0, no gates (the decode\'s '
+              'encoder)' % (t, b, h),
+        max_abs_err=float((hs - hs_plain).abs().max()),
+        ms=_device_ms(lambda: gk._gru_forward(x, w, None, False), iters=5,
+                      replays=3),
+        plain_ms=_device_ms(lambda: gk._plain_gru_forward(x, w, None),
+                            iters=2, replays=2),
+        call_ms=_call_ms(lambda: gk._gru_forward(x, w, None, False),
+                         iters=5),
+        **_flash_bound(nbytes, 2 * t * b * h * 3 * h))
+    res = dict(
+        config='bench_decode.py:34: B=%d sources of length %d, V=%d '
+               'word_dim=%d H=%d beam %d max_len %d, float32, phase 20\'s '
+               'weights; run_steps(repeat=%d) x %d'
+               % (c['B'], c['T'], c['V'], c['word_dim'], h, c['K'],
+                  c['max_len'], c['reps'], c['rounds']),
+        first_call_s=first_call_s, walls_ms=walls, decode_ms_p50=ms,
+        single_run_ms=single_ms, generated_tokens_per_s=tok_s,
+        beam_expanded_tokens_per_s=tok_s * c['K'],
+        launches=counts, launches_per_decode=per_decode,
+        peak_memory_bytes=peak, host_syncs_per_decode=syncs,
+        host_sync_sites=sync_sites, profile=profile_, gru_fwd=kernel,
+        ids_head=out[0][0, 0, :8].tolist(), scores_head=out[1][0].tolist())
+    print("seq2seq decode: %s" % json.dumps(res))
+    if per_decode != _want(gru_fwd=2):
+        raise SystemExit("decode launches per decode %s, want #9 twice"
+                         % per_decode)
+    if not kernel['max_abs_err'] <= TOL_GRU:
+        raise SystemExit("#9 at the decode's shape: %s" % kernel)
+    return dict(main=main, ids=ids, scores=scores, counts=counts, **res)
+
+
+def _rescoring_program(c):
+    """The training program's forward (seq2seq.build at phase 20's widths,
+    no optimizer): (main, the per-row summed cross entropy's name)."""
+    main = tfl.Program()
+    with tfl.program_guard(main, tfl.Program()):
+        seq2seq.build(c['V'], word_dim=c['word_dim'], hidden_dim=c['H'])
+    row_ce, = [op.output('Out')[0] for op in main.global_block().ops
+               if op.type == 'sequence_pool' and
+               op.attrs['pooltype'] == 'SUM']
+    return main, row_ce
+
+
+def phase_decode_parity(s2s, dec, c=DECODE):
+    """Phase 57: the decode on the card and on the CPU (plain versions)
+    from phase 20's weights, on ``parity_B`` sources of ragged lengths.
+    Gated: every hypothesis the card returns, fed teacher-forced to the
+    training program on the CPU, has a summed cross entropy of minus its
+    score within TOL_RESCORE relative.  Reported: the share of (b, k) rows
+    whose ids equal the CPU's (after 8 training steps the logits are near
+    uniform, so near-ties between candidates are expected) and the
+    largest score gap."""
+    rng = np.random.default_rng(SEED + 57)
+    b = c['parity_B']
+    lens = rng.integers(c['T'] // 4, c['T'] + 1, b)
+    lens[0] = c['T']
+    src = np.zeros((b, c['T'], 1), np.int32)
+    for r in range(b):
+        src[r, :lens[r], 0] = rng.integers(3, c['V'], lens[r])
+    feed = {'src_word_id': (src, lens.astype(np.int32))}
+    main, fetch = dec['main'], [dec['ids'], dec['scores']]
+    card = s2s['exe'].run(main, feed=feed, fetch_list=fetch,
+                          scope=s2s['scope'])
+    cpu_scope = tfl.Scope()
+    for p in main.all_parameters():
+        cpu_scope.set(p.name, s2s['scope'].get(p.name).to('cpu', copy=True))
+    cpu_exe = tfl.Executor('cpu')
+    t0 = time.perf_counter()
+    cpu = cpu_exe.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+    cpu_s = time.perf_counter() - t0
+    _check_decode_out(card[0], card[1], b, c['K'], c['max_len'],
+                      'card decode')
+    rescore, row_ce = _rescoring_program(c)
+    tf = seq2seq.rescoring_feed(src, lens, card[0])
+    ce, = cpu_exe.run(rescore, feed=tf, fetch_list=[row_ce],
+                      scope=cpu_scope)
+    want = -card[1].reshape(-1)
+    rel = np.abs(ce.reshape(-1) - want) / np.abs(want)
+    same = (card[0] == cpu[0]).all(axis=2)
+    res = dict(sources=b, src_lengths=lens.tolist(),
+               rescoring_rel_err_max=float(rel.max()),
+               rescoring_rel_err_median=float(np.median(rel)),
+               hypothesis_lengths=tf['target_language_next_word'][1].tolist(),
+               ids_equal_share=float(same.mean()),
+               ids_equal_share_best_beam=float(same[:, 0].mean()),
+               score_gap_max=float(np.abs(card[1] - cpu[1]).max()),
+               cpu_decode_s=cpu_s, tol=TOL_RESCORE)
+    print("seq2seq decode parity: %s" % json.dumps(res))
+    if not rel.max() <= TOL_RESCORE:
+        raise SystemExit("card hypotheses rescored on the CPU disagree "
+                         "with their scores: %s" % res)
+    return res
+
+
+def _book_mt(c=BOOK_CF):
+    """tests/book/test_machine_translation.py on the card."""
+    main, startup = tfl.Program(), tfl.Program()
+    main.random_seed = startup.random_seed = 7
+    with tfl.program_guard(main, startup):
+        src, trg, label, _, avg_cost = seq2seq.build(c['mt_dict'])
+        tfl.optimizer.AdamOptimizer(learning_rate=c['mt_lr']).minimize(
+            avg_cost)
+    exe = tfl.Executor()
+    scope = tfl.Scope()
+    exe.run(startup, scope=scope)
+    feeder = tfl.DataFeeder(place=exe.place, feed_list=[src, trg, label],
+                            program=main)
+    reader = tfl.batch(tfl.reader.firstn(wmt14.train(c['mt_dict']),
+                                         c['mt_samples']),
+                       batch_size=c['mt_B'], drop_last=True)
+    _zero_counts()
+    costs = []
+    t0 = time.perf_counter()
+    for _ in range(c['mt_epochs']):
+        for batch in reader():
+            cost, = exe.run(main, feed=feeder.feed(batch),
+                            fetch_list=[avg_cost], scope=scope)
+            costs.append(float(np.ravel(cost)[0]))
+    train_s = time.perf_counter() - t0
+    train_counts = _counts()
+    src_batch = [([2, 3, 4, 5],), ([6, 7],), ([8, 9, 10],)]
+    decodes = {}
+    _zero_counts()
+    for beam in (4, 1):
+        prog, ids, scores = _decode_program(
+            dict(V=c['mt_dict'], word_dim=32, H=32,
+                 max_len=c['mt_max_len']), beam)
+        dec_feeder = tfl.DataFeeder(place=exe.place,
+                                    feed_list=[prog.global_block().var(
+                                        'src_word_id')], program=prog)
+        got = exe.run(prog, feed=dec_feeder.feed(src_batch),
+                      fetch_list=[ids, scores], scope=scope)
+        _check_decode_out(got[0], got[1], 3, beam, c['mt_max_len'],
+                          'book decode K=%d' % beam)
+        decodes['K%d' % beam] = dict(ids=got[0][:, 0].tolist(),
+                                     scores=got[1][:, 0].tolist())
+    res = dict(steps=len(costs), first8=float(np.mean(costs[:8])),
+               last8=float(np.mean(costs[-8:])), train_s=train_s,
+               launches=train_counts, decode_launches=_counts(),
+               decodes=decodes, gate=c['mt_gate'])
+    if not all(np.isfinite(costs)) or not res['last8'] < c['mt_gate']:
+        raise SystemExit("book machine translation: %s" % res)
+    return res
+
+
+def _book_mnist_if_else(c=BOOK_CF):
+    """tests/book/test_mnist_if_else.py on the card: rows routed by
+    IfElse on label < 5, both branches trained through the merge."""
+    main, startup = tfl.Program(), tfl.Program()
+    main.random_seed = startup.random_seed = 11
+    layers = tfl.layers
+    with tfl.program_guard(main, startup):
+        image = layers.data(name='x', shape=[784], dtype='float32')
+        label = layers.data(name='y', shape=[1], dtype='int64')
+        limit = layers.fill_constant_batch_size_like(
+            input=label, shape=[-1, 1], dtype='int64', value=5)
+        ie = layers.IfElse(layers.less_than(x=label, y=limit))
+        for branch in (ie.true_block, ie.false_block):
+            with branch():
+                hidden = layers.fc(input=ie.input(image), size=64,
+                                   act='tanh')
+                ie.output(layers.fc(input=hidden, size=10, act='softmax'))
+        prob = ie()
+        acc = layers.accuracy(input=prob, label=label)
+        loss = layers.mean(x=layers.cross_entropy(input=prob, label=label))
+        tfl.optimizer.AdamOptimizer(learning_rate=c['ie_lr']).minimize(loss)
+    exe = tfl.Executor()
+    scope = tfl.Scope()
+    exe.run(startup, scope=scope)
+    feeder = tfl.DataFeeder(place=exe.place, feed_list=[image, label],
+                            program=main)
+    reader = tfl.batch(tfl.reader.firstn(mnist_data.train(),
+                                         c['ie_samples']), c['ie_B'])
+    costs, accs = [], []
+    for _ in range(c['ie_epochs']):
+        for batch in reader():
+            cost, a = exe.run(main, feed=feeder.feed(batch),
+                              fetch_list=[loss, acc], scope=scope)
+            costs.append(float(np.ravel(cost)[0]))
+            accs.append(float(np.ravel(a)[0]))
+    res = dict(steps=len(costs), first_cost=costs[0], last_cost=costs[-1],
+               last10_accuracy=float(np.mean(accs[-10:])),
+               gate=c['ie_gate'])
+    if not all(np.isfinite(costs)) or not costs[-1] < costs[0] or \
+            not res['last10_accuracy'] > c['ie_gate']:
+        raise SystemExit("book mnist if-else: %s" % res)
+    return res
+
+
+def _rnn_wrapper_cases():
+    """tests/test_rnn_wrappers.py's cases on the card, with its checks."""
+    layers = tfl.layers
+    out = {}
+
+    def run(build, feeds, steps=1, seed=5):
+        main, startup = tfl.Program(), tfl.Program()
+        main.random_seed = startup.random_seed = seed
+        with tfl.program_guard(main, startup):
+            fetch = build()
+        exe, scope = tfl.Executor(), tfl.Scope()
+        exe.run(startup, scope=scope)
+        return [exe.run(main, feed=feeds(k), fetch_list=fetch, scope=scope)
+                for k in range(steps)]
+
+    def static_acc():
+        x = layers.data(name='x', shape=[5, 3], dtype='float32')
+        rnn = layers.StaticRNN()
+        with rnn.step():
+            xt = rnn.step_input(x)
+            mem = rnn.memory(shape=[-1, 3], batch_ref=x)
+            acc = layers.elementwise_add(x=mem, y=xt)
+            rnn.update_memory(mem, acc)
+            rnn.step_output(acc)
+        return [rnn()]
+    xv = np.random.RandomState(0).randn(2, 5, 3).astype('float32')
+    got, = run(static_acc, lambda k: {'x': xv})
+    out['static_rnn_accumulator_err'] = float(
+        np.abs(got[0] - np.cumsum(xv, axis=1)).max())
+
+    def static_train():
+        x = layers.data(name='x', shape=[6, 4], dtype='float32')
+        y = layers.data(name='y', shape=[1], dtype='float32')
+        rnn = layers.StaticRNN()
+        with rnn.step():
+            xt = rnn.step_input(x)
+            mem = rnn.memory(shape=[-1, 8], batch_ref=x)
+            h = layers.fc(input=[xt, mem], size=8, act='tanh')
+            rnn.update_memory(mem, h)
+            rnn.step_output(h)
+        pred = layers.fc(input=layers.sequence_last_step(input=rnn()),
+                         size=1)
+        loss = layers.mean(x=layers.square_error_cost(input=pred, label=y))
+        tfl.optimizer.AdamOptimizer(0.01).minimize(loss)
+        return [loss]
+    r = np.random.RandomState(1)
+    feed = {'x': r.randn(4, 6, 4).astype('float32'),
+            'y': r.randn(4, 1).astype('float32')}
+    ls = [float(np.ravel(g[0])[0])
+          for g in run(static_train, lambda k: feed, steps=10)]
+    out['static_rnn_losses'] = [ls[0], ls[-1]]
+
+    def dynamic():
+        x = layers.data(name='x', shape=[2], dtype='float32', lod_level=1)
+        drnn = layers.DynamicRNN()
+        with drnn.block():
+            xt = drnn.step_input(x)
+            mem = drnn.memory(shape=[2])
+            acc = layers.elementwise_add(x=mem, y=xt)
+            drnn.update_memory(mem, acc)
+            drnn.output(acc)
+        o = drnn()
+        return [o, layers.sequence_last_step(input=o)]
+    (o, last), = run(dynamic, lambda k: {'x': (np.ones((2, 4, 2), 'f4'),
+                                              np.array([4, 2], 'int32'))})
+    out['dynamic_rnn'] = dict(row0=o[0, :, 0].tolist(),
+                              row1=o[1, :, 0].tolist(),
+                              last=last[:, 0].tolist())
+
+    def cond(with_fc, nested=False):
+        def build():
+            x = layers.data(name='x', shape=[4], dtype='float32')
+            flag = layers.data(name='flag', shape=[1], dtype='float32')
+            y = layers.data(name='y', shape=[1], dtype='float32')
+            zero = layers.fill_constant(shape=[1], dtype='float32',
+                                        value=0.0)
+            cb = layers.ConditionalBlock([layers.less_than(x=zero, y=flag)])
+            with cb.block():
+                if nested:
+                    i = layers.fill_constant(shape=[1], dtype='float32',
+                                             value=0.0)
+                    limit = layers.fill_constant(shape=[1], dtype='float32',
+                                                 value=3.0)
+                    h = layers.fill_constant(shape=[1], dtype='float32',
+                                             value=0.0)
+                    wcond = layers.less_than(x=i, y=limit)
+                    with layers.While(cond=wcond, max_iters=3).block():
+                        layers.increment(x=h, value=1.0, in_place=True)
+                        layers.increment(x=i, value=1.0, in_place=True)
+                        layers.less_than(x=i, y=limit, cond=wcond)
+                elif with_fc:
+                    h = layers.fc(input=x, size=8, act='relu')
+                else:
+                    h = layers.scale(x=x, scale=2.0)
+            if not with_fc:
+                return [h]
+            pred = layers.fc(input=h, size=1)
+            loss = layers.mean(x=layers.square_error_cost(input=pred,
+                                                          label=y))
+            tfl.optimizer.SGDOptimizer(0.05).minimize(loss)
+            return [loss, h]
+        return build
+    xv = np.array([[1.0, 3.0, -2.0, 0.5]], 'float32')
+    for flag in (1.0, 0.0):
+        f = {'x': xv, 'flag': np.full((1, 1), flag, 'f4'),
+             'y': np.zeros((1, 1), 'f4')}
+        (h,), = run(cond(False), lambda k: f)
+        (n,), = run(cond(False, nested=True), lambda k: f)
+        out['conditional_block_flag%d' % flag] = dict(
+            doubled_err=float(np.abs(h - 2 * flag * xv).max()),
+            nested_while=float(np.ravel(n)[0]))
+    r = np.random.RandomState(0)
+    wt = r.randn(4, 1).astype('float32')
+    feeds = []
+    for _ in range(30):
+        xb = r.randn(8, 4).astype('float32')
+        feeds.append({'x': xb, 'flag': np.ones((1, 1), 'f4'), 'y': xb @ wt})
+    ls = [float(np.ravel(g[0])[0])
+          for g in run(cond(True), lambda k: feeds[k], steps=30, seed=11)]
+    out['conditional_block_losses'] = [ls[0], ls[-1]]
+
+    def ifelse():
+        x = layers.data(name='x', shape=[1], dtype='float32')
+        zero = layers.fill_constant(shape=[1], dtype='float32', value=0.0)
+        ie = layers.IfElse(layers.less_than(x=x, y=zero))
+        with ie.true_block():
+            ie.output(layers.scale(x=ie.input(x), scale=-1.0))
+        with ie.false_block():
+            ie.output(layers.scale(x=ie.input(x), scale=1.0))
+        return [ie()]
+    xv = np.array([[-2.0], [3.0], [-0.5], [4.0]], 'float32')
+    (got,), = run(ifelse, lambda k: {'x': xv})
+    out['ifelse_err'] = float(np.abs(got - np.abs(xv)).max())
+    ok = (out['static_rnn_accumulator_err'] <= 1e-5 and
+          ls[-1] < ls[0] * 0.5 and
+          out['static_rnn_losses'][1] < out['static_rnn_losses'][0] * 0.7
+          and out['dynamic_rnn'] == dict(row0=[1, 2, 3, 4],
+                                         row1=[1, 2, 0, 0],
+                                         last=[4, 2]) and
+          out['conditional_block_flag1']['doubled_err'] <= 1e-6 and
+          out['conditional_block_flag0']['doubled_err'] == 0 and
+          out['conditional_block_flag1']['nested_while'] == 3.0 and
+          out['conditional_block_flag0']['nested_while'] == 0.0 and
+          out['ifelse_err'] == 0)
+    if not ok:
+        raise SystemExit("rnn wrapper cases on the card: %s" % out)
+    return out
+
+
+def phase_control_flow_books():
+    """Phase 58: the control-flow book tests on the card, each with its
+    gate."""
+    t0 = time.perf_counter()
+    res = dict(machine_translation=_book_mt(),
+               mnist_if_else=_book_mnist_if_else(),
+               rnn_wrappers=_rnn_wrapper_cases())
+    res['seconds'] = time.perf_counter() - t0
+    print("control-flow book tests: %s" % json.dumps(res))
+    return res
+
+
+def _decode_phases(s2s):
+    """Phases 56-58, timed together; they run right after phase 22, while
+    phase 20's scope is still on the card."""
+    t0 = time.perf_counter()
+    dec = phase_decode(s2s)
+    dec['parity'] = phase_decode_parity(s2s, dec)
+    books = phase_control_flow_books()
+    print("phases 56-58 (seq2seq beam decode, its parity, the "
+          "control-flow books): %.1f s" % (time.perf_counter() - t0))
+    return dec, books
+
+
 def _persistence_phases():
     """Phases 53-55, timed together."""
     t0 = time.perf_counter()
@@ -5744,6 +6300,7 @@ def main():
     phase_s2s_parity(s2s)
     phase_rnn_route()
     phase_s2s_profile(s2s)
+    dec, cf_books = _decode_phases(s2s)
     split_rows, split_timing = phase_split_kernel(bwd_rows)
     long_k = phase_long_kernel()
     parity = phase_long_parity(tr)
@@ -5872,6 +6429,13 @@ def main():
         transformer_checkpoint_training=pers['ckpt']['counts'],
         transformer_inference_model=pers['ckpt']['infer_counts'],
         mnist_record_files_training=pers['rec']['counts']))
+    mt = cf_books['machine_translation']
+    _add_paths(lines, dict(
+        seq2seq_decode=dec['counts'],
+        book_machine_translation_training=mt['launches'],
+        book_machine_translation_decode=mt['decode_launches']))
+    gru_fwd['decode_shape'] = dict(dec['gru_fwd'],
+                                   launches_per_decode=2)
     print(json.dumps({'kernels': lines}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

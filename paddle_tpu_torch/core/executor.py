@@ -86,6 +86,15 @@ their wrappers.
   raises makes the run raise: there is no fallback to the unrewritten
   program (the reference falls back, executor.py:1335-1340).
   ``last_graph_opt_report`` holds the plan's report.
+- Control flow (``while``, ``conditional_block``, ``recurrent``;
+  ops/control_flow.py): an op registered ``needs_env`` gets the live
+  environment as ``ins['__env__']`` and interprets its sub-block through
+  ``ExecutionContext.run_block`` (a sub-context whose ``block`` is the
+  sub-block); the dict it returns as ``'__env_update__'`` is applied to
+  the environment.  Liveness, the skipped ops and remat's regions count
+  what an op's sub-block reads and writes as the op's own (``_op_rw``):
+  a ``while`` declares only its condition, so a value only its body
+  reads would otherwise be skipped or dropped before the loop.
 - AMP f16 gates (``amp_gate_var``): on an overflow step, a gated dense
   update keeps every output's old value, and a gated ``SelectedRows``
   gradient has its ids swapped to the ``height`` sentinel, which the
@@ -94,7 +103,8 @@ their wrappers.
 
 Not in this slice (each raises): ``compile`` (with ``torch.export`` and
 the AOT cache, ROADMAP.md Queue 1 item 8), a program with more than one
-``autodiff`` op, overlap buckets, meshes.
+``autodiff`` op (item 6), ``parallel_do``, overlap buckets, meshes (item
+10).
 """
 import itertools
 import math
@@ -111,6 +121,8 @@ from .program import LEN_SUFFIX, Program, Variable, default_main_program
 from .registry import cost_class, get_op_impl
 from .scope import global_scope
 from .selected_rows import SelectedRows
+from ..transpiler.passes import (_attr_names, _block_rw_recursive,
+                                 _sub_block_idxs)
 
 __all__ = ['Executor', 'ExecutionContext']
 
@@ -141,6 +153,23 @@ class ExecutionContext(object):
         self.base_seed = base_seed
         self.step = step
         self.op_index = 0
+
+    def sub_context(self, block):
+        """The context of a sub-block's ops: the same run, ``block`` for
+        their variable lookups and generator keys."""
+        return ExecutionContext(self.program, block, self.device,
+                                self.base_seed, self.step)
+
+    def run_block(self, block_idx, env):
+        """Interpret sub-block ``block_idx`` over ``env`` in place, op by op
+        (reference: executor.py ``ExecutionContext.run_block``).  No
+        liveness here: a control-flow op hands each run a copy of its
+        environment and keeps what it carries."""
+        block = self.program.blocks[block_idx]
+        sub = self.sub_context(block)
+        for i, op in enumerate(block.ops):
+            _run_one(op, env, sub, i)
+        return env
 
     def generator(self, extra=0):
         """A ``torch.Generator`` on the device, seeded from (program
@@ -250,9 +279,13 @@ def _run_one(op, env, ctx, op_index):
                     "startup program, or check op ordering" % (op.type, n))
             vals.append(env[n])
         ins[slot] = vals
+    if impl.needs_env:
+        ins['__env__'] = [env]
     found, olds = _gate(op, ins, env)
     ctx.op_index = op.attrs.get('op_seq', op_index)
     outs = impl.compute(ctx, ins, op.attrs) or {}
+    if '__env_update__' in outs:
+        env.update(outs.pop('__env_update__')[0])
     for slot, names in op.outputs.items():
         for n, v in zip(names, outs.get(slot, [])):
             if v is None:
@@ -269,17 +302,40 @@ def _run_one(op, env, ctx, op_index):
             env[n] = _error_clipped(var, v)
 
 
+def _op_rw(op):
+    """(the names ``op`` reads, the names it writes): its slots and, for an
+    op that carries a sub-block (``while``, ``conditional_block``,
+    ``recurrent``), the names its attrs name (a while's condition, a
+    recurrent's outer step inputs) and everything the sub-block reads or
+    writes, nested blocks included.  A loop carry is read too, so what a
+    sub-block writes counts among the reads; a ``while`` declares no
+    outputs and reads only its condition, so without this a value only
+    its body reads would be skipped or dropped before the loop runs."""
+    reads, writes = set(op.input_arg_names), set(op.output_arg_names)
+    idxs = _sub_block_idxs(op)
+    if idxs:
+        reads.update(_attr_names(op))
+        for pair in op.attrs.get('step_inputs', ()):
+            reads.update(pair)
+        for idx in idxs:
+            r, w = _block_rw_recursive(op.block.program, idx)
+            reads |= r | w
+            writes |= w
+    return reads, writes
+
+
 def live_ops(block, fetch_names):
     """Indices of the ops of ``block`` that a run fetching ``fetch_names``
     needs: ops writing a persistable, stateful-random ops and ops without
-    outputs, and, backwards, every op writing an input of a needed op (an
-    ``autodiff`` op reads its loss)."""
+    declared outputs, and, backwards, every op writing an input of a needed
+    op (an ``autodiff`` op reads its loss; a control-flow op what its
+    sub-block reads, ``_op_rw``)."""
     needed = set(fetch_names)
     live = []
     for i in range(len(block.ops) - 1, -1, -1):
         op = block.ops[i]
-        outs = op.output_arg_names
-        keep = (not outs or op.type in _STATEFUL_RANDOM or
+        reads, outs = _op_rw(op)
+        keep = (not op.output_arg_names or op.type in _STATEFUL_RANDOM or
                 any(n in needed for n in outs))
         if not keep:
             for n in outs:
@@ -291,12 +347,13 @@ def live_ops(block, fetch_names):
                     break
         if keep:
             live.append(i)
-            needed.update(op.input_arg_names)
+            needed.update(reads)
     return live[::-1]
 
 
 def _names(op):
-    return set(op.input_arg_names) | set(op.output_arg_names)
+    reads, writes = _op_rw(op)
+    return reads | writes
 
 
 def _drops(uses, keep):
@@ -401,11 +458,12 @@ def _region_io(ops):
     reads, written = [], []
     seen_r, seen_w = set(), set()
     for op in ops:
-        for n in op.input_arg_names:
+        r, w = _op_rw(op)
+        for n in sorted(r):
             if n not in seen_w and n not in seen_r:
                 seen_r.add(n)
                 reads.append(n)
-        for n in op.output_arg_names:
+        for n in sorted(w):
             if n not in seen_w:
                 seen_w.add(n)
                 written.append(n)
@@ -515,15 +573,16 @@ class _Region(object):
             # the rerun's graph is never differentiated: it keeps nothing
             rec.append(_detached(t))
 
+        uses = [_names(op) for _, op in self.ops]
         last = {}
-        for i, (_, op) in enumerate(self.ops):
-            for n in op.input_arg_names + op.output_arg_names:
+        for i, names in enumerate(uses):
+            for n in names:
                 last[n] = i
         with torch.enable_grad(), \
                 torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
             for i, (j, op) in enumerate(self.ops):
                 _run_one(op, local, self.ctx, j)
-                for n in op.input_arg_names + op.output_arg_names:
+                for n in uses[i]:
                     if last[n] == i and n not in self.out_needed:
                         local.pop(n, None)
         if len(rec) != self.n_saved:
@@ -622,13 +681,13 @@ class _StepPlan(object):
         self.keep = set(fetch_names) | set(persistable)
         written = set()
         for op in ops:
-            written.update(op.output_arg_names)
+            written.update(_op_rw(op)[1])
         self.write_back = [n for n in persistable if n in written]
         ad = [i for i in self.live if ops[i].type == 'autodiff']
         if len(ad) > 1:
             raise NotImplementedError(
                 "programs with more than one autodiff op (multi-loss, GAN) "
-                "are not ported yet: ROADMAP.md Queue 1")
+                "are not ported yet: ROADMAP.md Queue 1 item 6")
         self.fwd = [(j, ops[j]) for j in self.live
                     if ad and j < ad[0] and _op_role(ops[j]) == 'forward']
         in_fwd = {j for j, _ in self.fwd}
@@ -644,10 +703,10 @@ class _StepPlan(object):
             # fetches and the persistables
             self.needed = set(self.keep)
             for i in self.seq[pos + 1:]:
-                self.needed.update(ops[i].input_arg_names)
+                self.needed.update(_op_rw(ops[i])[0])
             self.fwd_written = set()
             for _, op in self.fwd:
-                self.fwd_written.update(op.output_arg_names)
+                self.fwd_written.update(_op_rw(op)[1])
             self.fwd_drops = _drops([_names(op) for _, op in self.fwd],
                                     self.needed | {ad_op.attrs['loss_name']})
             self.frozen = set(ad_op.attrs['param_names']) & self.fwd_written
@@ -812,10 +871,6 @@ class Executor(object):
                             % type(program))
         if scope is None:
             scope = global_scope()
-        if len(program.blocks) > 1:
-            raise NotImplementedError(
-                "programs with sub-blocks (control flow) are not ported "
-                "yet: ROADMAP.md Queue 1")
         fetch_names = [f.name if isinstance(f, Variable) else str(f)
                        for f in (fetch_list or [])]
         return program, scope, fetch_names

@@ -340,6 +340,20 @@ class Program(object):
     def current_block(self):
         return self.blocks[self.current_block_idx]
 
+    def create_block(self, parent_idx=None):
+        """A new block, child of the current one (or of ``parent_idx``),
+        made current: the body of a control-flow op."""
+        parent = (self.current_block_idx
+                  if parent_idx is None else parent_idx)
+        self.blocks.append(Block(self, len(self.blocks), parent))
+        self.current_block_idx = len(self.blocks) - 1
+        self._bump_version()
+        return self.current_block()
+
+    def rollback(self):
+        """Make the current block's parent current again."""
+        self.current_block_idx = self.current_block().parent_idx
+
     def list_vars(self):
         for b in self.blocks:
             for v in b.vars.values():
@@ -361,34 +375,42 @@ class Program(object):
         return p
 
     def prune(self, targets, feeds=()):
-        """A copy keeping only the ops that compute ``targets`` (names or
-        Variables) from ``feeds``, which count as produced (reference:
-        paddle_tpu/core/program.py ``prune``, paddle/framework/prune.cc):
-        backward reachability over the def-use graph."""
+        """A copy keeping only the global-block ops that compute
+        ``targets`` (names or Variables) from ``feeds``, which count as
+        produced (reference: paddle_tpu/core/program.py ``prune``,
+        paddle/framework/prune.cc): backward reachability over the def-use
+        graph.
+
+        An op that carries a sub-block counts everything the sub-block
+        writes, nested blocks included, among its outputs, and everything
+        it reads or writes among its inputs (a loop carry reads its old
+        value); a kept op keeps its sub-block whole.  The reference prunes
+        each block against the targets and counts only declared outputs,
+        so a ``while`` (which declares none) is dropped and its body
+        emptied: a departure (ROADMAP.md, reference caveats)."""
+        from ..transpiler.passes import _block_rw_recursive, _sub_block_idxs
         target_names = set(t.name if isinstance(t, Variable) else t
                            for t in _as_list(targets))
         feed_names = set(f.name if isinstance(f, Variable) else f
                          for f in _as_list(feeds))
         p = copy.deepcopy(self)
         p._uid = next(Program._uid_counter)
-        for block in p.blocks:
-            needed = set(target_names)
-            kept = []
-            for op in reversed(block.ops):
-                out_names = set(op.output_arg_names)
-                if out_names & needed:
-                    kept.append(op)
-                    needed -= out_names
-                    for n in op.input_arg_names:
-                        if n not in feed_names:
-                            needed.add(n)
-                    # a sub-block op depends on everything its block reads
-                    for attr in ('sub_block', 'sub_block_idx'):
-                        if attr in op.attrs:
-                            for sop in p.blocks[op.attrs[attr]].ops:
-                                needed.update(sop.input_arg_names)
-            kept.reverse()
-            block.ops = kept
+        block = p.global_block()
+        needed = set(target_names)
+        kept = []
+        for op in reversed(block.ops):
+            out_names = set(op.output_arg_names)
+            in_names = set(op.input_arg_names)
+            for idx in _sub_block_idxs(op):
+                read, written = _block_rw_recursive(p, idx)
+                out_names |= written
+                in_names |= read | written
+            if out_names & needed:
+                kept.append(op)
+                needed -= out_names
+                needed.update(in_names - feed_names)
+        kept.reverse()
+        block.ops = kept
         p._bump_version()
         return p
 

@@ -11,9 +11,10 @@ eagerly on the tensors' device; a kernel is reached through its wrapper,
 which dispatches on that device.
 
 ``op_traits`` classifies an op type for the pass pipeline (transpiler/)
-without fetching it for execution: registered, random, its AMP class
-(white, black or grey, the reference's lists verbatim) and its cost
-class ('mac' or 'bytes', read by transpiler/cost_model.py).
+without fetching it for execution: registered, random, ``needs_env`` (a
+control-flow op that interprets a sub-block over the live environment),
+its AMP class (white, black or grey, the reference's lists verbatim) and
+its cost class ('mac' or 'bytes', read by transpiler/cost_model.py).
 ``op_signature`` recovers each op's declared-slot contract from its
 compute function's source, as the reference does by AST introspection;
 the IR verifier (transpiler/verify.py) holds every OpDesc to it.
@@ -114,26 +115,37 @@ def cost_class(type):
 
 
 OpTraits = collections.namedtuple(
-    'OpTraits', ['registered', 'stateful_rng', 'amp', 'cost'])
+    'OpTraits', ['registered', 'stateful_rng', 'needs_env', 'amp', 'cost'])
 
 
 class OpImpl(object):
-    def __init__(self, type, compute, stateful_rng=False):
+    def __init__(self, type, compute, stateful_rng=False, needs_env=False):
         self.type = type
         self.compute = compute
         # ops that draw random numbers (uniform_random): the executor
         # hands them a generator keyed by the op's position
         self.stateful_rng = stateful_rng
+        # control-flow ops that interpret a sub-block: the executor hands
+        # them the live environment as ins['__env__'] and applies the
+        # dict they return as {'__env_update__': [dict]}
+        self.needs_env = needs_env
 
 
-def register_op(type, stateful_rng=False):
+def register_op(type, stateful_rng=False, needs_env=False):
     def deco(fn):
         if type in _OP_REGISTRY:
             raise ValueError("op %r already registered" % type)
-        _OP_REGISTRY[type] = OpImpl(type, fn, stateful_rng)
+        _OP_REGISTRY[type] = OpImpl(type, fn, stateful_rng, needs_env)
         return fn
 
     return deco
+
+
+# op types the reference registers whose port waits for a named item
+_LATER_OPS = {
+    'parallel_do': 'item 10 (distribution)',
+    'get_places': 'item 10 (distribution)',
+}
 
 
 def get_op_impl(type):
@@ -141,7 +153,8 @@ def get_op_impl(type):
     if impl is None:
         raise NotImplementedError(
             "op %r has no implementation in paddle_tpu_torch yet; the port "
-            "brings ops slice by slice (ROADMAP.md, Queue 1)" % type)
+            "brings ops slice by slice (ROADMAP.md, Queue 1%s)"
+            % (type, ', ' + _LATER_OPS[type] if type in _LATER_OPS else ''))
     return impl
 
 
@@ -150,14 +163,15 @@ def has_op(type):
 
 
 def op_traits(type):
-    """OpTraits(registered, stateful_rng, amp, cost) for an op type;
-    ``amp`` is 'white' | 'black' | 'grey' (see AMP_WHITE / AMP_BLACK),
-    ``cost`` 'mac' | 'bytes' (see COST_MAC)."""
+    """OpTraits(registered, stateful_rng, needs_env, amp, cost) for an
+    op type; ``amp`` is 'white' | 'black' | 'grey' (see AMP_WHITE /
+    AMP_BLACK), ``cost`` 'mac' | 'bytes' (see COST_MAC)."""
     impl = _OP_REGISTRY.get(type)
     if impl is None:
-        return OpTraits(False, False, amp_class(type), cost_class(type))
-    return OpTraits(True, impl.stateful_rng, amp_class(type),
-                    cost_class(type))
+        return OpTraits(False, False, False, amp_class(type),
+                        cost_class(type))
+    return OpTraits(True, impl.stateful_rng, impl.needs_env,
+                    amp_class(type), cost_class(type))
 
 
 # ---------------------------------------------------------------------------

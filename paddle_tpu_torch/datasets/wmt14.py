@@ -5,15 +5,20 @@ The port's copy of the synthetic task of paddle_tpu/datasets/wmt14.py
 Zipf(1.3)-distributed like natural text, and the "translation" is a
 deterministic token map plus a swap of adjacent pairs, which a seq2seq
 model with attention can learn.  Ids 0, 1, 2 are <s>, <e>, <unk>.
+``train`` is the reference's reader (bitwise its samples):
+(src_ids, trg_ids, trg_ids_next), trg starting with <s> and trg_next
+ending with <e>.
 """
 import numpy as np
 
+from . import common
 from .common import zipf_seq
 
 __all__ = ['START_ID', 'END_ID', 'UNK_ID', 'zipf_seq', 'translate',
-           'batch']
+           'batch', 'train']
 
 START_ID, END_ID, UNK_ID = 0, 1, 2
+TRAIN_SIZE = 2048
 
 
 def translate(src, dict_size):
@@ -47,3 +52,18 @@ def batch(rng, dict_size, src_lens, max_trg_len=None):
     return {'src_word_id': pad([r[0] for r in rows]),
             'target_language_word': pad([r[1] for r in rows]),
             'target_language_next_word': pad([r[2] for r in rows])}
+
+
+def reader_creator(split, size, dict_size):
+    def reader():
+        rng = common.rng_for('wmt14', split)
+        for n in common.seq_lengths(rng, size, 3, 25):
+            src = (3 + zipf_seq(rng, int(n), dict_size - 3)).tolist()
+            trg = translate(src, dict_size)
+            yield src, [START_ID] + trg, trg + [END_ID]
+
+    return reader
+
+
+def train(dict_size):
+    return reader_creator('train', TRAIN_SIZE, dict_size)

@@ -113,6 +113,10 @@ class LayerHelper(object):
             persistable=False,
             stop_gradient=stop_gradient)
 
+    def create_variable(self, *args, **kwargs):
+        """A variable in the current block (an array, a loop's carry)."""
+        return self.main_program.current_block().create_var(*args, **kwargs)
+
     def create_global_variable(self, persistable=False, *args, **kwargs):
         return self.main_program.global_block().create_var(
             *args, persistable=persistable, **kwargs)

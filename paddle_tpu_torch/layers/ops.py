@@ -1,12 +1,12 @@
 """Plain one-op layers (paddle_tpu/layers/ops.py), cut to the unary
-layers relu, sigmoid, softmax, mean, exp, sqrt, floor, ceil, square,
-sign and pow, the binary ones mul and
+layers relu, sigmoid, softmax, mean, exp, log, sqrt, floor, ceil,
+square, sign and pow, the binary ones mul and
 elementwise_{add,sub,mul,div,max,min,pow}, and scale, clip and
 clip_by_norm."""
 from .layer_helper import LayerHelper
 
-__unary__ = ['relu', 'sigmoid', 'softmax', 'mean', 'exp', 'sqrt', 'floor',
-             'ceil', 'square', 'sign', 'pow']
+__unary__ = ['relu', 'sigmoid', 'softmax', 'mean', 'exp', 'log', 'sqrt',
+             'floor', 'ceil', 'square', 'sign', 'pow']
 
 __binary__ = ['mul', 'elementwise_add', 'elementwise_div',
               'elementwise_sub', 'elementwise_mul', 'elementwise_max',

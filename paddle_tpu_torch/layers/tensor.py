@@ -1,11 +1,15 @@
 """Tensor layers (paddle_tpu/layers/tensor.py), cut to what the
-transformer's, the LSTM models' and the image models' programs, the
-optimizers, gradient clip and the learning-rate schedules use."""
+transformer's, the LSTM models', the image models' and the seq2seq
+decode's programs, the optimizers, gradient clip and the learning-rate
+schedules use, and the logical layers."""
+from ..core.program import Variable
 from .layer_helper import LayerHelper
 
-__all__ = ['create_parameter', 'create_global_var', 'cast', 'fill_constant',
-           'reshape', 'transpose', 'concat', 'sums', 'select', 'less_than',
-           'equal']
+__all__ = ['create_parameter', 'create_global_var', 'cast', 'assign',
+           'fill_constant', 'fill_constant_batch_size_like', 'zeros',
+           'reshape', 'transpose', 'expand', 'concat', 'sums', 'select',
+           'less_than', 'equal', 'logical_and', 'logical_or', 'logical_xor',
+           'logical_not']
 
 
 def create_parameter(shape, dtype, attr=None, is_bias=False,
@@ -38,6 +42,27 @@ def cast(x, dtype, **kwargs):
     return out
 
 
+def assign(input, output=None, **kwargs):
+    """Copy ``input`` (a Variable, or a numpy-convertible value through
+    ``assign_value``) into ``output``, a new variable by default."""
+    helper = LayerHelper('assign', **locals())
+    if output is None:
+        output = helper.create_tmp_variable(
+            input.dtype if isinstance(input, Variable) else 'float32')
+    if isinstance(input, Variable):
+        helper.append_op(type='assign', inputs={'X': [input]},
+                         outputs={'Out': [output]})
+    else:
+        import numpy as np
+        arr = np.asarray(input)
+        helper.append_op(
+            type='assign_value',
+            outputs={'Out': [output]},
+            attrs={'shape': list(arr.shape), 'dtype': str(arr.dtype),
+                   'values': arr.flatten().tolist()})
+    return output
+
+
 def fill_constant(shape, dtype, value, out=None, **kwargs):
     helper = LayerHelper('fill_constant', **locals())
     if out is None:
@@ -48,6 +73,28 @@ def fill_constant(shape, dtype, value, out=None, **kwargs):
                             'dtype': dtype, 'value': float(value)})
     out.stop_gradient = True
     return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0,
+                                  **kwargs):
+    """A constant tensor of ``shape`` whose dim ``output_dim_idx`` is dim
+    ``input_dim_idx`` of ``input`` (the batch size)."""
+    helper = LayerHelper('fill_constant_batch_size_like', **locals())
+    out = helper.create_tmp_variable(dtype)
+    helper.append_op(type='fill_constant_batch_size_like',
+                     inputs={'Input': [input]},
+                     outputs={'Out': [out]},
+                     attrs={'shape': [int(s) for s in shape],
+                            'dtype': dtype, 'value': float(value),
+                            'input_dim_idx': input_dim_idx,
+                            'output_dim_idx': output_dim_idx})
+    out.stop_gradient = True
+    return out
+
+
+def zeros(shape, dtype, **kwargs):
+    return fill_constant(value=0.0, shape=shape, dtype=dtype)
 
 
 def reshape(x, shape, actual_shape=None, act=None, inplace=False, **kwargs):
@@ -65,6 +112,16 @@ def transpose(x, perm, **kwargs):
     helper.append_op(type='transpose', inputs={'X': [x]},
                      outputs={'Out': [out]},
                      attrs={'axis': [int(p) for p in perm]})
+    return out
+
+
+def expand(x, expand_times, **kwargs):
+    """``x`` tiled ``expand_times`` times along each dim."""
+    helper = LayerHelper('expand', **locals())
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op(type='expand', inputs={'X': [x]},
+                     outputs={'Out': [out]},
+                     attrs={'expand_times': [int(t) for t in expand_times]})
     return out
 
 
@@ -125,3 +182,27 @@ def _compare_layer(op_type):
 
 less_than = _compare_layer('less_than')
 equal = _compare_layer('equal')
+
+
+def _logical_layer(name, binary=True):
+    op_type = 'logical_' + name
+
+    def _layer(x, y=None, out=None, **kwargs):
+        helper = LayerHelper(op_type, **kwargs)
+        if out is None:
+            out = helper.create_tmp_variable('bool', stop_gradient=True)
+        inputs = {'X': [x]}
+        if binary:
+            inputs['Y'] = [y]
+        helper.append_op(type=op_type, inputs=inputs,
+                         outputs={'Out': [out]})
+        return out
+
+    _layer.__name__ = op_type
+    return _layer
+
+
+logical_and = _logical_layer('and')
+logical_or = _logical_layer('or')
+logical_xor = _logical_layer('xor')
+logical_not = _logical_layer('not', binary=False)

@@ -16,14 +16,16 @@ parameters carry the reference's fixed names (``mt_*``).
 the low dtype (bench_seq2seq.py's build): the projections run in it with
 float32 master weights, the GRU ops compute in float32 and hand their
 Hidden back in it, and the logits are cast back to float32 before the
-softmax.  ``decode``
-(beam-search generation) needs ``While`` sub-blocks, tensor arrays and
-``beam_search``, which come with the control-flow ops.
+softmax.  ``decode`` is beam-search generation (bench_decode.py's
+program): a ``While`` loop over the decoder cell, tensor arrays of the
+per-step beams and ``beam_search``, in the scope training left.
 """
+import numpy as np
+
 from .. import layers
 from ..param_attr import ParamAttr
 
-__all__ = ['encoder', 'train_net', 'build', 'decode']
+__all__ = ['encoder', 'train_net', 'build', 'decode', 'rescoring_feed']
 
 
 def _attr(name):
@@ -65,14 +67,18 @@ def _decoder_init(encoded, hidden_dim):
                      bias_attr=_attr('mt_dec_h0_b'))
 
 
-def _attend_hidden(dec_states, encoded, hidden_dim):
-    """Luong attention of dec_states [B, Td, H] over the padded encoder
+def _enc_proj(encoded, hidden_dim):
+    """The encoder states projected to H for the attention scores."""
+    return layers.fc(input=encoded, size=hidden_dim, num_flatten_dims=2,
+                     param_attr=_attr('mt_enc_proj_w'),
+                     bias_attr=_attr('mt_enc_proj_b'))
+
+
+def _attend_hidden(dec_states, encoded, enc_proj, hidden_dim):
+    """Luong attention of dec_states [B, Td | K, H] over the padded encoder
     states (scores, masked softmax, context), then the attentional hidden
-    state tanh(W_c [state; context]) [B, Td, H]."""
-    enc_proj = layers.fc(input=encoded, size=hidden_dim,
-                         num_flatten_dims=2,
-                         param_attr=_attr('mt_enc_proj_w'),
-                         bias_attr=_attr('mt_enc_proj_b'))
+    state tanh(W_c [state; context]) [B, Td | K, H].  Training and the
+    beam decode share it."""
     scores = layers.matmul(dec_states, enc_proj, transpose_y=True)
     attn = layers.sequence_softmax(input=scores, length_input=encoded,
                                    axis=2)
@@ -81,6 +87,18 @@ def _attend_hidden(dec_states, encoded, hidden_dim):
     return layers.fc(
         input=combined, size=hidden_dim, act='tanh', num_flatten_dims=2,
         param_attr=_attr('mt_att_ht_w'), bias_attr=_attr('mt_att_ht_b'))
+
+
+def _attend_and_score(dec_states, encoded, enc_proj, dict_size,
+                      hidden_dim):
+    """Attention, the vocab head and its softmax: [B, K, V] probabilities."""
+    att_h = _attend_hidden(dec_states, encoded, enc_proj, hidden_dim)
+    logits = layers.fc(
+        input=att_h, size=dict_size, num_flatten_dims=2, act=None,
+        param_attr=_attr('mt_out_fc_w'), bias_attr=_attr('mt_out_fc_b'))
+    if logits.dtype in ('bfloat16', 'float16'):
+        logits = layers.cast(x=logits, dtype='float32')
+    return layers.softmax(x=logits)
 
 
 def train_net(src, trg, label, dict_size, word_dim=32, hidden_dim=32,
@@ -101,7 +119,8 @@ def train_net(src, trg, label, dict_size, word_dim=32, hidden_dim=32,
     dec_out = layers.dynamic_gru(
         input=dec_fc, size=hidden_dim, h_0=dec_h0,
         param_attr=_attr('mt_dec_gru_w'), bias_attr=_attr('mt_dec_gru_b'))
-    att_h = _attend_hidden(dec_out, encoded, hidden_dim)
+    enc_proj = _enc_proj(encoded, hidden_dim)
+    att_h = _attend_hidden(dec_out, encoded, enc_proj, hidden_dim)
     # kept for fetches; a run that fetches only the loss skips it
     # (core/executor.py live_ops), as the reference's XLA trace drops it
     logits = layers.fc(
@@ -140,7 +159,105 @@ def build(dict_size, word_dim=32, hidden_dim=32, dtype='float32',
 
 def decode(src, dict_size, word_dim=32, hidden_dim=32, beam_size=4,
            max_len=16, start_id=0, end_id=1):
-    """Beam-search generation: raises until control flow is ported."""
-    raise NotImplementedError(
-        "seq2seq.decode (beam-search generation) needs While sub-blocks, "
-        "tensor arrays and beam_search: ROADMAP.md Queue 1 item 6")
+    """Beam-search generation (the reference book's decode path).
+
+    The training program's decoder cell, with the same ``mt_*``
+    parameters, unrolled in a ``While`` loop of ``max_len`` ticks: each
+    tick embeds the [B, K] beam tokens, advances the GRU cell, attends
+    over the encoder states, scores the vocab and keeps the top K
+    continuations.  Returns (sentence_ids [B, K, max_len], end_id-padded,
+    sentence_scores [B, K]), best first along K."""
+    encoded = encoder(src, dict_size, word_dim, hidden_dim)
+    dec_h0 = _decoder_init(encoded, hidden_dim)           # [B, H]
+    enc_proj = _enc_proj(encoded, hidden_dim)             # [B, Ts, H]
+
+    pre_ids, pre_scores = layers.beam_search_init(
+        dec_h0, beam_size=beam_size, start_id=start_id)   # [B, K]
+    hidden = layers.expand(
+        layers.reshape(dec_h0, shape=[-1, 1, hidden_dim]),
+        expand_times=[1, beam_size, 1])                    # [B, K, H]
+
+    counter = layers.zeros(shape=[1], dtype='int64')
+    limit = layers.fill_constant(shape=[1], dtype='int64', value=max_len)
+    cond = layers.less_than(x=counter, y=limit)
+
+    ids_arr = layers.create_array('int64')
+    parents_arr = layers.create_array('int64')
+    scores_arr = layers.create_array('float32')
+
+    while_op = layers.While(cond=cond, max_iters=max_len)
+    with while_op.block():
+        emb = layers.embedding(
+            input=pre_ids, size=[dict_size, word_dim], dtype='float32',
+            param_attr=_attr('mt_trg_emb'))
+        # lookup_table squeezes a trailing size-1 axis (fluid's [N, 1] id
+        # convention), which eats the beam axis when K == 1: restore it
+        emb = layers.reshape(emb, shape=[-1, beam_size, word_dim])
+        step_fc = layers.fc(
+            input=emb, size=hidden_dim * 3, num_flatten_dims=2,
+            param_attr=_attr('mt_dec_fc_w'), bias_attr=_attr('mt_dec_fc_b'))
+        flat_in = layers.reshape(step_fc, shape=[-1, hidden_dim * 3])
+        flat_h = layers.reshape(hidden, shape=[-1, hidden_dim])
+        new_h_flat, _, _ = layers.gru_unit(
+            input=flat_in, hidden=flat_h, size=hidden_dim * 3,
+            param_attr=_attr('mt_dec_gru_w'),
+            bias_attr=_attr('mt_dec_gru_b'))               # [B*K, H]
+        new_h = layers.reshape(new_h_flat,
+                               shape=[-1, beam_size, hidden_dim])
+
+        probs = _attend_and_score(new_h, encoded, enc_proj, dict_size,
+                                  hidden_dim)
+        logp = layers.log(probs)                           # [B, K, V]
+
+        sel_ids, sel_scores, parents = layers.beam_search(
+            pre_ids=pre_ids, pre_scores=pre_scores, scores=logp,
+            beam_size=beam_size, end_id=end_id)
+
+        layers.array_write(sel_ids, counter, ids_arr, capacity=max_len)
+        layers.array_write(parents, counter, parents_arr, capacity=max_len)
+        layers.array_write(sel_scores, counter, scores_arr,
+                           capacity=max_len)
+
+        # the carry: the beams and the beam-reordered decoder state
+        layers.assign(layers.beam_gather(new_h, parents), hidden)
+        layers.assign(sel_ids, pre_ids)
+        layers.assign(sel_scores, pre_scores)
+        layers.increment(x=counter, value=1, in_place=True)
+        layers.less_than(x=counter, y=limit, cond=cond)
+
+    return layers.beam_search_decode(ids_arr, parents_arr, scores_arr,
+                                     end_id=end_id)
+
+
+def rescoring_feed(src_ids, src_lens, sentence_ids, start_id=0, end_id=1):
+    """A teacher-forced feed of ``build``'s training program that scores
+    ``decode``'s hypotheses: row b * K + k is hypothesis (b, k) of
+    ``sentence_ids`` [B, K, T], cut after its first ``end_id`` (all T
+    tokens if it has none), as ``target_language_next_word``, with
+    [start_id] + its tokens but the last as ``target_language_word``, and
+    source b.  The training program's per-row summed cross entropy (its
+    ``sequence_pool`` output) is then minus the hypothesis's score, as the
+    decode's GRU step and the training program's GRU compute one cell."""
+    src_ids = np.asarray(src_ids)
+    src_lens = np.asarray(src_lens)
+    sentence_ids = np.asarray(sentence_ids)
+    B, K, T = sentence_ids.shape
+    hyps = []
+    for b in range(B):
+        for k in range(K):
+            ids = [int(t) for t in sentence_ids[b, k]]
+            if end_id in ids:
+                ids = ids[:ids.index(end_id) + 1]
+            hyps.append(ids)
+
+    def pad(seqs):
+        lens = np.asarray([len(q) for q in seqs], np.int64)
+        out = np.zeros((len(seqs), int(lens.max()), 1), np.int64)
+        for r, q in enumerate(seqs):
+            out[r, :len(q), 0] = q
+        return out, lens
+    rows = np.repeat(np.arange(B), K)
+    return {'src_word_id': (src_ids[rows], src_lens[rows]),
+            'target_language_word': pad([[start_id] + h[:-1]
+                                         for h in hyps]),
+            'target_language_next_word': pad(hyps)}

@@ -1,5 +1,5 @@
 """Activation ops (paddle_tpu/ops/activations.py), cut to relu, sigmoid,
-tanh, exp, sqrt, floor, ceil, square, sign and pow (its ``factor``
+tanh, exp, log, sqrt, floor, ceil, square, sign and pow (its ``factor``
 attr): one elementwise function each, which the clip, regularizer and
 learning-rate-decay ops use besides the models."""
 import torch
@@ -20,6 +20,7 @@ _unary('relu', lambda x, a: torch.relu(x))
 _unary('sigmoid', lambda x, a: torch.sigmoid(x))
 _unary('tanh', lambda x, a: torch.tanh(x))
 _unary('exp', lambda x, a: torch.exp(x))
+_unary('log', lambda x, a: torch.log(x))
 _unary('sqrt', lambda x, a: torch.sqrt(x))
 _unary('floor', lambda x, a: torch.floor(x))
 _unary('ceil', lambda x, a: torch.ceil(x))

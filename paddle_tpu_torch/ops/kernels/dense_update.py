@@ -121,7 +121,9 @@ def _launch(rule, tables, g, lr, a=0.0, b=0.0, c=0.0, d=0.0, e=0.0,
 
 def _on_cpu(tables, new):
     for t, x in zip(tables, new):
-        t.copy_(x)
+        # a 0-d parameter's rule broadcasts against the [1] learning rate;
+        # the kernel writes its one element in place, as this does
+        t.copy_(x.reshape(t.shape))
     return tables[0] if len(tables) == 1 else tuple(tables)
 
 

@@ -1,9 +1,11 @@
 """Sequence (LoD) ops on the padded + lengths representation.
 
 Reference parity: paddle_tpu/ops/sequence.py (paddle/operators/
-sequence_pool_op, sequence_softmax_op, sequence_conv_op), cut to
-``sequence_pool``, its ``sequence_first_step`` / ``sequence_last_step``
-forms, ``sequence_softmax`` and ``sequence_conv``.  A ragged batch is a
+sequence_pool_op, sequence_softmax_op, sequence_conv_op,
+reorder_lod_tensor_by_rank_op), cut to ``sequence_pool``, its
+``sequence_first_step`` / ``sequence_last_step`` forms,
+``sequence_softmax``, ``sequence_conv`` and
+``reorder_lod_tensor_by_rank``.  A ragged batch is a
 dense [B, T, ...] tensor with int32 lengths [B] in slot ``XLen``; the
 masks come from the lengths, and missing lengths mean every row is full.
 """
@@ -123,3 +125,14 @@ def _sequence_conv(ctx, ins, attrs):
     y = torch.matmul(torch.cat(frames, dim=-1), w.float())
     y = torch.where(mask, y, torch.zeros((), device=x.device))
     return out(y.to(x.dtype))
+
+
+@register_op('reorder_lod_tensor_by_rank')
+def _reorder_lod_tensor_by_rank(ctx, ins, attrs):
+    """The rows of ``X`` by descending rank-table length, ties in row
+    order (a stable sort), with the reordered lengths and the order."""
+    x = first(ins, 'X')
+    table = first(ins, 'RankTable').to(torch.int32).reshape(-1)
+    order = torch.argsort(-table, stable=True)
+    return {'Out': [x.index_select(0, order)], 'OutLen': [table[order]],
+            'OrderedIndex': [order.to(torch.int32)]}

@@ -1,10 +1,12 @@
-"""Tensor-manipulation ops: reshape, transpose, split, concat, pad, cast,
-assign, assign_value, fill_constant, increment, the comparisons and
-select.
+"""Tensor-manipulation ops: reshape, transpose, split, concat, expand, pad,
+cast, assign, assign_value, fill_constant, fill_zeros_like,
+fill_constant_batch_size_like, increment, the comparisons, the logical
+ops and select.
 
 Reference parity: paddle_tpu/ops/tensor_ops.py (paddle/operators/
-{reshape,transpose,split,concat,pad,cast,assign,assign_value,
-fill_constant,increment,compare,select}_op).
+{reshape,transpose,split,concat,expand,pad,cast,assign,assign_value,
+fill_constant,fill_zeros_like,fill_constant_batch_size_like,increment,
+compare,logical,select}_op).
 Integer types keep their width; 64-bit feeds arrive narrowed to 32 bits
 by the executor, as in the reference.
 """
@@ -53,6 +55,16 @@ def _split(ctx, ins, attrs):
 @register_op('concat')
 def _concat(ctx, ins, attrs):
     return out(torch.cat(ins['X'], dim=attrs.get('axis', 0)))
+
+
+@register_op('expand')
+def _expand(ctx, ins, attrs):
+    """Tile ``X`` ``expand_times`` times along each dim (``jnp.tile``:
+    fewer times than dims tile the trailing dims)."""
+    x = first(ins, 'X')
+    times = [int(t) for t in attrs['expand_times']]
+    times = [1] * (x.dim() - len(times)) + times
+    return out(x.repeat(*times))
 
 
 @register_op('pad')
@@ -111,11 +123,39 @@ def _assign_value(ctx, ins, attrs):
     return out(_to_tensor(values, attrs, ctx.device))
 
 
+_NARROW = {torch.int64: torch.int32, torch.float64: torch.float32}
+
+
 @register_op('fill_constant')
 def _fill_constant(ctx, ins, attrs):
+    """A constant; a 64-bit type narrows to 32 bits, as in the reference
+    (its counters and limits are int32, as fed ids are)."""
     dtype = datatypes.as_torch_dtype(attrs.get('dtype', 'float32'))
+    dtype = _NARROW.get(dtype, dtype)
     return out(torch.full(tuple(attrs['shape']), attrs['value'], dtype=dtype,
                           device=ctx.device))
+
+
+@register_op('fill_zeros_like')
+def _fill_zeros_like(ctx, ins, attrs):
+    return out(torch.zeros_like(first(ins, 'X')))
+
+
+@register_op('fill_constant_batch_size_like')
+def _fill_cbsl(ctx, ins, attrs):
+    """``shape`` with dim ``output_dim_idx`` taken from dim
+    ``input_dim_idx`` of ``Input``; int64 narrows to int32, as in the
+    reference."""
+    ref = first(ins, 'Input')
+    shape = list(attrs['shape'])
+    in_idx = attrs.get('input_dim_idx', 0)
+    out_idx = attrs.get('output_dim_idx', 0)
+    shape[out_idx] = ref.shape[in_idx]
+    dtype = datatypes.as_torch_dtype(attrs.get('dtype', 'float32'))
+    if dtype == torch.int64:
+        dtype = torch.int32
+    return out(torch.full(tuple(shape), attrs.get('value', 0.0),
+                          dtype=dtype, device=ref.device))
 
 
 @register_op('increment')
@@ -140,6 +180,23 @@ for _name, _fn in (('less_than', torch.lt), ('less_equal', torch.le),
                    ('greater_than', torch.gt), ('greater_equal', torch.ge),
                    ('equal', torch.eq), ('not_equal', torch.ne)):
     _compare(_name, _fn)
+
+
+def _logical(name, fn, binary=True):
+    @register_op('logical_' + name)
+    def _impl(ctx, ins, attrs):
+        x = first(ins, 'X')
+        if binary:
+            return out(fn(x, first(ins, 'Y')))
+        return out(fn(x))
+
+    return _impl
+
+
+_logical('and', torch.logical_and)
+_logical('or', torch.logical_or)
+_logical('xor', torch.logical_xor)
+_logical('not', torch.logical_not, binary=False)
 
 
 @register_op('select')

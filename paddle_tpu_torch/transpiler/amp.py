@@ -163,7 +163,7 @@ def _barrier(op):
     traits = op_traits(op.type)
     if not traits.registered:
         return op.type != 'autodiff'
-    if op.type in passes.EFFECTFUL_OPS:
+    if traits.needs_env or op.type in passes.EFFECTFUL_OPS:
         return True
     return any(k in op.attrs for k in passes._SUB_BLOCK_ATTR_KEYS)
 

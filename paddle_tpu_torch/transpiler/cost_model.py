@@ -21,11 +21,10 @@ Model, per op (the class is ``registry.op_traits().cost``):
   a sub-block or with effects): no per-op verdict; they are named in
   ``coverage['waived']``, never costed 0.
 
-Shapes resolve as the verifier resolves them: declared VarDesc shapes
-with the -1 batch bound from the feed specs, and, for outputs declared
-without a shape, the op's compute function run on meta tensors
-(core/infer.py ``infer_outputs_cached``; the reference infers every
-output first, which gives the same specs where the declarations hold).
+Shapes resolve as the reference resolves them: each op's outputs by its
+compute function run on meta tensors from its input specs (core/infer.py
+``infer_outputs_cached``), the declared VarDesc shapes with the -1 batch
+bound from the feed specs where that fails.
 
 Not ported: the collective and pipeline-parallel pricing (the reference's
 ``_collective_costs``, ``overlap_schedule``, ``_pp_exposure``) comes with
@@ -46,9 +45,9 @@ FLOPS_BASIS = ('FLOPs = 2 x MACs from closed-form per-op formulas '
                'bytes-moved with FLOPs=0; autodiff (backward) = 2 x its '
                'loss-contributing forward slice')
 
-# Ops with no per-op dense-tensor cost, each with its reason.  The
-# reference's other entries (LoDTensorArray and beam-search ops) join with
-# their ops (ROADMAP.md Queue 1 item 6).
+# Ops with no per-op dense-tensor cost, each with its reason (the
+# reference's entries; control-flow ops are waived by their kind,
+# ``_structurally_waived``).
 WAIVED_OPS = {
     # modelled at the slice level (2 x forward), not as one op
     'autodiff': 'backward modeled as 2x the loss-contributing forward '
@@ -56,6 +55,15 @@ WAIVED_OPS = {
     # a (rows, values) handle whose extent is the touched rows
     'sparse_grad_assemble': 'SelectedRows handle; touched-row count is '
                             'data-dependent',
+    # tensor-array handles: their length and content are loop state
+    'write_to_array': 'LoDTensorArray handle op',
+    'read_from_array': 'LoDTensorArray handle op',
+    'array_length': 'LoDTensorArray handle op',
+    'array_to_lod_tensor': 'LoDTensorArray handle op',
+    'lod_tensor_to_array': 'LoDTensorArray handle op',
+    # the beams' per-step hypothesis state
+    'beam_search': 'ragged beam state; extent is data-dependent',
+    'beam_search_decode': 'ragged beam state; extent is data-dependent',
 }
 
 
@@ -411,9 +419,11 @@ def prefill_cost(n_layers, d_model, n_heads, d_ff, vocab_size,
 
 
 def _structurally_waived(op):
-    """Ops without a per-op verdict by their kind: unregistered, with
-    effects (control flow, communication) or with a sub-block."""
-    return (not op_traits(op.type).registered
+    """Ops without a per-op verdict by their kind: unregistered, reading
+    the live environment or with effects (control flow, communication),
+    or with a sub-block."""
+    traits = op_traits(op.type)
+    return (not traits.registered or traits.needs_env
             or op.type in passes.EFFECTFUL_OPS
             or any(k in op.attrs for k in passes._SUB_BLOCK_ATTR_KEYS))
 
@@ -490,28 +500,31 @@ def _resolve_in_specs(block, op, env, batch):
 
 
 def _out_specs(block, op, in_specs, env, batch):
-    """Output specs: the declared (batch-bound) shapes, and the op's
-    meta-tensor inference for outputs declared without one, which then
-    enter the propagation environment.  The reference infers every
-    output first; the port trusts a declaration, as its verifier does,
-    so a plan runs no op on meta tensors whose outputs are declared."""
-    declared = {slot: [_declared_spec(block, n, batch) for n in names]
-                for slot, names in op.outputs.items()}
-    if all(s is not None for vals in declared.values() for s in vals):
-        return declared
+    """Output specs: the op's meta-tensor inference from its input specs
+    (core/infer.py, memoized), with the declared (batch-bound) shapes as
+    the fallback; an inferred output declared without a shape enters the
+    propagation environment.  As the reference: a declaration binds every
+    -1 to the batch, which a ragged [B, T, D] value's time axis is not."""
     from ..core.infer import infer_outputs_cached
     try:
         outs = infer_outputs_cached(op.type, in_specs, op.attrs,
                                     list(op.outputs))
     except Exception:
         outs = None
+    specs = {}
     for slot, names in op.outputs.items():
         inferred = (outs or {}).get(slot, [])
+        vals = []
         for i, n in enumerate(names):
-            if declared[slot][i] is None and i < len(inferred) and \
-                    inferred[i] is not None:
-                declared[slot][i] = env[n] = inferred[i]
-    return declared
+            s = inferred[i] if i < len(inferred) else None
+            declared = _declared_spec(block, n, batch)
+            if s is None:
+                s = declared
+            elif declared is None:
+                env[n] = s
+            vals.append(s)
+        specs[slot] = vals
+    return specs
 
 
 def _role(op):

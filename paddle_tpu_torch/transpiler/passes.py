@@ -150,6 +150,8 @@ def _resolve_level(level):
 def _is_effectful(op):
     if op.type in EFFECTFUL_OPS:
         return True
+    if op_traits(op.type).needs_env:
+        return True   # an environment op is a barrier even if not listed
     if any(k in op.attrs for k in _SUB_BLOCK_ATTR_KEYS):
         return True
     if not op_traits(op.type).registered and op.type != 'autodiff':
@@ -342,7 +344,7 @@ def _eval_op(op, const_env):
     {output_name: np.ndarray} or raises (caller skips the fold)."""
     from ..core.registry import get_op_impl
     impl = get_op_impl(op.type)
-    if impl.stateful_rng:
+    if impl.needs_env or impl.stateful_rng:
         raise RuntimeError("op %r draws random numbers" % op.type)
     ins = {slot: [torch.from_numpy(np.array(const_env[n])) for n in names]
            for slot, names in op.inputs.items()}

@@ -89,8 +89,16 @@ def resolve_mode(mode=None):
         "got %r" % (mode,))
 
 
-# The reference's per-op waivers of the signature checks
-# (ALLOWED_EXTRA_IN_SLOTS and its kin) waive nothing the port registers.
+# The reference's per-op waivers of the signature checks: its
+# ALLOWED_EXTRA_IN_SLOTS and ALLOWED_EXTRA_OUT_SLOTS are empty.
+
+# op type -> attr keys introspected as required that an OpDesc may omit.
+ALLOWED_MISSING_ATTRS = {
+    # `recurrent` reads attrs['seq_len'] only when it has no step inputs
+    # (a boot-only RNN), in a conditional expression the introspection
+    # counts as unconditional.
+    'recurrent': {'seq_len'},
+}
 
 # ops excluded from the re-inference agreement check.
 INFER_SKIP_OPS = {
@@ -165,27 +173,33 @@ def _check_signatures(program, errors):
             sig = op_signature(op.type)
             if sig is None:
                 continue
-            if not sig.in_open:
-                for slot in sorted(set(op.inputs) - sig.in_slots):
-                    if op.inputs[slot]:
-                        errors.append(
-                            "%s declares input slot %r (vars %s), "
-                            "but the registered compute function "
-                            "only reads %s"
-                            % (_op_str(b.idx, i, op), slot,
-                               op.inputs[slot],
-                               sorted(sig.in_slots)))
-            if not sig.out_open:
-                for slot in sorted(set(op.outputs) - sig.out_slots):
-                    if op.outputs[slot]:
-                        errors.append(
-                            "%s declares output slot %r (vars %s), "
-                            "but the compute function only produces "
-                            "%s — those vars would stay undefined"
-                            % (_op_str(b.idx, i, op), slot,
-                               op.outputs[slot],
-                               sorted(sig.out_slots)))
-            for k in sorted(sig.required_attrs - set(op.attrs)):
+            if not traits.needs_env:
+                # a control-flow op binds its slots through the live
+                # environment: they exist for liveness, not for its
+                # compute function
+                if not sig.in_open:
+                    for slot in sorted(set(op.inputs) - sig.in_slots):
+                        if op.inputs[slot]:
+                            errors.append(
+                                "%s declares input slot %r (vars %s), "
+                                "but the registered compute function "
+                                "only reads %s"
+                                % (_op_str(b.idx, i, op), slot,
+                                   op.inputs[slot],
+                                   sorted(sig.in_slots)))
+                if not sig.out_open:
+                    for slot in sorted(set(op.outputs) - sig.out_slots):
+                        if op.outputs[slot]:
+                            errors.append(
+                                "%s declares output slot %r (vars %s), "
+                                "but the compute function only produces "
+                                "%s — those vars would stay undefined"
+                                % (_op_str(b.idx, i, op), slot,
+                                   op.outputs[slot],
+                                   sorted(sig.out_slots)))
+            missing = (sig.required_attrs - set(op.attrs)
+                       - ALLOWED_MISSING_ATTRS.get(op.type, set()))
+            for k in sorted(missing):
                 errors.append(
                     "%s: attr %r is read unconditionally by the compute "
                     "function but the OpDesc does not carry it"
@@ -332,6 +346,7 @@ def _check_infer(program, errors):
         for i, op in enumerate(b.ops):
             traits = op_traits(op.type)
             if (op.type in INFER_SKIP_OPS or not traits.registered
+                    or traits.needs_env
                     or op.type in passes.EFFECTFUL_OPS
                     or any(k in op.attrs
                            for k in passes._SUB_BLOCK_ATTR_KEYS)):

@@ -14,8 +14,13 @@ executor's ``last_step_report``.
   equal to the reference's; level 0 runs neither.
 - Coverage: every op type the port registers gets a cost verdict and
   sizes its outputs, or has a waiver: from the port's model programs at
-  small sizes, and, for the rest, a single-op program of (3, 4) float32
-  inputs as the reference's sweep builds them.
+  small sizes, a control-flow program and seq2seq's beam decode, and,
+  for the rest, a single-op program of (3, 4) float32 inputs as the
+  reference's sweep builds them; ``create_array`` alone has neither, as
+  in the reference.  Each op the control-flow slice brings is classed
+  as the reference classes it (the same reports on the reference
+  sweep's program), and the decode program's reports equal the
+  reference's.
 - ``last_step_report`` on the CPU: the phases with the modelled FLOPs,
   ``memory`` with the modelled peak and a measured block of None (never
   0), ``mfu`` only when PADDLE_TPU_TORCH_PEAK_TFLOPS is set, the headroom
@@ -331,23 +336,87 @@ def _slot_semantic_programs():
                               feed_names=tuple(specs), level=1,
                               amp_mode='f16', verify='off')
     out.append((f16, specs))
+    out.append(_control_flow_program())
+    (_, decode), _, specs = _decode_programs()
+    out.append((decode, specs))
     return out
+
+
+def _control_flow_program():
+    """A StaticRNN, a ConditionalBlock, the IfElse row split and merge, a
+    rank table and a shrunk memory: the control-flow ops on the shapes
+    their slots want."""
+    main = tfl.Program()
+    layers = tfl.layers
+    with tfl.program_guard(main, tfl.Program()):
+        x = layers.data(name='x', shape=[5, 3], dtype='float32')
+        h = layers.data(name='h', shape=[3], dtype='float32')
+        mask = layers.data(name='mask', shape=[1], dtype='bool')
+        rnn = layers.StaticRNN()
+        with rnn.step():
+            xt = rnn.step_input(x)
+            mem = rnn.memory(shape=[-1, 3], batch_ref=x)
+            acc = layers.elementwise_add(x=mem, y=xt)
+            rnn.update_memory(mem, acc)
+            rnn.step_output(acc)
+        rnn()
+        with layers.ConditionalBlock([layers.reduce_sum(mask)]).block():
+            layers.scale(x=h, scale=2.0)
+        t, f = layers.split_lod_tensor(h, mask)
+        layers.merge_lod_tensor(t, f, h, mask)
+        table = layers.lod_rank_table(x)
+        layers.max_sequence_len(table)
+        layers.shrink_memory(h, layers.zeros(shape=[1], dtype='int64'),
+                             table)
+    return main, {'x': ((2, 5, 3), 'float32'), 'h': ((2, 3), 'float32'),
+                  'mask': ((2, 1), 'bool')}
+
+
+def _decode_programs(K=2):
+    """seq2seq's beam decode at a small width, built by both packages."""
+    from paddle_tpu.models import seq2seq as js2s
+    from paddle_tpu_torch.models import seq2seq as ts2s
+    out = []
+    for pkg, pm, mod in ((fluid, jprog, js2s), (tfl, tprog, ts2s)):
+        with pm.reset_unique_name_guard():
+            main = pkg.Program()
+            with pkg.program_guard(main, pkg.Program()):
+                src = pkg.layers.data(name='src_word_id', shape=[1],
+                                      dtype='int64', lod_level=1)
+                ids, scores = mod.decode(src, 60, word_dim=8, hidden_dim=16,
+                                         beam_size=K, max_len=4)
+        out.append(main)
+    specs = {'src_word_id': ((2, 5, 1), 'int32'),
+             'src_word_id@LEN': ((2,), 'int32')}
+    return out, (ids.name, scores.name), specs
 
 
 def _single_op_program(t):
     """The reference sweep's single-op program of op type ``t``, through
-    the port's op signature, with (3, 4) float32 inputs."""
+    the port's op signature, with (3, 4) float32 inputs (a sub-block op
+    gets an empty block, a while its condition fed)."""
     from tests.test_zz_op_coverage import _SWEEP_ATTR_VALUES
     sig = treg.op_signature(t)
     in_slots = sorted(sig.in_slots) or ([] if not sig.in_open else ['X'])
     out_slots = sorted(sig.out_slots) or ['Out']
     p = tfl.Program()
-    attrs = {k: _SWEEP_ATTR_VALUES[k] for k in sorted(sig.required_attrs)}
+    attrs = {}
+    for k in sorted(sig.required_attrs):
+        if k == 'sub_block':
+            p.create_block()
+            p.current_block_idx = 0
+            attrs[k] = 1
+        elif k == 'condition':
+            attrs[k] = 'swp_cond'
+        else:
+            attrs[k] = _SWEEP_ATTR_VALUES[k]
     inputs = {s: ['swp_%s_%s' % (t, s)] for s in in_slots}
     outputs = {s: ['swpout_%s_%s' % (t, s)] for s in out_slots}
     p.global_block().append_op(type=t, inputs=inputs, outputs=outputs,
                                attrs=attrs)
     feeds = {n: ((3, 4), 'float32') for ns in inputs.values() for n in ns}
+    if 'condition' in attrs:
+        feeds['swp_cond'] = ((3, 4), 'float32')
     fetches = tuple(n for ns in outputs.values() for n in ns)
     return p, fetches, feeds
 
@@ -380,8 +449,14 @@ def test_every_registered_op_has_a_verdict_or_a_waiver():
             take(*_single_op_program(t))
     missing = {t: bad.get(t, 'never costed')
                for t in treg.registered_ops() if t not in ok}
-    assert missing == {}
-    assert len(treg.registered_ops()) == 80
+    # an array's handle has no dense extent and no waiver: the reference
+    # reports create_array as a no-verdict op too
+    assert missing == {'create_array': 'no cost verdict'}
+    from tests.test_zz_op_coverage import _sweep_program
+    p, fetches, feeds = _sweep_program('create_array')
+    assert jcm.analyze_cost(p, fetches, {})['coverage']['no_verdict'] == [
+        'create_array']
+    assert len(treg.registered_ops()) == 109
     # the class invariants: a mac op has its formula; waivers are real
     for t in treg.registered_ops():
         assert treg.op_traits(t).cost == treg.cost_class(t)
@@ -392,6 +467,52 @@ def test_every_registered_op_has_a_verdict_or_a_waiver():
     for t in tcm.WAIVED_OPS:
         assert t == 'autodiff' or treg.has_op(t)
     assert 'autodiff' not in tmm.WAIVED_OPS
+
+
+# the op types the control-flow slice brings
+CONTROL_FLOW_OPS = [
+    'while', 'conditional_block', 'recurrent', 'create_array',
+    'write_to_array', 'read_from_array', 'array_length',
+    'lod_tensor_to_array', 'array_to_lod_tensor', 'lod_rank_table',
+    'max_sequence_len', 'shrink_rnn_memory', 'print', 'is_empty',
+    'split_lod_tensor', 'merge_lod_tensor', 'expand', 'fill_zeros_like',
+    'fill_constant_batch_size_like', 'logical_and', 'logical_or',
+    'logical_xor', 'logical_not', 'reorder_lod_tensor_by_rank', 'log',
+    'beam_search', 'beam_search_init', 'beam_gather', 'beam_search_decode']
+
+
+@pytest.mark.parametrize('op', CONTROL_FLOW_OPS)
+def test_control_flow_ops_are_classed_as_the_reference(op):
+    """The reference sweep's single-op program of each op the slice
+    brings, costed and sized by both packages: the same waivers,
+    no-verdicts, unsized outputs and numbers."""
+    from tests.test_zz_op_coverage import _sweep_program
+    p, fetches, feeds = _sweep_program(op)
+    specs = {n: ((3, 4), 'float32') for n in feeds}
+    tp = tfl.Program.from_dict(p.to_dict())
+    assert tcm.analyze_cost(tp, fetches, specs) == jcm.analyze_cost(
+        p, fetches, specs)
+    assert tmm.analyze_memory(tp, fetches, specs) == jmm.analyze_memory(
+        p, fetch_names=fetches, feed_specs=specs)
+
+
+@pytest.mark.parametrize('level', [None, 'dots', 'full'])
+def test_decode_reports_equal_the_reference(level):
+    """seq2seq's beam decode: neither model descends into the loop's
+    block, so the while is waived and the reports are the global
+    block's."""
+    (jmain, tmain), fetch, specs = _decode_programs()
+    assert tmain.to_dict() == jmain.to_dict()
+    if level is not None:
+        fluid.memory_optimize(jmain, level=level)
+        tfl.memory_optimize(tmain, level=level)
+    want = jcm.analyze_cost(jmain, fetch_names=fetch, feed_specs=specs)
+    got = tcm.analyze_cost(tmain, fetch_names=fetch, feed_specs=specs)
+    assert got == want
+    assert 'while' in got['coverage']['waived']
+    assert got['coverage']['no_verdict'] == ['create_array']
+    assert tmm.analyze_memory(tmain, fetch, specs) == jmm.analyze_memory(
+        jmain, fetch_names=fetch, feed_specs=specs)
 
 
 def test_closed_forms_equal_the_reference():

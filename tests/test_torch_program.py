@@ -113,8 +113,9 @@ def test_op_roles_and_the_autodiff_op():
      {'causal': True}, ['Out'], {'Out': [((-1, 32, 2, 4), 'float32')]}),
     ('mean', {'X': [((-1, 32, 1), 'float32')]}, {}, ['Out'],
      {'Out': [((1,), 'float32')]}),
+    # 64-bit constants narrow to 32 bits, as the reference's do
     ('fill_constant', {}, {'shape': [3, 2], 'dtype': 'int64', 'value': 1.0},
-     ['Out'], {'Out': [((3, 2), 'int64')]}),
+     ['Out'], {'Out': [((3, 2), 'int32')]}),
 ])
 def test_meta_inference_keeps_the_batch_dim(op_type, specs, attrs, slots,
                                             want):

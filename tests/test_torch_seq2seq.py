@@ -269,15 +269,33 @@ def test_earlier_training_programs_run_every_op(build, opt):
 
 
 def test_what_the_slice_does_not_bring_raises():
+    """Generation (``decode``) came with the control-flow slice and builds
+    the reference's While program (tests/test_torch_beam_search.py holds
+    it to the reference); what is still to come raises, naming its
+    ROADMAP item: ParallelDo (item 10) and a second autodiff op
+    (item 6)."""
+    types = []
+    for pkg, pm, mod in ((fluid, jprog, js2s), (tfl, tprog, ts2s)):
+        with pm.reset_unique_name_guard():
+            main = pkg.Program()
+            with pkg.program_guard(main, pkg.Program()):
+                src = pkg.layers.data(name='src_word_id', shape=[1],
+                                      dtype='int64', lod_level=1)
+                mod.decode(src, V)
+            types.append(sorted(op.type for b in main.blocks
+                                for op in b.ops))
+    assert types[0] == types[1] and {'while', 'beam_search'} <= set(types[1])
     with tfl.program_guard(tfl.Program(), tfl.Program()):
-        with pytest.raises(NotImplementedError, match='item 6'):
-            ts2s.decode(None, V)
-    # the reference's generation program for comparison builds While ops
-    with jprog.reset_unique_name_guard():
-        with fluid.program_guard(fluid.Program(), fluid.Program()):
-            src = fluid.layers.data(name='src_word_id', shape=[1],
-                                    dtype='int64', lod_level=1)
-            js2s.decode(src, V)
-            types = {op.type for b in fluid.default_main_program().blocks
-                     for op in b.ops}
-    assert {'while', 'beam_search'} <= types
+        with pytest.raises(NotImplementedError, match='item 10'):
+            tfl.layers.ParallelDo()
+    main = tfl.Program()
+    with tfl.program_guard(main, tfl.Program()):
+        x = tfl.layers.data(name='x', shape=[3], dtype='float32')
+        w = tfl.layers.create_parameter([3, 1], 'float32')
+        for _ in range(2):
+            tfl.backward.calc_gradient(
+                tfl.layers.mean(tfl.layers.mul(x, w)), [w])
+    with pytest.raises(NotImplementedError, match='item 6'):
+        tfl.Executor(tfl.CPUPlace()).run(
+            main, feed={'x': np.ones((2, 3), 'float32')},
+            fetch_list=[w.name + '@GRAD'])
