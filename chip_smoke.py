@@ -46,7 +46,9 @@ line:
    shapes and N = 1,000,003, every rule, and the momentum rule with and
    without Nesterov at ResNet-50's 28 parameter shapes (OIHW filters from
    64x3x7x7 to 2048x512x1x1, the 1-D biases and BN vectors, the fc) and
-   VGG-16's 17 (its filters, fc1's 25088 x 4096, the biases); timed at
+   VGG-16's 17 (its filters, fc1's 25088 x 4096, the biases), and the
+   sgd rule at SRL's 12 trainable shapes (mark_emb's 2x5 to 512x512) at
+   both of its rates (0.01, and crfw's 0.01 x 1e-3); timed at
    30000 x 512 beside ``torch.optim.Adam(fused=True)`` (a yardstick
    only), both in device time and per call, and the momentum rule at
    ResNet-50's largest filter (512x512x3x3, four sets in turn so each
@@ -377,6 +379,36 @@ line:
    IfElse net, and tests/test_rnn_wrappers.py's cases (StaticRNN,
    DynamicRNN, ConditionalBlock with a nested While, IfElse).  Phases
    56-58 take about 11 s on an H100.
+59. SRL training (``SRL``): ``models.srl.build`` at the book's widths
+   (word 32, mark 5, hidden 512, depth 4) on the synthetic CoNLL-2005
+   dicts (4427 words, 300 verbs, mark 2, 19 labels).  First the book
+   test on the card (tests/book/test_label_semantic_roles.py: SGD 0.01,
+   ``DataFeeder`` over the first 128 test sentences in batches of 16, 2
+   epochs; every loss finite, the mean of the last 4 below 18.0); then
+   256 staged sentences (lengths 5-30) through ``run_steps``, a warm-up
+   and 20 timed single-step calls: step ms p50, sentences/s, tokens/s
+   (the lengths' sum a step), peak memory and a traced step (busy, idle
+   share, kernels, the five largest device ops).  Every step must launch
+   #5 once per trainable parameter (43; ``word_emb`` is frozen) and #7
+   and #8 never: the LSTMs' relu and sigmoid activations take the scan,
+   as in the reference.  Then one step on the card and on the CPU from
+   the same state: the loss within ``TOL_SRL_LOSS`` relative, and each
+   card Viterbi path, scored on the CPU with the CPU's emissions, within
+   ``TOL_SRL_VITERBI`` of the CPU's best path's score (the share of
+   equal tags reported), each trainable parameter after the step within
+   ``TOL_SRL_UPDATE`` of its update and ``word_emb`` bitwise unchanged.
+   (Phase 8 holds #5's sgd rule bitwise at SRL's trainable shapes.)
+60. the op sweep: the slice's 16 op types on the card against the CPU on
+   the CPU tests' inputs (tests/torch_seqlab_cases.py): integer outputs
+   exactly, float outputs and the gradients of ``linear_chain_crf``
+   (emission, transition) and ``warpctc`` (logits) within
+   ``TOL_SRL_OPS``; the host syncs of each case's first card call
+   counted (``set_sync_debug_mode('warn')``), none allowed for the CRF,
+   CTC and metric ops.
+61. ``evaluator.ChunkEvaluator`` (IOB, 9 chunk types) over phase 59's
+   model's Viterbi decode of the 1024-sentence test split on the card,
+   and over the card's fetched paths on the CPU: precision, recall and
+   F1 equal.  Phases 59-61 take about 30 s on an H100.
 52. a ``{"kernels": [...]}`` line (ten kernels, each with its launches by
    path; ``bound_ms`` at the rate of the units a kernel computes on: the
    tensor cores at 3xTF32 for #1-#4 and #7-#10, with their CUDA-core
@@ -384,8 +416,9 @@ line:
    the rest; #1 and #2 also at the training shape on bf16 and f16 q/k/v,
    ``amp_training_shape``, with SDPA on the same inputs and the bounds
    at the 3xTF32 and the 16-bit tensor-core rates; the launches of
-   phases 53-58 in ``launches_by_path``; #9's time at the decode's shape
-   as ``decode_shape``), printed after phase 55, then
+   phases 53-59 in ``launches_by_path``, #7's and #8's 0 on SRL among
+   them; #9's time at the decode's shape as ``decode_shape``), printed
+   after phase 61, then
    the card's line, and last ``{"ok": true, "device": {...}}``.
 
 With ``--long-step`` the script runs phase 26 alone, in a process that
@@ -393,6 +426,7 @@ has allocated nothing before the step, and prints its record (step
 times, peak memory): copied into another checkout and run there too in
 the same call, it compares two trees' 128K step on one card.
 """
+import importlib.util
 import json
 import os
 import re
@@ -400,6 +434,8 @@ import shutil
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -421,10 +457,11 @@ from paddle_tpu_torch.datasets import mnist as mnist_data  # noqa: E402
 from paddle_tpu_torch.datasets import wmt14  # noqa: E402
 from paddle_tpu_torch.datasets import common as data_common  # noqa: E402
 from paddle_tpu_torch.datasets import imikolov, movielens  # noqa: E402
+from paddle_tpu_torch.datasets import conll05  # noqa: E402
 from paddle_tpu_torch.models import ctr, recommender, word2vec  # noqa: E402
 from paddle_tpu_torch.models import mnist, resnet, vgg  # noqa: E402
 from paddle_tpu_torch.models import rnn_lm, sentiment  # noqa: E402
-from paddle_tpu_torch.models import seq2seq  # noqa: E402
+from paddle_tpu_torch.models import seq2seq, srl  # noqa: E402
 from paddle_tpu_torch.models import transformer as ttr  # noqa: E402
 from paddle_tpu_torch.models.transformer import (  # noqa: E402
     TransformerConfig, init_params)
@@ -436,6 +473,7 @@ from paddle_tpu_torch.ops.kernels import lstm as lk  # noqa: E402
 from paddle_tpu_torch.ops.kernels import table_update as tu  # noqa: E402
 from paddle_tpu_torch.flags import ENV_PREFIX, FLAGS  # noqa: E402
 from paddle_tpu_torch.transpiler import amp  # noqa: E402
+from paddle_tpu_torch.core import program as tprog  # noqa: E402
 
 SEED = 20
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s; float32 on
@@ -1361,6 +1399,22 @@ def phase_dense_kernel():
                 results.append(dict(shape=list(shape), rule=rule,
                                     bitwise=same, model=model))
             del p, m, g, want, got
+    # SRL's trainable shapes (mark_emb's 2 x 5 to the LSTMs' 512 x 2048)
+    # under its sgd rule at both of its rates: SGD 0.01, and crfw's 0.01
+    # scaled by mix_hidden_lr on the card, as the scale op makes it
+    srl_lr = torch.tensor([SRL['lr']], device='cuda')
+    for shape in _srl_trainable_shapes():
+        p, g = (torch.randn(shape, generator=gen, device='cuda')
+                for _ in range(2))
+        for rate in (srl_lr, srl_lr * srl.mix_hidden_lr):
+            want = _dense_call('sgd', p, None, None, g, rate, plain=True)
+            got = _dense_call('sgd', p.clone(), None, None, g, rate,
+                              plain=False)
+            torch.cuda.synchronize()
+            same = torch.equal(got[0], want[0])
+            worst = max(worst, float((got[0] - want[0]).abs().max()))
+            results.append(dict(shape=list(shape), rule='sgd',
+                                lr=float(rate), bitwise=same, model='srl'))
     empty = torch.zeros((0,), device='cuda')
     du.dense_apply_sgd(empty, empty, lr)
     bad = [r for r in results if not r['bitwise']]
@@ -5701,6 +5755,13 @@ def _check_decode_out(ids, scores, b, k, max_len, what):
                          % (what, scores[:2]))
 
 
+def _is_host_sync(message):
+    """torch's words for a host sync under ``set_sync_debug_mode('warn')``.
+    The mode's first setting in a process also warns, from the setter,
+    that the mode is a prototype: that notice is no sync."""
+    return 'called a synchronizing' in str(message).lower()
+
+
 def phase_decode(s2s, c=DECODE):
     """Phase 56: the beam decode at bench_decode.py's width in phase 20's
     scope.  Decode ms p50 over ``rounds`` run_steps calls of ``reps``
@@ -5711,8 +5772,6 @@ def phase_decode(s2s, c=DECODE):
     #9's device time at the decode's shape; peak memory; the host syncs of
     one decode (``set_sync_debug_mode('warn')``: reported, not gated); a
     traced decode's busy and idle share and its kernels by name."""
-    import traceback
-    import warnings
     exe, scope = s2s['exe'], s2s['scope']
     main, ids, scores = _decode_program(c, c['K'])
     bad = [(p.name, p.shape) for p in main.all_parameters()
@@ -5757,7 +5816,7 @@ def phase_decode(s2s, c=DECODE):
 
     def note_sync(message, *args, **kwargs):
         # the innermost frame of the port or of this script names the site
-        if 'synchroniz' not in str(message).lower():
+        if not _is_host_sync(message):
             return
         frames = [f for f in traceback.extract_stack()[:-1]
                   if 'paddle_tpu_torch' in f.filename or
@@ -6161,6 +6220,446 @@ def phase_control_flow_books():
     return res
 
 
+# the SRL BiLSTM-CRF (models/srl.py at the book's widths: word 32, mark
+# 5, hidden 512, depth 4) on the synthetic CoNLL-2005 dicts (4427 words,
+# 300 verbs, mark 2, 19 labels).  The book gate is tests/book/
+# test_label_semantic_roles.py's: SGD 0.01, the first 128 test sentences
+# in batches of 16 (drop_last), 2 epochs, every loss finite and the mean
+# of the last 4 below 18.0.  The timed run stages the first 256 test
+# sentences (lengths 5-30, as the reader draws them) once and takes 20
+# single-step run_steps calls after a warm-up; the parity step takes the
+# next 16.  The evaluator pass walks the 1024-sentence split in 4
+# batches.
+SRL = dict(B=256, steps=20, lr=0.01, book_samples=128, book_B=16,
+           book_epochs=2, book_gate=18.0, parity_B=16, eval_B=256,
+           chunk_types=9)
+# card vs CPU, one SGD step from the same state: the mean CRF NLL,
+# relative (a sum over up to 30 steps of log-sum-exps of float32
+# emissions that went through 4 LSTM layers of 512 units; the two
+# devices' GEMMs sum in other orders, ~1e-6 relative a layer)
+TOL_SRL_LOSS = 1e-4
+# a card Viterbi path scored in float64 with the CPU's emissions and the
+# transition, against the CPU's best path's score, relative: equal but
+# for near-ties (two paths within the emissions' card-vs-CPU gap)
+TOL_SRL_VITERBI = 1e-5
+# card vs CPU, the same SGD step from the same state: each trainable
+# parameter's gap after the step, relative to its largest update on the
+# CPU.  A skipped apply or a wrong rate (crfw's 1e-3 scale lost) is a gap
+# near 1; the gradients' float32 summation orders differ by ~1e-5 of it
+TOL_SRL_UPDATE = 1e-3
+# the op sweep: float outputs and gradients of the card against the CPU,
+# relative to max(1, |CPU value|) (O(1-20) values from float32
+# log-sum-exps and sums of at most 9 steps); integer outputs exact
+TOL_SRL_OPS = 1e-5
+
+
+def _srl_program(seed, optimizer=True, chunk_eval=False, c=SRL):
+    """models.srl.build at the book's widths, names reset so every build
+    names its parameters alike: (main, startup, feeds, feature_out,
+    crf_decode, avg_cost, evaluator or None)."""
+    word_dict, verb_dict, label_dict = conll05.get_dict()
+    with tprog.reset_unique_name_guard():
+        main, startup = tfl.Program(), tfl.Program()
+        main.random_seed = startup.random_seed = seed
+        with tfl.program_guard(main, startup):
+            feeds, feature_out, decode, cost = srl.build(
+                len(word_dict), len(verb_dict), 2, len(label_dict))
+            if optimizer:
+                tfl.optimizer.SGDOptimizer(c['lr']).minimize(cost)
+            ev = tfl.evaluator.ChunkEvaluator(
+                decode, feeds[-1], 'IOB', c['chunk_types']) \
+                if chunk_eval else None
+    return main, startup, feeds, feature_out, decode, cost, ev
+
+
+def _trainable(main):
+    return [p.name for p in main.all_parameters() if p.trainable]
+
+
+def _srl_trainable_shapes():
+    """The distinct shapes of SRL's trainable parameters at the book's
+    widths."""
+    main = _srl_program(SEED)[0]
+    return sorted({tuple(p.shape) for p in main.all_parameters()
+                   if p.trainable})
+
+
+def _staged(feed):
+    """A DataFeeder's feed as int32 tensors on the card, each ragged
+    name's lengths as ``name@LEN``."""
+    out = {}
+    for n, v in feed.items():
+        out[n] = torch.from_numpy(np.ascontiguousarray(
+            v.padded()).astype(np.int32)).cuda()
+        out[n + '@LEN'] = torch.tensor(v.lengths(),
+                                       dtype=torch.int32).cuda()
+    return out
+
+
+def _book_srl(c=SRL):
+    """tests/book/test_label_semantic_roles.py on the card, its gate
+    unchanged; #5 must launch once per trainable parameter a step, #7
+    and #8 never (the relu / sigmoid LSTMs take the scan)."""
+    main, startup, feeds, _, _, cost, _ = _srl_program(7)
+    place = tfl.CUDAPlace(0)
+    exe, scope = tfl.Executor(place), tfl.Scope()
+    exe.run(startup, scope=scope)
+    feeder = tfl.DataFeeder(feed_list=feeds, place=place, program=main)
+    reader = tfl.batch(tfl.reader.firstn(conll05.test(), c['book_samples']),
+                       c['book_B'], drop_last=True)
+    t0 = time.perf_counter()
+    _zero_counts()
+    losses = [float(exe.run(main, feed=feeder.feed(b), fetch_list=[cost],
+                            scope=scope)[0][0])
+              for _ in range(c['book_epochs']) for b in reader()]
+    counts = _counts()
+    per_step = {k: n / len(losses) for k, n in counts.items()}
+    res = dict(steps=len(losses), seconds=time.perf_counter() - t0,
+               losses=losses, first4_mean=float(np.mean(losses[:4])),
+               last4_mean=float(np.mean(losses[-4:])), gate=c['book_gate'],
+               trainable_params=len(_trainable(main)), launches=counts,
+               launches_per_step=per_step)
+    print("book label_semantic_roles on the card: %s" % json.dumps(res))
+    if not all(np.isfinite(losses)) or not res['last4_mean'] < c['book_gate']:
+        raise SystemExit("book SRL misses its gate: %s" % res)
+    if per_step != _want(dense_update=len(_trainable(main))):
+        raise SystemExit("book SRL launches per step %s" % per_step)
+    return res
+
+
+def _path_scores(emission, transition, paths, lengths):
+    """float64 score of each row's path: start + emissions + transitions
+    + end over the row's length."""
+    e = emission.astype(np.float64)
+    tr = transition.astype(np.float64)
+    out = []
+    for b, ln in enumerate(lengths):
+        p = paths[b, :ln]
+        out.append(tr[0, p[0]] + tr[1, p[-1]] + e[b, np.arange(ln), p].sum()
+                   + tr[2:][p[:-1], p[1:]].sum())
+    return np.asarray(out)
+
+
+def _srl_parity(tr, samples, c=SRL):
+    """One SGD step from the trained state on the card and on the CPU
+    (plain versions): the loss within TOL_SRL_LOSS relative; each card
+    Viterbi path (crf_decoding of the step's forward) scored with the
+    CPU's emissions within TOL_SRL_VITERBI relative of the CPU path's
+    score; the share of equal tags reported; each trainable parameter
+    after the step (#5's sgd apply) within TOL_SRL_UPDATE of its update,
+    and the frozen word_emb bitwise unchanged on both."""
+    main, scope = tr['main'], tr['scope']
+    cpu_scope = tfl.Scope()
+    for v in main.list_vars():
+        if v.persistable and scope.has(v.name):
+            cpu_scope.set(v.name, scope.get(v.name).to('cpu', copy=True))
+    crfw = cpu_scope.get_numpy('crfw').copy()
+    names = _trainable(main)
+    before = {n: cpu_scope.get_numpy(n).copy()
+              for n in names + ['word_emb']}
+    feed = tfl.DataFeeder(feed_list=tr['feeds'], place=tfl.CPUPlace(),
+                          program=main).feed(samples)
+    lengths = np.asarray(feed['word_data'].lengths())
+    fetch = [tr['cost'], tr['feature_out'], tr['decode']]
+    _zero_counts()
+    card = tr['exe'].run(main, feed=feed, fetch_list=fetch, scope=scope)
+    counts = _counts()
+    cpu = tfl.Executor('cpu').run(main, feed=feed, fetch_list=fetch,
+                                  scope=cpu_scope)
+    loss_rel = abs(float(card[0][0]) - float(cpu[0][0])) / \
+        abs(float(cpu[0][0]))
+    card_paths, cpu_paths = card[2][..., 0], cpu[2][..., 0]
+    want = _path_scores(cpu[1], crfw, cpu_paths, lengths)
+    got = _path_scores(cpu[1], crfw, card_paths, lengths)
+    rescore = np.abs(got - want) / np.abs(want)
+    valid = np.arange(card_paths.shape[1])[None, :] < lengths[:, None]
+    params = {}
+    for n in names:
+        got = scope.get(n).cpu().numpy()
+        want = cpu_scope.get_numpy(n)
+        update = float(np.abs(want - before[n]).max())
+        gap = float(np.abs(got - want).max())
+        params[n] = dict(max_abs_gap=gap, max_update=update,
+                         rel=gap / update if update else float(gap > 0))
+    frozen = dict(card=bool(np.array_equal(scope.get('word_emb').cpu().numpy(),
+                                           before['word_emb'])),
+                  cpu=bool(np.array_equal(cpu_scope.get_numpy('word_emb'),
+                                          before['word_emb'])))
+    worst = max(params, key=lambda n: params[n]['rel'])
+    res = dict(sentences=len(samples), tokens=int(lengths.sum()),
+               loss_card=float(card[0][0]), loss_cpu=float(cpu[0][0]),
+               loss_rel_err=loss_rel,
+               emission_max_abs_gap=float(np.abs(card[1] - cpu[1]).max()),
+               viterbi_rescore_rel_err_max=float(rescore.max()),
+               viterbi_tags_equal_share=float(
+                   (card_paths == cpu_paths)[valid].mean()),
+               viterbi_rows_equal_share=float(np.mean(
+                   [(card_paths[b] == cpu_paths[b]).all()
+                    for b in range(len(lengths))])),
+               params_checked=len(params),
+               param_worst=dict(params[worst], name=worst),
+               param_max_abs_gap=max(r['max_abs_gap']
+                                     for r in params.values()),
+               word_emb_unchanged=frozen, launches=counts,
+               tol=dict(loss=TOL_SRL_LOSS, viterbi=TOL_SRL_VITERBI,
+                        update=TOL_SRL_UPDATE))
+    print("srl parity: %s" % json.dumps(res))
+    if not np.isfinite(card[0]).all() or not loss_rel <= TOL_SRL_LOSS:
+        raise SystemExit("the SRL step on the card disagrees with the CPU: "
+                         "%s" % res)
+    if not rescore.max() <= TOL_SRL_VITERBI:
+        raise SystemExit("a card Viterbi path scores below the CPU's best: "
+                         "%s" % res)
+    if not params[worst]['rel'] <= TOL_SRL_UPDATE or \
+            not all(frozen.values()):
+        raise SystemExit("the SRL step's parameters on the card disagree "
+                         "with the CPU's: %s" % res)
+    if counts != {k: int(v) for k, v in _want(
+            dense_update=len(_trainable(main))).items()}:
+        raise SystemExit("SRL parity step launched %s" % counts)
+    return res
+
+
+def phase_srl_training(c=SRL):
+    """Phase 59: the book gate, then the timed run at the book's widths
+    on 256 staged sentences (step ms p50, sentences/s, tokens/s, peak
+    memory, a traced step), #5 once per trainable parameter a step and #7
+    and #8 never, and the parity step."""
+    book = _book_srl(c)
+    main, startup, feeds, feature_out, decode, cost, _ = _srl_program(SEED)
+    n_train = len(_trainable(main))
+    exe, scope = tfl.Executor(), tfl.Scope()
+    exe.run(startup, scope=scope)
+    samples = list(conll05.test()())
+    batch = samples[:c['B']]
+    host = tfl.DataFeeder(feed_list=feeds, place=tfl.CPUPlace(),
+                          program=main).feed(batch)
+    lengths = np.asarray(host['word_data'].lengths())
+    feed = _staged(host)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def step():
+        out, = exe.run_steps(main, feed=feed, fetch_list=[cost],
+                             scope=scope, repeat=1)
+        return out.ravel().tolist()
+
+    _zero_counts()
+    losses = step()
+    step_ms = []
+    for _ in range(c['steps']):
+        t0 = time.perf_counter()
+        losses += step()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    wall, rows, busy = _device_kernels(step)
+    p50 = float(np.median(step_ms))
+    per_step = {k: n / len(losses) for k, n in counts.items()}
+    res = dict(
+        config='SRL db_lstm word %d mark %d hidden %d depth %d, 19 '
+        'labels, SGD %g, B=%d staged, run_steps(repeat=1)' % (
+            srl.word_dim, srl.mark_dim, srl.hidden_dim, srl.depth, c['lr'],
+            c['B']),
+        sentences=c['B'], tokens_per_step=int(lengths.sum()),
+        max_len=int(lengths.max()), step_ms=step_ms, step_ms_p50=p50,
+        sentences_per_s=c['B'] / (p50 / 1e3),
+        tokens_per_s=float(lengths.sum()) / (p50 / 1e3),
+        max_memory_allocated=peak, steps=len(losses), losses=losses,
+        trainable_params=n_train, launches=counts,
+        launches_per_step=per_step,
+        profile=dict(wall_ms=wall, device_busy_ms=busy,
+                     idle_share=1.0 - busy / wall,
+                     kernels=sum(n for *_, n in rows),
+                     top5=[dict(kernel=k[:100], ms=ms, count=n)
+                           for k, ms, n in sorted(rows,
+                                                  key=lambda r: -r[1])[:5]]))
+    print("srl training: %s" % json.dumps(res))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit("SRL loss not finite or not falling: %s" % losses)
+    if per_step != _want(dense_update=n_train):
+        raise SystemExit("SRL launches per step %s, want %d dense updates "
+                         "and no LSTM kernel" % (per_step, n_train))
+    tr = dict(main=main, scope=scope, exe=exe, feeds=feeds, cost=cost,
+              feature_out=feature_out, decode=decode)
+    res['parity'] = _srl_parity(tr, samples[c['B']:c['B'] + c['parity_B']],
+                                c)
+    res['book'] = book
+    return tr, res
+
+
+def _sweep_ins(ins, device):
+    return {k: [torch.from_numpy(v.astype(np.int32) if v.dtype == np.int64
+                                 else v).to(device) for v in vs]
+            for k, vs in ins.items()}
+
+
+def _sweep_gap(a, b):
+    """(exact, gap): integer outputs compared exactly, floats relative to
+    max(1, |b|)."""
+    a, b = a.detach().cpu(), b.detach()
+    if not b.dtype.is_floating_point:
+        return True, float(torch.ne(a, b).sum())
+    gap = ((a - b).abs() / b.abs().clamp(min=1.0)).max() if b.numel() \
+        else torch.zeros(())
+    return False, float(gap)
+
+
+# ops that must not stop for the host: the CRF, the CTC loss and the
+# metrics (the reference computes them on the device)
+SRL_NO_SYNC_OPS = ('linear_chain_crf', 'crf_decoding', 'warpctc',
+                   'chunk_eval', 'edit_distance', 'precision_recall',
+                   'positive_negative_pair')
+
+
+def _host_syncs(fn):
+    """(fn(), [file:line of each host sync torch reports while it runs]),
+    under ``set_sync_debug_mode('warn')``: a copy to the host, a blocking
+    copy from it, a stream or device synchronise."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, ['%s:%d' % (os.path.relpath(w.filename), w.lineno)
+                 for w in caught if _is_host_sync(w.message)]
+
+
+def phase_srl_op_sweep():
+    """Phase 60: each of the sequence-labelling slice's 16 op types on
+    the card on the CPU tests' inputs (tests/torch_seqlab_cases.py),
+    against the same op on the CPU: integer outputs (paths, chunk counts,
+    lengths) exactly, float outputs within TOL_SRL_OPS; the gradients of
+    linear_chain_crf (emission, transition) and warpctc (logits) too.
+    The host syncs of each case's first card call are counted; the CRF,
+    CTC and metric ops (SRL_NO_SYNC_OPS) must make none: nothing of
+    theirs goes to the host.  (``lod_reset`` makes one: its
+    ``target_lod`` attr is copied to the card, as the reference's
+    ``jnp.asarray`` puts it on the device.)"""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        'tests', 'torch_seqlab_cases.py')
+    spec = importlib.util.spec_from_file_location('torch_seqlab_cases', path)
+    seqlab_cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(seqlab_cases)
+    cases = seqlab_cases.sweep_cases()
+    worst, types, bad, syncs = {}, set(), [], {}
+    for name, op, ins, attrs in cases:
+        impl = get_op_impl(op)
+        staged = _sweep_ins(ins, 'cuda')
+        card, sites = _host_syncs(
+            lambda: impl.compute(None, staged, dict(attrs)))
+        syncs[op] = syncs.get(op, 0) + len(sites)
+        if sites and op in SRL_NO_SYNC_OPS:
+            bad.append((name, 'host syncs', sites))
+        cpu = impl.compute(None, _sweep_ins(ins, 'cpu'), dict(attrs))
+        types.add(op)
+        for slot in cpu:
+            a, b = card[slot][0], cpu[slot][0]
+            if a.device.type != 'cuda' or a.shape != b.shape or \
+                    a.dtype != b.dtype:
+                bad.append((name, slot, str(a.device), str(a.dtype)))
+                continue
+            exact, gap = _sweep_gap(a, b)
+            worst[op] = max(worst.get(op, 0.0), gap)
+            if (exact and gap) or (not exact and not gap <= TOL_SRL_OPS):
+                bad.append((name, slot, gap))
+    grads = {}
+    for name, op, ins, attrs in cases:
+        wrt = {'linear_chain_crf': ('Emission', 'Transition'),
+               'warpctc': ('Logits',)}.get(op)
+        if not wrt:
+            continue
+        outs = []
+        for device in ('cuda', 'cpu'):
+            t = _sweep_ins(ins, device)
+            leaves = [t[s][0].requires_grad_(True) for s in wrt]
+            y = get_op_impl(op).compute(None, t, dict(attrs))
+            y = y['LogLikelihood' if op == 'linear_chain_crf' else 'Loss'][0]
+            ct = torch.linspace(-1, 1, y.numel()).reshape(y.shape).to(
+                y.device)
+            outs.append(torch.autograd.grad(y, leaves, ct))
+        gap = max(_sweep_gap(a, b)[1] for a, b in zip(*outs))
+        grads[name] = gap
+        if not gap <= TOL_SRL_OPS:
+            bad.append((name, 'grad', gap))
+    res = dict(cases=len(cases), op_types=sorted(types),
+               worst_gap_by_op=worst, grad_gaps=grads, tol=TOL_SRL_OPS,
+               host_syncs_by_op=syncs, failures=bad)
+    print("srl op sweep: %s" % json.dumps(res))
+    if bad or len(types) != 16:
+        raise SystemExit("the op sweep failed on the card: %s" % res)
+    return res
+
+
+def phase_srl_chunk_eval(tr, c=SRL):
+    """Phase 61: ChunkEvaluator over phase 59's trained model's Viterbi
+    decode of the 1024-sentence test split on the card (an evaluation
+    build of models.srl, its parameters from phase 59's scope), then the
+    same evaluator on the CPU over the card's fetched paths: precision,
+    recall and F1 must be equal."""
+    main, _, feeds, _, decode, _, ev = _srl_program(
+        SEED, optimizer=False, chunk_eval=True)
+    exe, scope = tr['exe'], tr['scope']
+    place = tfl.CUDAPlace(0)
+    feeder = tfl.DataFeeder(feed_list=feeds, place=place, program=main)
+    reader = tfl.batch(conll05.test(), c['eval_B'])
+    t0 = time.perf_counter()
+    fetched = []
+    with tfl.scope_guard(scope):
+        ev.reset(exe)   # creates the states; the parameters are trained
+        for b in reader():
+            f = feeder.feed(b)
+            out = exe.run(main, feed=f, fetch_list=[decode] + ev.metrics)
+            fetched.append((out[0].reshape(len(b), -1),
+                            f['word_data'].lengths(),
+                            np.asarray(f['target'].padded()).reshape(
+                                len(b), -1)))
+        card = ev.eval(exe)
+    card_s = time.perf_counter() - t0
+    cmain, cstartup = tfl.Program(), tfl.Program()
+    with tfl.program_guard(cmain, cstartup):
+        inf = tfl.layers.data(name='inf', shape=[1], dtype='int64',
+                              lod_level=1)
+        lab = tfl.layers.data(name='lab', shape=[1], dtype='int64',
+                              lod_level=1)
+        cev = tfl.evaluator.ChunkEvaluator(inf, lab, 'IOB',
+                                           c['chunk_types'])
+    cexe = tfl.Executor('cpu')
+    with tfl.scope_guard(tfl.Scope()):
+        cexe.run(cstartup)
+        cev.reset(cexe)
+        for paths, lengths, labels in fetched:
+            cexe.run(cmain, feed={'inf': (paths[..., None], lengths),
+                                  'lab': (labels[..., None], lengths)},
+                     fetch_list=cev.metrics)
+        cpu = cev.eval(cexe)
+    res = dict(sentences=sum(len(f[1]) for f in fetched),
+               batches=len(fetched), card_seconds=card_s,
+               card=dict(precision=float(card[0]), recall=float(card[1]),
+                         f1=float(card[2])),
+               cpu=dict(precision=float(cpu[0]), recall=float(cpu[1]),
+                        f1=float(cpu[2])))
+    print("srl chunk evaluator: %s" % json.dumps(res))
+    if not np.array_equal(card, cpu) or not np.isfinite(card).all():
+        raise SystemExit("ChunkEvaluator on the card and on the CPU "
+                         "disagree: %s" % res)
+    return res
+
+
+def _srl_phases():
+    """Phases 59-61, timed together."""
+    t0 = time.perf_counter()
+    tr, res = phase_srl_training()
+    res['op_sweep'] = phase_srl_op_sweep()
+    res['chunk_eval'] = phase_srl_chunk_eval(tr)
+    print("phases 59-61 (SRL training, the op sweep, ChunkEvaluator): "
+          "%.1f s" % (time.perf_counter() - t0))
+    return res
+
+
 def _decode_phases(s2s):
     """Phases 56-58, timed together; they run right after phase 22, while
     phase 20's scope is still on the card."""
@@ -6186,13 +6685,14 @@ def _persistence_phases():
     return dict(remat=remat, ckpt=ckpt, rec=rec)
 
 
-def _add_paths(lines, paths):
+def _add_paths(lines, paths, zeros=()):
     """Adds each path's launches ({path: _counts()}) to the kernel lines'
-    ``launches`` and ``launches_by_path``."""
+    ``launches`` and ``launches_by_path``; a kernel in ``zeros`` records
+    its count even where it is 0 (a path gated to launch it never)."""
     by_name = {line['name']: line for line in lines}
     for path, counts in paths.items():
         for k, n in counts.items():
-            if n:
+            if n or k in zeros:
                 by_name[k]['launches'] += n
                 by_name[k]['launches_by_path'][path] = n
 
@@ -6316,6 +6816,8 @@ def main():
     amp_res = _amp_phases()
     torch.cuda.empty_cache()
     pers = _persistence_phases()
+    torch.cuda.empty_cache()
+    srl_res = _srl_phases()
     counts = tr['counts']
     main_row = next(r for r in rows if r['case'] == MAIN_CASE)
     fwd = dict(
@@ -6436,6 +6938,10 @@ def main():
         book_machine_translation_decode=mt['decode_launches']))
     gru_fwd['decode_shape'] = dict(dec['gru_fwd'],
                                    launches_per_decode=2)
+    # the relu / sigmoid LSTMs take the scan: #7 and #8 gated at 0
+    _add_paths(lines, dict(srl_training=srl_res['launches'],
+                           book_srl_training=srl_res['book']['launches']),
+               zeros=('lstm_fwd', 'lstm_bwd'))
     print(json.dumps({'kernels': lines}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -69,11 +69,17 @@ Ported so far:
   recordio``), the cost and memory models (``transpiler.cost_model``,
   ``transpiler.memory_model``, joined with the measured walls in
   ``Executor.last_step_report``) and rematerialization
-  (``memory_optimize(level='dots' | 'full')``).
+  (``memory_optimize(level='dots' | 'full')``);
+- control flow (``While``, ``StaticRNN``, ``DynamicRNN``, ``IfElse``,
+  the tensor arrays) and seq2seq's beam-search decode;
+- sequence labelling: the SRL BiLSTM-CRF (``models/srl.py``) on the
+  synthetic ``datasets.conll05``, with ``linear_chain_crf``,
+  ``crf_decoding``, ``chunk_eval`` and ``evaluator.ChunkEvaluator``, the
+  rest of the LoD sequence ops, and ``warpctc`` with ``edit_distance``.
 """
 from . import datasets, initializer, layers, nets, optimizer  # noqa: F401
 from . import clip, learning_rate_decay, reader, regularizer  # noqa: F401
-from . import io, io_recordio, transpiler  # noqa: F401
+from . import evaluator, io, io_recordio, transpiler  # noqa: F401
 from .core import backward
 from .core.backward import append_backward, calc_gradient
 from .core.executor import Executor
@@ -99,4 +105,4 @@ __all__ = ['Program', 'program_guard', 'default_main_program',
            'batch', 'reader', 'datasets', 'clip', 'regularizer',
            'learning_rate_decay', 'backward', 'append_backward',
            'calc_gradient', 'transpiler', 'memory_optimize',
-           'release_memory', 'io', 'io_recordio']
+           'release_memory', 'io', 'io_recordio', 'evaluator']

@@ -20,6 +20,7 @@ __all__ = ['infer_outputs', 'infer_outputs_cached']
 # prime, unlikely to collide with a real dim (the reference's sentinel)
 _BATCH_SENTINEL = 509
 _META = torch.device('meta')
+_NARROW = {torch.int64: torch.int32, torch.float64: torch.float32}
 
 
 class _InferCtx(object):
@@ -50,8 +51,11 @@ def _encode_ins(input_specs):
                     dims.append(_BATCH_SENTINEL)
                 else:
                     dims.append(int(d))
-            vals.append(torch.empty(dims, dtype=datatypes.as_torch_dtype(
-                dtype), device=_META))
+            # 64-bit values run in 32 bits, as the executor feeds them
+            # and as the reference's inference narrows them
+            tdtype = datatypes.as_torch_dtype(dtype)
+            tdtype = _NARROW.get(tdtype, tdtype)
+            vals.append(torch.empty(dims, dtype=tdtype, device=_META))
         ins[slot] = vals
     return ins, had_unknown
 

@@ -2,11 +2,13 @@
 transformer's, the LSTM models', the seq2seq translator's and the image
 models': fc, embedding, conv2d, pool2d, batch_norm, layer_norm, dropout,
 split, matmul, pad, the fused vocab head, softmax_with_cross_entropy,
-cross_entropy, square_error_cost, accuracy, auc, cos_sim and the
-reductions (reduce_{sum,mean,max,min,prod}).
+cross_entropy, square_error_cost, accuracy, auc, cos_sim, the
+reductions (reduce_{sum,mean,max,min,prod}), and the sequence-labelling
+layers warpctc, one_hot, im2sequence and row_conv.
 Same signatures and the same op attrs as the reference, so a model script
 ports by changing its import.
 """
+from ..core.program import LEN_SUFFIX
 from ..initializer import ConstantInitializer, NormalInitializer
 from ..ops.common import prod
 from ..ops.conv import pair
@@ -16,7 +18,8 @@ __all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
            'dropout', 'split', 'matmul', 'pad', 'fused_linear_softmax_ce',
            'softmax_with_cross_entropy', 'cross_entropy',
            'square_error_cost', 'accuracy', 'auc', 'cos_sim', 'reduce_sum',
-           'reduce_mean', 'reduce_max', 'reduce_min', 'reduce_prod']
+           'reduce_mean', 'reduce_max', 'reduce_min', 'reduce_prod',
+           'warpctc', 'one_hot', 'im2sequence', 'row_conv']
 
 
 def fc(input,
@@ -421,3 +424,65 @@ reduce_mean = _reduce_layer('reduce_mean')
 reduce_max = _reduce_layer('reduce_max')
 reduce_min = _reduce_layer('reduce_min')
 reduce_prod = _reduce_layer('reduce_prod')
+
+
+def one_hot(input, depth, **kwargs):
+    """float32 one-hot rows of the int ``input`` (operators/one_hot_op)."""
+    helper = LayerHelper('one_hot', **locals())
+    out = helper.create_tmp_variable('float32')
+    helper.append_op(
+        type='one_hot',
+        inputs={'X': [input]},
+        outputs={'Out': [out]},
+        attrs={'depth': depth})
+    return out
+
+
+def warpctc(input, label, blank=0, norm_by_times=False, **kwargs):
+    """The CTC loss [B, 1] of the unnormalised logits ``input`` [B, T, V]
+    against ``label`` (operators/warpctc_op); both may be ragged."""
+    helper = LayerHelper('warpctc', **locals())
+    loss = helper.create_tmp_variable(input.dtype)
+    grad = helper.create_tmp_variable(input.dtype, stop_gradient=True)
+    inputs = {'Logits': [input], 'Label': [label]}
+    block = helper.main_program.current_block()
+    if block.has_var_recursive(input.name + LEN_SUFFIX):
+        inputs['LogitsLen'] = [block.var_recursive(input.name + LEN_SUFFIX)]
+    if block.has_var_recursive(label.name + LEN_SUFFIX):
+        inputs['LabelLen'] = [block.var_recursive(label.name + LEN_SUFFIX)]
+    helper.append_op(
+        type='warpctc',
+        inputs=inputs,
+        outputs={'Loss': [loss], 'WarpCTCGrad': [grad]},
+        attrs={'blank': blank, 'norm_by_times': norm_by_times})
+    return loss
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, name=None,
+                **kwargs):
+    """The image's conv patches as a sequence (operators/
+    im2sequence_op)."""
+    helper = LayerHelper('im2sequence', **locals())
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op(
+        type='im2sequence', inputs={'X': [input]}, outputs={'Out': [out]},
+        attrs={'kernels': pair(filter_size), 'strides': pair(stride),
+               'paddings': pair(padding, 4)})
+    return out
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None,
+             **kwargs):
+    """The look-ahead convolution over each sequence's next
+    ``future_context_size`` steps (operators/row_conv_op)."""
+    helper = LayerHelper('row_conv', **locals())
+    dtype = helper.input_dtype()
+    filter_shape = [future_context_size + 1, input.shape[-1]]
+    w = helper.create_parameter(attr=helper.param_attr, shape=filter_shape,
+                                dtype=dtype, is_bias=False)
+    out = helper.create_tmp_variable(dtype)
+    helper.append_op(
+        type='row_conv',
+        inputs={'X': [input], 'Filter': [w]},
+        outputs={'Out': [out]})
+    return helper.append_activation(out)

@@ -1,12 +1,11 @@
 """Sequence layers over the padded + lengths representation.
 
 Reference parity: paddle_tpu/layers/sequence.py (the sequence_* /
-dynamic_lstm / dynamic_gru / lstm_unit / gru_unit entries of fluid
-layers/nn.py), cut to what the recurrent models use: ``dynamic_lstm``,
-``dynamic_gru``, ``lstm_unit``, ``gru_unit``, ``sequence_conv``,
-``sequence_pool``, ``sequence_first_step``, ``sequence_last_step``,
-``sequence_softmax`` and ``sequence_lengths``.  The other layers of the
-reference file raise, naming the ROADMAP item that brings them.
+dynamic_lstm / dynamic_gru / lstm_unit / gru_unit / chunk_eval /
+edit_distance / linear_chain_crf / crf_decoding entries of fluid
+layers/nn.py), the whole file.  A layer whose op changes the lengths
+declares ``<out>@LEN`` and names it as the op's ``OutLen``; one that
+keeps them copies its input's ``@LEN`` to its output.
 """
 from ..core.program import LEN_SUFFIX
 from ..param_attr import ParamAttr
@@ -84,6 +83,87 @@ def sequence_first_step(input, **kwargs):
 
 def sequence_last_step(input, **kwargs):
     return sequence_pool(input, 'last')
+
+
+def sequence_expand(x, y, **kwargs):
+    """Each row of ``x`` repeated over the steps of ``y``'s sequence; the
+    output takes ``y``'s lengths."""
+    helper = LayerHelper('sequence_expand', **kwargs)
+    out = helper.create_tmp_variable(x.dtype, lod_level=max(y.lod_level, 1))
+    inputs = {'X': [x], 'Y': [y]}
+    inputs.update(_len_input(helper, y, 'YLen'))
+    helper.append_op(type='sequence_expand', inputs=inputs,
+                     outputs={'Out': [out]})
+    helper.copy_len(y, out)
+    return out
+
+
+def _out_len(helper, out):
+    """Declare ``out``'s ``@LEN`` companion, which the op writes."""
+    block = helper.main_program.current_block()
+    out_len = block.create_var(name=out.name + LEN_SUFFIX, shape=[-1],
+                               dtype='int32')
+    out_len.stop_gradient = True
+    return out_len
+
+
+def sequence_concat(input, **kwargs):
+    """The sequences of ``input`` (a list) joined along time, row by
+    row."""
+    helper = LayerHelper('sequence_concat', **kwargs)
+    out = helper.create_tmp_variable(input[0].dtype, lod_level=1)
+    block = helper.main_program.current_block()
+    len_vars = [block.var_recursive(v.name + LEN_SUFFIX) for v in input
+                if block.has_var_recursive(v.name + LEN_SUFFIX)]
+    out_len = _out_len(helper, out)
+    inputs = {'X': list(input)}
+    if len(len_vars) == len(input):
+        inputs['XLen'] = len_vars
+    helper.append_op(type='sequence_concat', inputs=inputs,
+                     outputs={'Out': [out], 'OutLen': [out_len]})
+    return out
+
+
+def sequence_slice(input, offset, length, **kwargs):
+    """Row b's steps [offset[b], offset[b] + length[b])."""
+    helper = LayerHelper('sequence_slice', **kwargs)
+    out = helper.create_tmp_variable(input.dtype, lod_level=1)
+    out_len = _out_len(helper, out)
+    helper.append_op(
+        type='sequence_slice',
+        inputs={'X': [input], 'Offset': [offset], 'Length': [length]},
+        outputs={'Out': [out], 'OutLen': [out_len]})
+    return out
+
+
+def sequence_erase(input, tokens, **kwargs):
+    """The sequences of ``input`` without the ids in ``tokens``."""
+    helper = LayerHelper('sequence_erase', **kwargs)
+    out = helper.create_tmp_variable(input.dtype, lod_level=1)
+    out_len = _out_len(helper, out)
+    inputs = {'X': [input]}
+    inputs.update(_len_input(helper, input))
+    helper.append_op(type='sequence_erase', inputs=inputs,
+                     outputs={'Out': [out], 'OutLen': [out_len]},
+                     attrs={'tokens': list(tokens)})
+    return out
+
+
+def lod_reset(x, y=None, target_lod=None, **kwargs):
+    """``x`` with new lengths: ``y``'s values, or ``target_lod``."""
+    helper = LayerHelper('lod_reset', **kwargs)
+    out = helper.create_tmp_variable(x.dtype, lod_level=1)
+    out_len = _out_len(helper, out)
+    inputs = {'X': [x]}
+    attrs = {}
+    if y is not None:
+        inputs['Y'] = [y]
+    else:
+        attrs['target_lod'] = list(target_lod)
+    helper.append_op(type='lod_reset', inputs=inputs,
+                     outputs={'Out': [out], 'OutLen': [out_len]},
+                     attrs=attrs)
+    return out
 
 
 def dynamic_lstm(input, size, param_attr=None, bias_attr=None,
@@ -221,24 +301,89 @@ def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
     return h, c
 
 
-def _later(name, item):
-    def _layer(*args, **kwargs):
-        raise NotImplementedError(
-            "layers.%s is not ported yet: ROADMAP.md Queue 1, %s"
-            % (name, item))
+def linear_chain_crf(input, label, param_attr=None, **kwargs):
+    """The CRF's negative log-likelihood of ``label`` per sequence, [B, 1]
+    (fluid.layers.linear_chain_crf).  ``input`` is the [B, T, N] emission
+    sequence; the transition parameter is [N + 2, N] (rows 0 and 1: start
+    and end scores), shared with ``crf_decoding`` through a named
+    ParamAttr."""
+    helper = LayerHelper('linear_chain_crf', **kwargs)
+    num_tags = int(input.shape[-1])
+    transition = helper.create_parameter(
+        attr=ParamAttr.to_attr(param_attr), shape=[num_tags + 2, num_tags],
+        dtype=input.dtype, is_bias=False)
+    log_likelihood = helper.create_tmp_variable(input.dtype)
+    inputs = {'Emission': [input], 'Transition': [transition],
+              'Label': [label]}
+    inputs.update(_len_input(helper, input, 'EmissionLen'))
+    helper.append_op(
+        type='linear_chain_crf', inputs=inputs,
+        outputs={'LogLikelihood': [log_likelihood]})
+    return log_likelihood
 
-    _layer.__name__ = name
-    return _layer
+
+def crf_decoding(input, param_attr, label=None, **kwargs):
+    """The Viterbi path [B, T, 1], or with ``label`` 1 where it agrees
+    with the label (fluid.layers.crf_decoding)."""
+    helper = LayerHelper('crf_decoding', **kwargs)
+    num_tags = int(input.shape[-1])
+    transition = helper.create_parameter(
+        attr=ParamAttr.to_attr(param_attr), shape=[num_tags + 2, num_tags],
+        dtype=input.dtype, is_bias=False)
+    viterbi_path = helper.create_tmp_variable('int64',
+                                              lod_level=input.lod_level)
+    inputs = {'Emission': [input], 'Transition': [transition]}
+    if label is not None:
+        inputs['Label'] = [label]
+    inputs.update(_len_input(helper, input, 'EmissionLen'))
+    helper.append_op(
+        type='crf_decoding', inputs=inputs,
+        outputs={'ViterbiPath': [viterbi_path]})
+    helper.copy_len(input, viterbi_path)
+    return viterbi_path
 
 
-_OP_LIBRARY = 'item 6 (the rest of the op library)'
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None, **kwargs):
+    """Chunk precision, recall, F1 and the three chunk counts of ``input``
+    against ``label`` (fluid.layers.chunk_eval)."""
+    helper = LayerHelper('chunk_eval', **kwargs)
+    precision = helper.create_tmp_variable('float32', stop_gradient=True)
+    recall = helper.create_tmp_variable('float32', stop_gradient=True)
+    f1_score = helper.create_tmp_variable('float32', stop_gradient=True)
+    num_infer = helper.create_tmp_variable('int32', stop_gradient=True)
+    num_label = helper.create_tmp_variable('int32', stop_gradient=True)
+    num_correct = helper.create_tmp_variable('int32', stop_gradient=True)
+    inputs = {'Inference': [input], 'Label': [label]}
+    inputs.update(_len_input(helper, label))
+    helper.append_op(
+        type='chunk_eval', inputs=inputs,
+        outputs={'Precision': [precision], 'Recall': [recall],
+                 'F1-Score': [f1_score], 'NumInferChunks': [num_infer],
+                 'NumLabelChunks': [num_label],
+                 'NumCorrectChunks': [num_correct]},
+        attrs={'num_chunk_types': num_chunk_types,
+               'chunk_scheme': chunk_scheme,
+               'excluded_chunk_types': excluded_chunk_types or []})
+    return precision, recall, f1_score, num_infer, num_label, num_correct
 
-sequence_expand = _later('sequence_expand', _OP_LIBRARY)
-sequence_concat = _later('sequence_concat', _OP_LIBRARY)
-sequence_slice = _later('sequence_slice', _OP_LIBRARY)
-sequence_erase = _later('sequence_erase', _OP_LIBRARY)
-lod_reset = _later('lod_reset', _OP_LIBRARY)
-chunk_eval = _later('chunk_eval', _OP_LIBRARY)
-edit_distance = _later('edit_distance', _OP_LIBRARY)
-linear_chain_crf = _later('linear_chain_crf', _OP_LIBRARY)
-crf_decoding = _later('crf_decoding', _OP_LIBRARY)
+
+def edit_distance(input, label, normalized=True, ignored_tokens=None,
+                  **kwargs):
+    """The edit distance of each hypothesis to its reference, and the
+    number of sequences (fluid.layers.edit_distance); ``ignored_tokens``
+    are erased from both first."""
+    helper = LayerHelper('edit_distance', **kwargs)
+    if ignored_tokens:
+        input = sequence_erase(input, ignored_tokens)
+        label = sequence_erase(label, ignored_tokens)
+    out = helper.create_tmp_variable('float32', stop_gradient=True)
+    seq_num = helper.create_tmp_variable('int32', stop_gradient=True)
+    inputs = {'Hyps': [input], 'Refs': [label]}
+    inputs.update(_len_input(helper, input, 'HypsLen'))
+    inputs.update(_len_input(helper, label, 'RefsLen'))
+    helper.append_op(
+        type='edit_distance', inputs=inputs,
+        outputs={'Out': [out], 'SequenceNum': [seq_num]},
+        attrs={'normalized': normalized})
+    return out, seq_num

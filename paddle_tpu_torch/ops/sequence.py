@@ -1,13 +1,16 @@
 """Sequence (LoD) ops on the padded + lengths representation.
 
 Reference parity: paddle_tpu/ops/sequence.py (paddle/operators/
-sequence_pool_op, sequence_softmax_op, sequence_conv_op,
-reorder_lod_tensor_by_rank_op), cut to ``sequence_pool``, its
+sequence_{pool,softmax,conv,expand,concat,slice,erase}_op, lod_reset_op,
+reorder_lod_tensor_by_rank_op): ``sequence_pool``, its
 ``sequence_first_step`` / ``sequence_last_step`` forms,
-``sequence_softmax``, ``sequence_conv`` and
-``reorder_lod_tensor_by_rank``.  A ragged batch is a
-dense [B, T, ...] tensor with int32 lengths [B] in slot ``XLen``; the
-masks come from the lengths, and missing lengths mean every row is full.
+``sequence_softmax``, ``sequence_conv``, ``sequence_expand``,
+``sequence_concat``, ``sequence_slice``, ``sequence_erase``, ``lod_reset``
+and ``reorder_lod_tensor_by_rank``.  A ragged batch is a dense [B, T, ...]
+tensor with int32 lengths [B] in slot ``XLen`` (``YLen`` for
+``sequence_expand``'s Y); the masks come from the lengths, and missing
+lengths mean every row is full.  An op that changes the lengths writes
+them to ``OutLen``, which the layer names ``<out>@LEN``.
 """
 import torch
 
@@ -15,8 +18,8 @@ from ..core.registry import register_op
 from .common import first, out
 
 
-def _lengths(ins, x):
-    ln = first(ins, 'XLen')
+def _lengths(ins, x, slot='XLen'):
+    ln = first(ins, slot)
     if ln is None:
         return torch.full((x.shape[0],), x.shape[1], dtype=torch.long,
                           device=x.device)
@@ -136,3 +139,119 @@ def _reorder_lod_tensor_by_rank(ctx, ins, attrs):
     order = torch.argsort(-table, stable=True)
     return {'Out': [x.index_select(0, order)], 'OutLen': [table[order]],
             'OrderedIndex': [order.to(torch.int32)]}
+
+
+def _time_mask(lengths, t, ndim):
+    """[B, t] step < length, with ``ndim - 2`` trailing unit dims."""
+    mask = torch.arange(t, device=lengths.device)[None, :] < lengths[:, None]
+    return mask.reshape(tuple(mask.shape) + (1,) * (ndim - 2))
+
+
+def _gather_steps(x, idx):
+    """x [B, T, ...] at steps idx [B, S] -> [B, S, ...]."""
+    tail = tuple(x.shape[2:])
+    idx = idx.reshape(tuple(idx.shape) + (1,) * len(tail))
+    return torch.gather(x, 1, idx.expand(tuple(idx.shape[:2]) + tail))
+
+
+@register_op('sequence_expand')
+def _sequence_expand(ctx, ins, attrs):
+    """X [B, ...], one row a sequence, repeated over Y's steps: [B, Ty,
+    ...], zeros past Y's lengths (operators/sequence_expand_op)."""
+    x = first(ins, 'X')
+    y = first(ins, 'Y')
+    ty = y.shape[1]
+    expanded = x[:, None].expand((x.shape[0], ty) + tuple(x.shape[1:]))
+    mask = _time_mask(_lengths(ins, y, 'YLen'), ty, expanded.dim())
+    return out(torch.where(mask, expanded, torch.zeros_like(expanded)))
+
+
+@register_op('sequence_concat')
+def _sequence_concat(ctx, ins, attrs):
+    """Each row's sequences joined along time (operators/
+    sequence_concat_op, axis 0 at level 0): the k-th input's padded row
+    starts at the sum of the earlier inputs' lengths, as the reference's
+    ``dynamic_update_slice`` writes it; zeros past the summed length,
+    which is ``OutLen``."""
+    xs = ins['X']
+    lens = ins.get('XLen')
+    if lens is None or len(lens) != len(xs):
+        lens = [None] * len(xs)
+    x0 = xs[0]
+    total_t = sum(x.shape[1] for x in xs)
+    pos = torch.arange(total_t, device=x0.device)
+    res = torch.zeros((x0.shape[0], total_t) + tuple(x0.shape[2:]),
+                      dtype=x0.dtype, device=x0.device)
+    start = torch.zeros((x0.shape[0],), dtype=torch.long, device=x0.device)
+    for x, ln in zip(xs, lens):
+        t = x.shape[1]
+        rel = pos[None, :] - start[:, None]
+        inside = ((rel >= 0) & (rel < t)).reshape(
+            tuple(rel.shape) + (1,) * (x.dim() - 2))
+        vals = _gather_steps(x, torch.clamp(rel, 0, t - 1)).to(x0.dtype)
+        res = torch.where(inside, vals, res)
+        start = start + (torch.full_like(start, t) if ln is None
+                         else ln.reshape(-1).long())
+    res = torch.where(_time_mask(start, total_t, res.dim()), res,
+                      torch.zeros_like(res))
+    return {'Out': [res], 'OutLen': [start.to(torch.int32)]}
+
+
+@register_op('sequence_slice')
+def _sequence_slice(ctx, ins, attrs):
+    """Row b's steps [Offset[b], Offset[b] + Length[b]) in a [B,
+    max_length, ...] batch (operators/sequence_slice_op), steps past T
+    zeros; ``OutLen`` is Length.  An offset out of range is taken as the
+    reference's ``dynamic_slice`` takes it on the row padded to T +
+    max_length: a negative one counts from the end, then it is clamped
+    into [0, T]."""
+    x = first(ins, 'X')
+    offset = first(ins, 'Offset').reshape(-1).long()
+    length = first(ins, 'Length').reshape(-1).to(torch.int32)
+    max_len = int(attrs.get('max_length', x.shape[1]))
+    t = x.shape[1]
+    padded = torch.cat([x, torch.zeros((x.shape[0], max_len) +
+                                       tuple(x.shape[2:]), dtype=x.dtype,
+                                       device=x.device)], dim=1)
+    offset = torch.where(offset < 0, offset + t + max_len, offset)
+    idx = torch.clamp(offset, 0, t)[:, None] + \
+        torch.arange(max_len, device=x.device)[None, :]
+    y = _gather_steps(padded, idx)
+    y = torch.where(_time_mask(length, max_len, y.dim()), y,
+                    torch.zeros_like(y))
+    return {'Out': [y], 'OutLen': [length]}
+
+
+@register_op('sequence_erase')
+def _sequence_erase(ctx, ins, attrs):
+    """X [B, T] int tokens without those in ``tokens``, the kept ones
+    moved left in order, zeros after them; ``OutLen`` counts the kept
+    ones (operators/sequence_erase_op)."""
+    x = first(ins, 'X')
+    t = x.shape[1]
+    steps = torch.arange(t, device=x.device)
+    valid = steps[None, :] < _lengths(ins, x)[:, None]
+    erase = torch.zeros_like(valid)
+    for tok in attrs.get('tokens', []):   # no host-to-device copy
+        erase = erase | (x == tok)
+    erase = erase & valid
+    keep = valid & ~erase
+    # a stable partition: kept steps by position, then the rest
+    order = torch.argsort(
+        torch.where(keep, steps[None, :], t + steps[None, :]), dim=1)
+    y = torch.gather(x, 1, order)
+    new_len = keep.sum(dim=1).to(torch.int32)
+    y = torch.where(steps[None, :] < new_len[:, None], y, torch.zeros_like(y))
+    return {'Out': [y], 'OutLen': [new_len]}
+
+
+@register_op('lod_reset')
+def _lod_reset(ctx, ins, attrs):
+    """X unchanged, with new lengths: Y's values, or the ``target_lod``
+    attr's (operators/lod_reset_op, in the lengths form)."""
+    x = first(ins, 'X')
+    target = first(ins, 'Y')
+    if target is None:
+        target = torch.tensor(list(attrs['target_lod']), dtype=torch.int32,
+                              device=x.device)
+    return {'Out': [x], 'OutLen': [target.to(torch.int32).reshape(-1)]}

@@ -1,12 +1,13 @@
 """Tensor-manipulation ops: reshape, transpose, split, concat, expand, pad,
 cast, assign, assign_value, fill_constant, fill_zeros_like,
 fill_constant_batch_size_like, increment, the comparisons, the logical
-ops and select.
+ops, select, and the sequence-shaped one_hot, sequence_reshape and
+im2sequence.
 
 Reference parity: paddle_tpu/ops/tensor_ops.py (paddle/operators/
 {reshape,transpose,split,concat,expand,pad,cast,assign,assign_value,
 fill_constant,fill_zeros_like,fill_constant_batch_size_like,increment,
-compare,logical,select}_op).
+compare,logical,select,one_hot,sequence_reshape,im2sequence}_op).
 Integer types keep their width; 64-bit feeds arrive narrowed to 32 bits
 by the executor, as in the reference.
 """
@@ -204,3 +205,36 @@ def _select(ctx, ins, attrs):
     """Elementwise where(Condition, X, Y)."""
     cond = first(ins, 'Condition')
     return out(torch.where(cond.bool(), first(ins, 'X'), first(ins, 'Y')))
+
+
+@register_op('one_hot')
+def _one_hot(ctx, ins, attrs):
+    """Int X (a trailing unit dim dropped) -> float32 [..., depth]; an id
+    outside [0, depth) gives a zero row, as ``jax.nn.one_hot``."""
+    x = first(ins, 'X').to(torch.int32)
+    if x.dim() >= 2 and x.shape[-1] == 1:
+        x = x[..., 0]
+    depth = torch.arange(attrs['depth'], dtype=torch.int32, device=x.device)
+    return out((x[..., None] == depth).float())
+
+
+@register_op('sequence_reshape')
+def _sequence_reshape(ctx, ins, attrs):
+    """X [B, T, D] -> [B, T * D / new_dim, new_dim]."""
+    x = first(ins, 'X')
+    return out(x.reshape(x.shape[0], -1, attrs['new_dim']))
+
+
+@register_op('im2sequence')
+def _im2sequence(ctx, ins, attrs):
+    """NCHW X -> its conv patches as a sequence, [N, out_h * out_w, C *
+    kh * kw], channel-major within a patch (operators/im2sequence_op, the
+    padded form of its LoD output); ``paddings`` are (up, left, down,
+    right), two values meaning up = down and left = right."""
+    x = first(ins, 'X')
+    kh, kw = attrs['kernels']
+    sh, sw = attrs.get('strides', [1, 1])
+    p = attrs.get('paddings', [0, 0, 0, 0])
+    x = F.pad(x, (p[1], p[3] if len(p) > 3 else p[1],
+                  p[0], p[2] if len(p) > 2 else p[0]))
+    return out(F.unfold(x, (kh, kw), stride=(sh, sw)).transpose(1, 2))

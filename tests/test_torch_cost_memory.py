@@ -337,6 +337,7 @@ def _slot_semantic_programs():
                               amp_mode='f16', verify='off')
     out.append((f16, specs))
     out.append(_control_flow_program())
+    out.append(_sequence_labelling_program())
     (_, decode), _, specs = _decode_programs()
     out.append((decode, specs))
     return out
@@ -370,6 +371,43 @@ def _control_flow_program():
                              table)
     return main, {'x': ((2, 5, 3), 'float32'), 'h': ((2, 3), 'float32'),
                   'mask': ((2, 1), 'bool')}
+
+
+def _sequence_labelling_program():
+    """The sequence-labelling slice's ops on the shapes their slots want:
+    the CRF pair, chunk_eval, edit_distance (sequence_erase under it),
+    warpctc, the LoD ops, one_hot, im2sequence, row_conv and a
+    sequence_reshape."""
+    main = tfl.Program()
+    layers = tfl.layers
+    with tfl.program_guard(main, tfl.Program()):
+        x = layers.data(name='x', shape=[4], dtype='float32', lod_level=1)
+        ids = layers.data(name='ids', shape=[1], dtype='int64', lod_level=1)
+        tok = layers.data(name='tok', shape=[], dtype='int64', lod_level=1)
+        img = layers.data(name='img', shape=[2, 4, 4], dtype='float32')
+        off = layers.data(name='off', shape=[1], dtype='int64')
+        layers.linear_chain_crf(x, ids, param_attr='crfw')
+        path = layers.crf_decoding(x, param_attr='crfw')
+        layers.chunk_eval(path, ids, 'IOB', 1)
+        layers.edit_distance(tok, tok, ignored_tokens=[0])
+        layers.warpctc(x, tok)
+        layers.one_hot(ids, depth=4)
+        layers.im2sequence(img, filter_size=2)
+        layers.row_conv(x, future_context_size=1)
+        layers.sequence_expand(layers.sequence_pool(x, 'sum'), x)
+        cat = layers.sequence_concat([x, x])
+        layers.sequence_slice(cat, off, off)
+        layers.lod_reset(x, target_lod=[1, 2])
+    block = main.global_block()
+    block.create_var(name='seq_reshaped', dtype='float32')
+    block.append_op(type='sequence_reshape', inputs={'X': [x]},
+                    outputs={'Out': ['seq_reshaped']},
+                    attrs={'new_dim': 2})
+    return main, {'x': ((2, 3, 4), 'float32'), 'x@LEN': ((2,), 'int32'),
+                  'ids': ((2, 3, 1), 'int32'), 'ids@LEN': ((2,), 'int32'),
+                  'tok': ((2, 3), 'int32'), 'tok@LEN': ((2,), 'int32'),
+                  'img': ((2, 2, 4, 4), 'float32'),
+                  'off': ((2, 1), 'int32')}
 
 
 def _decode_programs(K=2):
@@ -456,7 +494,7 @@ def test_every_registered_op_has_a_verdict_or_a_waiver():
     p, fetches, feeds = _sweep_program('create_array')
     assert jcm.analyze_cost(p, fetches, {})['coverage']['no_verdict'] == [
         'create_array']
-    assert len(treg.registered_ops()) == 109
+    assert len(treg.registered_ops()) == 125
     # the class invariants: a mac op has its formula; waivers are real
     for t in treg.registered_ops():
         assert treg.op_traits(t).cost == treg.cost_class(t)

@@ -274,7 +274,11 @@ def test_adagrad_steps_match_the_reference(model, batches, n_lstm):
 @pytest.mark.parametrize('build,match', [
     (lambda: tfl.Executor(tfl.CPUPlace()).compile(tfl.Program()),
      'compile'),
-    (lambda: tfl.layers.sequence_expand(None, None), 'sequence_expand'),
+    # the sequence layers came with the sequence-labelling slice; the
+    # composed attention waits
+    (lambda: tfl.nets.scaled_dot_product_attention(None, None, None,
+                                                   use_flash=False),
+     'composed'),
     # seq2seq.decode came with the control-flow slice; ParallelDo waits
     (lambda: tfl.layers.ParallelDo(), 'ParallelDo'),
 ])
