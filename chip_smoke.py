@@ -10,11 +10,11 @@ line:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
    TF32 is switched off for matmuls and cuDNN so float32 means float32.
-2. kernel build: the nine kernel sources of the checkout (ten kernels:
+2. kernel build: the ten kernel sources of the checkout (eleven kernels:
    #3 and #4 share one), one nvcc each, all started together; ptxas's
    register and spill lines; the count of tensor-core instructions (HMMA,
    HGMMA) in each kernel function's SASS (``cuobjdump -sass``), which must
-   not be 0 in any instance of #1, #2, #3 and #4, nor in the cluster
+   not be 0 in any instance of #1, #2, #3, #4 and #11, nor in the cluster
    chains of #7, #8, #9 and #10, nor in #8's and #10's dW kernels; #7's
    cluster chain must not spill.
 3. flash forward vs its plain version on the card at the prefill's
@@ -409,16 +409,43 @@ line:
    model's Viterbi decode of the 1024-sentence test split on the card,
    and over the card's fetched paths on the CPU: precision, recall and
    F1 equal.  Phases 59-61 take about 30 s on an H100.
-52. a ``{"kernels": [...]}`` line (ten kernels, each with its launches by
-   path; ``bound_ms`` at the rate of the units a kernel computes on: the
-   tensor cores at 3xTF32 for #1-#4 and #7-#10, with their CUDA-core
+62. the flash ceiling probe's kernel (#11, ``ops/kernels/
+   flash_ceiling.py``) against its plain version: mm, mmT, exp and maxexp
+   in float32 and bf16, at logical tiles bq != bk either way, T one tile,
+   head dims 128 and 33 (``CEILING_CASES``), then at the probe's default
+   shape (BH=128, T=8192, D=64; its inputs, seeded normals, q and k times
+   0.1) at 1024 x 1024 and 64 x 64 tiles on three bh slices; norm-relative
+   at ``fc.tolerance``: 1e-5 float32, 5e-4 bf16, 1e-2 for bf16 maxexp
+   at bk > 64 (its p rounds at the running max).
+63. the probe's entry point (``flash_ceiling_probe.run``) at that shape,
+   tiles and both types: each variant and ``full`` (#1, causal) in device
+   time, with the probe's ``executed_tflops``; #11's bounds; its plain
+   version timed at 1024 x 1024.  #11's counts are set to 0 just before
+   and read just after (each variant 3 warm-up calls and ``steps``
+   captured in a CUDA graph).
+64. the book's GAN (tests/book/test_gan.py, ``models/gan.py``: two Adam
+   ``minimize`` passes in one program) through ``DataFeeder``: 16 steps
+   of B=32, every loss finite, the mean D loss of the last 4 below 1.45
+   and below the first 2's; 12 #5 launches a step.
+65. one GAN step on the card and on the CPU from the same state: both
+   losses, every gradient (G's taken at D's pre-update parameters) and
+   every update at phase 10's bounds; 12 #5 launches.
+66. the book's fit_a_line (SGD, the last cost below 12.0 and below the
+   first; #5 twice a step), then one step under each of Adamax,
+   DecayedAdagrad, Adadelta, RMSProp and Ftrl on the card and the CPU
+   (eager rules: no kernel launch): the loss and each update at phase
+   10's bounds.
+52. a ``{"kernels": [...]}`` line (eleven kernels, each with its launches
+   by path; ``bound_ms`` at the rate of the units a kernel computes on:
+   the tensor cores at 3xTF32 for #1-#4, #11 and #7-#10, with their CUDA-core
    float32 bound beside it as ``cuda_core_bound_ms``; the CUDA cores for
    the rest; #1 and #2 also at the training shape on bf16 and f16 q/k/v,
    ``amp_training_shape``, with SDPA on the same inputs and the bounds
    at the 3xTF32 and the 16-bit tensor-core rates; the launches of
    phases 53-59 in ``launches_by_path``, #7's and #8's 0 on SRL among
-   them; #9's time at the decode's shape as ``decode_shape``), printed
-   after phase 61, then
+   them; #9's time at the decode's shape as ``decode_shape``; #11's
+   probe runs, its launches by variant and its plain times; the GAN's
+   and fit_a_line's #5 launches), printed after phase 66, then
    the card's line, and last ``{"ok": true, "device": {...}}``.
 
 With ``--long-step`` the script runs phase 26 alone, in a process that
@@ -458,16 +485,21 @@ from paddle_tpu_torch.datasets import wmt14  # noqa: E402
 from paddle_tpu_torch.datasets import common as data_common  # noqa: E402
 from paddle_tpu_torch.datasets import imikolov, movielens  # noqa: E402
 from paddle_tpu_torch.datasets import conll05  # noqa: E402
+from paddle_tpu_torch.datasets import uci_housing  # noqa: E402
 from paddle_tpu_torch.models import ctr, recommender, word2vec  # noqa: E402
 from paddle_tpu_torch.models import mnist, resnet, vgg  # noqa: E402
 from paddle_tpu_torch.models import rnn_lm, sentiment  # noqa: E402
 from paddle_tpu_torch.models import seq2seq, srl  # noqa: E402
+from paddle_tpu_torch.models import fit_a_line, gan  # noqa: E402
 from paddle_tpu_torch.models import transformer as ttr  # noqa: E402
 from paddle_tpu_torch.models.transformer import (  # noqa: E402
     TransformerConfig, init_params)
 from paddle_tpu_torch.ops.kernels import build  # noqa: E402
 from paddle_tpu_torch.ops.kernels import dense_update as du  # noqa: E402
 from paddle_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
+from paddle_tpu_torch.ops.kernels import flash_ceiling as fc  # noqa: E402
+from paddle_tpu_torch.ops.kernels import (  # noqa: E402
+    flash_ceiling_probe as fc_probe)
 from paddle_tpu_torch.ops.kernels import gru as gk  # noqa: E402
 from paddle_tpu_torch.ops.kernels import lstm as lk  # noqa: E402
 from paddle_tpu_torch.ops.kernels import table_update as tu  # noqa: E402
@@ -532,11 +564,12 @@ TOL_LM_MOMENT = 2e-2
 
 KERNELS = ('flash_attention_fwd', 'flash_attention_bwd', 'dense_update',
            'lstm_fwd', 'lstm_bwd', 'table_update', 'gru_fwd', 'gru_bwd',
-           'flash_attention_bwd_dkv', 'flash_attention_bwd_dq')
+           'flash_attention_bwd_dkv', 'flash_attention_bwd_dq',
+           'flash_ceiling')
 # the csrc/*.cu sources: #3 (dkv) and #4 (dq) share one
 SOURCES = ('flash_attention_fwd', 'flash_attention_bwd', 'dense_update',
            'lstm_fwd', 'lstm_bwd', 'table_update', 'gru_fwd', 'gru_bwd',
-           'flash_attention_bwd_split')
+           'flash_attention_bwd_split', 'flash_ceiling')
 
 SERVE = dict(L=6, D=512, H=8, V=30000, T=512, page=16, streams=16,
              bucket=256, n_req=24, max_new=16)
@@ -702,7 +735,8 @@ def _zero_counts():
     lk.bwd_launches = lk.bwd_cluster_launches = 0
     gk.launches = gk.fwd_cluster_launches = 0
     gk.bwd_launches = gk.bwd_cluster_launches = 0
-    tu.launches = 0
+    tu.launches = fc.launches = 0
+    fc.variant_launches.clear()
 
 
 def _counts():
@@ -712,7 +746,8 @@ def _counts():
                 lstm_bwd=lk.bwd_launches, table_update=tu.launches,
                 gru_fwd=gk.launches, gru_bwd=gk.bwd_launches,
                 flash_attention_bwd_dkv=fa.dkv_launches,
-                flash_attention_bwd_dq=fa.dq_launches)
+                flash_attention_bwd_dq=fa.dq_launches,
+                flash_ceiling=fc.launches)
 
 
 def _want(**nonzero):
@@ -913,12 +948,13 @@ def phase_build():
                 flash_attention_bwd_dkv=of('flash_attention_bwd_split',
                                            'fa_bwd_dkv_kernel'),
                 flash_attention_bwd_dq=of('flash_attention_bwd_split',
-                                          'fa_bwd_dq_kernel'))
+                                          'fa_bwd_dq_kernel'),
+                flash_ceiling=of('flash_ceiling', 'flash_ceiling_kernel'))
     bad = [k for k, counts in need.items() if not counts or not all(counts)]
     if bad:
         raise SystemExit("tensor-core instructions: every instance of #1, "
-                         "#2, #3, #4, #7's, #8's, #9's and #10's chains and "
-                         "#8's and #10's dW must show some; failing %s"
+                         "#2, #3, #4, #11, #7's, #8's, #9's and #10's chains "
+                         "and #8's and #10's dW must show some; failing %s"
                          % bad)
     return mma
 
@@ -6685,6 +6721,403 @@ def _persistence_phases():
     return dict(remat=remat, ckpt=ckpt, rec=rec)
 
 
+# the probe's kernel (#11) against its plain version: every variant in
+# float32 and bf16 at edge cases (bq != bk either way, T one tile, the
+# 128 head-dim tier, a head dim that is no multiple of 4 and so loaded by
+# the threads), norm-relative at fc.tolerance (ops/kernels/
+# flash_ceiling.py gives the reasons); then the probe's default shape (BH=128, T=8192,
+# D=64) at its 1024 x 1024 tiles and at #1's 64 x 64, where the plain
+# version sees a few bh slices only (a full T x T score tensor would be
+# 34 GB)
+CEILING_CASES = (
+    # bh, t, d, bq, bk
+    (4, 512, 64, 128, 64), (4, 512, 64, 64, 128), (3, 1024, 64, 256, 512),
+    (2, 64, 64, 64, 64), (2, 256, 64, 256, 256), (2, 512, 128, 128, 64),
+    (2, 512, 33, 64, 128))
+CEILING = dict(B=16, T=8192, H=8, D=64, steps=5, slices=(0, 77, 127),
+               tiles=((1024, 1024), (64, 64)))
+# the book's GAN on the card (tests/book/test_gan.py): the synthetic
+# MNIST's first 256 images in batches of 32 (drop_last), 2 epochs (16
+# steps), noise from default_rng(0); every loss finite, the mean D loss of
+# the last 4 steps below 1.45 and below the mean of the first 2; 12 dense
+# Adam applies a step (D's 6 parameters, then G's).  One step card vs
+# CPU from the same state at phase 10's bounds
+GAN = dict(B=32, samples=256, epochs=2, gate=1.45, seed=11)
+# the book's fit_a_line on the card (tests/book/test_fit_a_line.py: SGD
+# 0.01, batches of 32 of the shuffled synthetic train set, up to 12
+# epochs, the last cost below 12.0 and below the first), and one step of
+# it under each of the five optimizers the slice adds, card vs CPU at
+# phase 10's bounds
+FIT = dict(B=32, epochs=12, gate=12.0, lr=0.01)
+FIT_OPTIMIZERS = {
+    'adamax': lambda: tfl.optimizer.AdamaxOptimizer(learning_rate=0.01),
+    'decayed_adagrad': lambda: tfl.optimizer.DecayedAdagradOptimizer(
+        learning_rate=0.05),
+    'adadelta': lambda: tfl.optimizer.AdadeltaOptimizer(learning_rate=1.0),
+    'rmsprop': lambda: tfl.optimizer.RMSPropOptimizer(learning_rate=0.01,
+                                                      momentum=0.5),
+    'ftrl': lambda: tfl.optimizer.FtrlOptimizer(learning_rate=0.05,
+                                                l1=0.01, l2=0.01),
+}
+
+
+def _ceiling_case(q, k, v, variant, bq, bk, rows=None):
+    """#11 against its plain version on q, k, v (or on their bh
+    ``rows``): (norm-relative gap, largest absolute gap)."""
+    kk = k.transpose(1, 2).contiguous() if variant == 'mmT' else k
+    o = fc.flash_ceiling(q, kk, v, variant, bq, bk)
+    torch.cuda.synchronize()
+    if rows is not None:
+        q, kk, v, o = (x[list(rows)].contiguous() for x in (q, kk, v, o))
+    ref = fc._plain_ceiling(q, kk, v, variant, bq, bk)
+    gap = (o.float() - ref.float())
+    return (gap.norm() / ref.float().norm()).item(), gap.abs().max().item()
+
+
+def phase_ceiling_kernel(inputs):
+    """Phase 62: #11 against its plain version, each variant in float32
+    and bf16, at the edge cases and the probe's default shape
+    (``inputs``: {dtype: the probe's q, k, v})."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 60)
+    rows = []
+    for bh, t, d, bq, bk in CEILING_CASES:
+        for dtype in fc.DTYPES:
+            q, k, v = ((torch.randn((bh, t, d), generator=gen,
+                                    device='cuda') * mul).to(dtype)
+                       for mul in (0.1, 0.1, 1.0))
+            for variant in fc.VARIANTS:
+                rel, err = _ceiling_case(q, k, v, variant, bq, bk)
+                tol = fc.tolerance(dtype, variant, bk)
+                rows.append(dict(case='bh%d_t%d_d%d_bq%d_bk%d' % (
+                    bh, t, d, bq, bk), dtype=str(dtype)[6:],
+                    variant=variant, norm_rel=rel, max_abs_err=err,
+                    tol=tol, ok=rel <= tol))
+    c = CEILING
+    bh = c['B'] * c['H']
+    for dtype, (q, k, v) in inputs.items():
+        for bq, bk in c['tiles']:
+            for variant in fc.VARIANTS:
+                rel, err = _ceiling_case(q, k, v, variant, bq, bk,
+                                         c['slices'])
+                tol = fc.tolerance(dtype, variant, bk)
+                rows.append(dict(case='probe_bq%d_bk%d' % (bq, bk),
+                                 dtype=str(dtype)[6:], variant=variant,
+                                 slices=list(c['slices']), norm_rel=rel,
+                                 max_abs_err=err, tol=tol, ok=rel <= tol))
+    for r in rows:
+        print("ceiling %-24s %-8s %-6s norm-rel %.3g (tol %.0e) max abs "
+              "%.3g %s" % (r['case'], r['dtype'], r['variant'], r['norm_rel'],
+                           r['tol'], r['max_abs_err'],
+                           'ok' if r['ok'] else 'FAIL'))
+    print("phase 62 (#11 vs its plain version): %.1f s"
+          % (time.perf_counter() - t0))
+    bad = [(r['case'], r['dtype'], r['variant']) for r in rows
+           if not r['ok']]
+    if bad:
+        raise SystemExit("#11 disagrees with its plain version: %s" % bad)
+    return rows
+
+
+def _ceiling_bound(bh, t, d, bq, bk, dtype):
+    """#11's (bytes, flops) and bounds: q, k, v read once and o written
+    once; the probe's ``executed``, 4 * D flops a pair of the live
+    logical tiles (#1's formula).  ``bound_ms`` at the tensor cores' rate
+    for the inputs' type: 3xTF32's for float32, the 16-bit rate for bf16
+    (bf16 products need no split; the kernel still runs them as
+    3xTF32, whose bound stands beside it as ``bound_3xtf32_ms``); the
+    float32 CUDA cores' as ``cuda_core_bound_ms``."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = 4 * bh * t * d * item
+    flops = fc.executed_flops(bh, t, d, bq, bk)
+    tc = _tc_bound(nbytes, flops, dtype)
+    return dict(bytes=nbytes, flops=flops, bound_ms=tc[0], bound_by=tc[1],
+                bound_3xtf32_ms=_bound(nbytes, flops, peak=PEAK_3XTF32)[0],
+                cuda_core_bound_ms=_bound(nbytes, flops)[0])
+
+
+def phase_ceiling_probe(inputs):
+    """Phase 63: the probe's entry point (``flash_ceiling_probe.run``, the
+    port of benchmarks/exp_flash_ceiling.py) at its default shape, its
+    1024 x 1024 tiles and #1's 64 x 64, in bf16 (the TPU probe's type)
+    and float32: each variant and ``full`` (#1, causal) in device time.
+    #11's counts are set to 0 just before and read just after: the
+    probe's calls are the kernel's main path.  The plain version is timed
+    at the 1024 x 1024 tiles (36 logical tiles a bh; at 64 x 64 it would
+    walk 8256 in Python)."""
+    t0 = time.perf_counter()
+    c = CEILING
+    bh = c['B'] * c['H']
+    runs = []
+    _zero_counts()
+    for dtype in (torch.bfloat16, torch.float32):
+        for bq, bk in c['tiles']:
+            runs.append(fc_probe.run(c['B'], c['T'], c['H'], c['D'], bq, bk,
+                                     c['steps'], dtype,
+                                     inputs=inputs[dtype]))
+    counts = _counts()
+    by_variant = dict(fc.variant_launches)
+    plain = {}
+    bq, bk = c['tiles'][0]
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = inputs[dtype]
+        for variant in ('mm', 'maxexp'):
+            plain['%s_%s' % (variant, str(dtype)[6:])] = _device_ms(
+                lambda: fc._plain_ceiling(q, k, v, variant, bq, bk),
+                iters=1, replays=2)
+        torch.cuda.empty_cache()
+    for out in runs:
+        cfg = out['config']
+        dtype = getattr(torch, cfg['dtype'])
+        out['bound'] = _ceiling_bound(bh, c['T'], c['D'], cfg['bq'],
+                                      cfg['bk'], dtype)
+        print("ceiling probe %s: %s" % (cfg['dtype'], json.dumps(out)))
+    res = dict(runs=runs, counts=counts, variant_launches={
+        '%s/%s' % key: n for key, n in by_variant.items()},
+        plain_ms=plain, seconds=time.perf_counter() - t0)
+    print("phase 63 (the ceiling probe beside #1): %s" % json.dumps(
+        {k: v for k, v in res.items() if k != 'runs'}))
+    # each variant's device_ms: 3 warm-up calls, one capture of `steps`
+    # and its replays run inside the graph (not counted)
+    want = len(runs) * len(fc.VARIANTS) * (3 + c['steps'])
+    if counts['flash_ceiling'] != want or counts['flash_attention_fwd'] != \
+            len(runs) * (3 + c['steps']):
+        raise SystemExit("ceiling probe launches %s, want %d of #11"
+                         % (counts, want))
+    for out in runs:
+        if not all(np.isfinite(out[k]['ms']) and out[k]['ms'] > 0
+                   for k in fc.VARIANTS + ('full',)):
+            raise SystemExit("ceiling probe timing: %s" % out)
+    return res
+
+
+def _ceiling_line(rows, probe):
+    """#11's entry of the kernels line: the bf16 run at the probe's
+    default shape and tiles is the main row (the TPU probe's type)."""
+    main = probe['runs'][0]
+    assert main['config']['dtype'] == 'bfloat16' and \
+        main['config']['bq'] == 1024
+    return dict(
+        name='flash_ceiling', route='cuda',
+        source='paddle_tpu_torch/csrc/flash_ceiling.cu',
+        replaces='benchmarks/exp_flash_ceiling.py:106',
+        launches=probe['counts']['flash_ceiling'],
+        launches_by_path=dict(ceiling_probe=probe['counts'][
+            'flash_ceiling']),
+        launches_by_variant=probe['variant_launches'],
+        max_abs_err=max(r['max_abs_err'] for r in rows
+                        if r['dtype'] == 'float32'),
+        ms=main['mm']['ms'], plain_ms=probe['plain_ms']['mm_bfloat16'],
+        bound_ms=main['bound']['bound_ms'],
+        bound_by=main['bound']['bound_by'],
+        bound_3xtf32_ms=main['bound']['bound_3xtf32_ms'],
+        cuda_core_bound_ms=main['bound']['cuda_core_bound_ms'],
+        library_ms=None,
+        shape='BH=128 T=8192 D=64 bf16, variant mm, bq = bk = 1024 '
+              '(the probe\'s default)',
+        runs=probe['runs'], plain_ms_by_case=probe['plain_ms'],
+        cases=rows)
+
+
+def _gan_program(c=GAN):
+    main, startup = tfl.Program(), tfl.Program()
+    main.random_seed = startup.random_seed = c['seed']
+    with tfl.program_guard(main, startup):
+        img, noise, d_loss, g_loss, _ = gan.build(img_dim=784)
+    return main, startup, img, d_loss, g_loss
+
+
+def _copy_scope(main, scope, device='cpu'):
+    out = tfl.Scope()
+    for v in main.list_vars():
+        if v.persistable and scope.has(v.name):
+            out.set(v.name, scope.get(v.name).to(device, copy=True))
+    return out
+
+
+def phase_gan(c=GAN):
+    """Phases 64-65: the book's GAN on the card through ``DataFeeder``,
+    its gate and launches; then one step card vs CPU from the same state:
+    both losses, every gradient, every Adam update."""
+    t0 = time.perf_counter()
+    main, startup, img, d_loss, g_loss = _gan_program(c)
+    n_adam = sum(op.type == 'adam' for op in main.global_block().ops)
+    exe, scope = tfl.Executor(), tfl.Scope()
+    exe.run(startup, scope=scope)
+    feeder = tfl.DataFeeder(place=exe.place, feed_list=[img], program=main)
+    rng = np.random.default_rng(0)
+    reader = tfl.batch(tfl.reader.firstn(mnist_data.train(), c['samples']),
+                       batch_size=c['B'], drop_last=True)
+    d_losses, g_losses, step_s = [], [], []
+    _zero_counts()
+    for _ in range(c['epochs']):
+        for batch in reader():
+            feed = feeder.feed([(s[0],) for s in batch])
+            feed['noise'] = rng.normal(
+                size=(len(batch), gan.NOISE_DIM)).astype(np.float32)
+            t1 = time.perf_counter()
+            d, g = exe.run(main, feed=feed, fetch_list=[d_loss, g_loss],
+                           scope=scope)
+            step_s.append(time.perf_counter() - t1)
+            d_losses.append(float(d[0]))
+            g_losses.append(float(g[0]))
+    counts = _counts()
+    per_step = {k: n / len(d_losses) for k, n in counts.items()}
+    res = dict(config='tests/book/test_gan.py: B=%d, %d steps, Adam 2e-4 '
+               'beta1 0.5 twice' % (c['B'], len(d_losses)),
+               d_losses=d_losses, g_losses=g_losses,
+               step_ms_p50=float(np.median(step_s[2:])) * 1e3,
+               d_last4=float(np.mean(d_losses[-4:])),
+               d_first2=float(np.mean(d_losses[:2])), adam_ops=n_adam,
+               launches=counts)
+    print("gan training: %s" % json.dumps(res))
+    if n_adam != 12 or per_step != _want(dense_update=n_adam):
+        raise SystemExit("gan launches per step %s" % per_step)
+    if not (np.isfinite(d_losses).all() and np.isfinite(g_losses).all() and
+            res['d_last4'] < c['gate'] and res['d_last4'] < res['d_first2']):
+        raise SystemExit("gan book gate fails on the card: %s" % res)
+    res['parity'] = _gan_parity(c)
+    print("phases 64-65 (the GAN, its parity): %.1f s"
+          % (time.perf_counter() - t0))
+    return res
+
+
+def _gan_parity(c=GAN):
+    """One GAN step on the card and on the CPU from the card's initial
+    state: both losses at TOL_TRAIN_LOSS, each gradient norm-relative at
+    TOL_TRAIN_GRAD (G's at D's pre-update parameters on both), each
+    update at TOL_TRAIN_UPDATE (phase 10's bounds and reasons)."""
+    main, startup, img, d_loss, g_loss = _gan_program(c)
+    params = [p.name for p in main.all_parameters()]
+    exe, card = tfl.Executor(), tfl.Scope()
+    exe.run(startup, scope=card)
+    cpu = _copy_scope(main, card)
+    before = {n: cpu.get_numpy(n) for n in params}
+    rng = np.random.default_rng(c['seed'])
+    feed = {'img': np.stack([s[0] for s in tfl.reader.firstn(
+        mnist_data.train(), c['B'])()]).astype(np.float32),
+            'noise': rng.normal(size=(c['B'], gan.NOISE_DIM)).astype(
+                np.float32)}
+    fetch = [d_loss.name, g_loss.name] + [p + '@GRAD' for p in params]
+    _zero_counts()
+    got = exe.run(main, feed=feed, fetch_list=fetch, scope=card)
+    launches = _counts()['dense_update']
+    want = tfl.Executor('cpu').run(main, feed=feed, fetch_list=fetch,
+                                   scope=cpu)
+    res = dict(loss_err=max(abs(float(a[0]) - float(b[0]))
+                            for a, b in zip(got[:2], want[:2])),
+               grad_norm_rel=max(_norm_rel(a, b) for a, b in
+                                 zip(got[2:], want[2:])),
+               update_norm_rel=max(
+                   _norm_rel(card.get_numpy(n) - before[n],
+                             cpu.get_numpy(n) - before[n]) for n in params),
+               launches=launches)
+    print("gan parity: %s" % json.dumps(res))
+    if not (res['loss_err'] <= TOL_TRAIN_LOSS and
+            res['grad_norm_rel'] <= TOL_TRAIN_GRAD and
+            res['update_norm_rel'] <= TOL_TRAIN_UPDATE and launches == 12):
+        raise SystemExit("gan step card vs CPU: %s" % res)
+    return res
+
+
+def _fit_program(opt):
+    main, startup = tfl.Program(), tfl.Program()
+    main.random_seed = startup.random_seed = SEED
+    with tfl.program_guard(main, startup):
+        x, y, _, cost = fit_a_line.build()
+        opt().minimize(cost)
+    return main, startup, x, y, cost
+
+
+def phase_fit_a_line(c=FIT):
+    """Phase 66: the book's fit_a_line on the card (SGD through
+    ``DataFeeder``: #5's sgd rule twice a step), its gate; then one step
+    under each of the five new optimizers, card vs CPU from the same
+    state: the loss at TOL_TRAIN_LOSS, each parameter's update
+    norm-relative at TOL_TRAIN_GRAD (eager rules on both sides, on
+    gradients within that bound)."""
+    t0 = time.perf_counter()
+    main, startup, x, y, cost = _fit_program(
+        lambda: tfl.optimizer.SGDOptimizer(learning_rate=c['lr']))
+    exe, scope = tfl.Executor(), tfl.Scope()
+    exe.run(startup, scope=scope)
+    feeder = tfl.DataFeeder(place=exe.place, feed_list=[x, y], program=main)
+    reader = tfl.batch(tfl.reader.shuffle(uci_housing.train(), buf_size=256),
+                       batch_size=c['B'], drop_last=True)
+    costs = []
+    _zero_counts()
+    for _ in range(c['epochs']):
+        for data in reader():
+            out, = exe.run(main, feed=feeder.feed(data), fetch_list=[cost],
+                           scope=scope)
+            costs.append(float(out[0]))
+        if costs[-1] < c['gate']:
+            break
+    counts = _counts()
+    res = dict(costs=costs, steps=len(costs), first=costs[0],
+               last=costs[-1], launches=counts)
+    ok = (np.isfinite(costs).all() and costs[-1] < costs[0] and
+          costs[-1] < c['gate'] and
+          counts == {k: int(v) for k, v in _want(
+              dense_update=2 * len(costs)).items()})
+    samples = list(uci_housing.train()())[:c['B']]
+    feed = {'x': np.stack([s[0] for s in samples]),
+            'y': np.stack([s[1] for s in samples])}
+    res['optimizers'] = {}
+    for name, opt in FIT_OPTIMIZERS.items():
+        main, startup, _, _, cost = _fit_program(opt)
+        params = [p.name for p in main.all_parameters()]
+        card = tfl.Scope()
+        tfl.Executor().run(startup, scope=card)
+        cpu = _copy_scope(main, card)
+        before = {n: cpu.get_numpy(n) for n in params}
+        _zero_counts()
+        got, = tfl.Executor().run(main, feed=feed, fetch_list=[cost],
+                                  scope=card)
+        launches = sum(_counts().values())
+        want, = tfl.Executor('cpu').run(main, feed=feed, fetch_list=[cost],
+                                        scope=cpu)
+        r = dict(loss_rel=abs(float(got[0]) - float(want[0])) /
+                 abs(float(want[0])),
+                 update_norm_rel=max(
+                     _norm_rel(card.get_numpy(n) - before[n],
+                               cpu.get_numpy(n) - before[n])
+                     for n in params),
+                 ops=sum(op.type == name for op in main.global_block().ops),
+                 launches=launches)
+        r['ok'] = bool(r['loss_rel'] <= TOL_TRAIN_LOSS and
+                       r['update_norm_rel'] <= TOL_TRAIN_GRAD and
+                       r['ops'] == 2 and launches == 0)
+        ok &= r['ok']
+        res['optimizers'][name] = r
+    res['seconds'] = time.perf_counter() - t0
+    print("fit_a_line: %s" % json.dumps(res))
+    print("phase 66 (fit_a_line, the five optimizers): %.1f s"
+          % res['seconds'])
+    if not ok:
+        raise SystemExit("fit_a_line or an optimizer fails on the card: %s"
+                         % res)
+    return res
+
+
+def _slice13_phases():
+    """Phases 62-66, timed together."""
+    t0 = time.perf_counter()
+    c = CEILING
+    inputs = {dtype: fc_probe.probe_inputs(c['B'] * c['H'], c['T'], c['D'],
+                                           dtype)
+              for dtype in fc.DTYPES}
+    rows = phase_ceiling_kernel(inputs)
+    probe = phase_ceiling_probe(inputs)
+    del inputs
+    torch.cuda.empty_cache()
+    gan_res = phase_gan()
+    fit = phase_fit_a_line()
+    print("phases 62-66 (#11 and its probe, the GAN, fit_a_line and the "
+          "optimizers): %.1f s" % (time.perf_counter() - t0))
+    return rows, probe, gan_res, fit
+
+
 def _add_paths(lines, paths, zeros=()):
     """Adds each path's launches ({path: _counts()}) to the kernel lines'
     ``launches`` and ``launches_by_path``; a kernel in ``zeros`` records
@@ -6818,6 +7251,8 @@ def main():
     pers = _persistence_phases()
     torch.cuda.empty_cache()
     srl_res = _srl_phases()
+    torch.cuda.empty_cache()
+    ceil_rows, ceil_probe, gan_res, fit = _slice13_phases()
     counts = tr['counts']
     main_row = next(r for r in rows if r['case'] == MAIN_CASE)
     fwd = dict(
@@ -6942,6 +7377,11 @@ def main():
     _add_paths(lines, dict(srl_training=srl_res['launches'],
                            book_srl_training=srl_res['book']['launches']),
                zeros=('lstm_fwd', 'lstm_bwd'))
+    lines.append(_ceiling_line(ceil_rows, ceil_probe))
+    _add_paths(lines, dict(
+        book_gan_training=gan_res['launches'],
+        gan_parity_step=dict(dense_update=gan_res['parity']['launches']),
+        book_fit_a_line_training=fit['launches']))
     print(json.dumps({'kernels': lines}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

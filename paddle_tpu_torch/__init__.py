@@ -75,7 +75,15 @@ Ported so far:
 - sequence labelling: the SRL BiLSTM-CRF (``models/srl.py``) on the
   synthetic ``datasets.conll05``, with ``linear_chain_crf``,
   ``crf_decoding``, ``chunk_eval`` and ``evaluator.ChunkEvaluator``, the
-  rest of the LoD sequence ops, and ``warpctc`` with ``edit_distance``.
+  rest of the LoD sequence ops, and ``warpctc`` with ``edit_distance``;
+- programs with several ``minimize`` passes (the GAN, ``models/gan.py``:
+  each later gradient at program-order values) and fit_a_line
+  (``models/fit_a_line.py`` on ``datasets.uci_housing``), the
+  optimizers Adamax, DecayedAdagrad, Adadelta, RMSProp and Ftrl, the
+  initializers ``TruncatedNormal`` and ``MSRAInitializer``, and
+  ``nets.glu``; and the flash inner-loop ceiling probe's kernel
+  (``ops/kernels/flash_ceiling.py``, timed by
+  ``python3 -m paddle_tpu_torch.ops.kernels.flash_ceiling_probe``).
 """
 from . import datasets, initializer, layers, nets, optimizer  # noqa: F401
 from . import clip, learning_rate_decay, reader, regularizer  # noqa: F401

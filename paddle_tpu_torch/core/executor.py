@@ -11,6 +11,13 @@ their wrappers.
   ``torch.enable_grad()``, with each differentiated parameter as a leaf,
   and takes ``torch.autograd.grad`` of the summed loss.  The forward's
   outputs are published to the environment, detached.
+- A later ``autodiff`` op (a program with several ``minimize`` passes:
+  the GAN, multi-loss) reruns only the forward ops its parameters taint,
+  at program-order values, as the reference's does: a parameter that an
+  optimizer op updated before it is read at its value from before the
+  update where the slice read it before the update.  The optimizer ops
+  update in place, so the plan copies just those parameters before their
+  update (``_StepPlan.snapshots``).
 - Every other op runs under ``torch.no_grad()``.  Optimize-role ops
   update the scope's tensors in place (the optimizer kernels write
   param and moments where they lie); any other persistable output is
@@ -102,9 +109,8 @@ their wrappers.
   ``loss_scale_var`` multiplies the loss by the dynamic scale.
 
 Not in this slice (each raises): ``compile`` (with ``torch.export`` and
-the AOT cache, ROADMAP.md Queue 1 item 8), a program with more than one
-``autodiff`` op (item 6), ``parallel_do``, overlap buckets, meshes (item
-10).
+the AOT cache, ROADMAP.md Queue 1 item 8), ``parallel_do``, overlap
+buckets, meshes (item 10).
 """
 import itertools
 import math
@@ -661,14 +667,94 @@ def _value_bytes(program, batch):
     return out
 
 
+def _grad_slice(ops, k, ad_idxs, live):
+    """The forward slice the later ``autodiff`` op ``ops[k]`` runs: the
+    reference's ``_tainted_slice`` (the forward-role ops before k that
+    read a name its parameters taint, by declared inputs and outputs),
+    and of those the live ones its loss or a frozen parameter depends on
+    (the rest cannot reach its gradients: XLA's dead-code elimination
+    drops them in the reference).  Returns (the slice [(j, op)], the
+    tainted ops' indices, for the reference's rollback rule)."""
+    ad_op = ops[k]
+    tainted = set(ad_op.attrs['param_names'])
+    picked = []
+    for j in range(k):
+        if j in ad_idxs or _op_role(ops[j]) != 'forward':
+            continue
+        if set(ops[j].input_arg_names) & tainted:
+            picked.append(j)
+            tainted.update(ops[j].output_arg_names)
+    need = {ad_op.attrs['loss_name']} | set(ad_op.attrs['param_names'])
+    kept = []
+    for j in reversed(picked):
+        reads, writes = _op_rw(ops[j])
+        if j in live and writes & need:
+            kept.append(j)
+            need |= reads
+    return [(j, ops[j]) for j in reversed(kept)], picked
+
+
+class _GradPass(object):
+    """How one ``autodiff`` op runs: its forward slice ``fwd`` [(j, op)],
+    the names to drop after each of its ops (``fwd_drops``), what it
+    writes, its ``frozen`` leaves (parameters a slice op writes), its
+    remat units, and, for a later autodiff, the names it reads at their
+    pre-update values (``rollback``).  The first pass ``publish``es the
+    forward values a later op, a fetch or a persistable reads
+    (``needed``); a later one publishes nothing, as the reference's."""
+
+    def __init__(self, ad_op, fwd, needed, publish, remat, size):
+        self.fwd = fwd
+        self.publish = publish
+        self.needed = needed if publish else set()
+        self.rollback = []
+        self.written = set()
+        for _, op in fwd:
+            self.written.update(_op_rw(op)[1])
+        self.fwd_drops = _drops([_names(op) for _, op in fwd],
+                                self.needed | {ad_op.attrs['loss_name']})
+        self.frozen = set(ad_op.attrs['param_names']) & self.written
+        self.remat = remat
+        self.units = []
+        for kind, ks in (_remat_units(fwd, self.frozen, remat, size)
+                         if remat else ()):
+            reads, written = _region_io([fwd[k][1] for k in ks])
+            self.units.append((kind, [fwd[k] for k in ks], reads,
+                               written, [self.fwd_drops[k] for k in ks]))
+
+    def reads(self, ad_op):
+        """The names this pass reads from the environment: its
+        parameters, the loss-scale var, and what its ops read before an
+        op of the slice writes it."""
+        out = set(ad_op.attrs['param_names'])
+        out.update(n for n in (ad_op.attrs.get('loss_scale_var'),) if n)
+        written = set()
+        for _, op in self.fwd:
+            reads, writes = _op_rw(op)
+            out |= reads - written
+            written |= writes
+        return out
+
+
 class _StepPlan(object):
     """How a run of a program's global block for one fetch list goes,
     worked out from the program alone and kept per program version (the
     reference keys its compiled plans the same way): the live ops; the
     top-level sequence, in which the first ``autodiff`` op stands for the
-    forward-role ops before it (its gradient pass runs them); the names to
-    drop after each op of the sequence and of the gradient pass
-    (liveness); and the names that outlive the pass."""
+    forward-role ops before it (its gradient pass runs them); a
+    ``_GradPass`` per autodiff op; the names to drop after each op of the
+    sequence (liveness); and, for a program with several autodiff ops
+    (the GAN's two ``minimize`` passes), the parameters to copy before an
+    optimizer op updates them in place, because a later autodiff reads
+    their pre-update values (``snapshots``: op index -> names).
+
+    Several autodiff ops follow the reference (executor.py
+    ``_run_ops``): the first runs every forward op and publishes their
+    values; each later one reruns only the forward ops its parameters
+    taint (``_grad_slice``), reading every other name from the
+    environment, and a name an optimize-role op updated before it reads
+    its value from before that update when the slice read it, in program
+    order, before the update (the reference's ``pre_update_vals``)."""
 
     def __init__(self, program, fetch_names, size=None):
         block = program.global_block()
@@ -684,49 +770,67 @@ class _StepPlan(object):
             written.update(_op_rw(op)[1])
         self.write_back = [n for n in persistable if n in written]
         ad = [i for i in self.live if ops[i].type == 'autodiff']
-        if len(ad) > 1:
-            raise NotImplementedError(
-                "programs with more than one autodiff op (multi-loss, GAN) "
-                "are not ported yet: ROADMAP.md Queue 1 item 6")
-        self.fwd = [(j, ops[j]) for j in self.live
-                    if ad and j < ad[0] and _op_role(ops[j]) == 'forward']
-        in_fwd = {j for j, _ in self.fwd}
+        fwd = [(j, ops[j]) for j in self.live
+               if ad and j < ad[0] and _op_role(ops[j]) == 'forward']
+        in_fwd = {j for j, _ in fwd}
         self.seq = [i for i in self.live if i not in in_fwd]
+        self.remat = getattr(program, '_remat_level', None)
+        self.passes, self.snapshots = {}, {}
+        reads = {}   # a later autodiff's reads, for liveness
+        all_ad = {i for i, op in enumerate(ops) if op.type == 'autodiff'}
+        for k in ad[1:]:
+            sl, tainted = _grad_slice(ops, k, all_ad, alive)
+            gp = self.passes[k] = _GradPass(ops[k], sl, None, False,
+                                            self.remat, size)
+            reads[k] = gp.reads(ops[k])
+            # the reference's rollback rule, on its tainted slice: a name
+            # an optimize-role op updated before k (first update only) is
+            # read at its pre-update value unless every tainted op that
+            # reads it came after the update
+            first_update = {}
+            for i in self.live:
+                if i < k and _op_role(ops[i]) == 'optimize':
+                    for n in ops[i].output_arg_names:
+                        first_update.setdefault(n, i)
+            for n, i in first_update.items():
+                idxs = [j for j in tainted if n in ops[j].input_arg_names]
+                if n in reads[k] and (not idxs or min(idxs) < i):
+                    gp.rollback.append(n)
+                    self.snapshots.setdefault(i, []).append(n)
         uses = [_names(ops[i]) for i in self.seq]
+        for pos, i in enumerate(self.seq):
+            if i in reads:
+                uses[pos] |= reads[i]
         if ad:
             pos = self.seq.index(ad[0])
             ad_op = ops[ad[0]]
-            for _, op in self.fwd:
+            for _, op in fwd:
                 uses[pos] |= _names(op)
             uses[pos].update(ad_op.attrs['param_names'])
-            # what outlives the gradient pass: a later op's inputs, the
-            # fetches and the persistables
-            self.needed = set(self.keep)
+            # what outlives the first pass: a later op's inputs (a later
+            # pass's reads), the fetches and the persistables
+            needed = set(self.keep)
             for i in self.seq[pos + 1:]:
-                self.needed.update(_op_rw(ops[i])[0])
-            self.fwd_written = set()
-            for _, op in self.fwd:
-                self.fwd_written.update(_op_rw(op)[1])
-            self.fwd_drops = _drops([_names(op) for _, op in self.fwd],
-                                    self.needed | {ad_op.attrs['loss_name']})
-            self.frozen = set(ad_op.attrs['param_names']) & self.fwd_written
-            self.remat = getattr(program, '_remat_level', None)
-            self.units = []
-            for kind, ks in (_remat_units(self.fwd, self.frozen, self.remat,
-                                          size) if self.remat else ()):
-                reads, written = _region_io([self.fwd[k][1] for k in ks])
-                self.units.append((kind, [self.fwd[k] for k in ks], reads,
-                                   written, [self.fwd_drops[k] for k in ks]))
+                needed.update(reads.get(i, _op_rw(ops[i])[0]))
+            first = self.passes[ad[0]] = _GradPass(ad_op, fwd, needed, True,
+                                                   self.remat, size)
+            # the first pass's forward, as tests and tools read it
+            self.fwd, self.units = first.fwd, first.units
         self.drops = _drops(uses, self.keep)
 
 
 def _run_ops(ops, env, ctx, plan):
     """Interpret ``plan``'s sequence of ops in program order, dropping each
-    environment entry after its last use."""
+    environment entry after its last use; the parameters a later
+    autodiff reads from before an update are copied just before it."""
+    pre = {}
     for pos, i in enumerate(plan.seq):
         op = ops[i]
+        for n in plan.snapshots.get(i, ()):
+            if n in env:
+                pre[n] = env[n].clone()
         if op.type == 'autodiff':
-            _run_autodiff(op, plan, env, ctx)
+            _run_autodiff(op, plan.passes[i], env, ctx, pre)
         else:
             _run_one(op, env, ctx, i)
         for n in plan.drops[pos]:
@@ -741,15 +845,16 @@ def _freeze(op, frozen, leaves, env2):
         env2[n] = leaves[n]
 
 
-def _run_autodiff(ad_op, plan, env, ctx):
+def _run_autodiff(ad_op, gp, env, ctx, pre):
     """Gradients of the loss with respect to ``param_names``: values from
-    the environment (parameters, fed inputs), and values written by a
-    forward op (``is_sparse`` lookups' outputs, ``calc_gradient``'s
-    intermediates), each a leaf from the moment its op writes it (later
-    writes keep the leaf).  A forward value leaves the pass's environment
-    after its last forward reader unless a later op, a fetch, a
-    persistable or the loss needs it (``plan.needed``); the forward
-    outputs needed later are published to ``env``, detached."""
+    the environment (parameters, fed inputs; for a later autodiff, a
+    rolled-back name from ``pre``), and values written by a forward op
+    (``is_sparse`` lookups' outputs, ``calc_gradient``'s intermediates),
+    each a leaf from the moment its op writes it (later writes keep the
+    leaf).  A forward value leaves the pass's environment after its last
+    forward reader unless a later op, a fetch, a persistable or the loss
+    needs it (``gp.needed``); the first pass publishes the forward outputs
+    needed later to ``env``, detached."""
     param_names = list(ad_op.attrs['param_names'])
     grad_names = list(ad_op.attrs['grad_names'])
     loss_name = ad_op.attrs['loss_name']
@@ -757,21 +862,24 @@ def _run_autodiff(ad_op, plan, env, ctx):
     # AMP f16: the dynamic loss scale, a persistable var; the
     # check_finite_and_unscale op after the pass divides it back out
     ls_var = ad_op.attrs.get('loss_scale_var')
-    written = plan.fwd_written
-    frozen = plan.frozen
-    missing = [n for n in param_names if n not in env and n not in written]
+    frozen = gp.frozen
+    env2 = dict(env)
+    for n in gp.rollback:
+        if n in pre:   # absent when the update created it
+            env2[n] = pre[n]
+    missing = [n for n in param_names
+               if n not in env2 and n not in gp.written]
     if missing:
         raise KeyError("autodiff: %s has no value before the gradient pass "
                        "and no forward op writes it" % missing[:3])
-    env2 = dict(env)
     leaves = {}
     with torch.enable_grad():
         for n in param_names:
             if n not in frozen:
-                leaves[n] = env[n].detach().requires_grad_(True)
+                leaves[n] = env2[n].detach().requires_grad_(True)
                 env2[n] = _error_clipped(ctx.block.vars.get(n), leaves[n])
-        if plan.remat is None:
-            for (j, op), drops in zip(plan.fwd, plan.fwd_drops):
+        if gp.remat is None:
+            for (j, op), drops in zip(gp.fwd, gp.fwd_drops):
                 _run_one(op, env2, ctx, j)
                 _freeze(op, frozen, leaves, env2)
                 for n in drops:
@@ -779,7 +887,7 @@ def _run_autodiff(ad_op, plan, env, ctx):
         else:
             outputs = _RegionOutputs()
             kept = _kept_pack(outputs)
-            for kind, ops, reads, written_u, drops in plan.units:
+            for kind, ops, reads, written_u, drops in gp.units:
                 if kind == 'region':
                     # held only by the graph's handles and, while its
                     # outputs live, the registry: it goes when the
@@ -807,7 +915,7 @@ def _run_autodiff(ad_op, plan, env, ctx):
             loss = loss * env2[ls_var].float().reshape(())
         wrt = [leaves[n] for n in param_names]
         grads = torch.autograd.grad(loss, wrt, allow_unused=True)
-    for n in written & plan.needed:
+    for n in gp.written & gp.needed:
         if n in env2:
             env[n] = env2[n].detach()
     for leaf, gn, g in zip(wrt, grad_names, grads):

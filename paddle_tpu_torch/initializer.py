@@ -1,4 +1,5 @@
-"""Parameter initializers: Constant, Uniform, Normal, Xavier.
+"""Parameter initializers: Constant, Uniform, Normal, TruncatedNormal,
+Xavier, MSRA.
 
 Reference parity: paddle_tpu/initializer.py (fluid initializer.py).
 Each appends its init op for the variable to the startup program block,
@@ -7,9 +8,9 @@ program.
 """
 import numpy as np
 
-__all__ = ['Initializer', 'Constant', 'Uniform', 'Normal', 'Xavier',
+__all__ = ['Initializer', 'Constant', 'Uniform', 'Normal', 'Xavier', 'MSRA',
            'ConstantInitializer', 'UniformInitializer', 'NormalInitializer',
-           'XavierInitializer']
+           'XavierInitializer', 'MSRAInitializer', 'TruncatedNormal']
 
 
 class Initializer(object):
@@ -62,6 +63,18 @@ class NormalInitializer(Initializer):
                    'mean': self.loc, 'std': self.scale, 'seed': self.seed})
 
 
+class TruncatedNormal(Initializer):
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        return block.append_op(
+            type='truncated_gaussian_random',
+            outputs={'Out': [var.name]},
+            attrs={'shape': list(var.shape), 'dtype': var.dtype,
+                   'mean': self.loc, 'std': self.scale, 'seed': self.seed})
+
+
 class XavierInitializer(Initializer):
     def __init__(self, uniform=True, fan_in=None, fan_out=None, seed=0):
         self.uniform = uniform
@@ -80,7 +93,24 @@ class XavierInitializer(Initializer):
         return NormalInitializer(0.0, std, self.seed)(var, block)
 
 
+class MSRAInitializer(Initializer):
+    def __init__(self, uniform=True, fan_in=None, seed=0):
+        self.uniform = uniform
+        self.fan_in = fan_in
+        self.seed = seed
+
+    def __call__(self, var, block):
+        fi, _ = self._fans(var)
+        fi = self.fan_in if self.fan_in is not None else fi
+        if self.uniform:
+            limit = float(np.sqrt(6.0 / fi))
+            return UniformInitializer(-limit, limit, self.seed)(var, block)
+        std = float(np.sqrt(2.0 / fi))
+        return NormalInitializer(0.0, std, self.seed)(var, block)
+
+
 Constant = ConstantInitializer
 Uniform = UniformInitializer
 Normal = NormalInitializer
 Xavier = XavierInitializer
+MSRA = MSRAInitializer

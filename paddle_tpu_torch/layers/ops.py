@@ -1,8 +1,8 @@
 """Plain one-op layers (paddle_tpu/layers/ops.py), cut to the unary
 layers relu, sigmoid, softmax, mean, exp, log, sqrt, floor, ceil,
 square, sign and pow, the binary ones mul and
-elementwise_{add,sub,mul,div,max,min,pow}, and scale, clip and
-clip_by_norm."""
+elementwise_{add,sub,mul,div,max,min,pow}, and scale, clip,
+clip_by_norm and sigmoid_cross_entropy_with_logits."""
 from .layer_helper import LayerHelper
 
 __unary__ = ['relu', 'sigmoid', 'softmax', 'mean', 'exp', 'log', 'sqrt',
@@ -12,7 +12,8 @@ __binary__ = ['mul', 'elementwise_add', 'elementwise_div',
               'elementwise_sub', 'elementwise_mul', 'elementwise_max',
               'elementwise_min', 'elementwise_pow']
 
-__all__ = __unary__ + __binary__ + ['scale', 'clip', 'clip_by_norm']
+__all__ = __unary__ + __binary__ + ['scale', 'clip', 'clip_by_norm',
+                                    'sigmoid_cross_entropy_with_logits']
 
 
 def _unary(op_type, reduction=False):
@@ -98,4 +99,13 @@ def clip_by_norm(x, max_norm, **kwargs):
     helper.append_op(type='clip_by_norm', inputs={'X': [x]},
                      outputs={'Out': [out]},
                      attrs={'max_norm': float(max_norm)})
+    return out
+
+
+def sigmoid_cross_entropy_with_logits(x, label, **kwargs):
+    helper = LayerHelper('sigmoid_cross_entropy_with_logits', **kwargs)
+    out = helper.create_tmp_variable(dtype=x.dtype)
+    helper.append_op(type='sigmoid_cross_entropy_with_logits',
+                     inputs={'X': [x], 'Label': [label]},
+                     outputs={'Out': [out]})
     return out

@@ -1,10 +1,10 @@
 """Composite networks (paddle_tpu/nets.py), cut to
-``simple_img_conv_pool``, ``img_conv_group``, ``sequence_conv_pool`` and
-the flash path of ``scaled_dot_product_attention``."""
+``simple_img_conv_pool``, ``img_conv_group``, ``sequence_conv_pool``,
+``glu`` and the flash path of ``scaled_dot_product_attention``."""
 from . import layers
 
 __all__ = ['simple_img_conv_pool', 'img_conv_group', 'sequence_conv_pool',
-           'scaled_dot_product_attention']
+           'glu', 'scaled_dot_product_attention']
 
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
@@ -69,6 +69,13 @@ def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
         input=input, num_filters=num_filters, filter_size=filter_size,
         param_attr=param_attr, act=act)
     return layers.sequence_pool(input=conv_out, pool_type=pool_type)
+
+
+def glu(input, dim=-1):
+    """Gated linear unit: split in half along dim, a * sigmoid(b)."""
+    a, b = layers.split(input, num_or_sections=2, dim=dim)
+    act_b = layers.sigmoid(x=b)
+    return layers.elementwise_mul(x=a, y=act_b)
 
 
 def scaled_dot_product_attention(queries, keys, values,

@@ -1,6 +1,6 @@
 """Loss ops (paddle_tpu/ops/loss.py), cut to ``cross_entropy``,
-``softmax_with_cross_entropy`` and ``square_error_cost``; computed in
-float32."""
+``softmax_with_cross_entropy``, ``square_error_cost`` and
+``sigmoid_cross_entropy_with_logits``; computed in float32."""
 import torch
 
 from ..core.registry import register_op
@@ -49,3 +49,14 @@ def _square_error_cost(ctx, ins, attrs):
     """(X - Y)^2 elementwise (operators/squared_l2_distance_op)."""
     x = first(ins, 'X').float()
     return {'Out': [torch.square(x - first(ins, 'Y').float())]}
+
+
+@register_op('sigmoid_cross_entropy_with_logits')
+def _sigmoid_ce(ctx, ins, attrs):
+    """Elementwise max(x, 0) - x * label + log1p(exp(-|x|)) of logits X
+    against labels of X's shape, in float32 (the reference's
+    ``_sigmoid_ce``, paddle_tpu/ops/loss.py:50)."""
+    x = first(ins, 'X').float()
+    label = first(ins, 'Label').float()
+    return {'Out': [torch.maximum(x, torch.zeros_like(x)) - x * label +
+                    torch.log1p(torch.exp(-torch.abs(x)))]}

@@ -1,5 +1,5 @@
 """Random ops (paddle_tpu/ops/random.py), cut to ``uniform_random``,
-``gaussian_random`` and ``dropout``.
+``gaussian_random``, ``truncated_gaussian_random`` and ``dropout``.
 
 Each op draws from a ``torch.Generator`` the executor seeds from
 (program seed, step, block, op position), with a nonzero ``seed`` attr
@@ -7,6 +7,8 @@ folded in, as the reference keys its per-op PRNG.  The numbers are not
 JAX's (Philox against Threefry): tests carry the reference's initial
 values across, and hold the draws to the reference by distribution only.
 """
+import math
+
 import torch
 
 from ..core import datatypes
@@ -32,6 +34,23 @@ def _gaussian_random(ctx, ins, attrs):
     g = torch.randn(tuple(attrs['shape']), dtype=torch.float32,
                     device=ctx.device,
                     generator=ctx.generator(attrs.get('seed', 0)))
+    return out((g * attrs.get('std', 1.0) + attrs.get('mean', 0.0)).to(dtype))
+
+
+@register_op('truncated_gaussian_random', stateful_rng=True)
+def _truncated_gaussian_random(ctx, ins, attrs):
+    """Normal draws truncated to two deviations, times ``std`` plus
+    ``mean``, drawn in float32 and cast, as the reference's
+    ``_truncated_gaussian_random`` (``jax.random.truncated_normal`` on
+    [-2, 2]): a uniform draw between the normal CDF's values at -2 and 2,
+    mapped back through the inverse CDF and clamped into [-2, 2]."""
+    dtype = datatypes.as_torch_dtype(attrs.get('dtype', 'float32'))
+    lo, hi = (math.erf(b / math.sqrt(2.0)) for b in (-2.0, 2.0))
+    u = torch.rand(tuple(attrs['shape']), dtype=torch.float32,
+                   device=ctx.device,
+                   generator=ctx.generator(attrs.get('seed', 0)))
+    g = torch.clamp(math.sqrt(2.0) * torch.erfinv(lo + u * (hi - lo)),
+                    -2.0, 2.0)
     return out((g * attrs.get('std', 1.0) + attrs.get('mean', 0.0)).to(dtype))
 
 

@@ -1,4 +1,5 @@
-"""Optimizers: SGD, Momentum, Adam, Adagrad.
+"""Optimizers: SGD, Momentum, Adam, Adagrad, Adamax, DecayedAdagrad,
+Adadelta, RMSProp, Ftrl.
 
 Reference parity: paddle_tpu/optimizer.py (fluid optimizer.py).
 ``minimize`` = autodiff (core/backward.py), then gradient clip (clip.py)
@@ -19,8 +20,11 @@ from .layers.layer_helper import LayerHelper
 from .regularizer import L2DecayRegularizer, append_regularization_ops
 
 __all__ = ['Optimizer', 'SGDOptimizer', 'MomentumOptimizer',
-           'AdamOptimizer', 'AdagradOptimizer', 'SGD', 'Momentum', 'Adam',
-           'Adagrad']
+           'AdamOptimizer', 'AdagradOptimizer', 'AdamaxOptimizer',
+           'DecayedAdagradOptimizer', 'AdadeltaOptimizer',
+           'RMSPropOptimizer', 'FtrlOptimizer', 'SGD', 'Momentum', 'Adam',
+           'Adagrad', 'Adamax', 'DecayedAdagrad', 'Adadelta', 'RMSProp',
+           'Ftrl']
 
 
 class Optimizer(object):
@@ -300,7 +304,179 @@ class AdamOptimizer(Optimizer):
             attrs={'scale': self._beta2}, infer_shape=False)
 
 
+class AdamaxOptimizer(Optimizer):
+    type = 'adamax'
+    _moment_acc_str = 'moment'
+    _inf_norm_acc_str = 'inf_norm'
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super(AdamaxOptimizer, self).__init__(learning_rate, **kwargs)
+        self._beta1 = beta1
+        self._beta2 = beta2
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+            self._add_accumulator(self._inf_norm_acc_str, p)
+        self._beta1_pow_acc = self.helper.create_global_variable(
+            name=unique_name('beta1_pow_acc'), persistable=True,
+            shape=[1], dtype='float32')
+        self.helper.set_variable_initializer(
+            self._beta1_pow_acc, ConstantInitializer(self._beta1))
+
+    def _append_optimize_op(self, block, param_and_grad):
+        moment = self._get_accumulator(self._moment_acc_str,
+                                       param_and_grad[0])
+        inf_norm = self._get_accumulator(self._inf_norm_acc_str,
+                                         param_and_grad[0])
+        return self.helper.append_op(
+            type='adamax',
+            inputs={'Param': [param_and_grad[0]],
+                    'Grad': [param_and_grad[1]],
+                    'LearningRate': [self._create_param_lr(param_and_grad)],
+                    'Moment': [moment], 'InfNorm': [inf_norm],
+                    'Beta1Pow': [self._beta1_pow_acc]},
+            outputs={'ParamOut': [param_and_grad[0]],
+                     'MomentOut': [moment], 'InfNormOut': [inf_norm]},
+            attrs={'beta1': self._beta1, 'beta2': self._beta2,
+                   'epsilon': self._epsilon},
+            infer_shape=False)
+
+    def _finish_update(self, block):
+        self.helper.append_op(
+            type='scale', inputs={'X': [self._beta1_pow_acc]},
+            outputs={'Out': [self._beta1_pow_acc]},
+            attrs={'scale': self._beta1}, infer_shape=False)
+
+
+class DecayedAdagradOptimizer(Optimizer):
+    type = 'decayed_adagrad'
+    _moment_acc_str = 'moment'
+
+    def __init__(self, learning_rate, decay=0.95, epsilon=1.0e-6, **kwargs):
+        super(DecayedAdagradOptimizer, self).__init__(learning_rate,
+                                                      **kwargs)
+        self._decay = decay
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        moment_acc = self._get_accumulator(self._moment_acc_str,
+                                           param_and_grad[0])
+        return self.helper.append_op(
+            type='decayed_adagrad',
+            inputs={'Param': [param_and_grad[0]],
+                    'Grad': [param_and_grad[1]],
+                    'Moment': [moment_acc],
+                    'LearningRate': [self._create_param_lr(param_and_grad)]},
+            outputs={'ParamOut': [param_and_grad[0]],
+                     'MomentOut': [moment_acc]},
+            attrs={'decay': self._decay, 'epsilon': self._epsilon},
+            infer_shape=False)
+
+
+class AdadeltaOptimizer(Optimizer):
+    type = 'adadelta'
+
+    def __init__(self, learning_rate=1.0, rho=0.95, epsilon=1.0e-6,
+                 **kwargs):
+        super(AdadeltaOptimizer, self).__init__(learning_rate, **kwargs)
+        self._rho = rho
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator('avg_squared_grad', p)
+            self._add_accumulator('avg_squared_update', p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        asg = self._get_accumulator('avg_squared_grad', param_and_grad[0])
+        asu = self._get_accumulator('avg_squared_update', param_and_grad[0])
+        return self.helper.append_op(
+            type='adadelta',
+            inputs={'Param': [param_and_grad[0]],
+                    'Grad': [param_and_grad[1]],
+                    'AvgSquaredGrad': [asg], 'AvgSquaredUpdate': [asu]},
+            outputs={'ParamOut': [param_and_grad[0]],
+                     'AvgSquaredGradOut': [asg],
+                     'AvgSquaredUpdateOut': [asu]},
+            attrs={'rho': self._rho, 'epsilon': self._epsilon},
+            infer_shape=False)
+
+
+class RMSPropOptimizer(Optimizer):
+    type = 'rmsprop'
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1.0e-6,
+                 momentum=0.0, **kwargs):
+        super(RMSPropOptimizer, self).__init__(learning_rate, **kwargs)
+        self._rho = rho
+        self._epsilon = epsilon
+        self._momentum = momentum
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator('mean_square', p)
+            self._add_accumulator('momentum', p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        ms = self._get_accumulator('mean_square', param_and_grad[0])
+        mom = self._get_accumulator('momentum', param_and_grad[0])
+        return self.helper.append_op(
+            type='rmsprop',
+            inputs={'Param': [param_and_grad[0]],
+                    'Grad': [param_and_grad[1]],
+                    'MeanSquare': [ms], 'Moment': [mom],
+                    'LearningRate': [self._create_param_lr(param_and_grad)]},
+            outputs={'ParamOut': [param_and_grad[0]],
+                     'MeanSquareOut': [ms], 'MomentOut': [mom]},
+            attrs={'decay': self._rho, 'epsilon': self._epsilon,
+                   'momentum': self._momentum},
+            infer_shape=False)
+
+
+class FtrlOptimizer(Optimizer):
+    type = 'ftrl'
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5,
+                 **kwargs):
+        super(FtrlOptimizer, self).__init__(learning_rate, **kwargs)
+        self._l1 = l1
+        self._l2 = l2
+        self._lr_power = lr_power
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator('squared', p)
+            self._add_accumulator('linear', p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        sq = self._get_accumulator('squared', param_and_grad[0])
+        lin = self._get_accumulator('linear', param_and_grad[0])
+        return self.helper.append_op(
+            type='ftrl',
+            inputs={'Param': [param_and_grad[0]],
+                    'Grad': [param_and_grad[1]],
+                    'SquaredAccumulator': [sq], 'LinearAccumulator': [lin],
+                    'LearningRate': [self._create_param_lr(param_and_grad)]},
+            outputs={'ParamOut': [param_and_grad[0]],
+                     'SquaredAccumOut': [sq], 'LinearAccumOut': [lin]},
+            attrs={'l1': self._l1, 'l2': self._l2,
+                   'lr_power': self._lr_power},
+            infer_shape=False)
+
+
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
 Adam = AdamOptimizer
 Adagrad = AdagradOptimizer
+Adamax = AdamaxOptimizer
+DecayedAdagrad = DecayedAdagradOptimizer
+Adadelta = AdadeltaOptimizer
+RMSProp = RMSPropOptimizer
+Ftrl = FtrlOptimizer

@@ -63,16 +63,19 @@ def test_digest_covers_the_flags(tmp_path, monkeypatch):
 
 
 def test_every_shipped_source_names_a_library():
-    """Each csrc/*.cu (its headers found on disk) gets a library path, and
-    the flash backward sources take the dk/dv engine's header."""
+    """Each csrc/*.cu (its headers found on disk) gets a library path, the
+    flash backward sources take the dk/dv engine's header, and the
+    ceiling probe's kernel (#11) the forward's 3xTF32 helpers."""
     names = sorted(f[:-3] for f in os.listdir(build.CSRC_DIR)
                    if f.endswith('.cu'))
-    assert len(names) == 9
+    assert len(names) == 10
     paths = {n: build.library_path(n) for n in names}
     assert len(set(paths.values())) == len(names)
     for n in ('flash_attention_bwd', 'flash_attention_bwd_split'):
         with open(os.path.join(build.CSRC_DIR, n + '.cu')) as f:
             assert '#include "flash_bwd_dkv.cuh"' in f.read()
+    with open(os.path.join(build.CSRC_DIR, 'flash_ceiling.cu')) as f:
+        assert '#include "flash_tf32.cuh"' in f.read()
 
 
 @pytest.mark.parametrize('name', sorted(table_update_probe.VARIANTS))

@@ -134,8 +134,12 @@ def test_what_calc_gradient_does_not_bring_raises():
         gh, = tfl.backward.calc_gradient(loss, h)
     exe = tfl.Executor(tfl.CPUPlace())
     feed = {'x': np.ones((1, 3), np.float32)}
-    with pytest.raises(NotImplementedError, match='more than one autodiff'):
-        exe.run(main, feed=feed, fetch_list=[gx, gh], scope=tfl.Scope())
+    # two autodiff ops in one program run (the second takes h, the first
+    # pass's value, as its leaf): the reference's values
+    got_x, got_h = exe.run(main, feed=feed, fetch_list=[gx, gh],
+                           scope=tfl.Scope())
+    assert np.array_equal(got_x, np.full((1, 3), 2.0, np.float32))
+    assert np.array_equal(got_h, np.ones((1, 3), np.float32))
     main = tfl.Program()
     with tfl.program_guard(main, tfl.Program()):
         x = tfl.layers.data(name='x', shape=[3], dtype='float32')

@@ -19,7 +19,8 @@ the CPU.
   first written inside a loop that never runs (the zeroed buffer of size
   0, with and without ``max_iters`` ticks).
 - ``op_traits`` equal across the packages for every op type the port
-  registers (125); ``parallel_do`` raising, citing ROADMAP item 10.
+  registers (134 since the GAN's slice); ``parallel_do`` raising,
+  citing ROADMAP item 10.
 - Liveness: a value that only a ``while`` body reads survives until the
   loop runs (the executor counts a sub-block's reads as its op's).
 
@@ -197,7 +198,7 @@ def test_print_prints_the_message_and_passes_the_value():
 
 def test_op_traits_equal_the_reference_for_every_port_op():
     ops = treg.registered_ops()
-    assert len(ops) == 125
+    assert len(ops) == 134
     for t in ops:
         assert tuple(treg.op_traits(t)) == tuple(jreg.op_traits(t)), t
     for t in ('while', 'conditional_block', 'recurrent'):

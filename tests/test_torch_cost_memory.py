@@ -494,7 +494,7 @@ def test_every_registered_op_has_a_verdict_or_a_waiver():
     p, fetches, feeds = _sweep_program('create_array')
     assert jcm.analyze_cost(p, fetches, {})['coverage']['no_verdict'] == [
         'create_array']
-    assert len(treg.registered_ops()) == 125
+    assert len(treg.registered_ops()) == 134
     # the class invariants: a mac op has its formula; waivers are real
     for t in treg.registered_ops():
         assert treg.op_traits(t).cost == treg.cost_class(t)

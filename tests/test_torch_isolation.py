@@ -117,3 +117,41 @@ def test_entry_points_default_to_the_card():
                        device='cpu')
     assert eng.cache.k.device.type == 'cpu'
     assert Executor('cpu').place == torch.device('cpu')
+
+
+def test_slice_13_modules_leave_jax_and_reference_unloaded():
+    """The flash ceiling probe's kernel and entry point, the GAN and
+    fit_a_line with their dataset, the new optimizers, initializers and
+    glu import neither JAX nor the reference; the probe raises without a
+    card instead of running on the CPU."""
+    code = (
+        "import sys\n"
+        "import paddle_tpu_torch.ops.kernels.flash_ceiling\n"
+        "import paddle_tpu_torch.ops.kernels.flash_ceiling_probe as p\n"
+        "import paddle_tpu_torch.models.gan\n"
+        "import paddle_tpu_torch.models.fit_a_line\n"
+        "import paddle_tpu_torch.datasets.uci_housing\n"
+        "from paddle_tpu_torch.optimizer import (AdamaxOptimizer, "
+        "DecayedAdagradOptimizer, AdadeltaOptimizer, RMSPropOptimizer, "
+        "FtrlOptimizer)\n"
+        "from paddle_tpu_torch.initializer import (TruncatedNormal, "
+        "MSRAInitializer)\n"
+        "from paddle_tpu_torch.nets import glu\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'paddle_tpu'))\n"
+        "assert not bad, bad\n"
+        "import torch\n"
+        "if not torch.cuda.is_available():\n"
+        "    try:\n"
+        "        p.main([])\n"
+        "    except SystemExit as e:\n"
+        "        assert 'no CUDA device' in str(e), e\n"
+        "    else:\n"
+        "        raise AssertionError('the probe ran without a card')\n"
+        "print('clean')\n")
+    env = dict(os.environ)
+    env.pop('PYTHONPATH', None)
+    res = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == 'clean'

@@ -23,12 +23,14 @@ from paddle_tpu.transpiler import pass_manager as jpm
 from paddle_tpu.models import (mnist as jmnist, resnet as jresnet,
                                rnn_lm as jrnn, seq2seq as js2s,
                                transformer as jtr)
+from paddle_tpu.models import fit_a_line as jfit, gan as jgan
 
 import paddle_tpu_torch as tfl
 from paddle_tpu_torch.core import program as tprog
 from paddle_tpu_torch.models import (mnist as tmnist, resnet as tresnet,
                                      rnn_lm as trnn, seq2seq as ts2s,
                                      transformer as ttr)
+from paddle_tpu_torch.models import fit_a_line as tfit, gan as tgan
 from paddle_tpu_torch.transpiler import pass_manager as tpm
 from paddle_tpu_torch.transpiler import passes as tpasses
 
@@ -546,6 +548,58 @@ def test_model_pipelines_serialise_to_the_reference(name, amp_mode):
                                       amp_mode=amp_mode, verify='boundary',
                                       mesh='')
         tout, trep = tpm.run_pipeline(tmain, fetch_names=[tcost],
+                                      feed_names=feeds, level=level,
+                                      amp_mode=amp_mode, verify='boundary')
+        assert tout.to_dict() == jout.to_dict(), (name, level)
+        assert trep['eliminated'] == jrep['eliminated']
+        if amp_mode != '0':
+            for k in ('casts', 'ops_lowered', 'loss_scaling'):
+                assert trep['amp'][k] == jrep['amp'][k], k
+
+
+def _gan(pkg, mod):
+    _, _, d_loss, g_loss, _ = mod.build(img_dim=64)
+    return [d_loss, g_loss]
+
+
+def _fit_a_line(pkg, mod):
+    cost = mod.build()[3]
+    pkg.optimizer.SGDOptimizer(0.01).minimize(cost)
+    return [cost]
+
+
+# programs with several minimize passes (the GAN: two autodiff ops), and
+# the book's fit_a_line
+MULTI = {'gan': (_gan, jgan, tgan), 'fit_a_line': (_fit_a_line, jfit, tfit)}
+
+
+@pytest.mark.parametrize('amp_mode', ['0', 'bf16', 'f16'])
+@pytest.mark.parametrize('name', sorted(MULTI))
+def test_gan_and_fit_a_line_pipelines_serialise_to_the_reference(
+        name, amp_mode):
+    """As ``test_model_pipelines_serialise_to_the_reference``, for the
+    GAN (fetching both losses) and fit_a_line."""
+    out = {}
+    for side in ('ref', 'port'):
+        fn, jmod, tmod = MULTI[name]
+        pkg, prog_mod, _ = PKGS[side]
+        with prog_mod.reset_unique_name_guard():
+            main, startup = pkg.Program(), pkg.Program()
+            with pkg.program_guard(main, startup):
+                costs = fn(pkg, jmod if side == 'ref' else tmod)
+        feeds = sorted(v.name for v in main.global_block().vars.values()
+                       if v.is_data)
+        out[side] = (main, [c.name for c in costs], feeds)
+    (jmain, fetch, feeds), (tmain, _, _) = out['ref'], out['port']
+    assert tmain.to_dict() == jmain.to_dict()
+    n_ad = sum(op.type == 'autodiff' for op in tmain.global_block().ops)
+    assert n_ad == (2 if name == 'gan' else 1)
+    for level in (0, 1, 2):
+        jout, jrep = jpm.run_pipeline(jmain, fetch_names=fetch,
+                                      feed_names=feeds, level=level,
+                                      amp_mode=amp_mode, verify='boundary',
+                                      mesh='')
+        tout, trep = tpm.run_pipeline(tmain, fetch_names=fetch,
                                       feed_names=feeds, level=level,
                                       amp_mode=amp_mode, verify='boundary')
         assert tout.to_dict() == jout.to_dict(), (name, level)

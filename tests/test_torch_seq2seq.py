@@ -272,8 +272,8 @@ def test_what_the_slice_does_not_bring_raises():
     """Generation (``decode``) came with the control-flow slice and builds
     the reference's While program (tests/test_torch_beam_search.py holds
     it to the reference); what is still to come raises, naming its
-    ROADMAP item: ParallelDo (item 10) and a second autodiff op
-    (item 6)."""
+    ROADMAP item: ParallelDo (item 10).  A second autodiff op (item 6)
+    runs since the GAN's slice: the fetched gradient is the last one's."""
     types = []
     for pkg, pm, mod in ((fluid, jprog, js2s), (tfl, tprog, ts2s)):
         with pm.reset_unique_name_guard():
@@ -288,14 +288,17 @@ def test_what_the_slice_does_not_bring_raises():
     with tfl.program_guard(tfl.Program(), tfl.Program()):
         with pytest.raises(NotImplementedError, match='item 10'):
             tfl.layers.ParallelDo()
-    main = tfl.Program()
-    with tfl.program_guard(main, tfl.Program()):
+    main, startup = tfl.Program(), tfl.Program()
+    with tfl.program_guard(main, startup):
         x = tfl.layers.data(name='x', shape=[3], dtype='float32')
         w = tfl.layers.create_parameter([3, 1], 'float32')
         for _ in range(2):
             tfl.backward.calc_gradient(
                 tfl.layers.mean(tfl.layers.mul(x, w)), [w])
-    with pytest.raises(NotImplementedError, match='item 6'):
-        tfl.Executor(tfl.CPUPlace()).run(
-            main, feed={'x': np.ones((2, 3), 'float32')},
-            fetch_list=[w.name + '@GRAD'])
+    scope = tfl.Scope()
+    tfl.Executor(tfl.CPUPlace()).run(startup, scope=scope)
+    g, = tfl.Executor(tfl.CPUPlace()).run(
+        main, feed={'x': np.ones((2, 3), 'float32')},
+        fetch_list=[w.name + '@GRAD'], scope=scope)
+    # d mean(x w) / dw = the rows' mean of x
+    assert np.array_equal(g, np.ones((3, 1), np.float32))
