@@ -14,7 +14,11 @@
 // about 236 MB of inputs and outputs (q, k, v, do, lse, di in; dq, dk, dv
 // out): 0.321 ms at the CUDA cores' float32 peak (67 TFLOP/s), 0.130 ms on
 // the tensor cores at float32 accuracy (3xTF32: 495 / 3 = 165 TFLOP/s);
-// the bytes take 0.07 ms.
+// the bytes take 0.07 ms.  On 16-bit q/k/v (the AMP step) the bytes, 118
+// MB, bound it at 0.035 ms; the flops take 0.022 ms on the 16-bit tensor
+// cores (989 TFLOP/s), where the engine's 16-bit path computes (one
+// m16n8k16 mma.sync a product, the reference's roundings of q times the
+// scale, p and ds; flash_bwd_dkv.cuh, "16-bit inputs").
 //
 // Design.  The TPU kernel keeps dq in a VMEM accumulator that persists
 // across its sequential k grid; Hopper blocks run in parallel and in no
@@ -29,7 +33,8 @@
 // [BH, Tq, D] scratch buffer (two floats an atomic), so the summation
 // order over k tiles varies from run to run.  A last pass multiplies by
 // the softmax scale once and casts, as the TPU flush does.
-// What still bounds it: mma.sync reaches part of the tensor cores' rate,
+// What still bounds it (float32; the 16-bit path shares all but the
+// splits): mma.sync reaches part of the tensor cores' rate,
 // each operand is split by every warp that reads it (five operations a
 // value, integer rounding as in the forward), ds^T makes a round
 // trip through shared memory between two barriers per q tile, and dq's
@@ -63,6 +68,34 @@ fa_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            reinterpret_cast<float*>(smem4));
 }
 
+// bfloat16 and float16: the engine's 16-bit path, MINB blocks an SM
+template <typename T, int DPAD, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+fa_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ di,
+              T* __restrict__ dk, T* __restrict__ dv,
+              float* __restrict__ dq_acc, int tq, int tk, int d, int causal,
+              float scale, int q_offset, int k_offset, int use_async) {
+  extern __shared__ float4 smem4[];
+  dkv_block16<T, DPAD, true>(q, k, v, dout, lse, di, dk, dv, dq_acc, tq, tk,
+                             d, causal, scale, q_offset, k_offset,
+                             use_async != 0, blockIdx.y, blockIdx.x,
+                             reinterpret_cast<T*>(smem4));
+}
+
+// The kernel of element type T: float32 the 3xTF32 engine; 16-bit the
+// 16-bit path, two blocks an SM at D <= 64 (at most 128 registers a
+// thread, 65 KB of shared memory each: 9-10% faster at the AMP training
+// shape than one block with 214 registers, ops/kernels/flash16_probe.py)
+template <typename T, int DPAD>
+constexpr auto bwd_kernel() {
+  if constexpr (sizeof(T) == 4)
+    return &fa_bwd_kernel<T, DPAD>;
+  else
+    return &fa_bwd_kernel<T, DPAD, (DPAD <= 64 ? 2 : 1)>;
+}
+
 // dq = scale * dq_acc, cast to the input type (the TPU kernel's flush)
 template <typename T>
 __global__ void fa_bwd_dq_finish(const float* __restrict__ dq_acc,
@@ -78,17 +111,20 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    void* dq, void* dk, void* dv, void* dq_acc, int bh,
                    int tq, int tk, int d, int causal, float scale,
                    int q_offset, int k_offset, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<DPAD, true>();
+  constexpr int smem = sizeof(T) == 4 ? smem_bytes<DPAD, true>()
+                                      : smem16_bytes<DPAD, true>();
+  constexpr auto kernel = bwd_kernel<T, DPAD>();
   cudaError_t err = cudaFuncSetAttribute(
-      fa_bwd_kernel<T, DPAD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int64_t n = (int64_t)bh * tq * d;
   err = cudaMemsetAsync(dq_acc, 0, n * sizeof(float), stream);
   if (err != cudaSuccess) return err;
-  const int use_async = async_tiles<T, DPAD>(q, k, v, dout, d);
+  const int use_async = sizeof(T) == 4
+                            ? async_tiles<T, DPAD>(q, k, v, dout, d)
+                            : async_tiles16(q, k, v, dout, d);
   const dim3 grid((tk + kBlockK - 1) / kBlockK, bh);
-  fa_bwd_kernel<T, DPAD><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(di),

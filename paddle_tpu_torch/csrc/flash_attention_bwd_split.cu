@@ -29,8 +29,12 @@
 // buffer: both kernels are deterministic.  Every product runs on the
 // tensor cores, mma.sync m16n8k8 in TF32 with float32 accumulation, at
 // float32 accuracy by the 3xTF32 split (flash_tf32.cuh); plain TF32 is
-// not used, and bfloat16 and float16 inputs (exact in TF32) take the same
-// path.
+// not used.  On bfloat16 and float16 inputs the dk/dv kernel runs the
+// engine's 16-bit path (16-bit mma.sync, flash_bwd_dkv.cuh), and the dq
+// kernel keeps its 3xTF32 path with the reference's roundings: q times
+// the scale rounded to the input type (the scale rounded first), the
+// scores in base e, ds rounded to the input type before ds k.  A rounded
+// value is exact in TF32, so its split's small part is zero.
 //   - dk/dv: one block per (bh, 64-row k tile), the fused backward's dk/dv
 //     engine (flash_bwd_dkv.cuh) without its dq: the block loads its K and
 //     V tiles once and walks the q tiles the causal mask leaves alive, q,
@@ -74,9 +78,9 @@
 //     are masked or zero-filled here, not padded by copies.  A k tile that
 //     no query sees writes zero dk and dv, a q tile that sees no key writes
 //     zero dq.
-//   - Tiles come by cp.async for float32 inputs with D % 4 == 0 and
-//     16-byte aligned pointers; other inputs are loaded by the threads and
-//     converted to float32 into the same places.
+//   - The dq kernel's tiles come by cp.async for float32 inputs with
+//     D % 4 == 0 and 16-byte aligned pointers; other inputs are loaded by
+//     the threads and converted to float32 into the same places.
 //   - Causal walks are triangular: block (bh, y) takes the y-th longest
 //     walk, and blocks start in order of y, so the longest walks start
 //     first and the short ones fill the tail.
@@ -101,6 +105,16 @@ constexpr int kThreads = flash_bwd_dkv::kThreads;
 constexpr int kKeys = kTile / 2;  // keys of a k tile a warp takes
 constexpr float kLog2e = 1.4426950408889634f;
 
+// x rounded to T and back: the reference's roundings of q times the
+// scale and of ds on 16-bit inputs; the identity on float32
+template <typename T>
+__device__ __forceinline__ float rounded(float x) {
+  if constexpr (sizeof(T) == 4)
+    return x;
+  else
+    return to_float(flash_f16::from_float<T>(x));
+}
+
 template <int DPAD>
 constexpr int dq_smem_bytes() {
   // two stages each of the K and V tiles, and the q and do tiles, each
@@ -110,9 +124,10 @@ constexpr int dq_smem_bytes() {
 }
 
 // dk and dv of (bh, k tile y): the fused backward's engine without dq
+// (float32 two blocks an SM at D <= 64; 16-bit one, as the fused kernel)
 template <typename T, int DPAD>
 __global__ void __launch_bounds__(flash_bwd_dkv::kThreads,
-                                  DPAD <= 64 ? 2 : 1)
+                                  sizeof(T) == 4 && DPAD <= 64 ? 2 : 1)
 fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ di,
@@ -120,10 +135,16 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   int d, int causal, float scale, int q_offset, int k_offset,
                   int use_async) {
   extern __shared__ float4 smem4[];
-  flash_bwd_dkv::dkv_block<T, DPAD, false>(
-      q, k, v, dout, lse, di, dk, dv, nullptr, tq, tk, d, causal, scale,
-      q_offset, k_offset, use_async, blockIdx.x, blockIdx.y,
-      reinterpret_cast<float*>(smem4));
+  if constexpr (sizeof(T) == 2)
+    flash_bwd_dkv::dkv_block16<T, DPAD, false>(
+        q, k, v, dout, lse, di, dk, dv, nullptr, tq, tk, d, causal, scale,
+        q_offset, k_offset, use_async != 0, blockIdx.x, blockIdx.y,
+        reinterpret_cast<T*>(smem4));
+  else
+    flash_bwd_dkv::dkv_block<T, DPAD, false>(
+        q, k, v, dout, lse, di, dk, dv, nullptr, tq, tk, d, causal, scale,
+        q_offset, k_offset, use_async, blockIdx.x, blockIdx.y,
+        reinterpret_cast<float*>(smem4));
 }
 
 // dq of (bh, q tile nq - 1 - y)
@@ -185,18 +206,34 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_tile<T, DPAD>(dos, dob, q0, tq, d);
   }
   __syncthreads();
-  // q arrived unscaled: its scale goes in once, here
+  // q arrived unscaled: its scale goes in once, here.  On 16-bit inputs
+  // q^ = T(q * T(scale)), the reference's q times the scale, and the
+  // scores stay in base e
+  if constexpr (sizeof(T) == 4) {
 #pragma unroll
-  for (int it = 0; it < kTile * DPAD / kThreads; ++it) {
-    const int idx = threadIdx.x + it * kThreads;
-    qs[(idx / DPAD) * S + idx % DPAD] *= q_mul;
+    for (int it = 0; it < kTile * DPAD / kThreads; ++it) {
+      const int idx = threadIdx.x + it * kThreads;
+      qs[(idx / DPAD) * S + idx % DPAD] *= q_mul;
+    }
+  } else {
+    const float scale_t = rounded<T>(scale);
+#pragma unroll
+    for (int it = 0; it < kTile * DPAD / kThreads; ++it) {
+      const int idx = threadIdx.x + it * kThreads;
+      float* x = qs + (idx / DPAD) * S + idx % DPAD;
+      *x = rounded<T>(*x * scale_t);
+    }
   }
-  // lse in base 2 and di of this thread's rows (zero past T)
+  // lse (in base 2 on float32 inputs) and di of this thread's rows (zero
+  // past T)
   float lse_r[2], di_r[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = q0 + r0 + 8 * h;
-    lse_r[h] = r < tq ? lse[(int64_t)bh * tq + r] * kLog2e : 0.f;
+    if constexpr (sizeof(T) == 4)
+      lse_r[h] = r < tq ? lse[(int64_t)bh * tq + r] * kLog2e : 0.f;
+    else
+      lse_r[h] = r < tq ? lse[(int64_t)bh * tq + r] : 0.f;
     di_r[h] = r < tq ? di[(int64_t)bh * tq + r] : 0.f;
   }
 
@@ -266,9 +303,14 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                   (!causal ||
                                    q_offset + qr >= k_offset + kpos));
         // select, not multiply: exp2(s - lse) is inf on a fully masked
-        // row
-        const float p = ok ? exp2f(s[j][i] - lse_r[i >> 1]) : 0.f;
-        s[j][i] = p * (dp[j][i] - di_r[i >> 1]);
+        // row.  On 16-bit inputs ds is rounded to T, as the reference
+        // rounds it before ds k
+        float p;
+        if constexpr (sizeof(T) == 4)
+          p = ok ? exp2f(s[j][i] - lse_r[i >> 1]) : 0.f;
+        else
+          p = ok ? expf(s[j][i] - lse_r[i >> 1]) : 0.f;
+        s[j][i] = rounded<T>(p * (dp[j][i] - di_r[i >> 1]));
       }
     }
 
@@ -333,13 +375,16 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        void* dk, void* dv, int bh, int tq, int tk, int d,
                        int causal, float scale, int q_offset, int k_offset,
                        cudaStream_t stream) {
-  constexpr int smem = flash_bwd_dkv::smem_bytes<DPAD, false>();
+  constexpr int smem = sizeof(T) == 4
+                           ? flash_bwd_dkv::smem_bytes<DPAD, false>()
+                           : flash_bwd_dkv::smem16_bytes<DPAD, false>();
   cudaError_t err = cudaFuncSetAttribute(
       fa_bwd_dkv_kernel<T, DPAD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
   const int use_async =
-      flash_bwd_dkv::async_tiles<T, DPAD>(q, k, v, dout, d);
+      sizeof(T) == 4 ? flash_bwd_dkv::async_tiles<T, DPAD>(q, k, v, dout, d)
+                     : flash_bwd_dkv::async_tiles16(q, k, v, dout, d);
   const dim3 grid(bh, (tk + kTile - 1) / kTile);
   fa_bwd_dkv_kernel<T, DPAD><<<grid, flash_bwd_dkv::kThreads, smem,
                                stream>>>(

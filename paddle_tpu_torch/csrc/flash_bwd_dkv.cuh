@@ -13,7 +13,8 @@
 //     with float32 accumulation, at float32 accuracy by the 3xTF32 split
 //     (flash_tf32.cuh): x = big + small, a.b = a_small.b_big +
 //     a_big.b_small + a_big.b_big.  Plain TF32 is not used.  bfloat16
-//     inputs are exact in TF32 and take the same path.  mma.sync, not
+//     and float16 inputs take dkv_block16 ("16-bit inputs" below).
+//     mma.sync, not
 //     wgmma: .tf32 wgmma needs K-major operands in shared memory, and q
 //     and do are N-major there; mma.sync fragments are read thread by
 //     thread in any layout.
@@ -47,13 +48,46 @@
 //     warp w computes dq rows 16 (w & 3) .. + 15 of the tile, half of the
 //     columns, adding its part with float32 atomics into a zeroed
 //     [BH, Tq, D] buffer (the fused kernel's dq; its order over k tiles
-//     varies from run to run).
+//     varies from run to run).  ds^T's rows hold 64 q columns whatever D
+//     is (ds_stride; at D = 32 the tiles' 36-float rows were too short for
+//     them, and the fused kernel's dq was wrong there).
+//
+// 16-bit inputs (dkv_block16).  The function is the reference's on 16-bit
+// inputs: q times the scale in the input type T, the scale rounded to T
+// first, so dk needs no final scale; p and ds rounded to T before dv, dk
+// and dq.  The same walk, warp layout, masking by select, float32 adds of
+// each q tile's parts and meeting of the two q halves; per (q, k) pair 10
+// D flops on 16-bit tensor cores, one m16n8k16 bf16/f16 mma.sync
+// (flash_f16.cuh) where the float32 engine runs three TF32 ones.
+//   - K and V are staged once, q and do through a two-stage cp.async ring
+//     one tile ahead, all as [64][D + 8] 16-bit values (conflict-free
+//     ldmatrix rows), lse and di as float32.  Each thread scales the q
+//     chunks it copied, in place, once its copies have landed (q^ = T(q *
+//     T(scale))), before the barrier that publishes the tile.  Where rows
+//     are not 16-byte copies (D % 8 != 0 or an unaligned pointer) the
+//     threads stage the same layout.
+//   - s^T = k q^T and dp^T = v do^T take k's and v's A fragments and q's
+//     and do's B fragments by ldmatrix; p^T = exp2((s^T - lse) log2 e) and
+//     ds^T = p^T (dp^T - di) in float32, then rounded to T two to a
+//     register straight from the accumulator fragments into the A
+//     fragments of dv += p^T do and dk += ds^T q^, whose B fragments come
+//     by ldmatrix.trans.
+//   - With DQ, ds^T goes through shared memory as 16-bit values ([64 keys]
+//     [64 + 8]), half the float32 engine's bytes, and dq = ds k takes its
+//     A fragments by ldmatrix.trans from there and k's B fragments by
+//     ldmatrix.trans; its float32 atomics as in the float32 engine.
+//   - Eight warps.  The fused kernel runs two blocks an SM at D <= 64 (at
+//     most 128 registers, 36 bytes of spill at D = 64; 65 KB of shared
+//     memory each), about 10% faster than one (flash_attention_bwd.cu);
+//     the split pair's dk/dv kernel, off the main paths, one (212
+//     registers at D = 64).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_f16.cuh"
 #include "flash_tf32.cuh"
 
 namespace flash_bwd_dkv {
@@ -63,6 +97,7 @@ using namespace flash_tf32;
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr int kThreads = 256;   // eight warps
+constexpr float kLog2e = 1.4426950408889634f;
 
 // q and do ring stages: two where they fit beside the other tiles
 template <int DPAD>
@@ -75,11 +110,19 @@ __host__ __device__ constexpr int tile_floats() {
   return kBlockK * (DPAD + 4);
 }
 
+// ds^T's row stride: 64 q columns, padded as the tiles' rows (D + 4 where
+// that is wider, so D = 64 and 128 keep the tiles' stride)
+template <int DPAD>
+__host__ __device__ constexpr int ds_stride() {
+  return DPAD + 4 > kBlockQ + 4 ? DPAD + 4 : kBlockQ + 4;
+}
+
 template <int DPAD, bool DQ>
 __host__ __device__ constexpr int smem_bytes() {
-  // k, v, the q and do stages and (with DQ) ds^T, [64][DPAD + 4]; lse and
-  // di stages
-  return ((2 + 2 * stages<DPAD>() + (DQ ? 1 : 0)) * tile_floats<DPAD>() +
+  // k, v, the q and do stages, [64][DPAD + 4]; with DQ ds^T,
+  // [64][ds_stride]; lse and di stages
+  return ((2 + 2 * stages<DPAD>()) * tile_floats<DPAD>() +
+          (DQ ? kBlockK * ds_stride<DPAD>() : 0) +
           2 * stages<DPAD>() * kBlockQ) *
          static_cast<int>(sizeof(float));
 }
@@ -181,8 +224,9 @@ __device__ __forceinline__ void dkv_block(
   float* vs = ks + TILE;
   float* q_ring = vs + TILE;
   float* do_ring = q_ring + NS * TILE;
+  constexpr int SD = ds_stride<DPAD>();
   float* dst_s = do_ring + NS * TILE;   // ds^T [64 keys][64 q], with DQ
-  float* lse_ring = dst_s + (DQ ? TILE : 0);
+  float* lse_ring = dst_s + (DQ ? kBlockK * SD : 0);
   float* di_ring = lse_ring + NS * kBlockQ;
 
   const int k0 = kt * kBlockK;
@@ -316,7 +360,7 @@ __device__ __forceinline__ void dkv_block(
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          dst_s[(kr0 + 8 * (i >> 1)) * S + qc0 + 8 * j + 2 * t + (i & 1)] =
+          dst_s[(kr0 + 8 * (i >> 1)) * SD + qc0 + 8 * j + 2 * t + (i & 1)] =
               dpt[j][i];
       __syncthreads();
 
@@ -330,9 +374,9 @@ __device__ __forceinline__ void dkv_block(
         dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < kBlockK / 8; ++kk) {
-        const float* da = dst_s + (8 * kk + 2 * t) * S + qr;
+        const float* da = dst_s + (8 * kk + 2 * t) * SD + qr;
         uint32_t ab[4], as[4];
-        split4(da[0], da[8], da[S], da[S + 8], ab, as);
+        split4(da[0], da[8], da[SD], da[SD + 8], ab, as);
         const float* br = ks + (8 * kk + 2 * t) * S + c0 + g;
 #pragma unroll
         for (int j = 0; j < kHalf; ++j)
@@ -392,6 +436,320 @@ __device__ __forceinline__ void dkv_block(
           // dk = ds^T (scale q): the scale once, here
           store(dkrow + col, (dk_acc[j][2 * h + c] + red_dk[off]) * scale);
           store(dvrow + col, dv_acc[j][2 * h + c] + red_dv[off]);
+        }
+    }
+  }
+}
+
+
+// The 16-bit engine's shared memory: K, V and two stages each of the q and
+// do tiles, [64][DPAD + 8] 16-bit values; with DQ ds^T [64 keys][64 + 8];
+// two stages each of lse and di (float32).  The end's float32 meeting of
+// dk and dv ([64][DPAD + 4] twice) reuses the q and do ring.
+template <int DPAD, bool DQ>
+__host__ __device__ constexpr int smem16_bytes() {
+  return (6 * kBlockK * flash_f16::stride<DPAD>() +
+          (DQ ? kBlockK * flash_f16::stride<kBlockQ>() : 0)) * 2 +
+         4 * kBlockQ * 4;
+}
+
+// Whether the 16-bit engine's tiles come by cp.async: 16-byte rows (D % 8
+// == 0) and 16-byte aligned pointers; else the threads stage the same
+// 16-bit layout.
+inline bool async_tiles16(const void* q, const void* k, const void* v,
+                          const void* dout, int d) {
+  const uintptr_t addr_bits =
+      reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(dout) |
+      reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v);
+  return d % 8 == 0 && (addr_bits & 15) == 0;
+}
+
+// dkv_block on bfloat16 or float16 inputs (the header note's 16-bit
+// engine): the same walk, warp layout, masking and float32 adds, with
+// 16-bit products and the reference's roundings.  `smem` holds
+// smem16_bytes<DPAD, DQ>() bytes.
+template <typename T, int DPAD, bool DQ>
+__device__ __forceinline__ void dkv_block16(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ di,
+    T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dq_acc,
+    int tq, int tk, int d, int causal, float scale, int q_offset,
+    int k_offset, bool use_async, int bh, int kt, T* smem) {
+  using namespace flash_f16;
+  constexpr int S = stride<DPAD>();
+  constexpr int SD = stride<kBlockQ>();   // ds^T's row stride
+  constexpr int TILE = kBlockK * S;
+  constexpr int kSteps = DPAD / 16;   // k steps of s^T, dp^T over D
+  constexpr int kNd = DPAD / 8;       // n tiles of dk, dv
+  constexpr int kHalf = DPAD / 16;    // n tiles of a warp's dq columns
+  T* ks = smem;
+  T* vs = ks + TILE;
+  T* q_ring = vs + TILE;
+  T* do_ring = q_ring + 2 * TILE;
+  T* dst_s = do_ring + 2 * TILE;   // ds^T, with DQ
+  float* lse_ring =
+      reinterpret_cast<float*>(dst_s + (DQ ? kBlockK * SD : 0));
+  float* di_ring = lse_ring + 2 * kBlockQ;
+
+  const int k0 = kt * kBlockK;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;              // fragment row within 8
+  const int t = lane & 3;               // lane within the row's quad
+  const int kw = 16 * (warp & 3);       // this warp's keys kw .. kw + 15
+  const int kr0 = kw + g;               // this thread's keys kr0, kr0 + 8
+  const int qc0 = 32 * (warp >> 2);     // this warp's q columns
+  const T* qb = q + (int64_t)bh * tq * d;
+  const T* dob = dout + (int64_t)bh * tq * d;
+  const T* kb = k + (int64_t)bh * tk * d;
+  const T* vb = v + (int64_t)bh * tk * d;
+  const float* lseb = lse + (int64_t)bh * tq;
+  const float* dib = di + (int64_t)bh * tq;
+  // the reference's q * scale in T, the scale rounded to T first
+  const float scale_t = to_float(from_float<T>(scale));
+
+  // the live q tiles are a suffix (as dkv_block's)
+  const int nq = (tq + kBlockQ - 1) / kBlockQ;
+  int qt0 = 0;
+  while (causal && qt0 < nq &&
+         q_offset + min((qt0 + 1) * kBlockQ, tq) - 1 < k_offset + k0)
+    ++qt0;
+
+  auto stage_q = [&](int qt, int stage, bool async) {
+    const int q0 = qt * kBlockQ;
+    stage_rows<T, DPAD, kBlockQ, kThreads>(q_ring + stage * TILE, qb, q0, tq,
+                                           d, async);
+    stage_rows<T, DPAD, kBlockQ, kThreads>(do_ring + stage * TILE, dob, q0,
+                                           tq, d, async);
+    if (threadIdx.x < kBlockQ) {
+      const int r = q0 + threadIdx.x;
+      const bool ok = r < tq;
+      float* ls = lse_ring + stage * kBlockQ + threadIdx.x;
+      float* ds = di_ring + stage * kBlockQ + threadIdx.x;
+      if (async) {
+        cp_async4(ls, ok ? lseb + r : lseb, ok);
+        cp_async4(ds, ok ? dib + r : dib, ok);
+      } else {
+        *ls = ok ? lseb[r] : 0.f;
+        *ds = ok ? dib[r] : 0.f;
+      }
+    }
+  };
+  // k and v, by cp.async with the first q tile's copy group
+  stage_rows<T, DPAD, kBlockK, kThreads>(ks, kb, k0, tk, d, use_async);
+  stage_rows<T, DPAD, kBlockK, kThreads>(vs, vb, k0, tk, d, use_async);
+  if (use_async) {
+    if (qt0 < nq) stage_q(qt0, 0, true);
+    cp_async_commit();
+  }
+
+  // ldmatrix row addresses of this lane (matrix mi = lane / 8, its row
+  // lane % 8): A (k, v) as rows +0/+8 by columns +0/+8; B (q^T, do^T) as
+  // q rows +0/+8 by columns +0/+8 (two n tiles, both k halves); B of the
+  // dv, dk and dq products, transposed, as rows +0/+8 by columns +0/+8
+  // (both k halves, two n tiles); dq's A from ds^T, transposed, as keys
+  // +0/+8 by q columns +0/+8
+  const int mi = lane >> 3, mr = lane & 7;
+  const int a_off = (8 * (mi & 1) + mr) * S + 8 * (mi >> 1);
+  const int b_off = (8 * (mi >> 1) + mr) * S + 8 * (mi & 1);
+  const int bt_off = (8 * (mi & 1) + mr) * S + 8 * (mi >> 1);
+  const int dsa_off = (8 * (mi >> 1) + mr) * SD + 8 * (mi & 1);
+
+  float dk_acc[kNd][4], dv_acc[kNd][4];
+#pragma unroll
+  for (int j = 0; j < kNd; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk_acc[j][i] = dv_acc[j][i] = 0.f;
+
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int q0 = qt * kBlockQ;
+    const int stage = (qt - qt0) & 1;
+    T* qs = q_ring + stage * TILE;
+    T* dos = do_ring + stage * TILE;
+    const float* lse_s = lse_ring + stage * kBlockQ;
+    const float* di_s = di_ring + stage * kBlockQ;
+    if (use_async) {
+      if (qt + 1 < nq) {
+        // the stage it fills was last read before the previous barrier
+        stage_q(qt + 1, stage ^ 1, true);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+    } else {
+      stage_q(qt, stage, false);
+    }
+    // q^ = T(q * scale_t) over the chunks this thread staged
+    scale_own_rows<T, DPAD, kBlockQ, kThreads>(qs, scale_t);
+    __syncthreads();   // the tiles (and on the first pass k, v) are in place
+
+    // s^T = k q^T and dp^T = v do^T: keys kr0, kr0 + 8 (rows) against q
+    // columns qc0 + 8 j + 2 t (+ 1), four n tiles
+    float st[4][4], dpt[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st[j][i] = dpt[j][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      uint32_t ka[4], va[4];
+      ldsm4(ka, ks + kw * S + 16 * kk + a_off);
+      ldsm4(va, vs + kw * S + 16 * kk + a_off);
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        uint32_t bq[4], bd[4];
+        ldsm4(bq, qs + (qc0 + 16 * jp) * S + 16 * kk + b_off);
+        ldsm4(bd, dos + (qc0 + 16 * jp) * S + 16 * kk + b_off);
+        mma<T>(st[2 * jp], ka, bq[0], bq[1]);
+        mma<T>(st[2 * jp + 1], ka, bq[2], bq[3]);
+        mma<T>(dpt[2 * jp], va, bd[0], bd[1]);
+        mma<T>(dpt[2 * jp + 1], va, bd[2], bd[3]);
+      }
+    }
+
+    // p^T and ds^T in float32, then rounded to T two to a register: the
+    // accumulator fragments of q columns qc0 + 16 kk .. + 15 are the A
+    // fragment of k step kk of dv += p^T do and dk += ds^T q.  Element
+    // (j, i) is key kr0 + 8 (i >> 1), q column qc0 + 8 j + 2 t + (i & 1);
+    // the mask only on a tile that a ragged edge or the causal diagonal
+    // crosses (uniform in the block)
+    const bool edge = q0 + kBlockQ > tq || k0 + kBlockK > tk ||
+                      (causal && q_offset + q0 < k_offset + k0 + kBlockK - 1);
+    uint32_t pa[2][4], da[2][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qc = qc0 + 8 * j + 2 * t + (i & 1);
+        const int kpos = k0 + kr0 + 8 * (i >> 1);
+        const bool ok =
+            !edge || (q0 + qc < tq && kpos < tk &&
+                      (!causal || q_offset + q0 + qc >= k_offset + kpos));
+        // select, not multiply: exp(s - lse) is inf on a fully masked row
+        const float p =
+            ok ? exp2f((st[j][i] - lse_s[qc]) * kLog2e) : 0.f;
+        st[j][i] = p;
+        dpt[j][i] = p * (dpt[j][i] - di_s[qc]);
+      }
+      pa[j >> 1][2 * (j & 1)] = pack<T>(st[j][0], st[j][1]);
+      pa[j >> 1][2 * (j & 1) + 1] = pack<T>(st[j][2], st[j][3]);
+      da[j >> 1][2 * (j & 1)] = pack<T>(dpt[j][0], dpt[j][1]);
+      da[j >> 1][2 * (j & 1) + 1] = pack<T>(dpt[j][2], dpt[j][3]);
+    }
+
+    // dv += p^ do and dk += ds^ q^ over this warp's 32 q columns, two n
+    // tiles at a time, each q tile's part summed from zero and then added
+    // in float32
+#pragma unroll
+    for (int jp = 0; jp < kNd / 2; ++jp) {
+      float pv[2][4] = {}, pk[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t bd[4], bq[4];
+        ldsm4_t(bd, dos + (qc0 + 16 * kk) * S + 16 * jp + bt_off);
+        ldsm4_t(bq, qs + (qc0 + 16 * kk) * S + 16 * jp + bt_off);
+        mma<T>(pv[0], pa[kk], bd[0], bd[1]);
+        mma<T>(pv[1], pa[kk], bd[2], bd[3]);
+        mma<T>(pk[0], da[kk], bq[0], bq[1]);
+        mma<T>(pk[1], da[kk], bq[2], bq[3]);
+      }
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          dv_acc[2 * jp + x][i] += pv[x][i];
+          dk_acc[2 * jp + x][i] += pk[x][i];
+        }
+    }
+
+    if constexpr (DQ) {
+      // ds^ ^T into shared memory, two q columns a 32-bit store
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<uint32_t*>(dst_s + (kr0 + 8 * h) * SD + qc0 +
+                                       8 * j + 2 * t) =
+              da[j >> 1][2 * (j & 1) + h];
+      __syncthreads();
+
+      // dq rows 16 (w & 3) + g (+ 8) of this tile, columns (w >> 2) * D/2
+      // + 8 j + 2 t (+ 1): ds^ k, summed from zero over the tile's keys
+      const int qr = kw + g;
+      const int c0 = (warp >> 2) * (DPAD / 2);
+      float dq[kHalf][4];
+#pragma unroll
+      for (int j = 0; j < kHalf; ++j)
+        dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kBlockK / 16; ++kk) {
+        uint32_t a[4];
+        ldsm4_t(a, dst_s + 16 * kk * SD + kw + dsa_off);
+#pragma unroll
+        for (int jp = 0; jp < kHalf / 2; ++jp) {
+          uint32_t b[4];
+          ldsm4_t(b, ks + 16 * kk * S + c0 + 16 * jp + bt_off);
+          mma<T>(dq[2 * jp], a, b[0], b[1]);
+          mma<T>(dq[2 * jp + 1], a, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = q0 + qr + 8 * h;
+        if (r >= tq) continue;
+        float* dst = dq_acc + ((int64_t)bh * tq + r) * d;
+#pragma unroll
+        for (int j = 0; j < kHalf; ++j) {
+          const int col = c0 + 8 * j + 2 * t;
+          if (col + 1 < d && (d & 1) == 0) {
+            atomic_add2(dst + col, dq[j][2 * h], dq[j][2 * h + 1]);
+          } else {
+            if (col < d) atomicAdd(dst + col, dq[j][2 * h]);
+            if (col + 1 < d) atomicAdd(dst + col + 1, dq[j][2 * h + 1]);
+          }
+        }
+      }
+    }
+    __syncthreads();   // every reader of this stage (and of ds^T) is done
+  }
+
+  if (use_async) cp_async_wait<0>();   // no walk: k, v landing
+
+  // the two q halves meet: warps 4-7 leave their sums in shared memory
+  // (the q and do ring, free now, as float32), warps 0-3 add them and store
+  constexpr int SR = DPAD + 4;
+  float* red_dk = reinterpret_cast<float*>(q_ring);
+  float* red_dv = red_dk + kBlockK * SR;
+  if (warp >= 4) {
+#pragma unroll
+    for (int j = 0; j < kNd; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int off = (kr0 + 8 * (i >> 1)) * SR + 8 * j + 2 * t + (i & 1);
+        red_dk[off] = dk_acc[j][i];
+        red_dv[off] = dv_acc[j][i];
+      }
+  }
+  __syncthreads();
+  if (warp < 4) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kr = k0 + kr0 + 8 * h;
+      if (kr >= tk) continue;
+      T* dkrow = dk + ((int64_t)bh * tk + kr) * d;
+      T* dvrow = dv + ((int64_t)bh * tk + kr) * d;
+#pragma unroll
+      for (int j = 0; j < kNd; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = 8 * j + 2 * t + c;
+          if (col >= d) continue;
+          const int off = (kr0 + 8 * h) * SR + col;
+          // dk = ds^T q^: q^ carries the scale
+          dkrow[col] = from_float<T>(dk_acc[j][2 * h + c] + red_dk[off]);
+          dvrow[col] = from_float<T>(dv_acc[j][2 * h + c] + red_dv[off]);
         }
     }
   }

@@ -19,7 +19,13 @@ the kernels (a failed build or launch raises), CPU tensors take the plain
 versions ``_plain_forward``, ``_plain_backward`` (fused) and
 ``_plain_backward_dkv`` / ``_plain_backward_dq`` (split).  The plain
 versions compute the same functions densely in float32 and are what the
-CPU tests and ``chip_smoke.py`` hold the kernels against.  Between the
+CPU tests and ``chip_smoke.py`` hold the kernels against.  On bfloat16
+and float16 inputs they round where the reference's kernels round: q
+times the scale in the storage type (the scale rounded to it first, as
+JAX's weak typing does), p to the input type before p.v, and p and ds to
+the input type before dv, dk and dq.  l sums the float32 p, where the
+reference's ones-column l-sum (D % 128 != 0) sums the rounded p.  On
+float32 inputs every rounding is the identity.  Between the
 fused backward and the split pair the reference's size rule decides
 (``_split_backward``: the fused kernel's dq accumulator against
 ``_FUSED_DQ_BYTES``); the reference's switches between its backward
@@ -141,12 +147,32 @@ def _check_backward(q, k, v, lse, do, di):
         raise ValueError("backward inputs lie on different devices")
 
 
+def _prescaled(q, scale):
+    """q times the softmax scale as float32: on 16-bit q the product is
+    taken in q's type with the scale rounded to it, as the reference's
+    launchers compute ``(q * scale).astype(q.dtype)``."""
+    if q.dtype == torch.float32:
+        return q * scale
+    # the rounded scale as a host number (exact in q's type, so the
+    # product rounds once), which a CUDA graph can capture
+    return (q * float(torch.tensor(scale, dtype=q.dtype))).float()
+
+
+def _rounded(x, dtype):
+    """float32 ``x`` rounded to ``dtype`` and back, as the reference's
+    kernels round p and ds before their 16-bit products; the identity
+    for float32."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
 def _plain_forward(q, k, v, causal, scale, q_offset=0, k_offset=0):
     """The kernel's function in plain PyTorch: [BH, Tq, D] x [BH, Tk, D]
     -> (o [BH, Tq, D] in q's dtype, lse [BH, Tq] float32).  Dense float32
     math with the kernel's conventions: scale folded into q, masked
-    probabilities zeroed, a fully masked row gives o = 0, lse = -1e30."""
-    s = torch.einsum('btd,bsd->bts', q.float() * scale, k.float())
+    probabilities zeroed, a fully masked row gives o = 0, lse = -1e30;
+    on 16-bit inputs q times the scale and p rounded to the input type
+    (l sums the float32 p)."""
+    s = torch.einsum('btd,bsd->bts', _prescaled(q, scale), k.float())
     valid = None
     if causal:
         tq, tk = s.shape[1], s.shape[2]
@@ -160,7 +186,8 @@ def _plain_forward(q, k, v, causal, scale, q_offset=0, k_offset=0):
         p = p.masked_fill(~valid, 0.0)
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l > 0, l, torch.ones_like(l))
-    o = torch.einsum('bts,bsd->btd', p, v.float()) / l_safe
+    o = torch.einsum('bts,bsd->btd', _rounded(p, v.dtype),
+                     v.float()) / l_safe
     lse = (m + torch.log(l_safe))[..., 0]
     return o.to(q.dtype), lse
 
@@ -188,8 +215,9 @@ def _plain_probs(q, k, v, lse, do, di, causal, scale, q_offset, k_offset):
     """What every backward kernel recomputes, densely in float32: the
     pre-scaled q, k, do, p = exp(s - lse) masked by select (a fully masked
     row has lse = -1e30, where exp(s - lse) is inf) and
-    ds = p * (dp - di)."""
-    qf = q.float() * scale
+    ds = p * (dp - di), p and ds rounded to the input type (the operands
+    of dv, dk and dq)."""
+    qf = _prescaled(q, scale)
     kf, vf, dof = k.float(), v.float(), do.float()
     s = torch.einsum('btd,bsd->bts', qf, kf)
     p = torch.exp(s - lse[..., None])
@@ -201,13 +229,14 @@ def _plain_probs(q, k, v, lse, do, di, causal, scale, q_offset, k_offset):
         p = torch.where(valid, p, torch.zeros_like(p))
     dp = torch.einsum('btd,bsd->bts', dof, vf)
     ds = p * (dp - di[..., None])
-    return qf, kf, dof, p, ds
+    return qf, kf, dof, _rounded(p, q.dtype), _rounded(ds, q.dtype)
 
 
 def _plain_backward_dkv(q, k, v, lse, do, di, causal, scale, q_offset=0,
                         k_offset=0):
     """The dk/dv kernel's function in plain PyTorch: (dk, dv) in k's and
-    v's dtypes, dv = p^T do and dk = ds^T (scale q); the arguments as
+    v's dtypes, dv = p^T do and dk = ds^T (scale q), p and ds rounded to
+    the input type; the arguments as
     ``_plain_backward``'s."""
     qf, _, dof, p, ds = _plain_probs(q, k, v, lse, do, di, causal, scale,
                                      q_offset, k_offset)
@@ -219,7 +248,8 @@ def _plain_backward_dkv(q, k, v, lse, do, di, causal, scale, q_offset=0,
 def _plain_backward_dq(q, k, v, lse, do, di, causal, scale, q_offset=0,
                        k_offset=0):
     """The dq kernel's function in plain PyTorch: dq = (ds k) * scale in
-    q's dtype (the scale taken once); the arguments as
+    q's dtype (the scale taken once, ds rounded to the input type); the
+    arguments as
     ``_plain_backward``'s."""
     _, kf, _, _, ds = _plain_probs(q, k, v, lse, do, di, causal, scale,
                                    q_offset, k_offset)

@@ -10,6 +10,7 @@ import shutil
 import pytest
 
 from paddle_tpu_torch.ops.kernels import build, flash_dq_probe
+from paddle_tpu_torch.ops.kernels import flash16_probe
 from paddle_tpu_torch.ops.kernels import gru_bwd_probe, gru_fwd_probe
 from paddle_tpu_torch.ops.kernels import lstm_bwd_probe, lstm_fwd_probe
 from paddle_tpu_torch.ops.kernels import table_update_probe
@@ -104,6 +105,24 @@ def test_dq_probe_variants_apply_to_the_shipped_source(name):
     assert name != 'base_e' or 'exp2f' not in src
     assert name != 'diag_one_tf32' or 'mma3(' not in src.split(
         'fa_bwd_dq_kernel(')[1].split('launch_dkv')[0]
+
+
+@pytest.mark.parametrize('source,name', [
+    ('flash_attention_fwd', n) for n in sorted(flash16_probe.FWD_VARIANTS)
+] + [('flash_attention_bwd', n) for n in sorted(flash16_probe.BWD_VARIANTS)])
+def test_flash16_probe_variants_apply_to_the_shipped_sources(source, name):
+    """Every text the 16-bit engines' probe (ops/kernels/flash16_probe.py)
+    substitutes is in its source once, so the probe builds the variant it
+    names."""
+    variants = (flash16_probe.FWD_VARIANTS if source == 'flash_attention_fwd'
+                else flash16_probe.BWD_VARIANTS)
+    with open(os.path.join(build.CSRC_DIR, source + '.cu')) as f:
+        src = f.read()
+    for old, new in variants[name]:
+        assert src.count(old) == 1, old[:60]
+        src = src.replace(old, new)
+    assert name == 'shipped' or src.count('kWarps16 = 8') + src.count(
+        'DPAD <= 64 ? 3 : 2;') + src.count('DPAD, 1>') == 1
 
 
 def test_dq_probe_reads_ptxas_resources_of_each_instance():

@@ -84,14 +84,36 @@ def test_three_d_input_is_one_head():
 
 
 def test_bf16_inputs_give_bf16_output_float32_lse():
+    """bf16 q/k/v give bf16 o and float32 lse: the expressions of the
+    reference's kernels (q times the scale in bf16, the scale rounded to
+    bf16 first; p rounded to bf16 before p.v; l summing the float32 p),
+    bitwise, and the reference's Pallas forward in interpret mode within
+    one bf16 ulp of the largest |o| on o and 2e-3 on lse (its ones-column
+    l-sum adds the rounded p, each rounded at its tile's running max:
+    tests/test_torch_flash_attention_16bit.py)."""
     q, k, v = _inputs(5, (2, 16, 8), (2, 16, 8))
     qt, kt, vt = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
-    o, lse = tfa._fa_forward(qt, kt, vt, True, 8 ** -0.5)
+    scale = 8 ** -0.5
+    o, lse = tfa._fa_forward(qt, kt, vt, True, scale)
     assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
-    o32, lse32 = tfa._fa_forward(qt.float(), kt.float(), vt.float(), True,
-                                 8 ** -0.5)
-    assert torch.equal(lse, lse32)
-    assert torch.equal(o, o32.to(torch.bfloat16))
+    qs = (qt * torch.tensor(scale, dtype=torch.bfloat16)).float()
+    s = torch.einsum('btd,bsd->bts', qs, kt.float())
+    valid = torch.ones(16, 16, dtype=torch.bool).tril()
+    s = s.masked_fill(~valid, -1e30)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m).masked_fill(~valid, 0.0)
+    l = p.sum(-1, keepdim=True)
+    want_o = torch.einsum('bts,bsd->btd', p.to(torch.bfloat16).float(),
+                          vt.float()) / l
+    assert torch.equal(o, want_o.to(torch.bfloat16))
+    assert torch.equal(lse, (m + torch.log(l))[..., 0])
+    jo, jlse = jfa._fa_forward_sliced(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), True, scale, 8,
+        8, True)
+    jo = np.asarray(jo, np.float32)
+    ulp = 2.0 ** np.floor(np.log2(np.abs(jo).max())) * 2.0 ** -7
+    assert np.max(np.abs(o.float().numpy() - jo)) <= ulp
+    assert np.max(np.abs(lse.numpy() - np.asarray(jlse))) <= 2e-3
 
 
 def test_cpu_runs_plain_version_and_counts_no_launch():
