@@ -4,6 +4,7 @@
     python3 chip_smoke.py --long-step   # phase 26 alone, see below
     python3 chip_smoke.py --flash       # phases 1-3, 7 and 23 alone
     python3 chip_smoke.py --amp-step    # phases 44 and 46 alone
+    python3 chip_smoke.py --ceiling     # phases 1, 2 (#1, #11), 62, 63
 
 Run from the root of a checkout on a machine with a CUDA card and the
 CUDA toolkit (nvcc).  It drives ``paddle_tpu_torch`` only (no JAX, nothing
@@ -19,8 +20,9 @@ line:
    not be 0 in any instance of #1, #2, #3, #4 and #11, nor in the cluster
    chains of #7, #8, #9 and #10, nor in #8's and #10's dW kernels; #7's
    cluster chain must not spill.  The bfloat16 and float16 instances of
-   #1, #2 and #3 (their 16-bit engines) must show 16-bit products
-   (HMMA.16816) and no TF32 ones, their float32 instances TF32 ones.
+   #1, #2 and #3 and the bfloat16 ones of #11 (their 16-bit engines) must
+   show 16-bit products (HMMA.16816) and no TF32 ones, their float32
+   instances TF32 ones.
 3. flash forward vs its plain version on the card at the prefill's
    shapes (BH = 8, D = 64; float32, and the causal, non-causal, ragged,
    offset and fully-masked-row cases in bfloat16 and float16), with the
@@ -426,11 +428,19 @@ line:
    shape (BH=128, T=8192, D=64; its inputs, seeded normals, q and k times
    0.1) at 1024 x 1024 and 64 x 64 tiles on three bh slices; norm-relative
    at ``fc.tolerance``: 1e-5 float32, 5e-4 bf16, 1e-2 for bf16 maxexp
-   at bk > 64 (its p rounds at the running max).
+   at bk > 64 (its p rounds at the running max); the bf16 readings
+   printed beside the earlier 3xTF32 engine's.
 63. the probe's entry point (``flash_ceiling_probe.run``) at that shape,
-   tiles and both types: each variant and ``full`` (#1, causal) in device
-   time, with the probe's ``executed_tflops``; #11's bounds; its plain
-   version timed at 1024 x 1024.  #11's counts are set to 0 just before
+   tiles and both types, and in bf16 at the AMP training shape (B=32,
+   H=8, T=512, D=64, 64 x 64 tiles: where #1 runs on bf16 q/k/v): each
+   variant and ``full`` (#1, causal) in device time, with the probe's
+   ``executed_tflops``, and ``F.scaled_dot_product_attention`` (causal,
+   the same bf16 q/k/v, timed as #1; a yardstick only) beside ``full``;
+   the stage split (the products, + exp, + the row max, the rest of #1's
+   tail; mmT - mm, the transposed k read); #11's bounds; its plain
+   version timed at 1024 x 1024.  At 64 x 64 tiles bf16 mm, mmT and exp
+   must each take at most 1.10x #1's ``full`` (the variants run #1's
+   16-bit engine with less tail).  #11's counts are set to 0 just before
    and read just after (each variant 3 warm-up calls and ``steps``
    captured in a CUDA graph).
 64. the book's GAN (tests/book/test_gan.py, ``models/gan.py``: two Adam
@@ -447,7 +457,8 @@ line:
    10's bounds.
 52. a ``{"kernels": [...]}`` line (eleven kernels, each with its launches
    by path; ``bound_ms`` at the rate of the units a kernel computes on:
-   the tensor cores at 3xTF32 for #1-#4, #11 and #7-#10, with their CUDA-core
+   the tensor cores at 3xTF32 for #1-#4, #11 and #7-#10 (at the 16-bit
+   rate for #11's bf16 rows), with their CUDA-core
    float32 bound beside it as ``cuda_core_bound_ms``; the CUDA cores for
    the rest; #1 and #2 also at the training shape on bf16 and f16 q/k/v,
    ``amp_training_shape``, with SDPA on the same inputs and the bounds
@@ -922,7 +933,8 @@ def _hmma_kinds(sass):
 # float32 instances the 3xTF32 engine
 FLASH_16BIT = (('flash_attention_fwd', 'fa_fwd_kernel'),
                ('flash_attention_bwd', 'fa_bwd_kernel'),
-               ('flash_attention_bwd_split', 'fa_bwd_dkv_kernel'))
+               ('flash_attention_bwd_split', 'fa_bwd_dkv_kernel'),
+               ('flash_ceiling', 'flash_ceiling_kernel'))
 
 
 def _check_16bit_engines(kinds):
@@ -6837,6 +6849,17 @@ CEILING_CASES = (
     (2, 512, 33, 64, 128))
 CEILING = dict(B=16, T=8192, H=8, D=64, steps=5, slices=(0, 77, 127),
                tiles=((1024, 1024), (64, 64)))
+# the AMP training shape (TRAIN's B, H and T, head dim 64), where #1 runs
+# on bf16 q/k/v, at #1's 64 x 64 tiles; a variant there takes tens of us,
+# so more calls a graph
+CEILING_AMP = dict(B=32, T=512, H=8, D=64, bq=64, bk=64, steps=20)
+# at 64 x 64 tiles a bf16 variant short of the row max runs #1's 16-bit
+# walk with less tail: mm, mmT and exp each at most this times #1's full
+CEILING_STAGE_SLACK = 1.10
+# the bf16 readings of phase 62 on the earlier engine, which ran bf16 as
+# 3xTF32 (an H100 80GB HBM3 at 700 W): (least, largest) at 5e-4, and of
+# maxexp at bk > 64 at 1e-2
+CEILING_3XTF32_BF16 = {5e-4: (1.3e-5, 1.2e-4), 1e-2: (1.6e-3, 2.3e-3)}
 # the book's GAN on the card (tests/book/test_gan.py): the synthetic
 # MNIST's first 256 images in batches of 32 (drop_last), 2 epochs (16
 # steps), noise from default_rng(0); every loss finite, the mean D loss of
@@ -6911,6 +6934,12 @@ def phase_ceiling_kernel(inputs):
               "%.3g %s" % (r['case'], r['dtype'], r['variant'], r['norm_rel'],
                            r['tol'], r['max_abs_err'],
                            'ok' if r['ok'] else 'FAIL'))
+    for tol, (lo, hi) in CEILING_3XTF32_BF16.items():
+        got = [r['norm_rel'] for r in rows
+               if r['dtype'] == 'bfloat16' and r['tol'] == tol]
+        print("ceiling bf16 norm-rel at tol %.0e: %.3g to %.3g over %d "
+              "cases (16-bit engine); the 3xTF32 engine read %.2g to %.2g"
+              % (tol, min(got), max(got), len(got), lo, hi))
     print("phase 62 (#11 vs its plain version): %.1f s"
           % (time.perf_counter() - t0))
     bad = [(r['case'], r['dtype'], r['variant']) for r in rows
@@ -6923,39 +6952,57 @@ def phase_ceiling_kernel(inputs):
 def _ceiling_bound(bh, t, d, bq, bk, dtype):
     """#11's (bytes, flops) and bounds: q, k, v read once and o written
     once; the probe's ``executed``, 4 * D flops a pair of the live
-    logical tiles (#1's formula).  ``bound_ms`` at the tensor cores' rate
-    for the inputs' type: 3xTF32's for float32, the 16-bit rate for bf16
-    (bf16 products need no split; the kernel still runs them as
-    3xTF32, whose bound stands beside it as ``bound_3xtf32_ms``); the
-    float32 CUDA cores' as ``cuda_core_bound_ms``."""
+    logical tiles (#1's formula).  ``bound_ms`` at the rate of the
+    tensor-core products the kernel runs for the inputs' type: 3xTF32's
+    for float32, the 16-bit rate for bf16 (one m16n8k16 product, no
+    split); the float32 CUDA cores' as ``cuda_core_bound_ms``."""
     item = torch.tensor([], dtype=dtype).element_size()
     nbytes = 4 * bh * t * d * item
     flops = fc.executed_flops(bh, t, d, bq, bk)
     tc = _tc_bound(nbytes, flops, dtype)
     return dict(bytes=nbytes, flops=flops, bound_ms=tc[0], bound_by=tc[1],
-                bound_3xtf32_ms=_bound(nbytes, flops, peak=PEAK_3XTF32)[0],
                 cuda_core_bound_ms=_bound(nbytes, flops)[0])
+
+
+def _ceiling_stages(out):
+    """A probe run's split of #1's time: the two products (mm), then what
+    exp adds, the row max adds (maxexp, which also keeps the logical
+    tile's sum) and the rest of #1's tail (the mask, l, the rescaled
+    accumulator and the normalised store) adds; mmT - mm is the cost of
+    reading k's fragments transposed."""
+    ms = {k: out[k]['ms'] for k in fc.VARIANTS + ('full',)}
+    return dict(products=ms['mm'], transposed_k=ms['mmT'] - ms['mm'],
+                exp=ms['exp'] - ms['mm'], max=ms['maxexp'] - ms['exp'],
+                rest_of_full=ms['full'] - ms['maxexp'],
+                mm_over_full=ms['mm'] / ms['full'],
+                mmT_over_full=ms['mmT'] / ms['full'],
+                exp_over_full=ms['exp'] / ms['full'])
 
 
 def phase_ceiling_probe(inputs):
     """Phase 63: the probe's entry point (``flash_ceiling_probe.run``, the
     port of benchmarks/exp_flash_ceiling.py) at its default shape, its
     1024 x 1024 tiles and #1's 64 x 64, in bf16 (the TPU probe's type)
-    and float32: each variant and ``full`` (#1, causal) in device time.
-    #11's counts are set to 0 just before and read just after: the
-    probe's calls are the kernel's main path.  The plain version is timed
-    at the 1024 x 1024 tiles (36 logical tiles a bh; at 64 x 64 it would
-    walk 8256 in Python)."""
+    and float32, and in bf16 at the AMP training shape (``CEILING_AMP``):
+    each variant and ``full`` (#1, causal) in device time, SDPA beside
+    ``full`` on the bf16 runs, and the stage split.  #11's counts are set
+    to 0 just before and read just after: the probe's calls are the
+    kernel's main path.  The plain version is timed at the 1024 x 1024
+    tiles (36 logical tiles a bh; at 64 x 64 it would walk 8256 in
+    Python)."""
     t0 = time.perf_counter()
-    c = CEILING
-    bh = c['B'] * c['H']
-    runs = []
+    c, a = CEILING, CEILING_AMP
+    # (B, T, H, D, bq, bk, steps, dtype), q, k, v
+    jobs = [((c['B'], c['T'], c['H'], c['D'], bq, bk, c['steps'], dtype),
+             inputs[dtype])
+            for dtype in (torch.bfloat16, torch.float32)
+            for bq, bk in c['tiles']]
+    jobs.append(((a['B'], a['T'], a['H'], a['D'], a['bq'], a['bk'],
+                  a['steps'], torch.bfloat16),
+                 fc_probe.probe_inputs(a['B'] * a['H'], a['T'], a['D'],
+                                       torch.bfloat16)))
     _zero_counts()
-    for dtype in (torch.bfloat16, torch.float32):
-        for bq, bk in c['tiles']:
-            runs.append(fc_probe.run(c['B'], c['T'], c['H'], c['D'], bq, bk,
-                                     c['steps'], dtype,
-                                     inputs=inputs[dtype]))
+    runs = [fc_probe.run(*args, inputs=qkv) for args, qkv in jobs]
     counts = _counts()
     by_variant = dict(fc.variant_launches)
     plain = {}
@@ -6967,12 +7014,37 @@ def phase_ceiling_probe(inputs):
                 lambda: fc._plain_ceiling(q, k, v, variant, bq, bk),
                 iters=1, replays=2)
         torch.cuda.empty_cache()
-    for out in runs:
+    slow = []
+    for out, (_, qkv) in zip(runs, jobs):
         cfg = out['config']
         dtype = getattr(torch, cfg['dtype'])
-        out['bound'] = _ceiling_bound(bh, c['T'], c['D'], cfg['bq'],
+        bh = cfg['B'] * cfg['H']
+        if dtype == torch.bfloat16:
+            q, k, v = (x.view(cfg['B'], cfg['H'], cfg['T'], cfg['D'])
+                       for x in qkv)
+            out['sdpa'] = {'ms': fc_probe.device_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True),
+                iters=cfg['steps'])}
+        out['bound'] = _ceiling_bound(bh, cfg['T'], cfg['D'], cfg['bq'],
                                       cfg['bk'], dtype)
+        out['stages'] = _ceiling_stages(out)
         print("ceiling probe %s: %s" % (cfg['dtype'], json.dumps(out)))
+        print("ceiling stages %s BH=%d T=%d D=%d %dx%d (ms): mm %.4f mmT "
+              "%.4f exp %.4f maxexp %.4f full %.4f%s | products %.4f, "
+              "+exp %.4f, +max %.4f, rest of #1's tail %.4f; mmT - mm %.4f"
+              % (cfg['dtype'], bh, cfg['T'], cfg['D'], cfg['bq'], cfg['bk'],
+                 out['mm']['ms'], out['mmT']['ms'], out['exp']['ms'],
+                 out['maxexp']['ms'], out['full']['ms'],
+                 ' (SDPA %.4f)' % out['sdpa']['ms'] if 'sdpa' in out else '',
+                 out['stages']['products'], out['stages']['exp'],
+                 out['stages']['max'], out['stages']['rest_of_full'],
+                 out['stages']['transposed_k']))
+        if dtype == torch.bfloat16 and cfg['bq'] == cfg['bk'] == 64:
+            slow += ['%s at T=%d' % (variant, cfg['T'])
+                     for variant in ('mm', 'mmT', 'exp')
+                     if out['stages'][variant + '_over_full'] >
+                     CEILING_STAGE_SLACK]
     res = dict(runs=runs, counts=counts, variant_launches={
         '%s/%s' % key: n for key, n in by_variant.items()},
         plain_ms=plain, seconds=time.perf_counter() - t0)
@@ -6980,15 +7052,19 @@ def phase_ceiling_probe(inputs):
         {k: v for k, v in res.items() if k != 'runs'}))
     # each variant's device_ms: 3 warm-up calls, one capture of `steps`
     # and its replays run inside the graph (not counted)
-    want = len(runs) * len(fc.VARIANTS) * (3 + c['steps'])
-    if counts['flash_ceiling'] != want or counts['flash_attention_fwd'] != \
-            len(runs) * (3 + c['steps']):
+    calls = sum(3 + out['config']['steps'] for out in runs)
+    want = len(fc.VARIANTS) * calls
+    if counts['flash_ceiling'] != want or \
+            counts['flash_attention_fwd'] != calls:
         raise SystemExit("ceiling probe launches %s, want %d of #11"
                          % (counts, want))
     for out in runs:
         if not all(np.isfinite(out[k]['ms']) and out[k]['ms'] > 0
                    for k in fc.VARIANTS + ('full',)):
             raise SystemExit("ceiling probe timing: %s" % out)
+    if slow:
+        raise SystemExit("bf16 variants at 64 x 64 tiles slower than %.2fx "
+                         "#1's full: %s" % (CEILING_STAGE_SLACK, slow))
     return res
 
 
@@ -7011,7 +7087,6 @@ def _ceiling_line(rows, probe):
         ms=main['mm']['ms'], plain_ms=probe['plain_ms']['mm_bfloat16'],
         bound_ms=main['bound']['bound_ms'],
         bound_by=main['bound']['bound_by'],
-        bound_3xtf32_ms=main['bound']['bound_3xtf32_ms'],
         cuda_core_bound_ms=main['bound']['cuda_core_bound_ms'],
         library_ms=None,
         shape='BH=128 T=8192 D=64 bf16, variant mm, bq = bk = 1024 '
@@ -7201,13 +7276,17 @@ def phase_fit_a_line(c=FIT):
     return res
 
 
+def _ceiling_inputs(c=CEILING):
+    """{dtype: the probe's q, k, v} at its default shape, on the card."""
+    return {dtype: fc_probe.probe_inputs(c['B'] * c['H'], c['T'], c['D'],
+                                         dtype)
+            for dtype in fc.DTYPES}
+
+
 def _slice13_phases():
     """Phases 62-66, timed together."""
     t0 = time.perf_counter()
-    c = CEILING
-    inputs = {dtype: fc_probe.probe_inputs(c['B'] * c['H'], c['T'], c['D'],
-                                           dtype)
-              for dtype in fc.DTYPES}
+    inputs = _ceiling_inputs()
     rows = phase_ceiling_kernel(inputs)
     probe = phase_ceiling_probe(inputs)
     del inputs
@@ -7317,6 +7396,12 @@ def main():
         tr = phase_amp_training()
         with amp.amp_guard('bf16'):
             phase_train_profile(tr, 'transformer bf16 profile')
+        return 0
+    if sys.argv[1:] == ['--ceiling']:
+        phase_build(('flash_attention_fwd', 'flash_ceiling'))
+        inputs = _ceiling_inputs()
+        phase_ceiling_kernel(inputs)
+        phase_ceiling_probe(inputs)
         return 0
     if sys.argv[1:] == ['--flash']:
         phase_build(FLASH_SOURCES)

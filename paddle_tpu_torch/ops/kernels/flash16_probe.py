@@ -1,6 +1,6 @@
 """Design probe of the flash kernels' 16-bit engines (#1, #2) on the card.
 
-    python3 -m paddle_tpu_torch.ops.kernels.flash16_probe
+    python3 -m paddle_tpu_torch.ops.kernels.flash16_probe [--ceiling]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds variants of ``csrc/flash_attention_fwd.cu`` and
@@ -21,23 +21,36 @@ for twice the rows), at most 255 registers (one block an SM) or 128
 (``q128_b2``: two blocks an SM).  Of #2: the shipped engine (two blocks
 an SM at D <= 64, at most 128 registers) and one block an SM (``b1``, up
 to 255 registers).
+With ``--ceiling`` it probes the ceiling probe's kernel (#11,
+``csrc/flash_ceiling.cu``) instead, whose bf16 instances run #1's 16-bit
+engine: the shipped launch bounds (four blocks an SM at D <= 64, maxexp
+three: at most 168 registers for its second output-sized sum) against
+maxexp at four (``maxexp_b4``: at most 128, as #1); ptxas's registers
+and spills of every bf16 instance, maxexp and mm checked against
+``_plain_ceiling`` at the AMP training shape (``fc.tolerance``) and
+timed there (64 x 64 tiles) and at the probe's default shape (BH=128
+T=8192 D=64, 1024 x 1024 tiles), in the same order of turns.
 Prints one JSON line per variant and type, then the card's name and
 power limit.
 """
 import json
 import re
 import subprocess
+import sys
 
 import torch
 
 from . import build
 from . import flash_attention as fa
+from . import flash_ceiling as fc
+from .flash_ceiling_probe import probe_inputs
 from .table_update_probe import device_ms
 
-__all__ = ['FWD_VARIANTS', 'BWD_VARIANTS', 'main']
+__all__ = ['FWD_VARIANTS', 'BWD_VARIANTS', 'CEIL_VARIANTS', 'main']
 
 _Q128 = (('constexpr int kWarps16 = 4;', 'constexpr int kWarps16 = 8;'),)
 _BLOCKS = '  return DPAD <= 64 ? 4 : 2;\n}'
+_CEIL_BLOCKS = '  return DPAD <= 64 ? (V == kMaxExp ? 3 : 4) : 2;\n}'
 _MIN2 = ((_BLOCKS, '  return DPAD <= 64 ? 2 : 1;\n}'),)
 _MIN1 = ((_BLOCKS, '  return 1;\n}'),)
 FWD_VARIANTS = {
@@ -50,6 +63,13 @@ BWD_VARIANTS = {
     'shipped': (),
     'b1': (('(DPAD <= 64 ? 2 : 1)>', '1>'),),
 }
+CEIL_VARIANTS = {
+    'shipped': (),
+    'maxexp_b4': ((_CEIL_BLOCKS, '  return DPAD <= 64 ? 4 : 2;\n}'),),
+}
+# (B, H, T, D, bq, bk, calls a graph) of the ceiling kernel's timings:
+# the AMP training shape, then the probe's default
+CEIL_SHAPES = ((32, 8, 512, 64, 64, 64, 20), (16, 8, 8192, 64, 1024, 1024, 5))
 SEED = 22
 # kernel vs plain version: one 16-bit ulp of an O(1) value, as
 # chip_smoke.py's TOL_BF16_O / TOL_F16_O and TOL_BWD_BF16 / TOL_BWD_F16
@@ -58,20 +78,23 @@ TOL = {torch.bfloat16: 3.2e-2, torch.float16: 3.91e-3}
 
 def _resources(log, kernel):
     """{instance: 'N registers | spill line'} of ``kernel``'s 16-bit
-    instances from ptxas's -v output."""
+    instances from ptxas's -v output, an instance named by its type and
+    its integer template arguments (DPAD; #11's variant after it)."""
     lines = log.splitlines()
     out = {}
     for i, line in enumerate(lines):
         if 'Compiling entry function' not in line or kernel not in line:
             continue
-        m = re.search(kernel + r'I(13__nv_bfloat16|6__half)Li(\d+)', line)
+        m = re.search(kernel + r'I(13__nv_bfloat16|6__half)((?:Li\d+E)+)',
+                      line)
         if not m:
             continue
         follow = lines[i + 1:i + 4]
         regs = next((x.split('info    : ')[-1] for x in follow
                      if 'registers' in x), '')
         spill = next((x.strip() for x in follow if 'spill' in x), '')
-        out['%s_%s' % (m.group(1).lstrip('0123456789'), m.group(2))] = (
+        out['_'.join([m.group(1).lstrip('0123456789')] +
+                     re.findall(r'\d+', m.group(2)))] = (
             '%s | %s' % (regs, spill))
     return out
 
@@ -81,7 +104,61 @@ def _max_err(got, want):
                for a, b in zip(got, want))
 
 
-def main():
+def _card():
+    return subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def ceiling():
+    """The ``--ceiling`` probe: #11's bf16 launch bounds (module
+    docstring)."""
+    libs, logs = build.build_variants('flash_ceiling', CEIL_VARIANTS)
+    shapes = []
+    for b, h, t, d, bq, bk, calls in CEIL_SHAPES:
+        q, k, v = probe_inputs(b * h, t, d, torch.bfloat16)
+        shapes.append(('T%d_%dx%d' % (t, bq, bk), q, k, v, bq, bk, calls))
+    res = {name: dict(source='flash_ceiling', variant=name,
+                      ptxas=_resources(logs[name], 'flash_ceiling_kernel'))
+           for name in CEIL_VARIANTS}
+    order = list(CEIL_VARIANTS) + list(reversed(list(CEIL_VARIANTS)))
+    shipped = build._libs.get('flash_ceiling')
+    checked = set()
+    try:
+        for name in order:
+            build._libs['flash_ceiling'] = libs[name]
+            r = res[name]
+            for key, q, k, v, bq, bk, calls in shapes:
+                for variant in ('mm', 'maxexp'):
+                    def call():
+                        return fc.flash_ceiling(q, k, v, variant, bq, bk)
+                    # checked once a build, at the AMP training shape
+                    if key == shapes[0][0] and name not in checked:
+                        got = call().float()
+                        ref = fc._plain_ceiling(q, k, v, variant, bq,
+                                                bk).float()
+                        rel = float((got - ref).norm() / ref.norm())
+                        r[variant + '_norm_rel'] = rel
+                        r[variant + '_ok'] = rel <= fc.tolerance(
+                            torch.bfloat16, variant, bk)
+                    r.setdefault('%s_%s_ms' % (key, variant), []).append(
+                        device_ms(call, iters=calls))
+            checked.add(name)
+    finally:
+        if shipped is None:
+            build._libs.pop('flash_ceiling', None)
+        else:
+            build._libs['flash_ceiling'] = shipped
+    for name in CEIL_VARIANTS:
+        print(json.dumps(res[name]), flush=True)
+    print(_card())
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if argv == ['--ceiling']:
+        return ceiling()
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     cases = {}
     for dtype in (torch.bfloat16, torch.float16):
@@ -135,10 +212,7 @@ def main():
                 build._libs[src] = shipped
         for name in variants:
             print(json.dumps(res[name]), flush=True)
-    print(subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'],
-        capture_output=True, text=True, timeout=60).stdout.strip())
+    print(_card())
 
 
 if __name__ == '__main__':

@@ -15,25 +15,29 @@ forward's time into its stages; ``flash_ceiling_probe.py`` times the four
 variants beside the flash forward (#1) itself.
 
 The kernel is CUDA C++ in ``paddle_tpu_torch/csrc/flash_ceiling.cu``, on
-#1's engine (64-row q tiles, a cp.async ring of 64-key tiles, 3xTF32
-products on the tensor cores), compiled for ``sm_90a`` at first use
-(ops/kernels/build.py) and called through ctypes on the tensors' current
-stream.  Dispatch is by the tensors' device and nothing else: CUDA
-tensors launch the kernel (a failed build or launch raises), CPU tensors
-take ``_plain_ceiling``, which loops over the logical tiles as the TPU
-grid does.
+the engine #1 runs for the input type: 64-row q tiles and a cp.async ring
+of 64-key tiles in both; float32 as 3xTF32 products on the tensor cores
+(``csrc/flash_tf32.cuh``), bfloat16 as one m16n8k16 bf16 ``mma.sync`` a
+product on 16-bit tiles read by ``ldmatrix`` (``csrc/flash_f16.cuh``).
+So each variant differs from #1 only in its tail, in either type.  It is
+compiled for ``sm_90a`` at first use (ops/kernels/build.py) and called
+through ctypes on the tensors' current stream.  Dispatch is by the
+tensors' device and nothing else: CUDA tensors launch the kernel (a
+failed build or launch raises), CPU tensors take ``_plain_ceiling``,
+which loops over the logical tiles as the TPU grid does.
 
 Tolerance against the plain version, norm-relative (``tolerance``):
 float32 1e-5 (both sum in float32 in other orders; at most 1.3e-6 read on
 an H100 by chip_smoke.py phase 62).  bfloat16 rounds p to bfloat16 before
 p v on both sides, so a last-bit difference in s moves a term by a
-bfloat16 ulp now and then: 5e-4 (read: 1.3e-5 to 1.2e-4; a kernel that
-left out the cast of p would read 2.3e-3 to 2.9e-3).  The exception is
-``maxexp`` with bk > 64: there the kernel rounds p at exp(s - the running
-max) and rescales it in float32, where the plain version rounds exp(s -
-the tile's max), which moves every term by up to a bfloat16 rounding:
-1e-2 (read: 1.6e-3 to 2.3e-3).  At bk = 64 the running max is the tile's
-and the 5e-4 holds (read: 0 to 8.2e-5).
+bfloat16 ulp now and then: 5e-4 (read: 0 to 1.2e-4, on the 16-bit engine
+as on the 3xTF32 one it replaced; a kernel that left out the cast of p
+would read 2.3e-3 to 2.9e-3).  The exception is ``maxexp`` with bk > 64:
+there the kernel rounds p at exp(s - the running max) and rescales it in
+float32, where the plain version rounds exp(s - the tile's max), which
+moves every term by up to a bfloat16 rounding: 1e-2 (read: 1.6e-3 to
+2.3e-3 on either engine).  At bk = 64 the running max is the tile's and
+the 5e-4 holds (read: 0 to 8.2e-5).
 """
 import ctypes
 

@@ -17,8 +17,10 @@ object, per variant ``ms`` and ``executed_tflops`` (the probe's
 ``executed``, 4 * D flops per pair of the live logical tiles, :95-97,
 over ``ms``; for ``full`` also ``live_pair_tflops``, #1's own causal
 pairs over its ``ms``), then the card's name and power limit.  The
-variants differ from #1 only in their tails, so the gaps between them
-split #1's time into its stages: the two products, exp, the row max.
+variants run #1's engine for the type (float32: 3xTF32; bfloat16: its
+16-bit engine) and differ from #1 only in their tails, so the gaps
+between them split #1's time into its stages: the two products, exp,
+the row max.
 """
 import argparse
 import json

@@ -66,7 +66,8 @@ def test_digest_covers_the_flags(tmp_path, monkeypatch):
 def test_every_shipped_source_names_a_library():
     """Each csrc/*.cu (its headers found on disk) gets a library path, the
     flash backward sources take the dk/dv engine's header, and the
-    ceiling probe's kernel (#11) the forward's 3xTF32 helpers."""
+    ceiling probe's kernel (#11) both of the forward's engines' helpers:
+    3xTF32 for float32, 16-bit for bfloat16."""
     names = sorted(f[:-3] for f in os.listdir(build.CSRC_DIR)
                    if f.endswith('.cu'))
     assert len(names) == 10
@@ -76,7 +77,9 @@ def test_every_shipped_source_names_a_library():
         with open(os.path.join(build.CSRC_DIR, n + '.cu')) as f:
             assert '#include "flash_bwd_dkv.cuh"' in f.read()
     with open(os.path.join(build.CSRC_DIR, 'flash_ceiling.cu')) as f:
-        assert '#include "flash_tf32.cuh"' in f.read()
+        src = f.read()
+    assert '#include "flash_tf32.cuh"' in src
+    assert '#include "flash_f16.cuh"' in src
 
 
 @pytest.mark.parametrize('name', sorted(table_update_probe.VARIANTS))
@@ -107,22 +110,51 @@ def test_dq_probe_variants_apply_to_the_shipped_source(name):
         'fa_bwd_dq_kernel(')[1].split('launch_dkv')[0]
 
 
+_FLASH16_VARIANTS = {'flash_attention_fwd': flash16_probe.FWD_VARIANTS,
+                     'flash_attention_bwd': flash16_probe.BWD_VARIANTS,
+                     'flash_ceiling': flash16_probe.CEIL_VARIANTS}
+
+
 @pytest.mark.parametrize('source,name', [
-    ('flash_attention_fwd', n) for n in sorted(flash16_probe.FWD_VARIANTS)
-] + [('flash_attention_bwd', n) for n in sorted(flash16_probe.BWD_VARIANTS)])
+    (source, n) for source, variants in _FLASH16_VARIANTS.items()
+    for n in sorted(variants)])
 def test_flash16_probe_variants_apply_to_the_shipped_sources(source, name):
     """Every text the 16-bit engines' probe (ops/kernels/flash16_probe.py)
     substitutes is in its source once, so the probe builds the variant it
     names."""
-    variants = (flash16_probe.FWD_VARIANTS if source == 'flash_attention_fwd'
-                else flash16_probe.BWD_VARIANTS)
     with open(os.path.join(build.CSRC_DIR, source + '.cu')) as f:
         src = f.read()
-    for old, new in variants[name]:
+    for old, new in _FLASH16_VARIANTS[source][name]:
         assert src.count(old) == 1, old[:60]
         src = src.replace(old, new)
-    assert name == 'shipped' or src.count('kWarps16 = 8') + src.count(
-        'DPAD <= 64 ? 3 : 2;') + src.count('DPAD, 1>') == 1
+    changed = src.count('kWarps16 = 8') + src.count(
+        'DPAD <= 64 ? 3 : 2;') + src.count('DPAD, 1>') + (
+        source == 'flash_ceiling' and 'V == kMaxExp ? 3 : 4' not in src)
+    assert name == 'shipped' or changed == 1
+
+
+def test_flash16_probe_names_each_instance_by_its_template_arguments():
+    """#11's bf16 instances differ by variant as well as head dim: each
+    gets its own entry of ptxas's resources."""
+    def entry(fn, regs, spill):
+        return ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N"
+                "_1%s' for 'sm_90a'\nptxas info    : Function properties "
+                "for x\n    %d bytes stack frame, %d bytes spill stores, %d "
+                "bytes spill loads\nptxas info    : Used %d registers\n"
+                % (fn, spill, spill, spill, regs))
+    log = ''.join([
+        entry('20flash_ceiling_kernelI13__nv_bfloat16Li64ELi0EEEvPKT_', 96,
+              0),
+        entry('20flash_ceiling_kernelI13__nv_bfloat16Li64ELi3EEEvPKT_', 128,
+              40),
+        entry('20flash_ceiling_kernelIfLi64ELi3EEEvPKT_', 168, 0)])
+    got = flash16_probe._resources(log, 'flash_ceiling_kernel')
+    assert sorted(got) == ['__nv_bfloat16_64_0', '__nv_bfloat16_64_3']
+    assert got['__nv_bfloat16_64_3'].startswith('Used 128 registers | 40')
+    fwd = flash16_probe._resources(
+        entry('13fa_fwd_kernelI6__halfLi64EEEvPKT_', 128, 32),
+        'fa_fwd_kernel')
+    assert list(fwd) == ['__half_64']
 
 
 def test_dq_probe_reads_ptxas_resources_of_each_instance():

@@ -94,10 +94,10 @@ def _pallas_probe(variant, q, k, v, bq, bk):
     return run(q, jnp.swapaxes(k, 1, 2) if kt else k, v)
 
 
-def _inputs(seed, dtype):
+def _inputs(seed, dtype, t=T, d=D):
     """The probe's inputs at a small shape: normals, q and k times 0.1."""
     rng = np.random.default_rng(seed)
-    return [(rng.normal(size=(BH, T, D)) * mul).astype(np.float32)
+    return [(rng.normal(size=(BH, t, d)) * mul).astype(np.float32)
             for mul in (0.1, 0.1, 1.0)]
 
 
@@ -121,6 +121,37 @@ def test_plain_matches_pallas_interpret(variant, bq, bk, dtype):
     got = fc.flash_ceiling(tq, tk, tv, variant, bq, bk)
     assert got.dtype == _TORCH[dtype] and got.shape == (BH, T, D)
     assert _norm_rel(got.float().numpy(), want) <= TOL[dtype]
+
+
+# the layouts the kernel's 16-bit engine stages differently (csrc/
+# flash_ceiling.cu ceil16_block): a head dim that is no multiple of 8
+# (thread staging), the 128 tier, mmT's transposed k tile with bq != bk
+# either way at the 64 tier, and T one tile
+BF16_LAYOUTS = (
+    [('d33', v, 256, 33, 64, 128) for v in fc.VARIANTS]
+    + [('d128', v, 256, 128, 128, 64) for v in fc.VARIANTS]
+    + [('mmT_bq128_bk64', 'mmT', 256, 64, 128, 64),
+       ('mmT_bq64_bk128', 'mmT', 256, 64, 64, 128)]
+    + [('one_tile', v, 64, 64, 64, 64) for v in fc.VARIANTS])
+
+
+@pytest.mark.parametrize('case,variant,t,d,bq,bk', BF16_LAYOUTS,
+                         ids=['%s-%s' % c[:2] for c in BF16_LAYOUTS])
+def test_plain_matches_pallas_interpret_bf16_layouts(case, variant, t, d,
+                                                     bq, bk):
+    """The plain version, which the card holds the 16-bit engine to,
+    against the probe's kernel in bfloat16 at the shapes that engine
+    stages apart from the main one."""
+    q, k, v = _inputs(t + d + bq + 3 * bk, 'bfloat16', t, d)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want = np.asarray(_pallas_probe(variant, jq, jk, jv, bq, bk)
+                      .astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    if variant == 'mmT':
+        tk = tk.transpose(1, 2).contiguous()
+    got = fc.flash_ceiling(tq, tk, tv, variant, bq, bk)
+    assert got.dtype == torch.bfloat16 and got.shape == (BH, t, d)
+    assert _norm_rel(got.float().numpy(), want) <= TOL['bfloat16']
 
 
 def test_live_tiles_and_executed_match_the_probe():
