@@ -1,11 +1,5 @@
-"""Neural-network layers (paddle_tpu/layers/nn.py), cut to the
-transformer's, the LSTM models', the seq2seq translator's and the image
-models': fc, embedding, conv2d, pool2d, batch_norm, layer_norm, dropout,
-split, matmul, pad, the fused vocab head, softmax_with_cross_entropy,
-cross_entropy, square_error_cost, accuracy, auc, cos_sim, the
-reductions (reduce_{sum,mean,max,min,prod}), and the sequence-labelling
-layers warpctc, one_hot, im2sequence and row_conv.
-Same signatures and the same op attrs as the reference, so a model script
+"""Neural-network layers (paddle_tpu/layers/nn.py): every one of the
+reference's.  Same signatures and the same op attrs, so a model script
 ports by changing its import.
 """
 from ..core.program import LEN_SUFFIX
@@ -14,12 +8,15 @@ from ..ops.common import prod
 from ..ops.conv import pair
 from .layer_helper import LayerHelper
 
-__all__ = ['fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'layer_norm',
-           'dropout', 'split', 'matmul', 'pad', 'fused_linear_softmax_ce',
+__all__ = ['fc', 'embedding', 'conv2d', 'conv3d', 'pool2d', 'pool3d',
+           'batch_norm', 'layer_norm', 'dropout', 'split', 'matmul', 'pad',
+           'conv2d_transpose', 'fused_linear_softmax_ce',
            'softmax_with_cross_entropy', 'cross_entropy',
            'square_error_cost', 'accuracy', 'auc', 'cos_sim', 'reduce_sum',
            'reduce_mean', 'reduce_max', 'reduce_min', 'reduce_prod',
-           'warpctc', 'one_hot', 'im2sequence', 'row_conv']
+           'topk', 'l2_normalize', 'lrn', 'nce', 'bilinear_tensor_product',
+           'prelu', 'multiplex', 'roi_pool', 'detection_output', 'warpctc',
+           'one_hot', 'im2sequence', 'row_conv']
 
 
 def fc(input,
@@ -486,3 +483,239 @@ def row_conv(input, future_context_size, param_attr=None, act=None,
         inputs={'X': [input], 'Filter': [w]},
         outputs={'Out': [out]})
     return helper.append_activation(out)
+
+
+def conv3d(input, num_filters, filter_size, stride=None, padding=None,
+           groups=None, param_attr=None, bias_attr=None, act=None,
+           name=None, **kwargs):
+    """fluid.layers.conv3d (operators/conv_op) over NCDHW: an OIDHW filter
+    with the parameter's default initialiser, a bias over the channel
+    axis, then ``act``."""
+    helper = LayerHelper('conv3d', **locals())
+    dtype = helper.input_dtype()
+    stride = pair(stride or [1, 1, 1], 3)
+    padding = pair(padding or [0, 0, 0], 3)
+    filter_size = pair(filter_size, 3)
+    groups = groups or 1
+    filter_shape = [num_filters, input.shape[1] // groups] + filter_size
+    w = helper.create_parameter(attr=helper.param_attr, shape=filter_shape,
+                                dtype=dtype, is_bias=False)
+    pre_bias = helper.create_tmp_variable(dtype)
+    helper.append_op(
+        type='conv3d',
+        inputs={'Input': [input], 'Filter': [w]},
+        outputs={'Output': [pre_bias]},
+        attrs={'strides': stride, 'paddings': padding, 'groups': groups,
+               'dilations': [1, 1, 1]})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=None, stride=None, dilation=None,
+                     param_attr=None, bias_attr=None, act=None, name=None,
+                     **kwargs):
+    """fluid.layers.conv2d_transpose (operators/conv_transpose_op): a
+    filter (in_c, num_filters, kh, kw), sized from ``output_size`` when
+    ``filter_size`` is None."""
+    helper = LayerHelper('conv2d_transpose', **locals())
+    dtype = helper.input_dtype()
+    stride = pair(stride or [1, 1])
+    padding = pair(padding or [0, 0])
+    dilation = pair(dilation or [1, 1])
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("output_size must be set when filter_size is "
+                             "None")
+        output_size = pair(output_size)
+        filter_size = [
+            (output_size[i] - (input.shape[2 + i] - 1) * stride[i] +
+             2 * padding[i] - 1) // dilation[i] + 1 for i in range(2)]
+    else:
+        filter_size = pair(filter_size)
+    w = helper.create_parameter(
+        attr=helper.param_attr, shape=[input.shape[1], num_filters] +
+        filter_size, dtype=dtype, is_bias=False)
+    pre_bias = helper.create_tmp_variable(dtype)
+    helper.append_op(
+        type='conv2d_transpose',
+        inputs={'Input': [input], 'Filter': [w]},
+        outputs={'Output': [pre_bias]},
+        attrs={'strides': stride, 'paddings': padding,
+               'dilations': dilation})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool3d(input, pool_size=-1, pool_type='max', pool_stride=1,
+           pool_padding=0, global_pooling=False, name=None, **kwargs):
+    """fluid.layers.pool3d (operators/pool_op) over NCDHW."""
+    helper = LayerHelper('pool3d', **locals())
+    tmp = helper.create_tmp_variable(helper.input_dtype())
+    helper.append_op(
+        type='pool3d',
+        inputs={'X': [input]},
+        outputs={'Out': [tmp]},
+        attrs={'pooling_type': pool_type, 'ksize': pair(pool_size, 3),
+               'global_pooling': global_pooling,
+               'strides': pair(pool_stride, 3),
+               'paddings': pair(pool_padding, 3)})
+    return tmp
+
+
+def topk(input, k, **kwargs):
+    """(values, int32 indices) of the ``k`` largest along the last axis
+    (operators/top_k_op)."""
+    helper = LayerHelper('top_k', **locals())
+    values = helper.create_tmp_variable(input.dtype)
+    indices = helper.create_tmp_variable('int32', stop_gradient=True)
+    helper.append_op(
+        type='top_k',
+        inputs={'X': [input]},
+        outputs={'Out': [values], 'Indices': [indices]},
+        attrs={'k': k})
+    return values, indices
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None, **kwargs):
+    """x over its L2 norm along ``axis`` (the ``norm`` op)."""
+    helper = LayerHelper('l2_normalize', **locals())
+    out = helper.create_tmp_variable(x.dtype)
+    norm = helper.create_tmp_variable(x.dtype)
+    helper.append_op(
+        type='norm',
+        inputs={'X': [x]},
+        outputs={'Out': [out], 'Norm': [norm]},
+        attrs={'axis': axis, 'epsilon': epsilon})
+    return out
+
+
+def lrn(input, n=5, k=2.0, alpha=1e-4, beta=0.75, name=None, **kwargs):
+    """Local response normalisation across channels (operators/lrn_op)."""
+    helper = LayerHelper('lrn', **locals())
+    out = helper.create_tmp_variable(input.dtype)
+    mid = helper.create_tmp_variable(input.dtype, stop_gradient=True)
+    helper.append_op(
+        type='lrn',
+        inputs={'X': [input]},
+        outputs={'Out': [out], 'MidOut': [mid]},
+        attrs={'n': n, 'k': k, 'alpha': alpha, 'beta': beta})
+    return out
+
+
+def nce(input, label, num_total_classes, sample_weight=None,
+        param_attr=None, bias_attr=None, num_neg_samples=None, **kwargs):
+    """The NCE cost [N, 1] of ``input`` [N, D] against ``label``, with a
+    weight [classes, D] and a bias [classes] of its own (operators/
+    nce_op); 10 negatives a row by default."""
+    helper = LayerHelper('nce', **locals())
+    w = helper.create_parameter(
+        attr=helper.param_attr, shape=[num_total_classes, input.shape[1]],
+        dtype=input.dtype, is_bias=False)
+    b = helper.create_parameter(
+        attr=helper.bias_attr, shape=[num_total_classes],
+        dtype=input.dtype, is_bias=True)
+    cost = helper.create_tmp_variable(input.dtype)
+    sample_logits = helper.create_tmp_variable(input.dtype,
+                                               stop_gradient=True)
+    sample_labels = helper.create_tmp_variable('int32', stop_gradient=True)
+    helper.append_op(
+        type='nce',
+        inputs={'Input': [input], 'Label': [label], 'Weight': [w],
+                'Bias': [b]},
+        outputs={'Cost': [cost], 'SampleLogits': [sample_logits],
+                 'SampleLabels': [sample_labels]},
+        attrs={'num_total_classes': num_total_classes,
+               'num_neg_samples': num_neg_samples or 10})
+    return cost
+
+
+def bilinear_tensor_product(x, y, size, act=None, name=None,
+                            param_attr=None, bias_attr=None, **kwargs):
+    """Out[n, k] = x[n] W[k] y[n] (+ a [1, size] bias), then ``act``
+    (operators/bilinear_tensor_product_op)."""
+    helper = LayerHelper('bilinear_tensor_product', **locals())
+    dtype = helper.input_dtype('x')
+    w = helper.create_parameter(
+        attr=helper.param_attr, shape=[size, x.shape[1], y.shape[1]],
+        dtype=dtype, is_bias=False)
+    out = helper.create_tmp_variable(dtype)
+    inputs = {'X': [x], 'Y': [y], 'Weight': [w]}
+    if helper.bias_attr:
+        inputs['Bias'] = [helper.create_parameter(
+            attr=helper.bias_attr, shape=[1, size], dtype=dtype,
+            is_bias=True)]
+    helper.append_op(type='bilinear_tensor_product', inputs=inputs,
+                     outputs={'Out': [out]})
+    return helper.append_activation(out)
+
+
+def prelu(x, mode='all', param_attr=None, name=None, **kwargs):
+    """where(x >= 0, x, alpha * x) with a float32 Alpha parameter (0.25 at
+    first): one value ('all'), one a channel ('channel'), or one an
+    element of an example ('element')."""
+    helper = LayerHelper('prelu', **locals())
+    if mode == 'all':
+        alpha_shape = [1]
+    elif mode == 'channel':
+        alpha_shape = [1, x.shape[1], 1, 1]
+    else:
+        alpha_shape = [1] + list(x.shape[1:])
+    alpha = helper.create_parameter(
+        attr=helper.param_attr, shape=alpha_shape, dtype='float32',
+        default_initializer=ConstantInitializer(0.25))
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op(type='prelu', inputs={'X': [x], 'Alpha': [alpha]},
+                     outputs={'Out': [out]}, attrs={'mode': mode})
+    return out
+
+
+def multiplex(inputs, index, **kwargs):
+    """Row b from candidate ``inputs[index[b]]`` (operators/
+    multiplex_op)."""
+    helper = LayerHelper('multiplex', **locals())
+    out = helper.create_tmp_variable(inputs[0].dtype)
+    helper.append_op(
+        type='multiplex',
+        inputs={'X': list(inputs), 'Ids': [index]},
+        outputs={'Out': [out]})
+    return out
+
+
+def roi_pool(input, rois, pooled_height, pooled_width, spatial_scale=1.0,
+             **kwargs):
+    """RoI max pooling (operators/roi_pool_op): input [N, C, H, W], rois
+    [R, 5] rows (batch index, x1, y1, x2, y2) -> [R, C, ph, pw]."""
+    helper = LayerHelper('roi_pool', **locals())
+    out = helper.create_tmp_variable(helper.input_dtype())
+    argmax = helper.create_tmp_variable('int32')
+    helper.append_op(
+        type='roi_pool',
+        inputs={'X': [input], 'ROIs': [rois]},
+        outputs={'Out': [out], 'Argmax': [argmax]},
+        attrs={'pooled_height': pooled_height,
+               'pooled_width': pooled_width,
+               'spatial_scale': spatial_scale})
+    return out
+
+
+def detection_output(loc, conf, prior_box, num_classes,
+                     background_label_id=0, nms_threshold=0.45,
+                     confidence_threshold=0.01, nms_top_k=400,
+                     keep_top_k=200, **kwargs):
+    """SSD's post-processing (operators/detection_output_op): decoded
+    priors, per-class NMS, the global top ``keep_top_k`` -> [N,
+    keep_top_k, 6] rows (label, score, xmin, ymin, xmax, ymax), label -1
+    past the detections."""
+    helper = LayerHelper('detection_output', **locals())
+    out = helper.create_tmp_variable('float32')
+    helper.append_op(
+        type='detection_output',
+        inputs={'Loc': [loc], 'Conf': [conf], 'PriorBox': [prior_box]},
+        outputs={'Out': [out]},
+        attrs={'num_classes': num_classes,
+               'background_label_id': background_label_id,
+               'nms_threshold': nms_threshold,
+               'confidence_threshold': confidence_threshold,
+               'nms_top_k': nms_top_k, 'keep_top_k': keep_top_k})
+    return out

@@ -1,12 +1,18 @@
-"""Plain one-op layers (paddle_tpu/layers/ops.py), cut to the unary
-layers relu, sigmoid, softmax, mean, exp, log, sqrt, floor, ceil,
-square, sign and pow, the binary ones mul and
+"""Plain one-op layers (paddle_tpu/layers/ops.py): the 28 activations,
+mean, softmax and sign, the binary ones mul and
 elementwise_{add,sub,mul,div,max,min,pow}, and scale, clip,
 clip_by_norm and sigmoid_cross_entropy_with_logits."""
 from .layer_helper import LayerHelper
 
-__unary__ = ['relu', 'sigmoid', 'softmax', 'mean', 'exp', 'log', 'sqrt',
-             'floor', 'ceil', 'square', 'sign', 'pow']
+__activations__ = [
+    'sigmoid', 'logsigmoid', 'exp', 'relu', 'tanh', 'tanh_shrink',
+    'softshrink', 'sqrt', 'abs', 'ceil', 'floor', 'round', 'reciprocal',
+    'log', 'square', 'softplus', 'softsign', 'brelu', 'leaky_relu',
+    'soft_relu', 'elu', 'relu6', 'pow', 'stanh', 'hard_shrink',
+    'thresholded_relu', 'hard_sigmoid', 'swish',
+]
+
+__unary__ = __activations__ + ['mean', 'softmax', 'sign']
 
 __binary__ = ['mul', 'elementwise_add', 'elementwise_div',
               'elementwise_sub', 'elementwise_mul', 'elementwise_max',
@@ -19,7 +25,8 @@ __all__ = __unary__ + __binary__ + ['scale', 'clip', 'clip_by_norm',
 def _unary(op_type, reduction=False):
     """An elementwise layer keeps a ragged input's lod and ``@LEN``; a
     reduction (mean) takes the lengths, to average the real elements
-    only.  Op attrs (pow's ``factor``) come in ``attrs=``."""
+    only.  Op attrs (pow's ``factor``, leaky_relu's ``alpha``) come in
+    ``attrs=``."""
     def _layer(x=None, **kwargs):
         if x is None:
             x = kwargs.pop('input', None) or kwargs.pop('X')

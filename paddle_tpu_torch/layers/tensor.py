@@ -1,15 +1,21 @@
-"""Tensor layers (paddle_tpu/layers/tensor.py), cut to what the
-transformer's, the LSTM models', the image models' and the seq2seq
-decode's programs, the optimizers, gradient clip and the learning-rate
-schedules use, and the logical layers."""
+"""Tensor layers (paddle_tpu/layers/tensor.py): every one of the
+reference's, and the logical layers."""
 from ..core.program import Variable
 from .layer_helper import LayerHelper
 
-__all__ = ['create_parameter', 'create_global_var', 'cast', 'assign',
-           'fill_constant', 'fill_constant_batch_size_like', 'zeros',
-           'reshape', 'transpose', 'expand', 'concat', 'sums', 'select',
-           'less_than', 'equal', 'logical_and', 'logical_or', 'logical_xor',
-           'logical_not']
+__all__ = ['create_tensor', 'create_parameter', 'create_global_var',
+           'cast', 'assign', 'fill_constant',
+           'fill_constant_batch_size_like', 'ones', 'zeros', 'reshape',
+           'transpose', 'expand', 'argmax_like_topk', 'concat', 'sums',
+           'select', 'less_than', 'equal', 'logical_and', 'logical_or',
+           'logical_xor', 'logical_not']
+
+
+def create_tensor(dtype, name=None, persistable=False, **kwargs):
+    """A variable of ``dtype`` in the current block, written by no op."""
+    helper = LayerHelper('create_tensor', **locals())
+    return helper.create_variable(name=helper.name, dtype=dtype,
+                                  persistable=persistable)
 
 
 def create_parameter(shape, dtype, attr=None, is_bias=False,
@@ -93,6 +99,10 @@ def fill_constant_batch_size_like(input, shape, dtype, value,
     return out
 
 
+def ones(shape, dtype, **kwargs):
+    return fill_constant(value=1.0, shape=shape, dtype=dtype)
+
+
 def zeros(shape, dtype, **kwargs):
     return fill_constant(value=0.0, shape=shape, dtype=dtype)
 
@@ -123,6 +133,12 @@ def expand(x, expand_times, **kwargs):
                      outputs={'Out': [out]},
                      attrs={'expand_times': [int(t) for t in expand_times]})
     return out
+
+
+def argmax_like_topk(x, **kwargs):
+    """The int32 index of x's largest entry along its last axis."""
+    from .nn import topk
+    return topk(x, 1)[1]
 
 
 def concat(input, axis=0, **kwargs):

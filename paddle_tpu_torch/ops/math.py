@@ -1,16 +1,22 @@
 """Math ops: mul, matmul, the elementwise family (add, sub, mul, div,
-pow, max, min), scale, sum, mean, clip, clip_by_norm, the reductions
-(sum, mean, max, min, prod), softmax, top_k, cos_sim.
+pow, max, min, mod), minus, scale, sum, mean, clip, clip_by_norm, the
+reductions (sum, mean, max, min, prod), softmax, top_k, cos_sim, the norms
+(l1_norm, squared_l2_norm, squared_l2_distance, norm), maxout and
+bilinear_tensor_product.
 
 Reference parity: paddle_tpu/ops/math.py (paddle/operators/{mul,matmul,
-elementwise_*,scale,sum,mean,clip,clip_by_norm,reduce,softmax,top_k,
-cos_sim}_op).
+elementwise_*,minus,scale,sum,mean,clip,clip_by_norm,reduce,softmax,top_k,
+cos_sim,l1_norm,squared_l2_norm,squared_l2_distance,norm,maxout,
+bilinear_tensor_product}_op).
 The products are ``torch.matmul``: the reference leaves them to XLA,
-outside any Pallas kernel.
+outside any Pallas kernel.  ``clip`` is ``min(max(x, lo), hi)`` as
+``jnp.clip`` is, so a value on a bound passes half its cotangent, and
+``elementwise_mod`` is ``jnp.mod``'s floored modulo (``torch.remainder``).
 """
 import torch
 
 from ..core.registry import register_op
+from .activations import abs_, clip
 from .common import bcast_axis, first, out, prod
 
 
@@ -65,7 +71,7 @@ def _elementwise(name, fn):
 for _name, _fn in (('add', torch.add), ('sub', torch.sub),
                    ('mul', torch.mul), ('div', torch.div),
                    ('pow', torch.pow), ('max', torch.maximum),
-                   ('min', torch.minimum)):
+                   ('min', torch.minimum), ('mod', torch.remainder)):
     _elementwise(_name, _fn)
 
 
@@ -109,9 +115,14 @@ def _mean(ctx, ins, attrs):
     return out(m.to(x.dtype).reshape(1))
 
 
+@register_op('minus')
+def _minus(ctx, ins, attrs):
+    return out(first(ins, 'X') - first(ins, 'Y'))
+
+
 @register_op('clip')
 def _clip(ctx, ins, attrs):
-    return out(torch.clamp(first(ins, 'X'), attrs['min'], attrs['max']))
+    return out(clip(first(ins, 'X'), attrs['min'], attrs['max']))
 
 
 @register_op('clip_by_norm')
@@ -193,3 +204,62 @@ def _cos_sim(ctx, ins, attrs):
     yn = torch.sqrt(torch.square(y).sum(dim=-1, keepdim=True))
     o = (x * y).sum(dim=-1, keepdim=True) / (xn * yn + 1e-12)
     return {'Out': [o], 'XNorm': [xn], 'YNorm': [yn]}
+
+
+@register_op('l1_norm')
+def _l1_norm(ctx, ins, attrs):
+    return out(abs_(first(ins, 'X').float()).sum().reshape(1))
+
+
+@register_op('squared_l2_norm')
+def _squared_l2_norm(ctx, ins, attrs):
+    return out(torch.square(first(ins, 'X').float()).sum().reshape(1))
+
+
+@register_op('squared_l2_distance')
+def _squared_l2_distance(ctx, ins, attrs):
+    """Per-row sum of (X - Y)^2 [N, 1] (a one-row Y against every row of
+    X), and the difference ``sub_result``."""
+    x = first(ins, 'X').float()
+    y = first(ins, 'Y').float()
+    if y.shape[0] == 1 and x.shape[0] != 1:
+        y = y.expand(x.shape)
+    diff = x - y
+    o = torch.square(diff).reshape(x.shape[0], -1).sum(dim=1, keepdim=True)
+    return {'Out': [o], 'sub_result': [diff]}
+
+
+@register_op('norm')
+def _norm(ctx, ins, attrs):
+    """X L2-normalised along ``axis`` (operators/norm_op), the epsilon
+    inside the root; ``Norm`` in float32."""
+    x = first(ins, 'X')
+    xf = x.float()
+    norm = torch.sqrt(torch.square(xf).sum(dim=attrs.get('axis', 1),
+                                           keepdim=True) +
+                      attrs.get('epsilon', 1e-10))
+    return {'Out': [(xf / norm).to(x.dtype)], 'Norm': [norm]}
+
+
+@register_op('maxout')
+def _maxout(ctx, ins, attrs):
+    """The max over each run of ``groups`` channels of NCHW X; tied maxima
+    share the cotangent evenly (``torch.amax``, as ``jnp.max``)."""
+    x = first(ins, 'X')
+    groups = attrs['groups']
+    n, c, h, w = x.shape
+    return out(torch.amax(x.reshape(n, c // groups, groups, h, w), dim=2))
+
+
+@register_op('bilinear_tensor_product')
+def _bilinear_tensor_product(ctx, ins, attrs):
+    """Out[n, k] = X[n] @ Weight[k] @ Y[n] + Bias[k], accumulated in
+    float32 and returned in X's dtype (operators/
+    bilinear_tensor_product_op)."""
+    x = first(ins, 'X')
+    o = torch.einsum('ni,kij,nj->nk', x.float(), first(ins, 'Weight').float(),
+                     first(ins, 'Y').float())
+    b = first(ins, 'Bias')
+    if b is not None:
+        o = o + b.float().reshape(1, -1)
+    return out(o.to(x.dtype))

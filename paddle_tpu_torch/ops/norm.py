@@ -1,5 +1,5 @@
-"""Normalisation ops (paddle_tpu/ops/norm.py): ``batch_norm`` and
-``layer_norm``.  Plain torch ops: the reference leaves both to XLA,
+"""Normalisation ops (paddle_tpu/ops/norm.py): ``batch_norm``,
+``layer_norm`` and ``lrn``.  Plain torch ops: the reference leaves both to XLA,
 outside any Pallas kernel.
 
 ``batch_norm`` (reference ``_batch_norm`` :100, paddle/operators/
@@ -19,8 +19,15 @@ state, not a differentiated path.
 ``layer_norm``: biased variance, epsilon 1e-5 by default, statistics in
 float32, and the ``Mean`` / ``Variance`` outputs of shape
 x.shape[:begin_norm_axis].
+
+``lrn`` (reference ``_lrn`` :167, paddle/operators/lrn_op): across
+channels, Out = X / (k + alpha * sum of the n neighbouring X^2)^beta, the
+window centred (n // 2 before, n - 1 - n // 2 after, zero outside), the
+squares summed in the reference's order; ``MidOut`` is the float32
+denominator base.
 """
 import torch
+import torch.nn.functional as F
 
 from ..core.registry import register_op
 from .common import first
@@ -124,3 +131,21 @@ def _layer_norm(ctx, ins, attrs):
     lead = tuple(x.shape[:begin])
     return {'Y': [y.to(x.dtype)], 'Mean': [mean.reshape(lead)],
             'Variance': [var.reshape(lead)]}
+
+
+@register_op('lrn')
+def _lrn(ctx, ins, attrs):
+    x = first(ins, 'X')   # NCHW
+    n = attrs.get('n', 5)
+    k = attrs.get('k', 2.0)
+    alpha = attrs.get('alpha', 1e-4)
+    beta = attrs.get('beta', 0.75)
+    xf = x.float()
+    half = n // 2
+    sq = F.pad(torch.square(xf), (0, 0, 0, 0, half, n - 1 - half))
+    acc = torch.zeros_like(xf)
+    for i in range(n):
+        acc = acc + sq[:, i:i + x.shape[1]]
+    mid = k + alpha * acc
+    return {'Out': [(xf / torch.pow(mid, beta)).to(x.dtype)],
+            'MidOut': [mid]}

@@ -1,5 +1,6 @@
-"""Random ops (paddle_tpu/ops/random.py), cut to ``uniform_random``,
-``gaussian_random``, ``truncated_gaussian_random`` and ``dropout``.
+"""Random ops (paddle_tpu/ops/random.py): ``uniform_random``,
+``gaussian_random``, ``truncated_gaussian_random``, ``dropout`` and
+``random_crop``.
 
 Each op draws from a ``torch.Generator`` the executor seeds from
 (program seed, step, block, op position), with a nonzero ``seed`` attr
@@ -71,3 +72,21 @@ def _dropout(ctx, ins, attrs):
                    generator=ctx.generator(attrs.get('seed', 0)))
     mask = (u < 1.0 - p).to(x.dtype)
     return {'Out': [x * mask], 'Mask': [mask]}
+
+
+@register_op('random_crop', stateful_rng=True)
+def _random_crop(ctx, ins, attrs):
+    """A window of ``shape`` over X's last len(shape) dims, its start in
+    each drawn uniformly from [0, X's size - shape's + 1), one start for
+    the whole batch, as the reference draws it.  The starts stay on X's
+    device: the window is gathered, not sliced at a host index."""
+    x = first(ins, 'X')
+    shape = [int(s) for s in attrs['shape']]
+    gen = ctx.generator(attrs.get('seed', 0))
+    lead = x.dim() - len(shape)
+    for i, size in enumerate(shape):
+        start = torch.randint(0, x.shape[lead + i] - size + 1, (1,),
+                              device=x.device, generator=gen)
+        x = torch.index_select(
+            x, lead + i, start + torch.arange(size, device=x.device))
+    return out(x)

@@ -1,15 +1,17 @@
 """Tensor-manipulation ops: reshape, transpose, split, concat, expand, pad,
-cast, assign, assign_value, fill_constant, fill_zeros_like,
-fill_constant_batch_size_like, increment, the comparisons, the logical
-ops, select, and the sequence-shaped one_hot, sequence_reshape and
-im2sequence.
+crop, cast, assign, assign_value, fill_constant, fill, fill_zeros_like,
+fill_constant_batch_size_like, increment, gather, scatter, multiplex,
+sign_of, the comparisons, the logical ops, select, and the
+sequence-shaped one_hot, sequence_reshape and im2sequence.
 
 Reference parity: paddle_tpu/ops/tensor_ops.py (paddle/operators/
-{reshape,transpose,split,concat,expand,pad,cast,assign,assign_value,
-fill_constant,fill_zeros_like,fill_constant_batch_size_like,increment,
-compare,logical,select,one_hot,sequence_reshape,im2sequence}_op).
+{reshape,transpose,split,concat,expand,pad,crop,cast,assign,assign_value,
+fill_constant,fill,fill_zeros_like,fill_constant_batch_size_like,
+increment,gather,scatter,multiplex,sign,compare,logical,select,one_hot,
+sequence_reshape,im2sequence}_op).
 Integer types keep their width; 64-bit feeds arrive narrowed to 32 bits
-by the executor, as in the reference.
+by the executor, as in the reference.  ``scatter`` with repeated ids
+keeps one of their rows, which one undefined, in both packages.
 """
 import weakref
 
@@ -80,6 +82,14 @@ def _pad(ctx, ins, attrs):
     return out(F.pad(x, widths, value=attrs.get('pad_value', 0.0)))
 
 
+@register_op('crop')
+def _crop(ctx, ins, attrs):
+    """X[offsets[i] : offsets[i] + shape[i]] along each leading dim."""
+    slices = tuple(slice(o, o + n) for o, n in zip(attrs['offsets'],
+                                                    attrs['shape']))
+    return out(first(ins, 'X')[slices])
+
+
 @register_op('cast')
 def _cast(ctx, ins, attrs):
     return out(first(ins, 'X').to(datatypes.as_torch_dtype(
@@ -137,6 +147,15 @@ def _fill_constant(ctx, ins, attrs):
                           device=ctx.device))
 
 
+@register_op('fill')
+def _fill(ctx, ins, attrs):
+    """``value`` (a flat list) as a tensor of ``shape`` and ``dtype``; a
+    64-bit type narrows to 32 bits, as in the reference."""
+    dtype = datatypes.as_torch_dtype(attrs.get('dtype', 'float32'))
+    data = torch.as_tensor(np.asarray(attrs['value']), device=ctx.device)
+    return out(data.to(_NARROW.get(dtype, dtype)).reshape(attrs['shape']))
+
+
 @register_op('fill_zeros_like')
 def _fill_zeros_like(ctx, ins, attrs):
     return out(torch.zeros_like(first(ins, 'X')))
@@ -167,6 +186,34 @@ def _increment(ctx, ins, attrs):
     step = attrs.get('step', 1.0)
     return out(x + (float(step) if x.dtype.is_floating_point
                     else int(step)))
+
+
+@register_op('gather')
+def _gather(ctx, ins, attrs):
+    """The rows of X at Index (flattened)."""
+    index = first(ins, 'Index').reshape(-1).long()
+    return out(torch.index_select(first(ins, 'X'), 0, index))
+
+
+@register_op('scatter')
+def _scatter(ctx, ins, attrs):
+    """X with its rows at Ids overwritten by Updates (operators/
+    scatter_op)."""
+    ids = first(ins, 'Ids').reshape(-1).long()
+    return out(first(ins, 'X').index_copy(0, ids, first(ins, 'Updates')))
+
+
+@register_op('multiplex')
+def _multiplex(ctx, ins, attrs):
+    """Row b of the output is row b of candidate X[Ids[b]]."""
+    ids = first(ins, 'Ids').reshape(-1).long()
+    stack = torch.stack(ins['X'], dim=0)   # [candidates, batch, ...]
+    return out(stack[ids, torch.arange(stack.shape[1], device=ids.device)])
+
+
+@register_op('sign_of')
+def _sign_of(ctx, ins, attrs):
+    return out(torch.sign(first(ins, 'X')))
 
 
 def _compare(name, fn):

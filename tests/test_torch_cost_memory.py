@@ -14,7 +14,8 @@ executor's ``last_step_report``.
   equal to the reference's; level 0 runs neither.
 - Coverage: every op type the port registers gets a cost verdict and
   sizes its outputs, or has a waiver: from the port's model programs at
-  small sizes, a control-flow program and seq2seq's beam decode, and,
+  small sizes, a control-flow program, a program of the dense op
+  library's slot-shaped ops and seq2seq's beam decode, and,
   for the rest, a single-op program of (3, 4) float32 inputs as the
   reference's sweep builds them; ``create_array`` alone has neither, as
   in the reference.  Each op the control-flow slice brings is classed
@@ -338,6 +339,7 @@ def _slot_semantic_programs():
     out.append((f16, specs))
     out.append(_control_flow_program())
     out.append(_sequence_labelling_program())
+    out.append(_op_library_program())
     (_, decode), _, specs = _decode_programs()
     out.append((decode, specs))
     return out
@@ -408,6 +410,62 @@ def _sequence_labelling_program():
                   'tok': ((2, 3), 'int32'), 'tok@LEN': ((2,), 'int32'),
                   'img': ((2, 2, 4, 4), 'float32'),
                   'off': ((2, 1), 'int32')}
+
+
+def _op_library_program():
+    """The dense op library's ops whose slots want shapes the generic
+    sweep's (3, 4) inputs do not give: its layers, and the ops without a
+    layer appended directly."""
+    main = tfl.Program()
+    layers = tfl.layers
+    with tfl.program_guard(main, tfl.Program()):
+        x = layers.data(name='x', shape=[6], dtype='float32')
+        ids = layers.data(name='ids', shape=[1], dtype='int64')
+        img = layers.data(name='img', shape=[4, 6, 6], dtype='float32')
+        vol = layers.data(name='vol', shape=[2, 4, 4, 4], dtype='float32')
+        rois = layers.data(name='rois', shape=[5], dtype='float32')
+        loc = layers.data(name='loc', shape=[8, 4], dtype='float32')
+        conf = layers.data(name='conf', shape=[8, 3], dtype='float32')
+        prior = layers.data(name='prior', shape=[8], dtype='float32')
+        layers.nce(x, ids, num_total_classes=7, num_neg_samples=3)
+        layers.bilinear_tensor_product(x, x, size=3)
+        layers.multiplex([x, x], layers.cast(ids, 'int32'))
+        layers.conv3d(vol, num_filters=2, filter_size=2)
+        layers.conv2d_transpose(img, num_filters=2, filter_size=3)
+        layers.pool3d(vol, pool_size=2, pool_stride=2)
+        layers.lrn(img)
+        layers.roi_pool(img, rois, pooled_height=2, pooled_width=2)
+        layers.detection_output(loc, conf, prior, num_classes=3)
+    block = main.global_block()
+
+    def append(op, inputs, outs, attrs):
+        for n in outs.values():
+            block.create_var(name=n, dtype='float32')
+        block.append_op(type=op, inputs=inputs,
+                        outputs={k: [n] for k, n in outs.items()},
+                        attrs=attrs)
+    append('maxout', {'X': [img]}, {'Out': 'lib_maxout'}, {'groups': 2})
+    append('fill', {}, {'Out': 'lib_fill'},
+           {'value': [1.0, 2.0], 'shape': [2], 'dtype': 'float32'})
+    append('scatter', {'X': [x], 'Ids': [ids], 'Updates': [x]},
+           {'Out': 'lib_scatter'}, {})
+    append('conv3d_transpose',
+           {'Input': [vol], 'Filter': [block.create_parameter(
+               name='lib_w3t', shape=[2, 3, 2, 2, 2], dtype='float32')]},
+           {'Output': 'lib_conv3d_t'}, {})
+    append('max_pool2d_with_index', {'X': [img]},
+           {'Out': 'lib_mp', 'Mask': 'lib_mp_mask'}, {'ksize': [2, 2]})
+    append('unpool', {'X': ['lib_mp'], 'Indices': ['lib_mp_mask']},
+           {'Out': 'lib_unpool'},
+           {'unpooled_height': 6, 'unpooled_width': 6})
+    append('spp', {'X': [img]}, {'Out': 'lib_spp'}, {'pyramid_height': 2})
+    return main, {'x': ((2, 6), 'float32'), 'ids': ((2, 1), 'int32'),
+                  'img': ((2, 4, 6, 6), 'float32'),
+                  'vol': ((2, 2, 4, 4, 4), 'float32'),
+                  'rois': ((3, 5), 'float32'),
+                  'loc': ((2, 8, 4), 'float32'),
+                  'conf': ((2, 8, 3), 'float32'),
+                  'prior': ((8, 8), 'float32')}
 
 
 def _decode_programs(K=2):
@@ -494,7 +552,7 @@ def test_every_registered_op_has_a_verdict_or_a_waiver():
     p, fetches, feeds = _sweep_program('create_array')
     assert jcm.analyze_cost(p, fetches, {})['coverage']['no_verdict'] == [
         'create_array']
-    assert len(treg.registered_ops()) == 134
+    assert len(treg.registered_ops()) == 188
     # the class invariants: a mac op has its formula; waivers are real
     for t in treg.registered_ops():
         assert treg.op_traits(t).cost == treg.cost_class(t)
