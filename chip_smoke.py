@@ -6,6 +6,8 @@
     python3 chip_smoke.py --amp-step    # phases 44 and 46 alone
     python3 chip_smoke.py --ceiling     # phases 1, 2 (#1, #11), 62, 63
     python3 chip_smoke.py --m4          # phases 1, #5's build, 67-77
+    python3 chip_smoke.py --serve       # phases 1, #1's build, 78-82
+    python3 chip_smoke.py --dispatch    # phases 1, 3 and 5 alone, see below
 
 Run from the root of a checkout on a machine with a CUDA card and the
 CUDA toolkit (nvcc).  It drives ``paddle_tpu_torch`` only (no JAX, nothing
@@ -480,6 +482,54 @@ line:
 77. ``detection_output`` at SSD300's shape (8732 priors, 21 classes,
    nms_top_k 400, keep_top_k 200, batch 8): timed, no host sync, and
    equal to the CPU's output.
+78. #1 as the operator ``torch.ops.paddle_tpu_torch.flash_fwd`` (what
+   ``torch.export`` records) against the direct launch
+   (``fa._launch_forward``), bitwise, at phase 3's serving shape and
+   phase 7's training shape in float32, bf16 and f16: one launch each,
+   both held against the plain version at phase 3's bounds, and the
+   host time per call of each.
+79. ResNet-50 serving at ``benchmarks/bench_serving.py``:40-63's width
+   (``RN_SERVE``: depth 50, 224x224, 1000 classes, bf16 activations
+   NHWC): ``inference.export_inference`` at batch 1, 8 and 64 (the
+   prediction and, beside it, the head's logits: the softmax saturates
+   at this random init), ``InferenceServer``: export, load and
+   first-call seconds, latency p50 over 30 ``predict`` calls (b1, b8),
+   ``predict_stacked`` img/s over a chain of 30 (b8, b64), pipelined
+   ``predict_async`` img/s (b64, chain 10) and a traced pipelined chain
+   (busy ms a batch, idle share).  Each artifact's outputs must equal
+   ``Executor.run`` of the same pruned inference program bitwise, and
+   the b1 artifact's logits the CPU artifact's within
+   ``TOL_RN_SERVE_CPU``.
+80. the CTR tower (``CTR_SERVE``: bench_serving.py's
+   ``_build_ctr_tower``, 26 slots of 10000 x 16, 13 dense, fc
+   256-128-1) behind ``BatchingInferenceServer.from_program`` at
+   ``dynamic_scenario``'s settings (max_batch 64, max_wait_ms 10,
+   linger_ms 0.3): closed loop (8 clients at depth 8, 960 requests,
+   three rounds each beside the single-``predict`` baseline) and
+   Poisson arrivals at 0.5, 1 and 2 times the baseline: req/s, speed-up,
+   occupancy, p50/p99 latency (exact, over each request stamped from
+   its submit to its completion; the closed loop's over its three
+   rounds, with the server's histogram reading beside it), warmup s.
+   ``compiles_after_warmup`` must be 0, every bucket-exact request's
+   answer bitwise the unbatched predict on its bucket, every other
+   answer within ``TOL_CTR_ROW_REL`` of its row's bucket-1 answer.  Then ``amp_scenario``: bucket 8
+   exported at amp '0' and 'bf16', preds/s, the bf16 answers within
+   ``TOL_CTR_AMP`` of the float32 ones.
+81. #1 inside an artifact: the transformer LM's ``build_logits`` at the
+   serving width (``LM_SERVE``: L=6, D=512, H=8, V=30000, B=8, T=512)
+   exported and served: 6 launches of #1 a predict, the logits bitwise
+   ``Executor.run``'s, ms a predict; and the export on the card of a
+   program whose op launches a kernel through ctypes (``lstm``, #7)
+   refused with a message naming the op.
+82. the 24 requests of phase 4 with ``paged_attention`` reached through
+   the op registry (counted) against the same requests with its body
+   swapped for a direct call of its math: equal greedy tokens, and equal
+   to phase 4's in the whole script; the chunked prefill through
+   ``chunked_prefill_attention`` (counted) against the monolithic
+   prefill's last logits at ``TOL_PATH``; the composed attention
+   (``use_flash=False``, float32, TF32 off) against flash at phase 7's
+   training shape within ``TOL_COMPOSED`` norm-relative.  Phases 78-82
+   take about 160 s on an H100.
 52. a ``{"kernels": [...]}`` line (eleven kernels, each with its launches
    by path; ``bound_ms`` at the rate of the units a kernel computes on:
    the tensor cores at 3xTF32 for #1-#4, #11 and #7-#10 (at the 16-bit
@@ -491,8 +541,9 @@ line:
    phases 53-59 in ``launches_by_path``, #7's and #8's 0 on SRL among
    them; #9's time at the decode's shape as ``decode_shape``; #11's
    probe runs, its launches by variant and its plain times; the GAN's
-   and fit_a_line's #5 launches; those of phases 67, 70 and 73),
-   printed after phase 77, then
+   and fit_a_line's #5 launches; those of phases 67, 70 and 73; #1's
+   inside phase 81's artifact and in phase 82's decode), printed after
+   phase 82, then
    the card's line, and last ``{"ok": true, "device": {...}}``.
 
 With ``--long-step`` the script runs phase 26 alone, in a process that
@@ -508,6 +559,8 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import traceback
 import warnings
@@ -1173,7 +1226,7 @@ def phase_serving():
     srv.close()
     if not drained:
         raise SystemExit("server did not drain: %s" % stats)
-    outs = [st.result(timeout=1.0) for st in streams]
+    outs = [list(st.result(timeout=1.0)) for st in streams]
     if any(len(o) != c['max_new'] for o in outs):
         raise SystemExit("a stream came back short: %s"
                          % [len(o) for o in outs])
@@ -1203,7 +1256,7 @@ def phase_serving():
         launches_per_request=launches / c['n_req'],
         prompt_lens=[len(p) for p in prompts])
     print("serving: %s" % json.dumps(res))
-    return eng, params, launches
+    return eng, params, launches, outs, res
 
 
 def phase_parity(eng, params):
@@ -7787,6 +7840,717 @@ def _m4_phases():
     return out
 
 
+# --serve: #1's build, then phases 78-82
+SERVE_SOURCES = ('flash_attention_fwd',)
+# benchmarks/bench_serving.py:40-63, main()'s TPU row: ResNet-50 at
+# 224x224, 1000 classes, bf16 activations NHWC (resnet.build_imagenet
+# dtype='bfloat16', layout='NHWC'), exported at batch 1, 8 and 64; 30
+# latency calls (b1, b8), a stacked chain of 30 (b8, b64), a pipelined
+# chain of 10 (b64)
+RN_SERVE = dict(hw=224, depth=50, classes=1000, batches=(1, 8, 64),
+                lat_calls=30, chain=30, pipe_chain=10, samples=3)
+# benchmarks/bench_serving.py:209-231 (_build_ctr_tower: 26 slots of
+# 10000 x 16 tables, 13 dense features, fc 256-128-1, seed 17) behind
+# adaptive batching as dynamic_scenario (:1084-1229) runs it on a TPU:
+# max_batch 64, max_wait_ms 10, linger_ms 0.3, 960 requests, 8
+# closed-loop clients at depth 8 in three rounds, each beside a
+# 150-call single-predict baseline, then Poisson arrivals at 0.5, 1 and 2
+# times that baseline; amp_scenario (:234-281): bucket 8 at amp '0' and
+# 'bf16', 30 predicts a sample, three samples
+CTR_SERVE = dict(slots=26, rows=10000, dim=16, seed=17, max_batch=64,
+                 max_wait_ms=10.0, linger_ms=0.3, n_req=960, threads=8,
+                 depth=8, rounds=3, base_calls=150, loads=(0.5, 1.0, 2.0),
+                 amp_bucket=8, amp_calls=30, samples=3)
+# phase 81: the transformer LM's inference program (build_logits) at the
+# serving width, B=8 T=512, 5 timed predicts
+LM_SERVE = dict(L=6, D=512, H=8, V=30000, B=8, T=512, calls=5)
+# phase 80: an answer of a request that rode with others, against its
+# row's bucket-1 answer (sigmoid outputs near 0.5; cuBLAS takes other
+# kernels at other batch sizes, float32 sums of 429 inputs in other
+# orders)
+TOL_CTR_ROW_REL = 1e-6
+# phase 82: the composed attention against flash on the training shape,
+# both float32 (TF32 off), norm-relative
+TOL_COMPOSED = 1e-5
+# phase 79: the card's b1 artifact's logits against the CPU artifact's,
+# norm-relative: bf16 activations rounded after each of ResNet-50's
+# layers, summed in float32 in other orders on the two sides; read
+# 2.59e-3 on an H100 (PERF.md section 6; the logits' std is ~1600 at
+# this init, so the softmax is one-hot and equal on both)
+TOL_RN_SERVE_CPU = 1e-2
+# phase 80: the bf16 tower's answers against the float32 tower's,
+# norm-relative: read 1.24e-3 to 1.39e-3 on an H100 (PERF.md section
+# 6), a few bf16 roundings (2^-9) of sigmoid outputs near 0.5
+TOL_CTR_AMP = 1e-2
+
+
+def _norm_gap(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def phase_flash_op():
+    """Phase 78: #1 through ``torch.ops.paddle_tpu_torch.flash_fwd``
+    against the direct launch (``fa._launch_forward``), bitwise, at the
+    serving shape of phase 3 and the training shapes of phase 7, each
+    call one launch; the operator's dispatch beside the direct call's in
+    host time per call."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 78)
+    rows = []
+    for name, bh, t, dtype in (('serve_T256_BH8', 8, 256, torch.float32),
+                               ('train_T512_BH256', 256, 512, torch.float32),
+                               ('train_T512_BH256_bf16', 256, 512,
+                                torch.bfloat16),
+                               ('train_T512_BH256_f16', 256, 512,
+                                torch.float16)):
+        q, k, v = (torch.randn((bh, t, 64), generator=gen,
+                               device='cuda').to(dtype) for _ in range(3))
+        scale = 64 ** -0.5
+        _zero_counts()
+        o1, l1 = fa._launch_forward(q, k, v, True, scale)
+        o2, l2 = torch.ops.paddle_tpu_torch.flash_fwd(q, k, v, True, scale,
+                                                      0, 0)
+        torch.cuda.synchronize()
+        po, pl = fa._plain_forward(q, k, v, True, scale)
+        row = dict(
+            case=name, launches=fa.launches,
+            bitwise=bool(torch.equal(o1, o2) and torch.equal(l1, l2)),
+            err_o=(o2.float() - po.float()).abs().max().item(),
+            err_lse=(l2 - pl).abs().max().item(), tol_o=_tol_o(dtype),
+            direct_call_ms=_call_ms(lambda: fa._launch_forward(
+                q, k, v, True, scale), iters=20),
+            op_call_ms=_call_ms(lambda: torch.ops.paddle_tpu_torch.flash_fwd(
+                q, k, v, True, scale, 0, 0), iters=20))
+        row['ok'] = (row['bitwise'] and row['launches'] == 2 and
+                     row['err_o'] <= row['tol_o'] and
+                     row['err_lse'] <= TOL_F32)
+        rows.append(row)
+        print("flash op %s" % json.dumps(row))
+    bad = [r['case'] for r in rows if not r['ok']]
+    if bad:
+        raise SystemExit("flash_fwd operator vs direct launch: %s" % bad)
+    return rows
+
+
+def _cpu_scope(scope, names):
+    out = tfl.Scope()
+    for n in names:
+        if scope.has(n):
+            out.set(n, scope.get(n).cpu())
+    return out
+
+
+def _median_s(fn, samples):
+    walls = []
+    for _ in range(samples):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return float(np.median(walls)), walls
+
+
+def phase_resnet_serving(c=RN_SERVE):
+    """Phase 79: ResNet-50 exported and served at bench_serving.py's
+    width, batch 1, 8 and 64."""
+    from paddle_tpu_torch.inference import InferenceServer, export_inference
+    main, startup = tfl.Program(), tfl.Program()
+    main.random_seed = startup.random_seed = SEED
+    with tfl.program_guard(main, startup):
+        _, _, pred, _, _ = resnet.build_imagenet(
+            depth=c['depth'], num_classes=c['classes'],
+            image_shape=(c['hw'], c['hw'], 3), dtype='bfloat16',
+            layout='NHWC')
+    exe, scope = tfl.Executor(), tfl.Scope()
+    exe.run(startup, scope=scope)
+    infer = main.prune([pred], ['img']).inference_optimize()
+    # the head's logits beside the prediction: at this random init the
+    # softmax saturates (one class takes all the mass), so the prediction
+    # alone would hide a gap
+    logits = [op for op in infer.global_block().ops
+              if op.type == 'softmax'][-1].inputs['X'][0]
+    fetch = [pred, logits]
+    d = tempfile.mkdtemp(prefix='chip_smoke_serve_')
+    rng = np.random.default_rng(SEED + 79)
+    rows, xs = [], {}
+    try:
+        for b in c['batches']:
+            path = os.path.join(d, 'resnet_b%d.pt2' % b)
+            t0 = time.perf_counter()
+            size = export_inference(path, {'img': (b, c['hw'], c['hw'], 3)},
+                                    fetch, executor=exe, main_program=main,
+                                    scope=scope)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            srv = InferenceServer(path)
+            load_s = time.perf_counter() - t0
+            x = xs[b] = rng.normal(size=(b, c['hw'], c['hw'], 3)).astype(
+                np.float32)
+            t0 = time.perf_counter()
+            got = srv.predict({'img': x})
+            first_s = time.perf_counter() - t0
+            want = [t.float().cpu().numpy() for t in exe.run(
+                infer, feed={'img': x}, fetch_list=fetch, scope=scope,
+                return_numpy=False)]
+            row = dict(batch=b, artifact_mb=size / 1e6, export_s=export_s,
+                       load_s=load_s, first_call_s=first_s,
+                       bitwise_vs_run=all(np.array_equal(g, w)
+                                          for g, w in zip(got, want)),
+                       max_abs_vs_run=max(float(np.abs(g - w).max())
+                                          for g, w in zip(got, want)),
+                       finite=bool(all(np.isfinite(g).all() for g in got)),
+                       rows_sum_to_1=float(np.abs(got[0].sum(1) - 1).max()),
+                       logits_std=float(got[1].std()),
+                       top_prob_mean=float(got[0].max(1).mean()))
+            if b == 1:
+                row['_out'] = got
+            if b in (1, 8):
+                times = []
+                for _ in range(c['lat_calls']):
+                    t0 = time.perf_counter()
+                    srv.predict({'img': x})
+                    times.append(time.perf_counter() - t0)
+                row['latency_ms_p50'] = float(np.median(times)) * 1e3
+            if b in (8, 64):
+                k = c['chain']
+                stacked = {'img': torch.from_numpy(
+                    np.stack([x] * k)).cuda()}
+                srv.predict_stacked(stacked)
+                med, walls = _median_s(lambda: srv.predict_stacked(stacked),
+                                       c['samples'])
+                row.update(stacked_img_s=b * k / med,
+                           stacked_samples_img_s=[b * k / w for w in walls],
+                           device_ms_per_batch=med / k * 1e3, chain=k)
+            if b == 64:
+                k = c['pipe_chain']
+
+                def pipelined():
+                    outs = [srv.predict_async({'img': x}) for _ in range(k)]
+                    return [o[0].cpu() for o in outs]
+                pipelined()
+                med, walls = _median_s(pipelined, c['samples'])
+                row.update(pipelined_img_s=b * k / med,
+                           pipelined_samples_img_s=[b * k / w
+                                                    for w in walls],
+                           pipe_chain=k)
+                wall, krows, busy = _device_kernels(pipelined)
+                top = sorted(krows, key=lambda r: -r[1])[:5]
+                row['profile'] = dict(
+                    wall_ms=wall, device_busy_ms=busy if krows else None,
+                    busy_ms_per_batch=busy / k if krows else None,
+                    idle_share=1.0 - busy / wall if krows else None,
+                    top=[dict(kernel=n[:80], ms=ms, count=cnt)
+                         for n, ms, cnt in top])
+            rows.append(row)
+            print("resnet50 serving b%d: %s" % (b, json.dumps(
+                {k_: v for k_, v in row.items() if k_ != '_out'})))
+            del srv
+            os.remove(path)
+        # the CPU's artifact at batch 1, from the same state
+        names = [v.name for v in infer.list_vars() if v.persistable]
+        cpath = os.path.join(d, 'resnet_b1_cpu.pt2')
+        t0 = time.perf_counter()
+        export_inference(cpath, {'img': (1, c['hw'], c['hw'], 3)}, fetch,
+                         executor=tfl.Executor('cpu'), main_program=main,
+                         scope=_cpu_scope(scope, names))
+        cpu_out = InferenceServer(cpath, device='cpu').predict(
+            {'img': xs[1]})
+        card_out = rows[0].pop('_out')
+        cpu = dict(logits_norm_rel=_norm_gap(card_out[1], cpu_out[1]),
+                   logits_max_abs=float(np.abs(card_out[1]
+                                               - cpu_out[1]).max()),
+                   prediction_max_abs=float(np.abs(card_out[0]
+                                                   - cpu_out[0]).max()),
+                   argmax_equal=bool(card_out[0].argmax()
+                                     == cpu_out[0].argmax()),
+                   tol=TOL_RN_SERVE_CPU, s=time.perf_counter() - t0)
+        print("resnet50 serving b1 card vs cpu artifact: %s"
+              % json.dumps(cpu))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    bad = [r['batch'] for r in rows
+           if not (r['bitwise_vs_run'] and r['finite'])]
+    if bad or cpu['logits_norm_rel'] > TOL_RN_SERVE_CPU:
+        raise SystemExit("resnet50 serving: artifact vs Executor.run at %s,"
+                         " card vs cpu %s" % (bad, cpu))
+    return dict(rows=rows, cpu=cpu)
+
+
+def _ctr_serve_program(c=CTR_SERVE):
+    main, startup = tfl.Program(), tfl.Program()
+    main.random_seed = startup.random_seed = c['seed']
+    with tfl.program_guard(main, startup):
+        embs = [tfl.layers.embedding(
+            input=tfl.layers.data(name='C%d' % i, shape=[1], dtype='int64'),
+            size=[c['rows'], c['dim']]) for i in range(c['slots'])]
+        dense = tfl.layers.data(name='I', shape=[13], dtype='float32')
+        feat = tfl.layers.concat(embs + [dense], axis=1)
+        h = tfl.layers.fc(input=feat, size=256, act='relu')
+        h = tfl.layers.fc(input=h, size=128, act='relu')
+        pred = tfl.layers.fc(input=h, size=1, act='sigmoid')
+    return main, startup, pred
+
+
+def _ctr_request(rng, rows, c=CTR_SERVE):
+    f = {'C%d' % i: rng.integers(0, c['rows'], size=(rows, 1)).astype(
+        np.int32) for i in range(c['slots'])}
+    f['I'] = rng.normal(size=(rows, 13)).astype(np.float32)
+    return f
+
+
+def _stamp(fut, t0, lat, i):
+    """Write into ``lat[i]`` the ms from ``t0`` (taken before the submit)
+    to ``fut``'s completion."""
+    def cb(_fut):
+        lat[i] = (time.perf_counter() - t0) * 1e3
+    fut.add_done_callback(cb)
+    return fut
+
+
+def _stamped(lat, timeout=5.0):
+    """The stamps of ``lat`` as an array, once every callback has run (a
+    Future wakes its waiters before it runs its callbacks)."""
+    deadline = time.perf_counter() + timeout
+    while any(x is None for x in lat) and time.perf_counter() < deadline:
+        time.sleep(0.001)
+    return np.array([x for x in lat if x is not None])
+
+
+def _ctr_closed_loop(srv, rng, c):
+    per = c['n_req'] // c['threads']
+    feeds = [[_ctr_request(rng, 1) for _ in range(per)]
+             for _ in range(c['threads'])]
+    answers = [[None] * per for _ in range(c['threads'])]
+    lat = [None] * (c['threads'] * per)
+
+    def client(i):
+        q = []
+        for j in range(per):
+            t0 = time.perf_counter()
+            q.append((j, _stamp(srv.submit(feeds[i][j]), t0, lat,
+                                i * per + j)))
+            while len(q) >= c['depth']:
+                jj, fut = q.pop(0)
+                answers[i][jj] = fut.result()[0]
+        for jj, fut in q:
+            answers[i][jj] = fut.result()[0]
+
+    ths = [threading.Thread(target=client, args=(i,))
+           for i in range(c['threads'])]
+    s0 = srv.stats()
+    t0 = time.perf_counter()
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join()
+    dt = time.perf_counter() - t0
+    s1 = srv.stats()
+    occ = ((s1['requests_completed'] - s0['requests_completed'])
+           / max(s1['batches'] - s0['batches'], 1))
+    pairs = [(f, a) for fs, ans in zip(feeds, answers)
+             for f, a in zip(fs, ans)]
+    return c['threads'] * per / dt, occ, pairs, _stamped(lat)
+
+
+def _ctr_open_loop(srv, rng, lam, c):
+    n = min(c['n_req'], int(max(lam, 50) * 2) + 50)
+    feeds = [_ctr_request(rng, 1) for _ in range(n)]
+    gaps = rng.exponential(1.0 / lam, size=n)
+    lat = [None] * n
+    s0 = srv.stats()
+    futs = []
+    t0 = time.perf_counter()
+    for i in range(n):
+        delay = t0 + float(np.sum(gaps[:i + 1])) - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        futs.append(_stamp(srv.submit(feeds[i]), time.perf_counter(), lat,
+                           i))
+    answers = [f.result()[0] for f in futs]
+    dt = time.perf_counter() - t0
+    lat = _stamped(lat)
+    s1 = srv.stats()
+    occ = ((s1['requests_completed'] - s0['requests_completed'])
+           / max(s1['batches'] - s0['batches'], 1))
+    return dict(load=lam, req_s=n / dt, offered_req_s=lam,
+                p50_latency_ms=float(np.percentile(lat, 50)),
+                p99_latency_ms=float(np.percentile(lat, 99)),
+                mean_batch_occupancy=occ, n_requests=n,
+                compiles_after_warmup=s1['compiles_after_warmup']), \
+        list(zip(feeds, answers))
+
+
+def _row_gap(ref1, pairs):
+    """The largest relative gap of each answer to its row's bucket-1
+    answer, the bucket-1 artifact run as one stacked chain."""
+    worst = 0.0
+    for lo in range(0, len(pairs), 256):
+        chunk = pairs[lo:lo + 256]
+        stacked = {n: np.stack([f[n] for f, _ in chunk])
+                   for n in chunk[0][0]}
+        want = ref1.predict_stacked(stacked)[0].cpu().numpy()
+        got = np.stack([a for _, a in chunk])
+        worst = max(worst, float((np.abs(got - want)
+                                  / np.maximum(np.abs(want), 1e-30)).max()))
+    return worst
+
+
+def phase_ctr_batching(c=CTR_SERVE):
+    """Phase 80: the CTR tower behind BatchingInferenceServer at
+    dynamic_scenario's settings, then amp_scenario."""
+    from paddle_tpu_torch.inference import (BatchingInferenceServer,
+                                            InferenceServer,
+                                            export_bucketed)
+    main, startup, pred = _ctr_serve_program(c)
+    exe, scope = tfl.Executor(), tfl.Scope()
+    exe.run(startup, scope=scope)
+    specs = {'C%d' % i: (1,) for i in range(c['slots'])}
+    specs['I'] = (13,)
+    t0 = time.perf_counter()
+    srv = BatchingInferenceServer.from_program(
+        specs, [pred], executor=exe, main_program=main, scope=scope,
+        max_batch=c['max_batch'], max_wait_ms=c['max_wait_ms'],
+        linger_ms=c['linger_ms'])
+    warm_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 80)
+    try:
+        ref = srv._servers[1]
+        f1 = _ctr_request(rng, 1)
+        ref.predict(f1)
+        for _ in range(64):
+            srv.submit(f1)
+        srv.predict(f1)
+
+        def base_rate(n=c['base_calls']):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                ref.predict(f1)
+            return n / (time.perf_counter() - t0)
+
+        bases, rates, occs, pairs, lats = [], [], [], [], []
+        for _ in range(c['rounds']):
+            bases.append(base_rate())
+            r, occ, p, lat = _ctr_closed_loop(srv, rng, c)
+            rates.append(r)
+            occs.append(occ)
+            pairs += p
+            lats.append(lat)
+        lat = np.concatenate(lats)
+        base, rate = float(np.median(bases)), float(np.median(rates))
+        st = srv.stats()
+        closed = dict(req_s=rate, req_s_rounds=rates,
+                      single_predict_req_s=base,
+                      single_predict_rounds=bases,
+                      speedup_vs_single=rate / base,
+                      mean_batch_occupancy=float(np.median(occs)),
+                      compiles_warmup=st['compiles'],
+                      compiles_after_warmup=st['compiles_after_warmup'],
+                      warmup_s=warm_s, buckets=st['buckets'],
+                      n_requests=c['n_req'], pipeline_depth=c['depth'],
+                      p50_latency_ms=float(np.percentile(lat, 50)),
+                      p99_latency_ms=float(np.percentile(lat, 99)),
+                      p99_latency_ms_rounds=[float(np.percentile(x, 99))
+                                             for x in lats],
+                      latencies_stamped=int(lat.size),
+                      stats_p50_latency_ms=st['p50_latency_ms'],
+                      stats_p99_latency_ms=st['p99_latency_ms'],
+                      resident_bytes=srv.resident_bytes()['total_bytes'])
+        print("ctr batching closed loop: %s" % json.dumps(closed))
+        opens = []
+        for frac in c['loads']:
+            row, p = _ctr_open_loop(srv, rng, base * frac, c)
+            row['load_frac'] = frac
+            opens.append(row)
+            pairs += p
+            print("ctr batching poisson %gx: %s" % (frac, json.dumps(row)))
+        # bucket-exact requests, each alone, against the unbatched
+        # predict on their bucket's artifact
+        exact = {}
+        for b in srv._buckets:
+            f = _ctr_request(rng, b)
+            got, = srv.predict(f)
+            want, = srv._servers[b].predict(f)
+            exact[b] = bool(np.array_equal(got, want))
+        row_gap = _row_gap(ref, pairs)
+        st = srv.stats()
+    finally:
+        srv.close()
+    # amp_scenario: bucket 8 at full precision and in bf16
+    amp_rows, outs = {}, {}
+    feed = _ctr_request(rng, c['amp_bucket'])
+    for label, mode in (('off', '0'), ('bf16', 'bf16')):
+        d = tempfile.mkdtemp(prefix='chip_smoke_amp_')
+        try:
+            paths = export_bucketed(d, specs, [pred], executor=exe,
+                                    main_program=main, scope=scope,
+                                    max_batch=c['amp_bucket'], amp=mode)
+            one = InferenceServer(paths[c['amp_bucket']])
+            outs[label], = one.predict(feed)
+            samples = []
+            for _ in range(c['samples']):
+                t0 = time.perf_counter()
+                for _ in range(c['amp_calls']):
+                    one.predict(feed)
+                samples.append(c['amp_bucket'] * c['amp_calls']
+                               / (time.perf_counter() - t0))
+            amp_rows[label] = dict(preds_s=float(np.median(samples)),
+                                   samples=samples)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+    amp_gap = _norm_gap(outs['bf16'], outs['off'])
+    amp_res = dict(amp_rows, bf16_vs_f32_norm_rel=amp_gap,
+                   bf16_vs_f32_max_abs=float(np.abs(
+                       outs['bf16'] - outs['off']).max()), tol=TOL_CTR_AMP)
+    print("ctr amp bucket 8: %s" % json.dumps(amp_res))
+    checks = dict(compiles_after_warmup=st['compiles_after_warmup'],
+                  bucket_exact_bitwise=exact, row_gap_rel=row_gap,
+                  row_tol=TOL_CTR_ROW_REL, answers_checked=len(pairs))
+    print("ctr batching checks: %s" % json.dumps(checks))
+    if st['compiles_after_warmup'] or not all(exact.values()) or \
+            row_gap > TOL_CTR_ROW_REL or amp_gap > TOL_CTR_AMP:
+        raise SystemExit("ctr batching: %s" % checks)
+    return dict(closed=closed, open=opens, amp=amp_res, checks=checks)
+
+
+def phase_lm_artifact(c=LM_SERVE):
+    """Phase 81: #1 inside a torch.export artifact: the transformer LM's
+    inference program at the serving width."""
+    from paddle_tpu_torch.inference import InferenceServer, export_inference
+    main, startup = tfl.Program(), tfl.Program()
+    main.random_seed = startup.random_seed = SEED
+    with tfl.program_guard(main, startup):
+        _, logits = ttr.build_logits(c['V'], seq_len=c['T'],
+                                     n_layers=c['L'], d_model=c['D'],
+                                     n_heads=c['H'])
+    exe, scope = tfl.Executor(), tfl.Scope()
+    exe.run(startup, scope=scope)
+    d = tempfile.mkdtemp(prefix='chip_smoke_lm_')
+    try:
+        path = os.path.join(d, 'lm.pt2')
+        t0 = time.perf_counter()
+        export_inference(path, {'src': (c['B'], c['T'])}, [logits],
+                         executor=exe, main_program=main, scope=scope)
+        export_s = time.perf_counter() - t0
+        srv = InferenceServer(path)
+        src = np.random.default_rng(SEED + 81).integers(
+            0, c['V'], size=(c['B'], c['T']))
+        staged = {'src': torch.from_numpy(src).cuda()}
+        srv.predict_async(staged)
+        torch.cuda.synchronize()
+        _zero_counts()
+        got, = srv.predict_async(staged)
+        torch.cuda.synchronize()
+        per_predict = fa.launches
+        infer = main.prune([logits], ['src']).inference_optimize()
+        want, = exe.run(infer, feed={'src': src}, fetch_list=[logits],
+                        scope=scope, return_numpy=False)
+        bitwise = bool(torch.equal(got, want))
+        gap = (got - want).abs().max().item()
+        del got, want
+        _zero_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(c['calls']):
+            srv.predict_async(staged)
+        end.record()
+        torch.cuda.synchronize()
+        counts = _counts()
+        ms = start.elapsed_time(end) / c['calls']
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    res = dict(launches_per_predict=per_predict, bitwise_vs_run=bitwise,
+               max_abs_vs_run=gap, ms_per_predict=ms, export_s=export_s,
+               shape='B=%d T=%d L=%d D=%d H=%d V=%d' % (
+                   c['B'], c['T'], c['L'], c['D'], c['H'], c['V']),
+               counts=counts, lstm_export_refused=_lstm_export_refusal())
+    print("lm artifact: %s" % json.dumps(res))
+    if per_predict != c['L'] or not bitwise or \
+            counts['flash_attention_fwd'] != c['L'] * c['calls'] or \
+            "op 'lstm'" not in (res['lstm_export_refused'] or '') or \
+            'item 8b' not in res['lstm_export_refused']:
+        raise SystemExit("#1 inside the artifact: %s" % res)
+    return res
+
+
+def _lstm_export_refusal():
+    """The message with which export on the card refuses a program whose
+    op launches a kernel through ctypes (#7 through ``lstm``), or None if
+    it does not refuse."""
+    from paddle_tpu_torch.inference import export_inference
+    main, startup = tfl.Program(), tfl.Program()
+    with tfl.program_guard(main, startup):
+        x = tfl.layers.data(name='x', shape=[3, 16], dtype='float32',
+                            lod_level=1)
+        h, _ = tfl.layers.dynamic_lstm(input=x, size=16)
+    exe, scope = tfl.Executor(), tfl.Scope()
+    exe.run(startup, scope=scope)
+    d = tempfile.mkdtemp(prefix='chip_smoke_lstm_')
+    try:
+        export_inference(os.path.join(d, 'lstm.pt2'),
+                         {'x': (2, 3, 16), 'x@LEN': (2,)}, [h],
+                         executor=exe, main_program=main, scope=scope)
+    except NotImplementedError as e:
+        return str(e)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return None
+
+
+def _composed_attention(use_flash, c=TRAIN):
+    main = tfl.Program()
+    with tfl.program_guard(main, tfl.Program()):
+        x = tfl.layers.data(name='x', shape=[c['T'], c['D']],
+                            dtype='float32')
+        y = tfl.nets.scaled_dot_product_attention(
+            x, x, x, num_heads=c['H'], use_flash=use_flash)
+    return main, y
+
+
+def phase_registry_decode(tokens4=None, c=SERVE):
+    """Phase 82: the 24 requests of phase 4 with the engine reaching
+    ``paged_attention`` through the op registry (as it now always does),
+    counted, against the same requests with the op bodies swapped for
+    direct calls of their math (the path before the ops were op types);
+    the chunked prefill through ``chunked_prefill_attention`` against the
+    monolithic prefill; the composed attention against flash."""
+    from paddle_tpu_torch.ops import attention as tatt
+    cfg = TransformerConfig(vocab_size=c['V'], seq_len=c['T'],
+                            n_layers=c['L'], d_model=c['D'],
+                            n_heads=c['H'])
+    params = init_params(cfg, torch.Generator().manual_seed(SEED))
+    prompts = _serving_prompts(np.random.default_rng(SEED), c['n_req'],
+                               c['V'])
+    impls = {op: get_op_impl(op) for op in ('paged_attention',
+                                            'chunked_prefill_attention')}
+    real = {op: impl.compute for op, impl in impls.items()}
+    calls = dict.fromkeys(impls, 0)
+
+    def counted(op):
+        def compute(ctx, ins, attrs):
+            calls[op] += 1
+            return real[op](ctx, ins, attrs)
+        return compute
+
+    def direct_paged(ctx, ins, attrs):
+        return {'Out': [tatt.paged_attention_math(
+            ins['Q'][0], ins['KPool'][0], ins['VPool'][0], ins['PT'][0],
+            ins['CtxLen'][0])]}
+
+    def serve(compute):
+        impls['paged_attention'].compute = compute
+        try:
+            eng = DecodeEngine(params, n_layers=c['L'], n_heads=c['H'],
+                               page_size=c['page'], max_streams=c['streams'],
+                               prefill_bucket=c['bucket'])
+            srv = DecodeServer(eng)
+            _zero_counts()
+            streams = [srv.submit(p, max_new_tokens=c['max_new'])
+                       for p in prompts]
+            drained = srv.drain(timeout=600.0)
+            counts = _counts()
+            srv.close()
+            if not drained:
+                raise SystemExit("registry decode did not drain")
+            return [list(st.result(timeout=1.0)) for st in streams], counts
+        finally:
+            impls['paged_attention'].compute = real['paged_attention']
+
+    tokens, counts = serve(counted('paged_attention'))
+    direct, _ = serve(direct_paged)
+    res = dict(paged_calls=calls['paged_attention'],
+               tokens_equal_direct=tokens == direct,
+               tokens_equal_phase4=(None if tokens4 is None
+                                    else tokens == tokens4),
+               flash_launches=counts['flash_attention_fwd'])
+    # the chunked prefill: registry calls, last-row logits against the
+    # monolithic prefill's
+    impls['chunked_prefill_attention'].compute = counted(
+        'chunked_prefill_attention')
+    try:
+        mono = DecodeEngine(params, n_layers=c['L'], n_heads=c['H'],
+                            page_size=c['page'], max_streams=c['streams'],
+                            prefill_bucket=c['bucket'])
+        chunked = DecodeEngine(params, n_layers=c['L'], n_heads=c['H'],
+                               page_size=c['page'],
+                               max_streams=c['streams'],
+                               prefill_bucket=c['bucket'],
+                               prefill_chunk_tokens=64)
+        worst = 0.0
+        for p in prompts[:6]:
+            n_pages = -(-len(p) // c['page'])
+            pages = mono.cache.alloc(n_pages)
+            want = mono.prefill_into(p, pages)
+            mono.cache.free(pages)
+            pages = chunked.cache.alloc(n_pages)
+            for lo, hi in chunked.chunk_spans(len(p)):
+                got = chunked.prefill_chunk(p[lo:hi], pages, lo)
+            chunked.cache.free(pages)
+            worst = max(worst, float(np.abs(got - want).max()))
+    finally:
+        impls['chunked_prefill_attention'].compute = \
+            real['chunked_prefill_attention']
+    res.update(chunked_calls=calls['chunked_prefill_attention'],
+               chunked_vs_monolithic_max_abs=worst, chunked_tol=TOL_PATH)
+    # the composed attention against flash at the training shape
+    exe = tfl.Executor()
+    x = torch.randn((TRAIN['B'], TRAIN['T'], TRAIN['D']),
+                    generator=torch.Generator().manual_seed(SEED + 82))
+    outs = {}
+    for use_flash in (False, True):
+        main, y = _composed_attention(use_flash)
+        outs[use_flash], = exe.run(main, feed={'x': x}, fetch_list=[y],
+                                   scope=tfl.Scope(), return_numpy=False)
+    composed_gap = (torch.linalg.vector_norm(outs[False] - outs[True])
+                    / torch.linalg.vector_norm(outs[True])).item()
+    res.update(composed_vs_flash_norm_rel=composed_gap,
+               composed_tol=TOL_COMPOSED,
+               composed_shape='B=%d T=%d D=%d H=%d float32' % (
+                   TRAIN['B'], TRAIN['T'], TRAIN['D'], TRAIN['H']))
+    print("registry decode and composed attention: %s" % json.dumps(res))
+    if not (res['paged_calls'] and res['chunked_calls'] and
+            res['tokens_equal_direct'] and res['tokens_equal_phase4']
+            is not False and worst <= TOL_PATH and
+            composed_gap <= TOL_COMPOSED):
+        raise SystemExit("registry decode / composed attention: %s" % res)
+    res['counts'] = counts
+    return res
+
+
+def _serve_phases(tokens4=None):
+    """Phases 78-82, timed together: serving exported programs."""
+    t0 = time.perf_counter()
+    out = dict(flash_op=phase_flash_op())
+    out['resnet'] = phase_resnet_serving()
+    torch.cuda.empty_cache()
+    out['ctr'] = phase_ctr_batching()
+    out['lm'] = phase_lm_artifact()
+    torch.cuda.empty_cache()
+    out['registry'] = phase_registry_decode(tokens4)
+    out['seconds'] = time.perf_counter() - t0
+    print("phases 78-82 (the flash operator, ResNet-50 and CTR serving, "
+          "#1 inside an artifact, the registry decode and the composed "
+          "attention): %.1f s" % out['seconds'])
+    return out
+
+
+def _dispatch_phases():
+    """Phases 3 and 5 alone (``--dispatch``): the decode server's TTFT and
+    step p50 and the training step's p50, the two main paths that call
+    #1 eagerly, in one line.  Copied into another checkout's root, it
+    reads that checkout's package the same way, so that two trees'
+    dispatch of #1 compare within one call."""
+    eng, _, launches, _, srv = phase_serving()
+    del eng
+    torch.cuda.empty_cache()
+    tr = phase_training()
+    print("dispatch: %s" % json.dumps(dict(
+        package=os.path.dirname(os.path.abspath(tfl.__file__)),
+        ttft_ms_p50=srv['ttft_ms_p50'], decode_step_ms_p50=srv['step_ms_p50'],
+        decode_wall_s=srv['wall_s'], decode_flash_launches=launches,
+        train_step_ms_p50=tr['step_ms_p50'], train_step_ms=tr['step_ms'])))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -7813,6 +8577,16 @@ def main():
         build.load_all(('dense_update',))
         _m4_phases()
         return 0
+    if sys.argv[1:] == ['--serve']:
+        phase_build(SERVE_SOURCES)
+        res = _serve_phases()
+        print(json.dumps({'serve': res}))
+        return 0
+    if sys.argv[1:] == ['--dispatch']:
+        phase_build(('flash_attention_fwd', 'flash_attention_bwd',
+                     'dense_update'))
+        _dispatch_phases()
+        return 0
     if sys.argv[1:] == ['--flash']:
         phase_build(FLASH_SOURCES)
         phase_kernel()
@@ -7821,7 +8595,7 @@ def main():
         return 0
     phase_build()
     rows = phase_kernel()
-    eng, params, serve_launches = phase_serving()
+    eng, params, serve_launches, serve_tokens, _ = phase_serving()
     phase_parity(eng, params)
     phase_profile(eng)
     del eng, params
@@ -7864,6 +8638,8 @@ def main():
     ceil_rows, ceil_probe, gan_res, fit = _slice13_phases()
     torch.cuda.empty_cache()
     m4 = _m4_phases()
+    torch.cuda.empty_cache()
+    serve = _serve_phases(serve_tokens)
     counts = tr['counts']
     main_row = next(r for r in rows if r['case'] == MAIN_CASE)
     fwd = dict(
@@ -7995,6 +8771,16 @@ def main():
         book_fit_a_line_training=fit['launches']))
     _add_paths(lines, {'%s_training' % k: m4[k]['counts']
                        for k in ('googlenet', 'alexnet', 'smallnet')})
+    # #1 inside a torch.export artifact, and the decode path through the
+    # op registry (its prefills)
+    _add_paths(lines, dict(
+        transformer_inference_artifact=serve['lm']['counts'],
+        registry_decode_serving=serve['registry']['counts']))
+    fwd['artifact_shape'] = dict(
+        shape=serve['lm']['shape'],
+        ms_per_predict=serve['lm']['ms_per_predict'],
+        launches_per_predict=serve['lm']['launches_per_predict'])
+    fwd['operator_vs_direct'] = serve['flash_op']
     print(json.dumps({'kernels': lines}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -108,9 +108,12 @@ their wrappers.
   row-wise rules skip, so the table is left as it was.  The autodiff op's
   ``loss_scale_var`` multiplies the loss by the dynamic scale.
 
-Not in this slice (each raises): ``compile`` (with ``torch.export`` and
-the AOT cache, ROADMAP.md Queue 1 item 8), ``parallel_do``, overlap
-buckets, meshes (item 10).
+- ``compile`` / ``compile_raw``: the plan of a run as a pure function
+  of (feed, state, seed), with no host sync and nothing written to the
+  scope, which ``torch.export`` traces (inference/serving.py).
+
+Not in this slice (each raises): ``parallel_do``, overlap buckets,
+meshes (item 10).
 """
 import itertools
 import math
@@ -127,6 +130,7 @@ from .program import LEN_SUFFIX, Program, Variable, default_main_program
 from .registry import cost_class, get_op_impl
 from .scope import global_scope
 from .selected_rows import SelectedRows
+from ..ops.kernels import build as _build
 from ..transpiler.passes import (_attr_names, _block_rw_recursive,
                                  _sub_block_idxs)
 
@@ -289,7 +293,10 @@ def _run_one(op, env, ctx, op_index):
         ins['__env__'] = [env]
     found, olds = _gate(op, ins, env)
     ctx.op_index = op.attrs.get('op_seq', op_index)
-    outs = impl.compute(ctx, ins, op.attrs) or {}
+    try:
+        outs = impl.compute(ctx, ins, op.attrs) or {}
+    except _build.NotTraceable as e:
+        raise _build.NotTraceable("op %r: %s" % (op.type, e)) from None
     if '__env_update__' in outs:
         env.update(outs.pop('__env_update__')[0])
     for slot, names in op.outputs.items():
@@ -1249,8 +1256,73 @@ class Executor(object):
             entry['headroom'] = head
         return entry
 
-    def compile(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Executor.compile (ahead-of-time plans) is not ported yet: it "
-            "comes with torch.export and the AOT cache, ROADMAP.md Queue 1 "
-            "item 8")
+    def _compile_common(self, program, feed, fetch_list, scope):
+        """The pure step function of ``program`` for ``fetch_list`` and
+        its example arguments (reference: executor.py
+        ``_compile_common``).  ``feed`` is staged as ``run`` stages it
+        and binds the plan; the state is read from ``scope`` as tensors
+        on the executor's device and nothing is written back."""
+        program, scope, fetch_names = self._resolve(program, scope,
+                                                    fetch_list)
+        staged = self._stage_feed(program.global_block(), feed or {})
+        plan = self._plan(program, fetch_names, staged)
+        prog = plan.program
+        state_rw, state_ro = {}, {}
+        written = set(plan.write_back)
+        defaults = (plan.report.get('amp') or {}).get('state_defaults', {})
+        for v in prog.list_vars():
+            if not v.persistable or v.name in staged:
+                continue
+            if scope.has(v.name):
+                t = scope.get(v.name)
+                if not torch.is_tensor(t):
+                    t = self._to_device(v.name, t, v)
+                elif t.device != self.place:
+                    raise ValueError(
+                        "scope value %r lies on %s, the executor runs on %s"
+                        % (v.name, t.device, self.place))
+            elif v.name in defaults:
+                t = torch.from_numpy(defaults[v.name]).to(self.place)
+            else:
+                continue
+            (state_rw if v.name in written else state_ro)[v.name] = t
+        seed = (self._base_seed(program), self._step_count)
+        device = self.place
+
+        def raw(feed, state_rw, state_ro, seed):
+            """(fetches, new_state): one run of the plan on ``feed`` (card
+            tensors, as ``run`` stages them) and the state, whose
+            read-write part is copied first so the caller's tensors stay
+            as they were.  No host sync, nothing written to a scope."""
+            block = prog.global_block()
+            env = {n: t.clone() for n, t in state_rw.items()}
+            env.update(state_ro)
+            env.update(feed)
+            ctx = ExecutionContext(prog, block, device, seed[0], seed[1])
+            with torch.no_grad():
+                _run_ops(block.ops, env, ctx, plan)
+            for n in fetch_names:
+                if n not in env:
+                    raise KeyError("fetch var %r was never computed" % n)
+            return ([env[n] for n in fetch_names],
+                    {n: env[n] for n in state_rw if n in env})
+
+        return raw, (staged, state_rw, state_ro, seed)
+
+    def compile(self, program=None, feed=None, fetch_list=None, scope=None):
+        """Build (but do not run) the step function of a program: returns
+        (fn, example_args) where ``fn(feed, state_rw, state_ro, seed) ->
+        (fetches, new_state)`` runs the plan ``run`` would run on that
+        feed's shapes, without writing the scope or counting a step.
+        ``seed`` is (base seed, step), the per-op generators' key, in the
+        place of the reference's ``rng_key``.  The function is what
+        ``torch.export`` traces (inference/serving.py).  The reference
+        returns it jitted; PyTorch runs eagerly, so ``compile`` and
+        ``compile_raw`` return the same function."""
+        return self._compile_common(program, feed, fetch_list, scope)
+
+    def compile_raw(self, program=None, feed=None, fetch_list=None,
+                    scope=None):
+        """``compile``'s function, unwrapped (the reference's hook for
+        re-jitting with explicit shardings): the same function here."""
+        return self._compile_common(program, feed, fetch_list, scope)

@@ -1,4 +1,4 @@
-"""Env-var configuration (gflags parity), cut to the decode engine's,
+"""Env-var configuration (gflags parity), cut to the serving stack's,
 the pass pipeline's and the step report's flags.
 
 Every flag is ``PADDLE_TPU_TORCH_<NAME>`` in the environment, declared
@@ -100,3 +100,18 @@ FLAGS._define(
     "the card's memory in bytes: when > 0, last_step_report['memory'] "
     'adds a headroom block (the modelled and measured peaks as ratios of '
     'it).  0 (the default) leaves it out')
+FLAGS._define(
+    'serving_max_wait_ms', 5.0, float,
+    'default deadline flush for BatchingInferenceServer when the '
+    'constructor is not passed max_wait_ms=: how long the oldest queued '
+    'request may wait before a partial batch dispatches anyway')
+FLAGS._define(
+    'serving_max_batch', 8, int,
+    'default bucket-ladder top for export_bucketed / '
+    'BatchingInferenceServer.from_program when max_batch= is not passed: '
+    'buckets are powers of two up to this many rows')
+FLAGS._define(
+    'aot_cache_dir', '', str,
+    'the reference\'s on-disk cache of compiled serving executables; not '
+    'ported yet (ROADMAP.md Queue 1 item 8b): a BatchingInferenceServer '
+    'raises while it is set')

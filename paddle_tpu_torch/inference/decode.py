@@ -9,8 +9,10 @@ Reference parity: paddle_tpu/inference/decode.py, the whole module.
   every prefill launches the hand-written flash-attention kernel.  Its
   per-layer K/V land in claimed cache pages, and its last-position
   logits give the first token.  Every later token is one batched decode
-  step over all stream slots, attending over pages
-  (``paged_attention_math``).
+  step over all stream slots, attending over pages through the
+  ``paged_attention`` op (a chunked prefill through
+  ``chunked_prefill_attention``), reached through the op registry as the
+  reference's engine reaches them.
 - **paged KV cache**: per-layer page pools ``[L, num_pages + 1,
   page_size, heads, head_dim]`` in device memory, with a host-side page
   table and free list.  Where the reference donates the pools through
@@ -42,8 +44,8 @@ import torch
 from ..core.place import resolve_device
 from ..flags import FLAGS
 from ..observability.metrics import DEFAULT_LATENCY_BUCKETS, MetricsRegistry
-from ..ops.attention import (chunked_prefill_attention_math,
-                             flash_attention, paged_attention_math)
+from ..core.registry import get_op_impl
+from ..ops.attention import flash_attention
 from ..ops.kernels import build as _build
 from ..transpiler.memory_model import page_pool_bytes, prefix_cached_bytes
 
@@ -401,6 +403,7 @@ class DecodeEngine(object):
         H, Dh, D = self.n_heads, self.head_dim, self.d_model
         P, mpp = self.page_size, self.pages_per_stream
         bucket = toks.shape[0]
+        chunk_att = get_op_impl('chunked_prefill_attention').compute
         rows = torch.arange(bucket, device=self.device)
         pos = pos0 + rows
         # padded rows (i >= n_valid) write to the trash page
@@ -418,8 +421,9 @@ class DecodeEngine(object):
                        for y in qkv.split(D, dim=-1))
             self.cache.k[i, page_idx, offset] = k.to(self.cache.k.dtype)
             self.cache.v[i, page_idx, offset] = v.to(self.cache.v.dtype)
-            ctx = chunked_prefill_attention_math(
-                q, self.cache.k[i], self.cache.v[i], pt, pos0)
+            ctx = chunk_att(None, {'Q': [q], 'KPool': [self.cache.k[i]],
+                                   'VPool': [self.cache.v[i]], 'PT': [pt],
+                                   'Pos0': [pos0]}, {})['Out'][0]
             x = x + ctx.reshape(bucket, D) @ params[p + 'proj_w'] \
                 + params[p + 'proj_b']
             x = _ffn(params, p, x)
@@ -434,6 +438,7 @@ class DecodeEngine(object):
         params = self.params
         H, Dh, D = self.n_heads, self.head_dim, self.d_model
         S, P = self.max_streams, self.page_size
+        paged = get_op_impl('paged_attention').compute
         pos = ctx_len.clamp(0, self.max_seq - 1)
         x = params['tr_embed'][tokens] + params['tr_pos'][pos]
         page_idx = pt.gather(1, (pos // P)[:, None])[:, 0]
@@ -445,8 +450,9 @@ class DecodeEngine(object):
             q, k, v = (y.reshape(S, H, Dh) for y in qkv.split(D, dim=-1))
             self.cache.k[i, page_idx, offset] = k.to(self.cache.k.dtype)
             self.cache.v[i, page_idx, offset] = v.to(self.cache.v.dtype)
-            ctx = paged_attention_math(q, self.cache.k[i],
-                                       self.cache.v[i], pt, pos + 1)
+            ctx = paged(None, {'Q': [q], 'KPool': [self.cache.k[i]],
+                               'VPool': [self.cache.v[i]], 'PT': [pt],
+                               'CtxLen': [pos + 1]}, {})['Out'][0]
             x = x + ctx.reshape(S, D) @ params[p + 'proj_w'] \
                 + params[p + 'proj_b']
             x = _ffn(params, p, x)

@@ -1,6 +1,6 @@
 """Composite networks (paddle_tpu/nets.py), cut to
 ``simple_img_conv_pool``, ``img_conv_group``, ``sequence_conv_pool``,
-``glu`` and the flash path of ``scaled_dot_product_attention``."""
+``glu`` and ``scaled_dot_product_attention`` (flash and composed)."""
 from . import layers
 
 __all__ = ['simple_img_conv_pool', 'img_conv_group', 'sequence_conv_pool',
@@ -83,35 +83,67 @@ def scaled_dot_product_attention(queries, keys, values,
                                  use_flash=None, causal=False,
                                  pallas_interpret=False):
     """Multi-head scaled dot-product attention over [batch, seq, d]
-    inputs through the ``flash_attention`` op: on the card it runs the
-    hand-written forward and backward kernels.  The composed
-    matmul + softmax form (``use_flash=False``) and attention dropout
-    come with a later slice.  ``pallas_interpret`` is kept as an op attr
-    for parity with the reference's programs; it means nothing here."""
+    inputs.  ``use_flash`` (the default None: whenever ``dropout_rate``
+    is 0) builds the ``flash_attention`` op, which on the card runs the
+    hand-written forward and backward kernels; ``use_flash=True`` with
+    dropout raises, as the kernel has no attention-probability dropout.
+    Otherwise the composed form: split heads, scale by head_dim ** -0.5,
+    matmul with the transposed keys, softmax, dropout, matmul, merge
+    heads.  As in the reference, the composed form ignores ``causal``: it
+    never masks (ROADMAP.md, reference caveats).  ``pallas_interpret`` is
+    kept as an op attr for parity with the reference's programs; it
+    means nothing here."""
     if num_heads < 1:
         raise ValueError("num_heads must be >= 1")
-    if use_flash is False or dropout_rate:
-        raise NotImplementedError(
-            "the composed matmul/softmax attention and attention dropout "
-            "are not ported yet: ROADMAP.md Queue 1")
     head_dim = queries.shape[-1] // num_heads
-    from .layers.layer_helper import LayerHelper
-    helper = LayerHelper('flash_attention')
+    if use_flash is None:
+        use_flash = dropout_rate == 0.0
 
-    def _bthd(x):
+    if use_flash:
+        if dropout_rate:
+            raise ValueError("flash attention path has no attention-"
+                             "probability dropout")
+        from .layers.layer_helper import LayerHelper
+        helper = LayerHelper('flash_attention')
+
+        def _bthd(x):
+            return layers.reshape(
+                x=x, shape=[x.shape[0] if x.shape[0] > 0 else -1,
+                            x.shape[1], num_heads, head_dim])
+
+        q4, k4, v4 = _bthd(queries), _bthd(keys), _bthd(values)
+        ctx_out = helper.create_tmp_variable(queries.dtype)
+        helper.append_op(
+            type='flash_attention',
+            inputs={'Q': [q4], 'K': [k4], 'V': [v4]},
+            outputs={'Out': [ctx_out]},
+            attrs={'causal': bool(causal),
+                   'pallas_interpret': bool(pallas_interpret)})
         return layers.reshape(
-            x=x, shape=[x.shape[0] if x.shape[0] > 0 else -1,
-                        x.shape[1], num_heads, head_dim])
+            x=ctx_out, shape=[queries.shape[0] if queries.shape[0] > 0
+                              else -1, queries.shape[1],
+                              num_heads * head_dim])
 
-    q4, k4, v4 = _bthd(queries), _bthd(keys), _bthd(values)
-    ctx_out = helper.create_tmp_variable(queries.dtype)
-    helper.append_op(
-        type='flash_attention',
-        inputs={'Q': [q4], 'K': [k4], 'V': [v4]},
-        outputs={'Out': [ctx_out]},
-        attrs={'causal': bool(causal),
-               'pallas_interpret': bool(pallas_interpret)})
+    def _split_heads(x):
+        if num_heads == 1:
+            return x
+        reshaped = layers.reshape(
+            x=x, shape=[x.shape[0] if x.shape[0] > 0 else -1, x.shape[1],
+                        num_heads, head_dim])
+        return layers.transpose(x=reshaped, perm=[0, 2, 1, 3])
+
+    q = _split_heads(queries)
+    k = _split_heads(keys)
+    v = _split_heads(values)
+    scaled_q = layers.scale(x=q, scale=head_dim ** -0.5)
+    product = layers.matmul(x=scaled_q, y=k, transpose_y=True)
+    weights = layers.softmax(x=product)
+    if dropout_rate:
+        weights = layers.dropout(x=weights, dropout_prob=dropout_rate)
+    ctx_multiheads = layers.matmul(weights, v)
+    if num_heads == 1:
+        return ctx_multiheads
+    ctx = layers.transpose(ctx_multiheads, perm=[0, 2, 1, 3])
     return layers.reshape(
-        x=ctx_out, shape=[queries.shape[0] if queries.shape[0] > 0
-                          else -1, queries.shape[1],
-                          num_heads * head_dim])
+        x=ctx, shape=[ctx.shape[0] if ctx.shape[0] > 0 else -1,
+                      ctx.shape[1], num_heads * head_dim])

@@ -1,4 +1,4 @@
-"""Thread-safe metrics primitives: the part the decode server reads.
+"""Thread-safe metrics primitives: the part the servers read.
 
 Reference parity: paddle_tpu/observability/metrics.py, cut to
 Prometheus-style ``Counter`` / ``Gauge`` / ``Histogram`` families with
@@ -110,7 +110,7 @@ class Gauge(_Metric):
 
 
 class _HistogramChild(object):
-    __slots__ = ('_lock', '_bounds', '_counts', '_count', '_sum')
+    __slots__ = ('_lock', '_bounds', '_counts', '_count', '_sum', '_max')
 
     def __init__(self, lock, bounds):
         self._lock = lock
@@ -118,6 +118,7 @@ class _HistogramChild(object):
         self._counts = [0] * (len(bounds) + 1)
         self._count = 0
         self._sum = 0.0
+        self._max = 0.0
 
     def observe(self, value):
         v = float(value)
@@ -128,6 +129,25 @@ class _HistogramChild(object):
             self._counts[i] += 1
             self._count += 1
             self._sum += v
+            self._max = max(self._max, v)
+
+    def quantile(self, q):
+        """The q-quantile (0..1) by linear interpolation inside the
+        bucket that holds it (Prometheus' histogram_quantile), the
+        overflow bucket clamped to the largest observation."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError("quantile q must be in [0, 1], got %r" % q)
+        with self._lock:
+            if not self._count:
+                return 0.0
+            rank = q * self._count
+            cum, lo = 0, 0.0
+            for ub, c in zip(self._bounds, self._counts):
+                if c and cum + c >= rank:
+                    return min(lo + (ub - lo) * (rank - cum) / c, self._max)
+                cum += c
+                lo = ub
+            return self._max
 
     @property
     def count(self):

@@ -7,8 +7,10 @@ backward kernels, CPU tensors their plain versions (``_plain_forward`` /
 ``_plain_backward``), so a CPU run computes exactly what the kernels are
 held to.  ``_dense_attention`` is the reference op's off-accelerator
 math; here it serves build-time shape inference on meta tensors.  The
-paged and chunked-prefill attention are plain PyTorch, because the
-reference computes them outside any Pallas kernel.
+paged and chunked-prefill attention (the ``paged_attention`` and
+``chunked_prefill_attention`` ops, which the decode engine reaches
+through the registry as the reference's does) are plain PyTorch, because
+the reference computes them outside any Pallas kernel.
 """
 import torch
 
@@ -88,8 +90,9 @@ def chunked_prefill_attention_math(q, k_pool, v_pool, page_table, pos0,
     ``q`` [C, H, D]: query ``i`` sits at absolute position ``pos0 + i``;
     ``k_pool``/``v_pool`` [N, P, H, D]; ``page_table`` [MPP] page ids
     (entries past the claimed span may point anywhere: they are causally
-    masked); ``pos0`` an int.  Returns [C, H, D].  The key at absolute
-    position ``j`` is valid for query ``i`` iff ``j <= pos0 + i``.
+    masked); ``pos0`` an int or a 0-d integer tensor.  Returns [C, H, D].
+    The key at absolute position ``j`` is valid for query ``i`` iff
+    ``j <= pos0 + i``.
     float32 scores and softmax, the accumulation order of
     ``paged_attention_math``.
     """
@@ -102,7 +105,7 @@ def chunked_prefill_attention_math(q, k_pool, v_pool, page_table, pos0,
     k = k_pool[idx].reshape(mpp * p, h, d)      # [T, H, D]
     v = v_pool[idx].reshape(mpp * p, h, d)
     scores = torch.einsum('chd,thd->cht', q.float(), k.float()) * scale
-    qpos = int(pos0) + torch.arange(c, device=q.device)
+    qpos = pos0 + torch.arange(c, device=q.device)
     valid = (torch.arange(mpp * p, device=q.device)[None, :]
              <= qpos[:, None])                       # [C, T]
     scores = scores.masked_fill(~valid[:, None, :], _NEG_INF)
@@ -119,3 +122,28 @@ def _flash_attention_op(ctx, ins, attrs):
                                first(ins, 'V'),
                                causal=attrs.get('causal', False),
                                scale=attrs.get('scale', None)))
+
+
+@register_op('chunked_prefill_attention')
+def _chunked_prefill_attention(ctx, ins, attrs):
+    q = first(ins, 'Q')              # [C, H, D]
+    k_pool = first(ins, 'KPool')     # [N, P, H, D]
+    v_pool = first(ins, 'VPool')
+    page_table = first(ins, 'PT')    # [MPP] integer page ids
+    pos0 = first(ins, 'Pos0')        # scalar
+    if torch.is_tensor(pos0):
+        pos0 = pos0.reshape(()).long()
+    return out(chunked_prefill_attention_math(
+        q, k_pool, v_pool, page_table, pos0, scale=attrs.get('scale', None)))
+
+
+@register_op('paged_attention')
+def _paged_attention(ctx, ins, attrs):
+    q = first(ins, 'Q')              # [S, H, D]
+    k_pool = first(ins, 'KPool')     # [N, P, H, D]
+    v_pool = first(ins, 'VPool')
+    page_table = first(ins, 'PT')    # [S, MPP] integer page ids
+    ctx_len = first(ins, 'CtxLen')   # [S]
+    return out(paged_attention_math(
+        q, k_pool, v_pool, page_table, ctx_len,
+        scale=attrs.get('scale', None)))

@@ -9,7 +9,11 @@ builds anew) and loaded with ``ctypes``.  Nothing here runs at import: the CPU t
 import every module of the package, and a CPU host has no ``nvcc``.
 
 A build that fails raises with the compiler's output; there is no other
-path to the kernel.
+path to the kernel.  Every ctypes launch loads its library here first, so
+a launch reached while ``torch.export`` traces (fake tensors, which have
+no data to point at) raises ``NotTraceable`` here, before any
+``data_ptr()``; the executor names the op that reached it.  Only #1's
+forward is an operator that tracing records (ops/kernels/flash_attention.py).
 """
 import ctypes
 import hashlib
@@ -19,7 +23,9 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ['load', 'load_all', 'library_path', 'nvcc_path', 'build_variants',
+import torch
+
+__all__ = ['NotTraceable', 'load', 'load_all', 'library_path', 'nvcc_path', 'build_variants',
            'BUILD_DIR', 'NVCC_FLAGS', 'builds', 'build_log']
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -33,6 +39,8 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 # a source's own headers: #include "<file>" in csrc/
 _LOCAL_INCLUDE = re.compile(rb'^#include "([^"]+)"', re.M)
+
+_FAKE = torch._C._TorchDispatchModeKey.FAKE
 
 _lock = threading.Lock()
 _libs = {}
@@ -72,10 +80,20 @@ def _so_path(name):
         name, digest.hexdigest()[:16]))
 
 
+class NotTraceable(NotImplementedError):
+    """A kernel launched through ctypes was reached under tracing."""
+
+
 def load_all(names):
     """{name: ctypes library} of ``csrc/<name>.cu`` for each name; the
-    sources not built yet compile in parallel, one nvcc each."""
+    sources not built yet compile in parallel, one nvcc each.  Raises
+    ``NotTraceable`` under a fake-tensor mode (``torch.export``)."""
     global builds
+    if torch._C._get_dispatch_mode(_FAKE) is not None:
+        raise NotTraceable(
+            "kernel %s is launched through ctypes, which torch.export "
+            "cannot trace; it becomes an operator with ROADMAP.md Queue 1 "
+            "item 8b" % ', '.join(names))
     with _lock:
         todo = [n for n in names if n not in _libs]
         paths = {n: _so_path(n) for n in todo}

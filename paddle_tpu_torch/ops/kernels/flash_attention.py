@@ -14,6 +14,11 @@ for ``sm_90a`` at first use (ops/kernels/build.py) and called through
 ctypes on the tensors' current stream.  Their designs and what bounds them
 are noted in those sources.
 
+The forward is also the PyTorch operator ``paddle_tpu_torch::flash_fwd``
+(``torch.library.Library``), which ``_fa_forward`` calls: tracing by
+``torch.export`` cannot follow a ctypes launch, so an exported program
+records the operator, and calling the program launches the kernel.
+
 Dispatch is by the tensors' device and nothing else: CUDA tensors launch
 the kernels (a failed build or launch raises), CPU tensors take the plain
 versions ``_plain_forward``, ``_plain_backward`` (fused) and
@@ -40,7 +45,7 @@ import ctypes
 
 import torch
 
-__all__ = ['flash_attention', 'attention_with_lse', 'launches',
+__all__ = ['flash_attention', 'attention_with_lse', 'flash_fwd', 'launches',
            'bwd_launches', 'dkv_launches', 'dq_launches', 'dtype_launches',
            'MAX_HEAD_DIM']
 
@@ -77,13 +82,14 @@ def _split_backward(tq, d):
     return tq_p * d * 4 > _FUSED_DQ_BYTES
 
 
-def _launch(source, fn_name, device, ptrs, bh, tq, tk, d, dtype, causal,
+def _launch(source, fn_name, device, tensors, bh, tq, tk, d, dtype, causal,
             scale, q_offset, k_offset):
     """Call the C entry ``fn_name`` of ``csrc/<source>.cu`` (compiled on
-    first use) on ``device``'s current stream; raises if the launch
-    fails."""
+    first use) on ``tensors``' data and ``device``'s current stream;
+    raises if the launch fails."""
     from . import build
     lib = build.load(source)
+    ptrs = [x.data_ptr() for x in tensors]
     fn = getattr(lib, fn_name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -192,23 +198,59 @@ def _plain_forward(q, k, v, causal, scale, q_offset=0, k_offset=0):
     return o.to(q.dtype), lse
 
 
-def _fa_forward(q, k, v, causal, scale, q_offset=0, k_offset=0):
-    """q/k/v [BH, T, D] -> (o [BH, Tq, D], lse [BH, Tq] float32).
-    ``q_offset``/``k_offset`` shift the causal mask's global positions."""
-    _check(q, k, v)
-    if q.device.type == 'cpu':
-        return _plain_forward(q, k, v, causal, scale, q_offset, k_offset)
+def _launch_forward(q, k, v, causal, scale, q_offset=0, k_offset=0):
+    """The forward kernel's launch on CUDA tensors, checked by ``_check``:
+    (o, lse) written by #1 on the current stream."""
     global launches
+    _check(q, k, v)
     bh, tq, d = q.shape
     if bh > 65535:
         raise ValueError("batch*heads %d exceeds the grid's 65535" % bh)
     o = torch.empty_like(q)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
     _launch('flash_attention_fwd', 'paddle_flash_attention_fwd', q.device,
-            [x.data_ptr() for x in (q, k, v, o, lse)], bh, tq, k.shape[1],
-            d, q.dtype, causal, scale, q_offset, k_offset)
+            (q, k, v, o, lse), bh, tq, k.shape[1], d, q.dtype, causal, scale,
+            q_offset, k_offset)
     launches += 1
     return o, lse
+
+
+def _flash_fwd_cpu(q, k, v, causal, scale, q_offset, k_offset):
+    _check(q, k, v)
+    return _plain_forward(q, k, v, causal, scale, q_offset, k_offset)
+
+
+# #1 as the PyTorch operator paddle_tpu_torch::flash_fwd, so that
+# torch.export records it as one node (tracing cannot follow the ctypes
+# launch, which reads data_ptr()): CUDA tensors launch the kernel, CPU
+# tensors run _plain_forward, fake tensors get (o, lse) of the right shapes
+# and dtypes; a loaded artifact calls it again.  Defined and implemented
+# through torch.library.Library, whose C++ dispatch costs less host time
+# a call than a torch.library.custom_op's.  Every implementation checks
+# its inputs, since a loaded artifact calls the operator directly.
+_LIB = torch.library.Library('paddle_tpu_torch', 'DEF')
+_LIB.define('flash_fwd(Tensor q, Tensor k, Tensor v, bool causal, '
+            'float scale, int q_offset, int k_offset) -> (Tensor, Tensor)')
+_LIB.impl('flash_fwd', _launch_forward, 'CUDA')
+_LIB.impl('flash_fwd', _flash_fwd_cpu, 'CPU')
+
+
+@torch.library.register_fake('paddle_tpu_torch::flash_fwd', lib=_LIB)
+def _flash_fwd_fake(q, k, v, causal, scale, q_offset, k_offset):
+    _check(q, k, v)
+    return (torch.empty_like(q),
+            q.new_empty(q.shape[:2], dtype=torch.float32))
+
+
+flash_fwd = torch.ops.paddle_tpu_torch.flash_fwd.default
+
+
+def _fa_forward(q, k, v, causal, scale, q_offset=0, k_offset=0):
+    """q/k/v [BH, T, D] -> (o [BH, Tq, D], lse [BH, Tq] float32).
+    ``q_offset``/``k_offset`` shift the causal mask's global positions.
+    Runs through the ``flash_fwd`` operator."""
+    return flash_fwd(q, k, v, bool(causal), float(scale), int(q_offset),
+                     int(k_offset))
 
 
 def _plain_probs(q, k, v, lse, do, di, causal, scale, q_offset, k_offset):
@@ -286,7 +328,7 @@ def _fa_backward_dkv(q, k, v, lse, do, di, causal, scale, q_offset=0,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _launch('flash_attention_bwd_split', 'paddle_flash_attention_bwd_dkv',
-            q.device, [x.data_ptr() for x in (q, k, v, do, lse, di, dk, dv)],
+            q.device, (q, k, v, do, lse, di, dk, dv),
             bh, tq, k.shape[1], d, q.dtype, causal, scale, q_offset,
             k_offset)
     dkv_launches += 1
@@ -305,7 +347,7 @@ def _fa_backward_dq(q, k, v, lse, do, di, causal, scale, q_offset=0,
     bh, tq, d = q.shape
     dq = torch.empty_like(q)
     _launch('flash_attention_bwd_split', 'paddle_flash_attention_bwd_dq',
-            q.device, [x.data_ptr() for x in (q, k, v, do, lse, di, dq)],
+            q.device, (q, k, v, do, lse, di, dq),
             bh, tq, k.shape[1], d, q.dtype, causal, scale, q_offset,
             k_offset)
     dq_launches += 1
@@ -330,8 +372,7 @@ def _fa_backward_fused(q, k, v, lse, do, di, causal, scale, q_offset=0,
     dv = torch.empty_like(v)
     dq_acc = torch.empty((bh, tq, d), dtype=torch.float32, device=q.device)
     _launch('flash_attention_bwd', 'paddle_flash_attention_bwd', q.device,
-            [x.data_ptr() for x in (q, k, v, do, lse, di, dq, dk, dv,
-                                    dq_acc)],
+            (q, k, v, do, lse, di, dq, dk, dv, dq_acc),
             bh, tq, k.shape[1], d, q.dtype, causal, scale, q_offset,
             k_offset)
     bwd_launches += 1

@@ -198,7 +198,7 @@ def test_print_prints_the_message_and_passes_the_value():
 
 def test_op_traits_equal_the_reference_for_every_port_op():
     ops = treg.registered_ops()
-    assert len(ops) == 188
+    assert len(ops) == 190
     for t in ops:
         assert tuple(treg.op_traits(t)) == tuple(jreg.op_traits(t)), t
     for t in ('while', 'conditional_block', 'recurrent'):

@@ -340,6 +340,7 @@ def _slot_semantic_programs():
     out.append(_control_flow_program())
     out.append(_sequence_labelling_program())
     out.append(_op_library_program())
+    out.append(_serving_attention_program())
     (_, decode), _, specs = _decode_programs()
     out.append((decode, specs))
     return out
@@ -468,6 +469,34 @@ def _op_library_program():
                   'prior': ((8, 8), 'float32')}
 
 
+def _serving_attention_program():
+    """The serving attention ops on a page pool, page tables, context
+    lengths and a chunk start, the shapes the decode engine gives them."""
+    s, h, d, p, n, mpp, c = 3, 2, 8, 4, 16, 4, 5
+    specs = {'sv_q': ((s, h, d), 'float32'),
+             'sv_kp': ((n + 1, p, h, d), 'float32'),
+             'sv_vp': ((n + 1, p, h, d), 'float32'),
+             'sv_pt': ((s, mpp), 'int32'), 'sv_ctx': ((s,), 'int32'),
+             'sv_cq': ((c, h, d), 'float32'), 'sv_pt1': ((mpp,), 'int32'),
+             'sv_pos0': ((), 'int32')}
+    main = tfl.Program()
+    with tfl.program_guard(main, tfl.Program()):
+        for name, (shape, dtype) in specs.items():
+            tfl.layers.data(name=name, shape=list(shape), dtype=dtype,
+                            append_batch_size=False)
+    block = main.global_block()
+    for op, ins in (('paged_attention',
+                     {'Q': ['sv_q'], 'KPool': ['sv_kp'], 'VPool': ['sv_vp'],
+                      'PT': ['sv_pt'], 'CtxLen': ['sv_ctx']}),
+                    ('chunked_prefill_attention',
+                     {'Q': ['sv_cq'], 'KPool': ['sv_kp'], 'VPool': ['sv_vp'],
+                      'PT': ['sv_pt1'], 'Pos0': ['sv_pos0']})):
+        block.create_var(name='sv_' + op, dtype='float32')
+        block.append_op(type=op, inputs=ins, outputs={'Out': ['sv_' + op]},
+                        attrs={})
+    return main, specs
+
+
 def _decode_programs(K=2):
     """seq2seq's beam decode at a small width, built by both packages."""
     from paddle_tpu.models import seq2seq as js2s
@@ -552,7 +581,7 @@ def test_every_registered_op_has_a_verdict_or_a_waiver():
     p, fetches, feeds = _sweep_program('create_array')
     assert jcm.analyze_cost(p, fetches, {})['coverage']['no_verdict'] == [
         'create_array']
-    assert len(treg.registered_ops()) == 188
+    assert len(treg.registered_ops()) == 190
     # the class invariants: a mac op has its formula; waivers are real
     for t in treg.registered_ops():
         assert treg.op_traits(t).cost == treg.cost_class(t)

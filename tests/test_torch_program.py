@@ -124,4 +124,4 @@ def test_meta_inference_keeps_the_batch_dim(op_type, specs, attrs, slots,
 
 def test_unported_op_raises_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tinfer.infer_outputs('paged_attention', {}, {}, ['Out'])
+        tinfer.infer_outputs('allreduce', {}, {}, ['Out'])
