@@ -7,6 +7,8 @@
     python3 chip_smoke.py --ceiling     # phases 1, 2 (#1, #11), 62, 63
     python3 chip_smoke.py --m4          # phases 1, #5's build, 67-77
     python3 chip_smoke.py --serve       # phases 1, #1's build, 78-82
+    python3 chip_smoke.py --fleet       # phases 1, the RNN kernels' builds,
+                                        # ResNet-50's exports, 83-87
     python3 chip_smoke.py --dispatch    # phases 1, 3 and 5 alone, see below
 
 Run from the root of a checkout on a machine with a CUDA card and the
@@ -493,12 +495,13 @@ line:
    NHWC): ``inference.export_inference`` at batch 1, 8 and 64 (the
    prediction and, beside it, the head's logits: the softmax saturates
    at this random init), ``InferenceServer``: export, load and
-   first-call seconds, latency p50 over 30 ``predict`` calls (b1, b8),
-   ``predict_stacked`` img/s over a chain of 30 (b8, b64), pipelined
+   first-call seconds, latency p50 over 15 ``predict`` calls (b1, b8),
+   ``predict_stacked`` img/s over a chain of 15 (b8, b64), pipelined
    ``predict_async`` img/s (b64, chain 10) and a traced pipelined chain
    (busy ms a batch, idle share).  Each artifact's outputs must equal
    ``Executor.run`` of the same pruned inference program bitwise, and
-   the b1 artifact's logits the CPU artifact's within
+   the b1 artifact's logits the CPU's run of that program (whose
+   artifact answers as it, bitwise, tests/test_torch_serving.py) within
    ``TOL_RN_SERVE_CPU``.
 80. the CTR tower (``CTR_SERVE``: bench_serving.py's
    ``_build_ctr_tower``, 26 slots of 10000 x 16, 13 dense, fc
@@ -518,9 +521,7 @@ line:
 81. #1 inside an artifact: the transformer LM's ``build_logits`` at the
    serving width (``LM_SERVE``: L=6, D=512, H=8, V=30000, B=8, T=512)
    exported and served: 6 launches of #1 a predict, the logits bitwise
-   ``Executor.run``'s, ms a predict; and the export on the card of a
-   program whose op launches a kernel through ctypes (``lstm``, #7)
-   refused with a message naming the op.
+   ``Executor.run``'s, ms a predict.
 82. the 24 requests of phase 4 with ``paged_attention`` reached through
    the op registry (counted) against the same requests with its body
    swapped for a direct call of its math: equal greedy tokens, and equal
@@ -529,7 +530,42 @@ line:
    prefill's last logits at ``TOL_PATH``; the composed attention
    (``use_flash=False``, float32, TF32 off) against flash at phase 7's
    training shape within ``TOL_COMPOSED`` norm-relative.  Phases 78-82
-   take about 160 s on an H100.
+   take about 160 s on an H100.  Phase 79 leaves its three artifacts as
+   a version directory (``bucket_1.pt2``, ``bucket_8.pt2``,
+   ``bucket_64.pt2``) for phases 85 and 86.
+83. #7 and #9 as the operators ``paddle_tpu_torch::lstm_fwd`` /
+   ``gru_fwd`` against their direct launches at the LM's (T=128 B=256
+   H=256) and seq2seq's (T=64 B=512 H=512, h0) shapes: bitwise with and
+   without the gates, and host ms a call of each (``RNN_OP_CASES``).
+84. two training steps of the LSTM LM, the sentiment net and seq2seq at
+   full width through the operators against the direct launches, from
+   one startup state: bitwise losses and persistables (a third run
+   through the operators says whether the step is reproducible at all).
+85. one ``ServingFleet`` (``FLEET``) of two tenants: ``resnet`` (gold,
+   phase 79's buckets, two replicas on one servable, closed-loop clients
+   of 1-8 images) and ``sentiment`` (silver, the stacked LSTM classifier
+   at ``SENT``'s width exported at buckets 1-16 in two versions, two
+   replicas, open-loop requests).  Under traffic: a deploy whose budget
+   the incoming artifacts alone exceed is rejected with
+   ``AdmissionError`` before any build; v1 -> v2 hot-swap under an
+   enforced budget one byte short, which evicts ResNet's coldest
+   bucket (re-warmed later, counted in ``compiles_after_warmup``);
+   rollback to v1.  No request may fail; every ResNet answer is held
+   against the bucket that served it (bitwise, or ``TOL_RN_SERVE_CPU``),
+   every sentiment answer against its version's ``Executor.run`` on the
+   card (``TOL_FLEET_SENT``; the two versions differ by at least 100
+   times that); #7 runs 3 times a sentiment batch, counted over the
+   whole window (batches and bucket warm calls).
+86. the cold start: two fresh processes (``--cold-start DIR AOT OUT``)
+   over phase 79's version directory, the first on an empty AOT cache (3
+   compiles, 3 stores), the second on its entries (3 hits, 0 compiles),
+   each printing seconds from just after ``import torch`` to
+   serving-ready and to the first answer and each bucket's stages; their
+   answers bitwise equal.
+87. #9 inside an artifact: the seq2seq translator's bidirectional GRU
+   encoder at ``S2S``'s width exported at batch 1 and 8, 2 launches of
+   #9 a predict, against ``Executor.run`` on the card
+   (``TOL_ENC_ARTIFACT``).
 52. a ``{"kernels": [...]}`` line (eleven kernels, each with its launches
    by path; ``bound_ms`` at the rate of the units a kernel computes on:
    the tensor cores at 3xTF32 for #1-#4, #11 and #7-#10 (at the 16-bit
@@ -542,8 +578,10 @@ line:
    them; #9's time at the decode's shape as ``decode_shape``; #11's
    probe runs, its launches by variant and its plain times; the GAN's
    and fit_a_line's #5 launches; those of phases 67, 70 and 73; #1's
-   inside phase 81's artifact and in phase 82's decode), printed after
-   phase 82, then
+   inside phase 81's artifact and in phase 82's decode; #7's inside the
+   fleet's sentiment artifacts (phase 85) and #9's inside the encoder's
+   (87), with each operator against its direct launch (83)), printed after
+   phase 87, then
    the card's line, and last ``{"ok": true, "device": {...}}``.
 
 With ``--long-step`` the script runs phase 26 alone, in a process that
@@ -552,6 +590,7 @@ times, peak memory): copied into another checkout and run there too in
 the same call, it compares two trees' 128K step on one card.
 """
 import contextlib
+import hashlib
 import importlib.util
 import json
 import os
@@ -567,7 +606,8 @@ import warnings
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+_T_TORCH = time.perf_counter()   # the cold start's clock (phase 86)
+import torch.nn.functional as F  # noqa: E402
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
@@ -705,8 +745,9 @@ S2S = dict(B=512, T=64, V=30000, word_dim=256, H=512, lr=1e-3, steps=8,
 # reference's backward takes its split pair in every layer (a dq
 # accumulator of T * 64 * 4 bytes over flash_attention.py:527's 16 MiB).
 # Full depth: a step took ~10.8 s on an H100 (PERF.md), under the 60 s that
-# would call for L=2
-LONG = dict(B=1, T=131072, V=30000, L=6, D=512, H=8, lr=1e-3, steps=2)
+# would call for L=2.  One timed step after the first (it was two), so
+# that the whole script keeps inside its time with phases 83-87
+LONG = dict(B=1, T=131072, V=30000, L=6, D=512, H=8, lr=1e-3, steps=1)
 # the split pair vs the fused kernel at full length, norm-relative: both
 # float32, dq in other orders (both on the tensor cores at 3xTF32
 # accuracy, #2 in atomic order over k tiles, #4 in its walk's order); dk
@@ -1072,9 +1113,17 @@ def phase_build(sources=SOURCES):
     # the CUDA cores
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()),
                              'cuobjdump')
-    kinds = {name: _hmma_kinds(subprocess.run(
-        [cuobjdump, '-sass', build.library_path(name)], capture_output=True,
-        text=True, timeout=300, check=True).stdout) for name in sources}
+    # one cuobjdump a library, all started together
+    procs = {name: subprocess.Popen(
+        [cuobjdump, '-sass', build.library_path(name)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in sources}
+    kinds = {}
+    for name, proc in procs.items():
+        out, err = proc.communicate(timeout=300)
+        if proc.returncode:
+            raise SystemExit("cuobjdump failed on %s: %s" % (name, err))
+        kinds[name] = _hmma_kinds(out)
     mma = {name: {fn: n['hmma'] for fn, n in fns.items()}
            for name, fns in kinds.items()}
     by_lib = {name: sum(fns.values()) for name, fns in mma.items()}
@@ -3082,9 +3131,12 @@ def phase_sparse_kernel():
                 timing.setdefault(label, {})[rule] = row
             if rule in timed and full:
                 row['sort_ms'] = _device_ms(lambda: tu.sort_rows(ids, height))
-                row['plain_call_ms'] = _call_ms(lambda: _sparse_call(
+                # one call: the plain rules take 0.7 s to seconds a call,
+                # and the correctness call above warmed them (it was five
+                # calls, cut for the script's time)
+                row['plain_call_ms'] = _once_ms(lambda: _sparse_call(
                     rule, [t.clone() for t in state], ids, vals, lr,
-                    plain=True), iters=2)
+                    plain=True))
                 row['library_ms'], row['library_single_call_ms'] = \
                     _sparse_library(rule, state, norm, vals, height, d)
                 row['single_call_ms'] = _single_call_ms(lambda: _sparse_call(
@@ -7844,11 +7896,12 @@ def _m4_phases():
 SERVE_SOURCES = ('flash_attention_fwd',)
 # benchmarks/bench_serving.py:40-63, main()'s TPU row: ResNet-50 at
 # 224x224, 1000 classes, bf16 activations NHWC (resnet.build_imagenet
-# dtype='bfloat16', layout='NHWC'), exported at batch 1, 8 and 64; 30
-# latency calls (b1, b8), a stacked chain of 30 (b8, b64), a pipelined
-# chain of 10 (b64)
+# dtype='bfloat16', layout='NHWC'), exported at batch 1, 8 and 64; 15
+# latency calls (b1, b8), a stacked chain of 15 (b8, b64), a pipelined
+# chain of 10 (b64), two samples each (it was 30, 30, 10 and three, cut
+# for the script's time)
 RN_SERVE = dict(hw=224, depth=50, classes=1000, batches=(1, 8, 64),
-                lat_calls=30, chain=30, pipe_chain=10, samples=3)
+                lat_calls=15, chain=15, pipe_chain=10, samples=2)
 # benchmarks/bench_serving.py:209-231 (_build_ctr_tower: 26 slots of
 # 10000 x 16 tables, 13 dense features, fc 256-128-1, seed 17) behind
 # adaptive batching as dynamic_scenario (:1084-1229) runs it on a TPU:
@@ -7872,7 +7925,7 @@ TOL_CTR_ROW_REL = 1e-6
 # phase 82: the composed attention against flash on the training shape,
 # both float32 (TF32 off), norm-relative
 TOL_COMPOSED = 1e-5
-# phase 79: the card's b1 artifact's logits against the CPU artifact's,
+# phase 79: the card's b1 artifact's logits against the CPU's run,
 # norm-relative: bf16 activations rounded after each of ResNet-50's
 # layers, summed in float32 in other orders on the two sides; read
 # 2.59e-3 on an H100 (PERF.md section 6; the logits' std is ~1600 at
@@ -7950,9 +8003,10 @@ def _median_s(fn, samples):
     return float(np.median(walls)), walls
 
 
-def phase_resnet_serving(c=RN_SERVE):
+def phase_resnet_serving(vdir, c=RN_SERVE):
     """Phase 79: ResNet-50 exported and served at bench_serving.py's
-    width, batch 1, 8 and 64."""
+    width, batch 1, 8 and 64.  The artifacts stay in ``vdir`` as
+    ``bucket_<N>.pt2``, a version directory the fleet phases serve."""
     from paddle_tpu_torch.inference import InferenceServer, export_inference
     main, startup = tfl.Program(), tfl.Program()
     main.random_seed = startup.random_seed = SEED
@@ -7971,11 +8025,12 @@ def phase_resnet_serving(c=RN_SERVE):
               if op.type == 'softmax'][-1].inputs['X'][0]
     fetch = [pred, logits]
     d = tempfile.mkdtemp(prefix='chip_smoke_serve_')
+    os.makedirs(vdir, exist_ok=True)
     rng = np.random.default_rng(SEED + 79)
     rows, xs = [], {}
     try:
         for b in c['batches']:
-            path = os.path.join(d, 'resnet_b%d.pt2' % b)
+            path = os.path.join(vdir, 'bucket_%d.pt2' % b)
             t0 = time.perf_counter()
             size = export_inference(path, {'img': (b, c['hw'], c['hw'], 3)},
                                     fetch, executor=exe, main_program=main,
@@ -8045,16 +8100,15 @@ def phase_resnet_serving(c=RN_SERVE):
             print("resnet50 serving b%d: %s" % (b, json.dumps(
                 {k_: v for k_, v in row.items() if k_ != '_out'})))
             del srv
-            os.remove(path)
-        # the CPU's artifact at batch 1, from the same state
+        # the CPU's run at batch 1, from the same state: its artifact
+        # answers as its Executor.run, bitwise (tests/test_torch_serving.py
+        # holds that), so the CPU's export is left out here
         names = [v.name for v in infer.list_vars() if v.persistable]
-        cpath = os.path.join(d, 'resnet_b1_cpu.pt2')
         t0 = time.perf_counter()
-        export_inference(cpath, {'img': (1, c['hw'], c['hw'], 3)}, fetch,
-                         executor=tfl.Executor('cpu'), main_program=main,
-                         scope=_cpu_scope(scope, names))
-        cpu_out = InferenceServer(cpath, device='cpu').predict(
-            {'img': xs[1]})
+        cpu_out = tfl.Executor('cpu').run(
+            infer, feed={'img': xs[1]}, fetch_list=fetch,
+            scope=_cpu_scope(scope, names), return_numpy=False)
+        cpu_out = [t.float().numpy() for t in cpu_out]
         card_out = rows[0].pop('_out')
         cpu = dict(logits_norm_rel=_norm_gap(card_out[1], cpu_out[1]),
                    logits_max_abs=float(np.abs(card_out[1]
@@ -8064,7 +8118,7 @@ def phase_resnet_serving(c=RN_SERVE):
                    argmax_equal=bool(card_out[0].argmax()
                                      == cpu_out[0].argmax()),
                    tol=TOL_RN_SERVE_CPU, s=time.perf_counter() - t0)
-        print("resnet50 serving b1 card vs cpu artifact: %s"
+        print("resnet50 serving b1 card artifact vs cpu run: %s"
               % json.dumps(cpu))
     finally:
         shutil.rmtree(d, ignore_errors=True)
@@ -8073,7 +8127,7 @@ def phase_resnet_serving(c=RN_SERVE):
     if bad or cpu['logits_norm_rel'] > TOL_RN_SERVE_CPU:
         raise SystemExit("resnet50 serving: artifact vs Executor.run at %s,"
                          " card vs cpu %s" % (bad, cpu))
-    return dict(rows=rows, cpu=cpu)
+    return dict(rows=rows, cpu=cpu, version_dir=vdir)
 
 
 def _ctr_serve_program(c=CTR_SERVE):
@@ -8363,38 +8417,12 @@ def phase_lm_artifact(c=LM_SERVE):
                max_abs_vs_run=gap, ms_per_predict=ms, export_s=export_s,
                shape='B=%d T=%d L=%d D=%d H=%d V=%d' % (
                    c['B'], c['T'], c['L'], c['D'], c['H'], c['V']),
-               counts=counts, lstm_export_refused=_lstm_export_refusal())
+               counts=counts)
     print("lm artifact: %s" % json.dumps(res))
     if per_predict != c['L'] or not bitwise or \
-            counts['flash_attention_fwd'] != c['L'] * c['calls'] or \
-            "op 'lstm'" not in (res['lstm_export_refused'] or '') or \
-            'item 8b' not in res['lstm_export_refused']:
+            counts['flash_attention_fwd'] != c['L'] * c['calls']:
         raise SystemExit("#1 inside the artifact: %s" % res)
     return res
-
-
-def _lstm_export_refusal():
-    """The message with which export on the card refuses a program whose
-    op launches a kernel through ctypes (#7 through ``lstm``), or None if
-    it does not refuse."""
-    from paddle_tpu_torch.inference import export_inference
-    main, startup = tfl.Program(), tfl.Program()
-    with tfl.program_guard(main, startup):
-        x = tfl.layers.data(name='x', shape=[3, 16], dtype='float32',
-                            lod_level=1)
-        h, _ = tfl.layers.dynamic_lstm(input=x, size=16)
-    exe, scope = tfl.Executor(), tfl.Scope()
-    exe.run(startup, scope=scope)
-    d = tempfile.mkdtemp(prefix='chip_smoke_lstm_')
-    try:
-        export_inference(os.path.join(d, 'lstm.pt2'),
-                         {'x': (2, 3, 16), 'x@LEN': (2,)}, [h],
-                         executor=exe, main_program=main, scope=scope)
-    except NotImplementedError as e:
-        return str(e)
-    finally:
-        shutil.rmtree(d, ignore_errors=True)
-    return None
 
 
 def _composed_attention(use_flash, c=TRAIN):
@@ -8517,11 +8545,12 @@ def phase_registry_decode(tokens4=None, c=SERVE):
     return res
 
 
-def _serve_phases(tokens4=None):
-    """Phases 78-82, timed together: serving exported programs."""
+def _serve_phases(base, tokens4=None):
+    """Phases 78-82, timed together: serving exported programs; phase
+    79's ResNet-50 version directory stays under ``base``."""
     t0 = time.perf_counter()
     out = dict(flash_op=phase_flash_op())
-    out['resnet'] = phase_resnet_serving()
+    out['resnet'] = phase_resnet_serving(os.path.join(base, 'resnet', '1'))
     torch.cuda.empty_cache()
     out['ctr'] = phase_ctr_batching()
     out['lm'] = phase_lm_artifact()
@@ -8531,6 +8560,793 @@ def _serve_phases(tokens4=None):
     print("phases 78-82 (the flash operator, ResNet-50 and CTR serving, "
           "#1 inside an artifact, the registry decode and the composed "
           "attention): %.1f s" % out['seconds'])
+    return out
+
+
+# --fleet: the RNN kernels' builds (and #5's and #6's, which phase 84's
+# seq2seq step runs), ResNet-50's three buckets (phase 79's exports
+# alone), then phases 83-87: the rest of serving
+FLEET_SOURCES = ('lstm_fwd', 'lstm_bwd', 'gru_fwd', 'gru_bwd', 'dense_update',
+                 'table_update')
+# phase 83: the operators' shapes, the LM's layer (LM: T=128 B=256 H=256,
+# peepholes) and the seq2seq translator's (S2S: T=64 B=512 H=512, h0)
+RNN_OP_CASES = (('lstm_fwd', 'lm_T128_B256_H256', 128, 256, 256),
+                ('gru_fwd', 's2s_T64_B512_H512_h0', 64, 512, 512))
+# phase 85: one ServingFleet of two tenants.  'resnet' (gold): phase 79's
+# three ResNet-50 bf16 buckets, two replicas on one servable, closed-loop
+# clients of 1-8 images a request.  'sentiment' (silver): the book's
+# stacked LSTM classifier at SENT's width (emb 128, hid 512 = H 128, 3
+# layers, V=5148, T=120 padded, ragged lengths 8-120) exported at buckets
+# 1-16, version 1 the startup state, version 2 after 3 Adagrad steps at
+# lr 0.05 (SENT's 0.002 moves the answers by too little to tell the
+# versions apart), two replicas, open-loop requests of 1-4 rows at 40/s;
+# deploy v1 -> hot-swap to v2 under an enforced HBM budget -> rollback.
+# The ResNet clients think 0.2 s between requests, so that the phase can
+# hold every answer against its bucket (a predict each) in a few seconds
+FLEET = dict(replicas=2, rn_clients=3, rn_think_s=0.2, rn_max_requests=120,
+             rn_rows=(1, 8),
+             sent_max_batch=16, sent_rows=(1, 4), sent_rate=40.0,
+             sent_steps=3, sent_lr=0.05, max_wait_ms=5.0, linger_ms=0.5,
+             drain_timeout_s=60.0)
+# phase 85: a sentiment answer against its version's Executor.run on the
+# card (softmax outputs; cuBLAS takes other kernels at another batch
+# size: float32 sums in other orders); the two versions must differ by
+# at least FLEET_VERSION_GAP times it
+TOL_FLEET_SENT = 1e-5
+FLEET_VERSION_GAP = 100
+# phase 87: the encoder's states from its artifact against Executor.run
+# on the card, absolute (the same ops on the same shapes: bitwise
+# expected; tanh-bounded states)
+TOL_ENC_ARTIFACT = 1e-5
+ENC_SERVE = dict(batches=(1, 8), calls=5)
+
+
+def _host_ms(fn, iters=20):
+    """Host ms per call of ``fn`` enqueued back to back without a sync
+    (the device runs behind), after 3 warm-up calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e3
+
+
+def _rnn_op_inputs(kernel, t, b, h, gen):
+    if kernel == 'lstm_fwd':
+        return (torch.randn((t, b, 4 * h), generator=gen, device='cuda'),
+                torch.randn((h, 4 * h), generator=gen, device='cuda')
+                / h ** 0.5,
+                torch.randn((3, h), generator=gen, device='cuda') * 0.1)
+    return (torch.randn((t, b, 3 * h), generator=gen, device='cuda'),
+            torch.randn((h, 3 * h), generator=gen, device='cuda') / h ** 0.5,
+            torch.randn((b, h), generator=gen, device='cuda'))
+
+
+def phase_rnn_operators():
+    """Phase 83: #7 and #9 through ``torch.ops.paddle_tpu_torch.lstm_fwd``
+    / ``gru_fwd`` against the direct launch (``lk._lstm_forward``,
+    ``gk._gru_forward``), bitwise with and without the gates, one launch
+    a call; host ms a call of each, enqueued without a sync."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 83)
+    rows = []
+    for kernel, name, t, b, h in RNN_OP_CASES:
+        x, w, third = _rnn_op_inputs(kernel, t, b, h, gen)
+        if kernel == 'lstm_fwd':
+            def direct(g=True):
+                return lk._lstm_forward(x, w, third, with_gates=g)
+
+            def op(g=True):
+                return lk.lstm_fwd(x, w, third, g)
+            plain = lk._plain_lstm_forward(x, w, third)
+            counter = 'lstm_fwd'
+        else:
+            def direct(g=True):
+                return gk._gru_forward(x, w, third, with_gates=g)
+
+            def op(g=True):
+                return gk.gru_fwd(x, w, third, g)
+            plain = gk._plain_gru_forward(x, w, third)
+            counter = 'gru_fwd'
+        _zero_counts()
+        a, o = direct(), op()
+        a_ng, o_ng = direct(False), op(False)
+        torch.cuda.synchronize()
+        launches = _counts()[counter]
+        n_out = len(plain)
+        row = dict(
+            case=name, kernel=kernel, launches=launches,
+            bitwise=all(torch.equal(a[i], o[i]) for i in range(n_out)),
+            bitwise_no_gates=all(torch.equal(a_ng[i], o_ng[i])
+                                 for i in range(n_out - 1)),
+            empty_gates=int(o_ng[-1].numel()),
+            max_abs_vs_plain=max((o[i] - plain[i]).abs().max().item()
+                                 for i in range(n_out)),
+            direct_host_ms=_host_ms(direct), op_host_ms=_host_ms(op),
+            direct_call_ms=_call_ms(direct, iters=10),
+            op_call_ms=_call_ms(op, iters=10))
+        row['op_minus_direct_host_ms'] = (row['op_host_ms']
+                                          - row['direct_host_ms'])
+        tol = TOL_LSTM if kernel == 'lstm_fwd' else TOL_GRU
+        row['ok'] = (row['bitwise'] and row['bitwise_no_gates'] and
+                     launches == 4 and row['empty_gates'] == 0 and
+                     row['max_abs_vs_plain'] <= tol)
+        rows.append(row)
+        print("rnn operator %s" % json.dumps(row))
+        del a, o, a_ng, o_ng, plain
+    bad = [r['case'] for r in rows if not r['ok']]
+    if bad:
+        raise SystemExit("lstm_fwd / gru_fwd operators vs direct launch: %s"
+                         % bad)
+    return rows
+
+
+def _sentiment_programs(lr=SENT['lr']):
+    c = SENT
+    main, startup = tfl.Program(), tfl.Program()
+    main.random_seed = startup.random_seed = SEED
+    with tfl.program_guard(main, startup):
+        data = tfl.layers.data(name='words', shape=[1], dtype='int64',
+                               lod_level=1)
+        label = tfl.layers.data(name='label', shape=[1], dtype='int64')
+        cost, _, pred = sentiment.stacked_lstm_net(
+            data, label, c['V'], emb_dim=c['emb'], hid_dim=c['hid'],
+            stacked_num=c['stacked'])
+        tfl.optimizer.AdagradOptimizer(lr).minimize(cost)
+    return main, startup, cost, pred
+
+
+def _sentiment_feed(rng, rows, c=SENT):
+    ln = rng.integers(c['min_len'], c['T'] + 1, rows).astype(np.int32)
+    return {'words': _zipf_ids(rng, (rows, c['T'], 1), c['V']),
+            'words@LEN': ln}
+
+
+def _op_vs_direct_run(build_fn, feed_fn, steps=2):
+    """``steps`` training steps of a program from its startup state three
+    times: through the operators, through the direct launches (the
+    module's operator replaced by the function it wraps, which is what
+    lstm_scan / gru_scan called before the operators existed), and
+    through the operators again.  Returns the three runs' (losses,
+    parameters)."""
+    main, startup, cost = build_fn()
+    exe, scope = tfl.Executor(), tfl.Scope()
+    exe.run(startup, scope=scope)
+    names = [v.name for v in main.list_vars()
+             if v.persistable and scope.has(v.name)]
+    snap = {n: scope.get(n).clone() for n in names}
+    feed = feed_fn()
+    runs = []
+    for mode in ('op', 'direct', 'op'):
+        for n in names:
+            scope.set(n, snap[n].clone())
+        saved = lk.lstm_fwd, gk.gru_fwd
+        if mode == 'direct':
+            lk.lstm_fwd, gk.gru_fwd = lk._lstm_fwd_impl, gk._gru_fwd_impl
+        try:
+            losses = [exe.run(main, feed=feed, fetch_list=[cost],
+                              scope=scope, return_numpy=False)[0].clone()
+                      for _ in range(steps)]
+        finally:
+            lk.lstm_fwd, gk.gru_fwd = saved
+        runs.append((losses, {n: scope.get(n).clone() for n in names}))
+    return runs
+
+
+def _gap(run_a, run_b):
+    (la, pa), (lb, pb) = run_a, run_b
+    bitwise = all(torch.equal(x, y) for x, y in zip(la, lb)) and \
+        all(torch.equal(pa[n], pb[n]) for n in pa)
+    worst = max([(x.float() - y.float()).abs().max().item()
+                 for x, y in zip(la, lb)] +
+                [(pa[n].float() - pb[n].float()).abs().max().item()
+                 for n in pa])
+    return bitwise, worst
+
+
+def phase_rnn_training_paths():
+    """Phase 84: two training steps of the LSTM LM, the sentiment net and
+    the seq2seq translator at full width, each from its startup state,
+    through the operators against the direct launches, bitwise (losses
+    and every persistable after the steps).  A third run, through the
+    operators again, says whether the step is bitwise reproducible at
+    all; where it is not, the operators' gap may be no larger than that
+    run-to-run gap."""
+    res = {}
+
+    def s2s_build():
+        main, startup, _, cost = _s2s_programs()
+        return main, startup, cost
+    cases = dict(
+        lm=(_lm_programs, lambda: _lm_feed(LM['B'], SEED + 84, True)),
+        sentiment=(lambda: _sentiment_programs()[:3], lambda:
+                   _sentiment_pair(np.random.default_rng(SEED + 84),
+                                   SENT['B'])),
+        seq2seq=(s2s_build, lambda: wmt14.batch(
+            np.random.default_rng(SEED + 84), S2S['V'],
+            [S2S['T']] * S2S['B'], S2S['T'])))
+    for name, (build_fn, feed_fn) in cases.items():
+        runs = _op_vs_direct_run(build_fn, feed_fn)
+        bitwise, gap = _gap(runs[0], runs[1])
+        repro, noise = _gap(runs[0], runs[2])
+        res[name] = dict(op_vs_direct_bitwise=bitwise,
+                         op_vs_direct_max_abs=gap,
+                         op_vs_op_bitwise=repro, op_vs_op_max_abs=noise,
+                         losses=[float(x.float().reshape(-1)[0])
+                                 for x in runs[0][0]])
+        del runs
+        torch.cuda.empty_cache()
+    print("rnn training through the operators: %s" % json.dumps(res))
+    bad = [k for k, r in res.items()
+           if not (r['op_vs_direct_bitwise'] if r['op_vs_op_bitwise']
+                   else r['op_vs_direct_max_abs'] <= r['op_vs_op_max_abs'])]
+    if bad:
+        raise SystemExit("training through the operators differs from the "
+                         "direct launches: %s" % bad)
+    return res
+
+
+def _sentiment_pair(rng, rows, c=SENT):
+    """A training feed of the sentiment net: ragged words and labels."""
+    ln = rng.integers(c['min_len'], c['T'] + 1, rows).astype(np.int32)
+    ln[0] = c['T']
+    return {'words': (_zipf_ids(rng, (rows, c['T'], 1), c['V']), ln),
+            'label': rng.integers(0, 2, (rows, 1))}
+
+
+def _export_sentiment_versions(base, c=FLEET):
+    """Version 1 (the startup state) and version 2 (after
+    ``c['sent_steps']`` Adagrad steps) of the sentiment net, each
+    exported at buckets 1-16 under ``base``; returns the inference
+    program, its prediction var and the two versions' scopes."""
+    from paddle_tpu_torch.inference import export_bucketed
+    main, startup, cost, pred = _sentiment_programs(c['sent_lr'])
+    exe, scope = tfl.Executor(), tfl.Scope()
+    exe.run(startup, scope=scope)
+    names = [v.name for v in main.list_vars()
+             if v.persistable and scope.has(v.name)]
+    spec = {'words': (SENT['T'], 1), 'words@LEN': ()}
+    scopes, export_s = {}, {}
+    rng = np.random.default_rng(SEED + 85)
+    for ver in ('1', '2'):
+        if ver == '2':
+            for _ in range(c['sent_steps']):
+                exe.run(main, feed=_sentiment_pair(rng, SENT['B']),
+                        fetch_list=[cost], scope=scope)
+        t0 = time.perf_counter()
+        export_bucketed(os.path.join(base, ver), spec, [pred], executor=exe,
+                        main_program=main, scope=scope,
+                        max_batch=c['sent_max_batch'])
+        export_s[ver] = time.perf_counter() - t0
+        vs = tfl.Scope()
+        for n in names:
+            vs.set(n, scope.get(n).clone())
+        scopes[ver] = vs
+    infer = main.prune([pred], ['words']).inference_optimize()
+    return infer, pred, scopes, export_s, exe
+
+
+def _sentiment_answers(exe, infer, pred, scope, feeds):
+    """Executor.run of the inference program on the card over the feeds'
+    rows, in chunks of 64 rows: [rows, 2] per feed."""
+    rows = [(f['words'][i], f['words@LEN'][i]) for f in feeds
+            for i in range(f['words'].shape[0])]
+    out = []
+    for lo in range(0, len(rows), 64):
+        chunk = rows[lo:lo + 64]
+        ids = np.stack([r[0] for r in chunk])
+        ln = np.array([r[1] for r in chunk], np.int32)
+        out.append(exe.run(infer, feed={'words': (ids, ln)},
+                           fetch_list=[pred], scope=scope)[0])
+    flat = np.concatenate(out)
+    res, i = [], 0
+    for f in feeds:
+        k = f['words'].shape[0]
+        res.append(flat[i:i + k])
+        i += k
+    return res
+
+
+def _rn_request(rng, rows, c=RN_SERVE):
+    return {'img': rng.normal(size=(rows, c['hw'], c['hw'], 3)).astype(
+        np.float32)}
+
+
+def _feed_key(arr):
+    return hashlib.sha1(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def _record_buckets(server, served):
+    """Wrap ``server._assemble`` so that each request's rows (keyed by
+    their bytes) record the bucket and offset they rode in."""
+    orig = server._assemble
+
+    def assemble(reqs):
+        bucket, stacked, offsets = orig(reqs)
+        for r, (lo, _hi) in zip(reqs, offsets):
+            served[_feed_key(r.feed['img'])] = (bucket, lo)
+        return bucket, stacked, offsets
+    server._assemble = assemble
+
+
+def _rn_row_check(rep_server, feed, answer, bucket, lo):
+    """The request's rows at offset ``lo`` of a batch of bucket
+    ``bucket`` (the other rows repeat its last), through that bucket's
+    warmed InferenceServer: (bitwise, logits norm-relative gap)."""
+    x = feed['img']
+    k = x.shape[0]
+    batch = np.concatenate([np.repeat(x[:1], lo, axis=0), x,
+                            np.repeat(x[-1:], bucket - lo - k, axis=0)])
+    want = rep_server._compiled[bucket].predict({'img': batch})
+    want = [w[lo:lo + k] for w in want]
+    bitwise = all(np.array_equal(a, w) for a, w in zip(answer, want))
+    return bitwise, _norm_gap(answer[1], want[1])
+
+
+def phase_fleet(rn_dir, base, c=FLEET):
+    """Phase 85: one ServingFleet serving ResNet-50 (tenant 'resnet',
+    gold) and the stacked LSTM classifier (tenant 'sentiment', silver) at
+    full width: closed-loop ResNet clients and open-loop sentiment
+    requests while the sentiment tenant hot-swaps v1 -> v2 under an
+    enforced HBM budget (which evicts ResNet's coldest bucket) and rolls
+    back to v1; a budget that cannot fit is rejected first.  Every answer
+    is checked: ResNet's against the bucket that served it, sentiment's
+    against its version's Executor.run; #7's launches counted."""
+    from paddle_tpu_torch import io as tio
+    from paddle_tpu_torch.inference import AdmissionError, ServingFleet
+    t_phase = time.perf_counter()
+    sent_base = os.path.join(base, 'sentiment')
+    infer, pred, scopes, export_s, exe = _export_sentiment_versions(
+        sent_base, c)
+    kw = dict(replicas=c['replicas'], max_wait_ms=c['max_wait_ms'],
+              linger_ms=c['linger_ms'], health_interval_ms=250.0,
+              drain_timeout_s=c['drain_timeout_s'],
+              hbm_admission='enforce', state_dir=os.path.join(base, 'st'))
+    t0 = time.perf_counter()
+    fleet = ServingFleet(rn_dir, tenant='resnet', slo_class='gold', **kw)
+    rn_ready_s = time.perf_counter() - t0
+    res = dict(sentiment_export_s=export_s, resnet_ready_s=rn_ready_s)
+    try:
+        t0 = time.perf_counter()
+        fleet.deploy(sent_base, version='1', tenant='sentiment',
+                     slo_class='silver')
+        res['sentiment_v1_deploy_s'] = time.perf_counter() - t0
+        rn_reps = [r for r in fleet._replicas if r.tenant == 'resnet']
+        served = {}
+        _record_buckets(rn_reps[0].server, served)
+        _record_buckets(rn_reps[1].server, served)
+        rng = np.random.default_rng(SEED + 851)
+        # #7 a batch inside the artifact: one request, one batch
+        one = _sentiment_feed(rng, 2)
+        _zero_counts()
+        fleet.predict(one, timeout=60.0, tenant='sentiment')
+        torch.cuda.synchronize()
+        res['lstm_fwd_per_batch'] = lk.launches
+        sent_servers = {id(r.server): r.server for r in fleet._replicas
+                        if r.tenant == 'sentiment'}
+        base_batches = {k: s.stats()['batches']
+                        for k, s in sent_servers.items()}
+        base_compiles = {k: s.stats()['compiles']
+                         for k, s in sent_servers.items()}
+        c_rn0 = sum(r.server.stats()['compiles_after_warmup']
+                    for r in rn_reps)
+        evicted = []
+        orig_evict = fleet._evict_lru
+
+        def evict(need, exclude=None):
+            out = orig_evict(need, exclude=exclude)
+            evicted.append(out)
+            return out
+        fleet._evict_lru = evict
+
+        # traffic: closed-loop ResNet clients, open-loop sentiment, until
+        # the rollback is done
+        rn_log, rn_lat, errors = [], [], []   # rn_log: (feed, answer)
+        sent_log = []   # (feed, future, stage, submit time)
+        stage = ['before']
+        stop = threading.Event()
+
+        def rn_client(i):
+            crng = np.random.default_rng(SEED + 900 + i)
+            for _ in range(c['rn_max_requests']):
+                if stop.is_set():
+                    break
+                f = _rn_request(crng, int(crng.integers(
+                    c['rn_rows'][0], c['rn_rows'][1] + 1)))
+                t_0 = time.perf_counter()
+                try:
+                    rn_log.append((f, fleet.predict(f, timeout=120.0,
+                                                    tenant='resnet')))
+                except Exception as e:
+                    errors.append(('resnet', repr(e)))
+                rn_lat.append((time.perf_counter() - t_0) * 1e3)
+                time.sleep(c['rn_think_s'])
+
+        def sent_client():
+            srng = np.random.default_rng(SEED + 852)
+            nxt = time.perf_counter()
+            while not stop.is_set():
+                nxt += srng.exponential(1.0 / c['sent_rate'])
+                delay = nxt - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+                f = _sentiment_feed(srng, int(srng.integers(
+                    c['sent_rows'][0], c['sent_rows'][1] + 1)))
+                try:
+                    sent_log.append((f, fleet.submit(f, tenant='sentiment'),
+                                     stage[0], time.perf_counter()))
+                except Exception as e:
+                    errors.append(('sentiment submit', repr(e)))
+
+        _zero_counts()
+        ths = [threading.Thread(target=rn_client, args=(i,))
+               for i in range(c['rn_clients'])]
+        st = threading.Thread(target=sent_client)
+        t_traffic = time.perf_counter()
+        for t in ths + [st]:
+            t.start()
+        time.sleep(0.5)
+        # a budget the incoming version alone exceeds: rejected before
+        # any replica is built
+        v2_paths = tio.bucket_artifacts(os.path.join(sent_base, '2'))
+        incoming = sum(os.path.getsize(p) for p in v2_paths.values())
+        n_reps = len(fleet.replica_ids)
+        try:
+            fleet.deploy(sent_base, version='2', tenant='sentiment',
+                         hbm_budget_bytes=incoming - 1)
+            res['rejected'] = False
+        except AdmissionError as e:
+            res['rejected'] = True
+            res['rejection'] = str(e)
+        res['replicas_unchanged_by_rejection'] = \
+            len(fleet.replica_ids) == n_reps
+        # the hot swap to v2 under a budget one byte short of the
+        # projection: the eviction planner frees the coldest bucket of
+        # the other tenant
+        live = fleet.stats()['resident_bytes']
+        budget = live + incoming - 1
+        stage[0] = 'during'
+        t0 = time.perf_counter()
+        res['v2'] = fleet.deploy(sent_base, version='2',
+                                 tenant='sentiment', hbm_budget_bytes=budget)
+        res['hot_swap_s'] = time.perf_counter() - t0
+        sent_servers.update({id(r.server): r.server for r in fleet._replicas
+                             if r.tenant == 'sentiment'})
+        time.sleep(0.5)
+        t0 = time.perf_counter()
+        res['rolled_back_to'] = fleet.rollback(tenant='sentiment')
+        res['rollback_s'] = time.perf_counter() - t0
+        stage[0] = 'after'
+        sent_servers.update({id(r.server): r.server for r in fleet._replicas
+                             if r.tenant == 'sentiment'})
+        time.sleep(0.2)
+        stop.set()
+        for t in ths + [st]:
+            t.join(600.0)
+        sent_answers = []
+        for f, fut, stg, t_sub in sent_log:
+            try:
+                sent_answers.append(fut.result(120.0)[0])
+            except Exception as e:
+                errors.append(('sentiment', repr(e)))
+                sent_answers.append(None)
+        torch.cuda.synchronize()
+        res['traffic_s'] = time.perf_counter() - t_traffic
+        window = _counts()
+        # the evicted bucket, if traffic has not re-warmed it yet: a
+        # request of its size
+        ev = [b for out in evicted for (_t, b) in out[1]]
+        res['evicted'] = [list(x) for out in evicted for x in out[1]]
+        for b in ev:
+            if b not in rn_reps[0].server._compiled:
+                fleet.predict(_rn_request(rng, b), timeout=120.0,
+                              tenant='resnet')
+        res['resnet_compiles_after_warmup'] = sum(
+            r.server.stats()['compiles_after_warmup'] for r in rn_reps) \
+            - c_rn0
+        # #7 in the window: 3 a batch, and 3 a bucket readied by a build
+        batches = sum(s.stats()['batches'] - base_batches.get(k, 0)
+                      for k, s in sent_servers.items())
+        warms = sum(s.stats()['compiles'] - base_compiles.get(k, 0)
+                    for k, s in sent_servers.items())
+        res.update(sentiment_batches=batches, sentiment_bucket_loads=warms,
+                   lstm_fwd_window=window['lstm_fwd'],
+                   lstm_fwd_expected=SENT['stacked'] * (batches + warms))
+        st_f = fleet.stats()
+        res['fleet'] = {k: st_f[k] for k in (
+            'requests', 'completed', 'failed', 'retries', 'deploys',
+            'rollbacks', 'evictions', 'admission_rejections',
+            'hbm_budget_precheck_failures', 'resident_bytes',
+            'resident_bytes_watermark')}
+        # every answer: ResNet's against its serving bucket
+        rn_bitwise = rn_total = 0
+        rn_gap = 0.0
+        checker = rn_reps[0].server
+        for f, ans in rn_log:
+            bucket, lo = served[_feed_key(f['img'])]
+            bw, gap = _rn_row_check(checker, f, ans, bucket, lo)
+            rn_total += 1
+            rn_bitwise += bw
+            rn_gap = max(rn_gap, gap)
+        lat = np.array(rn_lat)
+        res['resnet'] = dict(
+            requests=rn_total, bitwise=rn_bitwise,
+            max_logits_norm_rel=rn_gap, tol=TOL_RN_SERVE_CPU,
+            p50_ms=float(np.percentile(lat, 50)),
+            p99_ms=float(np.percentile(lat, 99)),
+            images=int(sum(f['img'].shape[0] for f, _a in rn_log)),
+            buckets_used=sorted({v[0] for v in served.values()}))
+        # sentiment's against its version's Executor.run
+        ok_feeds = [(f, a, stg) for (f, _fut, stg, _t), a
+                    in zip(sent_log, sent_answers) if a is not None]
+        feeds = [f for f, _a, _s in ok_feeds]
+        want = {v: _sentiment_answers(exe, infer, pred, scopes[v], feeds)
+                for v in ('1', '2')}
+        worst, versions_gap = 0.0, 0.0
+        by_stage = {}
+        wrong_version = 0
+        for k, (f, a, stg) in enumerate(ok_feeds):
+            g1 = float(np.abs(a - want['1'][k]).max())
+            g2 = float(np.abs(a - want['2'][k]).max())
+            versions_gap = max(versions_gap, float(
+                np.abs(want['1'][k] - want['2'][k]).max()))
+            ver = '1' if g1 <= g2 else '2'
+            worst = max(worst, min(g1, g2))
+            by_stage.setdefault(stg, {}).setdefault(ver, 0)
+            by_stage[stg][ver] += 1
+            if stg != 'during' and ver != '1':
+                wrong_version += 1
+        res['sentiment'] = dict(requests=len(sent_log),
+                                answered=len(ok_feeds),
+                                max_abs_vs_version_run=worst,
+                                tol=TOL_FLEET_SENT,
+                                versions_max_abs_gap=versions_gap,
+                                by_stage_version=by_stage,
+                                wrong_version=wrong_version)
+        res['errors'] = errors[:10]
+        res['n_errors'] = len(errors)
+    finally:
+        fleet.close()
+    res['seconds'] = time.perf_counter() - t_phase
+    res['counts_window'] = window
+    print("fleet: %s" % json.dumps(res))
+    checks = dict(
+        no_errors=res['n_errors'] == 0,
+        resnet_served_across_the_swap=res['resnet']['requests'] >= 10,
+        resnet_answers=res['resnet']['max_logits_norm_rel']
+        <= TOL_RN_SERVE_CPU,
+        sentiment_answers=res['sentiment']['max_abs_vs_version_run']
+        <= TOL_FLEET_SENT,
+        versions_differ=res['sentiment']['versions_max_abs_gap']
+        >= FLEET_VERSION_GAP * TOL_FLEET_SENT,
+        versions_in_order=res['sentiment']['wrong_version'] == 0,
+        lstm_per_batch=res['lstm_fwd_per_batch'] == SENT['stacked'],
+        lstm_window=res['lstm_fwd_window'] == res['lstm_fwd_expected'],
+        rejected=res['rejected'] and res['replicas_unchanged_by_rejection'],
+        evicted_one_resnet_bucket=len(res['evicted']) == 1
+        and res['evicted'][0][0] == 'resnet',
+        rewarm_counted=res['resnet_compiles_after_warmup'] >= 1,
+        swap=res['v2'] == '2' and res['rolled_back_to'] == '1',
+        no_failed=res['fleet']['failed'] == 0)
+    res['checks'] = checks
+    if not all(checks.values()):
+        raise SystemExit("fleet: %s" % {k: v for k, v in checks.items()
+                                        if not v})
+    return res
+
+
+def _cold_start_child(vdir, aot_dir, out_path, rows=8):
+    """The ``--cold-start`` process: a BatchingInferenceServer over
+    ``vdir`` with PADDLE_TPU_TORCH_AOT_CACHE_DIR=``aot_dir``, readied from
+    scratch; prints one JSON line: seconds from just after ``import
+    torch`` to serving-ready and to the first answer, the compile and
+    AOT counters, and each bucket's stages (the artifact's load and
+    unlifting, or the entry's parse and build, then the warm call)."""
+    from paddle_tpu_torch import io as tio
+    from paddle_tpu_torch.inference import BatchingInferenceServer, AotCache
+    from paddle_tpu_torch.inference import aot_cache, batching, serving
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ[ENV_PREFIX + 'AOT_CACHE_DIR'] = aot_dir
+    stages = []
+
+    def timed(owner, name, label, sync=False):
+        orig = getattr(owner, name)
+
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            stages.append((label, time.perf_counter() - t0))
+            return out
+        setattr(owner, name, wrapper)
+    timed(torch.export, 'load', 'torch.export.load')
+    timed(torch.export.ExportedProgram, 'module', 'ExportedProgram.module')
+    timed(aot_cache.torch, 'load', 'entry torch.load')
+    timed(aot_cache, '_build', 'entry exec + state to the card', sync=True)
+    timed(batching.BatchingInferenceServer, '_ensure_compiled',
+          'warm call (and a miss\'s entry store)', sync=True)
+    timed(aot_cache.AotCache, 'store', 'entry store')
+    del serving
+    paths = tio.bucket_artifacts(vdir)
+    srv = BatchingInferenceServer(paths)
+    torch.cuda.synchronize()
+    ready = time.perf_counter() - _T_TORCH
+    x = np.random.default_rng(SEED + 86).normal(
+        size=(rows, RN_SERVE['hw'], RN_SERVE['hw'], 3)).astype(np.float32)
+    ans = srv.predict({'img': x}, timeout=300.0)
+    first = time.perf_counter() - _T_TORCH
+    st = srv.stats()
+    srv.close()
+    np.save(out_path, ans[1])
+    print("cold start: %s" % json.dumps(dict(
+        ready_s=ready, first_answer_s=first, compiles=st['compiles'],
+        compiles_after_warmup=st['compiles_after_warmup'],
+        aot=AotCache.stats(), buckets=sorted(paths), stages=stages)))
+
+
+def phase_cold_start(rn_dir, base):
+    """Phase 86: two fresh processes (``--cold-start``) over the ResNet-50
+    version directory, the first on an empty AOT cache (3 stores, 3
+    compiles), the second on what the first stored (3 hits, 0 compiles);
+    their answers bitwise equal."""
+    aot = os.path.join(base, 'aot')
+    runs = []
+    for i in range(2):
+        out = os.path.join(base, 'cold_%d.npy' % i)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), '--cold-start',
+             rn_dir, aot, out], capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        line = next((ln for ln in proc.stdout.splitlines()
+                     if ln.startswith('cold start: ')), None)
+        if proc.returncode != 0 or line is None:
+            raise SystemExit("cold start process %d failed (rc %d):\n%s\n%s"
+                             % (i, proc.returncode, proc.stdout[-3000:],
+                                proc.stderr[-3000:]))
+        run = json.loads(line[len('cold start: '):])
+        run['process_wall_s'] = wall
+        run['answer'] = np.load(out)
+        runs.append(run)
+    cold, warm = runs
+    res = dict(cold={k: v for k, v in cold.items() if k != 'answer'},
+               warm={k: v for k, v in warm.items() if k != 'answer'},
+               bitwise=bool(np.array_equal(cold['answer'], warm['answer'])),
+               finite=bool(np.isfinite(cold['answer']).all()))
+    print("cold start: %s" % json.dumps(res))
+    n = len(cold['buckets'])
+    ok = (res['bitwise'] and res['finite'] and cold['compiles'] == n and
+          cold['aot']['stores'] == n and warm['compiles'] == 0 and
+          warm['aot']['hits'] == n and warm['compiles_after_warmup'] == 0)
+    if not ok:
+        raise SystemExit("cold start: %s" % res)
+    return res
+
+
+def phase_encoder_artifact(c=ENC_SERVE):
+    """Phase 87: #9 inside a torch.export artifact: the seq2seq
+    translator's bidirectional GRU encoder at S2S's width (word_dim 256,
+    H=512, T=64, V=30000) exported at batch 1 and 8 and served by
+    InferenceServer; 2 launches of #9 a predict; each against
+    Executor.run on the card."""
+    from paddle_tpu_torch.inference import InferenceServer, export_inference
+    s = S2S
+    main, startup = tfl.Program(), tfl.Program()
+    main.random_seed = startup.random_seed = SEED
+    with tfl.program_guard(main, startup):
+        src = tfl.layers.data(name='src_word_id', shape=[1], dtype='int64',
+                              lod_level=1)
+        enc = seq2seq.encoder(src, s['V'], word_dim=s['word_dim'],
+                              hidden_dim=s['H'])
+    exe, scope = tfl.Executor(), tfl.Scope()
+    exe.run(startup, scope=scope)
+    infer = main.prune([enc], ['src_word_id']).inference_optimize()
+    d = tempfile.mkdtemp(prefix='chip_smoke_enc_')
+    rows, counts = [], None
+    rng = np.random.default_rng(SEED + 87)
+    try:
+        for b in c['batches']:
+            path = os.path.join(d, 'enc_b%d.pt2' % b)
+            t0 = time.perf_counter()
+            export_inference(path, {'src_word_id': (b, s['T'], 1),
+                                    'src_word_id@LEN': (b,)}, [enc],
+                             executor=exe, main_program=main, scope=scope)
+            export_s = time.perf_counter() - t0
+            srv = InferenceServer(path)
+            ln = rng.integers(s['T'] // 2, s['T'] + 1, b).astype(np.int32)
+            ln[0] = s['T']
+            ids = _zipf_ids(rng, (b, s['T'], 1), s['V'])
+            feed = {'src_word_id': torch.from_numpy(ids.astype(np.int32))
+                    .cuda(), 'src_word_id@LEN': torch.from_numpy(ln).cuda()}
+            srv.predict_async(feed)
+            torch.cuda.synchronize()
+            _zero_counts()
+            got, = srv.predict_async(feed)
+            torch.cuda.synchronize()
+            per_predict = gk.launches
+            want, = exe.run(infer, feed={'src_word_id': (ids, ln)},
+                            fetch_list=[enc], scope=scope,
+                            return_numpy=False)
+            _zero_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(c['calls']):
+                srv.predict_async(feed)
+            end.record()
+            torch.cuda.synchronize()
+            counts = _counts()
+            row = dict(batch=b, export_s=export_s,
+                       launches_per_predict=per_predict,
+                       bitwise_vs_run=bool(torch.equal(got, want)),
+                       max_abs_vs_run=(got - want).abs().max().item(),
+                       finite=bool(torch.isfinite(got).all()),
+                       shape=list(got.shape), tol=TOL_ENC_ARTIFACT,
+                       ms_per_predict=start.elapsed_time(end) / c['calls'],
+                       timed_launches=counts['gru_fwd'])
+            rows.append(row)
+            print("encoder artifact b%d: %s" % (b, json.dumps(row)))
+            del srv, got, want
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    bad = [r['batch'] for r in rows
+           if not (r['launches_per_predict'] == 2 and r['finite'] and
+                   r['timed_launches'] == 2 * c['calls'] and
+                   r['max_abs_vs_run'] <= TOL_ENC_ARTIFACT)]
+    if bad:
+        raise SystemExit("#9 inside the encoder artifact: %s" % rows)
+    return dict(rows=rows, counts=dict(
+        {k: 0 for k in _counts()},
+        gru_fwd=sum(r['launches_per_predict'] + r['timed_launches']
+                    for r in rows)))
+
+
+def _export_resnet_buckets(vdir, c=RN_SERVE):
+    """Phase 79's ResNet-50 bf16 exports alone (``--fleet``)."""
+    from paddle_tpu_torch.inference import export_inference
+    main, startup = tfl.Program(), tfl.Program()
+    main.random_seed = startup.random_seed = SEED
+    with tfl.program_guard(main, startup):
+        _, _, pred, _, _ = resnet.build_imagenet(
+            depth=c['depth'], num_classes=c['classes'],
+            image_shape=(c['hw'], c['hw'], 3), dtype='bfloat16',
+            layout='NHWC')
+    exe, scope = tfl.Executor(), tfl.Scope()
+    exe.run(startup, scope=scope)
+    infer = main.prune([pred], ['img']).inference_optimize()
+    logits = [op for op in infer.global_block().ops
+              if op.type == 'softmax'][-1].inputs['X'][0]
+    t0 = time.perf_counter()
+    for b in c['batches']:
+        export_inference(os.path.join(vdir, 'bucket_%d.pt2' % b),
+                         {'img': (b, c['hw'], c['hw'], 3)}, [pred, logits],
+                         executor=exe, main_program=main, scope=scope)
+    print("resnet50 bf16 exported at %s in %.1f s" % (
+        list(c['batches']), time.perf_counter() - t0))
+
+
+def _fleet_phases(base):
+    """Phases 83-87, timed together: the RNN operators, training through
+    them, the fleet, the cold start and #9 inside an artifact; ``base``
+    holds phase 79's ResNet-50 version directory."""
+    t0 = time.perf_counter()
+    rn_dir = os.path.join(base, 'resnet', '1')
+    out = dict(rnn_ops=phase_rnn_operators())
+    out['training'] = phase_rnn_training_paths()
+    torch.cuda.empty_cache()
+    out['fleet'] = phase_fleet(rn_dir, base)
+    torch.cuda.empty_cache()
+    out['cold_start'] = phase_cold_start(rn_dir, base)
+    out['encoder'] = phase_encoder_artifact()
+    out['seconds'] = time.perf_counter() - t0
+    print("phases 83-87 (the RNN operators, training through them, the "
+          "serving fleet, the cold start, #9 inside an artifact): %.1f s"
+          % out['seconds'])
     return out
 
 
@@ -8555,6 +9371,9 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ['--cold-start']:
+        _cold_start_child(*sys.argv[2:5])
+        return 0
     card = phase_environment()
     if sys.argv[1:] == ['--long-step']:
         phase_training(LONG, 'long-context training', SEED + 20,
@@ -8579,8 +9398,22 @@ def main():
         return 0
     if sys.argv[1:] == ['--serve']:
         phase_build(SERVE_SOURCES)
-        res = _serve_phases()
+        base = tempfile.mkdtemp(prefix='chip_smoke_versions_')
+        try:
+            res = _serve_phases(base)
+        finally:
+            shutil.rmtree(base, ignore_errors=True)
         print(json.dumps({'serve': res}))
+        return 0
+    if sys.argv[1:] == ['--fleet']:
+        phase_build(FLEET_SOURCES)
+        base = tempfile.mkdtemp(prefix='chip_smoke_versions_')
+        try:
+            _export_resnet_buckets(os.path.join(base, 'resnet', '1'))
+            res = _fleet_phases(base)
+        finally:
+            shutil.rmtree(base, ignore_errors=True)
+        print(json.dumps({'fleet': res}, default=str))
         return 0
     if sys.argv[1:] == ['--dispatch']:
         phase_build(('flash_attention_fwd', 'flash_attention_bwd',
@@ -8639,7 +9472,13 @@ def main():
     torch.cuda.empty_cache()
     m4 = _m4_phases()
     torch.cuda.empty_cache()
-    serve = _serve_phases(serve_tokens)
+    base = tempfile.mkdtemp(prefix='chip_smoke_versions_')
+    try:
+        serve = _serve_phases(base, serve_tokens)
+        torch.cuda.empty_cache()
+        fleet = _fleet_phases(base)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
     counts = tr['counts']
     main_row = next(r for r in rows if r['case'] == MAIN_CASE)
     fwd = dict(
@@ -8781,6 +9620,18 @@ def main():
         ms_per_predict=serve['lm']['ms_per_predict'],
         launches_per_predict=serve['lm']['launches_per_predict'])
     fwd['operator_vs_direct'] = serve['flash_op']
+    # #7 inside the sentiment tenant's artifacts behind the fleet, #9
+    # inside the encoder's
+    _add_paths(lines, dict(
+        fleet_sentiment_serving=fleet['fleet']['counts_window'],
+        seq2seq_encoder_artifact=fleet['encoder']['counts']))
+    by_name = {line['name']: line for line in lines}
+    for row in fleet['rnn_ops']:
+        by_name[row['kernel']]['operator_vs_direct'] = row
+    by_name['lstm_fwd']['artifact_shape'] = dict(
+        tenant='sentiment', launches_per_batch=fleet['fleet'][
+            'lstm_fwd_per_batch'])
+    by_name['gru_fwd']['artifact_shape'] = fleet['encoder']['rows']
     print(json.dumps({'kernels': lines}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -112,6 +112,44 @@ FLAGS._define(
     'buckets are powers of two up to this many rows')
 FLAGS._define(
     'aot_cache_dir', '', str,
-    'the reference\'s on-disk cache of compiled serving executables; not '
-    'ported yet (ROADMAP.md Queue 1 item 8b): a BatchingInferenceServer '
-    'raises while it is set')
+    'root directory of the serving AOT cache (entries under '
+    '<dir>/paddle_tpu_aot, inference/aot_cache.py): a bucket that had to '
+    'be loaded from its torch.export artifact stores its unlifted graph '
+    'code and state there, and a later process readies that bucket from '
+    'the entry, skipping torch.export.load and the unlifting: zero '
+    'counted compiles on a warm cache.  Empty (the default) disables it')
+FLAGS._define(
+    'fleet_replicas', 2, int,
+    'default replica count of inference.ServingFleet when replicas= is '
+    'not passed: the fleet starts this many BatchingInferenceServer '
+    'replicas and deploy() builds as many for the incoming version')
+FLAGS._define(
+    'fleet_unroutable_after', 3, int,
+    'consecutive dispatch failures before the fleet marks a replica '
+    'UNROUTABLE and stops routing to it; the health loop probes it and '
+    'restores it on the first success')
+FLAGS._define(
+    'fleet_retry_limit', 2, int,
+    'how many times one request is re-dispatched onto a different replica '
+    'after a dispatch failure before its future carries the error')
+FLAGS._define(
+    'fleet_health_interval_ms', 250.0, float,
+    'period of the ServingFleet health loop, which probes each UNROUTABLE '
+    'replica with a one-row zero request; <= 0 disables the loop')
+FLAGS._define(
+    'fleet_drain_timeout_s', 30.0, float,
+    'seconds a retiring replica gets to finish its queued and in-flight '
+    'requests before the fleet closes it anyway')
+FLAGS._define(
+    'fleet_hbm_admission', 'warn', str,
+    "ServingFleet HBM budget mode: 'warn' (the default) logs and counts "
+    "an over-budget deploy() and lets it proceed; 'enforce' first evicts "
+    "cold tenants' warmed buckets, least recently used first, and "
+    'rejects a deploy that still does not fit with '
+    'tenancy.AdmissionError before any replica is built')
+FLAGS._define(
+    'fleet_tenant_quota', 0, int,
+    'base outstanding-request quota of a fleet tenant, scaled by its SLO '
+    'class weight (gold the base, silver half, bronze an eighth, at '
+    'least 1); a submit past it is parked and drained in weighted '
+    'round-robin order, never dropped.  0 (the default) disables it')

@@ -24,6 +24,12 @@ Reference parity: paddle_tpu/inference/batching.py, the whole module
   running it once on a zero feed of its shape (the kernel library's build
   and load, cuDNN's algorithm choice).  One that happens later is counted
   (``stats()['compiles_after_warmup']``).
+- the **AOT cache** (inference/aot_cache.py, on when
+  PADDLE_TPU_TORCH_AOT_CACHE_DIR is set): a bucket loaded from its
+  artifact stores an entry, and a later process readies it from the entry
+  instead, skipping ``torch.export.load`` and the unlifting; such a hit is
+  counted by the cache, not as a compile, so a fresh process over a warm
+  cache reports zero compiles.  Its warm call still runs.
 
 Correctness contract: the inference graph must be row-independent along
 the batch axis (true of inference programs: batch norm runs on its
@@ -37,9 +43,8 @@ artifact.
 Departures from the reference: each server reports into a private
 ``MetricsRegistry`` (no global registry, spans, timeline or /metrics
 endpoint yet: ROADMAP.md Queue 1 item 9); locks are plain ``threading``
-conditions; the AOT executable cache (``aot_cache=``,
-``PADDLE_TPU_TORCH_AOT_CACHE_DIR``) comes with item 8b and raises until
-then; ``resident_bytes`` reports the device's own measurements (the
+conditions; the buckets' artifacts are opened when the server is built
+and ``warmup_throttle_ms`` paces those loads; ``resident_bytes`` reports the device's own measurements (the
 bucket module's buffers, and what its warm call added to
 ``torch.cuda.max_memory_allocated``) where the reference reads XLA's
 ``memory_analysis()``.
@@ -59,6 +64,7 @@ import torch
 
 from ..core.place import resolve_device
 from ..observability.metrics import DEFAULT_LATENCY_BUCKETS, MetricsRegistry
+from . import aot_cache
 from .serving import InferenceServer, export_inference
 
 __all__ = ['BatchingInferenceServer', 'export_bucketed', 'bucket_sizes']
@@ -239,18 +245,16 @@ class BatchingInferenceServer(object):
     ``device`` (None: the card) must be the device the artifacts were
     exported on.  Knobs: ``max_wait_ms`` (the deadline flush),
     ``linger_ms`` (the grace a partial batch waits while the device is
-    idle), ``max_queue`` (submit blocks past it).
+    idle), ``max_queue`` (submit blocks past it), ``warmup_throttle_ms``
+    (a pause between two buckets' loads, so that a server built beside
+    live traffic, as a fleet's deploy builds one, leaves the cores to the
+    serving threads between them).
     """
 
     def __init__(self, bucket_paths, max_wait_ms=None, linger_ms=0.5,
                  max_queue=4096, warmup=True, share_artifacts_with=None,
-                 device=None, aot_cache=None):
+                 device=None, warmup_throttle_ms=0.0):
         from ..flags import FLAGS
-        if aot_cache is not None or FLAGS.aot_cache_dir:
-            raise NotImplementedError(
-                "the AOT cache of compiled executables (aot_cache=, "
-                "PADDLE_TPU_TORCH_AOT_CACHE_DIR) is not ported yet: "
-                "ROADMAP.md Queue 1 item 8b")
         if max_wait_ms is None:
             max_wait_ms = float(FLAGS.serving_max_wait_ms)
         if share_artifacts_with is not None:
@@ -281,18 +285,27 @@ class BatchingInferenceServer(object):
             self._feed_names = src._feed_names
             self._example_shapes = src._example_shapes
             self._dtypes = src._dtypes
+            self._aot = src._aot
+            self._aot_digests = src._aot_digests
             self._bucket_used = src._bucket_used
             self._res_gen = src._res_gen
         else:
             if not bucket_paths:
                 raise ValueError("bucket_paths is empty")
             self.device = resolve_device(device)
-            self._servers = {int(b): InferenceServer(p, self.device)
-                             for b, p in bucket_paths.items()}
+            aot = aot_cache.AotCache()
+            self._aot = aot if aot.enabled() else None
+            self._aot_digests = {}   # bucket -> artifact sha1, shared
             self._compiled = {}   # bucket -> warmed InferenceServer
             self._bucket_paths = {int(b): p
                                   for b, p in bucket_paths.items()}
-            self._buckets = sorted(self._servers)
+            self._buckets = sorted(self._bucket_paths)
+            self._servers = {}
+            throttle = float(warmup_throttle_ms) / 1e3
+            for i, b in enumerate(self._buckets):
+                if throttle and i:
+                    time.sleep(throttle)
+                self._servers[b] = self._open(b)
             self.max_batch = self._buckets[-1]
             avals = self._servers[self.max_batch].feed_avals()
             self._feed_names = sorted(avals)
@@ -645,19 +658,40 @@ class BatchingInferenceServer(object):
         return bucket, stacked, offsets
 
     # -- bucket readiness ----------------------------------------------
+    def _aot_key(self, bucket):
+        """The bucket's AOT cache key; digests are memoized per bucket
+        and shared between siblings."""
+        digest = self._aot_digests.get(bucket)
+        if digest is None:
+            digest = aot_cache.artifact_digest(self._bucket_paths[bucket])
+            self._aot_digests[bucket] = digest
+        return self._aot.key(digest, bucket,
+                             aot_cache.device_kind(self.device))
+
+    def _open(self, bucket):
+        """The bucket's server, not yet warm: from its AOT cache entry
+        where there is one (``_exported`` is then None), else loaded from
+        its artifact."""
+        if self._aot is not None:
+            srv = self._aot.load_compiled(self._aot_key(bucket), self.device)
+            if srv is not None:
+                return srv
+        return InferenceServer(self._bucket_paths[bucket], self.device)
+
     def _ensure_compiled(self, bucket):
-        """Ready a bucket: load its artifact onto the device (again, if
-        it was evicted) and run it once on a zero feed of its shape, which
-        builds or loads the kernel libraries it launches and lets cuDNN
-        choose its algorithms.  Counted; one after warmup is counted in
-        ``compiles_after_warmup``."""
+        """Ready a bucket: open it (again, if it was evicted) and run it
+        once on a zero feed of its shape, which builds or loads the kernel
+        libraries it launches and lets cuDNN choose its algorithms.  A
+        bucket loaded from its artifact is counted as a compile (one after
+        warmup in ``compiles_after_warmup``) and stores its AOT cache
+        entry; one readied from an entry is the cache's counted hit."""
         srv = self._compiled.get(bucket)
         if srv is not None:
             return srv
         srv = self._servers.get(bucket)
         if srv is None:
             # evicted: the artifact outlives eviction, re-open it
-            srv = InferenceServer(self._bucket_paths[bucket], self.device)
+            srv = self._open(bucket)
             self._servers[bucket] = srv
         zeros = {n: np.zeros((bucket,) + self._example_shapes[n],
                              self._dtypes[n]) for n in self._feed_names}
@@ -683,9 +717,14 @@ class BatchingInferenceServer(object):
             'output_bytes': int(out_bytes), 'temp_bytes': int(temp),
             'code_bytes': 0}
         del staged, outs
-        self._m.compiles.inc()
-        if self._warmup_done:
-            self._m.compiles_after_warmup.inc()
+        if srv._exported is not None:   # loaded from the artifact
+            self._m.compiles.inc()
+            if self._warmup_done:
+                self._m.compiles_after_warmup.inc()
+            if self._aot is not None:
+                self._aot.store(self._aot_key(bucket), srv,
+                                artifact=self._bucket_paths[bucket],
+                                bucket=bucket)
         self._compiled[bucket] = srv
         self._res_gen[0] += 1
         return srv

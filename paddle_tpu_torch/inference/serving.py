@@ -7,18 +7,19 @@ artifact through ``jax.export``; here the same program, through
 ``ExportedProgram`` that holds the state as buffers, and saved with
 ``torch.export.save`` (a ``.pt2`` file).  ``torch.export.load`` gives it
 back as a module in any process that has ``paddle_tpu_torch`` imported:
-the flash-attention forward (#1) is the operator
-``paddle_tpu_torch::flash_fwd`` inside the graph, where the reference's
-artifact needs only XLA.
+the flash-attention forward (#1) and the LSTM and GRU forwards (#7, #9)
+are the operators ``paddle_tpu_torch::flash_fwd``, ``lstm_fwd`` and
+``gru_fwd`` inside the graph, where the reference's artifact needs only
+XLA.
 
 - An artifact is specialized on the feed shapes and dtypes it was
   exported at, and on the device: one exported on the card loads on the
   card, one exported on the CPU on the CPU.
 - Export on the card raises ``NotImplementedError``, naming the op, for
   a program whose op launches a kernel that is not yet an operator (the
-  LSTM and GRU kernels, the optimizer applies; ROADMAP.md Queue 1 item
-  8b): tracing cannot follow their ctypes launches, and the kernel
-  loader refuses them under tracing (ops/kernels/build.py).
+  training kernels: the optimizer applies and the backwards; ROADMAP.md
+  Queue 1 item 8c): tracing cannot follow their ctypes launches, and the
+  kernel loader refuses them under tracing (ops/kernels/build.py).
 - ``InferenceServer.predict_many`` / ``predict_stacked`` run K requests
   as K launches of the artifact without a host sync between them and
   one at the end; the reference scans them in one program.
@@ -34,7 +35,10 @@ from ..core.executor import Executor
 from ..core.place import resolve_device
 from ..core.program import Variable, default_main_program
 from ..core.scope import global_scope
-from ..ops.kernels import flash_attention as _fa  # noqa: F401  (the op)
+# the operators an artifact may hold
+from ..ops.kernels import flash_attention as _fa  # noqa: F401
+from ..ops.kernels import gru as _gru  # noqa: F401
+from ..ops.kernels import lstm as _lstm  # noqa: F401
 
 __all__ = ['export_inference', 'load_exported', 'InferenceServer',
            'FeedSpec']
@@ -187,6 +191,15 @@ class InferenceServer(object):
         self._exported, self._module, self._meta, self.device = \
             _open_exported(path, device)
         self._avals = self._read_avals()
+
+    @classmethod
+    def _from_module(cls, path, module, avals, meta, device):
+        """A server over an already built module (an AOT cache entry,
+        inference/aot_cache.py) instead of the artifact at ``path``."""
+        srv = cls.__new__(cls)
+        srv.path, srv._exported, srv._module = path, None, module
+        srv._meta, srv.device, srv._avals = dict(meta), device, dict(avals)
+        return srv
 
     def _read_avals(self):
         from torch.utils import _pytree

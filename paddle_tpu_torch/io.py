@@ -25,10 +25,13 @@ format version 3 exactly, so either package loads what the other saved:
   multi-device saves write) is loaded by assembling its blocks into one
   array, which must tile the whole.  Saving shards comes with
   distribution (ROADMAP.md Queue 1 item 10); the per-process manifests
-  of the reference's multi-host saves are merged on load.  The fleet
-  helpers of the reference's io.py
-  (``bucket_artifacts``, ``resolve_version_dir``, ``gc_versions``,
-  ``write_rollback_json``) come with the serving fleet (item 8).
+  of the reference's multi-host saves are merged on load.
+- Serving version directories (the serving fleet's, inference/fleet.py):
+  ``bucket_artifacts``, ``resolve_version_dir``, ``gc_versions`` and the
+  ``.prev``-protocol records ``write_rollback_json`` /
+  ``read_rollback_json``.  An artifact is ``bucket_<N>.pt2``, the name
+  ``export_bucketed`` writes, where the reference's is
+  ``bucket_<N>.stablehlo``.
 
 The inference model is ``__model__`` (the pruned, test-mode program as
 ``Program.to_dict`` JSON, with the feed and fetch names) beside the
@@ -60,6 +63,8 @@ __all__ = [
     'get_parameter_value', 'get_parameter_value_by_name', 'is_parameter',
     'is_persistable', 'save_checkpoint', 'load_checkpoint',
     'rollback_checkpoint', 'step_generation', 'write_step_file',
+    'bucket_artifacts', 'resolve_version_dir', 'gc_versions',
+    'write_rollback_json', 'read_rollback_json',
 ]
 
 
@@ -644,3 +649,144 @@ def rollback_checkpoint(dirname):
         except OSError:
             pass
     return _read_step_file(dirname)
+
+
+# -- serving version directories (inference/fleet.py) ---------------------
+_BUCKET_RE = re.compile(r'^bucket_(\d+)\.pt2$')
+
+
+def bucket_artifacts(dirname):
+    """{bucket_size: path} of the ``export_bucketed`` artifacts in a
+    directory (``bucket_<N>.pt2``): one servable model version.  Empty
+    when the directory holds none (the is-this-a-version-dir test)."""
+    out = {}
+    try:
+        entries = os.listdir(dirname)
+    except OSError:
+        return out
+    for fname in entries:
+        m = _BUCKET_RE.match(fname)
+        if m:
+            out[int(m.group(1))] = os.path.join(dirname, fname)
+    return out
+
+
+def resolve_version_dir(path, version=None):
+    """``(version_dir, version_name)`` of a servable, TF-Serving style.
+
+    ``path`` is an ``export_bucketed`` directory, or a base directory of
+    versions (``base/1``, ``base/2``, ...; the highest number is the
+    newest).  ``version`` names a subdirectory, checked; a directory of
+    artifacts is itself, named by its basename; otherwise the
+    numerically highest subdirectory holding artifacts (non-numeric
+    names rank below every number, so a ``canary/`` beside ``1..N`` never
+    wins by accident)."""
+    if version is not None:
+        d = os.path.join(path, str(version))
+        if not bucket_artifacts(d):
+            raise ValueError(
+                "version %r under %s has no bucket_<N>.pt2 artifacts "
+                "(export_bucketed writes them)" % (version, path))
+        return d, str(version)
+    if bucket_artifacts(path):
+        name = os.path.basename(os.path.abspath(path).rstrip(os.sep))
+        return path, name
+    try:
+        entries = sorted(os.listdir(path))
+    except OSError:
+        raise ValueError("version path %s is not a directory" % (path,))
+    candidates = [e for e in entries
+                  if os.path.isdir(os.path.join(path, e))
+                  and bucket_artifacts(os.path.join(path, e))]
+    if not candidates:
+        raise ValueError(
+            "%s holds neither bucket_<N>.pt2 artifacts nor versioned "
+            "subdirectories containing them: point the fleet at an "
+            "export_bucketed directory or a base directory of numbered "
+            "versions" % (path,))
+    candidates.sort(key=lambda e: (1, int(e)) if e.isdigit() else (0, e))
+    best = candidates[-1]
+    return os.path.join(path, best), best
+
+
+def gc_versions(base_dir, keep=4, protect=()):
+    """Keep the ``keep`` numerically newest version directories of a base
+    directory and delete the rest; returns the names removed.
+
+    Never removed: a name or path in ``protect`` (a fleet's
+    ``protected_version_dirs()``: its live directories and the current
+    and ``.prev`` targets of its deploy records); the highest version
+    (``keep`` is at least 1), which a concurrent ``resolve_version_dir``
+    may be loading; non-numeric names and directories without artifacts
+    (a version an exporter is still writing).  A victim is renamed to
+    ``<name>.gc.<pid>`` before its removal, so a concurrent resolve sees
+    the whole version or none of it; such a leftover of a crashed GC is
+    finished here.  The AOT cache's entries for removed artifacts go with
+    ``AotCache.sweep_orphans``."""
+    keep = max(1, int(keep))
+    prot_names, prot_paths = set(), set()
+    for p in protect:
+        if p is None:
+            continue
+        p = str(p)
+        if os.sep in p or p == '.':
+            prot_paths.add(os.path.abspath(p.rstrip(os.sep)))
+            prot_names.add(os.path.basename(p.rstrip(os.sep)))
+        else:
+            prot_names.add(p)
+    try:
+        entries = os.listdir(base_dir)
+    except OSError:
+        return []
+    versions = []
+    tomb = re.compile(r'^\d+\.gc\.\d+$')
+    for e in entries:
+        d = os.path.join(base_dir, e)
+        if e.isdigit() and os.path.isdir(d) and bucket_artifacts(d):
+            versions.append((int(e), e, d))
+        elif tomb.match(e) and os.path.isdir(d):
+            shutil.rmtree(d, ignore_errors=True)
+    versions.sort()
+    removed = []
+    for _num, name, d in versions[:-keep]:
+        if name in prot_names or os.path.abspath(d) in prot_paths:
+            continue
+        victim = '%s.gc.%d' % (d, os.getpid())
+        try:
+            os.rename(d, victim)
+        except OSError:
+            continue   # a concurrent GC or deploy won it
+        shutil.rmtree(victim, ignore_errors=True)
+        removed.append(name)
+    return removed
+
+
+def write_rollback_json(path, obj):
+    """Write a small JSON record under the ``.prev`` protocol of the STEP
+    file: when the content changes, the superseded file is archived as
+    ``<path>.prev`` first, then the new content lands by tmp + rename.
+    Rewriting the same content leaves the archive alone."""
+    changed = True
+    if os.path.exists(path):
+        try:
+            with open(path) as f:
+                changed = json.load(f) != obj
+        except (OSError, ValueError):
+            changed = True   # unreadable counts as a change
+        if changed:
+            _archive_prev(path)
+    tmp = '%s.tmp.%d' % (path, os.getpid())
+    with open(tmp, 'w') as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
+
+
+def read_rollback_json(path, prev=False):
+    """A ``write_rollback_json`` record, or with ``prev=True`` its
+    ``.prev`` archive; None when that file does not exist."""
+    p = path + '.prev' if prev else path
+    try:
+        with open(p) as f:
+            return json.load(f)
+    except OSError:
+        return None

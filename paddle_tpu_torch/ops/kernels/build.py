@@ -92,8 +92,9 @@ def load_all(names):
     if torch._C._get_dispatch_mode(_FAKE) is not None:
         raise NotTraceable(
             "kernel %s is launched through ctypes, which torch.export "
-            "cannot trace; it becomes an operator with ROADMAP.md Queue 1 "
-            "item 8b" % ', '.join(names))
+            "cannot trace; only the forwards #1, #7 and #9, which inference "
+            "programs reach, are operators so far, the training kernels "
+            "follow with ROADMAP.md Queue 1 item 8c" % ', '.join(names))
     with _lock:
         todo = [n for n in names if n not in _libs]
         paths = {n: _so_path(n) for n in todo}

@@ -9,7 +9,10 @@ Port of paddle_tpu/ops/pallas/lstm_cell.py's GRU half: the forward
 are CUDA C++ in ``paddle_tpu_torch/csrc/gru_fwd.cu`` and ``gru_bwd.cu``,
 compiled for ``sm_90a`` at first use (ops/kernels/build.py) and called
 through ctypes on the tensors' current stream.  Their designs and what
-bounds them are noted in those sources.
+bounds them are noted in those sources.  The forward is the PyTorch
+operator ``paddle_tpu_torch::gru_fwd`` (``gru_fwd``), which ``gru_scan``
+and ``_GRUScan`` call, so that ``torch.export`` records it; the backward
+stays a direct ctypes launch (training only).
 
 The recurrence, time-major: x [T, B, 3H] holds the pre-projected gate
 inputs (bias added), w [H, 3H] the recurrent weight (``[:, :2H]`` update
@@ -52,7 +55,7 @@ import torch
 from .lstm import CLUSTER_UNITS, _aligned, cluster_blocks, pad_units, \
     padded_width
 
-__all__ = ['gru_scan', 'launches', 'fwd_cluster_launches', 'bwd_launches',
+__all__ = ['gru_scan', 'gru_fwd', 'launches', 'fwd_cluster_launches', 'bwd_launches',
            'bwd_cluster_launches', 'ROWS_PER_BLOCK', 'max_hidden',
            'kernel_takes', 'cluster_size', 'fwd_path', 'bwd_path',
            'fwd_plan', 'bwd_plan']
@@ -352,6 +355,34 @@ def _gru_backward(w, h0, hs, gates, ct_h, rows=None):
     return dx, dw, dh0
 
 
+def _gru_fwd_impl(x, w, h0, with_gates):
+    hs, gates = _gru_forward(x, w, h0, with_gates)
+    return hs, gates if gates is not None else x.new_empty((0,))
+
+
+# #9 as the PyTorch operator paddle_tpu_torch::gru_fwd, as #7 is
+# paddle_tpu_torch::lstm_fwd (lstm.py): the CUDA implementation is
+# ``_gru_forward``'s launch at ROWS_PER_BLOCK, the CPU one the plain
+# version, the fake one gives the shapes; without ``with_gates`` the gates
+# come back as an empty tensor.  The route helpers stay outside it.
+_LIB = torch.library.Library('paddle_tpu_torch', 'FRAGMENT')
+_LIB.define('gru_fwd(Tensor x, Tensor w, Tensor? h0, bool with_gates) '
+            '-> (Tensor, Tensor)')
+_LIB.impl('gru_fwd', _gru_fwd_impl, 'CUDA')
+_LIB.impl('gru_fwd', _gru_fwd_impl, 'CPU')
+
+
+@torch.library.register_fake('paddle_tpu_torch::gru_fwd', lib=_LIB)
+def _gru_fwd_fake(x, w, h0, with_gates):
+    _check(x, w, h0)
+    t, b, three_h = x.shape
+    return (x.new_empty((t, b, three_h // 3)),
+            torch.empty_like(x) if with_gates else x.new_empty((0,)))
+
+
+gru_fwd = torch.ops.paddle_tpu_torch.gru_fwd.default
+
+
 class _GRUScan(torch.autograd.Function):
     """hs of the GRU, differentiable in x, w and h0: the forward saves (w,
     h0, hs, gates) and the backward replays them in the BPTT kernel (the
@@ -359,7 +390,7 @@ class _GRUScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, h0):
-        hs, gates = _gru_forward(x, w, h0, with_gates=True)
+        hs, gates = gru_fwd(x, w, h0, True)
         ctx.save_for_backward(w, h0, hs, gates)
         ctx.set_materialize_grads(False)
         return hs
@@ -387,5 +418,5 @@ def gru_scan(x_tm, w, h0=None):
             v is not None and v.requires_grad for v in (x_tm, w, h0)):
         hs = _GRUScan.apply(x_tm, w, h0)
     else:
-        hs, _ = _gru_forward(x_tm, w, h0, with_gates=False)
+        hs, _ = gru_fwd(x_tm, w, h0, False)
     return hs[..., :h] if p else hs

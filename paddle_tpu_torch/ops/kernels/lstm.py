@@ -9,7 +9,11 @@ reference joins them by ``jax.custom_vjp`` (``_lstm_scan_core``), plus
 ``paddle_tpu_torch/csrc/lstm_fwd.cu`` and ``lstm_bwd.cu``, compiled for
 ``sm_90a`` at first use (ops/kernels/build.py) and called through ctypes on
 the tensors' current stream.  Their designs and what bounds them are noted
-in those sources.
+in those sources.  The forward is the PyTorch operator
+``paddle_tpu_torch::lstm_fwd`` (``lstm_fwd``), which ``lstm_scan`` and
+``_LSTMScan`` call, so that ``torch.export`` records it and an exported
+artifact launches it; the backward, reached only in training, stays a
+direct ctypes launch, which the kernel loader refuses under tracing.
 
 The recurrence, time-major: x [T, B, 4H] holds the pre-projected gate
 inputs (bias added), w [H, 4H] the recurrent weight, pw [3, H] the
@@ -46,7 +50,7 @@ import ctypes
 
 import torch
 
-__all__ = ['lstm_scan', 'launches', 'fwd_cluster_launches', 'bwd_launches',
+__all__ = ['lstm_scan', 'lstm_fwd', 'launches', 'fwd_cluster_launches', 'bwd_launches',
            'bwd_cluster_launches', 'ROWS_PER_BLOCK', 'max_hidden',
            'kernel_takes', 'cluster_size', 'fwd_path', 'bwd_path',
            'fwd_plan', 'bwd_plan']
@@ -376,6 +380,39 @@ def _lstm_backward(w, pw, hs, cs, gates, ct_h, ct_c):
     return dx, dw, dpw
 
 
+def _lstm_fwd_impl(x, w, pw, with_gates):
+    hs, cs, gates = _lstm_forward(x, w, pw, with_gates)
+    return hs, cs, gates if gates is not None else x.new_empty((0,))
+
+
+# #7 as the PyTorch operator paddle_tpu_torch::lstm_fwd, as #1 is
+# paddle_tpu_torch::flash_fwd (flash_attention.py), so that torch.export
+# records it as one node and an inference program of the LSTM models
+# exports: its CUDA implementation is ``_lstm_forward``'s launch, its CPU
+# one the plain version, its fake one gives the shapes.  A schema cannot
+# return an optional tensor, so without ``with_gates`` the gates come back
+# as an empty tensor.  The route helpers (``kernel_takes``, ``fwd_path``,
+# ``cluster_size``, ``padded_width``) stay outside the operator and decide
+# without a build, so tracing never reaches the loader.
+_LIB = torch.library.Library('paddle_tpu_torch', 'FRAGMENT')
+_LIB.define('lstm_fwd(Tensor x, Tensor w, Tensor pw, bool with_gates) '
+            '-> (Tensor, Tensor, Tensor)')
+_LIB.impl('lstm_fwd', _lstm_fwd_impl, 'CUDA')
+_LIB.impl('lstm_fwd', _lstm_fwd_impl, 'CPU')
+
+
+@torch.library.register_fake('paddle_tpu_torch::lstm_fwd', lib=_LIB)
+def _lstm_fwd_fake(x, w, pw, with_gates):
+    _check(x, w, pw)
+    t, b, four_h = x.shape
+    hs = x.new_empty((t, b, four_h // 4))
+    return (hs, torch.empty_like(hs),
+            torch.empty_like(x) if with_gates else x.new_empty((0,)))
+
+
+lstm_fwd = torch.ops.paddle_tpu_torch.lstm_fwd.default
+
+
 class _LSTMScan(torch.autograd.Function):
     """(hs, cs) of the LSTM, differentiable in x, w and pw: the forward
     saves (w, pw, hs, cs, gates) and the backward replays them in the BPTT
@@ -383,7 +420,7 @@ class _LSTMScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, pw):
-        hs, cs, gates = _lstm_forward(x, w, pw, with_gates=True)
+        hs, cs, gates = lstm_fwd(x, w, pw, True)
         ctx.save_for_backward(w, pw, hs, cs, gates)
         ctx.set_materialize_grads(False)
         return hs, cs
@@ -411,5 +448,5 @@ def lstm_scan(x_tm, w, pw=None):
             v.requires_grad for v in (x_tm, w, pw)):
         hs, cs = _LSTMScan.apply(x_tm, w, pw)
     else:
-        hs, cs, _ = _lstm_forward(x_tm, w, pw, with_gates=False)
+        hs, cs, _ = lstm_fwd(x_tm, w, pw, False)
     return (hs[..., :h], cs[..., :h]) if p else (hs, cs)

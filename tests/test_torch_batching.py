@@ -19,8 +19,9 @@ max_batch 8, built by the reference and handed over.
 - Cross-package: the port server's answers to 32 requests of 1-3 rows
   equal the reference ``BatchingInferenceServer``'s within 1e-5 absolute
   (sigmoid outputs; float32 sums in other orders).
-- The AOT executable cache comes with ROADMAP.md Queue 1 item 8b: asking
-  for it raises.
+- The AOT cache (PADDLE_TPU_TORCH_AOT_CACHE_DIR): a second server readies
+  every bucket from the first one's entries, with no compile, bitwise
+  (tests/test_torch_aot_cache.py holds the cache's own contract).
 
 The throughput acceptance test (tests/test_batching.py:238) has no CPU
 counterpart: chip_smoke.py phase 80 runs the CTR tower at bench_serving's
@@ -337,12 +338,27 @@ def test_request_ids_are_monotonic_and_threadable(server, monkeypatch):
     assert auto == sorted(auto) and len(set(auto)) == 3
 
 
-def test_the_aot_cache_comes_later(bucket_paths, monkeypatch):
-    with pytest.raises(NotImplementedError, match='item 8b'):
+def test_the_aot_cache_comes_later(bucket_paths, monkeypatch, tmp_path):
+    """The AOT cache is on when PADDLE_TPU_TORCH_AOT_CACHE_DIR is set: the
+    first server loads every bucket from its artifact (counted compiles)
+    and stores an entry each; a second one readies every bucket from the
+    entries with no compile, and answers bitwise as the first."""
+    from paddle_tpu_torch.inference import AotCache
+    monkeypatch.setenv('PADDLE_TPU_TORCH_AOT_CACHE_DIR', str(tmp_path))
+    feed = _feed(np.random.default_rng(5), 3)
+    s0 = AotCache.stats()
+    with BatchingInferenceServer(bucket_paths, device='cpu') as cold:
+        assert cold.stats()['compiles'] == len(cold._buckets)
+        want, = cold.predict(feed, timeout=30.0)
+    s1 = AotCache.stats()
+    assert s1['stores'] - s0['stores'] == len(bucket_paths)
+    with BatchingInferenceServer(bucket_paths, device='cpu') as warm:
+        assert warm.stats()['compiles'] == 0
+        got, = warm.predict(feed, timeout=30.0)
+    assert AotCache.stats()['hits'] - s1['hits'] == len(bucket_paths)
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(TypeError):
         BatchingInferenceServer(bucket_paths, device='cpu', aot_cache='d')
-    monkeypatch.setenv('PADDLE_TPU_TORCH_AOT_CACHE_DIR', '/nonexistent')
-    with pytest.raises(NotImplementedError, match='item 8b'):
-        BatchingInferenceServer(bucket_paths, device='cpu')
 
 
 def test_answers_match_the_reference_server(tower, server, tmp_path):

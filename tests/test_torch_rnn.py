@@ -44,7 +44,6 @@ from paddle_tpu_torch.core import lod as tlod
 from paddle_tpu_torch.core import program as tprog
 from paddle_tpu_torch.core.registry import get_op_impl as tget_op
 from paddle_tpu_torch.core.scope import scope_from_numpy
-from paddle_tpu_torch.inference import BatchingInferenceServer
 from paddle_tpu_torch.models import rnn_lm as trnn
 from paddle_tpu_torch.models import sentiment as tsent
 from paddle_tpu_torch.ops.kernels import lstm as tl
@@ -273,10 +272,9 @@ def test_adagrad_steps_match_the_reference(model, batches, n_lstm):
 
 
 @pytest.mark.parametrize('build,match', [
-    # Executor.compile and the composed attention came with the serving
-    # slice; the AOT cache of compiled executables waits
-    (lambda: BatchingInferenceServer({1: 'unused.pt2'}, aot_cache='dir'),
-     'compile'),
+    # the serving slices brought the AOT cache and the fleet; the
+    # observability registry behind reader.metered waits
+    (lambda: tfl.reader.decorator.metered(lambda: iter(())), 'metered'),
     # seq2seq.decode came with the control-flow slice; ParallelDo waits
     (lambda: tfl.layers.ParallelDo(), 'ParallelDo'),
 ])

@@ -17,7 +17,8 @@ tests/test_serving.py runs on the CPU).
   example-arg dtypes; a bfloat16 feed var exporting a bfloat16 input;
   device values passed through ``predict_many`` without a host copy.
 - Export on the card raises, naming the op, for an op that launches a
-  kernel through ctypes; entry points default to the card, so on a host without one
+  kernel through ctypes (the training kernels; the forwards #1, #7 and #9
+  are operators, tests/test_torch_rnn_export.py); entry points default to the card, so on a host without one
   they raise unless given ``device='cpu'``.
 """
 import numpy as np
@@ -209,37 +210,53 @@ def _fake_cuda(*shape, dtype=torch.float32):
 
 def test_export_on_the_card_refuses_unwrapped_kernels(tmp_path,
                                                       monkeypatch):
-    """Every ctypes launch refuses fake CUDA tensors (torch.export's) at
+    """Every ctypes launch that is not an operator (the training kernels:
+    #2-#4 the flash backwards, #5 and #6 the optimizer applies, #8 and
+    #10 the RNN backwards) refuses fake CUDA tensors (torch.export's) at
     the kernel loader, before reading a data pointer; export names the op
-    that reached it.  The CPU has no card, so the program-level case
-    routes the lstm op's CPU path into the loader, as its CUDA path goes
-    there first."""
+    that reached it.  The forwards #1, #7 and #9 are operators and take
+    fake CUDA tensors.  The CPU has no card, so the program-level case
+    routes the lstm op's scan into the loader of a kernel that refuses."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    from paddle_tpu_torch.ops.kernels import (build, dense_update, gru,
-                                              lstm, table_update)
+    from paddle_tpu_torch.ops.kernels import (build, dense_update,
+                                              flash_attention, gru, lstm,
+                                              table_update)
     e = _fake_cuda
+    q = lambda: e(2, 8, 16)   # noqa: E731
     calls = {
-        'lstm_fwd': lambda: lstm._lstm_forward(e(3, 2, 64), e(16, 64),
-                                               e(3, 16), False),
-        'gru_fwd': lambda: gru._gru_forward(e(3, 2, 48), e(16, 48), None,
-                                            False),
+        'flash_attention_bwd': lambda: flash_attention._fa_backward_fused(
+            q(), q(), q(), e(2, 8), q(), e(2, 8), True, 0.25),
+        'flash_attention_bwd_split': lambda:
+            flash_attention._fa_backward_dq(q(), q(), q(), e(2, 8), q(),
+                                            e(2, 8), True, 0.25),
         'dense_update': lambda: dense_update.dense_apply_sgd(
             e(8, 4), e(8, 4), e(1)),
         'table_update': lambda: table_update.sparse_apply_sgd(
             e(8, 4), e(3, dtype=torch.int64), e(3, 4), e(1)),
+        'lstm_bwd': lambda: lstm._lstm_backward(
+            e(16, 64), e(3, 16), e(3, 2, 16), e(3, 2, 16), e(3, 2, 64),
+            e(3, 2, 16), None),
+        'gru_bwd': lambda: gru._gru_backward(
+            e(16, 48), None, e(3, 2, 16), e(3, 2, 48), e(3, 2, 16)),
     }
     with FakeTensorMode():
         for kernel, call in calls.items():
             with pytest.raises(NotImplementedError,
-                               match=r'%s.*item 8b' % kernel):
+                               match=r'%s.*item 8c' % kernel):
                 call()
+        hs, cs, gates = lstm.lstm_fwd(e(3, 2, 64), e(16, 64), e(3, 16),
+                                      True)
+        assert hs.shape == cs.shape == (3, 2, 16) and \
+            gates.shape == (3, 2, 64) and hs.device.type == 'cuda'
+        hs, gates = gru.gru_fwd(e(3, 2, 48), e(16, 48), None, False)
+        assert hs.shape == (3, 2, 16) and gates.numel() == 0
     main, startup, h = _lstm_program()
     exe, scope = tfl.Executor('cpu'), tfl.Scope()
     exe.run(startup, scope=scope)
-    monkeypatch.setattr(lstm, '_plain_lstm_forward',
-                        lambda *a: build.load('lstm_fwd'))
+    monkeypatch.setattr(lstm, 'lstm_scan',
+                        lambda *a: build.load('lstm_bwd'))
     with pytest.raises(NotImplementedError,
-                       match=r"op 'lstm': kernel lstm_fwd.*item 8b"):
+                       match=r"op 'lstm': kernel lstm_bwd.*item 8c"):
         export_inference(str(tmp_path / 'lstm.pt2'),
                          {'x': (2, 3, 16), 'x@LEN': (2,)},
                          [h], executor=exe, main_program=main, scope=scope)
