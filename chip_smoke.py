@@ -10,6 +10,8 @@
     python3 chip_smoke.py --fleet       # phases 1, the RNN kernels' builds,
                                         # ResNet-50's exports, 83-87
     python3 chip_smoke.py --dispatch    # phases 1, 3 and 5 alone, see below
+    python3 chip_smoke.py --observability  # phase 1, #1, #2 and #5's
+                                        # builds, 88-91
 
 Run from the root of a checkout on a machine with a CUDA card and the
 CUDA toolkit (nvcc).  It drives ``paddle_tpu_torch`` only (no JAX, nothing
@@ -566,6 +568,41 @@ line:
    encoder at ``S2S``'s width exported at batch 1 and 8, 2 launches of
    #9 a predict, against ``Executor.run`` on the card
    (``TOL_ENC_ARTIFACT``).
+88. run_steps with device prefetch (``PREFETCH``): ResNet-50 at
+   ``bench.py``'s width (B=64 224x224 float32 NCHW, Momentum 0.1) over 8
+   distinct host batches (38.5 MB each), with
+   ``PADDLE_TPU_TORCH_DEVICE_PREFETCH`` on (chunks of 2: pinned blocks,
+   H2D copies on a side stream) and off, from one startup state under
+   ``cudnn.deterministic``: losses and every persistable bitwise equal,
+   #5 214 x 8 times in each run, one blocking put and 3 prefetched ones
+   with prefetch on (``paddle_tpu_executor_feed_*_puts_total``), and in
+   the prefetch run's exported trace each chunk's ``prefetch.stage``
+   starting before the card finished the chunk before it
+   (``executor.chunk_compute``, CUDA events); then ``runtime.FeedPipeline``
+   over the same batches on the card (two workers, pinned blocks, its
+   side stream), each batch bitwise its source.  Reported: the call's
+   wall and the feed's peak bytes on the card, on against off.
+89. the profiler and the timeline on TRAIN's transformer step (B=32,
+   T=512): one step under ``profiler.profiler`` in a fresh process
+   (``--profile-step OUT``), whose
+   ``profile_table('total')`` must list ``fa_fwd_kernel``,
+   ``fa_bwd_kernel`` and ``dense_update_kernel`` at 6, 6 and 78 calls,
+   equal to the launch counters; ``run_steps`` of 4 steps with the
+   timeline armed writes a trace that ``summarize_trace`` reads, its
+   feed, compile, compute and update events within ``TOL_PHASE_SUM`` of
+   the call's wall; the step's p50 armed against disarmed.
+90. serving telemetry: the flagship decode server (phase 4's width) and
+   phase 80's CTR batching server (kept open since phase 80) on the
+   process registry; ``/metrics`` scraped once, on localhost port 0,
+   while both serve: every line parses, the TTFT histogram counts the 12
+   requests served, the CTR latency histogram its completed requests,
+   and ``close()`` retires both servers' series.
+91. no hidden syncs: one disarmed training step of phase 89's
+   transformer from card-resident feeds up to its fetch under
+   ``torch.cuda.set_sync_debug_mode('error')`` (and under ``'warn'``
+   with metrics off and on: no sync site either way); then a planted NaN
+   fed to an fc net under ``debug.nan_guard()`` must raise naming the
+   first fc's ``mul``.  Phases 88-91 print their own time.
 52. a ``{"kernels": [...]}`` line (eleven kernels, each with its launches
    by path; ``bound_ms`` at the rate of the units a kernel computes on:
    the tensor cores at 3xTF32 for #1-#4, #11 and #7-#10 (at the 16-bit
@@ -580,8 +617,8 @@ line:
    and fit_a_line's #5 launches; those of phases 67, 70 and 73; #1's
    inside phase 81's artifact and in phase 82's decode; #7's inside the
    fleet's sentiment artifacts (phase 85) and #9's inside the encoder's
-   (87), with each operator against its direct launch (83)), printed after
-   phase 87, then
+   (87), with each operator against its direct launch (83); those of
+   phases 88-91), printed after phase 91, then
    the card's line, and last ``{"ok": true, "device": {...}}``.
 
 With ``--long-step`` the script runs phase 26 alone, in a process that
@@ -590,6 +627,7 @@ times, peak memory): copied into another checkout and run there too in
 the same call, it compares two trees' 128K step on one card.
 """
 import contextlib
+import glob
 import hashlib
 import importlib.util
 import json
@@ -8249,9 +8287,10 @@ def _row_gap(ref1, pairs):
     return worst
 
 
-def phase_ctr_batching(c=CTR_SERVE):
+def phase_ctr_batching(c=CTR_SERVE, keep=None):
     """Phase 80: the CTR tower behind BatchingInferenceServer at
-    dynamic_scenario's settings, then amp_scenario."""
+    dynamic_scenario's settings, then amp_scenario.  With ``keep`` (a
+    dict) the server stays open as ``keep['ctr']`` for phase 90."""
     from paddle_tpu_torch.inference import (BatchingInferenceServer,
                                             InferenceServer,
                                             export_bucketed)
@@ -8327,8 +8366,11 @@ def phase_ctr_batching(c=CTR_SERVE):
             exact[b] = bool(np.array_equal(got, want))
         row_gap = _row_gap(ref, pairs)
         st = srv.stats()
+        if keep is not None:
+            keep['ctr'] = srv
     finally:
-        srv.close()
+        if keep is None or 'ctr' not in keep:
+            srv.close()
     # amp_scenario: bucket 8 at full precision and in bf16
     amp_rows, outs = {}, {}
     feed = _ctr_request(rng, c['amp_bucket'])
@@ -8545,14 +8587,15 @@ def phase_registry_decode(tokens4=None, c=SERVE):
     return res
 
 
-def _serve_phases(base, tokens4=None):
+def _serve_phases(base, tokens4=None, keep=None):
     """Phases 78-82, timed together: serving exported programs; phase
-    79's ResNet-50 version directory stays under ``base``."""
+    79's ResNet-50 version directory stays under ``base``; ``keep``
+    receives phase 80's open server (``phase_ctr_batching``)."""
     t0 = time.perf_counter()
     out = dict(flash_op=phase_flash_op())
     out['resnet'] = phase_resnet_serving(os.path.join(base, 'resnet', '1'))
     torch.cuda.empty_cache()
-    out['ctr'] = phase_ctr_batching()
+    out['ctr'] = phase_ctr_batching(keep=keep)
     out['lm'] = phase_lm_artifact()
     torch.cuda.empty_cache()
     out['registry'] = phase_registry_decode(tokens4)
@@ -9367,10 +9410,577 @@ def _dispatch_phases():
         train_step_ms_p50=tr['step_ms_p50'], train_step_ms=tr['step_ms'])))
 
 
+# phase 88: ResNet-50 at bench.py's width through run_steps over K
+# distinct host batches, with device prefetch (chunks of 2) and without,
+# from one startup state under cudnn.deterministic (default cuDNN runs
+# differ from step 2; tests/torch_resnet_determinism.py)
+PREFETCH = dict(RESNET, k=8, chunk=2)
+# phase 89: the transformer's training step (TRAIN) profiled, traced and
+# timed armed against disarmed; run_steps of TIMELINE_K steps armed; the
+# trace's feed + compile + compute + update events must sum to the
+# call's wall within TOL_PHASE_SUM
+TIMELINE_K = 4
+# phase 89: profiled steps in a row in the script's own process, reported
+IN_PROCESS_PROFILES = 2
+TIMELINE_REPS = 6
+TOL_PHASE_SUM = 0.05
+# phase 89: the kernels by the symbol their wrapper launches, as the
+# profiler table names them
+# (a substring, so that a mangled name counts too)
+PROFILE_SYMBOLS = (('flash_attention_fwd', 'fa_fwd_kernel'),
+                   ('flash_attention_bwd', 'fa_bwd_kernel'),
+                   ('dense_update', 'dense_update_kernel'))
+# phase 90: requests of the flagship decode server and of phase 80's CTR
+# batching server while /metrics is scraped once
+TELEMETRY = dict(decode_requests=12, ctr_requests=64)
+# every exposition sample line (the scrape contract)
+SAMPLE_RE = re.compile(r'^[a-z_]+(\{[^}]*\})? [0-9.eE+-]+$')
+
+
+def _delta(s0, s1, name):
+    def total(snap):
+        fam = snap.get(name)
+        return sum(s.get('value', s.get('count', 0))
+                   for s in fam['samples']) if fam else 0
+    return total(s1) - total(s0)
+
+
+def _trace_doc(trace_dir):
+    path = os.path.join(trace_dir, 'trace_%d.json' % os.getpid())
+    with open(path) as f:
+        return json.load(f)
+
+
+def phase_prefetch(c=PREFETCH):
+    """Phase 88: run_steps over K distinct host batches of ResNet-50,
+    device prefetch on (chunks of ``c['chunk']``) against off, from one
+    startup state: bitwise losses and persistables, #5 214 times a step
+    in each run, one blocking put with prefetch on, and in the prefetch
+    run's trace each chunk's staging (``prefetch.stage``) starting before
+    the card finished the chunk before it (``executor.chunk_compute``,
+    timed by CUDA events)."""
+    from paddle_tpu_torch import observability as tobs
+    from paddle_tpu_torch.observability import timeline as ttl
+    cudnn = torch.backends.cudnn
+    main, startup, cost = _resnet_programs(c)
+    scope = tfl.Scope()
+    tfl.Executor().run(startup, scope=scope)
+    persist = [v.name for v in main.list_vars()
+               if v.persistable and scope.has(v.name)]
+    init = {n: scope.get(n).clone() for n in persist}
+    t0 = time.perf_counter()
+    feeds = [_image_feed(c['B'], SEED + 880 + i, c) for i in range(c['k'])]
+    batch_bytes = sum(v.nbytes for v in feeds[0].values())
+    feeds_s = time.perf_counter() - t0
+    trace_dir = tempfile.mkdtemp(prefix='chip_smoke_trace_')
+    prev = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    runs = {}
+    env = ('PADDLE_TPU_TORCH_DEVICE_PREFETCH',
+           'PADDLE_TPU_TORCH_DEVICE_PREFETCH_CHUNK',
+           'PADDLE_TPU_TORCH_TRACE_DIR')
+    try:
+        # warm-up: cuDNN's deterministic algorithms' first use, the
+        # pinned allocator's first blocks; its state is restored below
+        tfl.Executor().run_steps(main, feed=feeds[:2], fetch_list=[cost],
+                                 scope=scope)
+        for mode in ('on', 'off'):
+            for n, t in init.items():
+                scope.get(n).copy_(t)
+            for k in env:
+                os.environ.pop(k, None)
+            if mode == 'on':
+                os.environ[env[0]] = '1'
+                os.environ[env[1]] = str(c['chunk'])
+                os.environ[env[2]] = trace_dir
+            ttl.reset()
+            exe = tfl.Executor()
+            torch.cuda.synchronize()
+            s0 = tobs.snapshot()
+            _zero_counts()
+            t0 = time.perf_counter()
+            out, = exe.run_steps(main, feed=feeds, fetch_list=[cost],
+                                 scope=scope)
+            wall = time.perf_counter() - t0
+            counts = _counts()
+            s1 = tobs.snapshot()
+            rep = exe.last_step_report
+            runs[mode] = dict(
+                losses=np.asarray(out).ravel(),
+                state={n: scope.get(n).clone() for n in persist},
+                wall_s=wall, counts=counts,
+                blocking_puts=_delta(
+                    s0, s1, 'paddle_tpu_executor_feed_blocking_puts_total'),
+                prefetched_puts=_delta(
+                    s0, s1, 'paddle_tpu_executor_feed_prefetched_puts_total'),
+                feed_peak_bytes=rep['feed_peak_bytes'],
+                feed_bytes=rep['feed_bytes'], feed_s=rep['feed_s'],
+                feed_overlap_s=rep['feed_overlap_s'],
+                chunks=rep['chunks'],
+                pinned_waits=exe._stager.waits if exe._stager else 0)
+        doc = _trace_doc(trace_dir)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = prev
+        for k in env:
+            os.environ.pop(k, None)
+        ttl.reset()
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    pipeline_bitwise = _feed_pipeline_check(feeds)
+    xs = sorted((e for e in doc['traceEvents'] if e.get('ph') == 'X'),
+                key=lambda e: e['ts'])
+    stage = [e for e in xs if e['name'] == 'prefetch.stage']
+    chunk = {e['args']['chunk']: e for e in xs
+             if e['name'] == 'executor.chunk_compute'}
+    n_chunks = runs['on']['chunks']
+    lead_ms = [(chunk[i]['ts'] + chunk[i]['dur'] - stage[i + 1]['ts']) / 1e3
+               if i in chunk and i + 1 < len(stage) else None
+               for i in range(n_chunks - 1)]
+    on, off = runs['on'], runs['off']
+    same_state = [n for n in persist
+                  if not torch.equal(on['state'][n], off['state'][n])]
+    res = dict(
+        config='ResNet-50 B=%d %dx%d float32 NCHW Momentum lr %g mu %g, '
+               'run_steps over %d distinct host batches, cudnn '
+               'deterministic' % (c['B'], c['hw'], c['hw'], c['lr'], c['mu'],
+                                  c['k']),
+        batch_bytes=batch_bytes, feeds_build_s=feeds_s,
+        feed_pipeline_bitwise=pipeline_bitwise,
+        losses_bitwise=bool(np.array_equal(on['losses'], off['losses'])),
+        persistables_differing=same_state[:5], losses=on['losses'].tolist(),
+        stage_events=len(stage), chunk_events=len(chunk),
+        stage_lead_ms=lead_ms,
+        **{'%s_%s' % (k, m): runs[m][k] for m in ('on', 'off')
+           for k in ('wall_s', 'blocking_puts', 'prefetched_puts',
+                     'feed_peak_bytes', 'feed_bytes', 'feed_s',
+                     'feed_overlap_s', 'chunks', 'pinned_waits')},
+        launches_on=on['counts'], launches_off=off['counts'])
+    print("prefetch: %s" % json.dumps(res))
+    want = _want(dense_update=214 * c['k'])
+    bad = []
+    if not res['losses_bitwise'] or same_state:
+        bad.append('not bitwise')
+    if {k: float(v) for k, v in on['counts'].items()} != want or \
+            {k: float(v) for k, v in off['counts'].items()} != want:
+        bad.append('launches')
+    if on['blocking_puts'] != 1 or on['chunks'] != c['k'] // c['chunk'] or \
+            on['prefetched_puts'] != on['chunks'] - 1:
+        bad.append('puts')
+    if not all(x is not None and x > 0 for x in lead_ms):
+        bad.append('no staging before the chunk before it ended')
+    if not all(np.isfinite(on['losses'])):
+        bad.append('loss not finite')
+    if not all(pipeline_bitwise):
+        bad.append('FeedPipeline batches differ')
+    if bad:
+        raise SystemExit("prefetch: %s" % bad)
+    return dict(counts_on=on['counts'], counts_off=off['counts'],
+                **{k: v for k, v in res.items()
+                   if k not in ('launches_on', 'launches_off')})
+
+
+def _feed_pipeline_check(feeds):
+    """``runtime.FeedPipeline`` on the card: the host batches filled into
+    its pinned blocks by two workers, copied on its side stream, each
+    batch in order and bitwise its source."""
+    from paddle_tpu_torch.runtime import FeedPipeline
+    specs = {n: (v.shape, v.dtype) for n, v in feeds[0].items()}
+
+    def fill(views, step):
+        if step >= len(feeds):
+            return False
+        for n, v in views.items():
+            v[...] = feeds[step][n]
+
+    out = []
+    for i, batch in enumerate(FeedPipeline(specs, fill, depth=4,
+                                           workers=2)):
+        out.append(all(torch.equal(batch[n].cpu(),
+                                   torch.from_numpy(feeds[i][n]))
+                       for n in specs))
+    return out if len(out) == len(feeds) else out + [False]
+
+
+def _profile_counts(table):
+    """{kernel: calls} from a profile_table: the rows whose name shows the
+    kernel's symbol (names are the table's first 52 characters)."""
+    rows = []
+    for line in table.splitlines()[1:]:
+        rows.append((line[:52].strip(), int(line[52:].split()[0])))
+    return {k: sum(n for name, n in rows if sym in name)
+            for k, sym in PROFILE_SYMBOLS}, rows
+
+
+def _train_step_setup(c=TRAIN, seed=SEED + 89):
+    """TRAIN's transformer, its startup run and one warm step, on a feed
+    staged on the card: (exe, main, cost, scope, feed)."""
+    main, startup, cost = _train_programs(c)
+    exe, scope = tfl.Executor(), tfl.Scope()
+    exe.run(startup, scope=scope)
+    feed = {k: torch.from_numpy(v.astype(np.int32)).cuda()
+            for k, v in _train_feed(c['B'], seed, c).items()}
+    exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+    return exe, main, cost, scope, feed
+
+
+def _profile_child(out_path):
+    """The ``--profile-step`` process (phase 89): one step of TRAIN's
+    transformer under ``profiler.profiler``; writes ``profile_table
+    ('total')``'s calls of #1's, #2's and #5's symbols beside the launch
+    counters, and the table's largest rows, to ``out_path`` as JSON.  A
+    fresh process: in the whole script's own process the trace read one
+    ``fa_fwd_kernel`` record short of the launches in two runs (PERF.md
+    §6, PR 27), which fresh processes never did."""
+    from paddle_tpu_torch import profiler as tprof
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.load_all(('flash_attention_fwd', 'flash_attention_bwd',
+                    'dense_update'))
+    exe, main, cost, scope, feed = _train_step_setup()
+    log_dir = tempfile.mkdtemp(prefix='chip_smoke_prof_')
+    try:
+        _zero_counts()
+        with tprof.profiler('All', log_dir=log_dir):
+            exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+        counts = _counts()
+        by_symbol, rows = _profile_counts(
+            tprof.profile_table('total', log_dir=log_dir))
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    with open(out_path, 'w') as f:
+        json.dump(dict(profile_calls=by_symbol, launch_counts={
+            k: counts[k] for k, _ in PROFILE_SYMBOLS},
+            profile_top=[dict(name=n, calls=k) for n, k in rows[:8]],
+            rows=len(rows)), f)
+
+
+def _in_process_profiles(exe, main, cost, scope, feed,
+                         sessions=IN_PROCESS_PROFILES):
+    """Phase 89's reading in the script's own process, reported and not
+    gated: for each of ``sessions`` profiled steps in a row, the table's
+    calls of #1's, #2's and #5's symbols, the trace's device events, its
+    kernel-launch calls (runtime and driver), and the launches whose
+    correlation id reached no device event: a record lost on the device
+    side shows there, a whole lost buffer does not."""
+    from paddle_tpu_torch import profiler as tprof
+    launch_calls = ('cudaLaunchKernel', 'cudaLaunchKernelExC',
+                    'cuLaunchKernel', 'cuLaunchKernelEx')
+    out = []
+    for _ in range(sessions):
+        log_dir = tempfile.mkdtemp(prefix='chip_smoke_prof_')
+        try:
+            with tprof.profiler('All', log_dir=log_dir):
+                exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+            by_symbol, _ = _profile_counts(
+                tprof.profile_table('total', log_dir=log_dir))
+            path, = glob.glob(os.path.join(log_dir, '*.pt.trace.json'))
+            with open(path) as f:
+                events = [e for e in json.load(f)['traceEvents']
+                          if e.get('ph') == 'X']
+        finally:
+            shutil.rmtree(log_dir, ignore_errors=True)
+        device = [e for e in events if e.get('cat') in
+                  ('kernel', 'gpu_memcpy', 'gpu_memset')]
+        launches = [e for e in events if e.get('name') in launch_calls]
+        seen = {e.get('args', {}).get('correlation') for e in device}
+        out.append(dict(
+            profile_calls=by_symbol, device_events=len(device),
+            kernels=sum(e['cat'] == 'kernel' for e in device),
+            launch_calls=len(launches),
+            launches_without_kernel=sum(
+                e.get('args', {}).get('correlation') not in seen
+                for e in launches)))
+    return out
+
+
+def phase_profiled_step(c=TRAIN):
+    """Phase 89: the transformer's training step profiled through the
+    port's profiler in a fresh process (``--profile-step``:
+    ``profile_table('total')`` against the launch counters), the same
+    step profiled in this process (reported: ``_in_process_profiles``),
+    run_steps with the timeline armed (its trace summarized, its phases
+    against the call's wall), and the step's p50 armed against
+    disarmed."""
+    from paddle_tpu_torch.observability import timeline as ttl
+    out_path = os.path.join(tempfile.mkdtemp(prefix='chip_smoke_prof_'),
+                            'profile.json')
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    '--profile-step', out_path], check=True, timeout=600)
+    with open(out_path) as f:
+        prof = json.load(f)
+    shutil.rmtree(os.path.dirname(out_path), ignore_errors=True)
+    by_symbol = prof['profile_calls']
+    exe, main, cost, scope, feed = _train_step_setup(c)
+    in_process = _in_process_profiles(exe, main, cost, scope, feed)
+    trace_dir = tempfile.mkdtemp(prefix='chip_smoke_trace_')
+    try:
+        os.environ['PADDLE_TPU_TORCH_TRACE_DIR'] = trace_dir
+        ttl.reset()
+        _zero_counts()
+        exe.run_steps(main, feed=feed, fetch_list=[cost], scope=scope,
+                      repeat=TIMELINE_K)
+        traced_counts = _counts()
+        rep = dict(exe.last_step_report)
+        doc = _trace_doc(trace_dir)
+        summary = ttl.summarize_trace(doc)
+        phase_us = sum(e['dur'] for e in doc['traceEvents']
+                       if e.get('ph') == 'X' and e['cat'] in
+                       ('feed', 'compile', 'compute', 'update'))
+        armed, disarmed = [], []
+        for _ in range(TIMELINE_REPS):
+            for on, out in ((True, armed), (False, disarmed)):
+                if on:
+                    os.environ['PADDLE_TPU_TORCH_TRACE_DIR'] = trace_dir
+                else:
+                    os.environ.pop('PADDLE_TPU_TORCH_TRACE_DIR', None)
+                ttl.reload_armed()
+                t0 = time.perf_counter()
+                exe.run_steps(main, feed=feed, fetch_list=[cost],
+                              scope=scope, repeat=1)
+                out.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        os.environ.pop('PADDLE_TPU_TORCH_TRACE_DIR', None)
+        ttl.reset()
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    wall_us = rep['wall_s'] * 1e6
+    res = dict(
+        profile_calls=by_symbol, launch_counts=prof['launch_counts'],
+        profile_top=prof['profile_top'], profile_rows=prof['rows'],
+        in_process_profiles=in_process,
+        traced_run_steps=dict(k=TIMELINE_K, wall_s=rep['wall_s'],
+                              phase_sum_s=phase_us / 1e6,
+                              phase_sum_rel_gap=abs(phase_us - wall_us)
+                              / wall_us, feed_s=rep['feed_s'],
+                              update_s=rep['update_s'],
+                              compute_s=rep['compute_s']),
+        summary=summary[:12],
+        step_ms_armed=armed, step_ms_disarmed=disarmed,
+        step_ms_p50_armed=float(np.median(armed)),
+        step_ms_p50_disarmed=float(np.median(disarmed)))
+    print("profiled step: %s" % json.dumps(res))
+    want = {'flash_attention_fwd': c['L'], 'flash_attention_bwd': c['L'],
+            'dense_update': 2 + 12 * c['L'] + 4}
+    if by_symbol != res['launch_counts'] or by_symbol != want:
+        raise SystemExit("profiler rows %s, launch counters %s, want %s"
+                         % (by_symbol, res['launch_counts'], want))
+    if res['traced_run_steps']['phase_sum_rel_gap'] > TOL_PHASE_SUM:
+        raise SystemExit("trace phases %.6f s against the wall %.6f s"
+                         % (phase_us / 1e6, rep['wall_s']))
+    if not any('executor.dispatch' in ln for ln in summary):
+        raise SystemExit("summary lacks the dispatch phase: %s" % summary)
+    return dict(main=main, cost=cost, exe=exe, scope=scope, feed=feed,
+                counts={k: int(prof['launch_counts'].get(k, 0))
+                        for k in _counts()},
+                traced_counts=traced_counts, res=res)
+
+
+def _scrape(port):
+    import urllib.request
+    return urllib.request.urlopen('http://127.0.0.1:%d/metrics' % port,
+                                  timeout=30).read().decode()
+
+
+def phase_telemetry(ctr_srv, c=SERVE, t=TELEMETRY):
+    """Phase 90: the flagship decode server and phase 80's CTR batching
+    server on the process registry; /metrics (localhost, port 0) scraped
+    once while both serve; every line parses, the TTFT histogram counts
+    the requests served, and ``close()`` retires both servers' series."""
+    from paddle_tpu_torch import observability as tobs
+    cfg = TransformerConfig(vocab_size=c['V'], seq_len=c['T'],
+                            n_layers=c['L'], d_model=c['D'],
+                            n_heads=c['H'])
+    params = init_params(cfg, torch.Generator().manual_seed(SEED + 90))
+    eng = DecodeEngine(params, n_layers=c['L'], n_heads=c['H'],
+                       page_size=c['page'], max_streams=c['streams'],
+                       prefill_bucket=c['bucket'])
+    dec = DecodeServer(eng)
+    dsid, bsid = dec._m._sid, ctr_srv._m._sid
+    http = tobs.serve_metrics(port=0)
+    rng = np.random.default_rng(SEED + 90)
+    try:
+        _zero_counts()
+        completed0 = ctr_srv.stats()['requests_completed']
+        streams = [dec.submit(p, max_new_tokens=c['max_new']) for p in
+                   _serving_prompts(rng, t['decode_requests'], c['V'])]
+        futs = [ctr_srv.submit(_ctr_request(rng, 1))
+                for _ in range(t['ctr_requests'])]
+        body = _scrape(http.port)
+        served_at_scrape = sum(s.first_token_t is not None
+                               for s in streams)
+        for s in streams:
+            s.result(timeout=300.0)
+        for f in futs:
+            f.result(timeout=300.0)
+        launches = _counts()
+        snap = tobs.snapshot()
+        dstats, bstats = dec.stats(), ctr_srv.stats()
+    finally:
+        dec.close()
+        ctr_srv.close()
+        http.close()
+    lines = [ln for ln in body.splitlines() if ln and not ln.startswith('#')]
+    bad_lines = [ln for ln in lines if not SAMPLE_RE.match(ln)]
+
+    def count(name, sid):
+        fam = snap.get(name, {'samples': []})
+        return sum(s['count'] for s in fam['samples']
+                   if s['labels'].get('server') == sid)
+    after = tobs.snapshot()
+    left = sorted({s['labels'].get('server') for fam in after.values()
+                   for s in fam['samples']} & {dsid, bsid})
+    res = dict(scrape_lines=len(lines), scrape_bytes=len(body),
+               unparsed_lines=bad_lines[:5],
+               decode_series_in_scrape=sum('server="%s"' % dsid in ln
+                                           for ln in lines),
+               ctr_series_in_scrape=sum('server="%s"' % bsid in ln
+                                        for ln in lines),
+               ttft_served_at_scrape=served_at_scrape,
+               ttft_count=count('paddle_tpu_decode_ttft_seconds', dsid),
+               decode_completed=dstats['completed'],
+               ctr_latency_count=count(
+                   'paddle_tpu_serving_request_latency_seconds', bsid),
+               ctr_completed=bstats['requests_completed'],
+               ctr_completed_here=bstats['requests_completed'] - completed0,
+               series_left_after_close=left, flash_launches=launches[
+                   'flash_attention_fwd'])
+    print("serving telemetry: %s" % json.dumps(res))
+    if bad_lines or not res['decode_series_in_scrape'] or \
+            not res['ctr_series_in_scrape'] or \
+            res['ttft_count'] != t['decode_requests'] or \
+            res['decode_completed'] != t['decode_requests'] or \
+            res['ctr_latency_count'] != res['ctr_completed'] or \
+            res['ctr_completed_here'] != t['ctr_requests'] or left:
+        raise SystemExit("serving telemetry: %s" % res)
+    return dict(counts=launches, **res)
+
+
+def _nan_net():
+    main, startup = tfl.Program(), tfl.Program()
+    main.random_seed = startup.random_seed = SEED
+    with tfl.program_guard(main, startup):
+        x = tfl.layers.data(name='x', shape=[32], dtype='float32')
+        y = tfl.layers.data(name='y', shape=[1], dtype='float32')
+        h = tfl.layers.fc(input=x, size=64, act='relu')
+        cost = tfl.layers.mean(tfl.layers.square_error_cost(
+            input=tfl.layers.fc(input=h, size=1), label=y))
+        tfl.optimizer.SGDOptimizer(0.01).minimize(cost)
+    return main, startup, cost
+
+
+def phase_no_hidden_syncs(tr):
+    """Phase 91: one disarmed training step of phase 89's transformer,
+    from card-resident feeds up to its fetch, under
+    ``torch.cuda.set_sync_debug_mode('error')``: the step and its
+    instrumentation (metrics on, timeline disarmed) make no host sync.
+    Then a planted NaN fed to an fc net on the card under ``nan_guard()``
+    must raise naming the op that wrote it (the first fc's ``mul``)."""
+    from paddle_tpu_torch import debug as tdebug
+    from paddle_tpu_torch import observability as tobs
+    from paddle_tpu_torch.observability import timeline as ttl
+    os.environ.pop('PADDLE_TPU_TORCH_TRACE_DIR', None)
+    ttl.reset()
+    exe, main, cost, scope, feed = (tr[k] for k in ('exe', 'main', 'cost',
+                                                    'scope', 'feed'))
+    exe.run(main, feed=feed, fetch_list=[cost], scope=scope,
+            return_numpy=False)
+    torch.cuda.synchronize()
+    sites = {}
+    for enabled in (False, True):
+        tobs.set_enabled(enabled)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            torch.cuda.set_sync_debug_mode('warn')
+            try:
+                exe.run(main, feed=feed, fetch_list=[cost], scope=scope,
+                        return_numpy=False)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        sites[enabled] = [str(w.message)[:160] for w in caught
+                          if _is_host_sync(w.message)]
+    tobs.reload_enabled()
+    error = None
+    _zero_counts()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        out, = exe.run(main, feed=feed, fetch_list=[cost], scope=scope,
+                       return_numpy=False)
+    except RuntimeError as e:
+        error = str(e)[:300]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counts = _counts()
+    loss = float(out.cpu()[0]) if error is None else None
+    nmain, nstartup, ncost = _nan_net()
+    nexe, nscope = tfl.Executor(), tfl.Scope()
+    nexe.run(nstartup, scope=nscope)
+    rng = np.random.default_rng(SEED + 91)
+    x = rng.normal(size=(64, 32)).astype(np.float32)
+    x[5, 7] = np.nan
+    nfeed = {'x': x, 'y': rng.normal(size=(64, 1)).astype(np.float32)}
+    guard = None
+    try:
+        with tdebug.nan_guard():
+            nexe.run(nmain, feed=nfeed, fetch_list=[ncost], scope=nscope)
+    except FloatingPointError as e:
+        guard = str(e)
+    # the guard raised before any update; disarmed, the same step runs
+    # to a NaN loss
+    plain, = nexe.run(nmain, feed=nfeed, fetch_list=[ncost], scope=nscope)
+    res = dict(sync_sites_metrics_off=sites[False],
+               sync_sites_metrics_on=sites[True],
+               error_mode_step=error or 'no sync', loss=loss,
+               launches=counts, unguarded_loss_is_nan=bool(
+                   np.isnan(plain).all()),
+               guard_message=guard)
+    print("no hidden syncs: %s" % json.dumps(res))
+    if error is not None or sites[True] or sites[False] or \
+            not np.isfinite(loss):
+        raise SystemExit("host sync in a disarmed step: %s" % res)
+    if guard is None or "op 'mul' (#0)" not in guard or \
+            'has 64 NaN' not in guard or not res['unguarded_loss_is_nan']:
+        raise SystemExit("nan_guard: %s" % res)
+    return dict(counts=counts, **res)
+
+
+def _observability_phases(ctr_srv):
+    """Phases 88-91, timed together."""
+    t0 = time.perf_counter()
+    out = dict(prefetch=phase_prefetch())
+    torch.cuda.empty_cache()
+    tr = phase_profiled_step()
+    out['profiled'] = tr
+    out['telemetry'] = phase_telemetry(ctr_srv)
+    out['syncs'] = phase_no_hidden_syncs(tr)
+    del tr['scope'], tr['exe'], tr['feed']
+    torch.cuda.empty_cache()
+    out['seconds'] = time.perf_counter() - t0
+    print("phases 88-91 (run_steps with device prefetch, the profiler and "
+          "the timeline, serving telemetry, no hidden syncs): %.1f s"
+          % out['seconds'])
+    return out
+
+
+def _standalone_ctr_server(c=CTR_SERVE):
+    """Phase 80's CTR batching server, for ``--observability`` alone."""
+    from paddle_tpu_torch.inference import BatchingInferenceServer
+    main, startup, pred = _ctr_serve_program(c)
+    exe, scope = tfl.Executor(), tfl.Scope()
+    exe.run(startup, scope=scope)
+    specs = {'C%d' % i: (1,) for i in range(c['slots'])}
+    specs['I'] = (13,)
+    return BatchingInferenceServer.from_program(
+        specs, [pred], executor=exe, main_program=main, scope=scope,
+        max_batch=c['max_batch'], max_wait_ms=c['max_wait_ms'],
+        linger_ms=c['linger_ms'])
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ['--profile-step']:
+        _profile_child(sys.argv[2])
+        return 0
     if sys.argv[1:2] == ['--cold-start']:
         _cold_start_child(*sys.argv[2:5])
         return 0
@@ -9419,6 +10029,12 @@ def main():
         phase_build(('flash_attention_fwd', 'flash_attention_bwd',
                      'dense_update'))
         _dispatch_phases()
+        return 0
+    if sys.argv[1:] == ['--observability']:
+        phase_build(('flash_attention_fwd', 'flash_attention_bwd',
+                     'dense_update'))
+        res = _observability_phases(_standalone_ctr_server())
+        print(json.dumps({'observability': res}, default=str))
         return 0
     if sys.argv[1:] == ['--flash']:
         phase_build(FLASH_SOURCES)
@@ -9473,12 +10089,15 @@ def main():
     m4 = _m4_phases()
     torch.cuda.empty_cache()
     base = tempfile.mkdtemp(prefix='chip_smoke_versions_')
+    keep = {}
     try:
-        serve = _serve_phases(base, serve_tokens)
+        serve = _serve_phases(base, serve_tokens, keep)
         torch.cuda.empty_cache()
         fleet = _fleet_phases(base)
     finally:
         shutil.rmtree(base, ignore_errors=True)
+    torch.cuda.empty_cache()
+    obs = _observability_phases(keep['ctr'])
     counts = tr['counts']
     main_row = next(r for r in rows if r['case'] == MAIN_CASE)
     fwd = dict(
@@ -9632,6 +10251,16 @@ def main():
         tenant='sentiment', launches_per_batch=fleet['fleet'][
             'lstm_fwd_per_batch'])
     by_name['gru_fwd']['artifact_shape'] = fleet['encoder']['rows']
+    # phases 88-91: ResNet-50 through the prefetching run_steps and the
+    # one-shot one, the profiled and traced transformer steps, the decode
+    # server's prefills under the process registry, the sync-checked step
+    _add_paths(lines, {
+        'resnet50_run_steps_prefetch': obs['prefetch']['counts_on'],
+        'resnet50_run_steps_one_shot': obs['prefetch']['counts_off'],
+        'profiled_training_step': obs['profiled']['counts'],
+        'timeline_armed_training': obs['profiled']['traced_counts'],
+        'telemetry_decode_serving': obs['telemetry']['counts'],
+        'sync_checked_training_step': obs['syncs']['counts']})
     print(json.dumps({'kernels': lines}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

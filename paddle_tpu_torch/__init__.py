@@ -83,7 +83,13 @@ Ported so far:
   initializers ``TruncatedNormal`` and ``MSRAInitializer``, and
   ``nets.glu``; and the flash inner-loop ceiling probe's kernel
   (``ops/kernels/flash_ceiling.py``, timed by
-  ``python3 -m paddle_tpu_torch.ops.kernels.flash_ceiling_probe``).
+  ``python3 -m paddle_tpu_torch.ops.kernels.flash_ceiling_probe``);
+- observability and the feed runtime: the process metrics registry,
+  spans, the step-timeline flight recorder and ``/metrics``
+  (``observability``), ``profiler`` on ``torch.profiler``, the NaN / Inf
+  guards (``debug``), the flags (``flags``, ``FLAGS``) and ``runtime``
+  (the native queue and record files, pinned-memory staging on a side
+  stream, ``run_steps``' device prefetch).
 """
 from . import datasets, initializer, layers, nets, optimizer  # noqa: F401
 from . import clip, learning_rate_decay, reader, regularizer  # noqa: F401
@@ -103,6 +109,9 @@ from .optimizer import (AdagradOptimizer, AdamOptimizer, MomentumOptimizer,
 from .param_attr import ParamAttr
 from .reader.minibatch import batch
 from .transpiler import memory_optimize, release_memory
+from . import flags  # noqa: F401
+from .flags import FLAGS
+from . import observability, profiler, debug, runtime  # noqa: F401
 
 __all__ = ['Program', 'program_guard', 'default_main_program',
            'default_startup_program', 'Executor', 'Scope', 'scope_guard',
@@ -113,4 +122,5 @@ __all__ = ['Program', 'program_guard', 'default_main_program',
            'batch', 'reader', 'datasets', 'clip', 'regularizer',
            'learning_rate_decay', 'backward', 'append_backward',
            'calc_gradient', 'transpiler', 'memory_optimize',
-           'release_memory', 'io', 'io_recordio', 'evaluator']
+           'release_memory', 'io', 'io_recordio', 'evaluator', 'flags',
+           'FLAGS', 'observability', 'profiler', 'debug', 'runtime']

@@ -73,11 +73,46 @@ their wrappers.
   from its inputs, which it keeps; its ops run again with the same
   ``op_index``, so random ops draw the same numbers (dropout's masks
   replay), and the gradients are bitwise those of a run without it.
-- ``run_steps`` runs K steps as a host loop over the same step, every
-  feed staged on the device first; fetches come back stacked [K, ...].
+- ``run_steps`` runs K steps as a host loop over the same step, with
+  fetches stacked [K, ...].  Its host feeds go to the card in one copy:
+  packed into a pinned block at the offsets of the call's "multi plan"
+  (``_MultiPlan``, cached per step count and feed layout, the port's
+  counterpart of the reference's K-step scan plan) and copied on a side
+  stream (runtime/feed.py ``DeviceStager``).  With
+  ``PADDLE_TPU_TORCH_DEVICE_PREFETCH`` the K steps run in chunks of
+  ``PADDLE_TPU_TORCH_DEVICE_PREFETCH_CHUNK`` (default ``max(1,
+  ceil(K/4))``) through ``runtime.prefetch.device_prefetch``: chunk c+1
+  is staged right after chunk c's kernels are enqueued, so only the first
+  chunk is a blocking put and about two chunks of feed are on the card at
+  once; the numbers are bitwise those of the one-shot path.  A failure
+  between chunks leaves the scope at that chunk boundary and raises a
+  RuntimeError from the original error; a failure inside a chunk's steps
+  raises the original error, the scope holding the steps that ran.
+- Observability (reference: executor.py:104-199 and its spans and
+  timeline events): the registry's executor series
+  (``paddle_tpu_executor_*``, ``paddle_tpu_graph_opt_*``,
+  ``paddle_tpu_amp_*``, ``paddle_tpu_ir_verify_failures_total``; the
+  collective and overlap series come with distribution, ROADMAP.md
+  Queue 1 item 10), the spans ``executor.run``, ``executor.run_steps``
+  and ``executor.compile``, and, when the flight recorder is armed, the
+  timeline events ``executor.feed_stage`` / ``executor.feed_stack`` /
+  ``prefetch.stage`` (feed), ``executor.compile`` (compile: the plan
+  build and its pass pipeline, the port's compile),
+  ``executor.dispatch`` and ``executor.fetch_sync`` (compute),
+  ``executor.scope_update`` (update), the card's chunk intervals
+  (``executor.chunk_compute``, measured with CUDA events) and the memory
+  counter tracks.  Disarmed and disabled, each site is one cached-bool
+  check: no clock read, no allocation, no host sync.  An exception in
+  ``run`` or ``run_steps`` dumps the ring first when
+  ``PADDLE_TPU_TORCH_TRACE_DUMP_ON_ERROR`` is on; ``run_steps`` flushes
+  it to ``PADDLE_TPU_TORCH_TRACE_DIR``.
+- NaN / Inf guard (debug.py ``nan_guard``, ``PADDLE_TPU_TORCH_CHECK_NAN_INF``):
+  armed, every op's floating outputs are scanned as it runs and the first
+  op that wrote a NaN or an Inf raises FloatingPointError naming it.
 - ``last_step_report`` (``run`` and ``run_steps``): the measured walls
-  (``wall_s``, ``feed_s`` staging, ``update_s`` the scope write-back,
-  ``compute_s`` the rest), ``phases`` joined with the plan's cost report
+  (``wall_s``, ``feed_s`` staging on the critical path, ``feed_overlap_s``
+  staging beside the card's work, ``update_s`` the scope write-back,
+  ``compute_s`` the rest), ``chunks``, ``phases`` joined with the plan's cost report
   (FLOPs and bytes a step; achieved FLOP/s on a synced call, and ``mfu``
   when ``PADDLE_TPU_TORCH_PEAK_TFLOPS`` is set), and ``memory``: the
   modelled peak and watermark op (transpiler/memory_model.py), the remat
@@ -123,6 +158,9 @@ import weakref
 import numpy as np
 import torch
 
+from .. import debug as _debug
+from .. import observability as _obs
+from ..observability import timeline as _tlm
 from . import datatypes
 from .lod import LoDTensor
 from .place import resolve_device
@@ -193,6 +231,133 @@ class ExecutionContext(object):
             [w & 0xFFFFFFFF for w in words]).generate_state(2, np.uint32)
         seed = (int(state[0]) << 31) ^ int(state[1])
         return torch.Generator(device=self.device).manual_seed(seed)
+
+
+class _ExecutorMetrics(object):
+    """Handles into the observability registry for the executor layer
+    (reference: executor.py ``_ExecutorMetrics``, the same names).  Made
+    at the first enabled use, so with metrics disabled nothing here is
+    allocated.  The reference's collective and overlap series come with
+    distribution (ROADMAP.md Queue 1 item 10)."""
+
+    def __init__(self):
+        r = _obs.registry()
+        self.plan_cache_hits = r.counter(
+            'paddle_tpu_executor_plan_cache_hits_total',
+            'Executor plan-cache lookups served from cache').child()
+        self.plan_cache_misses = r.counter(
+            'paddle_tpu_executor_plan_cache_misses_total',
+            'Executor plan-cache lookups that built a new plan').child()
+        self.compiles = r.counter(
+            'paddle_tpu_executor_compiles_total',
+            'first invocations of freshly built plans').child()
+        self.compile_seconds = r.histogram(
+            'paddle_tpu_executor_compile_seconds',
+            'wall time of a fresh plan\'s build (pass pipeline, liveness, '
+            'feed layout), observed at its first invocation',
+            buckets=_obs.DEFAULT_COMPILE_BUCKETS).child()
+        self.runs = r.counter(
+            'paddle_tpu_executor_runs_total',
+            'Executor.run() calls').child()
+        self.steps = r.counter(
+            'paddle_tpu_executor_steps_total',
+            'train/eval steps executed (run() counts one, run_steps(K) '
+            'counts K)').child()
+        self.feed_bytes = r.counter(
+            'paddle_tpu_executor_feed_bytes_total',
+            'bytes of feed data staged to the device').child()
+        self.donated_state_bytes = r.counter(
+            'paddle_tpu_executor_donated_state_bytes_total',
+            'bytes of persistable state the steps update in place (the '
+            'port\'s donation)').child()
+        self.graph_opt_ops_eliminated = r.counter(
+            'paddle_tpu_graph_opt_ops_eliminated_total',
+            'ops removed by the graph-opt pass pipeline (DCE + constant '
+            'folding + CSE), summed over plan builds').child()
+        self.graph_opt_seconds = r.histogram(
+            'paddle_tpu_graph_opt_seconds',
+            'wall time of one graph-opt pipeline run (per plan-cache '
+            'miss)', buckets=_obs.DEFAULT_COMPILE_BUCKETS).child()
+        self.amp_ops_lowered = r.counter(
+            'paddle_tpu_amp_ops_lowered_total',
+            'ops rewritten to low-precision compute by the AMP pass, '
+            'summed over plan builds').child()
+        self.amp_skipped_steps = r.counter(
+            'paddle_tpu_amp_skipped_steps_total',
+            'training steps skipped by dynamic loss scaling (non-finite '
+            'gradients; f16 mode only)').child()
+        self.donated_feed_bytes = r.counter(
+            'paddle_tpu_executor_donated_feed_bytes_total',
+            'bytes of executor-staged feed buffers, dead after the step '
+            'that reads them').child()
+        self.feed_blocking_puts = r.counter(
+            'paddle_tpu_executor_feed_blocking_puts_total',
+            'run_steps feed stagings on the critical path (the card idle '
+            'while the host stages); with PADDLE_TPU_TORCH_DEVICE_PREFETCH '
+            'only the pipeline-priming chunk counts here').child()
+        self.feed_prefetched_puts = r.counter(
+            'paddle_tpu_executor_feed_prefetched_puts_total',
+            'feed chunks staged by the device-prefetch pipeline while a '
+            'previous chunk was running').child()
+        self.feed_prefetched_bytes = r.counter(
+            'paddle_tpu_executor_feed_prefetched_bytes_total',
+            'bytes staged by the device-prefetch pipeline while a '
+            'previous chunk was running').child()
+        self.ir_verify_failures = r.counter(
+            'paddle_tpu_ir_verify_failures_total',
+            'plan builds rejected by the static IR verifier '
+            '(PADDLE_TPU_TORCH_VERIFY_IR, transpiler/verify.py)').child()
+
+
+_exec_metrics = None
+
+
+def _em():
+    global _exec_metrics
+    if _exec_metrics is None:
+        _exec_metrics = _ExecutorMetrics()
+    return _exec_metrics
+
+
+def _tensor_bytes(t):
+    if isinstance(t, SelectedRows):
+        return _tensor_bytes(t.rows) + _tensor_bytes(t.values)
+    return t.numel() * t.element_size() if torch.is_tensor(t) else 0
+
+
+def _nbytes(arrays):
+    """Total bytes over a {name: tensor} dict."""
+    return sum(_tensor_bytes(v) for v in arrays.values())
+
+
+def _feed_shape_error(name, shapes):
+    """The run_steps shape contract of the prefetching path (reference:
+    executor.py ``_feed_shape_error``)."""
+    return ValueError(
+        "run_steps feeds must agree in shape across steps when they are "
+        "prefetched in chunks (one staging layout a chunk), but %r "
+        "varies: %s.  Pad batches to a common shape, or turn "
+        "PADDLE_TPU_TORCH_DEVICE_PREFETCH off" % (name, sorted(shapes)))
+
+
+def _feed_column_error(step, got, want):
+    """The run_steps column-set contract (e.g. a ``@LEN`` companion fed in
+    only some steps)."""
+    return ValueError(
+        "run_steps feeds must produce one column set across steps; "
+        "step %d yields %s vs %s" % (step, sorted(got), sorted(want)))
+
+
+class _MultiPlan(object):
+    """The feed layout of a run_steps call or chunk of ``n`` steps: which
+    (step, column) slots come from the host, and their offsets in the one
+    pinned block and device buffer they are staged through.  Cached per
+    step count and feed specs (the reference's K-step scan plan)."""
+
+    def __init__(self, slots, nbytes):
+        from ..runtime.feed import slot_layout
+        self.slots = slots
+        self.layout = slot_layout(nbytes)
 
 
 _NARROW = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
@@ -313,6 +478,10 @@ def _run_one(op, env, ctx, op_index):
                     and torch.is_tensor(v):
                 v = v.detach()
             env[n] = _error_clipped(var, v)
+    if _debug.ARMED:
+        names = [n for n in op.output_arg_names if n in env]
+        _debug.scan_outputs(op, names, [env[n] for n in names],
+                            ctx.op_index)
 
 
 def _op_rw(op):
@@ -928,6 +1097,9 @@ def _run_autodiff(ad_op, gp, env, ctx, pre):
     for leaf, gn, g in zip(wrt, grad_names, grads):
         env[gn] = (torch.zeros_like(leaf) if g is None
                    else g.to(leaf.dtype)).detach()
+    if _debug.ARMED:
+        _debug.scan_outputs(ad_op, grad_names, [env[n] for n in grad_names],
+                            ad_op.attrs.get('op_seq', -1))
 
 
 def _fetched(t, return_numpy):
@@ -952,6 +1124,10 @@ class Executor(object):
         self.skipped_ops = []
         # (program uid, version, fetches, feeds, plan_key) -> _StepPlan
         self._plans = {}
+        # run_steps feed layouts (_MultiPlan), keyed as _multi_plan says
+        self._multi = {}
+        self._stager = None
+        self._state_bytes = 0   # the last step's in-place state bytes
         self.last_graph_opt_report = None
         # the last run's or run_steps call's measured walls joined with
         # the plan's cost and memory reports (_finalize_step_report)
@@ -961,22 +1137,33 @@ class Executor(object):
         seed = program.random_seed
         return seed if seed else id(self) % (2 ** 31)
 
-    def _to_device(self, name, value, var):
-        """One feed or scope value as a tensor on the executor's device.
-        Host 64-bit types narrow to 32 bits and a declared float dtype is
-        honoured, as the reference's feed conversion
-        (``_np_to_device_dtype``) does."""
-        if torch.is_tensor(value):
-            t = value
-        else:
-            arr = np.asarray(value)
-            if arr.dtype in _NARROW:
-                arr = arr.astype(_NARROW[arr.dtype])
-            t = torch.from_numpy(np.array(arr, copy=True))
+    @staticmethod
+    def _host_tensor(value, var, copy=True):
+        """A host feed value as a CPU tensor, converted as the reference's
+        feed conversion (``_np_to_device_dtype``) does: host 64-bit types
+        narrow to 32 bits and a declared float dtype is honoured.  Without
+        ``copy`` the tensor may share the caller's memory (it is only read,
+        into a pinned block)."""
+        arr = np.asarray(value)
+        if arr.dtype in _NARROW:
+            arr = arr.astype(_NARROW[arr.dtype])
+        elif copy or not arr.flags.writeable:
+            arr = np.array(arr, copy=True)
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        return Executor._declared(t, var)
+
+    @staticmethod
+    def _declared(t, var):
         if var is not None and datatypes.is_float_dtype(var.dtype) and \
                 t.dtype != torch.bool:
             t = t.to(datatypes.as_torch_dtype(var.dtype))
-        return t.to(self.place)
+        return t
+
+    def _to_device(self, name, value, var):
+        """One feed or scope value as a tensor on the executor's device."""
+        if torch.is_tensor(value):
+            return self._declared(value, var).to(self.place)
+        return self._host_tensor(value, var).to(self.place)
 
     def _resolve(self, program, scope, fetch_list):
         if program is None:
@@ -999,10 +1186,31 @@ class Executor(object):
                 staged[col] = self._to_device(col, v, block.vars.get(col))
         return staged
 
-    def _plan(self, program, fetch_names, staged):
+    def _feed_slots(self, block, feed):
+        """A feed dict as {column: (tensor, host)}: a tensor already on the
+        executor's device stays there (``host`` False), any other value
+        becomes a CPU tensor to stage (``host`` True)."""
+        out = {}
+        for name, value in feed.items():
+            for col, v in _feed_columns(name, value,
+                                        block.vars.get(name)).items():
+                var = block.vars.get(col)
+                if torch.is_tensor(v) and v.device == self.place and \
+                        self.place.type != 'cpu':
+                    out[col] = (self._declared(v, var), False)
+                elif torch.is_tensor(v):
+                    out[col] = (self._declared(v.detach().cpu(), var), True)
+                else:
+                    out[col] = (self._host_tensor(
+                        v, var, copy=self.place.type == 'cpu'), True)
+        return out
+
+    def _plan(self, program, fetch_names, staged, count_hit=True):
         """The plan of a run: the pass pipeline's rewrite of ``program``
         and its ``_StepPlan``, kept per (program, version, fetches, feeds,
-        the batch size they bind, pass configuration)."""
+        the batch size they bind, pass configuration).  ``staged`` gives
+        the feeds' names and specs.  Returns (plan, fresh, build_s): fresh
+        when this call built it, in ``build_s`` seconds."""
         from ..transpiler import cost_model, pass_manager
         feed_names = list(staged)
         feed_specs = {n: (tuple(t.shape), datatypes.convert_dtype(t.dtype))
@@ -1013,42 +1221,133 @@ class Executor(object):
                tuple(sorted(feed_names)), batch,
                pass_manager.plan_key(program))
         plan = self._plans.get(key)
-        if plan is None:
-            known = set(program.global_block().vars)
-            for op in program.global_block().ops:
-                known.update(op.output_arg_names)
-            for n in fetch_names:
-                if n not in known and n not in feed_names:
-                    raise KeyError(
-                        "fetch var %r is not produced by any op in the "
-                        "program and is not fed" % n)
-            prog, report = pass_manager.run_pipeline(
-                program, fetch_names=fetch_names,
-                feed_names=tuple(sorted(feed_names)), feed_specs=feed_specs)
-            plan = _StepPlan(prog, fetch_names, _value_bytes(prog, batch)
-                             if getattr(prog, '_remat_level', None) == 'full'
-                             else None)
-            plan.program, plan.report = prog, report
-            ops = prog.global_block().ops
-            # the user's op positions the run leaves out: the pipeline's
-            # dead-op elimination and the plan's own liveness
-            plan.skipped = sorted(report['removed'] + [
-                (ops[i].attrs.get('op_seq', i), t) for i, t in plan.skipped])
+        fresh, build_s = plan is None, 0.0
+        if not fresh:
+            if count_hit and _obs.enabled():
+                _em().plan_cache_hits.inc()
+        else:
+            em = _em() if _obs.enabled() else None
+            if em is not None:
+                em.plan_cache_misses.inc()
+            tl = _tlm.ring_if_armed()
+            t0 = time.perf_counter()
+            with _obs.span('executor.compile'):
+                plan = self._build_plan(program, fetch_names, feed_names,
+                                        feed_specs, batch, em)
+            build_s = time.perf_counter() - t0
+            if tl is not None:
+                tl.record('executor.compile', 'compile', t0=t0, dur=build_s,
+                          args={'ops': len(plan.program.global_block().ops)})
             self._plans[key] = plan
         # None when nothing rewrote the program (the reference's bypass)
         self.last_graph_opt_report = (
             plan.report if plan.report['level'] > 0 or 'amp' in plan.report
             else None)
+        return plan, fresh, build_s
+
+    def _build_plan(self, program, fetch_names, feed_names, feed_specs,
+                    batch, em):
+        from ..transpiler import pass_manager
+        known = set(program.global_block().vars)
+        for op in program.global_block().ops:
+            known.update(op.output_arg_names)
+        for n in fetch_names:
+            if n not in known and n not in feed_names:
+                raise KeyError(
+                    "fetch var %r is not produced by any op in the "
+                    "program and is not fed" % n)
+        try:
+            prog, report = pass_manager.run_pipeline(
+                program, fetch_names=fetch_names,
+                feed_names=tuple(sorted(feed_names)), feed_specs=feed_specs)
+        except pass_manager.IRVerificationError:
+            if em is not None:
+                em.ir_verify_failures.inc()
+            raise
+        if em is not None and (report['level'] > 0 or 'amp' in report):
+            if report['ops_before'] is not None:
+                # what the graph-opt passes removed, not the op delta:
+                # AMP weaves casts in after the eliminations
+                em.graph_opt_seconds.observe(sum(
+                    e['wall_s'] for e in report['passes']
+                    if e['name'] != 'amp'))
+                em.graph_opt_ops_eliminated.inc(
+                    max(0, sum(report['eliminated'].values())))
+            if report.get('amp') is not None:
+                em.amp_ops_lowered.inc(report['amp']['ops_lowered'])
+        plan = _StepPlan(prog, fetch_names, _value_bytes(prog, batch)
+                         if getattr(prog, '_remat_level', None) == 'full'
+                         else None)
+        plan.program, plan.report = prog, report
+        ops = prog.global_block().ops
+        # the user's op positions the run leaves out: the pipeline's
+        # dead-op elimination and the plan's own liveness
+        plan.skipped = sorted(report['removed'] + [
+            (ops[i].attrs.get('op_seq', i), t) for i, t in plan.skipped])
         return plan
+
+    def _multi_plan(self, program, fetch_names, n, stacked, slots):
+        """The feed layout (``_MultiPlan``) of ``n`` steps whose feeds are
+        ``slots`` [(step, column, tensor, host)], kept per (program,
+        version, fetches, n, stacked, each slot's spec and whether it is
+        staged, pass configuration).  Counted in the registry as the
+        reference counts its K-step scan plans.  Returns (plan, fresh,
+        build_s)."""
+        from ..transpiler import pass_manager
+        specs = tuple((i, c, tuple(t.shape), str(t.dtype), host)
+                      for i, c, t, host in slots)
+        key = (program._uid, program.version, tuple(fetch_names), n,
+               stacked, specs, pass_manager.plan_key(program))
+        multi = self._multi.get(key)
+        if multi is not None:
+            if _obs.enabled():
+                _em().plan_cache_hits.inc()
+            return multi, False, 0.0
+        if _obs.enabled():
+            _em().plan_cache_misses.inc()
+        t0 = time.perf_counter()
+        multi = self._multi[key] = _MultiPlan(
+            [(i, c) for i, c, _, host in slots if host],
+            [_tensor_bytes(t) for _, _, t, host in slots if host])
+        return multi, True, time.perf_counter() - t0
+
+    def _stage_slots(self, multi, slots):
+        """Stage a multi plan's host slots on the card in one copy through
+        the pinned stager (on the CPU the converted host tensors are the
+        staged ones); returns ([{column: tensor}] a step, bytes staged).
+        Slots already on the card pass through."""
+        host = [t for _, _, t, h in slots if h]
+        if host and self.place.type == 'cuda':
+            from ..runtime.feed import DeviceStager
+            if self._stager is None:
+                self._stager = DeviceStager(self.place)
+            views = iter(self._stager.stage(host, multi.layout)[0])
+        else:
+            views = iter(host)
+        steps = {}
+        for i, c, t, h in slots:
+            steps.setdefault(i, {})[c] = next(views) if h else t
+        return [steps[i] for i in sorted(steps)], sum(
+            _tensor_bytes(t) for t in host)
 
     def reset_cache(self):
         """Drop every plan; the next run of each program plans anew."""
         self._plans.clear()
+        self._multi.clear()
 
-    def _step(self, program, scope, staged, fetch_names, report=None):
+    def _step(self, program, scope, staged, fetch_names, report=None,
+              em=None, tl=None, count_hit=True, count_compile=True):
         """One run of the block on a staged feed; returns the fetched
-        tensors.  ``report['update_s']`` gains the write-back's wall."""
-        plan = self._plan(program, fetch_names, staged)
+        tensors.  ``report['update_s']`` gains the write-back's wall.
+        Counts the plan lookup (``count_hit``) and a fresh plan's first
+        invocation (``count_compile``) when ``em`` is given, and records
+        the step's timeline events on an armed ``tl``."""
+        plan, fresh, build_s = self._plan(program, fetch_names, staged,
+                                          count_hit=count_hit)
+        if fresh and count_compile and em is not None:
+            em.compiles.inc()
+            em.compile_seconds.observe(build_s)
+        t_d0 = time.perf_counter() if tl is not None else 0.0
         program = plan.program
         block = program.global_block()
         amp = plan.report.get('amp')
@@ -1071,6 +1370,9 @@ class Executor(object):
                         "scope value %r lies on %s, the executor runs on %s"
                         % (v.name, t.device, self.place))
                 env[v.name] = t
+        if em is not None or tl is not None:
+            self._state_bytes = sum(_tensor_bytes(env[n])
+                                    for n in plan.write_back if n in env)
         env.update(staged)
 
         ctx = ExecutionContext(program, block, self.place,
@@ -1092,8 +1394,15 @@ class Executor(object):
                     old.copy_(new)   # in place: the scope tensor stays
                 else:
                     scope.set(name, new)
+            t_end = time.perf_counter()
             if report is not None:
-                report['update_s'] += time.perf_counter() - t_update
+                report['update_s'] += t_end - t_update
+        if tl is not None:
+            tl.record('executor.dispatch', 'compute', t0=t_d0,
+                      dur=t_update - t_d0,
+                      args={'donated_state_bytes': self._state_bytes})
+            tl.record('executor.scope_update', 'update', t0=t_update,
+                      dur=t_end - t_update)
         fetches = []
         for n in fetch_names:
             if n not in env:
@@ -1104,30 +1413,102 @@ class Executor(object):
     def run(self, program=None, feed=None, fetch_list=None,
             feed_var_name='feed', fetch_var_name='fetch', scope=None,
             return_numpy=True, use_program_cache=True):
+        try:
+            return self._run_impl(program, feed, fetch_list, scope,
+                                  return_numpy)
+        except BaseException:
+            # the flight recorder's forensics: a cached-bool no-op when
+            # disarmed, and it never raises
+            _tlm.maybe_dump_on_error()
+            raise
+
+    def _run_impl(self, program, feed, fetch_list, scope, return_numpy):
         t_call = time.perf_counter()
         program, scope, fetch_names = self._resolve(program, scope,
                                                     fetch_list)
+        tl = _tlm.ring_if_armed()
+        if tl is not None:
+            tl.set_step(self._step_count)
         report = self._new_report(1)
-        staged = self._stage_feed(program.global_block(), feed or {})
+        feed = feed or {}
+        staged = self._stage_feed(program.global_block(), feed)
         report['feed_s'] = time.perf_counter() - t_call
-        outs = [_fetched(t, return_numpy) for t in
-                self._step(program, scope, staged, fetch_names, report)]
+        em = _em() if _obs.enabled() else None
+        host_fed = not any(torch.is_tensor(v) for v in feed.values())
+        if tl is not None and staged:
+            tl.record('executor.feed_stage', 'feed', t0=t_call,
+                      dur=report['feed_s'],
+                      args={'bytes': _nbytes(staged), 'donated': host_fed})
+        with _obs.span('executor.run'):
+            fetched = self._step(program, scope, staged, fetch_names,
+                                 report, em=em, tl=tl)
+            if em is not None:
+                em.runs.inc()
+                em.steps.inc()
+                nb = _nbytes(staged)
+                em.feed_bytes.inc(nb)
+                em.donated_state_bytes.inc(self._state_bytes)
+                if host_fed and staged:
+                    em.donated_feed_bytes.inc(nb)
+            if tl is not None:
+                self._sample_device_memory(tl)
+            outs = [_fetched(t, return_numpy) for t in fetched]
+            if em is not None and return_numpy:
+                self._note_amp_skips(scope)
         self._finalize_step_report(report, t_call,
-                                   synced=return_numpy and bool(outs))
+                                   synced=return_numpy and bool(outs),
+                                   flush=False)
         return outs
+
+    def _note_amp_skips(self, scope):
+        """The f16 loss scaling's skipped-step counter (a scope value on
+        the card) as the registry's ``paddle_tpu_amp_skipped_steps_total``.
+        Read only on synced (return_numpy) calls, after the fetch, so it
+        copies a ready value; the last value seen lives on the scope, so
+        two executors over one scope add each skip once."""
+        from ..transpiler.amp import SKIPPED_STEPS_VAR
+        if not scope.has(SKIPPED_STEPS_VAR):
+            return
+        v = scope.get(SKIPPED_STEPS_VAR)
+        cur = int(v.reshape(-1)[0]) if torch.is_tensor(v) else \
+            int(np.asarray(v).reshape(-1)[0])
+        seen = getattr(scope, '_amp_skip_seen', 0)
+        if cur > seen:
+            _em().amp_skipped_steps.inc(cur - seen)
+        scope._amp_skip_seen = cur
+
+    def _sample_device_memory(self, tl):
+        if self.place.type != 'cuda':
+            return
+        ms = _tlm.device_memory_stats(self.place)
+        if ms and ms.get('bytes_in_use') is not None:
+            tl.counter_sample('paddle_tpu.device_bytes_in_use',
+                              ms['bytes_in_use'])
 
     def run_steps(self, program=None, feed=None, fetch_list=None,
                   scope=None, repeat=None, return_numpy=True):
         """K training steps (reference ``Executor.run_steps``): ``feed``
         is a list of K feed dicts, or one feed dict with ``repeat=K``
-        (one batch, staged once, for every step).  Every feed is staged
-        on the device before the first step; the steps then run as K
+        (one batch, staged once, for every step).  The steps run as K
         calls of ``run`` would, with the same per-step generators.
         Returns one [K, ...]-stacked array (a tensor with
         ``return_numpy=False``) per fetch.
 
         The reference scans the K steps in one compiled loop; here they
-        are a host loop over the eager step."""
+        are a host loop over the eager step.  The host feeds reach the
+        card in one pinned copy, or, with PADDLE_TPU_TORCH_DEVICE_PREFETCH,
+        in chunks staged while the card runs the previous chunk (module
+        docstring)."""
+        try:
+            return self._run_steps_impl(program, feed, fetch_list, scope,
+                                        repeat, return_numpy)
+        except BaseException:
+            _tlm.maybe_dump_on_error()
+            raise
+
+    def _run_steps_impl(self, program, feed, fetch_list, scope, repeat,
+                        return_numpy):
+        from ..flags import FLAGS
         t_call = time.perf_counter()
         program, scope, fetch_names = self._resolve(program, scope,
                                                     fetch_list)
@@ -1152,46 +1533,281 @@ class Executor(object):
                     "step %d has %s, step 0 %s"
                     % (i, sorted(f), sorted(names0)))
         block = program.global_block()
+        stacked = len(feeds) > 1
+        prefetch = bool(FLAGS.device_prefetch) and stacked
         report = self._new_report(k)
-        staged = [self._stage_feed(block, f) for f in feeds]
+        report['device_prefetch'] = prefetch
+        em = _em() if _obs.enabled() else None
+        tl = _tlm.ring_if_armed()
+        if tl is not None:
+            tl.set_step(self._step_count)
+        if prefetch:
+            return self._run_steps_prefetch(
+                program, block, scope, feeds, k, fetch_names, report, em,
+                tl, return_numpy, t_call)
+
+        slots = [(i, c, t, h) for i, f in enumerate(feeds)
+                 for c, (t, h) in sorted(self._feed_slots(block, f).items())]
+        multi, fresh, build_s = self._multi_plan(program, fetch_names, k,
+                                                 stacked, slots)
+        staged, nb = self._stage_slots(multi, slots)
         report['feed_s'] = time.perf_counter() - t_call
-        per_step = []
-        for i in range(k):
-            outs = self._step(program, scope, staged[i % len(staged)],
-                              fetch_names, report)
-            for n, t in zip(fetch_names, outs):
-                if not torch.is_tensor(t):
-                    raise TypeError(
-                        "run_steps stacks dense fetches; %r is a %s"
-                        % (n, type(t).__name__))
-            # a fetched persistable is updated in place by later steps
-            per_step.append([t.detach().clone() for t in outs])
-        stacked = [torch.stack(ts) for ts in zip(*per_step)]
-        outs = [_fetched(t, return_numpy) for t in stacked]
+        report['feed_bytes'] = report['feed_peak_bytes'] = nb
+        if tl is not None:
+            tl.record('executor.feed_stack', 'feed', t0=t_call,
+                      dur=report['feed_s'], args={'bytes': nb, 'steps': k})
+        if em is not None:
+            if fresh:
+                em.compiles.inc()
+                em.compile_seconds.observe(build_s)
+            em.steps.inc(k)
+            em.feed_bytes.inc(nb)
+            if stacked:
+                # every step's feed staged before the first step: the
+                # critical-path put the prefetch pipeline hides
+                em.feed_blocking_puts.inc()
+                em.donated_feed_bytes.inc(nb)
+        with _obs.span('executor.run_steps'):
+            per_step = []
+            for i in range(k):
+                per_step.append(self._run_one_step(
+                    program, scope, staged[i % len(staged)], fetch_names,
+                    report, em, tl, count_hit=(i == 0)))
+                if i == 0 and em is not None:
+                    em.donated_state_bytes.inc(self._state_bytes)
+            outs = self._stack_fetches(per_step, fetch_names, return_numpy,
+                                       tl, k)
+            if em is not None and return_numpy:
+                self._note_amp_skips(scope)
         self._finalize_step_report(report, t_call,
                                    synced=return_numpy and bool(outs))
         return outs
 
+    def _run_one_step(self, program, scope, staged, fetch_names, report,
+                      em, tl, count_hit):
+        outs = self._step(program, scope, staged, fetch_names, report,
+                          em=em, tl=tl, count_hit=count_hit,
+                          count_compile=False)
+        for n, t in zip(fetch_names, outs):
+            if not torch.is_tensor(t):
+                raise TypeError(
+                    "run_steps stacks dense fetches; %r is a %s"
+                    % (n, type(t).__name__))
+        # a fetched persistable is updated in place by later steps
+        return [t.detach().clone() for t in outs]
+
+    def _stack_fetches(self, per_step, fetch_names, return_numpy, tl, k):
+        ts = time.perf_counter() if tl is not None else 0.0
+        stacked = [torch.stack(ts_) for ts_ in zip(*per_step)]
+        outs = [_fetched(t, return_numpy) for t in stacked]
+        if tl is not None and fetch_names:
+            tl.record('executor.fetch_sync', 'compute', t0=ts,
+                      dur=time.perf_counter() - ts, args={'steps': k})
+        return outs
+
+    def _run_steps_prefetch(self, program, block, scope, feeds, k,
+                            fetch_names, report, em, tl, return_numpy,
+                            t_call):
+        """run_steps with PADDLE_TPU_TORCH_DEVICE_PREFETCH (reference:
+        executor.py ``_run_steps_prefetch``): every feed is converted and
+        checked on the host first (a chunk's shapes must match, dtypes
+        join across steps), then the chunks are staged through
+        ``device_prefetch``: the first before any step (the one blocking
+        put), each later one right after the chunk before it was
+        dispatched."""
+        from ..flags import FLAGS
+        from ..runtime.prefetch import device_prefetch
+        cs = int(FLAGS.device_prefetch_chunk) or max(1, -(-k // 4))
+        cs = max(1, min(cs, k))
+        bounds = [(lo, min(lo + cs, k)) for lo in range(0, k, cs)]
+        report['chunks'] = len(bounds)
+        report['chunk_steps'] = cs
+
+        # convert and check every feed before the first step: a shape that
+        # does not match must fail before any state changes
+        conv = []
+        shapes, dtypes = {}, {}
+        for i, f in enumerate(feeds):
+            fa = self._feed_slots(block, f)
+            if conv and set(fa) != set(conv[0]):
+                raise _feed_column_error(i, set(fa), set(conv[0]))
+            for n, (t, _) in fa.items():
+                want = shapes.setdefault(n, tuple(t.shape))
+                if tuple(t.shape) != want:
+                    raise _feed_shape_error(n, {want, tuple(t.shape)})
+                have = dtypes.get(n)
+                dtypes[n] = t.dtype if have is None else \
+                    torch.promote_types(have, t.dtype)
+            conv.append(fa)
+        conv = [{n: (t if t.dtype == dtypes[n] else t.to(dtypes[n]), h)
+                 for n, (t, h) in fa.items()} for fa in conv]
+        report['feed_s'] = time.perf_counter() - t_call
+        if tl is not None:
+            tl.record('executor.feed_stack', 'feed', t0=t_call,
+                      dur=report['feed_s'], args={'steps': k,
+                                                  'prefetch': True})
+        started = [False]
+        live = []   # bytes of the staged chunks still referenced
+
+        def make_thunk(lo, hi):
+            def thunk():
+                ts = time.perf_counter()
+                slots = [(i - lo, c) + conv[i][c] for i in range(lo, hi)
+                         for c in sorted(conv[i])]
+                multi, fresh, build_s = self._multi_plan(
+                    program, fetch_names, hi - lo, True, slots)
+                if fresh and em is not None:
+                    em.compiles.inc()
+                    em.compile_seconds.observe(build_s)
+                staged, nb = self._stage_slots(multi, slots)
+                dt = time.perf_counter() - ts
+                if started[0]:
+                    report['feed_overlap_s'] += dt
+                    if em is not None:
+                        em.feed_prefetched_puts.inc()
+                        em.feed_prefetched_bytes.inc(nb)
+                else:
+                    # the pipeline's prime: the only staging the card
+                    # waits for
+                    report['feed_s'] += dt
+                    if em is not None:
+                        em.feed_blocking_puts.inc()
+                if em is not None:
+                    em.feed_bytes.inc(nb)
+                    em.donated_feed_bytes.inc(nb)
+                report['feed_bytes'] += nb
+                live.append(nb)
+                report['feed_peak_bytes'] = max(report['feed_peak_bytes'],
+                                                sum(live[-2:]))
+                return lo, hi, staged
+            return thunk
+
+        device_clock = self._device_clock(tl)
+        per_step = []
+        done = 0
+        progress = [0]   # steps started in the chunk being dispatched
+        with _obs.span('executor.run_steps'):
+            try:
+                for c, (lo, hi, staged) in enumerate(device_prefetch(
+                        make_thunk(lo, hi) for lo, hi in bounds)):
+                    if tl is not None:
+                        tl.set_step(self._step_count)
+                    marks = self._mark(device_clock)
+                    per_step += self._dispatch_chunk(
+                        program, scope, staged, fetch_names, report, em,
+                        tl, lo == 0, progress)
+                    if device_clock is not None:
+                        device_clock['chunks'].append(
+                            (c, lo, hi, marks, self._mark(device_clock)))
+                    started[0] = True
+                    if em is not None:
+                        em.steps.inc(hi - done)
+                        if lo == 0:
+                            em.donated_state_bytes.inc(self._state_bytes)
+                    done = hi
+                    progress[0] = 0
+                    if tl is not None:
+                        self._sample_device_memory(tl)
+            except BaseException as e:
+                # the steps update the scope in place: a failure between
+                # chunks leaves it at that chunk boundary, which a later
+                # call resumes from; a failure inside a chunk's steps
+                # leaves the steps that ran, and the original error says
+                # so best
+                if not started[0] or progress[0] or \
+                        not isinstance(e, Exception):
+                    raise
+                raise RuntimeError(
+                    "run_steps(device_prefetch) failed mid-stream after %d "
+                    "of %d steps; the scope holds the state of the %d "
+                    "completed steps" % (done, k, done)) from e
+            outs = self._stack_fetches(per_step, fetch_names, return_numpy,
+                                       tl, k)
+            if em is not None and return_numpy:
+                self._note_amp_skips(scope)
+        if device_clock is not None:
+            self._record_chunk_compute(tl, device_clock)
+        self._finalize_step_report(report, t_call,
+                                   synced=return_numpy and bool(outs))
+        return outs
+
+    def _dispatch_chunk(self, program, scope, staged, fetch_names, report,
+                        em, tl, first, progress):
+        """Run one chunk's steps (``staged``: a feed dict a step); returns
+        their fetches.  ``progress[0]`` counts the steps started."""
+        out = []
+        for j, feed in enumerate(staged):
+            progress[0] += 1
+            out.append(self._run_one_step(
+                program, scope, feed, fetch_names, report, em, tl,
+                count_hit=first and j == 0))
+        return out
+
+    def _device_clock(self, tl):
+        """When the recorder is armed on the card and the current stream
+        is idle: a CUDA event recorded now and the host clock beside it,
+        the origin that maps the card's chunk intervals onto the trace.
+        None otherwise (nothing is recorded then)."""
+        if tl is None or self.place.type != 'cuda':
+            return None
+        stream = torch.cuda.current_stream(self.place)
+        if not stream.query():
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(stream)
+        return {'origin': ev, 't0': time.perf_counter(), 'chunks': [],
+                'stream': stream}
+
+    @staticmethod
+    def _mark(clock):
+        if clock is None:
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(clock['stream'])
+        return ev
+
+    @staticmethod
+    def _record_chunk_compute(tl, clock):
+        """The card's interval of each chunk (``executor.chunk_compute``,
+        category ``span``: it overlaps the host's phase events), for the
+        chunks whose end events have completed; no wait."""
+        origin = clock['origin']
+        for c, lo, hi, start, end in clock['chunks']:
+            if not (end.query() and start.query()):
+                continue
+            a = clock['t0'] + origin.elapsed_time(start) / 1e3
+            b = clock['t0'] + origin.elapsed_time(end) / 1e3
+            tl.record('executor.chunk_compute', 'span', t0=a, dur=b - a,
+                      args={'chunk': c, 'steps': [lo, hi],
+                            'clock': 'device'})
+
     def _new_report(self, k):
-        report = {'k': k, 'feed_s': 0.0, 'update_s': 0.0}
+        report = {'k': k, 'feed_s': 0.0, 'update_s': 0.0,
+                  'feed_overlap_s': 0.0, 'chunks': 1, 'chunk_steps': k,
+                  'feed_bytes': 0, 'feed_peak_bytes': 0}
         self.last_step_report = report
         return report
 
-    def _finalize_step_report(self, report, t_call, synced=False):
+    def _finalize_step_report(self, report, t_call, synced=False,
+                              flush=True):
         """Join the measured walls of a ``run`` or ``run_steps`` call with
         the plan's cost report (reference: executor.py
         ``_finalize_step_report``).  ``compute_s`` is the wall less
         ``feed_s`` and ``update_s``.  Achieved FLOP/s, and ``mfu`` against
         ``PADDLE_TPU_TORCH_PEAK_TFLOPS``, are given only when ``synced``:
         the fetch copied a result to the host, so the card had finished
-        inside the measured wall."""
+        inside the measured wall.  Armed, the memory counter tracks land
+        on the ring and (``flush``: run_steps) the ring is exported to the
+        trace dir."""
         from ..flags import FLAGS
         wall = time.perf_counter() - t_call
         k = max(int(report['k']), 1)
         compute = max(wall - report['feed_s'] - report['update_s'], 0.0)
         report.update(wall_s=wall, compute_s=compute, synced=bool(synced))
         cost = (self.last_graph_opt_report or {}).get('cost')
-        feed_phase = {'wall_s': report['feed_s']}
+        feed_phase = {'wall_s': report['feed_s'],
+                      'overlap_s': report['feed_overlap_s'],
+                      'bytes': report['feed_bytes']}
         compute_phase = {'wall_s': compute}
         update_phase = {'wall_s': report['update_s']}
         if cost is not None and cost.get('total') is not None:
@@ -1218,7 +1834,41 @@ class Executor(object):
                             'update': update_phase}
         report['cost'] = cost
         report['memory'] = self._memory_report(cost)
+        tl = _tlm.ring_if_armed()
+        if tl is not None:
+            self._emit_memory_counters(
+                tl, (cost or {}).get('memory'), t_call + report['feed_s'],
+                compute, report['memory']['measured'])
+        if flush:
+            _tlm.maybe_flush()
         return report
+
+    @staticmethod
+    def _emit_memory_counters(tl, mem, t0, span, measured=None):
+        """The modelled live-bytes sawtooth as a Chrome counter track
+        (``paddle_tpu.modeled_live_bytes``), its samples along the op
+        sequence mapped onto the compute window and cut to at most 96
+        points with the peak kept, and the card's measured bytes in use
+        beside it (reference: executor.py ``_emit_memory_counters``)."""
+        timeline = (mem or {}).get('timeline') or ()
+        if timeline:
+            pts = list(timeline)
+            cap = 96
+            if len(pts) > cap:
+                peak_i = max(range(len(pts)),
+                             key=lambda i: pts[i]['live_bytes'])
+                stride = -(-len(pts) // cap)
+                keep = sorted({0, peak_i, len(pts) - 1}
+                              | set(range(0, len(pts), stride)))
+                pts = [pts[i] for i in keep]
+            span = max(span, 1e-6)
+            n = max(len(pts) - 1, 1)
+            for i, p in enumerate(pts):
+                tl.counter_sample('paddle_tpu.modeled_live_bytes',
+                                  p['live_bytes'], t0=t0 + span * (i / n))
+        if measured and measured.get('bytes_in_use') is not None:
+            tl.counter_sample('paddle_tpu.device_bytes_in_use',
+                              measured['bytes_in_use'])
 
     def _memory_report(self, cost):
         """The memory block of ``last_step_report``: the modelled peak
@@ -1265,7 +1915,7 @@ class Executor(object):
         program, scope, fetch_names = self._resolve(program, scope,
                                                     fetch_list)
         staged = self._stage_feed(program.global_block(), feed or {})
-        plan = self._plan(program, fetch_names, staged)
+        plan = self._plan(program, fetch_names, staged)[0]
         prog = plan.program
         state_rw, state_ro = {}, {}
         written = set(plan.write_back)

@@ -1,12 +1,19 @@
-"""Env-var configuration (gflags parity), cut to the serving stack's,
-the pass pipeline's and the step report's flags.
+"""Env-var configuration (gflags parity): the serving stack's, the pass
+pipeline's, the step report's, observability's and the feed runtime's
+flags.
 
 Every flag is ``PADDLE_TPU_TORCH_<NAME>`` in the environment, declared
 with a type and default, and read through the global ``FLAGS``.  The
 prefix differs from the JAX package's ``PADDLE_TPU_``, so neither package
-reads the other's switches.  Defaults are those of paddle_tpu/flags.py.
+reads the other's switches.  Defaults are those of paddle_tpu/flags.py,
+but ``profile_dir``, which lies under the process's temporary directory
+(``tempfile.gettempdir()``) rather than a fixed ``/tmp`` path.
+
+``python -m paddle_tpu_torch.flags`` prints every flag with its
+environment name, default and help.
 """
 import os
+import tempfile
 
 __all__ = ['FLAGS', 'ENV_PREFIX']
 
@@ -30,6 +37,19 @@ class _Flags(object):
         if env is None:
             return default
         return parser(env)
+
+    def declared(self):
+        """{name: current value} of every declared flag."""
+        return {n: getattr(self, n) for n in self._defs}
+
+    def definitions(self):
+        """{name: (default, help)} of every declared flag."""
+        return {n: (d, h) for n, (d, _, h) in self._defs.items()}
+
+    def help(self):
+        return '\n'.join(
+            '%s%s (default %r): %s' % (ENV_PREFIX, n.upper(), d, h)
+            for n, (d, _, h) in sorted(self._defs.items()))
 
 
 FLAGS = _Flags()
@@ -153,3 +173,87 @@ FLAGS._define(
     'class weight (gold the base, silver half, bronze an eighth, at '
     'least 1); a submit past it is parked and drained in weighted '
     'round-robin order, never dropped.  0 (the default) disables it')
+
+# -- observability, the profiler and the feed runtime ----------------------
+FLAGS._define(
+    'check_nan_inf', False, _bool,
+    'scan every op output for NaN and Inf as the executor runs it and raise '
+    "naming the first op that made one (Fluid executor.cc's "
+    'FLAGS_check_nan_inf; debug.nan_guard() arms the same scan for a '
+    'region).  Each scan syncs the host, so it is off by default')
+FLAGS._define(
+    'reader_buf_size', 64, int,
+    'prefetch depth for the buffered and xmap readers '
+    '(runtime.prefetch_reader)')
+FLAGS._define(
+    'profile_dir', os.path.join(tempfile.gettempdir(), 'paddle_tpu_torch_prof'),
+    str,
+    'where profiler traces are written (profiler.profiler / '
+    'start_profiler), and where a dump-on-error trace goes when no trace '
+    'dir is set')
+FLAGS._define(
+    'use_native_runtime', True, _bool,
+    'use the C++ queue, record reader/writer and staging arena '
+    '(runtime/native.py, built with g++ at first use).  On, a failed '
+    'build raises; off, the pure-Python classes run')
+FLAGS._define(
+    'metrics_enabled', True, _bool,
+    'arm the observability registry (paddle_tpu_torch.observability): '
+    'executor plan-cache and run counters, reader sample counters and '
+    'span() timings.  0 disables every instrumented executor and reader '
+    'path at one cached-bool cost (no registry allocation on the hot '
+    'path); the servers keep counting for stats()')
+FLAGS._define(
+    'metrics_port', 0, int,
+    'when > 0, serving runtimes expose GET /metrics (Prometheus text '
+    'exposition 0.0.4) and /healthz on this port from a daemon-thread '
+    'HTTP server (observability.serve_metrics / maybe_serve_from_env).  '
+    '0 (the default) serves nothing')
+FLAGS._define(
+    'metrics_host', '127.0.0.1', str,
+    'bind address of the /metrics endpoint: loopback by default, since the '
+    'listener is unauthenticated')
+FLAGS._define(
+    'profiler_event_cap', 10000, int,
+    'bound of the one event ring (observability/timeline.py) that '
+    'RecordEvent, profile regions and the step-timeline recorder share; '
+    'oldest events drop first.  <= 0 means unbounded; read when the ring '
+    'is made or reset (profiler.reset_profiler())')
+FLAGS._define(
+    'trace_dir', '', str,
+    'arm the step-timeline flight recorder (observability/timeline.py) '
+    'and export it here: the executor records per-step phase events '
+    '(feed staging, plan build, compute, scope update, prefetch staging) '
+    'into the event ring and, after every run_steps call, writes it as '
+    'Chrome trace_event JSON (trace_<pid>.json, atomic replace).  Empty '
+    '(the default) records nothing on the executor paths: one cached-bool '
+    'check a call')
+FLAGS._define(
+    'trace_steps', 256, int,
+    'how many trailing steps of timeline events each exported trace keeps '
+    '(the run_steps flush and the dump-on-error file); 0 exports every '
+    'event still in the ring')
+FLAGS._define(
+    'trace_dump_on_error', False, _bool,
+    'on an executor or serving-dispatch exception, write the last '
+    'PADDLE_TPU_TORCH_TRACE_STEPS steps of the ring to '
+    'trace_<pid>_error[_<tag>].json under the trace dir (or the profile '
+    'dir) before the error propagates.  Arming this also arms recording')
+FLAGS._define(
+    'device_prefetch', False, _bool,
+    'run_steps with per-step feeds stages them in chunks of '
+    'PADDLE_TPU_TORCH_DEVICE_PREFETCH_CHUNK steps through pinned host '
+    'blocks and a side CUDA stream: chunk c+1 is copied while the card '
+    'runs chunk c, so only the first chunk is a blocking put '
+    '(paddle_tpu_executor_feed_blocking_puts_total) and about two chunks '
+    'of feed are on the card at once.  Off (the default) stages every '
+    'feed before the first step.  Re-read on every run_steps call; the '
+    'numbers are bitwise the same either way')
+FLAGS._define(
+    'device_prefetch_chunk', 0, int,
+    'steps per staged chunk when PADDLE_TPU_TORCH_DEVICE_PREFETCH is on; '
+    '0 (the default) takes max(1, ceil(K/4))')
+
+
+if __name__ == '__main__':
+    print(FLAGS.help())

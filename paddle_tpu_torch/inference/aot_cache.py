@@ -42,6 +42,7 @@ import os
 
 import torch
 
+from .. import observability as _obs
 from ..flags import FLAGS
 from .serving import FeedSpec, InferenceServer
 
@@ -49,13 +50,24 @@ __all__ = ['AotCache', 'artifact_digest', 'device_kind']
 
 _SCHEMA = 1
 
-# process-wide counters; tests and the fleet read them through stats()
+# process-wide counters; tests and the fleet read them through stats(),
+# and they are mirrored into the observability registry when metrics are
+# enabled (the reference's series)
 _STATS = {'hits': 0, 'misses': 0, 'corrupt': 0, 'stores': 0,
           'orphans': 0}
 
 
 def _count(which):
     _STATS[which] += 1
+    if not _obs.enabled():
+        return
+    name = {'hits': 'paddle_tpu_aot_cache_hits_total',
+            'misses': 'paddle_tpu_aot_cache_misses_total',
+            'corrupt': 'paddle_tpu_aot_cache_corrupt_total',
+            'stores': 'paddle_tpu_aot_cache_stores_total',
+            'orphans': 'paddle_tpu_aot_cache_orphans_total'}[which]
+    _obs.registry().counter(
+        name, 'serving AOT executable cache %s' % which).inc()
 
 
 def device_kind(device):

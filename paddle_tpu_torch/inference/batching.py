@@ -40,9 +40,20 @@ the last bits (cuBLAS picks kernels by shape); a request that exactly
 fills its bucket is bitwise an unbatched ``predict`` on that bucket's
 artifact.
 
-Departures from the reference: each server reports into a private
-``MetricsRegistry`` (no global registry, spans, timeline or /metrics
-endpoint yet: ROADMAP.md Queue 1 item 9); locks are plain ``threading``
+Telemetry: each server reports into the process registry
+(observability/metrics.py) under the reference's series, labelled
+``server="b<N>"``; ``close()`` retires them.  With
+``PADDLE_TPU_TORCH_METRICS_ENABLED=0`` the server still counts there, as
+``stats()`` reads its counts back (the reference gives each server a
+private registry then), and nothing is served.  A bucket's readying runs
+under the span ``serving.bucket_compile``; armed, the timeline records
+each request's ``serving.queue_wait`` and each batch's
+``serving.compute``; the dispatch and collector threads dump the ring
+tagged with the server id on an error
+(``trace_<pid>_error_b<N>.json``).  The first server of a process starts
+the /metrics endpoint when ``PADDLE_TPU_TORCH_METRICS_PORT`` is set.
+
+Departures from the reference: locks are plain ``threading``
 conditions; the buckets' artifacts are opened when the server is built
 and ``warmup_throttle_ms`` paces those loads; ``resident_bytes`` reports the device's own measurements (the
 bucket module's buffers, and what its warm call added to
@@ -62,8 +73,10 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
+from .. import observability as _obs
 from ..core.place import resolve_device
-from ..observability.metrics import DEFAULT_LATENCY_BUCKETS, MetricsRegistry
+from ..observability import timeline as _tlm
+from ..observability.metrics import DEFAULT_LATENCY_BUCKETS
 from . import aot_cache
 from .serving import InferenceServer, export_inference
 
@@ -75,8 +88,9 @@ _server_seq = itertools.count()
 
 
 class _ServingMetrics(object):
-    """Per-server handles into a private metrics registry, labelled
-    ``server="b<N>"``; ``stats()`` reads them back."""
+    """Per-server handles into the process registry, labelled
+    ``server="b<N>"`` so servers in one process stay apart on /metrics;
+    ``stats()`` reads this server's children back."""
 
     def __init__(self, reg, sid):
         L = ('server',)
@@ -352,7 +366,9 @@ class BatchingInferenceServer(object):
             self._copy_stream = torch.cuda.Stream(self.device)
 
         sid = 'b%d' % next(_server_seq)
-        self._m = _ServingMetrics(MetricsRegistry(), sid)
+        self._m = _ServingMetrics(_obs.registry(), sid)
+        if _obs.enabled():
+            _obs.maybe_serve_from_env()
         self._req_seq = itertools.count()
         self._warmup_done = False
         self._closed = False
@@ -701,7 +717,8 @@ class BatchingInferenceServer(object):
             base = torch.cuda.memory_allocated(dev)
             torch.cuda.reset_peak_memory_stats(dev)
         staged = {n: srv._stage(n, a) for n, a in zeros.items()}
-        outs = srv.predict_async(staged)
+        with _obs.span('serving.bucket_compile'):
+            outs = srv.predict_async(staged)
         feed_bytes = sum(t.numel() * t.element_size()
                          for t in staged.values())
         out_bytes = sum(o.numel() * o.element_size() for o in outs)
@@ -858,6 +875,9 @@ class BatchingInferenceServer(object):
             else:
                 outs, done = srv.predict_async(stacked), None
         except Exception as e:
+            # the dispatch thread's forensics, tagged with this server's
+            # id; it never raises, and the futures carry the error
+            _tlm.maybe_dump_on_error(tag=self._m._sid)
             for r in reqs:
                 r.future.set_exception(e)
             with self._cv:
@@ -867,6 +887,15 @@ class BatchingInferenceServer(object):
             return
         rows = offsets[-1][1]
         t_launch = time.perf_counter()
+        tl = _tlm.ring_if_armed()
+        if tl is not None:
+            # each request's wait, submit to dispatch, under its id and
+            # the bucket it rode out in
+            for r in reqs:
+                tl.record('serving.queue_wait', 'span',
+                          t0=r.t_submit, dur=t_launch - r.t_submit,
+                          args={'request_id': r.rid, 'bucket': bucket,
+                                'server': self._m._sid})
         self._m.batches.inc()
         self._m.batch_rows.inc(rows)
         self._m.batch_capacity.inc(bucket)
@@ -893,6 +922,7 @@ class BatchingInferenceServer(object):
                     host = [(o.float() if o.dtype == torch.bfloat16 else o)
                             .numpy() for o in outs]
             except Exception as e:  # pragma: no cover - defensive
+                _tlm.maybe_dump_on_error(tag=self._m._sid)
                 for r in reqs:
                     r.future.set_exception(e)
                 with self._cv:
@@ -909,6 +939,13 @@ class BatchingInferenceServer(object):
             now = time.perf_counter()
             self._m.compute(bucket).observe(now - t_launch)
             self._m.compute('all').observe(now - t_launch)
+            tl = _tlm.ring_if_armed()
+            if tl is not None:
+                tl.record('serving.compute', 'compute', t0=t_launch,
+                          dur=now - t_launch,
+                          args={'bucket': bucket, 'rows': offsets[-1][1],
+                                'server': self._m._sid,
+                                'request_ids': [r.rid for r in reqs]})
             self._m.completed.inc(len(reqs))
             for r in reqs:
                 self._m.latency.observe(now - r.t_submit)

@@ -43,7 +43,8 @@ import torch
 
 from ..core.place import resolve_device
 from ..flags import FLAGS
-from ..observability.metrics import DEFAULT_LATENCY_BUCKETS, MetricsRegistry
+from .. import observability as _obs
+from ..observability.metrics import DEFAULT_LATENCY_BUCKETS
 from ..core.registry import get_op_impl
 from ..ops.attention import flash_attention
 from ..ops.kernels import build as _build
@@ -567,8 +568,10 @@ class DecodeEngine(object):
 
 
 class _DecodeMetrics(object):
-    """Per-server decode metrics, labeled ``server="d<N>"``, in the
-    server's own registry."""
+    """Per-server decode metrics in the process registry, labelled
+    ``server="d<N>"`` (reference: decode.py ``_DecodeMetrics``, the same
+    series); ``close()`` retires them.  With metrics disabled the server
+    still counts there, as ``stats()`` reads them."""
 
     def __init__(self, reg, sid):
         L = ('server',)
@@ -580,45 +583,45 @@ class _DecodeMetrics(object):
             return metric.labels(server=sid)
 
         self.streams_active = child(reg.gauge(
-            'paddle_tpu_torch_decode_streams_active',
+            'paddle_tpu_decode_streams_active',
             'streams currently holding a decode batch slot', L))
         self.queue_depth = child(reg.gauge(
-            'paddle_tpu_torch_decode_queue_depth',
+            'paddle_tpu_decode_queue_depth',
             'streams waiting for a slot or pages', L))
         self.ttft = child(reg.histogram(
-            'paddle_tpu_torch_decode_ttft_seconds',
+            'paddle_tpu_decode_ttft_seconds',
             'submit-to-first-token latency per stream (prefill path)',
             L, buckets=DEFAULT_LATENCY_BUCKETS))
         self.pages_allocated = child(reg.counter(
-            'paddle_tpu_torch_decode_pages_allocated_total',
+            'paddle_tpu_decode_pages_allocated_total',
             'KV-cache pages claimed at stream admission', L))
         self.pages_freed = child(reg.counter(
-            'paddle_tpu_torch_decode_pages_freed_total',
+            'paddle_tpu_decode_pages_freed_total',
             'KV-cache pages returned by finished streams', L))
         self.tokens = child(reg.counter(
-            'paddle_tpu_torch_decode_tokens_generated_total',
+            'paddle_tpu_decode_tokens_generated_total',
             'tokens emitted across all streams (prefill + decode)', L))
         self.steps = child(reg.counter(
-            'paddle_tpu_torch_decode_steps_total',
+            'paddle_tpu_decode_steps_total',
             'batched decode steps executed', L))
         self.prefix_hits = child(reg.counter(
-            'paddle_tpu_torch_decode_prefix_hit_tokens_total',
+            'paddle_tpu_decode_prefix_hit_tokens_total',
             'prompt tokens served from cached prefix pages', L))
         self.prefix_misses = child(reg.counter(
-            'paddle_tpu_torch_decode_prefix_miss_tokens_total',
+            'paddle_tpu_decode_prefix_miss_tokens_total',
             'prompt tokens the prefill actually computed', L))
         self.prefix_evicted = child(reg.counter(
-            'paddle_tpu_torch_decode_prefix_evicted_tokens_total',
+            'paddle_tpu_decode_prefix_evicted_tokens_total',
             'cached tokens LRU-evicted from the prefix trie', L))
         self.prefill_chunks = child(reg.counter(
-            'paddle_tpu_torch_decode_prefill_chunks_total',
+            'paddle_tpu_decode_prefill_chunks_total',
             'chunked-prefill dispatches scheduled between decode steps',
             L))
         self.preempted = child(reg.counter(
-            'paddle_tpu_torch_decode_preempted_streams_total',
+            'paddle_tpu_decode_preempted_streams_total',
             'streams requeued on page-pool exhaustion mid-decode', L))
         self.cached_pages = child(reg.gauge(
-            'paddle_tpu_torch_decode_prefix_cached_pages',
+            'paddle_tpu_decode_prefix_cached_pages',
             'KV pages currently held by the prefix trie', L))
 
     def close(self):
@@ -699,7 +702,9 @@ class DecodeServer(object):
         self._submitted = 0
         self._completed = 0
         sid = 'd%d' % next(_server_seq)
-        self._m = _DecodeMetrics(MetricsRegistry(), sid)
+        self._m = _DecodeMetrics(_obs.registry(), sid)
+        if _obs.enabled():
+            _obs.maybe_serve_from_env()
         if warmup:
             engine.warmup()
         self._worker = threading.Thread(target=self._loop,

@@ -46,12 +46,21 @@ Reference parity: paddle_tpu/inference/fleet.py, its contract:
   (its KV pools and weights join the resident total), ``generate``
   submits to it.
 
-Departures from the reference: the fleet keeps its counters in a private
-``MetricsRegistry`` with no callback gauges, no /metrics endpoint, no
-spans or timeline (the reference's ``fleet.dispatch`` span), and its
-locks are plain ``threading`` locks without ``lockdebug``: all of that
-comes with ROADMAP.md Queue 1 item 9.  ``device`` (None: the card) is
-where every replica serves.
+Telemetry (reference: fleet.py ``_FleetMetrics``, the same series): the
+fleet's counters in the process registry labelled ``fleet=<fid>``,
+per-replica dispatch, failure and resident series also ``replica`` and
+``version``, per-tenant ones ``tenant``; callback gauges read live at
+scrape time (queued rows, batches in flight, replicas by state, resident
+bytes, quota-parked requests); a /healthz check ``fleet_<fid>``, failing
+while some tenant has no routable replica.  ``close()`` retires every
+series and the check.  Armed, the timeline records each routing decision
+(``fleet.dispatch``, under the request id the replica's spans carry);
+a request that finally fails dumps the ring tagged with the fleet (and
+the version whose replica failed).
+
+Departures from the reference: locks are plain ``threading`` locks
+without ``lockdebug`` (ROADMAP.md Queue 1 item 9b).  ``device`` (None: the
+card) is where every replica serves.
 """
 import itertools
 import logging
@@ -66,8 +75,9 @@ import numpy as np
 
 from .. import io as _io
 from ..core.place import resolve_device
+from .. import observability as _obs
 from ..flags import FLAGS
-from ..observability.metrics import MetricsRegistry
+from ..observability import timeline as _tlm
 from . import tenancy as _tn
 from .batching import BatchingInferenceServer
 
@@ -141,7 +151,7 @@ class _Replica(object):
     __slots__ = ('rid', 'version', 'version_dir', 'server', 'state',
                  'failures', 'probe_feed', 'warmup_s', 'resident',
                  'tenant', '_res_gen_seen',
-                 'm_dispatch')
+                 'm_dispatch', 'm_dispatch_failures', 'm_resident')
 
     def __init__(self, rid, version, version_dir, server, probe_feed,
                  warmup_s, tenant=_tn.DEFAULT_TENANT):
@@ -159,6 +169,8 @@ class _Replica(object):
         self._res_gen_seen = server.residency_generation
         self.resident = server.resident_bytes()
         self.m_dispatch = None           # set by _FleetMetrics.bind
+        self.m_dispatch_failures = None
+        self.m_resident = None
 
     def refresh_resident(self):
         """The resident snapshot, read again only when the servable's
@@ -168,6 +180,8 @@ class _Replica(object):
         if gen != self._res_gen_seen:
             self._res_gen_seen = gen
             self.resident = self.server.resident_bytes()
+            if self.m_resident is not None:
+                self.m_resident.set(self.resident['total_bytes'])
         return self.resident
 
 
@@ -188,50 +202,209 @@ class _TenantGroup(object):
 
 
 class _FleetMetrics(object):
-    """The fleet's counters in its private registry, labelled
-    ``fleet=<fid>`` (a replica's dispatches also ``replica`` and
-    ``version``); ``stats()`` reads them back.  The reference's per-tenant
-    counters, callback gauges and /metrics export come with ROADMAP.md
-    Queue 1 item 9: ``stats()`` takes the per-tenant counts from the
-    tenancy registry and computes the aggregates when it is called."""
+    """Fleet-level handles into the process registry: counters labelled
+    ``fleet=<fid>``, per-replica dispatch counters also ``replica`` /
+    ``version``, per-tenant counters ``tenant``, and pull-style callback
+    gauges for the aggregates (wired to ``fns`` at construction, read live
+    at scrape time, outside the metric lock, from the HTTP thread)."""
 
-    def __init__(self, reg, fid):
+    def __init__(self, reg, fid, fns):
+        L = ('fleet',)
+        LR = ('fleet', 'replica', 'version')
+        self._reg = reg
         self._fid = fid
+        self._families = []
+        self._replica_families = []
+        self._tenant_kvs = []
 
-        def child(name, help_str):
-            return reg.counter(name, help_str, ('fleet',)).labels(fleet=fid)
+        def child(metric):
+            self._families.append(metric)
+            return metric.labels(fleet=fid)
 
-        self.requests = child('paddle_tpu_fleet_requests_total',
-                              'requests accepted by the fleet')
-        self.completed = child('paddle_tpu_fleet_requests_completed_total',
-                               'requests whose results were delivered')
-        self.failed = child('paddle_tpu_fleet_requests_failed_total',
-                            'requests whose clients saw an error after '
-                            'every retry')
-        self.retries = child('paddle_tpu_fleet_retries_total',
-                             're-dispatches onto another replica')
-        self.deploys = child('paddle_tpu_fleet_deploys_total',
-                             'deployments completed')
-        self.unroutable_marks = child(
+        self.requests = child(reg.counter(
+            'paddle_tpu_fleet_requests_total',
+            'requests accepted by the fleet dispatcher', L))
+        self.completed = child(reg.counter(
+            'paddle_tpu_fleet_requests_completed_total',
+            'requests whose results were delivered to clients', L))
+        self.failed = child(reg.counter(
+            'paddle_tpu_fleet_requests_failed_total',
+            'requests whose clients finally saw an error (after all '
+            'retries)', L))
+        self.retries = child(reg.counter(
+            'paddle_tpu_fleet_retries_total',
+            'request re-dispatches onto another replica after a '
+            'dispatch failure', L))
+        self.deploys = child(reg.counter(
+            'paddle_tpu_fleet_deploys_total',
+            'version deployments (hot-swaps) completed', L))
+        # reason-labeled: the controller's automatic rollbacks
+        # (live_auc_regression, p99_regression, ...) are
+        # distinguishable from an operator's explicit call in /metrics
+        self._rollbacks = reg.counter(
+            'paddle_tpu_fleet_rollbacks_total',
+            'deployments that were rollbacks to the archived previous '
+            'version, by reason ("operator" = explicit call; automated '
+            'callers pass their trigger, e.g. live_auc_regression)',
+            ('fleet', 'reason'))
+        self._rollback_reason_kvs = []
+        self.unroutable_marks = child(reg.counter(
             'paddle_tpu_fleet_unroutable_marks_total',
-            'replica transitions into UNROUTABLE')
-        self.probes = child('paddle_tpu_fleet_health_probes_total',
-                            'health probes sent to unroutable replicas')
-        self.budget_precheck_failures = child(
+            'replica transitions into the unroutable state', L))
+        self.probes = child(reg.counter(
+            'paddle_tpu_fleet_health_probes_total',
+            'health-check probes sent to unroutable replicas', L))
+        self.probe_failures = child(reg.counter(
+            'paddle_tpu_fleet_health_probe_failures_total',
+            'health-check probes that failed (replica stays '
+            'unroutable)', L))
+
+        self.budget_precheck_failures = child(reg.counter(
             'paddle_tpu_fleet_hbm_budget_precheck_failures_total',
-            'deploys whose projected resident bytes exceeded the budget')
-        self.admission_rejections = child(
+            'deploys whose projected resident bytes (live servables + '
+            'incoming version, deploy-overlap moment) exceeded the '
+            'HBM budget — logged in warn mode, handed to the eviction '
+            'planner in enforce mode '
+            '(PADDLE_TPU_TORCH_FLEET_HBM_ADMISSION)', L))
+        self.admission_rejections = child(reg.counter(
             'paddle_tpu_fleet_admission_rejections_total',
-            'deploys the enforcing admission controller rejected')
+            'deploys the enforcing HBM admission controller rejected: '
+            'still over budget after LRU-evicting every cold bucket '
+            'it may — rejected BEFORE any replica build cost', L))
+        self._evictions = reg.counter(
+            'paddle_tpu_fleet_evictions_total',
+            'compiled buckets LRU-evicted from a tenant servable by '
+            'the HBM admission controller (the version dir survives; '
+            'a later request re-warms through the counted compile '
+            'path)', ('fleet', 'tenant'))
+        self._deferred = reg.counter(
+            'paddle_tpu_fleet_quota_deferred_total',
+            'submits parked on a tenant quota queue (deferred, never '
+            'dropped; drained weighted-round-robin as completions '
+            'free slots)', ('fleet', 'tenant'))
+        self._tenant_requests = reg.counter(
+            'paddle_tpu_fleet_tenant_requests_total',
+            'requests accepted per tenant and SLO class',
+            ('fleet', 'tenant', 'slo_class'))
+
         self._dispatches = reg.counter(
             'paddle_tpu_fleet_dispatches_total',
-            'requests dispatched per replica',
-            ('fleet', 'replica', 'version'))
+            'requests dispatched per replica (version-labeled, so a '
+            'rollout reads as one series handing off to another)', LR)
+        self._dispatch_failures = reg.counter(
+            'paddle_tpu_fleet_dispatch_failures_total',
+            'dispatch failures per replica', LR)
+        self._resident = reg.gauge(
+            'paddle_tpu_serving_resident_bytes',
+            'resident bytes of each replica servable (its buckets\' '
+            'buffers and warm-call working set, measured on the card; '
+            'replicas sharing one servable report the same value)', LR)
+
+        # pull-style aggregates: live fleet state read at scrape time
+        self._g_queue = reg.gauge(
+            'paddle_tpu_fleet_queued_rows',
+            'rows waiting across every routable replica queue '
+            '(callback gauge, read live)', L)
+        self._families.append(self._g_queue)
+        self._g_queue.labels(fleet=fid).set_function(fns['queued_rows'])
+        self._g_inflight = reg.gauge(
+            'paddle_tpu_fleet_in_flight_batches',
+            'batches in flight across every routable replica '
+            '(callback gauge, read live)', L)
+        self._families.append(self._g_inflight)
+        self._g_inflight.labels(fleet=fid).set_function(fns['in_flight'])
+        self._g_replicas = reg.gauge(
+            'paddle_tpu_fleet_replicas',
+            'replica count per lifecycle state (callback gauge)',
+            ('fleet', 'state'))
+        self._replica_state_labels = []
+        for st in _STATES:
+            self._g_replicas.labels(fleet=fid, state=st).set_function(
+                fns['state_count'](st))
+            self._replica_state_labels.append(st)
+        self._g_resident = reg.gauge(
+            'paddle_tpu_fleet_resident_bytes',
+            'modeled resident bytes across live servables, shared '
+            'compiled servables counted once (callback gauge, read '
+            'live)', L)
+        self._families.append(self._g_resident)
+        self._g_resident.labels(fleet=fid).set_function(fns['resident'])
+        self._g_pending = reg.gauge(
+            'paddle_tpu_fleet_quota_pending',
+            'requests currently parked across every tenant quota '
+            'queue (callback gauge, read live)', L)
+        self._families.append(self._g_pending)
+        self._g_pending.labels(fleet=fid).set_function(
+            fns['quota_pending'])
+        self.resident_watermark = child(reg.gauge(
+            'paddle_tpu_fleet_resident_bytes_watermark',
+            'highest fleet resident-bytes estimate observed, '
+            'deploy-overlap moments (old + incoming version both '
+            'live) included', L))
+
+    def rollback_inc(self, reason):
+        """Count one rollback under its reason label (child tracked so
+        close() retires the series)."""
+        kv = dict(fleet=self._fid, reason=str(reason))
+        self._rollbacks.labels(**kv).inc()
+        if kv not in self._rollback_reason_kvs:
+            self._rollback_reason_kvs.append(kv)
+
+    def _tenant_child(self, fam, **labels):
+        """Per-tenant child, tracked so close() retires the series
+        (the metrics-retirement contract: no fleet=<fid> series may
+        survive the fleet)."""
+        kv = dict(fleet=self._fid, **labels)
+        if (fam, kv) not in self._tenant_kvs:
+            self._tenant_kvs.append((fam, kv))
+        return fam.labels(**kv)
+
+    def evictions(self, tenant):
+        return self._tenant_child(self._evictions, tenant=tenant)
+
+    def deferred(self, tenant):
+        return self._tenant_child(self._deferred, tenant=tenant)
+
+    def tenant_requests(self, tenant, slo_class):
+        return self._tenant_child(self._tenant_requests, tenant=tenant,
+                                  slo_class=slo_class)
 
     def bind(self, rep):
-        """Attach the replica's dispatch counter."""
-        rep.m_dispatch = self._dispatches.labels(
-            fleet=self._fid, replica=rep.rid, version=rep.version)
+        """Create (and attach) the per-replica counter children."""
+        kv = dict(fleet=self._fid, replica=rep.rid, version=rep.version)
+        rep.m_dispatch = self._dispatches.labels(**kv)
+        rep.m_dispatch_failures = self._dispatch_failures.labels(**kv)
+        rep.m_resident = self._resident.labels(**kv)
+        rep.m_resident.set(rep.resident['total_bytes'])
+        self._replica_families.append((self._dispatches, kv))
+        self._replica_families.append((self._dispatch_failures, kv))
+        self._replica_families.append((self._resident, kv))
+
+    def unbind(self, rep):
+        """Retire a replica's label series (handles stay readable)."""
+        kv = dict(fleet=self._fid, replica=rep.rid, version=rep.version)
+        for fam in (self._dispatches, self._dispatch_failures,
+                    self._resident):
+            fam.remove(**kv)
+            try:
+                self._replica_families.remove((fam, kv))
+            except ValueError:
+                pass
+
+    def close(self):
+        for m in self._families:
+            m.remove(fleet=self._fid)
+        for fam, kv in self._replica_families:
+            fam.remove(**kv)
+        self._replica_families = []
+        for kv in self._rollback_reason_kvs:
+            self._rollbacks.remove(**kv)
+        self._rollback_reason_kvs = []
+        for fam, kv in self._tenant_kvs:
+            fam.remove(**kv)
+        self._tenant_kvs = []
+        for st in self._replica_state_labels:
+            self._g_replicas.remove(fleet=self._fid, state=st)
 
 
 class ServingFleet(object):
@@ -336,15 +509,25 @@ class ServingFleet(object):
         self._state_dir = state_dir
         self._deploy_record = os.path.join(state_dir, 'DEPLOY.json')
 
-        self._m = _FleetMetrics(MetricsRegistry(), self._fid)
+        self._m = _FleetMetrics(_obs.registry(), self._fid, {
+            'queued_rows': lambda: self._aggregate('queued_rows'),
+            'in_flight': lambda: self._aggregate('in_flight_batches'),
+            'state_count': lambda st: (lambda: self._state_count(st)),
+            'resident': lambda: self._resident_total(),
+            'quota_pending': lambda: self._tenancy.pending_total(),
+        })
+        if _obs.enabled():
+            _obs.maybe_serve_from_env()
 
         try:
             self.deploy(version_dir, replicas=self._default_replicas,
                         version=version, tenant=tenant,
                         slo_class=slo_class, quota=quota)
         except Exception:
+            self._m.close()
             self._rm_owned_state_dir()
             raise
+        _obs.register_healthz('fleet_%s' % self._fid, self._healthz)
 
         self._stop = threading.Event()
         self._health_thread = None
@@ -420,6 +603,7 @@ class ServingFleet(object):
                 "first" % (tname, self._fid, tname))
         fut = Future()
         self._m.requests.inc()
+        self._m.tenant_requests(tname, g.slo_class).inc()
         rid = next(self._req_seq)
         # the completion hook frees the tenant's quota slot and drains
         # deferred work; attached BEFORE dispatch so every terminal
@@ -428,6 +612,8 @@ class ServingFleet(object):
             lambda f, t=tname: self._request_finished(t))
         if self._tenancy.admit(tname, (feed, fut, rid)):
             self._dispatch(tname, feed, fut, frozenset(), 0, None, rid)
+        else:
+            self._m.deferred(tname).inc()
         return fut
 
     def predict(self, feed, timeout=None, tenant=None):
@@ -499,9 +685,11 @@ class ServingFleet(object):
         Future then drives completion via _on_done) or the retry
         budget is spent."""
         while True:
+            t_pick = time.perf_counter()
             rep = self._pick(tried, tenant=tname)
             if rep is None:
                 self._m.failed.inc()
+                _tlm.maybe_dump_on_error(tag=self._fid)
                 fut.set_exception(last_exc or RuntimeError(
                     "ServingFleet %s has no routable replica for "
                     "tenant %r (all unroutable/draining or already "
@@ -522,12 +710,23 @@ class ServingFleet(object):
                 last_exc = e
                 if attempts >= self._retry_limit:
                     self._m.failed.inc()
+                    _tlm.maybe_dump_on_error(
+                        tag='%s_%s' % (self._fid, rep.version))
                     fut.set_exception(e)
                     return
                 attempts += 1
                 self._m.retries.inc()
                 continue
             rep.m_dispatch.inc()
+            tl = _tlm.ring_if_armed()
+            if tl is not None:
+                # the routing decision, under the request id the
+                # replica's queue-wait and compute events carry
+                tl.record('fleet.dispatch', 'span', t0=t_pick,
+                          dur=time.perf_counter() - t_pick,
+                          args={'request_id': rid, 'replica': rep.rid,
+                                'version': rep.version,
+                                'attempt': attempts})
             inner.add_done_callback(
                 lambda f, rep=rep, tried=tried, attempts=attempts:
                 self._on_done(rep, tname, feed, fut, tried, attempts,
@@ -544,9 +743,14 @@ class ServingFleet(object):
             self._m.completed.inc()
             fut.set_result(inner.result())
             return
+        rep.m_dispatch_failures.inc()
         self._note_failure(rep)
         if attempts >= self._retry_limit:
             self._m.failed.inc()
+            # tagged with the fleet and the version whose replica failed
+            # last; the future carries the original error either way
+            _tlm.maybe_dump_on_error(
+                tag='%s_%s' % (self._fid, rep.version))
             fut.set_exception(exc)
             return
         self._m.retries.inc()
@@ -584,7 +788,7 @@ class ServingFleet(object):
                     rep.server.predict(rep.probe_feed,
                                        timeout=self._probe_timeout)
                 except Exception:
-                    pass   # stays unroutable
+                    self._m.probe_failures.inc()   # stays unroutable
                 else:
                     self._note_success(rep)
 
@@ -727,6 +931,7 @@ class ServingFleet(object):
             rep.server.close()
             with self._lock:
                 rep.state = RETIRED
+            self._m.unbind(rep)
 
     # -- versioned deployment ------------------------------------------
     def deploy(self, version_dir, replicas=None, version=None,
@@ -875,6 +1080,7 @@ class ServingFleet(object):
                                tenant=tname)
         # counted only once the restore serves: a rollback whose deploy
         # failed must not read as a completed recovery
+        self._m.rollback_inc(reason)
         with self._lock:
             self._rollbacks_by_reason[reason] = \
                 self._rollbacks_by_reason.get(reason, 0) + 1
@@ -1002,6 +1208,9 @@ class ServingFleet(object):
         with self._lock:
             if v > self._resident_watermark:
                 self._resident_watermark = v
+                # published inside the lock: a loser of the compare must
+                # not overwrite a higher value
+                self._m.resident_watermark.set(v)
         return v
 
     def _admission_check(self, tname, vname, paths, budget,
@@ -1113,6 +1322,7 @@ class ServingFleet(object):
             evicted.append((c['tenant'], c['bucket']))
             by_tenant[c['tenant']] = by_tenant.get(c['tenant'], 0) + 1
         for t, nb in by_tenant.items():
+            self._m.evictions(t).inc(nb)
             self._tenancy.note_evicted(t, nb)
         for c in plan:
             c['rep'].refresh_resident()
@@ -1129,6 +1339,20 @@ class ServingFleet(object):
         with self._lock:
             return sum(1 for r in self._reps_locked()
                        if r.state == state)
+
+    def _healthz(self):
+        """The fleet's /healthz check: ok while every tenant has a READY
+        replica; the detail counts replicas by state."""
+        with self._lock:
+            reps = self._reps_locked()
+            starved = sorted(name for name, g in self._groups.items()
+                             if not any(r.state == READY
+                                        for r in g.replicas))
+        by_state = {}
+        for r in reps:
+            by_state[r.state] = by_state.get(r.state, 0) + 1
+        return not starved, {'replicas': by_state,
+                             'tenants_without_ready_replica': starved}
 
     @property
     def version(self):
@@ -1266,6 +1490,8 @@ class ServingFleet(object):
                     % (self._fid, nm)))
         with self._deploy_lock:
             pass  # barrier: an in-flight deploy/add finishes aborting
+        _obs.unregister_healthz('fleet_%s' % self._fid)
+        self._m.close()
         self._rm_owned_state_dir()
 
     def __enter__(self):

@@ -23,6 +23,10 @@ XLA.
 - ``InferenceServer.predict_many`` / ``predict_stacked`` run K requests
   as K launches of the artifact without a host sync between them and
   one at the end; the reference scans them in one program.
+- Telemetry, as the reference's: the spans ``serving.export`` (the
+  ``torch.export`` trace and save) and ``serving.predict`` (a synced
+  predict), and the counters ``paddle_tpu_serving_exports_total`` and
+  ``paddle_tpu_serving_artifacts_loaded_total``.
 """
 import json
 import os
@@ -30,6 +34,7 @@ import os
 import numpy as np
 import torch
 
+from .. import observability as _obs
 from ..core import datatypes
 from ..core.executor import Executor
 from ..core.place import resolve_device
@@ -128,16 +133,19 @@ def export_inference(path, feed_shapes, target_vars, executor=None,
     fn, args = exe.compile(infer_prog, feed=feed, fetch_list=target_vars,
                            scope=scope)
     feed_arrays, state_rw, state_ro, seed = args
-    with torch.no_grad():
-        exported = torch.export.export(
-            _Servable(fn, {**state_rw, **state_ro}, seed), (feed_arrays,),
-            strict=False)
     meta = {'device': str(exe.place),
             'fetches': [t.name if isinstance(t, Variable) else str(t)
                         for t in target_vars]}
     os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
-    torch.export.save(exported, path,
-                      extra_files={_META: json.dumps(meta)})
+    with _obs.span('serving.export'), torch.no_grad():
+        exported = torch.export.export(
+            _Servable(fn, {**state_rw, **state_ro}, seed), (feed_arrays,),
+            strict=False)
+        torch.export.save(exported, path,
+                          extra_files={_META: json.dumps(meta)})
+    if _obs.enabled():
+        _obs.counter('paddle_tpu_serving_exports_total',
+                     'inference artifacts exported').inc()
     return os.path.getsize(path)
 
 
@@ -146,6 +154,9 @@ def _open_exported(path, device=None):
     sequence lives.  The artifact's device must be ``device``'s type."""
     extra = {_META: ''}
     exported = torch.export.load(path, extra_files=extra)
+    if _obs.enabled():
+        _obs.counter('paddle_tpu_serving_artifacts_loaded_total',
+                     'inference artifacts loaded for serving').inc()
     meta = json.loads(extra[_META]) if extra[_META] else {}
     want = resolve_device(device)
     have = torch.device(meta.get('device', 'cpu'))
@@ -241,7 +252,9 @@ class InferenceServer(object):
             return list(self._module(self._staged(feed)))
 
     def predict(self, feed):
-        return [_host(o) for o in self.predict_async(feed)]
+        # the span covers the launch and the host sync: the call's latency
+        with _obs.span('serving.predict'):
+            return [_host(o) for o in self.predict_async(feed)]
 
     def predict_many(self, feeds):
         """K feed dicts -> K output lists, one sync.  Tensors stack where

@@ -27,7 +27,7 @@ imports nothing of the reference):
   not fit.
 
 The registry's state lives under one plain ``threading`` lock (the
-reference's ``lockdebug`` lock comes with ROADMAP.md Queue 1 item 9); its
+reference's ``lockdebug`` lock comes with ROADMAP.md Queue 1 item 9b); its
 methods never call out of the module while holding it.
 """
 import threading

@@ -4,9 +4,9 @@ Reference parity: paddle_tpu/io_recordio.py, the format authority.  A
 file is the magic ``PTRC``, then for each record a little-endian uint32
 length, a uint32 crc32 of the payload, and the payload.  The reference's
 native C++ writer and reader (its ``runtime/native.py``) keep the same
-format; the port reads and writes it here, in Python (the native
-runtime comes with ROADMAP.md Queue 1 item 9).  Files written by either
-package read in the other.
+format; the port reads and writes it here, in Python, and its own
+native writer and reader (runtime/native.py) keep it too.  Files written
+by either package read in the other.
 """
 import struct
 import zlib

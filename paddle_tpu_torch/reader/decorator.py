@@ -2,25 +2,114 @@
 
 Reference parity: paddle_tpu/reader/decorator.py (python/paddle/v2/
 reader/decorator.py): map_readers, shuffle, chain, compose, buffered,
-firstn, cache and xmap_readers, with the same contracts, on Python
-threads.  The port keeps its own copy: the reference's module reads its
-observability registry, which the port does not import, so ``metered``
-(sample counters) raises until the observability slice.
+firstn, cache, xmap_readers and metered, with the same contracts, on
+Python threads.  ``metered`` and ``buffered`` count their samples in the
+port's observability registry under the reference's series
+(``paddle_tpu_reader_samples_total``, ``_samples_per_second`` and
+``_buffer_depth``, labelled ``reader``).
 """
 import itertools
 import queue
 import random
 import threading
+import time
+
+from .. import observability as _obs
 
 __all__ = ['map_readers', 'buffered', 'compose', 'chain', 'shuffle',
            'firstn', 'xmap_readers', 'cache', 'metered',
            'ComposeNotAligned']
 
 
+class _ReaderMetrics(object):
+    """Registry handles for one reader stage, labelled by name
+    (``reader="buffered"``, or the user's ``metered`` name)."""
+
+    _cache = {}
+    _cache_lock = threading.Lock()
+
+    def __init__(self, name):
+        r = _obs.registry()
+        L = ('reader',)
+        sl = {'reader': name}
+        self.samples = r.counter(
+            'paddle_tpu_reader_samples_total',
+            'samples yielded by instrumented reader stages', L
+            ).labels(**sl)
+        self.rate = r.gauge(
+            'paddle_tpu_reader_samples_per_second',
+            'recent sample rate of instrumented reader stages '
+            '(updated every rate-window samples)', L).labels(**sl)
+        self.buffer_depth = r.gauge(
+            'paddle_tpu_reader_buffer_depth',
+            'samples sitting in the prefetch buffer', L).labels(**sl)
+
+    @classmethod
+    def get(cls, name):
+        with cls._cache_lock:
+            m = cls._cache.get(name)
+            if m is None:
+                m = cls._cache[name] = cls(name)
+            return m
+
+
+_RATE_WINDOW = 256  # samples between rate-gauge refreshes
+_DEPTH_WINDOW = 64  # samples between buffer-depth/count flushes
+
+
+class _SampleWindow(object):
+    """Per-sample accounting in windows: ``hit()`` per delivered sample,
+    the locked metric updates once per ``window`` (the counter, the
+    samples/s gauge and, given a queue, its depth gauge).  ``flush()``
+    from a ``finally`` delivers the partial window, so a consumer that
+    stops early never under-counts."""
+    __slots__ = ('_m', '_window', '_n', '_t0')
+
+    def __init__(self, m, window):
+        self._m = m
+        self._window = window
+        self._n = 0
+        self._t0 = time.perf_counter()
+
+    def hit(self, q=None):
+        self._n += 1
+        if self._n >= self._window:
+            n, self._n = self._n, 0
+            self._m.samples.inc(n)
+            if q is not None:
+                self._m.buffer_depth.set(q.qsize())
+            t1 = time.perf_counter()
+            if t1 > self._t0:
+                self._m.rate.set(n / (t1 - self._t0))
+            self._t0 = t1
+
+    def flush(self):
+        if self._n:
+            self._m.samples.inc(self._n)
+            self._n = 0
+
+
 def metered(reader, name='reader'):
-    raise NotImplementedError(
-        "reader.metered counts samples in the observability registry, not "
-        "ported yet: ROADMAP.md Queue 1 item 9")
+    """Count the samples of ``reader`` (``paddle_tpu_reader_samples_total
+    {reader=name}``) and keep a recent samples/s gauge; a pass-through
+    when metrics are disabled."""
+
+    def metered_reader():
+        it = reader()
+        if not _obs.enabled():
+            yield from it
+            return
+        w = _SampleWindow(_ReaderMetrics.get(name), _RATE_WINDOW)
+        try:
+            for sample in it:
+                # counted before the yield: a consumer that closes the
+                # reader right after still received it
+                w.hit()
+                yield sample
+        finally:
+            w.flush()
+
+    return metered_reader
 
 
 class ComposeNotAligned(ValueError):
@@ -95,7 +184,8 @@ class _End(object):
 
 def buffered(reader, size):
     """Read up to ``size`` samples ahead on a worker thread; an error in
-    the source re-raises in the consumer."""
+    the source re-raises in the consumer.  Its samples and queue depth
+    count under ``reader="buffered"``."""
 
     def read_worker(r, q):
         try:
@@ -111,10 +201,18 @@ def buffered(reader, size):
         t = threading.Thread(target=read_worker, args=(reader(), q),
                              daemon=True)
         t.start()
+        w = _SampleWindow(_ReaderMetrics.get('buffered'),
+                          _DEPTH_WINDOW) if _obs.enabled() else None
         e = q.get()
-        while not isinstance(e, _End):
-            yield e
-            e = q.get()
+        try:
+            while not isinstance(e, _End):
+                if w is not None:
+                    w.hit(q)
+                yield e
+                e = q.get()
+        finally:
+            if w is not None:
+                w.flush()
         if e.error is not None:
             raise e.error
 

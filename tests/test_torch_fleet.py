@@ -1,6 +1,7 @@
 """The serving fleet (paddle_tpu_torch/inference/fleet.py) and the io
 version helpers on the CPU: the contracts of tests/test_fleet.py, less
-its routing-span test (spans come with ROADMAP.md Queue 1 item 9).
+its routing-span test, which tests/test_torch_observability.py holds
+with the other span contracts.
 
 - The io helpers (``bucket_artifacts``, ``resolve_version_dir``,
   ``gc_versions``, ``write_rollback_json`` / ``read_rollback_json``) run

@@ -166,8 +166,11 @@ def test_errors_surface_in_the_consumer():
 
 
 def test_what_the_slice_does_not_bring_raises(tmp_path):
+    # reader.metered came with the observability slice
+    # (tests/test_torch_observability.py); distribution's ops still wait
+    from paddle_tpu_torch.core.registry import get_op_impl
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        treader.metered(_items(), 'x')
+        get_op_impl('parallel_do')
     # recordio reads back what datasets.common.convert wrote
     from paddle_tpu_torch.datasets import common as tcommon
     tcommon.convert(str(tmp_path), _items(7), 3, 'items')

@@ -272,9 +272,9 @@ def test_adagrad_steps_match_the_reference(model, batches, n_lstm):
 
 
 @pytest.mark.parametrize('build,match', [
-    # the serving slices brought the AOT cache and the fleet; the
-    # observability registry behind reader.metered waits
-    (lambda: tfl.reader.decorator.metered(lambda: iter(())), 'metered'),
+    # the observability slice brought reader.metered; get_places waits
+    # for distribution, as ParallelDo does
+    (lambda: tfl.core.registry.get_op_impl('get_places'), 'get_places'),
     # seq2seq.decode came with the control-flow slice; ParallelDo waits
     (lambda: tfl.layers.ParallelDo(), 'ParallelDo'),
 ])
