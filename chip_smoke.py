@@ -12,6 +12,8 @@
     python3 chip_smoke.py --dispatch    # phases 1, 3 and 5 alone, see below
     python3 chip_smoke.py --observability  # phase 1, #1, #2 and #5's
                                         # builds, 88-91
+    python3 chip_smoke.py --tune        # phase 1, #5's build, phase 80's
+                                        # CTR server, 92-95
 
 Run from the root of a checkout on a machine with a CUDA card and the
 CUDA toolkit (nvcc).  It drives ``paddle_tpu_torch`` only (no JAX, nothing
@@ -603,6 +605,38 @@ line:
    with metrics off and on: no sync site either way); then a planted NaN
    fed to an fc net under ``debug.nan_guard()`` must raise naming the
    first fc's ``mul``.  Phases 88-91 print their own time.
+92. the autotuner on the card (``TUNE``): ResNet-50 at ``bench.py``'s
+   shape (B=64 224x224 float32 NCHW, Momentum 0.1, #5 214 times a step)
+   searched by ``tuning.autotune`` over ``amp`` ('0', 'bf16', 'f16'),
+   #5's ``dense_apply_blocks_per_sm`` (8, 16), ``device_prefetch_chunk``
+   (0, 2) and ``train_batch`` (32-512), the domains clamped as
+   ``bench.py``'s CPU search clamps them; the objective is seconds per
+   image; each candidate is modelled (the roofline at the H100's peak for
+   its dtype, the memory model's peak against the card's memory as
+   ``PADDLE_TPU_TORCH_PEAK_HBM_BYTES``) and at most 10 are measured (one
+   warm ``run_steps`` call of 5 steps, then one timed to the fetch, from
+   card-resident feeds).  Printed: the trace, the winners and the roofline report of
+   the default configuration's measured step (floor, gap, mfu at 67
+   TFLOP/s, the top ops).  Each measured candidate must launch #5 214 x
+   10 times, at its grid value; the default's loss must be finite, and a
+   candidate whose loss is not counts as a failed measurement; whether
+   B=512 was pruned on its modelled peak is reported.
+93. the restart: a fresh process (``--tune-child DIR OUT``) with
+   ``PADDLE_TPU_TORCH_TUNE=cached`` over phase 92's cache applies the
+   winners with no search (one cache hit and no miss for the trained
+   program; the startup program's own lookup misses, as the reference's
+   does), derives phase 92's cache and plan keys, and runs one step at
+   the winning batch.
+94. #5 at every grid value (2, 4, 8, 16, 32 blocks per SM): bitwise its
+   plain momentum and Nesterov rules at ResNet-50's 28 parameter shapes,
+   and timed at Adam 30000 x 512, momentum 512 x 512 x 3 x 3 cold in L2
+   and VGG-16's fc1.
+95. the lock watchdog armed (``PADDLE_TPU_TORCH_LOCK_DEBUG=1``): a
+   batching server over phase 80's CTR buckets and the flagship decode
+   server, their locks made armed, answer 64 and 12 requests with no
+   lock-order violation (``paddle_tpu_lock_order_violations_total``
+   unchanged); then one planted inversion of the static graph's fleet
+   locks counts exactly 1.  Phases 92-95 print their own time.
 52. a ``{"kernels": [...]}`` line (eleven kernels, each with its launches
    by path; ``bound_ms`` at the rate of the units a kernel computes on:
    the tensor cores at 3xTF32 for #1-#4, #11 and #7-#10 (at the 16-bit
@@ -618,7 +652,8 @@ line:
    inside phase 81's artifact and in phase 82's decode; #7's inside the
    fleet's sentiment artifacts (phase 85) and #9's inside the encoder's
    (87), with each operator against its direct launch (83); those of
-   phases 88-91), printed after phase 91, then
+   phases 88-91; #5's in phases 92 and 93, and its grid checks of 94
+   apart), printed after phase 95, then
    the card's line, and last ``{"ok": true, "device": {...}}``.
 
 With ``--long-step`` the script runs phase 26 alone, in a process that
@@ -9974,6 +10009,429 @@ def _standalone_ctr_server(c=CTR_SERVE):
 
 
 
+# -- phases 92-95: tuning, the restart, #5's grid, the lock watchdog ------
+# phase 92: ResNet-50 at bench.py's shape (B=64 224x224 float32 NCHW,
+# Momentum 0.1), searched over the tunables bench.py's _autotune searches
+# with its CPU clamps (bench.py:67-80) and #5's grid cap; run_steps_k is
+# skipped.  Each measurement: one warm run_steps call of TUNE['steps']
+# steps, then one such call timed to the fetch (bench.py's _autotune);
+# the objective seconds per image.
+TUNE = dict(B=64, steps=5, budget=10, top=5,
+            order=('amp', 'dense_apply_blocks_per_sm',
+                   'device_prefetch_chunk', 'train_batch'),
+            domains={'amp': ('0', 'bf16', 'f16'),
+                     'dense_apply_blocks_per_sm': (8, 16),
+                     'device_prefetch_chunk': (0, 2),
+                     'train_batch': (32, 64, 128, 256, 512)})
+# phase 94: #5's grid values and the table's three timing shapes
+GRID = dict(values=(2, 4, 8, 16, 32))
+# phase 95: requests the armed servers answer
+WATCH = dict(ctr_requests=64, decode_requests=12, max_new=8)
+
+
+def _tune_search(cache_dir):
+    """Phase 92: the autotuner's search over ResNet-50 on the card (see
+    TUNE); returns its trace, winners, launches per candidate, the cache
+    and plan keys, and the roofline report of the default step."""
+    from paddle_tpu_torch.transpiler import pass_manager
+    from paddle_tpu_torch.tuning import cache as tcache
+    from paddle_tpu_torch.tuning import registry as treg
+    from paddle_tpu_torch.tuning import roofline, runtime as trt
+    from paddle_tpu_torch.tuning import search as tsearch
+    c = dict(RESNET, B=TUNE['B'])
+    main, startup, cost = _resnet_programs(c)
+    n_apply = sum(op.type == 'momentum' for op in main.global_block().ops)
+    tun = [treg.tunable(n) for n in TUNE['order']]
+    pinned = [t.name for t in tun if treg.is_pinned(t)]
+    if pinned:
+        raise SystemExit("tune search: %s pinned by the environment"
+                         % pinned)
+    tun = [treg.Tunable(t.name, TUNE['domains'][t.name], t.default,
+                        t.subsystem, t.env, scope=t.scope, help=t.help)
+           for t in tun]
+    flag_names = [t.name for t in tun if t.scope == 'flag']
+    base = treg.current_config(tun)
+    base['train_batch'] = c['B']
+    hw = c['hw']
+    models, measured = {}, []
+
+    def flag_part(cfg):
+        return {n: cfg[n] for n in flag_names}
+
+    def model_fn(cfg):
+        b = int(cfg['train_batch'])
+        with treg.applied(flag_part(cfg)):
+            m = trt.model_program(
+                main, fetch_names=(cost.name,),
+                feed_specs={'img': ((b, 3, hw, hw), 'float32'),
+                            'label': ((b, 1), 'int32')})
+        models[tuple(sorted(cfg.items()))] = m
+        if m is None:
+            return None
+        return {'score': m['score'] / b, 'peak_bytes': m['peak_bytes']}
+
+    def measure_fn(cfg):
+        b = int(cfg['train_batch'])
+        row = dict(config=dict(cfg))
+        measured.append(row)
+        n0, caps0 = du.launches, dict(du.launches_by_cap)
+        feed = {k: torch.from_numpy(v).cuda()
+                for k, v in _image_feed(b, SEED + 920, c).items()}
+        try:
+            with treg.applied(flag_part(cfg)):
+                exe, scope = tfl.Executor(), tfl.Scope()
+                exe.run(startup, scope=scope)
+                exe.run_steps(main, feed=feed, fetch_list=[cost],
+                              scope=scope, repeat=TUNE['steps'])
+                t0 = time.perf_counter()
+                out, = exe.run_steps(main, feed=feed, fetch_list=[cost],
+                                     scope=scope, repeat=TUNE['steps'])
+                dt = time.perf_counter() - t0
+        except torch.cuda.OutOfMemoryError as e:
+            row['error'] = 'out of memory: %s' % str(e).splitlines()[0]
+            return None
+        finally:
+            exe = scope = feed = None
+            torch.cuda.empty_cache()
+        row.update(s_per_img=dt / (TUNE['steps'] * b), step_ms=dt * 1e3 /
+                   TUNE['steps'], loss_finite=bool(np.isfinite(out).all()),
+                   launches=du.launches - n0,
+                   launches_by_cap={k: v - caps0.get(k, 0) for k, v in
+                                    du.launches_by_cap.items()
+                                    if v - caps0.get(k, 0)})
+        # a step whose loss is not finite is no candidate (f16 without
+        # enough range): the search reads it as a failed measurement
+        return row['s_per_img'] if row['loss_finite'] else None
+
+    hbm = torch.cuda.get_device_properties(0).total_memory
+    saved_hbm = os.environ.get(ENV_PREFIX + 'PEAK_HBM_BYTES')
+    os.environ[ENV_PREFIX + 'PEAK_HBM_BYTES'] = str(hbm)
+    t0 = time.perf_counter()
+    try:
+        key = trt.cache_key_for(main)
+        result = tsearch.autotune(model_fn, measure_fn, tunables=tun,
+                                  cache=tcache.TuneCache(cache_dir),
+                                  cache_key=key, mode='search',
+                                  measure_budget=TUNE['budget'], base=base)
+    finally:
+        if saved_hbm is None:
+            os.environ.pop(ENV_PREFIX + 'PEAK_HBM_BYTES')
+        else:
+            os.environ[ENV_PREFIX + 'PEAK_HBM_BYTES'] = saved_hbm
+    search_s = time.perf_counter() - t0
+    print(result.format_trace())
+    want = n_apply * 2 * TUNE['steps']
+    bad = [r for r in measured if 'error' not in r and
+           (r['launches'] != want or r['launches_by_cap'] != {
+               r['config']['dense_apply_blocks_per_sm']: want})]
+    if not measured[0].get('loss_finite'):
+        bad.append(measured[0])
+    pruned_512 = [e for e in result.trace if e['tunable'] == 'train_batch'
+                  and e['value'] == 512]
+    grid_values = sorted({r['config']['dense_apply_blocks_per_sm']
+                          for r in measured if 'error' not in r})
+    # the default configuration's measured step against its roofline
+    base_row = measured[0]
+    base_cost = models[tuple(sorted(base.items()))]['cost']
+    rep = roofline.report(base_cost, base_row['step_ms'] / 1e3,
+                          amp=base['amp'], top=TUNE['top'])
+    print(roofline.format_report(rep))
+    flag_winners = {n: v for n, v in result.winners.items()
+                    if n in flag_names}
+    applied = treg.apply_persistent(flag_winners)
+    res = dict(
+        seconds=search_s, winners=result.winners, applied=applied,
+        config=result.config, measurements=result.measurements,
+        base_s_per_img=result.base_score, best_s_per_img=result.best_score,
+        trace=result.trace, measured=measured, apply_ops=n_apply,
+        launches_per_candidate=want, grid_values_measured=grid_values,
+        batch_512=pruned_512, hbm_budget_bytes=hbm,
+        cache_key=key, plan_key=repr(pass_manager.plan_key(main)),
+        cache_stats=tcache.TuneCache.stats(),
+        launches_by_grid_value={
+            str(k): sum(r.get('launches_by_cap', {}).get(k, 0)
+                        for r in measured) for k in grid_values},
+        roofline={k: v for k, v in rep.items() if k != 'basis'},
+        launches=sum(r.get('launches', 0) for r in measured))
+    print("tune search: %s" % json.dumps(
+        {k: v for k, v in res.items() if k not in ('trace', 'measured')},
+        default=str))
+    if bad or not measured or result.measurements > TUNE['budget']:
+        raise SystemExit("tune search: candidates off the contract (%d "
+                         "#5 launches each, finite loss): %s" % (want, bad))
+    if grid_values != sorted(TUNE['domains']['dense_apply_blocks_per_sm']):
+        raise SystemExit("tune search: #5's grid values measured %s, not "
+                         "its domain" % grid_values)
+    if not pruned_512 or pruned_512[0]['action'] != 'pruned' or \
+            'HBM budget' not in (pruned_512[0]['reason'] or ''):
+        print("tune search: B=512 was not pruned on its modelled peak: %s"
+              % pruned_512)
+    return res
+
+
+def _tune_child(cache_dir, out_path):
+    """Phase 93's fresh process (``--tune-child DIR OUT``), started with
+    PADDLE_TPU_TORCH_TUNE=cached over phase 92's cache: the persisted
+    winners apply with no search, then one ResNet-50 step."""
+    from paddle_tpu_torch.transpiler import pass_manager
+    from paddle_tpu_torch.tuning import cache as tcache
+    from paddle_tpu_torch.tuning import registry as treg
+    from paddle_tpu_torch.tuning import runtime as trt
+    from paddle_tpu_torch.tuning import search as tsearch
+
+    def no_search(*a, **kw):
+        raise AssertionError('the restart must not search')
+    tsearch.Autotuner.search = no_search
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c = dict(RESNET, B=TUNE['B'])
+    main, startup, cost = _resnet_programs(c)
+    exe, scope = tfl.Executor(), tfl.Scope()
+    s0 = tcache.TuneCache.stats()
+    exe.run(startup, scope=scope)
+    s1 = tcache.TuneCache.stats()
+    # the executor's own hook, called once before the feed is built so
+    # that the bench-scope batch winner sizes it; the executor's call on
+    # main below finds it memoised
+    winners = trt.maybe_apply_cached(main, exe.place)
+    b = int(os.environ.get(ENV_PREFIX + 'BENCH_BATCH') or c['B'])
+    feed = {k: torch.from_numpy(v).cuda()
+            for k, v in _image_feed(b, SEED + 930, c).items()}
+    n0 = du.launches
+    out, = exe.run_steps(main, feed=feed, fetch_list=[cost], scope=scope,
+                         repeat=1)
+    s2 = tcache.TuneCache.stats()
+    res = dict(
+        winners=winners, batch=b,
+        env={t.env: os.environ.get(t.env)
+             for t in treg.registered_tunables() if t.env in os.environ},
+        startup_lookup={k: s1[k] - s0[k] for k in s0},
+        main_lookups={k: s2[k] - s1[k] for k in s1},
+        cache_key=trt.cache_key_for(main, exe.place),
+        plan_key=repr(pass_manager.plan_key(main)),
+        loss=float(out.ravel()[0]), launches=du.launches - n0)
+    with open(out_path, 'w') as f:
+        json.dump(res, f, default=str)
+
+
+def _tune_restart(search, cache_dir):
+    """Phase 93: a fresh process with PADDLE_TPU_TORCH_TUNE=cached and
+    phase 92's cache dir applies the winners with no search (one hit and
+    no miss for the trained program), derives the tuned process's plan
+    key, and runs one step."""
+    from paddle_tpu_torch.tuning import registry as treg
+    t0 = time.perf_counter()
+    out_path = os.path.join(cache_dir, 'restart.json')
+    with treg.base_env():
+        env = dict(os.environ)
+    env.update({ENV_PREFIX + 'TUNE': 'cached',
+                ENV_PREFIX + 'TUNE_CACHE_DIR': cache_dir})
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           '--tune-child', cache_dir, out_path],
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise SystemExit("tune restart: the child failed:\n%s"
+                         % proc.stderr[-4000:])
+    with open(out_path) as f:
+        child = json.load(f)
+    child['seconds'] = time.perf_counter() - t0
+    want_batch = int(search['winners'].get('train_batch', TUNE['B']))
+    n_apply = search['apply_ops']
+    print("tune restart: %s" % json.dumps(child))
+    ok = (child['winners'] == search['winners'] and
+          child['main_lookups']['hits'] == 1 and
+          child['main_lookups']['misses'] == 0 and
+          child['main_lookups']['corrupt'] == 0 and
+          child['cache_key'] == search['cache_key'] and
+          child['plan_key'] == search['plan_key'] and
+          child['batch'] == want_batch and
+          np.isfinite(child['loss']) and child['launches'] == n_apply)
+    if not ok:
+        raise SystemExit("tune restart: the fresh process did not start "
+                         "tuned (%s against %s)" % (child, {
+                             k: search[k] for k in ('winners', 'cache_key',
+                                                    'plan_key')}))
+    return child
+
+
+def _grid_timings(gen, lr):
+    """#5 at each grid value at the table's three shapes: Adam 30000 x
+    512, momentum 512 x 512 x 3 x 3 cold in L2 (four sets in turn),
+    momentum at VGG-16's fc1 25088 x 4096; device ms (CUDA graphs)."""
+    from paddle_tpu_torch.tuning import registry as treg
+    shape = (TRAIN['V'], TRAIN['D'])
+    p, m, g = (torch.randn(shape, generator=gen, device='cuda') * 1e-2
+               for _ in range(3))
+    v = torch.rand(shape, generator=gen, device='cuda') * 1e-4
+    sets = [[torch.randn((512, 512, 3, 3), generator=gen, device='cuda')
+             * 1e-2 for _ in range(3)] for _ in range(4)]
+    fc1 = [torch.randn((25088, 4096), generator=gen, device='cuda') * 1e-2
+           for _ in range(3)]
+    turn = [0]
+
+    def cold():
+        du.dense_apply_momentum(*sets[turn[0] % 4], lr, 0.9)
+        turn[0] += 1
+    out = {}
+    for per_sm in GRID['values']:
+        with treg.applied({'dense_apply_blocks_per_sm': per_sm}):
+            out[per_sm] = dict(
+                blocks=du.grid_cap(p.device)[1],
+                adam_30000x512_ms=_device_ms(lambda: du.dense_apply_adam(
+                    p, m, v, g, lr, 0.9, 0.999, 1e-8)),
+                momentum_512x512x3x3_cold_ms=_device_ms(cold),
+                momentum_vgg_fc1_ms=_device_ms(lambda: du.dense_apply_momentum(
+                    fc1[0], fc1[1], fc1[2], lr, 0.9)))
+    return out
+
+
+def phase_dense_grid():
+    """Phase 94: #5 at every value of dense_apply_blocks_per_sm, bitwise
+    its plain momentum and Nesterov rules at ResNet-50's 28 parameter
+    shapes, and timed at the table's three shapes."""
+    from paddle_tpu_torch.tuning import registry as treg
+    t0 = time.perf_counter()
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 94)
+    lr = torch.tensor([1e-3], device='cuda')
+    shapes = _param_shapes(_resnet_programs)
+    n0 = du.launches
+    cases, bad = 0, []
+    for shape in shapes:
+        p, m, g = (torch.randn(shape, generator=gen, device='cuda')
+                   for _ in range(3))
+        for rule in ('momentum', 'nesterov'):
+            want = _dense_call(rule, p, m, None, g, lr, plain=True)
+            for per_sm in GRID['values']:
+                with treg.applied({'dense_apply_blocks_per_sm': per_sm}):
+                    got = _dense_call(rule, p.clone(), m.clone(), None, g,
+                                      lr, plain=False)
+                torch.cuda.synchronize()
+                cases += 1
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    bad.append((list(shape), rule, per_sm))
+    check_launches = du.launches - n0
+    timing = _grid_timings(gen, lr)
+    res = dict(shapes=len(shapes), cases=cases, bitwise=cases - len(bad),
+               check_launches=check_launches, timing=timing,
+               launches=du.launches - n0,
+               seconds=time.perf_counter() - t0)
+    print("dense grid: %s" % json.dumps(res))
+    if bad or len(shapes) != 28:
+        raise SystemExit("dense grid: %d shapes; not bitwise at %s"
+                         % (len(shapes), bad[:10]))
+    return res
+
+
+def _violation_count():
+    from paddle_tpu_torch import observability as tobs
+    fam = tobs.snapshot().get('paddle_tpu_lock_order_violations_total') or {}
+    return sum(s['value'] for s in fam.get('samples', ()))
+
+
+def phase_lock_watchdog(ctr_src, c=SERVE, w=WATCH):
+    """Phase 95: PADDLE_TPU_TORCH_LOCK_DEBUG=1 over phase 80's CTR tower
+    behind a BatchingInferenceServer (a sibling over ``ctr_src``'s loaded
+    buckets, its locks made armed) and the flagship DecodeServer: no
+    violation while they serve; then one planted inverted acquisition of
+    the static graph's fleet locks counts exactly 1."""
+    from paddle_tpu_torch.analysis import lockdebug
+    from paddle_tpu_torch.inference import BatchingInferenceServer
+    t0 = time.perf_counter()
+    saved = os.environ.get(ENV_PREFIX + 'LOCK_DEBUG')
+    os.environ[ENV_PREFIX + 'LOCK_DEBUG'] = '1'
+    lockdebug.reload_enabled()
+    lockdebug.reset_state()
+    v0 = _violation_count()
+    try:
+        srv = BatchingInferenceServer(None, share_artifacts_with=ctr_src,
+                                      max_wait_ms=CTR_SERVE['max_wait_ms'],
+                                      linger_ms=CTR_SERVE['linger_ms'])
+        cfg = TransformerConfig(vocab_size=c['V'], seq_len=c['T'],
+                                n_layers=c['L'], d_model=c['D'],
+                                n_heads=c['H'])
+        eng = DecodeEngine(init_params(cfg, torch.Generator().manual_seed(
+            SEED + 95)), n_layers=c['L'], n_heads=c['H'],
+            page_size=c['page'], max_streams=c['streams'],
+            prefill_bucket=c['bucket'])
+        dec = DecodeServer(eng)
+        armed = [type(srv._cv).__name__, type(dec._cv).__name__]
+        rng = np.random.default_rng(SEED + 95)
+        try:
+            streams = [dec.submit(p, max_new_tokens=w['max_new']) for p in
+                       _serving_prompts(rng, w['decode_requests'], c['V'])]
+            futs = [srv.submit(_ctr_request(rng, 1 + i % 3))
+                    for i in range(w['ctr_requests'])]
+            tokens = [len(s.result(timeout=300.0)) for s in streams]
+            answers = [f.result(timeout=300.0) for f in futs]
+        finally:
+            dec.close()
+            srv.close()
+        served = dict(decode_tokens=tokens, ctr_answers=len(answers),
+                      ctr_finite=all(np.isfinite(a).all() for r in answers
+                                     for a in r))
+        serving_violations = lockdebug.violations()
+        v1 = _violation_count()
+        # planted: the fleet's route lock, then its deploy lock, against
+        # the static order deploy -> route
+        route = lockdebug.make_lock('ServingFleet._lock')
+        deploy = lockdebug.make_lock('ServingFleet._deploy_lock')
+        with route:
+            with deploy:
+                pass
+        planted = lockdebug.violations()
+        v2 = _violation_count()
+    finally:
+        if saved is None:
+            os.environ.pop(ENV_PREFIX + 'LOCK_DEBUG', None)
+        else:
+            os.environ[ENV_PREFIX + 'LOCK_DEBUG'] = saved
+        lockdebug.reload_enabled()
+    res = dict(armed_lock_types=armed, served=served,
+               static_edges=sum(len(v) for v in
+                                lockdebug.order_edges().values()),
+               serving_violations=len(serving_violations),
+               serving_metric=v1 - v0, planted_violations=len(planted),
+               planted_metric=v2 - v1,
+               planted=[{k: x[k] for k in ('acquiring', 'inverted_against',
+                                           'held')} for x in planted],
+               seconds=time.perf_counter() - t0)
+    lockdebug.reset_state()
+    print("lock watchdog: %s" % json.dumps(res))
+    if armed != ['_DebugCondition', '_DebugCondition'] or \
+            serving_violations or v1 != v0 or len(planted) != 1 or \
+            v2 - v1 != 1 or not served['ctr_finite'] or \
+            served['decode_tokens'] != [w['max_new']] * w['decode_requests']:
+        raise SystemExit("lock watchdog: %s" % res)
+    return res
+
+
+def _tune_phases(ctr_src):
+    """Phases 92-95, timed together; the tuner's env is restored after
+    phase 93."""
+    from paddle_tpu_torch.tuning import registry as treg
+    t0 = time.perf_counter()
+    cache_dir = tempfile.mkdtemp(prefix='chip_smoke_tune_')
+    try:
+        out = dict(search=_tune_search(cache_dir))
+        try:
+            out['restart'] = _tune_restart(out['search'], cache_dir)
+        finally:
+            for name in out['search']['applied']:
+                env = treg.tunable(name).env
+                os.environ.pop(env, None)
+                treg._TUNER_APPLIED.discard(env)
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out['grid'] = phase_dense_grid()
+    out['watchdog'] = phase_lock_watchdog(ctr_src)
+    out['seconds'] = time.perf_counter() - t0
+    print("phases 92-95 (the autotuner's search on the card, the restart, "
+          "#5's grid, the lock watchdog): %.1f s" % out['seconds'])
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -9983,6 +10441,9 @@ def main():
         return 0
     if sys.argv[1:2] == ['--cold-start']:
         _cold_start_child(*sys.argv[2:5])
+        return 0
+    if sys.argv[1:2] == ['--tune-child']:
+        _tune_child(*sys.argv[2:4])
         return 0
     card = phase_environment()
     if sys.argv[1:] == ['--long-step']:
@@ -10035,6 +10496,15 @@ def main():
                      'dense_update'))
         res = _observability_phases(_standalone_ctr_server())
         print(json.dumps({'observability': res}, default=str))
+        return 0
+    if sys.argv[1:] == ['--tune']:
+        phase_build(('dense_update',))
+        src = _standalone_ctr_server()
+        try:
+            res = _tune_phases(src)
+        finally:
+            src.close()
+        print(json.dumps({'tune': res}, default=str))
         return 0
     if sys.argv[1:] == ['--flash']:
         phase_build(FLASH_SOURCES)
@@ -10098,6 +10568,8 @@ def main():
         shutil.rmtree(base, ignore_errors=True)
     torch.cuda.empty_cache()
     obs = _observability_phases(keep['ctr'])
+    torch.cuda.empty_cache()
+    tune = _tune_phases(keep.pop('ctr'))
     counts = tr['counts']
     main_row = next(r for r in rows if r['case'] == MAIN_CASE)
     fwd = dict(
@@ -10261,6 +10733,23 @@ def main():
         'timeline_armed_training': obs['profiled']['traced_counts'],
         'telemetry_decode_serving': obs['telemetry']['counts'],
         'sync_checked_training_step': obs['syncs']['counts']})
+    # phases 92-93: ResNet-50 through the tuner's measurements (every
+    # candidate, each grid value) and the restarted process's step; phase
+    # 94's launches are #5's checks against its plain rules and its
+    # timings, listed apart and not in 'launches'
+    _add_paths(lines, {
+        'resnet50_tune_search': dict(
+            dense_update=tune['search']['launches']),
+        'resnet50_tune_restart': dict(
+            dense_update=tune['restart']['launches'])})
+    dense_line['launches_by_path']['grid_checks_and_timing_phase94'] = \
+        tune['grid']['launches']
+    dense_line['grid'] = {
+        'tunable': 'dense_apply_blocks_per_sm',
+        'launches_by_grid_value_phase92':
+            tune['search']['launches_by_grid_value'],
+        'timing_phase94': tune['grid']['timing'],
+        'bitwise_cases_phase94': tune['grid']['bitwise']}
     print(json.dumps({'kernels': lines}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -101,11 +101,18 @@ their wrappers.
   ``executor.dispatch`` and ``executor.fetch_sync`` (compute),
   ``executor.scope_update`` (update), the card's chunk intervals
   (``executor.chunk_compute``, measured with CUDA events) and the memory
-  counter tracks.  Disarmed and disabled, each site is one cached-bool
-  check: no clock read, no allocation, no host sync.  An exception in
+  counter tracks.  A call's phase events come from one chain of clock
+  readings, each starting where the one before it ended, so they tile
+  the call up to the step report's own tail.  Disarmed and disabled,
+  each site is one cached-bool check: no clock read, no allocation, no
+  host sync.  An exception in
   ``run`` or ``run_steps`` dumps the ring first when
   ``PADDLE_TPU_TORCH_TRACE_DUMP_ON_ERROR`` is on; ``run_steps`` flushes
   it to ``PADDLE_TPU_TORCH_TRACE_DIR``.
+- Tuning (reference: executor.py ``_maybe_apply_tuned``): with
+  ``PADDLE_TPU_TORCH_TUNE=cached`` ``run`` and ``run_steps`` apply the
+  program's persisted autotuner winners (tuning/runtime.py) before its
+  plan key is computed; off (the default), one env read.
 - NaN / Inf guard (debug.py ``nan_guard``, ``PADDLE_TPU_TORCH_CHECK_NAN_INF``):
   armed, every op's floating outputs are scanned as it runs and the first
   op that wrote a NaN or an Inf raises FloatingPointError naming it.
@@ -152,6 +159,7 @@ meshes (item 10).
 """
 import itertools
 import math
+import os
 import time
 import weakref
 
@@ -1102,6 +1110,24 @@ def _run_autodiff(ad_op, gp, env, ctx, pre):
                             ad_op.attrs.get('op_seq', -1))
 
 
+def _maybe_apply_tuned(program, place):
+    """PADDLE_TPU_TORCH_TUNE=cached: apply the persisted autotuner
+    winners of this program (tuning/runtime.py) before its plan key is
+    computed; the applied env overrides are what the plan build reads, so
+    the tuned plan builds as a fresh tuned process builds it (reference:
+    executor.py ``_maybe_apply_tuned``).  Off (the default): one env read,
+    nothing imported, every path bitwise untuned."""
+    if os.environ.get('PADDLE_TPU_TORCH_TUNE') != 'cached':
+        return
+    try:
+        from ..tuning import runtime as _trt
+        _trt.maybe_apply_cached(program, place)
+    except Exception:  # tuning never breaks a run
+        import logging
+        logging.getLogger(__name__).warning(
+            'tuning cache apply failed; running untuned', exc_info=True)
+
+
 def _fetched(t, return_numpy):
     if not return_numpy:
         return t
@@ -1128,6 +1154,9 @@ class Executor(object):
         self._multi = {}
         self._stager = None
         self._state_bytes = 0   # the last step's in-place state bytes
+        # armed recorder: where the call's next phase event starts (the
+        # end of the one before), so the events tile the call
+        self._tl_at = None
         self.last_graph_opt_report = None
         # the last run's or run_steps call's measured walls joined with
         # the plan's cost and memory reports (_finalize_step_report)
@@ -1234,10 +1263,16 @@ class Executor(object):
             with _obs.span('executor.compile'):
                 plan = self._build_plan(program, fetch_names, feed_names,
                                         feed_specs, batch, em)
-            build_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            build_s = t1 - t0
             if tl is not None:
-                tl.record('executor.compile', 'compile', t0=t0, dur=build_s,
-                          args={'ops': len(plan.program.global_block().ops)})
+                args = {'ops': len(plan.program.global_block().ops)}
+                if self._tl_at is None:   # a plan built outside a call
+                    tl.record('executor.compile', 'compile', t0=t0,
+                              dur=build_s, args=args)
+                else:
+                    self._tl_event(tl, 'executor.compile', 'compile', t1,
+                                   args)
             self._plans[key] = plan
         # None when nothing rewrote the program (the reference's bypass)
         self.last_graph_opt_report = (
@@ -1347,7 +1382,6 @@ class Executor(object):
         if fresh and count_compile and em is not None:
             em.compiles.inc()
             em.compile_seconds.observe(build_s)
-        t_d0 = time.perf_counter() if tl is not None else 0.0
         program = plan.program
         block = program.global_block()
         amp = plan.report.get('amp')
@@ -1398,11 +1432,12 @@ class Executor(object):
             if report is not None:
                 report['update_s'] += t_end - t_update
         if tl is not None:
-            tl.record('executor.dispatch', 'compute', t0=t_d0,
-                      dur=t_update - t_d0,
-                      args={'donated_state_bytes': self._state_bytes})
-            tl.record('executor.scope_update', 'update', t0=t_update,
-                      dur=t_end - t_update)
+            # the dispatch event starts where the event before it ended:
+            # the host work between steps (plan lookup, the fetch copies)
+            # is the step's, as compute_s counts it
+            self._tl_event(tl, 'executor.dispatch', 'compute', t_update,
+                           {'donated_state_bytes': self._state_bytes})
+            self._tl_event(tl, 'executor.scope_update', 'update', t_end)
         fetches = []
         for n in fetch_names:
             if n not in env:
@@ -1421,24 +1456,28 @@ class Executor(object):
             # disarmed, and it never raises
             _tlm.maybe_dump_on_error()
             raise
+        finally:
+            self._tl_at = None
 
     def _run_impl(self, program, feed, fetch_list, scope, return_numpy):
         t_call = time.perf_counter()
         program, scope, fetch_names = self._resolve(program, scope,
                                                     fetch_list)
+        _maybe_apply_tuned(program, self.place)
         tl = _tlm.ring_if_armed()
         if tl is not None:
             tl.set_step(self._step_count)
+            self._tl_at = t_call
         report = self._new_report(1)
         feed = feed or {}
         staged = self._stage_feed(program.global_block(), feed)
-        report['feed_s'] = time.perf_counter() - t_call
+        t_fed = time.perf_counter()
+        report['feed_s'] = t_fed - t_call
         em = _em() if _obs.enabled() else None
         host_fed = not any(torch.is_tensor(v) for v in feed.values())
         if tl is not None and staged:
-            tl.record('executor.feed_stage', 'feed', t0=t_call,
-                      dur=report['feed_s'],
-                      args={'bytes': _nbytes(staged), 'donated': host_fed})
+            self._tl_event(tl, 'executor.feed_stage', 'feed', t_fed,
+                           {'bytes': _nbytes(staged), 'donated': host_fed})
         with _obs.span('executor.run'):
             fetched = self._step(program, scope, staged, fetch_names,
                                  report, em=em, tl=tl)
@@ -1505,6 +1544,8 @@ class Executor(object):
         except BaseException:
             _tlm.maybe_dump_on_error()
             raise
+        finally:
+            self._tl_at = None
 
     def _run_steps_impl(self, program, feed, fetch_list, scope, repeat,
                         return_numpy):
@@ -1512,6 +1553,7 @@ class Executor(object):
         t_call = time.perf_counter()
         program, scope, fetch_names = self._resolve(program, scope,
                                                     fetch_list)
+        _maybe_apply_tuned(program, self.place)
         if isinstance(feed, dict):
             if not repeat:
                 raise ValueError("run_steps with a single feed dict "
@@ -1541,6 +1583,7 @@ class Executor(object):
         tl = _tlm.ring_if_armed()
         if tl is not None:
             tl.set_step(self._step_count)
+            self._tl_at = t_call
         if prefetch:
             return self._run_steps_prefetch(
                 program, block, scope, feeds, k, fetch_names, report, em,
@@ -1551,11 +1594,12 @@ class Executor(object):
         multi, fresh, build_s = self._multi_plan(program, fetch_names, k,
                                                  stacked, slots)
         staged, nb = self._stage_slots(multi, slots)
-        report['feed_s'] = time.perf_counter() - t_call
+        t_fed = time.perf_counter()
+        report['feed_s'] = t_fed - t_call
         report['feed_bytes'] = report['feed_peak_bytes'] = nb
         if tl is not None:
-            tl.record('executor.feed_stack', 'feed', t0=t_call,
-                      dur=report['feed_s'], args={'bytes': nb, 'steps': k})
+            self._tl_event(tl, 'executor.feed_stack', 'feed', t_fed,
+                           {'bytes': nb, 'steps': k})
         if em is not None:
             if fresh:
                 em.compiles.inc()
@@ -1597,13 +1641,21 @@ class Executor(object):
         return [t.detach().clone() for t in outs]
 
     def _stack_fetches(self, per_step, fetch_names, return_numpy, tl, k):
-        ts = time.perf_counter() if tl is not None else 0.0
         stacked = [torch.stack(ts_) for ts_ in zip(*per_step)]
         outs = [_fetched(t, return_numpy) for t in stacked]
         if tl is not None and fetch_names:
-            tl.record('executor.fetch_sync', 'compute', t0=ts,
-                      dur=time.perf_counter() - ts, args={'steps': k})
+            self._tl_event(tl, 'executor.fetch_sync', 'compute',
+                           time.perf_counter(), {'steps': k})
         return outs
+
+    def _tl_event(self, tl, name, cat, t_end, args=None):
+        """Record a phase event from the end of the call's previous one
+        to ``t_end``, and start the next one there: one chain of clock
+        readings, so consecutive events share their boundaries and the
+        events tile the call."""
+        t0 = self._tl_at
+        tl.record(name, cat, t0=t0, dur=t_end - t0, args=args)
+        self._tl_at = t_end
 
     def _run_steps_prefetch(self, program, block, scope, feeds, k,
                             fetch_names, report, em, tl, return_numpy,
@@ -1641,11 +1693,11 @@ class Executor(object):
             conv.append(fa)
         conv = [{n: (t if t.dtype == dtypes[n] else t.to(dtypes[n]), h)
                  for n, (t, h) in fa.items()} for fa in conv]
-        report['feed_s'] = time.perf_counter() - t_call
+        t_fed = time.perf_counter()
+        report['feed_s'] = t_fed - t_call
         if tl is not None:
-            tl.record('executor.feed_stack', 'feed', t0=t_call,
-                      dur=report['feed_s'], args={'steps': k,
-                                                  'prefetch': True})
+            self._tl_event(tl, 'executor.feed_stack', 'feed', t_fed,
+                           {'steps': k, 'prefetch': True})
         started = [False]
         live = []   # bytes of the staged chunks still referenced
 
@@ -1679,6 +1731,10 @@ class Executor(object):
                 live.append(nb)
                 report['feed_peak_bytes'] = max(report['feed_peak_bytes'],
                                                 sum(live[-2:]))
+                if tl is not None:
+                    # the staging is the 'prefetch.stage' event; the next
+                    # step's dispatch starts after it
+                    self._tl_at = time.perf_counter()
                 return lo, hi, staged
             return thunk
 

@@ -14,6 +14,12 @@
 // cleverer than keep every access coalesced in a grid-stride loop; a
 // multi-tensor launch over all parameters at once is later work.
 //
+// The grid: ceil(n / 256) blocks, capped at `max_blocks`, which the
+// caller passes (the card's SM count times the autotuner's
+// dense_apply_blocks_per_sm, 16 by default: 2112 blocks on a 132-SM
+// H100).  A smaller cap walks longer strides per block; the rule is per
+// element, so every grid gives the same bits.
+//
 // Bitwise contract.  The result equals the plain PyTorch version
 // (ops/kernels/dense_update.py plain_*) evaluated eagerly on the card:
 // every product, sum, quotient and square root is rounded separately with
@@ -29,7 +35,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;
 
 enum Rule { kSgd = 0, kMomentum = 1, kAdam = 2 };
 
@@ -80,13 +85,15 @@ extern "C" {
 
 // rule 0 sgd (p), 1 momentum (p, s1 = velocity), 2 adam (p, s1 = moment1,
 // s2 = moment2); every array is contiguous float32 [n] on the device, lr
-// a float32 scalar on the device.  Updates in place on `stream`; returns
-// the CUDA error of the launch (0 on success, and at once for n = 0);
-// does not synchronise.
+// a float32 scalar on the device; at most `max_blocks` (>= 1) blocks of
+// 256 threads walk the arrays.  Updates in place on `stream`; returns the
+// CUDA error of the launch (0 on success, and at once for n = 0); does
+// not synchronise.
 int paddle_dense_update(int rule, void* p, void* s1, void* s2, const void* g,
                         const void* lr, int64_t n, float a, float b, float c,
-                        float d, float e, int flag, void* stream) {
-  if (n < 0 || rule < kSgd || rule > kAdam)
+                        float d, float e, int flag, int max_blocks,
+                        void* stream) {
+  if (n < 0 || rule < kSgd || rule > kAdam || max_blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   if ((rule >= kMomentum && s1 == nullptr) || (rule == kAdam && s2 == nullptr))
@@ -94,7 +101,7 @@ int paddle_dense_update(int rule, void* p, void* s1, void* s2, const void* g,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t want = (n + kThreads - 1) / kThreads;
   const unsigned blocks =
-      static_cast<unsigned>(want < kMaxBlocks ? want : kMaxBlocks);
+      static_cast<unsigned>(want < max_blocks ? want : max_blocks);
   float* pp = static_cast<float*>(p);
   float* p1 = static_cast<float*>(s1);
   float* p2 = static_cast<float*>(s2);

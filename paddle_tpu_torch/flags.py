@@ -1,6 +1,6 @@
 """Env-var configuration (gflags parity): the serving stack's, the pass
-pipeline's, the step report's, observability's and the feed runtime's
-flags.
+pipeline's, the step report's, observability's, the feed runtime's,
+the tuner's and the lock watchdog's flags.
 
 Every flag is ``PADDLE_TPU_TORCH_<NAME>`` in the environment, declared
 with a type and default, and read through the global ``FLAGS``.  The
@@ -253,6 +253,56 @@ FLAGS._define(
     'device_prefetch_chunk', 0, int,
     'steps per staged chunk when PADDLE_TPU_TORCH_DEVICE_PREFETCH is on; '
     '0 (the default) takes max(1, ceil(K/4))')
+
+
+# -- tuning, the roofline and the lock watchdog ----------------------------
+FLAGS._define(
+    'tune', 'off', str,
+    "the autotuner (paddle_tpu_torch.tuning): 'off' (the default) leaves "
+    'every executor path bitwise untuned at one env read a call, nothing '
+    "imported; 'cached' makes the executor apply the persisted winners "
+    'of a program (keyed by plan key, device kind and mesh, under '
+    'PADDLE_TPU_TORCH_TUNE_CACHE_DIR) before its plan key is computed, '
+    "so a fresh process starts tuned with no search; 'search' is read "
+    'by the harness that drives a search (chip_smoke.py --tune)')
+FLAGS._define(
+    'tune_cache_dir', '', str,
+    'where the tuner\'s winners persist (one JSON file per (plan key, '
+    'device kind, mesh) under <dir>/paddle_tpu_tuning).  Empty falls back '
+    'to PADDLE_TPU_TORCH_AOT_CACHE_DIR; empty too means no persistence.  '
+    'A corrupted file is counted (paddle_tpu_tune_cache_corrupt_total) '
+    'and read as a miss')
+FLAGS._define(
+    'tune_trace', False, _bool,
+    'print the search trace (one line a candidate: modelled and measured '
+    'score, pruned / measured / adopted and why) after a harness-driven '
+    'search')
+FLAGS._define(
+    'tune_measure_budget', 24, int,
+    'most candidates one search measures; pruned candidates are free, and '
+    'past the budget the rest are pruned as measure-budget')
+FLAGS._define(
+    'hbm_gbps', 0.0, float,
+    "the card's memory rate in GB/s for the roofline (tuning/"
+    'roofline.py): an op\'s bytes-bound floor is its bytes over this.  0 '
+    "(the default) takes the H100 80GB HBM3's 3350 GB/s.  Modelled "
+    'numbers only, never measured ones')
+FLAGS._define(
+    'lock_debug', False, _bool,
+    'the run-time lock watchdog (paddle_tpu_torch.analysis.lockdebug): '
+    'on, the serving modules make their locks as checking wrappers that '
+    'keep each thread\'s acquisition stack and assert the static '
+    "analyzer's lock-order graph; acquiring B while holding A where B "
+    'comes before A (statically, or earlier in this process) counts a '
+    'paddle_tpu_lock_order_violations_total and records the site.  Read '
+    'when a lock is made; off (the default), plain threading locks')
+FLAGS._define(
+    'dense_apply_blocks_per_sm', 16, int,
+    'grid cap of the dense optimizer apply kernel (#5, csrc/'
+    'dense_update.cu): at most this many 256-thread blocks per SM walk '
+    "the parameter grid-stride; the SM count is the card's.  A tunable "
+    '(2, 4, 8, 16, 32); every value gives the same bits, the rule being '
+    'per element')
 
 
 if __name__ == '__main__':

@@ -74,6 +74,7 @@ import numpy as np
 import torch
 
 from .. import observability as _obs
+from ..analysis import lockdebug as _lkd
 from ..core.place import resolve_device
 from ..observability import timeline as _tlm
 from ..observability.metrics import DEFAULT_LATENCY_BUCKETS
@@ -349,10 +350,13 @@ class BatchingInferenceServer(object):
         self.max_queue = int(max_queue)
 
         # one lock, two wait-sets: the dispatcher sleeps on _cv, clients
-        # blocked on backpressure on _cv_space
+        # blocked on backpressure on _cv_space.  Both conditions carry one
+        # watchdog name: they are one lock in the acquisition-order graph
+        # (PADDLE_TPU_TORCH_LOCK_DEBUG)
         lock = threading.Lock()
-        self._cv = threading.Condition(lock)
-        self._cv_space = threading.Condition(lock)
+        self._cv = _lkd.make_condition('BatchingInferenceServer._cv', lock)
+        self._cv_space = _lkd.make_condition('BatchingInferenceServer._cv',
+                                             lock)
         self._pending = deque()   # guarded by _cv
         self._pending_rows = 0    # running row total of _pending
         self._in_flight = 0       # batches dispatched, not yet synced

@@ -44,6 +44,7 @@ import torch
 from ..core.place import resolve_device
 from ..flags import FLAGS
 from .. import observability as _obs
+from ..analysis import lockdebug as _lkd
 from ..observability.metrics import DEFAULT_LATENCY_BUCKETS
 from ..core.registry import get_op_impl
 from ..ops.attention import flash_attention
@@ -692,10 +693,10 @@ class DecodeServer(object):
         self.static = bool(static_batching)
         self.greedy = bool(greedy)
         self._reserve = max(0, int(FLAGS.decode_page_reserve))
-        self._preempted = 0       # guarded by _cv
+        self._preempted = 0       # lock: guarded_by(_cv)
         self._chunk_rr = 0        # round-robin cursor, worker-owned
         # one lock, one wait-set: submit/close wake the worker
-        self._cv = threading.Condition(threading.Lock())
+        self._cv = _lkd.make_condition('DecodeServer._cv', threading.Lock())
         self._queue = deque()     # guarded by _cv
         self._slots = [None] * engine.max_streams  # worker-owned
         self._stopping = False    # guarded by _cv

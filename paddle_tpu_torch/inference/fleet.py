@@ -58,9 +58,11 @@ series and the check.  Armed, the timeline records each routing decision
 a request that finally fails dumps the ring tagged with the fleet (and
 the version whose replica failed).
 
-Departures from the reference: locks are plain ``threading`` locks
-without ``lockdebug`` (ROADMAP.md Queue 1 item 9b).  ``device`` (None: the
-card) is where every replica serves.
+The fleet's two locks come from ``analysis.lockdebug.make_lock`` under the
+reference's names (``ServingFleet._lock``, ``ServingFleet._deploy_lock``):
+plain ``threading`` locks unless PADDLE_TPU_TORCH_LOCK_DEBUG arms the
+watchdog.  Departure from the reference: ``device`` (None: the card) is
+where every replica serves.
 """
 import itertools
 import logging
@@ -76,6 +78,7 @@ import numpy as np
 from .. import io as _io
 from ..core.place import resolve_device
 from .. import observability as _obs
+from ..analysis import lockdebug as _lkd
 from ..flags import FLAGS
 from ..observability import timeline as _tlm
 from . import tenancy as _tn
@@ -448,8 +451,8 @@ class ServingFleet(object):
                  **server_kwargs):
         self._fid = 'f%d' % next(_fleet_seq)
         self.device = resolve_device(device)
-        self._lock = threading.Lock()
-        self._deploy_lock = threading.Lock()
+        self._lock = _lkd.make_lock('ServingFleet._lock')
+        self._deploy_lock = _lkd.make_lock('ServingFleet._deploy_lock')
         self._rr = itertools.count()
         self._req_seq = itertools.count()  # fleet-level request ids
         # HBM budget of deploy()'s resident-bytes admission check; 0 is

@@ -26,13 +26,16 @@ imports nothing of the reference):
   :class:`AdmissionError` before any replica is built when it still does
   not fit.
 
-The registry's state lives under one plain ``threading`` lock (the
-reference's ``lockdebug`` lock comes with ROADMAP.md Queue 1 item 9b); its
-methods never call out of the module while holding it.
+The registry's state lives under one lock made by
+``analysis.lockdebug.make_lock`` under the reference's name
+(``TenantRegistry._lock``): a plain ``threading`` lock unless
+PADDLE_TPU_TORCH_LOCK_DEBUG arms the watchdog.  Its methods never call
+out of the module while holding it.
 """
-import threading
 import time
 from collections import deque
+
+from ..analysis import lockdebug as _lkd
 
 __all__ = ['AdmissionError', 'TenantRegistry', 'plan_eviction',
            'effective_quota', 'SLO_CLASSES', 'DEFAULT_SLO_CLASS',
@@ -162,7 +165,7 @@ class TenantRegistry(object):
     dispatch, outside this lock."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = _lkd.make_lock('TenantRegistry._lock')
         self._tenants = {}  # name -> _Tenant, guarded by _lock
 
     # -- registration ---------------------------------------------------

@@ -20,6 +20,13 @@ product, sum, quotient and square root separately in the same order (no
 fused multiply-add).  The reference's switch between its two lowerings
 (PADDLE_TPU_DENSE_APPLY) is not ported.
 
+The grid is capped at the card's SM count times
+``PADDLE_TPU_TORCH_DENSE_APPLY_BLOCKS_PER_SM`` (the autotuner's
+``dense_apply_blocks_per_sm``, default 16), read at every launch; the
+rule is per element, so every cap gives the same bits.  The reference's
+tunable here is ``flat_tile_budget``, a per-block VMEM budget of its tile
+walk, which a CUDA block does not have.
+
 ``lr`` / ``lr_t`` are one-element float32 tensors on the params' device:
 the kernel reads them through a pointer, so the 78 applies of a
 transformer step add no host sync.  beta1, beta2, epsilon, mu and the
@@ -32,9 +39,12 @@ import numpy as np
 import torch
 
 __all__ = ['dense_apply_sgd', 'dense_apply_momentum', 'dense_apply_adam',
-           'plain_sgd', 'plain_momentum', 'plain_adam', 'launches']
+           'plain_sgd', 'plain_momentum', 'plain_adam', 'launches',
+           'grid_cap', 'launches_by_cap']
 
 launches = 0   # kernel launches in this process (plain-version calls excluded)
+launches_by_cap = {}   # blocks per SM -> launches at it
+_sms = {}              # device index -> SM count
 
 _RULE_SGD, _RULE_MOMENTUM, _RULE_ADAM = 0, 1, 2
 
@@ -46,7 +56,7 @@ def _lib():
     if fn.argtypes is None:
         p, f = ctypes.c_void_p, ctypes.c_float
         fn.argtypes = [ctypes.c_int, p, p, p, p, p, ctypes.c_int64, f, f, f,
-                       f, f, ctypes.c_int, p]
+                       f, f, ctypes.c_int, ctypes.c_int, p]
         fn.restype = ctypes.c_int
         lib.paddle_cuda_error_string.argtypes = [ctypes.c_int]
         lib.paddle_cuda_error_string.restype = ctypes.c_char_p
@@ -100,6 +110,24 @@ def _check(tables, g, lr):
                          "tensor on %s" % dev)
 
 
+def grid_cap(device):
+    """(blocks per SM, most blocks a launch on ``device`` takes): the
+    SM count from the device's properties times
+    PADDLE_TPU_TORCH_DENSE_APPLY_BLOCKS_PER_SM, read now."""
+    from ...flags import FLAGS
+    per_sm = int(FLAGS.dense_apply_blocks_per_sm)
+    if per_sm < 1:
+        raise ValueError("PADDLE_TPU_TORCH_DENSE_APPLY_BLOCKS_PER_SM must be "
+                         ">= 1, got %d" % per_sm)
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    sms = _sms.get(idx)
+    if sms is None:
+        sms = _sms[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return per_sm, sms * per_sm
+
+
 def _launch(rule, tables, g, lr, a=0.0, b=0.0, c=0.0, d=0.0, e=0.0,
             flag=0):
     global launches
@@ -107,16 +135,18 @@ def _launch(rule, tables, g, lr, a=0.0, b=0.0, c=0.0, d=0.0, e=0.0,
     if n == 0:
         return
     lib = _lib()
+    per_sm, max_blocks = grid_cap(g.device)
     ptrs = [t.data_ptr() for t in tables] + [None] * (3 - len(tables))
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         err = lib.paddle_dense_update(
             rule, ptrs[0], ptrs[1], ptrs[2], g.data_ptr(), lr.data_ptr(), n,
-            a, b, c, d, e, flag, stream)
+            a, b, c, d, e, flag, max_blocks, stream)
     if err != 0:
         raise RuntimeError("dense_update launch failed: %s"
                            % lib.paddle_cuda_error_string(err).decode())
     launches += 1
+    launches_by_cap[per_sm] = launches_by_cap.get(per_sm, 0) + 1
 
 
 def _on_cpu(tables, new):

@@ -295,6 +295,7 @@ class StagingArena(object):
         if self._lib is not None:
             self._h = ctypes.c_void_p(
                 self._lib.arena_create(self.block_size, blocks))
+            # lock: unguarded-ok(the None-vs-deque mode selector is set once in __init__ and never reassigned; the lock-free `is None` checks read an immutable reference, and every deque MUTATION happens under _cv)
             self._free = None
         else:
             import collections

@@ -29,8 +29,8 @@ bound from the feed specs where that fails.
 Not ported: the collective and pipeline-parallel pricing (the reference's
 ``_collective_costs``, ``overlap_schedule``, ``_pp_exposure``) comes with
 distribution (ROADMAP.md Queue 1 item 10); ``collectives`` reads None.
-The reference's TPU roofline defaults (its ``tuning/roofline.py``) serve
-only that pricing and never enter the port.
+The roofline over this report (tuning/roofline.py) prices it at the
+H100's peaks, not the reference's TPU figures.
 """
 from ..core import datatypes
 from ..core.registry import cost_class, op_traits

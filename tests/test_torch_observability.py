@@ -59,11 +59,6 @@ WAITING = {
     'paddle_tpu_embed_cache_evictions_total': 'item 10',
     'paddle_tpu_embed_cache_hits_total': 'item 10',
     'paddle_tpu_embed_cache_misses_total': 'item 10',
-    'paddle_tpu_lock_order_violations_total': 'item 9b',
-    'paddle_tpu_tune_cache_corrupt_total': 'item 9b',
-    'paddle_tpu_tune_cache_hits_total': 'item 9b',
-    'paddle_tpu_tune_cache_misses_total': 'item 9b',
-    'paddle_tpu_tune_cache_stores_total': 'item 9b',
     'paddle_tpu_online_freshness_slo_violations_total': 'item 11',
     'paddle_tpu_online_gate_auc': 'item 11',
     'paddle_tpu_online_live_auc': 'item 11',
